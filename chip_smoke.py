@@ -1,0 +1,772 @@
+#!/usr/bin/env python3
+"""Build and drive the PyTorch/CUDA port of PERT on one GPU, and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. the card (exits non-zero without a CUDA device);
+2. nvcc builds of every kernel source of the port, in parallel;
+3. each kernel entry point against its plain PyTorch version on the
+   card, at the full-width shape and at a ragged one, with a 1e6 prior
+   and with a flat one (the enumeration's own share of out and dpi), with
+   its time, the plain version's time, its bound and (Adam) a PyTorch
+   library call;
+4. the port's main path, ``scRT(...).infer('pert')``, on simulated
+   long-form frames of 1000 S + 250 G1 cells x 5451 loci (500 kb bins):
+   kernel launch counts, per-step times, peak memory and the
+   simulate-and-recover bars of tests/test_end_to_end.py; then each
+   kernel against its plain version on the operands of one more
+   iteration of each step, from the step's fitted parameters;
+5. where each step's time goes: device time by kernel from
+   torch.profiler over a window of iterations, and the card's idle share;
+6. the card's name and power limit, one JSON line of the kernels, then
+   the result line.
+
+It imports nothing of JAX or the JAX package.  The full record goes to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+PKG = "scdna_replication_tools_tpu_torch"
+
+# full width of the flagship workload: 1000 S cells x 5451 loci, P = 13
+CELLS, LOCI, P = 1000, 5451, 13
+RAGGED = (37, 1001)
+G1_CELLS, CLONES = 250, 3
+MAX_ITER = 300            # depth cut: 300 step-2 iterations (150 steps 1/3)
+SEED = 0
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# kernel-vs-plain tolerances on max|kernel - plain| / max(1, max|plain|,
+# scale), where scale is, for out and dpi, the largest term that they
+# sum (fused_errors): near a fitted optimum both cancel terms of the
+# prior's size (1e6).  The kernels repeat the plain versions' float32
+# operations in the same order; they differ by FMA contraction and the
+# exp/log ulps of the two builds.  The NB values nb(chi) run to ~1e4,
+# where an ulp is up to 1e-3, and the posterior weights
+# exp(lp + bern + nb - lse) carry that absolute rounding as a relative
+# one: dmu and dphi, which sum those weights times slopes of opposite
+# sign, 1e-3 (tests/test_torch_gpu.py holds the same bounds).
+TOL = {"out": 1e-5, "lse": 1e-5, "dpi": 1e-5, "dmu": 1e-3, "dphi": 1e-3,
+       "param": 1e-6, "m": 1e-6, "v": 1e-6}
+# With the prior's data term removed (flat_prior), max|dpi| is O(|g|):
+# the bounds are then absolute ones on the enumeration's own share, a
+# sum of posterior weights each carrying that relative rounding (dpi
+# 3e-3), which a misrouted or dropped weight moves by O(0.1-1);
+# "hoisted" is out - lse = x log(lamb) - lgamma(x + 1), held per element
+# as |a - b| / (1 + |b|).
+TOL_FLAT = {"out": 1e-5, "lse": 1e-5, "hoisted": 1e-5, "dmu": 1e-3,
+            "dphi": 1e-3, "dpi": 3e-3}
+
+TPU_KERNEL = {
+    "fused_fwd_dense": "scdna_replication_tools_tpu/ops/enum_kernel.py:741",
+    "fused_bwd_dense": "scdna_replication_tools_tpu/ops/enum_kernel.py:766",
+    "fused_fwd_sparse": "scdna_replication_tools_tpu/ops/enum_kernel.py:856",
+    "fused_bwd_sparse": "scdna_replication_tools_tpu/ops/enum_kernel.py:881",
+    "adam": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
+}
+SOURCE = {name: f"{PKG}/csrc/enum_fused.cu" for name in TPU_KERNEL}
+SOURCE["adam"] = f"{PKG}/csrc/adam.cu"
+
+FAILURES: list = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(f"  [{'ok' if ok else 'FAIL'}] {what}")
+    if not ok:
+        FAILURES.append(what)
+
+
+# ---------------------------------------------------------------------------
+# operation counts (for the bound), from the kernels' own loop structure
+# ---------------------------------------------------------------------------
+
+LGAMMA_OPS = 34        # _lgamma_ge1: shift product, series, two logs
+LGDG_OPS = 56          # fused lgamma + digamma: + 8 reciprocals, psi series
+
+
+def fwd_ops_per_bin(P: int, sparse: bool) -> int:
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    nonzero = len(chi_slots(P)) - 1
+    softmax = (P - 1) + 3 * P + 2 + P
+    data = (4 if sparse else 3) * P
+    slots = nonzero * (3 + 2 * LGAMMA_OPS + 4) + 1
+    pairs = 2 * P * 8
+    return 2 + softmax + data + (1 + LGAMMA_OPS) + slots + pairs + 6
+
+
+def bwd_ops_per_bin(P: int, sparse: bool) -> int:
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    nonzero = len(chi_slots(P)) - 1
+    softmax = (P - 1) + 3 * P + 2 + P
+    init = (1 + 3 * P) if sparse else 3 * P
+    slots = nonzero * (4 + 2 * LGDG_OPS + 10) + (2 + LGAMMA_OPS)
+    pairs = 2 * P * 11
+    return 5 + softmax + init + slots + pairs + 3 * P
+
+
+def transcendentals_per_bin(P: int, backward: bool) -> int:
+    """exp/log calls per bin (counted inside the operations above; the
+    card runs them as multi-instruction sequences on the special-function
+    units, whose rate the bound's table does not give): the softmax's P
+    exps and one log, two Bernoulli logs, two logs per lgamma (four per
+    non-zero chi slot, two for chi = 0), one exp per (state, rep) pair,
+    then the lse log (forward) or the softmax's P exps again (backward)."""
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    nonzero = len(chi_slots(P)) - 1
+    common = (P + 1) + 2 + 2 + 4 * nonzero + 2 * P
+    return common + (P if backward else 1)
+
+
+ADAM_OPS = 14
+
+
+def bound(nbytes: int, ops: int) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors
+                   if t is not None))
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` calls of CUDA-event time (after warm-up)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def amax(t) -> float:
+    return float(t.abs().max())
+
+
+def rel_err(got, ref, scale: float = 0.0) -> tuple:
+    """(max abs error, that over max(1, max|ref|, scale)); ``scale`` is
+    the size of the largest term that ``ref`` is a sum of, where those
+    terms cancel."""
+    d = amax(got - ref)
+    return d, d / max(1.0, amax(ref), scale)
+
+
+def elementwise_err(got, ref) -> tuple:
+    """(max abs error, max over elements of |got - ref| / (1 + |ref|))."""
+    d = (got - ref).abs()
+    return float(d.max()), float((d / (1.0 + ref.abs())).max())
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(C, L, gen, dev):
+    import torch
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(  # noqa: E731
+        shape, generator=gen, **f32)
+    # reads around mu * chi with mu down to 0.2: the low-chi slots, where
+    # delta = mu * chi * q sits at its clamp of 1, carry posterior weight
+    mu = u(0.2, 80, (C, L))
+    chi = torch.randint(1, 7, (C, L), generator=gen, device=dev)
+    reads = torch.poisson(mu * chi, generator=gen)
+    phi = u(0.001, 0.999, (C, L))
+    pi_t = 2.0 * torch.randn((P, C, L), generator=gen, **f32)
+    g = -torch.ones((C, L), **f32)                 # d loss / d out
+    # composite-like dense prior: 1 + weight at the clone state and at
+    # the states of the top-J G1 cells (weights up to 1e6)
+    etas_t = torch.ones((P, C, L), **f32)
+    for w in (1e6, 5e5, 4e5, 3e5):
+        idx = torch.randint(0, P, (1, C, L), generator=gen, device=dev)
+        etas_t.scatter_add_(0, idx, torch.full((1, C, L), w, **f32))
+    eidx = torch.randint(0, P, (C, L), generator=gen, device=dev).float()
+    ew = torch.where(torch.rand((C, L), generator=gen, **f32) < 0.95,
+                     torch.full((C, L), 1e6, **f32), torch.zeros((C, L), **f32))
+    lamb = torch.tensor(0.75, **f32)
+    return dict(reads=reads, mu=mu, phi=phi, pi_t=pi_t, g=g, etas_t=etas_t,
+                eidx=eidx, ew=ew, lamb=lamb)
+
+
+def flat_prior(prior: dict) -> dict:
+    """The same prior encoding with no data term (etas = 1, eta_w = 0):
+    then out - lse is the hoisted x log(lamb) - lgamma(x + 1) alone and
+    every cotangent is the enumeration's own, at O(|g|) scale, where the
+    1e6 concentrations no longer set the scale of the comparison."""
+    import torch
+    if "etas_t" in prior:
+        return dict(etas_t=torch.ones_like(prior["etas_t"]))
+    return dict(eta_idx=prior["eta_idx"],
+                eta_w=torch.zeros_like(prior["eta_w"]))
+
+
+def fused_errors(args, prior, g, flat: bool) -> tuple:
+    """Kernel against plain version on one set of operands: forward and
+    backward errors, each {part: (max abs, relative)}.  Both backwards
+    take the plain forward's lse, so each kernel is judged alone."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    out_k, lse_k = ek.fused_fwd(*args, **prior)
+    out_p, lse_p = ek.fused_fwd_plain(*args, **prior)
+    # out = lse + (x log lamb - lgamma(x + 1) + data term) and dpi =
+    # dlp - softmax * sum(dlp), whose dlp carry g times the prior weight:
+    # near a fitted optimum both cancel terms of those sizes
+    out_scale = max(amax(lse_p), amax(out_p - lse_p))
+    weight = prior["etas_t"] - 1.0 if "etas_t" in prior else prior["eta_w"]
+    dpi_scale = amax(g) * amax(weight)
+    fwd = {"out": rel_err(out_k, out_p, out_scale),
+           "lse": rel_err(lse_k, lse_p)}
+    if flat:
+        fwd["hoisted"] = elementwise_err(out_k - lse_k, out_p - lse_p)
+    got = ek.fused_bwd(*args, lse_p, g, **prior)
+    ref = ek.fused_bwd_plain(*args, lse_p, g, **prior)
+    torch.cuda.synchronize()
+    bwd = {"dmu": rel_err(got[0], ref[0]), "dphi": rel_err(got[1], ref[1]),
+           "dpi": rel_err(got[2], ref[2], dpi_scale)}
+    return fwd, bwd
+
+
+def report(results, name, errs, tol, label) -> None:
+    for part, (abs_e, rel_e) in errs.items():
+        check(rel_e <= tol[part], f"{name} {label} {part}: max abs err "
+              f"{abs_e:.3e}, rel {rel_e:.3e} <= {tol[part]:.0e}")
+    entry = results.setdefault(name, {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               max(e[0] for e in errs.values()))
+
+
+def check_fused(results, args, prior, g, sparse, label) -> None:
+    """Both fused kernels of one encoding on one set of operands, with
+    the prior as given (``TOL``) and with its data term removed
+    (``TOL_FLAT``)."""
+    kind = "sparse" if sparse else "dense"
+    for flat in (False, True):
+        fwd, bwd = fused_errors(args, flat_prior(prior) if flat else prior,
+                                g, flat)
+        tol, tag = (TOL_FLAT, "flat prior") if flat else (TOL, "prior")
+        report(results, f"fused_fwd_{kind}", fwd, tol, f"{label}, {tag}")
+        report(results, f"fused_bwd_{kind}", bwd, tol, f"{label}, {tag}")
+
+
+def check_adam(results, args, label) -> tuple:
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    got = ak.adam_update(*args)
+    ref = ak.adam_update_plain(*args)
+    errs = {part: rel_err(a, b) for part, a, b in
+            zip(("param", "m", "v"), got, ref)}
+    report(results, "adam", errs, TOL, label)
+    return got
+
+
+def time_fused(results, args, prior, g, sparse) -> None:
+    """Kernel, plain version and bound of both fused kernels of one
+    encoding at the full-width shape."""
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    kind = "sparse" if sparse else "dense"
+    _, lse = ek.fused_fwd_plain(*args, **prior)
+    bargs = args + (lse, g)
+    n_bins = args[0].numel()
+    for name, fk, fp, ins, ops, bwd in (
+            (f"fused_fwd_{kind}", lambda: ek.fused_fwd(*args, **prior),
+             lambda: ek.fused_fwd_plain(*args, **prior),
+             args + tuple(prior.values()), fwd_ops_per_bin(P, sparse), False),
+            (f"fused_bwd_{kind}", lambda: ek.fused_bwd(*bargs, **prior),
+             lambda: ek.fused_bwd_plain(*bargs, **prior),
+             bargs + tuple(prior.values()), bwd_ops_per_bin(P, sparse),
+             True)):
+        moved = nbytes(*ins, *fk())
+        b_ms, b_by = bound(moved, ops * n_bins)
+        k_ms = time_ms(fk)
+        p_ms = time_ms(fp, reps=20, warmup=1)
+        entry = results[name]
+        entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, bytes=moved, ops=ops * n_bins,
+                     transcendentals=n_bins * transcendentals_per_bin(P, bwd))
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {entry['ops']} "
+              f"float32 operations, {entry['transcendentals']} exp/log")
+
+
+def compare_kernels(dev, record):
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+
+    gen = torch.Generator(device=dev)
+    results = {}
+    for shape in [(CELLS, LOCI), RAGGED]:
+        gen.manual_seed(SEED)
+        x = kernel_inputs(*shape, gen, dev)
+        args = (x["reads"], x["mu"], x["pi_t"], x["phi"],
+                ek.scalars(x["lamb"]))
+        full = shape == (CELLS, LOCI)
+        label = f"{shape[0]}x{shape[1]}"
+        print(f"[kernels] shape cells x loci = {label}, P = {P}")
+        for sparse in (False, True):
+            prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
+                else dict(etas_t=x["etas_t"])
+            check_fused(results, args, prior, x["g"], sparse, label)
+            if full:
+                time_fused(results, args, prior, x["g"], sparse)
+        torch.cuda.empty_cache()
+
+        # Adam on a pi-shaped (P, cells, loci) parameter at step 7
+        param = torch.randn((P,) + shape, generator=gen, device=dev)
+        grad = torch.randn((P,) + shape, generator=gen, device=dev)
+        m = 0.1 * torch.randn((P,) + shape, generator=gen, device=dev)
+        v = 0.1 * torch.rand((P,) + shape, generator=gen, device=dev)
+        ascal = ak.adam_scalars(0.05, torch.tensor(7, dtype=torch.int32,
+                                                   device=dev), 0.8, 0.99)
+        aargs = (param, grad, m, v, ascal, 0.8, 0.99)
+        got = check_adam(results, aargs, label)
+        if full:
+            n = param.numel()
+            moved = nbytes(param, grad, m, v) + nbytes(*got)
+            b_ms, b_by = bound(moved, ADAM_OPS * n)
+            k_ms = time_ms(lambda: ak.adam_update(*aargs))
+            p_ms = time_ms(lambda: ak.adam_update_plain(*aargs))
+            # yardstick: PyTorch's fused Adam on copies of the same
+            # tensors (used nowhere in the port)
+            lp, lm, lv = param.clone(), m.clone(), v.clone()
+            step = [torch.tensor(7.0, device=dev)]
+            lib = lambda: torch._fused_adam_(  # noqa: E731
+                [lp], [grad], [lm], [lv], [], step, lr=0.05, beta1=0.8,
+                beta2=0.99, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False)
+            l_ms = time_ms(lib)
+            results["adam"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=l_ms,
+                                   bytes=moved, ops=ADAM_OPS * n)
+            print(f"  adam: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"torch._fused_adam_ {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+            del lp, lm, lv
+        del param, grad, m, v, got, x, args
+        torch.cuda.empty_cache()
+    record["kernels"] = results
+    return results
+
+
+class LaunchOperands:
+    """Keeps the operands of the last launch of the fused backward and of
+    Adam at each shape while it is open (the backward's operands hold the
+    forward's too).  It wraps the module attributes that the model and
+    the fit loop call; the wrapped functions count launches as before."""
+
+    def __init__(self):
+        from scdna_replication_tools_tpu_torch.infer import svi
+        from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+        self.sites = [(ek, "fused_bwd"), (svi, "adam_update")]
+        self.calls: dict = {}
+        self.originals: list = []
+
+    def __enter__(self):
+        for mod, attr in self.sites:
+            orig = getattr(mod, attr)
+            self.originals.append((mod, attr, orig))
+
+            def keep(*a, _orig=orig, _attr=attr, **kw):
+                kind = "" if _attr != "fused_bwd" else \
+                    "dense" if kw.get("etas_t") is not None else "sparse"
+                self.calls[(_attr, kind, tuple(a[0].shape))] = (a, kw)
+                return _orig(*a, **kw)
+            setattr(mod, attr, keep)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.originals:
+            setattr(mod, attr, orig)
+        return False
+
+
+def check_main_path_shapes(dev, scrt, results) -> None:
+    """Every kernel against its plain version at the shapes that the main
+    path gave it and on its values: one more iteration of each step's fit
+    from the step's fitted parameters, through the same entry points,
+    yields the operands of each launch (after the main path, so that its
+    peak memory holds none of them)."""
+    import torch
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+
+    print("[kernels] on the operands of each step of the main path, from "
+          "its fitted parameters")
+    for name, step in zip(("step1", "step2", "step3"), scrt.steps):
+        with LaunchOperands() as operands:
+            fit_map(_PertLossFn(step.spec), step.fit.params,
+                    (step.fixed, step.batch), max_iter=1, min_iter=1,
+                    device=dev)
+        for (attr, kind, shape), (a, kw) in sorted(operands.calls.items()):
+            label = f"{name} {'x'.join(map(str, shape))}"
+            a = tuple(t.detach() if torch.is_tensor(t) else t for t in a)
+            kw = {k: t.detach() for k, t in kw.items() if t is not None}
+            with torch.no_grad():
+                if attr == "fused_bwd":
+                    check_fused(results, a[:5], kw, a[6], kind == "sparse",
+                                label)
+                else:
+                    check_adam(results, a, label)
+        del operands
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path on simulated frames
+# ---------------------------------------------------------------------------
+
+# hg19 autosome lengths (Mb): 500 kb bins are spread over them in
+# proportion, 5451 in all
+HG19_MB = [249, 243, 198, 191, 181, 171, 159, 146, 141, 136, 135, 134, 115,
+           107, 103, 90, 81, 78, 59, 63, 48, 51]
+
+
+def _smooth(rng, n, scale):
+    """A smooth random profile in [0, 1]: a few sinusoids."""
+    x = np.arange(n) / scale
+    y = sum(rng.uniform(0.3, 1.0) * np.sin(x * rng.uniform(0.5, 2.0)
+                                           + rng.uniform(0, 2 * np.pi))
+            for _ in range(3))
+    return (y - y.min()) / (y.max() - y.min())
+
+
+def simulate_frames(seed: int = SEED, num_reads: float = 1e6,
+                    lamb: float = 0.75, a: float = 10.0,
+                    betas=(0.5, 0.0)):
+    """Long-form S and G1 frames from the PERT generative process
+    (scdna_replication_tools_tpu/models/simulator.py:55-146): per-cell
+    GC betas around ``betas`` with logspace(1 -> 10^-K) stds,
+    tau ~ U(0, 1), rep ~ Bernoulli(sigmoid(a (tau - rho))), Gamma-Poisson
+    NB reads at total CN (1 + rep) * cn, normalised to ``num_reads``.
+    Three clones with their own CN and RT profiles; every cell also
+    carries private CN changes, so the composite prior stays dense."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    counts = np.floor(np.asarray(HG19_MB) / sum(HG19_MB) * LOCI).astype(int)
+    counts[: LOCI - counts.sum()] += 1
+    chrom = np.repeat([str(i + 1) for i in range(22)], counts)
+    start = np.concatenate([np.arange(c) * 500_000 for c in counts])
+    gc = np.clip(0.42 + 0.1 * (_smooth(rng, LOCI, 40.0) - 0.5)
+                 + rng.normal(0, 0.01, LOCI), 0.3, 0.65).astype(np.float32)
+
+    # one replication-timing program per sample, each clone shifted a
+    # little from it (the model fits one rho profile for all S cells)
+    base_rt = _smooth(rng, LOCI, 25.0)
+    clone_cn, clone_rt = [], []
+    for _ in range(CLONES):
+        cn = np.full(LOCI, 2.0)
+        for _ in range(6):
+            s0 = rng.integers(0, LOCI - 200)
+            cn[s0:s0 + rng.integers(40, 200)] = rng.choice([1.0, 3.0, 4.0])
+        clone_cn.append(cn)
+        rt = 0.9 * base_rt + 0.1 * _smooth(rng, LOCI, 25.0)
+        clone_rt.append((rt - rt.min()) / (rt.max() - rt.min()))
+
+    K = len(betas) - 1
+    stds = np.logspace(0.0, -K, K + 1)
+
+    def cells(n, phase):
+        clone = rng.integers(0, CLONES, n)
+        cn = np.stack([clone_cn[c] for c in clone])
+        for i in range(n):                         # private changes
+            for _ in range(rng.integers(1, 3)):
+                s0 = rng.integers(0, LOCI - 60)
+                seg = slice(s0, s0 + rng.integers(10, 60))
+                cn[i, seg] = np.clip(cn[i, seg] + rng.choice([-1, 1]), 1, 6)
+        cb = np.asarray(betas) + stds * rng.normal(size=(n, K + 1))
+        feats = gc[:, None] ** np.arange(K, -1, -1)[None, :]
+        omega = np.exp(cb @ feats.T)
+        if phase == "s":
+            tau = rng.uniform(0, 1, n)
+            rho = np.stack([1.0 - clone_rt[c] for c in clone])
+            phi = 1.0 / (1.0 + np.exp(-a * (tau[:, None] - rho)))
+            rep = (rng.uniform(size=phi.shape) < phi).astype(float)
+            u = num_reads / (1.5 * LOCI * cn.mean())
+        else:
+            tau = np.zeros(n)
+            rep = np.zeros_like(cn)
+            u = num_reads / (1.0 * LOCI * cn.mean())
+        theta = u * cn * (1.0 + rep) * omega
+        delta = np.maximum(theta * (1.0 - lamb) / lamb, 1.0)
+        raw = rng.poisson(rng.gamma(delta) * lamb / (1.0 - lamb))
+        reads = np.floor(raw / raw.sum(axis=1, keepdims=True) * num_reads)
+        ids = np.array([f"{phase}_{i}" for i in range(n)], dtype=object)
+        frame = pd.DataFrame({
+            "cell_id": np.repeat(ids, LOCI),
+            "chr": np.tile(chrom, n),
+            "start": np.tile(start, n),
+            "gc": np.tile(gc, n),
+            "library_id": "LIB0",
+            "clone_id": np.repeat(np.array([f"C{c}" for c in clone]), LOCI),
+            "reads": reads.reshape(-1),
+            "state": cn.reshape(-1).astype(int),
+            "copy": cn.reshape(-1),
+            "true_somatic_cn": cn.reshape(-1),
+            "true_rep": rep.reshape(-1),
+            "true_t": np.repeat(tau, LOCI),
+        })
+        return frame
+
+    return cells(CELLS, "s"), cells(G1_CELLS, "g")
+
+
+def main_path(dev, record):
+    import torch
+    from scdna_replication_tools_tpu_torch import scRT
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    cn_s, cn_g1 = simulate_frames()
+    sim_s = time.perf_counter() - t0
+    print(f"[main] simulated {CELLS} S + {G1_CELLS} G1 cells x {LOCI} loci, "
+          f"{CLONES} clones ({len(cn_s) + len(cn_g1)} long-form rows) in "
+          f"{sim_s:.1f} s; depth cut: max_iter={MAX_ITER} "
+          f"(steps 1 and 3: {MAX_ITER // 2}), min_iter=100")
+    scrt = scRT(cn_s, cn_g1, input_col="reads", clone_col="clone_id",
+                assign_col="copy", cn_prior_method="g1_composite",
+                max_iter=MAX_ITER, min_iter=100, rt_prior_col=None,
+                controller=False, qc=False, mirror_rescue=False,
+                telemetry_path=None)
+    check(scrt.device.type == "cuda", f"scRT runs on {scrt.device}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out_s, supp_s, out_g1, supp_g1 = scrt.infer("pert")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step1, step2, step3 = scrt.steps
+    iters = [s.fit.num_iters for s in (step1, step2, step3)]
+    print(f"[main] infer('pert') wall {wall:.2f} s; phases "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in scrt.phase_report.items()))
+    for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
+        f = st.fit
+        print(f"  {name}: {f.num_iters} iterations, fit "
+              f"{f.timings['fit']:.3f} s = {f.timings['ms_per_iter']:.3f} "
+              f"ms/iteration, cells {int(st.batch.reads.shape[0])}, "
+              f"prior {'sparse' if st.spec.sparse_etas else 'dense'}, "
+              f"loss {f.losses[0]:.6g} -> {f.losses[-1]:.6g}")
+    cells_per_s = CELLS * step2.fit.num_iters / step2.fit.timings["fit"]
+    print(f"  step2: {cells_per_s:.1f} cells/s (cell-iterations per second)")
+    print(f"  peak device memory {peak / 2**30:.3f} GiB")
+    print(f"  launches {json.dumps(launches)}")
+
+    check(not step2.spec.sparse_etas and step3.spec.sparse_etas,
+          "step 2 fits the dense composite prior, step 3 the sparse one")
+    check(launches["fused_fwd_dense"] == iters[1]
+          and launches["fused_bwd_dense"] == iters[1],
+          f"dense fwd/bwd launched once per step-2 iteration ({iters[1]})")
+    check(launches["fused_fwd_sparse"] == iters[2]
+          and launches["fused_bwd_sparse"] == iters[2],
+          f"sparse fwd/bwd launched once per step-3 iteration ({iters[2]})")
+    check(launches["adam"] == sum(iters),
+          f"Adam launched once per iteration of every step ({sum(iters)})")
+    check(all(v > 0 for v in launches.values()), "every kernel launched")
+    for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
+        losses = st.fit.losses
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+              and not st.fit.nan_abort,
+              f"{name} losses finite and falling")
+
+    rep_acc = float((out_s["model_rep_state"] == out_s["true_rep"]).mean())
+    cn_acc = float((out_s["model_cn_state"]
+                    == out_s["true_somatic_cn"]).mean())
+    per_cell = out_s.groupby("cell_id").agg(tau=("model_tau", "first"),
+                                            true_t=("true_t", "first"))
+    tau_r = float(np.corrcoef(per_cell["tau"], per_cell["true_t"])[0, 1])
+    lamb = float(supp_s.query("param == 'model_lambda'")["value"].iloc[0])
+    check(len(out_s) == CELLS * LOCI and len(out_g1) == G1_CELLS * LOCI,
+          f"output frames cover every bin ({len(out_s)} S, {len(out_g1)} "
+          "G1 rows)")
+    check(rep_acc > 0.80, f"rep-state accuracy {rep_acc:.4f} > 0.80")
+    check(cn_acc > 0.90, f"CN accuracy {cn_acc:.4f} > 0.90")
+    check(tau_r > 0.8, f"tau correlation {tau_r:.4f} > 0.8")
+    check(0.5 < lamb < 0.95, f"lambda {lamb:.4f} in (0.5, 0.95)")
+    record["main"] = {
+        "cells_s": CELLS, "cells_g1": G1_CELLS, "loci": LOCI, "P": P,
+        "clones": CLONES, "max_iter": MAX_ITER, "iters": iters,
+        "wall_s": wall, "simulate_s": sim_s, "phases_s": scrt.phase_report,
+        "ms_per_iter": [s.fit.timings["ms_per_iter"]
+                        for s in (step1, step2, step3)],
+        "step2_cells_per_s": cells_per_s, "peak_bytes": peak,
+        "launches": launches, "rep_acc": rep_acc, "cn_acc": cn_acc,
+        "tau_r": tau_r, "lambda": lamb,
+    }
+    return launches, scrt
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where each step's time goes
+# ---------------------------------------------------------------------------
+
+PROFILE_ITERS = 30
+PORT_KERNELS = ("fused_fwd_kernel", "fused_bwd_kernel", "adam_kernel")
+
+
+def _short(kernel: str) -> str:
+    for noise in ("void ", "(anonymous namespace)::", "at::native::"):
+        kernel = kernel.replace(noise, "")
+    return kernel[:100]
+
+
+def profile_steps(dev, scrt, record):
+    """Device time by kernel over a window of iterations of each step,
+    from torch.profiler, against the same window's unprofiled wall: the
+    idle share is the part of an iteration in which the card runs
+    nothing (Python dispatch and the per-iteration loss read).  Each
+    window is a fresh fit from the step's fitted parameters."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+
+    record["profile"] = {}
+    for name, step in zip(("step1", "step2", "step3"), scrt.steps):
+        def window():
+            return fit_map(_PertLossFn(step.spec), step.fit.params,
+                           (step.fixed, step.batch), max_iter=PROFILE_ITERS,
+                           min_iter=PROFILE_ITERS, device=dev)
+
+        window()                              # warm the allocator
+        wall_ms = window().timings["ms_per_iter"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window()
+        by_name: dict = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            key = _short(ev.key)
+            by_name[key] = by_name.get(key, 0.0) + us / 1e3 / PROFILE_ITERS
+        busy = sum(by_name.values())
+        if busy == 0.0:
+            print(f"[profile] {name}: torch.profiler saw no device time; "
+                  "device busy and idle share not measured")
+            record["profile"][name] = {"wall_ms_per_iter": wall_ms,
+                                       "busy_ms_per_iter": None}
+            continue
+        port = sum(v for k, v in by_name.items()
+                   if any(p in k for p in PORT_KERNELS))
+        print(f"[profile] {name}, {PROFILE_ITERS} iterations: unprofiled "
+              f"{wall_ms:.3f} ms/iteration; device busy {busy:.3f} "
+              f"ms/iteration (idle share {1.0 - busy / wall_ms:.3f}); the "
+              f"port's kernels {port:.3f} ms, PyTorch's {busy - port:.3f} ms "
+              f"over {len(by_name)} kernel names")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        for kernel, ms in top[:10]:
+            print(f"  {ms:8.4f} ms/iteration {ms / busy:6.1%}  {kernel}")
+        record["profile"][name] = {
+            "iters": PROFILE_ITERS, "wall_ms_per_iter": wall_ms,
+            "busy_ms_per_iter": busy, "idle_share": 1.0 - busy / wall_ms,
+            "port_kernels_ms_per_iter": port,
+            "kernels_ms_per_iter": dict(top)}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (REPO / PKG / "csrc").is_dir():
+        print(f"chip_smoke: {PKG}/ is missing next to this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    dev = torch.device("cuda", 0)
+    record: dict = {}
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "unknown"
+    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    record["card"] = card
+
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    info = _cuda.build()
+    build_s = time.perf_counter() - t0
+    print(f"[build] nvcc sm_90a, {len(info)} sources in {build_s:.1f} s")
+    for name, meta in info.items():
+        regs = [ln.strip() for ln in meta["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  {name}: " + (" | ".join(regs[:8]) or meta["log"][:200]))
+    record["build_s"] = build_s
+
+    results = compare_kernels(dev, record)
+    launches, scrt = main_path(dev, record)
+    check_main_path_shapes(dev, scrt, results)
+    profile_steps(dev, scrt, record)
+
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCE[name],
+        "replaces": TPU_KERNEL[name], "launches": launches[name],
+        "max_abs_err": results[name]["max_abs_err"],
+        "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+        "bound_ms": results[name]["bound_ms"],
+        "bound_by": results[name]["bound_by"],
+        "library_ms": results[name]["library_ms"],
+    } for name in TPU_KERNEL]
+    record["failures"] = FAILURES
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1,
+                                                        default=float))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""PERT on PyTorch and CUDA: the port of ``scdna_replication_tools_tpu``.
+
+The package mirrors the JAX package's module layout, so each module here
+names its reference module there.  It imports ``torch`` and never
+``jax``, nor anything of the JAX package.  The three-step PERT fit runs
+through ``scRT(...).infer(level='pert')`` on a CUDA device, with the
+fused enumeration kernels and the fused Adam update written in CUDA C++
+for Hopper (``csrc/``, built with ``nvcc`` at first use).
+
+Entry points (:class:`scRT`, :class:`PertInference`, :func:`fit_map`)
+run on ``cuda`` unless the caller passes ``device='cpu'``; with no
+device given and no GPU present they raise.
+"""
+
+from scdna_replication_tools_tpu_torch.api import scRT
+from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer.runner import PertInference
+from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+
+__all__ = ["scRT", "PertInference", "fit_map", "resolve_device"]

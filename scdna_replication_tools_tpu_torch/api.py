@@ -1,0 +1,252 @@
+"""Public pandas-in / pandas-out facade: ``scRT`` (port of ``api.py``).
+
+Same constructor keywords and defaults as the JAX ``scRT`` (reference:
+infer_scRT.py:25-105), plus ``device``.  ``infer(level='pert')`` runs the
+three-step fit on the GPU (or on ``device='cpu'``) and returns the same
+four DataFrames.
+
+Several JAX features are on by default but not ported yet.  A caller who
+leaves one of them on gets ``NotImplementedError`` naming its ROADMAP
+item; the port never runs something else in its place.  The
+reference-faithful call is therefore
+``scRT(..., controller=False, qc=False, mirror_rescue=False,
+telemetry_path=None)``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from scdna_replication_tools_tpu_torch.config import ColumnConfig, PertConfig
+from scdna_replication_tools_tpu_torch.data.loader import build_pert_inputs
+from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer.runner import (
+    PertInference,
+    package_step_output,
+)
+from scdna_replication_tools_tpu_torch.models.pert import constrained
+from scdna_replication_tools_tpu_torch.pipeline.assign import assign_s_to_clones
+from scdna_replication_tools_tpu_torch.pipeline.consensus import (
+    compute_consensus_clone_profiles,
+)
+
+_OFF = (None, "none", "off")
+
+
+def _unported(options: dict) -> None:
+    """Raise for the first JAX option left on that the port lacks."""
+    checks = [
+        ("controller", options["controller"],
+         "A7 (default-on features: the adaptive controller)"),
+        ("mirror_rescue", options["mirror_rescue"],
+         "A7 (default-on features: the mirror rescue)"),
+        ("qc", options["qc"], "A7 (default-on features: model-health QC)"),
+        ("telemetry_path", options["telemetry_path"] not in _OFF,
+         "A11 (observability: the run log)"),
+        ("metrics_textfile", options["metrics_textfile"] is not None,
+         "A11 (observability: the metrics registry)"),
+        ("trace_spans", options["trace_spans"],
+         "A11 (observability: span tracing)"),
+        ("heartbeat_dir", options["heartbeat_dir"] not in _OFF + ("auto",),
+         "A11 (observability: run-health heartbeats)"),
+        ("checkpoint_dir", options["checkpoint_dir"] is not None,
+         "A8 (durable runs)"),
+        ("faults", options["faults"] is not None, "A8 (durable runs)"),
+        ("watchdog_compile_seconds",
+         options["watchdog_compile_seconds"] is not None,
+         "A8 (durable runs)"),
+        ("watchdog_chunk_seconds", options["watchdog_chunk_seconds"] is not None,
+         "A8 (durable runs)"),
+        ("enum_impl", str(options["enum_impl"]).startswith("binary"),
+         "B4 (the binary variants of the fused kernels)"),
+        ("optimizer_state_dtype",
+         options["optimizer_state_dtype"] != "float32",
+         "B6 (bf16 moments of the fused Adam kernel)"),
+        ("cell_chunk", options["cell_chunk"] is not None,
+         "A9 (encodings and options: cell_chunk)"),
+        ("cn_hmm_self_prob", options["cn_hmm_self_prob"] is not None,
+         "A9 (encodings and options: the Viterbi decode)"),
+        ("num_shards", options["num_shards"] != 1, "A12 (multi-GPU)"),
+        ("loci_shards", options["loci_shards"] != 1, "A12 (multi-GPU)"),
+        ("executable_cache_dir", options["executable_cache_dir"] is not None,
+         "A14 (compiled-program cache)"),
+        ("clone_col", options["clone_col"] is None,
+         "A10 (clone discovery: pipeline/clustering.py)"),
+    ]
+    for name, on, item in checks:
+        if on:
+            raise NotImplementedError(
+                f"scRT option {name}={options[name]!r} is not ported to the "
+                f"PyTorch package yet (ROADMAP {item}); pass the "
+                "reference-faithful value (controller=False, qc=False, "
+                "mirror_rescue=False, telemetry_path=None) or use "
+                "scdna_replication_tools_tpu")
+    if options["enum_impl"] != "auto":
+        raise ValueError(f"enum_impl={options['enum_impl']!r}: the port has "
+                         "one categorical implementation, 'auto' (the CUDA "
+                         "kernels on the GPU, their plain versions on the "
+                         "CPU)")
+    if options["fused_adam"] != "auto":
+        raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
+                         "has one Adam path, 'auto' (the CUDA kernel on the "
+                         "GPU, its plain version on the CPU)")
+
+
+class scRT:
+    """Single-cell replication-timing inference facade.
+
+    Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
+    where the fit runs (None = the GPU, raising when there is none).
+    ``backend``, ``cuda``, ``seed``, ``resume``, ``checkpoint_every``,
+    ``elastic_mesh``, ``request_id``, ``slab_width``, ``trace_parent``,
+    ``compile_cache_dir``, ``heartbeat_interval_seconds``,
+    ``fit_diag_every``, the ``qc_*`` thresholds, ``controller_max_extra_iters``
+    and ``clustering_*`` only act inside features the port refuses, and
+    are accepted and unused.
+    """
+
+    def __init__(self, cn_s, cn_g1, input_col='reads', assign_col='copy',
+                 library_col='library_id', ploidy_col='ploidy',
+                 cell_col='cell_id', cn_state_col='state', chr_col='chr',
+                 start_col='start', gc_col='gc', rv_col='rt_value',
+                 rs_col='rt_state', frac_rt_col='frac_rt',
+                 clone_col='clone_id', rt_prior_col='mcf7rt',
+                 cn_prior_method='g1_composite', col2='rpm_gc_norm',
+                 col3='temp_rt', col4='changepoint_segments',
+                 col5='binary_thresh', max_iter=2000, min_iter=100,
+                 max_iter_step1=None, min_iter_step1=None,
+                 max_iter_step3=None, min_iter_step3=None,
+                 cn_prior_weight=1e6, learning_rate=0.05, rel_tol=1e-6,
+                 cuda=False, seed=0, P=13, K=4, J=5, upsilon=6,
+                 run_step3=True, backend='jax', num_shards=1,
+                 loci_shards=1, cell_chunk=None, checkpoint_dir=None,
+                 resume='auto', checkpoint_every=4, faults=None,
+                 watchdog_compile_seconds=None,
+                 watchdog_chunk_seconds=None, elastic_mesh=True,
+                 pad_cells_to=None, pad_loci_to=None, request_id=None,
+                 slab_width=None,
+                 trace_spans=False, trace_parent=None,
+                 enum_impl='auto', fused_adam='auto',
+                 optimizer_state_dtype='float32', cn_hmm_self_prob=None,
+                 rho_from_rt_prior=False, mirror_rescue=True,
+                 compile_cache_dir='auto', executable_cache_dir=None,
+                 telemetry_path='auto',
+                 metrics_textfile=None, heartbeat_dir='auto',
+                 heartbeat_interval_seconds=15.0, fit_diag_every=25,
+                 qc=True, qc_entropy_thresh=0.5, qc_frac_thresh=0.25,
+                 qc_ppc_replicates=8, qc_ppc_z=5.0,
+                 controller=True, controller_max_extra_iters=None,
+                 clustering_method='kmeans', clustering_kwargs=None,
+                 device=None):
+        _unported(dict(
+            controller=controller, mirror_rescue=mirror_rescue, qc=qc,
+            telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
+            trace_spans=trace_spans,
+            heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
+            faults=faults, watchdog_compile_seconds=watchdog_compile_seconds,
+            watchdog_chunk_seconds=watchdog_chunk_seconds,
+            enum_impl=enum_impl, fused_adam=fused_adam,
+            optimizer_state_dtype=optimizer_state_dtype,
+            cell_chunk=cell_chunk, cn_hmm_self_prob=cn_hmm_self_prob,
+            num_shards=num_shards, loci_shards=loci_shards,
+            executable_cache_dir=executable_cache_dir, clone_col=clone_col))
+        self.device = resolve_device(device)
+        self.cn_s = cn_s
+        self.cn_g1 = cn_g1
+        self.clone_col = clone_col
+        self.cols = ColumnConfig(
+            input_col=input_col, gc_col=gc_col, rt_prior_col=rt_prior_col,
+            clone_col=clone_col, cell_col=cell_col, library_col=library_col,
+            chr_col=chr_col, start_col=start_col, cn_state_col=cn_state_col,
+            assign_col=assign_col, ploidy_col=ploidy_col, rv_col=rv_col,
+            rs_col=rs_col, frac_rt_col=frac_rt_col, rpm_gc_norm_col=col2,
+            temp_rt_col=col3, seg_col=col4, thresh_col=col5,
+        )
+        self.config = PertConfig(
+            P=P, K=K, J=J, upsilon=upsilon,
+            cn_prior_method=cn_prior_method, cn_prior_weight=cn_prior_weight,
+            rho_from_rt_prior=rho_from_rt_prior,
+            learning_rate=learning_rate, max_iter=max_iter, min_iter=min_iter,
+            rel_tol=rel_tol, max_iter_step1=max_iter_step1,
+            min_iter_step1=min_iter_step1, max_iter_step3=max_iter_step3,
+            min_iter_step3=min_iter_step3, run_step3=run_step3,
+            pad_cells_to=pad_cells_to, pad_loci_to=pad_loci_to,
+        )
+        self.clone_profiles = None
+        # {stage: wall seconds} of the last infer(level='pert')
+        self.phase_report = None
+
+    def infer(self, level: str = 'pert'):
+        if level in ('pyro', 'pert', 'jax'):
+            self.cn_s, supp_s, cn_g1_out, supp_g1 = self.infer_pert_model()
+            return self.cn_s, supp_s, cn_g1_out, supp_g1
+        if level in ('cell', 'clone', 'bulk'):
+            raise NotImplementedError(
+                f"infer(level={level!r}) is not ported to the PyTorch "
+                "package yet (ROADMAP A10: the deterministic levels)")
+        raise ValueError(f"unknown level {level!r}")
+
+    def _ensure_clones(self, assign_col: str):
+        """Consensus clone profiles of the G1 cells, then S-cell clone
+        assignment (reference: infer_scRT.py:129-148)."""
+        c = self.cols
+        self.clone_profiles = compute_consensus_clone_profiles(
+            self.cn_g1, assign_col, clone_col=self.clone_col,
+            cell_col=c.cell_col, chr_col=c.chr_col, start_col=c.start_col,
+            cn_state_col=c.cn_state_col)
+        self.cn_s = assign_s_to_clones(
+            self.cn_s, self.clone_profiles, col_name=assign_col,
+            clone_col=self.clone_col, cell_col=c.cell_col,
+            chr_col=c.chr_col, start_col=c.start_col)
+
+    def infer_pert_model(self):
+        """The three-step fit (reference: infer_scRT.py:127-168): returns
+        (cn_s_out, supp_s_out, cn_g1_out, supp_g1_out); the G1 pair is
+        None when ``run_step3=False``."""
+        c = self.cols
+        phases = {}
+        t0 = time.perf_counter()
+        self._ensure_clones(c.assign_col)
+        phases["clone_prep"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        s_data, g1_data = build_pert_inputs(self.cn_s, self.cn_g1, c)
+        clone_ids = sorted(self.cn_g1[self.clone_col].astype(str).unique())
+        clone_map = {cid: i for i, cid in enumerate(clone_ids)}
+
+        def _clone_idx(cn, cell_ids):
+            per_cell = cn[[c.cell_col, self.clone_col]] \
+                .drop_duplicates(c.cell_col) \
+                .set_index(c.cell_col)[self.clone_col]
+            return np.array([clone_map[str(per_cell[cid])]
+                             for cid in cell_ids], np.int32)
+
+        inference = PertInference(
+            s_data, g1_data, self.config,
+            clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
+            clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
+            num_clones=len(clone_ids), device=self.device)
+        phases["load"] = time.perf_counter() - t0
+        step1, step2, step3 = inference.run()
+        phases.update(inference.phases)
+
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lamb = float(constrained(step1.spec, step1.fit.params,
+                                     step1.fixed)["lamb"].reshape(-1)[0])
+        cn_s_out, supp_s_out = package_step_output(
+            self.cn_s, inference._step2_data, step2, lamb,
+            step1.fit.losses, step2.fit.losses, c)
+        if step3 is not None:
+            cn_g1_out, supp_g1_out = package_step_output(
+                self.cn_g1, inference._step3_data, step3, lamb,
+                step1.fit.losses, step3.fit.losses, c)
+        else:
+            cn_g1_out, supp_g1_out = None, None
+        phases["package"] = time.perf_counter() - t0
+        self.phase_report = phases
+        self.steps = (step1, step2, step3)
+        return cn_s_out, supp_s_out, cn_g1_out, supp_g1_out

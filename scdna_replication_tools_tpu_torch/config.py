@@ -1,0 +1,89 @@
+"""Typed configuration: the fields of the port's slice.
+
+Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
+whole, and the :class:`PertConfig` fields the three-step fit reads.  The
+JAX config's other knobs (controller, QC, mirror rescue, telemetry,
+sharding, checkpoints, the binary encoding, bf16 moments, cell chunking)
+belong to modules not yet ported; ``api.scRT`` refuses them by name
+instead of carrying dead fields here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnConfig:
+    """Column-name mapping for long-form scWGS DataFrames
+    (reference: infer_scRT.py:26-31)."""
+
+    input_col: str = "reads"
+    gc_col: str = "gc"
+    rt_prior_col: Optional[str] = "mcf7rt"
+    clone_col: Optional[str] = "clone_id"
+    cell_col: str = "cell_id"
+    library_col: str = "library_id"
+    chr_col: str = "chr"
+    start_col: str = "start"
+    cn_state_col: str = "state"
+    assign_col: str = "copy"
+    ploidy_col: str = "ploidy"
+    rv_col: str = "rt_value"
+    rs_col: str = "rt_state"
+    frac_rt_col: str = "frac_rt"
+    rpm_gc_norm_col: str = "rpm_gc_norm"
+    temp_rt_col: str = "temp_rt"
+    seg_col: str = "changepoint_segments"
+    thresh_col: str = "binary_thresh"
+
+
+@dataclasses.dataclass(frozen=True)
+class PertConfig:
+    """Hyper-parameters of the PERT model and its fixed-budget fits
+    (reference: pert_model.py:37-130); same names and defaults as the
+    JAX ``PertConfig``."""
+
+    P: int = 13          # number of integer CN states, values 0..P-1
+    K: int = 4           # max polynomial degree of the GC bias curve
+    J: int = 5           # G1 cells per S cell in the composite CN prior
+    upsilon: int = 6     # alpha+beta total for the tau Beta prior
+
+    cn_prior_method: str = "g1_composite"
+    cn_prior_weight: float = 1e6
+    # condition rho on the RT-prior column instead of learning it
+    rho_from_rt_prior: bool = False
+
+    learning_rate: float = 0.05
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    max_iter: int = 2000
+    min_iter: int = 100
+    rel_tol: float = 1e-6
+    max_iter_step1: Optional[int] = None   # default: max_iter // 2
+    min_iter_step1: Optional[int] = None   # default: min_iter // 2
+    max_iter_step3: Optional[int] = None
+    min_iter_step3: Optional[int] = None
+    run_step3: bool = True
+
+    # shape-bucket padding: pad cells / loci up to at least this many
+    # masked entries (None keeps the exact shapes)
+    pad_cells_to: Optional[int] = None
+    pad_loci_to: Optional[int] = None
+    # compact one-hot CN priors to (eta_idx, eta_w) planes (the sparse
+    # kernel); the composite prior always stays dense
+    sparse_etas: bool = True
+
+    def resolved_iters(self) -> dict:
+        """Step 1/3 budgets default to half of step 2's
+        (pert_model.py:104-120)."""
+        half = lambda v, d: v if v is not None else d // 2  # noqa: E731
+        return dict(
+            max_iter=self.max_iter,
+            min_iter=self.min_iter,
+            max_iter_step1=half(self.max_iter_step1, self.max_iter),
+            min_iter_step1=half(self.min_iter_step1, self.min_iter),
+            max_iter_step3=half(self.max_iter_step3, self.max_iter),
+            min_iter_step3=half(self.min_iter_step3, self.min_iter),
+        )

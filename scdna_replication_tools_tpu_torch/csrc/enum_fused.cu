@@ -1,0 +1,304 @@
+// Fused PERT enumeration kernels for Hopper (sm_90a), forward and backward.
+//
+// Replaces the TPU kernels _fused_fwd_kernel / _fused_bwd_kernel of
+// scdna_replication_tools_tpu/ops/enum_kernel.py (:547, :608), dense
+// (pallas_call :741, :766) and sparse (:856, :881) configurations.
+//
+// Per (cell, locus) bin, with pi_t the state-major (P, cells, loci) logits:
+//   lp_s  = log_softmax(pi_t[:, bin])_s
+//   lse   = logsumexp_{s, r} (lp_s + log Bern(r | phi) + nb(chi = s(1+r)))
+//   nb    = lgamma(x + d) - lgamma(d) + d log(1 - lamb),  d = max(mu chi q, 1)
+//   out   = lse + x log(lamb) - lgamma(x + 1) + sum_s (etas_s - 1) lp_s
+// (sparse: the data term is ew * lp_{eidx}).  The backward recomputes the
+// state terms from the inputs and the saved enumeration-only lse and emits
+// dmu, dphi and dpi_s = dlp_s - softmax_s * sum_s' dlp_s'.
+//
+// What bounds it on this card: each bin reads 3 + P (+ P dense | + 2
+// sparse) planes and writes 2 (forward) or 2 + P (backward) -- about
+// 0.2-0.3 ms of HBM traffic at 1000 x 5451 x 13 -- against ~19 NB cores of
+// two lgammas each (two more digammas backward) and ~40 exps, which is of
+// the same order on the SM's float32 and SFU pipes.  Design: one thread per
+// bin over the flattened (cells, loci) grid, so every state plane is read
+// coalesced along loci and nothing touches shared memory; the P logits,
+// the per-state accumulators and the NB values of the two-pass logsumexp
+// stay in registers (the TPU kernel kept 19 VMEM tiles resident instead);
+// the chi loop is unrolled at compile time over the same _chi_slots table
+// (each distinct total CN chi = s(1+r) evaluates its NB core once).  P is a
+// runtime argument up to MAXP; the unrolled loops are guarded by it.
+// lgamma and digamma use the TPU kernel's Stirling series (z >= 1 shifted
+// up by 8), so kernel, plain PyTorch version and JAX agree to float32
+// rounding rather than to two libraries' approximations.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAXP = 16;
+constexpr int MAXCHI = 2 * MAXP - 1;
+constexpr int THREADS = 256;
+
+// constants rounded from double once, as the JAX series rounds its
+// Python-float literals
+constexpr float kHalfLog2Pi = (float)0.9189385332046727;
+constexpr float kC12 = (float)(1.0 / 12.0);
+constexpr float kC360 = (float)(-1.0 / 360.0);
+constexpr float kC1260 = (float)(1.0 / 1260.0);
+constexpr float kC120 = (float)(-1.0 / 120.0);
+constexpr float kC252 = (float)(1.0 / 252.0);
+
+// float32 log-Gamma for z >= 1 (ops/enum_kernel.py _lgamma_ge1)
+__device__ __forceinline__ float lgamma_ge1(float z) {
+  const float zs = fminf(z, 8.0f);
+  const float shift_prod = zs * (zs + 1.0f) * (zs + 2.0f) * (zs + 3.0f) *
+                           (zs + 4.0f) * (zs + 5.0f) * (zs + 6.0f) *
+                           (zs + 7.0f);
+  const float zz = (z < 8.0f) ? z + 8.0f : z;
+  const float inv = 1.0f / zz;
+  const float inv2 = inv * inv;
+  const float series = inv * (kC12 + inv2 * (kC360 + inv2 * kC1260));
+  const float st = (zz - 0.5f) * logf(zz) - zz + kHalfLog2Pi + series;
+  return (z < 8.0f) ? st - logf(shift_prod) : st;
+}
+
+// (lgamma(z), digamma(z)) for z >= 1 sharing the shift and log
+// (ops/enum_kernel.py _lgamma_digamma_ge1)
+__device__ __forceinline__ void lgamma_digamma_ge1(float z, float& lg,
+                                                   float& psi) {
+  const float zs = fminf(z, 8.0f);
+  const float t1 = zs + 1.0f, t2 = zs + 2.0f, t3 = zs + 3.0f;
+  const float t4 = zs + 4.0f, t5 = zs + 5.0f, t6 = zs + 6.0f, t7 = zs + 7.0f;
+  const float shift_prod = zs * t1 * t2 * t3 * t4 * t5 * t6 * t7;
+  const float shift_sum = 1.0f / zs + 1.0f / t1 + 1.0f / t2 + 1.0f / t3 +
+                          1.0f / t4 + 1.0f / t5 + 1.0f / t6 + 1.0f / t7;
+  const float zz = (z < 8.0f) ? z + 8.0f : z;
+  const float inv = 1.0f / zz;
+  const float inv2 = inv * inv;
+  const float logzz = logf(zz);
+  const float series = inv * (kC12 + inv2 * (kC360 + inv2 * kC1260));
+  const float st = (zz - 0.5f) * logzz - zz + kHalfLog2Pi + series;
+  lg = (z < 8.0f) ? st - logf(shift_prod) : st;
+  const float p = logzz - 0.5f * inv -
+                  inv2 * (kC12 + inv2 * (kC120 + inv2 * kC252));
+  psi = (z < 8.0f) ? p - shift_sum : p;
+}
+
+// log-softmax of the bin's P logits into lp[] (two passes: max, sum)
+__device__ __forceinline__ void log_softmax_bin(const float* __restrict__ pi,
+                                                int64_t i, int64_t n, int P,
+                                                float (&lp)[MAXP]) {
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) lp[s] = pi[s * n + i];
+  float m = lp[0];
+#pragma unroll
+  for (int s = 1; s < MAXP; ++s)
+    if (s < P) m = fmaxf(m, lp[s]);
+  float z = 0.0f;
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) z += expf(lp[s] - m);
+  const float log_z = m + logf(z);
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) lp[s] = lp[s] - log_z;
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
+    const float* __restrict__ reads, const float* __restrict__ mu,
+    const float* __restrict__ phi, const float* __restrict__ pi,
+    const float* __restrict__ etas, const float* __restrict__ eidx,
+    const float* __restrict__ ew, const float* __restrict__ scal,
+    float* __restrict__ out, float* __restrict__ lse_out, int64_t n, int P) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
+  const float x = reads[i], mui = mu[i], ph = phi[i];
+  const float bern0 = log1pf(-ph), bern1 = logf(ph);
+
+  float lp[MAXP];
+  log_softmax_bin(pi, i, n, P, lp);
+
+  // Dirichlet data term sum_s (etas_s - 1) * lp_s
+  float lp_acc = 0.0f;
+  if (SPARSE) {
+    const float ei = eidx[i], w = ew[i];
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) lp_acc = lp_acc + (ei == (float)s ? w : 0.0f) * lp[s];
+  } else {
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) lp_acc = lp_acc + (etas[s * n + i] - 1.0f) * lp[s];
+  }
+
+  // two-pass logsumexp over the (state, rep) pairs, one NB core per
+  // distinct chi; chi = 0 has delta == 1 and reuses lgamma(x + 1)
+  const float lgx1 = lgamma_ge1(x + 1.0f);
+  float nb[MAXCHI];
+  float m = -INFINITY;
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (!has0 && !has1) continue;
+    float v;
+    if (chi == 0) {
+      v = lgx1 + log1m_lamb;
+    } else {
+      const float delta = fmaxf(mui * ((float)chi * q), 1.0f);
+      v = lgamma_ge1(x + delta) - lgamma_ge1(delta) + delta * log1m_lamb;
+    }
+    nb[chi] = v;
+    if (chi < MAXP && has0) m = fmaxf(m, lp[chi < MAXP ? chi : 0] + bern0 + v);
+    if (has1) m = fmaxf(m, lp[chi / 2] + bern1 + v);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (chi < MAXP && has0)
+      acc = acc + expf(lp[chi < MAXP ? chi : 0] + bern0 + nb[chi] - m);
+    if (has1) acc = acc + expf(lp[chi / 2] + bern1 + nb[chi] - m);
+  }
+  const float lse = m + logf(acc);
+  lse_out[i] = lse;
+  out[i] = lse + x * log_lamb - lgx1 + lp_acc;
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
+    const float* __restrict__ reads, const float* __restrict__ mu,
+    const float* __restrict__ phi, const float* __restrict__ pi,
+    const float* __restrict__ etas, const float* __restrict__ eidx,
+    const float* __restrict__ ew, const float* __restrict__ scal,
+    const float* __restrict__ lse_in, const float* __restrict__ g_in,
+    float* __restrict__ dmu_out, float* __restrict__ dphi_out,
+    float* __restrict__ dpi_out, int64_t n, int P) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float log1m_lamb = scal[1], q = scal[2];
+  const float x = reads[i], mui = mu[i], ph = phi[i];
+  const float g = g_in[i], lse = lse_in[i];
+  const float bern0 = log1pf(-ph), bern1 = logf(ph);
+  const float dbern0 = -1.0f / (1.0f - ph), dbern1 = 1.0f / ph;
+
+  float lp[MAXP];
+  log_softmax_bin(pi, i, n, P, lp);
+
+  // each dlog_pi slot starts at its Dirichlet term g * (etas_s - 1)
+  float dlp[MAXP];
+  float tot = 0.0f;
+  if (SPARSE) {
+    const float ei = eidx[i], gew = g * ew[i];
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) {
+        dlp[s] = (ei == (float)s) ? gew : 0.0f;
+        tot = tot + dlp[s];
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) {
+        dlp[s] = g * (etas[s * n + i] - 1.0f);
+        tot = tot + dlp[s];
+      }
+  }
+
+  float dmu = 0.0f, dphi = 0.0f;
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (!has0 && !has1) continue;
+    float nbv, dmu_slot = 0.0f;
+    if (chi == 0) {
+      nbv = lgamma_ge1(x + 1.0f) + log1m_lamb;
+    } else {
+      const float cq = (float)chi * q;
+      const float delta = fmaxf(mui * cq, 1.0f);
+      float lg_xd, psi_xd, lg_d, psi_d;
+      lgamma_digamma_ge1(x + delta, lg_xd, psi_xd);
+      lgamma_digamma_ge1(delta, lg_d, psi_d);
+      nbv = lg_xd - lg_d + delta * log1m_lamb;
+      const float ddelta = psi_xd - psi_d + log1m_lamb;
+      // d nb / d mu, gated on the delta > 1 clamp region
+      dmu_slot = ddelta * (mui * cq > 1.0f ? 1.0f : 0.0f) * cq;
+    }
+    if (chi < MAXP && has0) {
+      const int s = chi < MAXP ? chi : 0;
+      const float gw = g * expf(lp[s] + bern0 + nbv - lse);
+      if (chi != 0) dmu = dmu + gw * dmu_slot;
+      dphi = dphi + gw * dbern0;
+      dlp[s] = dlp[s] + gw;
+      tot = tot + gw;
+    }
+    if (has1) {
+      const int s = chi / 2;
+      const float gw = g * expf(lp[s] + bern1 + nbv - lse);
+      if (chi != 0) dmu = dmu + gw * dmu_slot;
+      dphi = dphi + gw * dbern1;
+      dlp[s] = dlp[s] + gw;
+      tot = tot + gw;
+    }
+  }
+  dmu_out[i] = dmu;
+  dphi_out[i] = dphi;
+  // softmax Jacobian: dpi_s = dlog_pi_s - softmax_s * sum_s' dlog_pi_s'
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) dpi_out[s * n + i] = dlp[s] - expf(lp[s]) * tot;
+}
+
+inline unsigned int blocks_for(int64_t n) {
+  return (unsigned int)((n + THREADS - 1) / THREADS);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* scrt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int scrt_fused_fwd(const float* reads, const float* mu, const float* phi,
+                   const float* pi, const float* etas, const float* eidx,
+                   const float* ew, const float* scal, float* out,
+                   float* lse, long long n, int P, int sparse,
+                   void* stream) {
+  if (P < 1 || P > MAXP || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sparse)
+    fused_fwd_kernel<true><<<blocks_for(n), THREADS, 0, st>>>(
+        reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
+  else
+    fused_fwd_kernel<false><<<blocks_for(n), THREADS, 0, st>>>(
+        reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
+  return (int)cudaGetLastError();
+}
+
+int scrt_fused_bwd(const float* reads, const float* mu, const float* phi,
+                   const float* pi, const float* etas, const float* eidx,
+                   const float* ew, const float* scal, const float* lse,
+                   const float* g, float* dmu, float* dphi, float* dpi,
+                   long long n, int P, int sparse, void* stream) {
+  if (P < 1 || P > MAXP || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sparse)
+    fused_bwd_kernel<true><<<blocks_for(n), THREADS, 0, st>>>(
+        reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
+        P);
+  else
+    fused_bwd_kernel<false><<<blocks_for(n), THREADS, 0, st>>>(
+        reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
+        P);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

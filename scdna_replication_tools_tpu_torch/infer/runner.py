@@ -1,0 +1,377 @@
+"""Three-step PERT inference (port of ``infer/runner.py``).
+
+  Step 1 — G1/2 cells, each doubled as G1 (rep=0) and G2 (rep=1), cn/rep
+           observed; learns lambda + per-library GC beta means/stds
+           (reference: pert_model.py:228-251, 718-729).
+  Step 2 — S cells with cn/rep enumerated under the CN prior
+           (``cn_prior_method``; the default composite prior is dense);
+           beta_means conditioned from step 1, lambda fixed
+           (reference: pert_model.py:777-830).
+  Step 3 — (optional) the step-2 model on the G1/2 cells with rho/a
+           conditioned and the one-hot clone prior (sparse)
+           (reference: pert_model.py:832-899).
+
+Each step is one fixed-budget ``fit_map`` on one device.  The JAX
+runner's controller, mirror rescue, QC, checkpoints, telemetry and
+sharding are not ported yet (``api.scRT`` refuses them by name).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from scdna_replication_tools_tpu_torch.config import ColumnConfig, PertConfig
+from scdna_replication_tools_tpu_torch.data.loader import (
+    PertData,
+    attach_dense_columns,
+    pad_cells,
+    pad_loci,
+)
+from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer.svi import FitResult, fit_map
+from scdna_replication_tools_tpu_torch.models import priors
+from scdna_replication_tools_tpu_torch.models.pert import (
+    PertBatch,
+    PertModelSpec,
+    constrained,
+    decode_discrete,
+    init_params,
+    pert_loss,
+)
+from scdna_replication_tools_tpu_torch.ops.gc import gc_features
+from scdna_replication_tools_tpu_torch.ops.stats import guess_times, pearson_matrix
+
+
+def _pad_etas(etas: np.ndarray, target_cells: int,
+              target_loci: Optional[int] = None) -> np.ndarray:
+    """Pad the cells (and loci) axes of an etas tensor with a diploid-
+    concentrated prior: all-ones rows would make the pad cells' ploidy
+    guess zero and NaN the masked loss."""
+    P = etas.shape[-1]
+    dip = min(2, P - 1)
+    if target_loci is not None and etas.shape[1] < target_loci:
+        pad = target_loci - etas.shape[1]
+        pad_block = np.ones((etas.shape[0], pad, P), etas.dtype)
+        pad_block[..., dip] = 100.0
+        etas = np.concatenate([etas, pad_block], axis=1)
+    if etas.shape[0] < target_cells:
+        pad = target_cells - etas.shape[0]
+        pad_row = np.ones(etas.shape[1:], etas.dtype)
+        pad_row[..., dip] = 100.0
+        etas = np.concatenate(
+            [etas, np.broadcast_to(pad_row, (pad,) + etas.shape[1:])], axis=0)
+    return etas
+
+
+@dataclasses.dataclass
+class StepOutput:
+    fit: FitResult
+    spec: PertModelSpec
+    fixed: dict
+    batch: PertBatch
+    wall_time: float
+
+
+@dataclasses.dataclass(frozen=True)
+class _PertLossFn:
+    spec: PertModelSpec
+
+    def __call__(self, params, fixed, batch):
+        return pert_loss(self.spec, params, fixed, batch)
+
+
+class PertInference:
+    """Orchestrates the three fits on dense inputs, on ``device`` (the
+    GPU unless ``'cpu'`` is passed; see ``device.resolve_device``).
+
+    ``clone_idx_s`` / ``clone_idx_g1`` are dense integer clone
+    assignments aligned with the cell axes of ``s_data`` / ``g1_data``.
+    """
+
+    def __init__(self, s_data: PertData, g1_data: PertData,
+                 config: PertConfig = PertConfig(),
+                 clone_idx_s: Optional[np.ndarray] = None,
+                 clone_idx_g1: Optional[np.ndarray] = None,
+                 num_clones: int = 0, device=None):
+        self.device = resolve_device(device)
+        if config.rho_from_rt_prior and s_data.rt_prior is None:
+            raise ValueError(
+                "rho_from_rt_prior=True but no RT-prior column was found "
+                "in the input (rt_prior_col); provide the column or drop "
+                "the flag")
+        self.s = s_data
+        self.g1 = g1_data
+        self.config = config
+        self.clone_idx_s = clone_idx_s
+        self.clone_idx_g1 = clone_idx_g1
+        self.num_clones = num_clones
+        self.L = s_data.num_libraries
+        # wall seconds per stage (build, prior, fit) of the last run
+        self.phases: dict = {}
+
+    # -- batches ----------------------------------------------------------
+
+    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(x), dtype=dtype,
+                            device=self.device)
+
+    def _gamma_feats(self, data: PertData) -> torch.Tensor:
+        return gc_features(self._tensor(data.gammas), self.config.K)
+
+    def _loci_mask(self, data: PertData) -> Optional[torch.Tensor]:
+        """(loci,) float mask, or None when every locus is real."""
+        if data.loci_mask is None or data.loci_mask.all():
+            return None
+        return self._tensor(data.loci_mask.astype(np.float32))
+
+    def _pad(self, data: PertData) -> PertData:
+        """Pad to the shape-bucket targets (``pad_cells_to`` /
+        ``pad_loci_to``); one device, so no shard multiples."""
+        if self.config.pad_cells_to:
+            data = pad_cells(data, 1, minimum=self.config.pad_cells_to)
+        if self.config.pad_loci_to:
+            data = pad_loci(data, 1, minimum=self.config.pad_loci_to)
+        return data
+
+    def _batch(self, data: PertData, **fields) -> PertBatch:
+        return PertBatch(
+            reads=self._tensor(data.reads),
+            libs=self._tensor(data.libs, torch.int64),
+            gamma_feats=self._gamma_feats(data),
+            mask=self._tensor(data.cell_mask.astype(np.float32)),
+            loci_mask=self._loci_mask(data),
+            **fields)
+
+    def g1_g2_doubled_batch(self) -> Tuple[PertBatch, PertData]:
+        """Step-1 batch: every G1 cell appears as G1 (rep=0) and G2 (rep=1)
+        (reference: pert_model.py:228-251)."""
+        g1 = self._pad(self.g1)
+        doubled = dataclasses.replace(
+            g1,
+            reads=np.concatenate([g1.reads, g1.reads], axis=0),
+            libs=np.concatenate([g1.libs, g1.libs]),
+            cell_mask=np.concatenate([g1.cell_mask, g1.cell_mask]))
+        rep = np.concatenate([np.zeros_like(g1.reads),
+                              np.ones_like(g1.reads)], axis=0)
+        batch = self._batch(
+            doubled,
+            cn_obs=self._tensor(np.concatenate([g1.states, g1.states])),
+            rep_obs=self._tensor(rep))
+        return batch, g1
+
+    # -- CN priors --------------------------------------------------------
+
+    def build_etas(self) -> np.ndarray:
+        """CN prior concentrations for the S cells, per ``cn_prior_method``
+        (reference: pert_model.py:668-716)."""
+        cfg = self.config
+        method = cfg.cn_prior_method
+        P = cfg.P
+        s = self.s
+        num_cells, num_loci = s.reads.shape
+
+        if method == "hmmcopy":
+            if s.states is None:
+                raise ValueError("hmmcopy prior requires S-phase CN states")
+            return priors.cn_prior_from_states(s.states, P, cfg.cn_prior_weight)
+
+        if method == "diploid":
+            dip = np.full((num_cells, num_loci), 2.0, np.float32)
+            return priors.cn_prior_from_states(dip, P, cfg.cn_prior_weight)
+
+        if method in ("g1_cells", "g1_clones", "g1_composite"):
+            clone_profiles = priors.consensus_clone_profiles(
+                self.g1.states, self.clone_idx_g1, self.num_clones,
+                states=self.g1.states)
+            if method == "g1_clones":
+                return priors.clone_cn_prior(
+                    self.clone_idx_s, clone_profiles, P, cfg.cn_prior_weight)
+            if method == "g1_composite":
+                return priors.composite_cn_prior(
+                    s.reads, self.clone_idx_s, self.g1.reads, self.g1.states,
+                    self.clone_idx_g1, clone_profiles, P, J=cfg.J,
+                    device=self.device)
+            # g1_cells: the single best-correlated G1 cell's states
+            corr = pearson_matrix(s.reads, self.g1.reads,
+                                  device=self.device).cpu().numpy()
+            if self.clone_idx_s is not None:
+                same = self.clone_idx_s[:, None] == self.clone_idx_g1[None, :]
+                corr = np.where(same, corr, -np.inf)
+            best = np.argmax(corr, axis=1)
+            return priors.cn_prior_from_states(
+                self.g1.states[best], P, cfg.cn_prior_weight)
+
+        return priors.uniform_prior(num_cells, num_loci, P)
+
+    def build_etas_step3(self) -> np.ndarray:
+        """Clone-consensus prior for the G1 cells (reference:
+        pert_model.py:853-854)."""
+        clone_profiles = priors.consensus_clone_profiles(
+            self.g1.states, self.clone_idx_g1, self.num_clones,
+            states=self.g1.states)
+        return priors.clone_cn_prior(
+            self.clone_idx_g1, clone_profiles, self.config.P,
+            self.config.cn_prior_weight)
+
+    def _t_init(self, data: PertData, etas: np.ndarray,
+                num_padded: int) -> np.ndarray:
+        """Initial S-phase times from the real (unpadded) cells and loci,
+        padded cells at 0.4."""
+        t_real, _, _ = guess_times(data.reads, etas,
+                                   float(self.config.upsilon),
+                                   loci_mask=data.loci_mask,
+                                   device=self.device)
+        return np.pad(t_real.cpu().numpy(), (0, num_padded - data.num_cells),
+                      constant_values=0.4)
+
+    # -- steps ------------------------------------------------------------
+
+    def _fit(self, spec, batch, fixed, t_init, max_iter, min_iter,
+             step_name) -> StepOutput:
+        cfg = self.config
+        t0 = time.perf_counter()
+        params0 = init_params(spec, batch, fixed, t_init=t_init)
+        fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
+                      max_iter=max_iter, min_iter=min_iter,
+                      rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
+                      b1=cfg.adam_b1, b2=cfg.adam_b2, device=self.device)
+        wall = time.perf_counter() - t0
+        self.phases[f"{step_name}/fit"] = fit.timings["fit"]
+        return StepOutput(fit, spec, fixed, batch, wall)
+
+    def run_step1(self) -> StepOutput:
+        iters = self.config.resolved_iters()
+        t0 = time.perf_counter()
+        batch, _ = self.g1_g2_doubled_batch()
+        spec = PertModelSpec(P=self.config.P, K=self.config.K, L=self.L,
+                             tau_mode="beta_default", step1=True)
+        self.phases["step1/build"] = time.perf_counter() - t0
+        return self._fit(spec, batch, {}, None, iters["max_iter_step1"],
+                         iters["min_iter_step1"], "step1")
+
+    def run_step2(self, step1: StepOutput, etas: np.ndarray) -> StepOutput:
+        iters = self.config.resolved_iters()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            c1 = constrained(step1.spec, step1.fit.params, step1.fixed)
+        fixed = {"beta_means": c1["beta_means"],   # pert_model.py:782-787
+                 "lamb": c1["lamb"]}               # pert_model.py:801
+        cond_rho = bool(self.config.rho_from_rt_prior)
+        s = self._pad(self.s)
+        t_init = self._t_init(self.s, etas, s.num_cells)
+        etas_padded = _pad_etas(etas, s.num_cells, s.num_loci)
+        if cond_rho:
+            # the reference's unused rho0 branch (pert_model.py:568-570),
+            # clamped to the learned path's domain
+            fixed["rho"] = torch.clamp(self._tensor(s.rt_prior), 0.0, 1.0)
+        eta_fields = priors.eta_batch_fields(
+            etas_padded, allow_sparse=self.config.sparse_etas,
+            device=self.device)
+        batch = self._batch(s, **eta_fields)
+        spec = PertModelSpec(
+            P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
+            step1=False, cond_beta_means=True, cond_rho=cond_rho,
+            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields)
+        self.phases["step2/build"] = time.perf_counter() - t0
+        out = self._fit(spec, batch, fixed, t_init, iters["max_iter"],
+                        iters["min_iter"], "step2")
+        self._step2_data = s
+        return out
+
+    def run_step3(self, step1: StepOutput, step2: StepOutput) -> StepOutput:
+        iters = self.config.resolved_iters()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            c1 = constrained(step1.spec, step1.fit.params, step1.fixed)
+            c2 = constrained(step2.spec, step2.fit.params, step2.fixed)
+        fixed = {"beta_means": c1["beta_means"], "lamb": c1["lamb"],
+                 "rho": c2["rho"], "a": c2["a"]}   # pert_model.py:844-851
+        etas2_real = self.build_etas_step3()
+        g1 = self._pad(self.g1)
+        t_init2 = self._t_init(self.g1, etas2_real, g1.num_cells)
+        etas2 = _pad_etas(etas2_real, g1.num_cells, g1.num_loci)
+        eta_fields = priors.eta_batch_fields(
+            etas2, allow_sparse=self.config.sparse_etas, device=self.device)
+        batch = self._batch(g1, **eta_fields)
+        spec = PertModelSpec(
+            P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
+            step1=False, cond_beta_means=True, cond_rho=True, cond_a=True,
+            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields)
+        self.phases["step3/build"] = time.perf_counter() - t0
+        out = self._fit(spec, batch, fixed, t_init2,
+                        iters["max_iter_step3"], iters["min_iter_step3"],
+                        "step3")
+        self._step3_data = g1
+        return out
+
+    def run(self):
+        """Run steps 1-3; returns (step1, step2, step3-or-None)."""
+        step1 = self.run_step1()
+        t0 = time.perf_counter()
+        etas = self.build_etas()
+        self.phases["step2/prior"] = time.perf_counter() - t0
+        step2 = self.run_step2(step1, etas)
+        step3 = self.run_step3(step1, step2) if self.config.run_step3 \
+            else None
+        return step1, step2, step3
+
+
+# ---------------------------------------------------------------------------
+# output packaging (pandas parity)
+# ---------------------------------------------------------------------------
+
+def package_step_output(
+    cn_long: pd.DataFrame,
+    data: PertData,
+    step: StepOutput,
+    lamb: float,
+    losses_g: np.ndarray,
+    losses_s: np.ndarray,
+    cols: ColumnConfig = ColumnConfig(),
+) -> Tuple[pd.DataFrame, pd.DataFrame]:
+    """Decode the discretes and attach the fitted values to the long-form
+    contract (reference: pert_model.py:466-538): model_cn_state,
+    model_rep_state, model_p_rep, model_tau, model_u and model_rho
+    columns, plus the supplementary table (model_lambda, model_a, loss_g,
+    loss_s)."""
+    spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
+        step.batch
+    decoded = decode_discrete(spec, params, fixed, batch)
+    with torch.no_grad():
+        c = constrained(spec, params, fixed)
+    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded)
+    tau, u, rho, a_c = (c[k].detach().cpu().numpy()
+                        for k in ("tau", "u", "rho", "a"))
+
+    n = int(np.sum(data.cell_mask)) if data.cell_mask is not None \
+        else data.num_cells
+    cell_ids = list(data.cell_ids)[:n]
+    cn_long = cn_long.copy()
+    cn_long[cols.chr_col] = cn_long[cols.chr_col].astype(str)
+    out = attach_dense_columns(
+        cn_long, cell_ids, data.loci, cols,
+        per_bin={"model_cn_state": cn_map[:n],
+                 "model_rep_state": rep_map[:n],
+                 "model_p_rep": p_rep[:n]},
+        per_cell={"model_tau": tau[:n], "model_u": u[:n]},
+        per_locus={"model_rho": rho},
+    )
+    supp = [
+        pd.DataFrame({"param": ["model_lambda"], "level": ["all"],
+                      "value": [float(lamb)]}),
+        pd.DataFrame({"param": ["model_a"], "level": ["all"],
+                      "value": [float(np.asarray(a_c).reshape(-1)[0])]}),
+        pd.DataFrame({"param": ["loss_g"] * len(losses_g),
+                      "level": np.arange(len(losses_g)),
+                      "value": np.asarray(losses_g, np.float64)}),
+        pd.DataFrame({"param": ["loss_s"] * len(losses_s),
+                      "level": np.arange(len(losses_s)),
+                      "value": np.asarray(losses_s, np.float64)}),
+    ]
+    return out, pd.concat(supp, ignore_index=True)

@@ -1,0 +1,519 @@
+"""The PERT graphical model as a MAP + enumeration objective in PyTorch.
+
+Port of ``models/pert.py``.  With AutoDelta point estimates the reference's
+ELBO is the log-joint at the point estimates with the two discrete sites
+(CN state, replication state) summed out, so the loss is
+
+    -[ sum_{cell, locus} logsumexp_{cn, rep}(log pi + log Bern(rep | phi)
+                                             + log NB(reads | delta))
+       + log-priors of the continuous sites ]
+
+Step 1 observes cn/rep (plain ops); steps 2 and 3 go through the fused
+enumeration (``ops/enum_kernel.py``: the CUDA kernels on the card, their
+plain versions on the CPU), dense or sparse by the CN prior's encoding.
+Arrays are (cells, loci); the pi parameter is state-major (P, cells,
+loci) throughout (``layout.py``).  Site-type semantics follow the JAX
+module (and the reference): lambda and beta_stds are params without a
+prior, tau is a param when t_init is given, conditioned sites still add
+their log-prob.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from scdna_replication_tools_tpu_torch.layout import cells_major, state_major
+from scdna_replication_tools_tpu_torch.ops.dists import (
+    bernoulli_log_prob,
+    beta_log_prob,
+    gamma_log_prob,
+    nb_log_prob,
+    normal_log_prob,
+)
+from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
+    enum_loglik_fused,
+    enum_loglik_fused_sparse,
+)
+from scdna_replication_tools_tpu_torch.ops.gc import gc_rate
+from scdna_replication_tools_tpu_torch.ops.transforms import (
+    from_interval,
+    from_positive,
+    from_unit_interval,
+    to_interval,
+    to_positive,
+    to_unit_interval,
+)
+
+LAMB_LO, LAMB_HI = 0.001, 0.999   # reference: pert_model.py:557
+PHI_LO, PHI_HI = 0.001, 0.999     # reference: pert_model.py:621-623
+
+
+@dataclasses.dataclass(frozen=True)
+class PertModelSpec:
+    """Static model configuration (the JAX spec's fields of this slice).
+
+    ``tau_mode``: 'param' (t_init given), 'beta_prior' or
+    'beta_default' (reference: pert_model.py:580-585).  ``step1``
+    observes cn/rep; ``sparse_etas`` selects the one-hot prior planes
+    (eta_idx, eta_w) over the dense etas tensor.
+    """
+
+    P: int = 13
+    K: int = 4
+    L: int = 1
+    tau_mode: str = "param"
+    step1: bool = False
+    cond_beta_means: bool = False
+    cond_rho: bool = False
+    cond_a: bool = False
+    fixed_lamb: bool = False
+    sparse_etas: bool = False
+
+
+class PertBatch:
+    """Device inputs of one model fit.
+
+    reads (cells, loci) float32; libs (cells,) int64; gamma_feats
+    (loci, K+1); mask (cells,) float32 (1 = real cell); loci_mask
+    (loci,) or None; etas (cells, loci, P) or None; eta_idx / eta_w
+    (cells, loci) for the sparse prior; cn_obs / rep_obs (cells, loci)
+    for step 1; t_alpha / t_beta (cells,) for tau_mode='beta_prior'.
+
+    Fit-constant terms (the state-major etas, the Dirichlet normaliser,
+    the per-cell read means and ploidies) are computed once per batch
+    and kept in ``cache``: the JAX fit gets the same from XLA hoisting
+    them out of its compiled loop.
+    """
+
+    def __init__(self, reads, libs, gamma_feats, mask, etas=None,
+                 cn_obs=None, rep_obs=None, t_alpha=None, t_beta=None,
+                 loci_mask=None, eta_idx=None, eta_w=None):
+        self.reads = reads
+        self.libs = libs
+        self.gamma_feats = gamma_feats
+        self.mask = mask
+        self.etas = etas
+        self.cn_obs = cn_obs
+        self.rep_obs = rep_obs
+        self.t_alpha = t_alpha
+        self.t_beta = t_beta
+        self.loci_mask = loci_mask
+        self.eta_idx = eta_idx
+        self.eta_w = eta_w
+        self.cache: dict = {}
+
+    def cached(self, key: str, fn):
+        if key not in self.cache:
+            self.cache[key] = fn()
+        return self.cache[key]
+
+    def effective_loci_mask(self) -> torch.Tensor:
+        """(loci,) float mask; all-ones when loci_mask is None."""
+        if self.loci_mask is not None:
+            return self.loci_mask
+        return self.cached("ones_loci", lambda: torch.ones(
+            (self.reads.shape[1],), dtype=torch.float32,
+            device=self.reads.device))
+
+    def etas_or_ones(self, P: int) -> torch.Tensor:
+        if self.etas is not None:
+            return self.etas
+        return torch.ones(self.reads.shape + (P,), dtype=torch.float32,
+                          device=self.reads.device)
+
+
+# ---------------------------------------------------------------------------
+# parameter initialisation
+# ---------------------------------------------------------------------------
+
+def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
+                t_init=None) -> dict:
+    """Initial unconstrained parameters: AutoDelta's init-at-prior-median
+    for sample sites and the explicit inits of the param sites
+    (reference: pert_model.py:542, 557, 561-562, 583).  Categorical pi
+    only (the binary encoding is not ported yet)."""
+    dev = batch.reads.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    num_cells, num_loci = batch.reads.shape
+    Kp1 = spec.K + 1
+    params: dict = {}
+
+    if not spec.cond_a:
+        params["a_raw"] = from_positive(8.3917, device=dev)
+    if not spec.fixed_lamb:
+        params["lamb_raw"] = from_interval(0.1, LAMB_LO, LAMB_HI, device=dev)
+    if not spec.cond_beta_means:
+        params["beta_means"] = torch.zeros((spec.L, Kp1), **f32)
+    params["beta_stds_raw"] = from_positive(
+        torch.logspace(0.0, -spec.K, Kp1, **f32).repeat(spec.L, 1))
+    if not spec.cond_rho:
+        params["rho_raw"] = torch.full(
+            (num_loci,), float(from_unit_interval(0.5)), **f32)
+
+    if spec.tau_mode == "param":
+        t0 = torch.as_tensor(t_init, **f32) if t_init is not None \
+            else torch.full((num_cells,), 0.5, **f32)
+        params["tau_raw"] = from_unit_interval(
+            torch.clamp(t0, 1e-4, 1.0 - 1e-4))
+    elif spec.tau_mode == "beta_prior":
+        mean = batch.t_alpha / (batch.t_alpha + batch.t_beta)
+        params["tau_raw"] = from_unit_interval(
+            torch.clamp(mean, 1e-4, 1.0 - 1e-4))
+    else:
+        params["tau_raw"] = torch.full(
+            (num_cells,), float(from_unit_interval(0.5)), **f32)
+
+    # u at the prior median u_guess evaluated at the initial tau
+    tau0 = to_unit_interval(params["tau_raw"])
+    ploidies0 = _cell_ploidies(spec, batch)
+    u_guess0 = _loci_mean(batch.reads, batch.effective_loci_mask()) \
+        / ((1.0 + tau0) * ploidies0)
+    params["u"] = u_guess0.to(torch.float32)
+
+    beta_means0 = fixed["beta_means"] if spec.cond_beta_means \
+        else params["beta_means"]
+    params["betas"] = torch.as_tensor(beta_means0, **f32)[batch.libs] \
+        .contiguous()
+
+    if not spec.step1 and batch.etas is not None:
+        pi0 = batch.etas / torch.sum(batch.etas, dim=-1, keepdim=True)
+        params["pi_logits"] = state_major(
+            torch.log(torch.clamp(pi0, min=1e-30)))
+    elif not spec.step1 and batch.eta_idx is not None:
+        # pi0_s = (1 + [s == idx] * w) / (P + w), state-major directly
+        sidx = torch.arange(spec.P, **f32)[:, None, None]
+        params["pi_logits"] = (
+            torch.where(sidx == batch.eta_idx[None],
+                        torch.log1p(batch.eta_w)[None],
+                        torch.zeros((), **f32))
+            - torch.log(spec.P + batch.eta_w)[None]).contiguous()
+    else:
+        params["pi_logits"] = torch.zeros((spec.P, num_cells, num_loci),
+                                          **f32)
+    return {k: v.contiguous() for k, v in params.items()}
+
+
+def _loci_mean(x: torch.Tensor, lmask: torch.Tensor) -> torch.Tensor:
+    """Mean over the loci axis restricted to real (unmasked) loci."""
+    return torch.sum(x * lmask[None, :], dim=1) / torch.sum(lmask)
+
+
+def _cell_ploidies(spec: PertModelSpec, batch: PertBatch) -> torch.Tensor:
+    """Per-cell ploidy guess of the u prior (reference:
+    pert_model.py:589-600): mean argmax state of the prior, else 2."""
+    if not spec.step1:
+        if batch.etas is not None:
+            cn_mode = torch.argmax(batch.etas, dim=-1).to(torch.float32)
+            return _loci_mean(cn_mode, batch.effective_loci_mask())
+        if batch.eta_idx is not None:
+            cn_mode = torch.where(batch.eta_w > 0.0, batch.eta_idx,
+                                  torch.zeros_like(batch.eta_idx))
+            return _loci_mean(cn_mode, batch.effective_loci_mask())
+    return torch.full((batch.reads.shape[0],), 2.0, dtype=torch.float32,
+                      device=batch.reads.device)
+
+
+# ---------------------------------------------------------------------------
+# constrained views
+# ---------------------------------------------------------------------------
+
+def _sites(spec: PertModelSpec, params: dict, fixed: dict) -> dict:
+    """Constrained values of every site except the pi simplex."""
+    out = {}
+    out["a"] = fixed["a"] if spec.cond_a else to_positive(params["a_raw"])
+    out["lamb"] = fixed["lamb"] if spec.fixed_lamb \
+        else to_interval(params["lamb_raw"], LAMB_LO, LAMB_HI)
+    out["beta_means"] = fixed["beta_means"] if spec.cond_beta_means \
+        else params["beta_means"]
+    out["beta_stds"] = to_positive(params["beta_stds_raw"])
+    out["rho"] = fixed["rho"] if spec.cond_rho \
+        else to_unit_interval(params["rho_raw"])
+    out["tau"] = to_unit_interval(params["tau_raw"])
+    out["u"] = params["u"]
+    out["betas"] = params["betas"]
+    return out
+
+
+def _log_pi(params: dict) -> torch.Tensor:
+    """(cells, loci, P) log-space simplex: log_softmax stays finite where
+    log(softmax) would give -inf under the 1e6 prior concentrations."""
+    return cells_major(torch.log_softmax(params["pi_logits"], dim=0))
+
+
+def constrained(spec: PertModelSpec, params: dict, fixed: dict) -> dict:
+    """Constrained-space values of every site, including the cells-major
+    ``log_pi`` and ``pi``.  The fused training path never needs those
+    two and uses :func:`_sites` instead."""
+    out = _sites(spec, params, fixed)
+    out["log_pi"] = _log_pi(params)
+    out["pi"] = torch.exp(out["log_pi"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# log-joint
+# ---------------------------------------------------------------------------
+
+def _global_log_prior(c: dict) -> torch.Tensor:
+    """Priors of the global sample sites: a ~ Gamma(2, 0.2), beta_means
+    ~ Normal(0, 1); rho ~ Beta(1, 1) adds 0."""
+    lp = torch.sum(gamma_log_prob(c["a"], 2.0, 0.2))
+    lp = lp + torch.sum(normal_log_prob(c["beta_means"], 0.0, 1.0))
+    return lp
+
+
+def _per_cell_log_prior(spec: PertModelSpec, c: dict, batch: PertBatch,
+                        reads_mean: torch.Tensor,
+                        ploidies: torch.Tensor) -> torch.Tensor:
+    """(cells,) prior terms for tau, u and betas."""
+    tau, u, betas = c["tau"], c["u"], c["betas"]
+    lp = torch.zeros_like(tau)
+    if spec.tau_mode == "beta_prior":
+        lp = lp + beta_log_prob(tau, batch.t_alpha, batch.t_beta)
+    elif spec.tau_mode == "beta_default":
+        lp = lp + beta_log_prob(tau, 1.5, 1.5)
+
+    # denominator clamped away from 0 (a degenerate prior or a padded
+    # cell would give u_guess = inf and NaN the loss)
+    denom = torch.clamp((1.0 + tau) * ploidies, min=1e-6)
+    u_guess = reads_mean / denom
+    u_stdev = u_guess / 10.0
+    lp = lp + normal_log_prob(u, u_guess, torch.clamp(u_stdev, min=1e-12))
+
+    bm = c["beta_means"][batch.libs]
+    bs = c["beta_stds"][batch.libs]
+    lp = lp + torch.sum(normal_log_prob(betas, bm, bs), dim=-1)
+    return lp
+
+
+def _phi(c: dict) -> torch.Tensor:
+    """(cells, loci) phi = sigmoid(a (tau - rho)) clamped to
+    [0.001, 0.999] (reference: pert_model.py:616-623)."""
+    t_diff = c["tau"][:, None] - c["rho"][None, :]
+    phi = torch.sigmoid(c["a"] * t_diff)
+    return torch.clamp(phi, PHI_LO, PHI_HI)
+
+
+def _nb_pieces(c: dict):
+    lamb = c["lamb"]
+    return lamb, torch.log(lamb), torch.log1p(-lamb)
+
+
+def _joint_logits(P, reads, u, omega, log_pi, phi, lamb, log_lamb,
+                  log1m_lamb):
+    """(cells, loci, P, 2) joint logits of the enumerated discrete sites:
+    log pi[cn] + log Bern(rep | phi) + log NB(reads | delta(cn, rep))."""
+    f32 = dict(dtype=torch.float32, device=reads.device)
+    chi = torch.arange(P, **f32)[:, None] * \
+        (1.0 + torch.arange(2, **f32))[None, :]
+    theta = (u[:, None] * omega)[..., None, None] * chi
+    delta = torch.clamp(theta * (1.0 - lamb) / lamb, min=1.0)
+    nb = nb_log_prob(reads[..., None, None], delta, log_lamb, log1m_lamb)
+    bern = torch.stack([torch.log1p(-phi), torch.log(phi)], dim=-1)
+    return log_pi[..., :, None] + bern[..., None, :] + nb
+
+
+def _observed_bin_loglik(reads, u, omega, log_pi, phi, cn_obs, rep_obs,
+                         lamb, log_lamb, log1m_lamb):
+    """(cells, loci) bin log-likelihood with cn/rep observed (step 1)."""
+    cn_idx = cn_obs.to(torch.int64)
+    lp_cn = torch.gather(log_pi, -1, cn_idx[..., None])[..., 0]
+    lp_rep = bernoulli_log_prob(rep_obs, phi)
+    theta = u[:, None] * omega * cn_obs * (1.0 + rep_obs)
+    delta = torch.clamp(theta * (1.0 - lamb) / lamb, min=1.0)
+    lp_reads = nb_log_prob(reads, delta, log_lamb, log1m_lamb)
+    return lp_cn + lp_rep + lp_reads
+
+
+def _dirichlet_normaliser(P: int, batch: PertBatch,
+                          sparse: bool) -> torch.Tensor:
+    """(cells, loci) parameter-free Dirichlet normaliser
+    ``lgamma(sum etas) - sum lgamma(etas)``.  Its two terms are ~1.3e7 at
+    1e6 concentrations and cancel to ~1e2, so callers add it to the data
+    term only after this difference is taken; the one-hot (sparse) form
+    does the cancellation symbolically."""
+    if sparse:
+        return torch.lgamma(P + batch.eta_w) - torch.lgamma(1.0 + batch.eta_w)
+    etas = batch.etas_or_ones(P)
+    return (torch.lgamma(torch.sum(etas, dim=-1))
+            - torch.sum(torch.lgamma(etas), dim=-1))
+
+
+def _dirichlet_pi_term(P: int, batch: PertBatch, log_pi: torch.Tensor,
+                       sparse: bool) -> torch.Tensor:
+    """(cells, loci) full Dirichlet pi term, data term + normaliser, from
+    a materialised cells-major ``log_pi``."""
+    if sparse:
+        data = batch.eta_w * torch.gather(
+            log_pi, -1, batch.eta_idx.to(torch.int64)[..., None])[..., 0]
+    else:
+        data = torch.sum((batch.etas_or_ones(P) - 1.0) * log_pi, dim=-1)
+    return data + _dirichlet_normaliser(P, batch, sparse)
+
+
+def _require_fixed_lamb(spec: PertModelSpec) -> None:
+    if not spec.fixed_lamb:
+        raise ValueError(
+            "the fused enumeration requires fixed_lamb=True: its backward "
+            "does not differentiate through lambda")
+
+
+def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
+              batch: PertBatch) -> torch.Tensor:
+    """Total log-joint (the negative of the SVI loss), discretes summed
+    out: the step-1 observed path, or the fused dense / sparse path."""
+    c = _sites(spec, params, fixed)
+    lamb, log_lamb, log1m_lamb = _nb_pieces(c)
+    mask = batch.mask
+    lmask = batch.effective_loci_mask()
+    bin_mask = mask[:, None] * lmask[None, :]
+
+    lp = _global_log_prior(c)
+    reads_mean = batch.cached("reads_mean",
+                              lambda: _loci_mean(batch.reads, lmask))
+    ploidies = batch.cached("ploidies", lambda: _cell_ploidies(spec, batch))
+    lp = lp + torch.sum(
+        _per_cell_log_prior(spec, c, batch, reads_mean, ploidies) * mask)
+
+    phi = _phi(c)
+    omega = gc_rate(c["betas"], batch.gamma_feats)
+    if spec.step1:
+        log_pi = _log_pi(params)
+        lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi, sparse=False)
+        lp = lp + torch.sum(lp_pi * bin_mask)
+        ll = _observed_bin_loglik(batch.reads, c["u"], omega, log_pi, phi,
+                                  batch.cn_obs, batch.rep_obs, lamb,
+                                  log_lamb, log1m_lamb)
+        return lp + torch.sum(ll * bin_mask)
+
+    # fused path: the kernel folds log_softmax and the Dirichlet data
+    # term; only the parameter-free normaliser stays here
+    _require_fixed_lamb(spec)
+    mu = c["u"][:, None] * omega
+    if spec.sparse_etas:
+        if batch.eta_idx is None or batch.eta_w is None:
+            raise ValueError("spec.sparse_etas=True but the batch carries "
+                             "no eta_idx/eta_w planes")
+        lp_pi = batch.cached("dir_norm", lambda: _dirichlet_normaliser(
+            spec.P, batch, sparse=True))
+        lp = lp + torch.sum(lp_pi * bin_mask)
+        ll = enum_loglik_fused_sparse(batch.reads, mu, params["pi_logits"],
+                                      phi, batch.eta_idx, batch.eta_w, lamb)
+    else:
+        if batch.etas is None and batch.eta_idx is not None:
+            raise ValueError(
+                "batch carries the sparse eta_idx/eta_w encoding but "
+                "spec.sparse_etas=False — the dense path would silently "
+                "fit a uniform CN prior")
+        lp_pi = batch.cached("dir_norm", lambda: _dirichlet_normaliser(
+            spec.P, batch, sparse=False))
+        lp = lp + torch.sum(lp_pi * bin_mask)
+        etas_t = batch.cached("etas_t", lambda: state_major(
+            batch.etas_or_ones(spec.P)))
+        ll = enum_loglik_fused(batch.reads, mu, params["pi_logits"], phi,
+                               etas_t, lamb)
+    return lp + torch.sum(ll * bin_mask)
+
+
+def pert_loss(spec: PertModelSpec, params: dict, fixed: dict,
+              batch: PertBatch) -> torch.Tensor:
+    """SVI loss = -log_joint (point-mass posterior; reference:
+    pert_model.py:742-758)."""
+    return -log_joint(spec, params, fixed, batch)
+
+
+# ---------------------------------------------------------------------------
+# discrete decode (infer_discrete, temperature=0)
+# ---------------------------------------------------------------------------
+
+# per-cell parameters and the axis their cells live on (pi_logits is
+# state-major, so its cells axis is 1); the rest are global or per-locus
+_PER_CELL_PARAM_AXIS = {"tau_raw": 0, "u": 0, "betas": 0, "pi_logits": 1}
+
+# target size of one decode slab's (chunk, loci, P, 2) joint tensor
+_DECODE_SLAB_BYTES = 1 << 30
+
+
+def model_joint_logits(spec: PertModelSpec, params: dict, fixed: dict,
+                       batch: PertBatch) -> torch.Tensor:
+    """(cells, loci, P, 2) joint logits of the fitted model."""
+    c = constrained(spec, params, fixed)
+    lamb, log_lamb, log1m_lamb = _nb_pieces(c)
+    phi = _phi(c)
+    omega = gc_rate(c["betas"], batch.gamma_feats)
+    return _joint_logits(spec.P, batch.reads, c["u"], omega, c["log_pi"],
+                         phi, lamb, log_lamb, log1m_lamb)
+
+
+def slice_cells(params: dict, batch: PertBatch, idx) -> tuple:
+    """(params, batch) restricted to the cell indices ``idx``."""
+    idx = torch.as_tensor(idx, device=batch.reads.device)
+    p = {k: (torch.index_select(v, _PER_CELL_PARAM_AXIS[k], idx)
+             if k in _PER_CELL_PARAM_AXIS else v)
+         for k, v in params.items()}
+
+    def _take(x):
+        return None if x is None else torch.index_select(x, 0, idx)
+
+    b = PertBatch(
+        reads=_take(batch.reads), libs=_take(batch.libs),
+        gamma_feats=batch.gamma_feats, mask=_take(batch.mask),
+        loci_mask=batch.loci_mask, etas=_take(batch.etas),
+        eta_idx=_take(batch.eta_idx), eta_w=_take(batch.eta_w),
+        cn_obs=_take(batch.cn_obs), rep_obs=_take(batch.rep_obs),
+        t_alpha=_take(batch.t_alpha), t_beta=_take(batch.t_beta))
+    return p, b
+
+
+def _decode_slabs(spec: PertModelSpec, batch: PertBatch,
+                  cell_chunk: Optional[int]) -> list:
+    """Equal-length cell-index slabs keeping each joint tensor under
+    ``_DECODE_SLAB_BYTES`` (the tail slab clamps to the last cell; the
+    caller trims the duplicates).  ``[None]`` = one pass."""
+    num_cells, num_loci = batch.reads.shape
+    if cell_chunk is None:
+        per_cell = num_loci * spec.P * 2 * 4
+        cell_chunk = max(1, _DECODE_SLAB_BYTES // max(per_cell, 1))
+    if cell_chunk >= num_cells:
+        return [None]
+    return [np.minimum(np.arange(i, i + cell_chunk), num_cells - 1)
+            for i in range(0, num_cells, cell_chunk)]
+
+
+def p_rep_marginal(joint: torch.Tensor) -> torch.Tensor:
+    """(cells, loci) posterior marginal P(rep=1 | reads)."""
+    P = joint.shape[-2]
+    flat = joint.reshape(joint.shape[:-2] + (P * 2,))
+    norm = torch.logsumexp(flat, dim=-1)
+    return torch.exp(torch.logsumexp(joint[..., 1], dim=-1) - norm)
+
+
+@torch.no_grad()
+def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
+                    batch: PertBatch, cell_chunk: Optional[int] = None):
+    """MAP cn/rep per bin + marginal replication probability: the
+    temperature-0 ``infer_discrete`` of the reference, an independent
+    argmax over each bin's (P, 2) joint logits, in cell slabs.
+
+    Returns (cn_map, rep_map, p_rep), each (cells, loci), on device.
+    """
+    num_cells = batch.reads.shape[0]
+    outs = []
+    for idx in _decode_slabs(spec, batch, cell_chunk):
+        p, b = (params, batch) if idx is None \
+            else slice_cells(params, batch, idx)
+        joint = model_joint_logits(spec, p, fixed, b)
+        flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
+        best = torch.argmax(flat, dim=-1)
+        outs.append(((best // 2).to(torch.int32), (best % 2).to(torch.int32),
+                     p_rep_marginal(joint)))
+        del joint, flat
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
+                 for i in range(3))
+

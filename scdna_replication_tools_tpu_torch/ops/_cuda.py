@@ -1,0 +1,185 @@
+"""Build, load and launch-count the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled at first use by ``nvcc`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), loaded with ``ctypes``.  Libraries are named by a hash
+of their source and flags, so an edited source rebuilds and an unchanged
+one loads from the build directory.  :func:`build` starts one ``nvcc``
+per source, all at once.
+
+``LAUNCHES`` counts kernel launches per entry point: each wrapper adds
+one where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = {"enum_fused": "enum_fused.cu", "adam": "adam.cu"}
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "enum_fused": {
+        # reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P,
+        # sparse, stream
+        "scrt_fused_fwd": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, _P],
+        # reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi,
+        # dpi, n, P, sparse, stream
+        "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, _P],
+    },
+    "adam": {
+        # p_out, m_out, v_out, p, g, m, v, scal, b1, 1-b1, b2, 1-b2, n,
+        # stream
+        "scrt_adam": [_P] * 8 + [ctypes.c_float] * 4
+        + [ctypes.c_longlong, _P],
+    },
+}
+
+LAUNCHES: Dict[str, int] = {
+    "fused_fwd_dense": 0,
+    "fused_bwd_dense": 0,
+    "fused_fwd_sparse": 0,
+    "fused_bwd_sparse": 0,
+    "adam": 0,
+}
+
+# name -> {"seconds", "path", "log"} of the last build (or cache hit)
+BUILD_INFO: Dict[str, dict] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc" if home else None,
+                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in candidates:
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built at first use")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named sources (default: all) in parallel, one ``nvcc``
+    each; sources whose library is already built are skipped.  Returns
+    ``BUILD_INFO`` for the names; raises with nvcc's output on failure."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            out = _target(name)
+            if out.exists():
+                BUILD_INFO[name] = {"seconds": 0.0, "path": str(out),
+                                    "log": "cached"}
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        errors = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{SOURCES[name]}: nvcc exited "
+                              f"{proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, out)
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                "path": str(out), "log": log}
+        if errors:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(errors))
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+    return {name: BUILD_INFO[name] for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if name not in BUILD_INFO:
+            build([name])
+        lib = ctypes.CDLL(BUILD_INFO[name]["path"])
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.scrt_error_string.argtypes = [ctypes.c_int]
+        lib.scrt_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        msg = lib.scrt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_operands(what: str, device: torch.device, **tensors) -> None:
+    """Device, dtype and contiguity checks of a kernel's operands (run
+    for the plain versions on the CPU too, so a CPU run catches what the
+    kernel would refuse).  ``device`` must be the CPU (plain version) or
+    a CUDA device (kernel): nothing else has a path."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: tensors must lie on the CPU (plain "
+                         f"version) or a CUDA device (kernel); got {device}")
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{what}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: {key} has dtype {t.dtype}, expected "
+                             "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {key} must be contiguous")

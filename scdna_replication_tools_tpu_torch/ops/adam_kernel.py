@@ -1,0 +1,79 @@
+"""Single-sweep Adam update: CUDA kernel and plain version.
+
+Port of ``ops/adam_kernel.py``.  The math replicates optax's
+``scale_by_adam`` + ``scale(-lr)`` term for term and in the same order
+(moment EMA as ``(1-b) * g + b * m``, bias correction by division,
+``eps`` outside the sqrt, update scaled by ``-lr`` then added), so the
+trajectory tracks the JAX fits.  ``torch.optim.Adam`` factors the bias
+correction differently and is not used.
+
+The big (planes, cells, loci) pi parameter goes through
+:func:`adam_update`: the CUDA kernel (``csrc/adam.cu``) for a CUDA
+tensor, :func:`adam_update_plain` for a CPU tensor.  Every other leaf is
+O(cells) or O(loci) and takes :func:`adam_update_plain` on any device,
+as the JAX fit sends them through ``adam_update_xla``.  lr and the bias
+corrections ride in a (3,) device tensor (:func:`adam_scalars`), so no
+step needs a host value.  Moments are float32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from scdna_replication_tools_tpu_torch.ops import _cuda
+
+ADAM_EPS = 1e-8
+
+
+def adam_scalars(lr: float, count: torch.Tensor, b1: float, b2: float
+                 ) -> torch.Tensor:
+    """(3,) float32 [lr, 1 - b1^t, 1 - b2^t] on count's device, at the
+    INCREMENTED step count ``count`` (optax's bias_correction)."""
+    c = count.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=count.device)
+    bc1 = 1.0 - torch.tensor(b1, **f32) ** c
+    bc2 = 1.0 - torch.tensor(b2, **f32) ** c
+    return torch.stack([torch.tensor(lr, **f32), bc1, bc2])
+
+
+def adam_update_plain(param, grad, m, v, scal, b1: float, b2: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Adam sweep as plain PyTorch ops: ``(param', m', v')``."""
+    lr, bc1, bc2 = scal[0], scal[1], scal[2]
+    g = grad
+    m2 = (1.0 - b1) * g + b1 * m
+    v2 = (1.0 - b2) * (g * g) + b2 * v
+    update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + ADAM_EPS)
+    return param + (-lr) * update, m2, v2
+
+
+def adam_update(param, grad, m, v, scal, b1: float, b2: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adam sweep of the pi parameter: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (new output tensors either way)."""
+    if not (param.shape == grad.shape == m.shape == v.shape):
+        raise ValueError("adam_update: param/grad/m/v shapes differ: "
+                         f"{tuple(param.shape)}, {tuple(grad.shape)}, "
+                         f"{tuple(m.shape)}, {tuple(v.shape)}")
+    if scal.shape != (3,):
+        raise ValueError("adam_update: scal must be the (3,) [lr, bc1, bc2] "
+                         f"tensor; got shape {tuple(scal.shape)}")
+    grad = grad.contiguous()
+    _cuda.check_operands("adam_update", param.device, param=param,
+                         grad=grad, m=m, v=v, scal=scal)
+    if param.device.type == "cpu":
+        return adam_update_plain(param, grad, m, v, scal, b1, b2)
+    lib = _cuda.library("adam")
+    p_out = torch.empty_like(param)
+    m_out = torch.empty_like(m)
+    v_out = torch.empty_like(v)
+    rc = lib.scrt_adam(
+        _cuda.ptr(p_out), _cuda.ptr(m_out), _cuda.ptr(v_out),
+        _cuda.ptr(param), _cuda.ptr(grad), _cuda.ptr(m), _cuda.ptr(v),
+        _cuda.ptr(scal), float(b1), 1.0 - b1, float(b2), 1.0 - b2,
+        param.numel(), _cuda.stream_of(param))
+    _cuda.check(lib, rc, "adam_update")
+    _cuda.LAUNCHES["adam"] += 1
+    return p_out, m_out, v_out

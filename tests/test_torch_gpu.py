@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and nvcc; without them it skips.  The
+module imports neither JAX nor the JAX package, so it also runs where only
+PyTorch is installed, without the repository's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances are on max|kernel - plain| / max(1, max|plain|, scale), with
+scale the largest term that out and dpi sum (as chip_smoke.py holds
+them).  The kernels repeat the plain versions' float32 operations in the
+same order; they differ by FMA contraction and the exp/log ulps of the
+two builds.  The NB values nb(chi) run to thousands, where a float32 ulp
+is ~5e-4, and the posterior weights exp(lp + bern + nb - lse) carry that
+absolute rounding as a relative one: dmu and dphi, which sum those
+weights times slopes of opposite sign, are held to 1e-3, the rest to
+1e-5 (Adam 1e-6).
+
+Those bounds are relative to the prior's 1e6 concentrations for out and
+dpi.  A second, flat prior (etas = 1, eta_w = 0) leaves out - lse as the
+hoisted read term alone and dpi as the enumeration's own share, O(|g|):
+the bounds then hold the posterior weights absolutely (TOL_FLAT, dpi
+3e-3), and the hoisted term is held per element as |a - b| / (1 + |b|).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scdna_replication_tools_tpu_torch.ops import _cuda
+from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+
+pytestmark = pytest.mark.gpu
+
+TOL = {"out": 1e-5, "lse": 1e-5, "dpi": 1e-5, "dmu": 1e-3, "dphi": 1e-3,
+       "param": 1e-6, "m": 1e-6, "v": 1e-6}
+TOL_FLAT = {"out": 1e-5, "lse": 1e-5, "hoisted": 1e-5, "dmu": 1e-3,
+            "dphi": 1e-3, "dpi": 3e-3}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _amax(t):
+    return float(t.abs().max())
+
+
+def _rel(got, ref, scale=0.0):
+    return float((got - ref).abs().max()) / max(1.0, _amax(ref), scale)
+
+
+def _inputs(C, L, P, seed, dev, flat=False):
+    rng = np.random.default_rng(seed)
+    arr = {
+        "mu": rng.uniform(0.2, 60, (C, L)),
+        "phi": rng.uniform(0.001, 0.999, (C, L)),
+        "pi_t": rng.normal(0, 2, (P, C, L)),
+        "g": rng.normal(0, 1, (C, L)),
+        "etas_t": np.ones((P, C, L)),
+        "eidx": rng.integers(0, P, (C, L)),
+        "ew": np.where(rng.uniform(size=(C, L)) < 0.9, 1e6, 0.0),
+    }
+    # reads around mu * chi: the low-chi slots, where delta sits at its
+    # clamp of 1, carry posterior weight
+    arr["reads"] = rng.poisson(arr["mu"] * rng.integers(1, 7, (C, L)))
+    if flat:
+        arr["ew"] = np.zeros((C, L))
+    else:
+        np.put_along_axis(arr["etas_t"], rng.integers(0, P, (1, C, L)), 1e6,
+                          0)
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev)
+            for k, v in arr.items()}
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["prior", "flat"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("P", [13, 7])
+def test_fused_kernels_match_plain(dev, sparse, P, flat):
+    """Forward (out, lse) and backward (dmu, dphi, dpi) of the kernel
+    against the plain version, at a (37, 1001) grid that is ragged
+    against the 256-thread blocks, with a 1e6 prior and with a flat one;
+    each launch is counted once."""
+    x = _inputs(37, 1001, P, seed=P + int(sparse), dev=dev, flat=flat)
+    tol = TOL_FLAT if flat else TOL
+    scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32, device=dev))
+    prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
+        else dict(etas_t=x["etas_t"])
+    args = (x["reads"], x["mu"], x["pi_t"], x["phi"], scal)
+    kind = "sparse" if sparse else "dense"
+    _cuda.reset_launches()
+    out_k, lse_k = ek.fused_fwd(*args, **prior)
+    out_p, lse_p = ek.fused_fwd_plain(*args, **prior)
+    got = ek.fused_bwd(*args, lse_p, x["g"], **prior)
+    ref = ek.fused_bwd_plain(*args, lse_p, x["g"], **prior)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[f"fused_fwd_{kind}"] == 1
+    assert _cuda.LAUNCHES[f"fused_bwd_{kind}"] == 1
+    weight = x["ew"] if sparse else x["etas_t"] - 1.0
+    scale = {"out": max(_amax(lse_p), _amax(out_p - lse_p)),
+             "dpi": _amax(x["g"]) * _amax(weight)}
+    pairs = [("out", out_k, out_p), ("lse", lse_k, lse_p)] + list(
+        zip(("dmu", "dphi", "dpi"), got, ref))
+    for name, a, b in pairs:
+        assert bool(torch.isfinite(a).all()), name
+        err = _rel(a, b, scale.get(name, 0.0))
+        assert err <= tol[name], (name, err)
+    if flat:
+        hk, hp = out_k - lse_k, out_p - lse_p
+        per_bin = float(((hk - hp).abs() / (1.0 + hp.abs())).max())
+        assert per_bin <= tol["hoisted"], ("hoisted", per_bin)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_autograd_function_on_cuda_matches_cpu(dev, sparse):
+    """The autograd entry points on the card (kernels) and on the CPU
+    (plain versions) give the same value and cotangents."""
+    x = _inputs(8, 300, 13, seed=21, dev=dev)
+    lamb = torch.tensor(0.75, dtype=torch.float32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t = {k: v.to(d) for k, v in x.items()}
+        mu, pi_t, phi = (t[k].clone().requires_grad_(True)
+                         for k in ("mu", "pi_t", "phi"))
+        if sparse:
+            out = ek.enum_loglik_fused_sparse(t["reads"], mu, pi_t, phi,
+                                              t["eidx"], t["ew"], lamb.to(d))
+        else:
+            out = ek.enum_loglik_fused(t["reads"], mu, pi_t, phi,
+                                       t["etas_t"], lamb.to(d))
+        grads = torch.autograd.grad(out, (mu, phi, pi_t), t["g"])
+        res.append([a.detach().cpu() for a in (out, *grads)])
+    for name, a, b in zip(("out", "dmu", "dphi", "dpi"), *res):
+        assert _rel(a, b) <= TOL[name], (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("step", [1, 7, 300])
+def test_adam_kernel_matches_plain(dev, step):
+    """One sweep of the kernel against the plain version on a ragged
+    (13, 37, 1001) parameter; lr and the bias corrections come from the
+    device tensor of adam_scalars."""
+    gen = torch.Generator(device=dev).manual_seed(step)
+    shape = (13, 37, 1001)
+    p, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    m = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    v = 0.1 * torch.rand(shape, generator=gen, device=dev)
+    scal = ak.adam_scalars(0.05, torch.tensor(step, dtype=torch.int32,
+                                              device=dev), 0.8, 0.99)
+    _cuda.reset_launches()
+    got = ak.adam_update(p, g, m, v, scal, 0.8, 0.99)
+    ref = ak.adam_update_plain(p, g, m, v, scal, 0.8, 0.99)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["adam"] == 1
+    for name, a, b in zip(("param", "m", "v"), got, ref):
+        assert _rel(a, b) <= TOL[name], (name, _rel(a, b))
