@@ -20,7 +20,12 @@ Phases, each printing its own lines:
    iteration of each step, from the step's fitted parameters;
 5. where each step's time goes: device time by kernel from
    torch.profiler over a window of iterations, and the card's idle share;
-6. the card's name and power limit, one JSON line of the kernels, then
+6. phases 4 and 5 again for the binary path, ``scRT(...,
+   enum_impl='binary', optimizer_state_dtype='bfloat16')`` on the same
+   frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
+   in all three steps), with two more bars against the categorical run:
+   tau correlation >= 0.99 x and CN accuracy >= its value - 0.02;
+7. the card's name and power limit, one JSON line of the kernels, then
    the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
@@ -48,6 +53,8 @@ G1_CELLS, CLONES = 250, 3
 MAX_ITER = 300            # depth cut: 300 step-2 iterations (150 steps 1/3)
 SEED = 0
 
+KB = 4                    # binary planes, ceil(log2 P)
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -74,15 +81,28 @@ TOL = {"out": 1e-5, "lse": 1e-5, "dpi": 1e-5, "dmu": 1e-3, "dphi": 1e-3,
 TOL_FLAT = {"out": 1e-5, "lse": 1e-5, "hoisted": 1e-5, "dmu": 1e-3,
             "dphi": 1e-3, "dpi": 3e-3}
 
+# bfloat16 moments (m', v'): at most one bfloat16 ulp per element apart.
+# The kernel repeats the plain version's roundings (no FMA contraction,
+# csrc/adam.cu), so readings are 0; one ulp is what a float32 rounding
+# that tips a round-to-nearest-even at a boundary would leave.  param'
+# stays at TOL["param"].
+BF16_ULPS = 1
+
+_EK = "scdna_replication_tools_tpu/ops/enum_kernel.py"
 TPU_KERNEL = {
-    "fused_fwd_dense": "scdna_replication_tools_tpu/ops/enum_kernel.py:741",
-    "fused_bwd_dense": "scdna_replication_tools_tpu/ops/enum_kernel.py:766",
-    "fused_fwd_sparse": "scdna_replication_tools_tpu/ops/enum_kernel.py:856",
-    "fused_bwd_sparse": "scdna_replication_tools_tpu/ops/enum_kernel.py:881",
+    "fused_fwd_dense": f"{_EK}:741",
+    "fused_bwd_dense": f"{_EK}:766",
+    "fused_fwd_sparse": f"{_EK}:856",
+    "fused_bwd_sparse": f"{_EK}:881",
+    "fused_fwd_dense_binary": f"{_EK}:976",
+    "fused_bwd_dense_binary": f"{_EK}:1002",
+    "fused_fwd_sparse_binary": f"{_EK}:1073",
+    "fused_bwd_sparse_binary": f"{_EK}:1100",
     "adam": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
+    "adam_bf16": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
 }
 SOURCE = {name: f"{PKG}/csrc/enum_fused.cu" for name in TPU_KERNEL}
-SOURCE["adam"] = f"{PKG}/csrc/adam.cu"
+SOURCE["adam"] = SOURCE["adam_bf16"] = f"{PKG}/csrc/adam.cu"
 
 FAILURES: list = []
 
@@ -101,24 +121,36 @@ LGAMMA_OPS = 34        # _lgamma_ge1: shift product, series, two logs
 LGDG_OPS = 56          # fused lgamma + digamma: + 8 reciprocals, psi series
 
 
-def fwd_ops_per_bin(P: int, sparse: bool) -> int:
+def binary_adds(P: int) -> tuple:
+    """(expansion, fold) adds per bin of the binary encoding: each state
+    logit sums its set bits' planes (one add fewer than its bits), and
+    the backward adds each state's dpi to each of its bits' dz."""
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import state_codes
+    codes = state_codes(P)
+    bits = sum(len(c) for c in codes)
+    return bits - sum(1 for c in codes if c), bits
+
+
+def fwd_ops_per_bin(P: int, sparse: bool, binary: bool = False) -> int:
     from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
     nonzero = len(chi_slots(P)) - 1
     softmax = (P - 1) + 3 * P + 2 + P
     data = (4 if sparse else 3) * P
     slots = nonzero * (3 + 2 * LGAMMA_OPS + 4) + 1
     pairs = 2 * P * 8
-    return 2 + softmax + data + (1 + LGAMMA_OPS) + slots + pairs + 6
+    expand = binary_adds(P)[0] if binary else 0
+    return 2 + softmax + data + (1 + LGAMMA_OPS) + slots + pairs + 6 + expand
 
 
-def bwd_ops_per_bin(P: int, sparse: bool) -> int:
+def bwd_ops_per_bin(P: int, sparse: bool, binary: bool = False) -> int:
     from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
     nonzero = len(chi_slots(P)) - 1
     softmax = (P - 1) + 3 * P + 2 + P
     init = (1 + 3 * P) if sparse else 3 * P
     slots = nonzero * (4 + 2 * LGDG_OPS + 10) + (2 + LGAMMA_OPS)
     pairs = 2 * P * 11
-    return 5 + softmax + init + slots + pairs + 3 * P
+    extra = sum(binary_adds(P)) if binary else 0
+    return 5 + softmax + init + slots + pairs + 3 * P + extra
 
 
 def transcendentals_per_bin(P: int, backward: bool) -> int:
@@ -134,7 +166,7 @@ def transcendentals_per_bin(P: int, backward: bool) -> int:
     return common + (P if backward else 1)
 
 
-ADAM_OPS = 14
+ADAM_OPS = 14        # bfloat16 moments add 4 conversions, not counted
 
 
 def bound(nbytes: int, ops: int) -> tuple:
@@ -231,17 +263,20 @@ def flat_prior(prior: dict) -> dict:
                 eta_w=torch.zeros_like(prior["eta_w"]))
 
 
-def fused_errors(args, prior, g, flat: bool) -> tuple:
+def fused_errors(args, prior, g, flat: bool, binary_P=None) -> tuple:
     """Kernel against plain version on one set of operands: forward and
     backward errors, each {part: (max abs, relative)}.  Both backwards
-    take the plain forward's lse, so each kernel is judged alone."""
+    take the plain forward's lse, so each kernel is judged alone.
+    ``binary_P``: args carry the Kb binary planes of P states."""
     import torch
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
-    out_k, lse_k = ek.fused_fwd(*args, **prior)
-    out_p, lse_p = ek.fused_fwd_plain(*args, **prior)
+    kw = dict(prior, binary_P=binary_P)
+    out_k, lse_k = ek.fused_fwd(*args, **kw)
+    out_p, lse_p = ek.fused_fwd_plain(*args, **kw)
     # out = lse + (x log lamb - lgamma(x + 1) + data term) and dpi =
-    # dlp - softmax * sum(dlp), whose dlp carry g times the prior weight:
-    # near a fitted optimum both cancel terms of those sizes
+    # dlp - softmax * sum(dlp), whose dlp carry g times the prior weight
+    # (dz sums such dpi): near a fitted optimum both cancel terms of
+    # those sizes
     out_scale = max(amax(lse_p), amax(out_p - lse_p))
     weight = prior["etas_t"] - 1.0 if "etas_t" in prior else prior["eta_w"]
     dpi_scale = amax(g) * amax(weight)
@@ -249,8 +284,8 @@ def fused_errors(args, prior, g, flat: bool) -> tuple:
            "lse": rel_err(lse_k, lse_p)}
     if flat:
         fwd["hoisted"] = elementwise_err(out_k - lse_k, out_p - lse_p)
-    got = ek.fused_bwd(*args, lse_p, g, **prior)
-    ref = ek.fused_bwd_plain(*args, lse_p, g, **prior)
+    got = ek.fused_bwd(*args, lse_p, g, **kw)
+    ref = ek.fused_bwd_plain(*args, lse_p, g, **kw)
     torch.cuda.synchronize()
     bwd = {"dmu": rel_err(got[0], ref[0]), "dphi": rel_err(got[1], ref[1]),
            "dpi": rel_err(got[2], ref[2], dpi_scale)}
@@ -266,45 +301,83 @@ def report(results, name, errs, tol, label) -> None:
                                max(e[0] for e in errs.values()))
 
 
-def check_fused(results, args, prior, g, sparse, label) -> None:
+def kernel_name(kind: str, sparse: bool, binary_P=None) -> str:
+    name = f"fused_{kind}_{'sparse' if sparse else 'dense'}"
+    return name if binary_P is None else name + "_binary"
+
+
+def check_fused(results, args, prior, g, sparse, label, binary_P=None):
     """Both fused kernels of one encoding on one set of operands, with
     the prior as given (``TOL``) and with its data term removed
     (``TOL_FLAT``)."""
-    kind = "sparse" if sparse else "dense"
     for flat in (False, True):
         fwd, bwd = fused_errors(args, flat_prior(prior) if flat else prior,
-                                g, flat)
+                                g, flat, binary_P)
         tol, tag = (TOL_FLAT, "flat prior") if flat else (TOL, "prior")
-        report(results, f"fused_fwd_{kind}", fwd, tol, f"{label}, {tag}")
-        report(results, f"fused_bwd_{kind}", bwd, tol, f"{label}, {tag}")
+        for kind, errs in (("fwd", fwd), ("bwd", bwd)):
+            report(results, kernel_name(kind, sparse, binary_P), errs, tol,
+                   f"{label}, {tag}")
 
 
-def check_adam(results, args, label) -> tuple:
+def bf16_ulps(a, b):
+    """Per-element distance of two bfloat16 tensors in bfloat16 ulps
+    (steps between adjacent representable values; +0 and -0 one
+    point)."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_adam(results, args, label, moment_dtype="float32") -> tuple:
+    """One Adam sweep, kernel against plain version: param', m', v' to
+    ``TOL``, or, with bfloat16 moments, m' and v' to ``BF16_ULPS`` per
+    element (the count of elements apart is printed)."""
     from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
-    got = ak.adam_update(*args)
+    got = ak.adam_update(*args, moment_dtype)
     ref = ak.adam_update_plain(*args)
-    errs = {part: rel_err(a, b) for part, a, b in
-            zip(("param", "m", "v"), got, ref)}
-    report(results, "adam", errs, TOL, label)
+    if moment_dtype == "float32":
+        errs = {part: rel_err(a, b) for part, a, b in
+                zip(("param", "m", "v"), got, ref)}
+        report(results, "adam", errs, TOL, label)
+        return got
+    report(results, "adam_bf16", {"param": rel_err(got[0], ref[0])}, TOL,
+           label)
+    entry = results["adam_bf16"]
+    for part, a, b in zip(("m", "v"), got[1:], ref[1:]):
+        ulps = bf16_ulps(a, b)
+        worst, apart = int(ulps.max()), int((ulps > 0).sum())
+        abs_e = amax(a.float() - b.float())
+        check(worst <= BF16_ULPS and a.dtype == b.dtype,
+              f"adam_bf16 {label} {part}: {worst} bfloat16 ulp(s) at most "
+              f"<= {BF16_ULPS}, {apart} of {ulps.numel()} elements apart, "
+              f"max abs err {abs_e:.3e}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], abs_e)
+        entry.setdefault("elements_apart", {})[f"{label} {part}"] = apart
     return got
 
 
-def time_fused(results, args, prior, g, sparse) -> None:
+def time_fused(results, args, prior, g, sparse, binary_P=None) -> None:
     """Kernel, plain version and bound of both fused kernels of one
     encoding at the full-width shape."""
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
-    kind = "sparse" if sparse else "dense"
-    _, lse = ek.fused_fwd_plain(*args, **prior)
+    kw = dict(prior, binary_P=binary_P)
+    _, lse = ek.fused_fwd_plain(*args, **kw)
     bargs = args + (lse, g)
     n_bins = args[0].numel()
-    for name, fk, fp, ins, ops, bwd in (
-            (f"fused_fwd_{kind}", lambda: ek.fused_fwd(*args, **prior),
-             lambda: ek.fused_fwd_plain(*args, **prior),
-             args + tuple(prior.values()), fwd_ops_per_bin(P, sparse), False),
-            (f"fused_bwd_{kind}", lambda: ek.fused_bwd(*bargs, **prior),
-             lambda: ek.fused_bwd_plain(*bargs, **prior),
-             bargs + tuple(prior.values()), bwd_ops_per_bin(P, sparse),
+    binary = binary_P is not None
+    for kind, fk, fp, ins, ops, bwd in (
+            ("fwd", lambda: ek.fused_fwd(*args, **kw),
+             lambda: ek.fused_fwd_plain(*args, **kw),
+             args + tuple(prior.values()), fwd_ops_per_bin(P, sparse, binary),
+             False),
+            ("bwd", lambda: ek.fused_bwd(*bargs, **kw),
+             lambda: ek.fused_bwd_plain(*bargs, **kw),
+             bargs + tuple(prior.values()), bwd_ops_per_bin(P, sparse, binary),
              True)):
+        name = kernel_name(kind, sparse, binary_P)
         moved = nbytes(*ins, *fk())
         b_ms, b_by = bound(moved, ops * n_bins)
         k_ms = time_ms(fk)
@@ -318,6 +391,50 @@ def time_fused(results, args, prior, g, sparse) -> None:
               f"float32 operations, {entry['transcendentals']} exp/log")
 
 
+def time_adam(results, aargs, moment_dtype, dev) -> None:
+    """Kernel, plain version, bound and PyTorch's fused Adam (on copies
+    of the same tensors; used nowhere in the port) of one Adam sweep."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    name = "adam" if moment_dtype == "float32" else "adam_bf16"
+    param, grad, m, v = aargs[:4]
+    got = ak.adam_update(*aargs, moment_dtype)
+    n = param.numel()
+    moved = nbytes(param, grad, m, v) + nbytes(*got)
+    del got
+    b_ms, b_by = bound(moved, ADAM_OPS * n)
+    k_ms = time_ms(lambda: ak.adam_update(*aargs, moment_dtype))
+    p_ms = time_ms(lambda: ak.adam_update_plain(*aargs))
+    lp, lm, lv = param.clone(), m.clone(), v.clone()
+    step = [torch.tensor(7.0, device=dev)]
+
+    def lib():
+        torch._fused_adam_([lp], [grad], [lm], [lv], [], step, lr=0.05,
+                           beta1=0.8, beta2=0.99, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+    l_ms, l_note = None, "torch._fused_adam_"
+    if moment_dtype == "float32":
+        l_ms = time_ms(lib)
+    else:
+        # the yardstick call may refuse float32 parameters with bfloat16
+        # moments; its refusal is recorded, not a failure of the port
+        try:
+            lib()
+            torch.cuda.synchronize()
+            l_ms = time_ms(lib)
+        except RuntimeError as exc:
+            l_note = f"torch._fused_adam_ refused: {str(exc)[:120]}"
+    results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=l_ms, library=l_note,
+                         bytes=moved, ops=ADAM_OPS * n,
+                         shape=list(param.shape))
+    lib_s = f"{l_ms:.4f} ms" if l_ms is not None else l_note
+    print(f"  {name} {tuple(param.shape)}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms ({b_by}); "
+          f"{moved} bytes")
+    del lp, lm, lv
+
+
 def compare_kernels(dev, record):
     import torch
     from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
@@ -328,52 +445,44 @@ def compare_kernels(dev, record):
     for shape in [(CELLS, LOCI), RAGGED]:
         gen.manual_seed(SEED)
         x = kernel_inputs(*shape, gen, dev)
-        args = (x["reads"], x["mu"], x["pi_t"], x["phi"],
-                ek.scalars(x["lamb"]))
+        scal = ek.scalars(x["lamb"])
+        z_t = 2.0 * torch.randn((KB,) + shape, generator=gen, device=dev)
         full = shape == (CELLS, LOCI)
         label = f"{shape[0]}x{shape[1]}"
-        print(f"[kernels] shape cells x loci = {label}, P = {P}")
-        for sparse in (False, True):
-            prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
-                else dict(etas_t=x["etas_t"])
-            check_fused(results, args, prior, x["g"], sparse, label)
-            if full:
-                time_fused(results, args, prior, x["g"], sparse)
+        print(f"[kernels] shape cells x loci = {label}, P = {P}, Kb = {KB}")
+        for binary_P in (None, P):
+            args = (x["reads"], x["mu"], x["pi_t"] if binary_P is None
+                    else z_t, x["phi"], scal)
+            for sparse in (False, True):
+                prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
+                    else dict(etas_t=x["etas_t"])
+                check_fused(results, args, prior, x["g"], sparse, label,
+                            binary_P)
+                if full:
+                    time_fused(results, args, prior, x["g"], sparse,
+                               binary_P)
+            torch.cuda.empty_cache()
+        del x, z_t, args
         torch.cuda.empty_cache()
 
-        # Adam on a pi-shaped (P, cells, loci) parameter at step 7
-        param = torch.randn((P,) + shape, generator=gen, device=dev)
-        grad = torch.randn((P,) + shape, generator=gen, device=dev)
-        m = 0.1 * torch.randn((P,) + shape, generator=gen, device=dev)
-        v = 0.1 * torch.rand((P,) + shape, generator=gen, device=dev)
-        ascal = ak.adam_scalars(0.05, torch.tensor(7, dtype=torch.int32,
-                                                   device=dev), 0.8, 0.99)
-        aargs = (param, grad, m, v, ascal, 0.8, 0.99)
-        got = check_adam(results, aargs, label)
-        if full:
-            n = param.numel()
-            moved = nbytes(param, grad, m, v) + nbytes(*got)
-            b_ms, b_by = bound(moved, ADAM_OPS * n)
-            k_ms = time_ms(lambda: ak.adam_update(*aargs))
-            p_ms = time_ms(lambda: ak.adam_update_plain(*aargs))
-            # yardstick: PyTorch's fused Adam on copies of the same
-            # tensors (used nowhere in the port)
-            lp, lm, lv = param.clone(), m.clone(), v.clone()
-            step = [torch.tensor(7.0, device=dev)]
-            lib = lambda: torch._fused_adam_(  # noqa: E731
-                [lp], [grad], [lm], [lv], [], step, lr=0.05, beta1=0.8,
-                beta2=0.99, weight_decay=0.0, eps=1e-8, amsgrad=False,
-                maximize=False)
-            l_ms = time_ms(lib)
-            results["adam"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=l_ms,
-                                   bytes=moved, ops=ADAM_OPS * n)
-            print(f"  adam: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"torch._fused_adam_ {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})")
-            del lp, lm, lv
-        del param, grad, m, v, got, x, args
-        torch.cuda.empty_cache()
+        # Adam at step 7: float32 moments on a (P, cells, loci) parameter,
+        # bfloat16 moments on the (Kb, cells, loci) binary one
+        for planes, mdt in ((P, "float32"), (KB, "bfloat16")):
+            pshape = (planes,) + shape
+            param = torch.randn(pshape, generator=gen, device=dev)
+            grad = torch.randn(pshape, generator=gen, device=dev)
+            m = (0.1 * torch.randn(pshape, generator=gen, device=dev)) \
+                .to(ak.moment_torch_dtype(mdt))
+            v = (0.1 * torch.rand(pshape, generator=gen, device=dev)) \
+                .to(ak.moment_torch_dtype(mdt))
+            ascal = ak.adam_scalars(0.05, torch.tensor(
+                7, dtype=torch.int32, device=dev), 0.8, 0.99)
+            aargs = (param, grad, m, v, ascal, 0.8, 0.99)
+            check_adam(results, aargs, f"{planes}x{label}", mdt)
+            if full:
+                time_adam(results, aargs, mdt, dev)
+            del param, grad, m, v, aargs
+            torch.cuda.empty_cache()
     record["kernels"] = results
     return results
 
@@ -397,8 +506,13 @@ class LaunchOperands:
             self.originals.append((mod, attr, orig))
 
             def keep(*a, _orig=orig, _attr=attr, **kw):
-                kind = "" if _attr != "fused_bwd" else \
-                    "dense" if kw.get("etas_t") is not None else "sparse"
+                if _attr == "fused_bwd":
+                    kind = "dense" if kw.get("etas_t") is not None \
+                        else "sparse"
+                    if kw.get("binary_P") is not None:
+                        kind += "_binary"
+                else:
+                    kind = a[7] if len(a) > 7 else "float32"
                 self.calls[(_attr, kind, tuple(a[0].shape))] = (a, kw)
                 return _orig(*a, **kw)
             setattr(mod, attr, keep)
@@ -410,7 +524,7 @@ class LaunchOperands:
         return False
 
 
-def check_main_path_shapes(dev, scrt, results) -> None:
+def check_main_path_shapes(dev, scrt, results, path: str) -> None:
     """Every kernel against its plain version at the shapes that the main
     path gave it and on its values: one more iteration of each step's fit
     from the step's fitted parameters, through the same entry points,
@@ -420,23 +534,26 @@ def check_main_path_shapes(dev, scrt, results) -> None:
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
     from scdna_replication_tools_tpu_torch.infer.svi import fit_map
 
-    print("[kernels] on the operands of each step of the main path, from "
+    mdt = scrt.config.optimizer_state_dtype
+    print(f"[kernels] on the operands of each step of the {path} path, from "
           "its fitted parameters")
     for name, step in zip(("step1", "step2", "step3"), scrt.steps):
         with LaunchOperands() as operands:
             fit_map(_PertLossFn(step.spec), step.fit.params,
                     (step.fixed, step.batch), max_iter=1, min_iter=1,
-                    device=dev)
+                    device=dev, moment_dtype=mdt)
         for (attr, kind, shape), (a, kw) in sorted(operands.calls.items()):
-            label = f"{name} {'x'.join(map(str, shape))}"
+            label = f"{path} {name} {'x'.join(map(str, shape))}"
             a = tuple(t.detach() if torch.is_tensor(t) else t for t in a)
-            kw = {k: t.detach() for k, t in kw.items() if t is not None}
+            kw = {k: t.detach() if torch.is_tensor(t) else t
+                  for k, t in kw.items() if t is not None}
             with torch.no_grad():
                 if attr == "fused_bwd":
-                    check_fused(results, a[:5], kw, a[6], kind == "sparse",
-                                label)
+                    binary_P = kw.pop("binary_P", None)
+                    check_fused(results, a[:5], kw, a[6],
+                                kind.startswith("sparse"), label, binary_P)
                 else:
-                    check_adam(results, a, label)
+                    check_adam(results, a[:7], label, kind)
         del operands
         torch.cuda.empty_cache()
 
@@ -541,24 +658,36 @@ def simulate_frames(seed: int = SEED, num_reads: float = 1e6,
     return cells(CELLS, "s"), cells(G1_CELLS, "g")
 
 
-def main_path(dev, record):
+CATEGORICAL = ("fused_fwd_dense", "fused_bwd_dense", "fused_fwd_sparse",
+               "fused_bwd_sparse", "adam")
+BINARY = ("fused_fwd_dense_binary", "fused_bwd_dense_binary",
+          "fused_fwd_sparse_binary", "fused_bwd_sparse_binary", "adam_bf16")
+PATHS = {
+    # path -> (extra scRT options, the kernels its main path launches)
+    "categorical": ({}, CATEGORICAL),
+    "binary": (dict(enum_impl="binary", optimizer_state_dtype="bfloat16"),
+               BINARY),
+}
+
+
+def main_path(dev, record, frames, path: str, reference=None):
+    """``scRT(...).infer('pert')`` of one path on the simulated frames:
+    launch counts against iteration counts, times, peak memory and the
+    recovery bars (the binary path also against the categorical run's
+    ``reference`` figures)."""
     import torch
     from scdna_replication_tools_tpu_torch import scRT
     from scdna_replication_tools_tpu_torch.ops import _cuda
 
-    t0 = time.perf_counter()
-    cn_s, cn_g1 = simulate_frames()
-    sim_s = time.perf_counter() - t0
-    print(f"[main] simulated {CELLS} S + {G1_CELLS} G1 cells x {LOCI} loci, "
-          f"{CLONES} clones ({len(cn_s) + len(cn_g1)} long-form rows) in "
-          f"{sim_s:.1f} s; depth cut: max_iter={MAX_ITER} "
-          f"(steps 1 and 3: {MAX_ITER // 2}), min_iter=100")
-    scrt = scRT(cn_s, cn_g1, input_col="reads", clone_col="clone_id",
-                assign_col="copy", cn_prior_method="g1_composite",
-                max_iter=MAX_ITER, min_iter=100, rt_prior_col=None,
-                controller=False, qc=False, mirror_rescue=False,
-                telemetry_path=None)
-    check(scrt.device.type == "cuda", f"scRT runs on {scrt.device}")
+    options, kernels = PATHS[path]
+    cn_s, cn_g1 = frames
+    scrt = scRT(cn_s.copy(), cn_g1.copy(), input_col="reads",
+                clone_col="clone_id", assign_col="copy",
+                cn_prior_method="g1_composite", max_iter=MAX_ITER,
+                min_iter=100, rt_prior_col=None, controller=False, qc=False,
+                mirror_rescue=False, telemetry_path=None, **options)
+    tag = f"[main {path}]"
+    check(scrt.device.type == "cuda", f"{path}: scRT runs on {scrt.device}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -570,36 +699,43 @@ def main_path(dev, record):
     peak = torch.cuda.max_memory_allocated()
     step1, step2, step3 = scrt.steps
     iters = [s.fit.num_iters for s in (step1, step2, step3)]
-    print(f"[main] infer('pert') wall {wall:.2f} s; phases "
+    print(f"{tag} {json.dumps(options) if options else 'default encoding'}: "
+          f"infer('pert') wall {wall:.2f} s; phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in scrt.phase_report.items()))
     for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
         f = st.fit
         print(f"  {name}: {f.num_iters} iterations, fit "
               f"{f.timings['fit']:.3f} s = {f.timings['ms_per_iter']:.3f} "
               f"ms/iteration, cells {int(st.batch.reads.shape[0])}, "
-              f"prior {'sparse' if st.spec.sparse_etas else 'dense'}, "
+              f"prior {'sparse' if st.spec.sparse_etas else 'dense'}, pi "
+              f"{'binary' if st.spec.binary_pi else 'categorical'}, "
               f"loss {f.losses[0]:.6g} -> {f.losses[-1]:.6g}")
     cells_per_s = CELLS * step2.fit.num_iters / step2.fit.timings["fit"]
     print(f"  step2: {cells_per_s:.1f} cells/s (cell-iterations per second)")
-    print(f"  peak device memory {peak / 2**30:.3f} GiB")
+    print(f"  peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)")
     print(f"  launches {json.dumps(launches)}")
 
     check(not step2.spec.sparse_etas and step3.spec.sparse_etas,
-          "step 2 fits the dense composite prior, step 3 the sparse one")
-    check(launches["fused_fwd_dense"] == iters[1]
-          and launches["fused_bwd_dense"] == iters[1],
-          f"dense fwd/bwd launched once per step-2 iteration ({iters[1]})")
-    check(launches["fused_fwd_sparse"] == iters[2]
-          and launches["fused_bwd_sparse"] == iters[2],
-          f"sparse fwd/bwd launched once per step-3 iteration ({iters[2]})")
-    check(launches["adam"] == sum(iters),
-          f"Adam launched once per iteration of every step ({sum(iters)})")
-    check(all(v > 0 for v in launches.values()), "every kernel launched")
+          f"{path}: step 2 fits the dense composite prior, step 3 the "
+          "sparse one")
+    fwd_d, bwd_d, fwd_s, bwd_s, adam = kernels
+    check(launches[fwd_d] == iters[1] and launches[bwd_d] == iters[1],
+          f"{path}: {fwd_d}/{bwd_d} launched once per step-2 iteration "
+          f"({iters[1]})")
+    check(launches[fwd_s] == iters[2] and launches[bwd_s] == iters[2],
+          f"{path}: {fwd_s}/{bwd_s} launched once per step-3 iteration "
+          f"({iters[2]})")
+    check(launches[adam] == sum(iters),
+          f"{path}: {adam} launched once per iteration of every step "
+          f"({sum(iters)})")
+    check(all(launches[k] > 0 for k in kernels)
+          and not any(v for k, v in launches.items() if k not in kernels),
+          f"{path}: every kernel of the path launched, no other kernel")
     for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
         losses = st.fit.losses
         check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
               and not st.fit.nan_abort,
-              f"{name} losses finite and falling")
+              f"{path}: {name} losses finite and falling")
 
     rep_acc = float((out_s["model_rep_state"] == out_s["true_rep"]).mean())
     cn_acc = float((out_s["model_cn_state"]
@@ -609,16 +745,25 @@ def main_path(dev, record):
     tau_r = float(np.corrcoef(per_cell["tau"], per_cell["true_t"])[0, 1])
     lamb = float(supp_s.query("param == 'model_lambda'")["value"].iloc[0])
     check(len(out_s) == CELLS * LOCI and len(out_g1) == G1_CELLS * LOCI,
-          f"output frames cover every bin ({len(out_s)} S, {len(out_g1)} "
-          "G1 rows)")
-    check(rep_acc > 0.80, f"rep-state accuracy {rep_acc:.4f} > 0.80")
-    check(cn_acc > 0.90, f"CN accuracy {cn_acc:.4f} > 0.90")
-    check(tau_r > 0.8, f"tau correlation {tau_r:.4f} > 0.8")
-    check(0.5 < lamb < 0.95, f"lambda {lamb:.4f} in (0.5, 0.95)")
-    record["main"] = {
-        "cells_s": CELLS, "cells_g1": G1_CELLS, "loci": LOCI, "P": P,
-        "clones": CLONES, "max_iter": MAX_ITER, "iters": iters,
-        "wall_s": wall, "simulate_s": sim_s, "phases_s": scrt.phase_report,
+          f"{path}: output frames cover every bin ({len(out_s)} S, "
+          f"{len(out_g1)} G1 rows)")
+    check(rep_acc > 0.80, f"{path}: rep-state accuracy {rep_acc:.4f} > 0.80")
+    check(cn_acc > 0.90, f"{path}: CN accuracy {cn_acc:.4f} > 0.90")
+    check(tau_r > 0.8, f"{path}: tau correlation {tau_r:.4f} > 0.8")
+    check(0.5 < lamb < 0.95, f"{path}: lambda {lamb:.4f} in (0.5, 0.95)")
+    if reference is not None:
+        # the JAX package's own bars for the binary encoding against the
+        # categorical one (tests/test_binary_encoding.py:445-464)
+        check(tau_r >= 0.99 * reference["tau_r"],
+              f"{path}: tau correlation {tau_r:.4f} >= 0.99 x categorical "
+              f"{reference['tau_r']:.4f}")
+        check(cn_acc >= reference["cn_acc"] - 0.02,
+              f"{path}: CN accuracy {cn_acc:.4f} >= categorical "
+              f"{reference['cn_acc']:.4f} - 0.02")
+    record[f"main_{path}"] = {
+        "options": options, "cells_s": CELLS, "cells_g1": G1_CELLS,
+        "loci": LOCI, "P": P, "clones": CLONES, "max_iter": MAX_ITER,
+        "iters": iters, "wall_s": wall, "phases_s": scrt.phase_report,
         "ms_per_iter": [s.fit.timings["ms_per_iter"]
                         for s in (step1, step2, step3)],
         "step2_cells_per_s": cells_per_s, "peak_bytes": peak,
@@ -642,11 +787,12 @@ def _short(kernel: str) -> str:
     return kernel[:100]
 
 
-def profile_steps(dev, scrt, record):
-    """Device time by kernel over a window of iterations of each step,
-    from torch.profiler, against the same window's unprofiled wall: the
-    idle share is the part of an iteration in which the card runs
-    nothing (Python dispatch and the per-iteration loss read).  Each
+def profile_steps(dev, scrt, record, path: str,
+                  steps=("step1", "step2", "step3")):
+    """Device time by kernel over a window of iterations of each of
+    ``steps``, from torch.profiler, against the same window's unprofiled
+    wall: the idle share is the part of an iteration in which the card
+    runs nothing (Python dispatch and the per-iteration loss read).  Each
     window is a fresh fit from the step's fitted parameters."""
     import torch
     from torch.autograd import DeviceType
@@ -655,12 +801,17 @@ def profile_steps(dev, scrt, record):
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
     from scdna_replication_tools_tpu_torch.infer.svi import fit_map
 
-    record["profile"] = {}
+    mdt = scrt.config.optimizer_state_dtype
+    prof_record = record.setdefault("profile", {})
     for name, step in zip(("step1", "step2", "step3"), scrt.steps):
+        if name not in steps:
+            continue
+
         def window():
             return fit_map(_PertLossFn(step.spec), step.fit.params,
                            (step.fixed, step.batch), max_iter=PROFILE_ITERS,
-                           min_iter=PROFILE_ITERS, device=dev)
+                           min_iter=PROFILE_ITERS, device=dev,
+                           moment_dtype=mdt)
 
         window()                              # warm the allocator
         wall_ms = window().timings["ms_per_iter"]
@@ -677,15 +828,16 @@ def profile_steps(dev, scrt, record):
             key = _short(ev.key)
             by_name[key] = by_name.get(key, 0.0) + us / 1e3 / PROFILE_ITERS
         busy = sum(by_name.values())
+        key = f"{path} {name}"
         if busy == 0.0:
-            print(f"[profile] {name}: torch.profiler saw no device time; "
+            print(f"[profile] {key}: torch.profiler saw no device time; "
                   "device busy and idle share not measured")
-            record["profile"][name] = {"wall_ms_per_iter": wall_ms,
-                                       "busy_ms_per_iter": None}
+            prof_record[key] = {"wall_ms_per_iter": wall_ms,
+                                "busy_ms_per_iter": None}
             continue
         port = sum(v for k, v in by_name.items()
                    if any(p in k for p in PORT_KERNELS))
-        print(f"[profile] {name}, {PROFILE_ITERS} iterations: unprofiled "
+        print(f"[profile] {key}, {PROFILE_ITERS} iterations: unprofiled "
               f"{wall_ms:.3f} ms/iteration; device busy {busy:.3f} "
               f"ms/iteration (idle share {1.0 - busy / wall_ms:.3f}); the "
               f"port's kernels {port:.3f} ms, PyTorch's {busy - port:.3f} ms "
@@ -693,7 +845,7 @@ def profile_steps(dev, scrt, record):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])
         for kernel, ms in top[:10]:
             print(f"  {ms:8.4f} ms/iteration {ms / busy:6.1%}  {kernel}")
-        record["profile"][name] = {
+        prof_record[key] = {
             "iters": PROFILE_ITERS, "wall_ms_per_iter": wall_ms,
             "busy_ms_per_iter": busy, "idle_share": 1.0 - busy / wall_ms,
             "port_kernels_ms_per_iter": port,
@@ -738,9 +890,31 @@ def main() -> int:
     record["build_s"] = build_s
 
     results = compare_kernels(dev, record)
-    launches, scrt = main_path(dev, record)
-    check_main_path_shapes(dev, scrt, results)
-    profile_steps(dev, scrt, record)
+
+    t0 = time.perf_counter()
+    frames = simulate_frames()
+    print(f"[main] simulated {CELLS} S + {G1_CELLS} G1 cells x {LOCI} loci, "
+          f"{CLONES} clones ({sum(len(f) for f in frames)} long-form rows) "
+          f"in {time.perf_counter() - t0:.1f} s; depth cut: "
+          f"max_iter={MAX_ITER} (steps 1 and 3: {MAX_ITER // 2}), "
+          "min_iter=100")
+    launches = {}
+    cat_launches, scrt = main_path(dev, record, frames, "categorical")
+    check_main_path_shapes(dev, scrt, results, "categorical")
+    profile_steps(dev, scrt, record, "categorical")
+    reference = record["main_categorical"]
+    launches.update({k: cat_launches[k] for k in CATEGORICAL})
+    # the categorical run's device state goes before the binary run, so
+    # that the binary path's peak memory is its own
+    del scrt
+    torch.cuda.empty_cache()
+
+    bin_launches, scrt = main_path(dev, record, frames, "binary", reference)
+    check_main_path_shapes(dev, scrt, results, "binary")
+    profile_steps(dev, scrt, record, "binary", steps=("step2", "step3"))
+    launches.update({k: bin_launches[k] for k in BINARY})
+    del scrt
+    torch.cuda.empty_cache()
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCE[name],

@@ -60,11 +60,6 @@ def _unported(options: dict) -> None:
          "A8 (durable runs)"),
         ("watchdog_chunk_seconds", options["watchdog_chunk_seconds"] is not None,
          "A8 (durable runs)"),
-        ("enum_impl", str(options["enum_impl"]).startswith("binary"),
-         "B4 (the binary variants of the fused kernels)"),
-        ("optimizer_state_dtype",
-         options["optimizer_state_dtype"] != "float32",
-         "B6 (bf16 moments of the fused Adam kernel)"),
         ("cell_chunk", options["cell_chunk"] is not None,
          "A9 (encodings and options: cell_chunk)"),
         ("cn_hmm_self_prob", options["cn_hmm_self_prob"] is not None,
@@ -84,11 +79,6 @@ def _unported(options: dict) -> None:
                 "reference-faithful value (controller=False, qc=False, "
                 "mirror_rescue=False, telemetry_path=None) or use "
                 "scdna_replication_tools_tpu")
-    if options["enum_impl"] != "auto":
-        raise ValueError(f"enum_impl={options['enum_impl']!r}: the port has "
-                         "one categorical implementation, 'auto' (the CUDA "
-                         "kernels on the GPU, their plain versions on the "
-                         "CPU)")
     if options["fused_adam"] != "auto":
         raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
                          "has one Adam path, 'auto' (the CUDA kernel on the "
@@ -148,10 +138,9 @@ class scRT:
             heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
             faults=faults, watchdog_compile_seconds=watchdog_compile_seconds,
             watchdog_chunk_seconds=watchdog_chunk_seconds,
-            enum_impl=enum_impl, fused_adam=fused_adam,
-            optimizer_state_dtype=optimizer_state_dtype,
-            cell_chunk=cell_chunk, cn_hmm_self_prob=cn_hmm_self_prob,
-            num_shards=num_shards, loci_shards=loci_shards,
+            fused_adam=fused_adam, cell_chunk=cell_chunk,
+            cn_hmm_self_prob=cn_hmm_self_prob, num_shards=num_shards,
+            loci_shards=loci_shards,
             executable_cache_dir=executable_cache_dir, clone_col=clone_col))
         self.device = resolve_device(device)
         self.cn_s = cn_s
@@ -174,6 +163,7 @@ class scRT:
             min_iter_step1=min_iter_step1, max_iter_step3=max_iter_step3,
             min_iter_step3=min_iter_step3, run_step3=run_step3,
             pad_cells_to=pad_cells_to, pad_loci_to=pad_loci_to,
+            enum_impl=enum_impl, optimizer_state_dtype=optimizer_state_dtype,
         )
         self.clone_profiles = None
         # {stage: wall seconds} of the last infer(level='pert')

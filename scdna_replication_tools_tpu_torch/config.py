@@ -3,9 +3,8 @@
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit reads.  The
 JAX config's other knobs (controller, QC, mirror rescue, telemetry,
-sharding, checkpoints, the binary encoding, bf16 moments, cell chunking)
-belong to modules not yet ported; ``api.scRT`` refuses them by name
-instead of carrying dead fields here.
+sharding, checkpoints, cell chunking) belong to modules not yet ported;
+``api.scRT`` refuses them by name instead of carrying dead fields here.
 """
 
 from __future__ import annotations
@@ -74,6 +73,30 @@ class PertConfig:
     # compact one-hot CN priors to (eta_idx, eta_w) planes (the sparse
     # kernel); the composite prior always stays dense
     sparse_etas: bool = True
+    # pi encoding of steps 2 and 3: 'auto' (categorical, P planes) or
+    # 'binary' (the independent-binary encoding, Kb = ceil(log2 P)
+    # planes, arXiv 2206.00093); the JAX config's backend-specific values
+    # ('pallas', 'binary_xla', ...) have no meaning here
+    enum_impl: str = "auto"
+    # stored dtype of the pi parameter's Adam moments: 'float32' or
+    # 'bfloat16' (the arithmetic stays float32)
+    optimizer_state_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.enum_impl not in ("auto", "binary"):
+            raise ValueError(
+                f"enum_impl={self.enum_impl!r}: the port takes 'auto' "
+                "(categorical) or 'binary' (the independent-binary "
+                "encoding), each through the CUDA kernels on the GPU and "
+                "their plain versions on the CPU")
+        if self.optimizer_state_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"optimizer_state_dtype={self.optimizer_state_dtype!r}: "
+                "expected 'float32' or 'bfloat16'")
+
+    @property
+    def binary_pi(self) -> bool:
+        return self.enum_impl == "binary"
 
     def resolved_iters(self) -> dict:
         """Step 1/3 budgets default to half of step 2's

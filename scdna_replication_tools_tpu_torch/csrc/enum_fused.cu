@@ -1,8 +1,9 @@
 // Fused PERT enumeration kernels for Hopper (sm_90a), forward and backward.
 //
 // Replaces the TPU kernels _fused_fwd_kernel / _fused_bwd_kernel of
-// scdna_replication_tools_tpu/ops/enum_kernel.py (:547, :608), dense
-// (pallas_call :741, :766) and sparse (:856, :881) configurations.
+// scdna_replication_tools_tpu/ops/enum_kernel.py (:547, :608) in all four
+// configurations: dense (pallas_call :741, :766), sparse (:856, :881),
+// dense binary (:976, :1002) and sparse binary (:1073, :1100).
 //
 // Per (cell, locus) bin, with pi_t the state-major (P, cells, loci) logits:
 //   lp_s  = log_softmax(pi_t[:, bin])_s
@@ -11,23 +12,30 @@
 //   out   = lse + x log(lamb) - lgamma(x + 1) + sum_s (etas_s - 1) lp_s
 // (sparse: the data term is ew * lp_{eidx}).  The backward recomputes the
 // state terms from the inputs and the saved enumeration-only lse and emits
-// dmu, dphi and dpi_s = dlp_s - softmax_s * sum_s' dlp_s'.
+// dmu, dphi and dpi_s = dlp_s - softmax_s * sum_s' dlp_s'.  Binary
+// encoding (BINARY): pi_t holds Kb = ceil(log2 P) planes z_k, the logit of
+// state s is the sum of its set bits' planes in ascending bit order (state
+// 0 has logit 0), and the backward writes dz_k = sum_{s: bit_k(s)=1} dpi_s
+// (ascending s) instead of the P dpi planes.
 //
-// What bounds it on this card: each bin reads 3 + P (+ P dense | + 2
-// sparse) planes and writes 2 (forward) or 2 + P (backward) -- about
-// 0.2-0.3 ms of HBM traffic at 1000 x 5451 x 13 -- against ~19 NB cores of
-// two lgammas each (two more digammas backward) and ~40 exps, which is of
-// the same order on the SM's float32 and SFU pipes.  Design: one thread per
-// bin over the flattened (cells, loci) grid, so every state plane is read
-// coalesced along loci and nothing touches shared memory; the P logits,
-// the per-state accumulators and the NB values of the two-pass logsumexp
-// stay in registers (the TPU kernel kept 19 VMEM tiles resident instead);
-// the chi loop is unrolled at compile time over the same _chi_slots table
-// (each distinct total CN chi = s(1+r) evaluates its NB core once).  P is a
-// runtime argument up to MAXP; the unrolled loops are guarded by it.
-// lgamma and digamma use the TPU kernel's Stirling series (z >= 1 shifted
-// up by 8), so kernel, plain PyTorch version and JAX agree to float32
-// rounding rather than to two libraries' approximations.
+// What bounds it on this card: each bin reads 3 + Kp (+ P dense | + 2
+// sparse) planes and writes 2 (forward) or 2 + Kp (backward), Kp = P or
+// Kb -- 0.07-0.3 ms of HBM traffic at 1000 x 5451 x 13 -- against ~19 NB
+// cores of two lgammas each (two more digammas backward) and ~40 exps,
+// which is of the same order on the SM's float32 and SFU pipes; the
+// binary planes cut the bytes but not the operations, so the binary
+// kernels are bound by operations.  Design: one thread per bin over the
+// flattened (cells, loci) grid, so every plane is read coalesced along
+// loci and nothing touches shared memory; the P logits (expanded from the
+// Kb planes in registers under BINARY), the per-state accumulators, the
+// Kb dz accumulators and the NB values of the two-pass logsumexp stay in
+// registers (the TPU kernel kept 19 VMEM tiles resident instead); the chi
+// loop and the bit tables are unrolled at compile time (each distinct
+// total CN chi = s(1+r) evaluates its NB core once).  P is a runtime
+// argument up to MAXP; the unrolled loops are guarded by it.  lgamma and
+// digamma use the TPU kernel's Stirling series (z >= 1 shifted up by 8),
+// so kernel, plain PyTorch version and JAX agree to float32 rounding
+// rather than to two libraries' approximations.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -35,6 +43,7 @@
 namespace {
 
 constexpr int MAXP = 16;
+constexpr int MAXKB = 4;  // ceil(log2 MAXP) binary planes
 constexpr int MAXCHI = 2 * MAXP - 1;
 constexpr int THREADS = 256;
 
@@ -83,13 +92,36 @@ __device__ __forceinline__ void lgamma_digamma_ge1(float z, float& lg,
   psi = (z < 8.0f) ? p - shift_sum : p;
 }
 
-// log-softmax of the bin's P logits into lp[] (two passes: max, sum)
+// log-softmax of the bin's P states into lp[] (two passes: max, sum).  The
+// state logits are the P loaded planes, or (BINARY) each state's sum of
+// its set bits' z planes, ascending, with 0 for state 0.
+template <bool BINARY>
 __device__ __forceinline__ void log_softmax_bin(const float* __restrict__ pi,
                                                 int64_t i, int64_t n, int P,
                                                 float (&lp)[MAXP]) {
+  if (BINARY) {
+    float z[MAXKB] = {};
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s)
-    if (s < P) lp[s] = pi[s * n + i];
+    for (int k = 0; k < MAXKB; ++k)
+      if (k == 0 || (1 << k) < P) z[k] = pi[k * n + i];
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s) {
+      if (s >= P) continue;
+      float x = 0.0f;
+      bool first = true;
+#pragma unroll
+      for (int k = 0; k < MAXKB; ++k)
+        if ((s >> k) & 1) {
+          x = first ? z[k] : x + z[k];
+          first = false;
+        }
+      lp[s] = x;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) lp[s] = pi[s * n + i];
+  }
   float m = lp[0];
 #pragma unroll
   for (int s = 1; s < MAXP; ++s)
@@ -104,7 +136,7 @@ __device__ __forceinline__ void log_softmax_bin(const float* __restrict__ pi,
     if (s < P) lp[s] = lp[s] - log_z;
 }
 
-template <bool SPARSE>
+template <bool SPARSE, bool BINARY>
 __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
     const float* __restrict__ reads, const float* __restrict__ mu,
     const float* __restrict__ phi, const float* __restrict__ pi,
@@ -118,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
   const float bern0 = log1pf(-ph), bern1 = logf(ph);
 
   float lp[MAXP];
-  log_softmax_bin(pi, i, n, P, lp);
+  log_softmax_bin<BINARY>(pi, i, n, P, lp);
 
   // Dirichlet data term sum_s (etas_s - 1) * lp_s
   float lp_acc = 0.0f;
@@ -168,7 +200,7 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
   out[i] = lse + x * log_lamb - lgx1 + lp_acc;
 }
 
-template <bool SPARSE>
+template <bool SPARSE, bool BINARY>
 __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
     const float* __restrict__ reads, const float* __restrict__ mu,
     const float* __restrict__ phi, const float* __restrict__ pi,
@@ -186,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
   const float dbern0 = -1.0f / (1.0f - ph), dbern1 = 1.0f / ph;
 
   float lp[MAXP];
-  log_softmax_bin(pi, i, n, P, lp);
+  log_softmax_bin<BINARY>(pi, i, n, P, lp);
 
   // each dlog_pi slot starts at its Dirichlet term g * (etas_s - 1)
   float dlp[MAXP];
@@ -248,13 +280,63 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
   dmu_out[i] = dmu;
   dphi_out[i] = dphi;
   // softmax Jacobian: dpi_s = dlog_pi_s - softmax_s * sum_s' dlog_pi_s'
+  if (BINARY) {
+    // chained through x_s = sum_{k in bits(s)} z_k: the Kb planes
+    // accumulate in registers, in ascending s, and dpi never reaches HBM
+    float dz[MAXKB];
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s)
-    if (s < P) dpi_out[s * n + i] = dlp[s] - expf(lp[s]) * tot;
+    for (int k = 0; k < MAXKB; ++k) dz[k] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s) {
+      if (s >= P) continue;
+      const float dpi_s = dlp[s] - expf(lp[s]) * tot;
+#pragma unroll
+      for (int k = 0; k < MAXKB; ++k)
+        if ((s >> k) & 1) dz[k] = dz[k] + dpi_s;
+    }
+#pragma unroll
+    for (int k = 0; k < MAXKB; ++k)
+      if (k == 0 || (1 << k) < P) dpi_out[k * n + i] = dz[k];
+  } else {
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) dpi_out[s * n + i] = dlp[s] - expf(lp[s]) * tot;
+  }
 }
 
 inline unsigned int blocks_for(int64_t n) {
   return (unsigned int)((n + THREADS - 1) / THREADS);
+}
+
+// Kb = ceil(log2 P) for P >= 2, and 1 for P = 1
+inline int binary_width(int P) {
+  int kb = 1;
+  while ((1 << kb) < P) ++kb;
+  return kb;
+}
+
+template <bool SPARSE, bool BINARY>
+void launch_fwd(const float* reads, const float* mu, const float* phi,
+                const float* pi, const float* etas, const float* eidx,
+                const float* ew, const float* scal, float* out, float* lse,
+                int64_t n, int P, cudaStream_t st) {
+  fused_fwd_kernel<SPARSE, BINARY><<<blocks_for(n), THREADS, 0, st>>>(
+      reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
+}
+
+template <bool SPARSE, bool BINARY>
+void launch_bwd(const float* reads, const float* mu, const float* phi,
+                const float* pi, const float* etas, const float* eidx,
+                const float* ew, const float* scal, const float* lse,
+                const float* g, float* dmu, float* dphi, float* dpi,
+                int64_t n, int P, cudaStream_t st) {
+  fused_bwd_kernel<SPARSE, BINARY><<<blocks_for(n), THREADS, 0, st>>>(
+      reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
+      P);
+}
+
+inline bool refused(int P, int binary, long long n) {
+  return P < 1 || P > MAXP || n < 0 || (binary && binary_width(P) > MAXKB);
 }
 
 }  // namespace
@@ -265,39 +347,37 @@ const char* scrt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// pi: P planes, or Kb planes when binary != 0
 int scrt_fused_fwd(const float* reads, const float* mu, const float* phi,
                    const float* pi, const float* etas, const float* eidx,
                    const float* ew, const float* scal, float* out,
-                   float* lse, long long n, int P, int sparse,
+                   float* lse, long long n, int P, int sparse, int binary,
                    void* stream) {
-  if (P < 1 || P > MAXP || n < 0) return (int)cudaErrorInvalidValue;
+  if (refused(P, binary, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (sparse)
-    fused_fwd_kernel<true><<<blocks_for(n), THREADS, 0, st>>>(
-        reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
-  else
-    fused_fwd_kernel<false><<<blocks_for(n), THREADS, 0, st>>>(
-        reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
+  auto fn = sparse ? (binary ? launch_fwd<true, true> : launch_fwd<true, false>)
+                   : (binary ? launch_fwd<false, true>
+                             : launch_fwd<false, false>);
+  fn(reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P, st);
   return (int)cudaGetLastError();
 }
 
+// dpi: P planes, or Kb planes when binary != 0
 int scrt_fused_bwd(const float* reads, const float* mu, const float* phi,
                    const float* pi, const float* etas, const float* eidx,
                    const float* ew, const float* scal, const float* lse,
                    const float* g, float* dmu, float* dphi, float* dpi,
-                   long long n, int P, int sparse, void* stream) {
-  if (P < 1 || P > MAXP || n < 0) return (int)cudaErrorInvalidValue;
+                   long long n, int P, int sparse, int binary,
+                   void* stream) {
+  if (refused(P, binary, n)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (sparse)
-    fused_bwd_kernel<true><<<blocks_for(n), THREADS, 0, st>>>(
-        reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
-        P);
-  else
-    fused_bwd_kernel<false><<<blocks_for(n), THREADS, 0, st>>>(
-        reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
-        P);
+  auto fn = sparse ? (binary ? launch_bwd<true, true> : launch_bwd<true, false>)
+                   : (binary ? launch_bwd<false, true>
+                             : launch_bwd<false, false>);
+  fn(reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n, P,
+     st);
   return (int)cudaGetLastError();
 }
 

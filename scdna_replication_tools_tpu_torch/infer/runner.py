@@ -11,7 +11,11 @@
            conditioned and the one-hot clone prior (sparse)
            (reference: pert_model.py:832-899).
 
-Each step is one fixed-budget ``fit_map`` on one device.  The JAX
+Each step is one fixed-budget ``fit_map`` on one device.  Steps 2 and 3
+take the configured pi encoding (``enum_impl='binary'``: the
+independent-binary planes), step 1 stays categorical as in the JAX
+runner; every step stores the pi parameter's Adam moments in
+``optimizer_state_dtype``.  The JAX
 runner's controller, mirror rescue, QC, checkpoints, telemetry and
 sharding are not ported yet (``api.scRT`` refuses them by name).
 """
@@ -240,7 +244,8 @@ class PertInference:
         fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
                       max_iter=max_iter, min_iter=min_iter,
                       rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
-                      b1=cfg.adam_b1, b2=cfg.adam_b2, device=self.device)
+                      b1=cfg.adam_b1, b2=cfg.adam_b2, device=self.device,
+                      moment_dtype=cfg.optimizer_state_dtype)
         wall = time.perf_counter() - t0
         self.phases[f"{step_name}/fit"] = fit.timings["fit"]
         return StepOutput(fit, spec, fixed, batch, wall)
@@ -277,7 +282,8 @@ class PertInference:
         spec = PertModelSpec(
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
             step1=False, cond_beta_means=True, cond_rho=cond_rho,
-            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields)
+            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
+            binary_pi=self.config.binary_pi)
         self.phases["step2/build"] = time.perf_counter() - t0
         out = self._fit(spec, batch, fixed, t_init, iters["max_iter"],
                         iters["min_iter"], "step2")
@@ -302,7 +308,8 @@ class PertInference:
         spec = PertModelSpec(
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
             step1=False, cond_beta_means=True, cond_rho=True, cond_a=True,
-            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields)
+            fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
+            binary_pi=self.config.binary_pi)
         self.phases["step3/build"] = time.perf_counter() - t0
         out = self._fit(spec, batch, fixed, t_init2,
                         iters["max_iter_step3"], iters["min_iter_step3"],

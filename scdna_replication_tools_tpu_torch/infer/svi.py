@@ -15,8 +15,10 @@ The JAX loop runs on device in one ``lax.while_loop``; here it is a
 Python loop that reads the loss once per iteration, one host sync per
 iteration, which keeps the exact stop semantics.  Adam is optax's
 (lr 0.05, betas 0.8/0.99 by default): the pi parameter through the fused
-kernel (``ops/adam_kernel.adam_update``), every other leaf through the
-same math as plain ops.  lr and the bias corrections stay on device.
+kernel (``ops/adam_kernel.adam_update``), with its moments stored in
+``moment_dtype`` (float32 or bfloat16), every other leaf through the same
+math as plain ops with float32 moments.  lr and the bias corrections stay
+on device.
 """
 
 from __future__ import annotations
@@ -33,9 +35,18 @@ from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
     adam_scalars,
     adam_update,
     adam_update_plain,
+    moment_torch_dtype,
 )
 
-PI_PARAM = "pi_logits"
+
+def pi_param_name(params: dict) -> Optional[str]:
+    """The (planes, cells, loci) pi parameter's key: 'pi_bin_logits' under
+    the binary encoding, 'pi_logits' under the categorical one, None for
+    parameter dicts that carry neither."""
+    for name in ("pi_bin_logits", "pi_logits"):
+        if name in params:
+            return name
+    return None
 
 
 @dataclasses.dataclass
@@ -59,26 +70,34 @@ class FitResult:
     timings: dict = dataclasses.field(default_factory=dict)
 
 
-def make_opt_state(params: dict) -> AdamState:
-    """Fresh Adam state for ``params``: zero float32 moments, count 0."""
+def make_opt_state(params: dict, moment_dtype: str = "float32") -> AdamState:
+    """Fresh Adam state for ``params``: zero moments, count 0; the pi
+    parameter's moments in ``moment_dtype``, the rest float32."""
     device = next(iter(params.values())).device
-    return AdamState(
-        count=torch.zeros((), dtype=torch.int32, device=device),
-        mu={k: torch.zeros_like(v) for k, v in params.items()},
-        nu={k: torch.zeros_like(v) for k, v in params.items()})
+    pi = pi_param_name(params)
+    dt = {pi: moment_torch_dtype(moment_dtype)}
+
+    def zeros():
+        return {k: torch.zeros_like(v, dtype=dt.get(k, torch.float32))
+                for k, v in params.items()}
+    return AdamState(count=torch.zeros((), dtype=torch.int32, device=device),
+                     mu=zeros(), nu=zeros())
 
 
 def _adam_apply(params: dict, grads: dict, state: AdamState, lr: float,
-                b1: float, b2: float):
+                b1: float, b2: float, moment_dtype: str):
     """One Adam step of every leaf; the pi parameter takes the fused
-    kernel, the rest the same math as plain ops."""
+    kernel with ``moment_dtype`` moments, the rest the same math as plain
+    ops."""
     count = state.count + 1
     scal = adam_scalars(lr, count, b1, b2)
+    pi = pi_param_name(params)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        update = adam_update if k == PI_PARAM else adam_update_plain
-        new_p[k], new_m[k], new_v[k] = update(
-            p, grads[k], state.mu[k], state.nu[k], scal, b1, b2)
+        args = (p, grads[k], state.mu[k], state.nu[k], scal, b1, b2)
+        new_p[k], new_m[k], new_v[k] = (
+            adam_update(*args, moment_dtype) if k == pi
+            else adam_update_plain(*args))
     return new_p, AdamState(count=count, mu=new_m, nu=new_v)
 
 
@@ -94,7 +113,7 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
             max_iter: int = 2000, min_iter: int = 100, rel_tol: float = 1e-6,
             learning_rate: float = 0.05, b1: float = 0.8, b2: float = 0.99,
             opt_state0: Optional[AdamState] = None,
-            device=None) -> FitResult:
+            device=None, moment_dtype: str = "float32") -> FitResult:
     """Fit ``params`` by MAP ascent of ``-loss_fn`` with the reference's
     stop semantics, for at most ``max_iter`` iterations.
 
@@ -107,7 +126,7 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
     dev = resolve_device(device)
     params = {k: v.detach().to(dev).clone() for k, v in params0.items()}
     state = opt_state0 if opt_state0 is not None \
-        else make_opt_state(params)
+        else make_opt_state(params, moment_dtype)
     losses = np.zeros((max_iter,), np.float32)
     win = min(9, max_iter)
     tol = np.float32(rel_tol)
@@ -124,7 +143,7 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
         with torch.no_grad():
             params, state = _adam_apply(
                 {k: v.detach() for k, v in leaves.items()}, grads, state,
-                learning_rate, b1, b2)
+                learning_rate, b1, b2, moment_dtype)
         # the one host sync of the iteration
         loss_v = np.float32(loss.detach().item())
         losses[n] = loss_v

@@ -11,8 +11,10 @@ ELBO is the log-joint at the point estimates with the two discrete sites
 Step 1 observes cn/rep (plain ops); steps 2 and 3 go through the fused
 enumeration (``ops/enum_kernel.py``: the CUDA kernels on the card, their
 plain versions on the CPU), dense or sparse by the CN prior's encoding.
-Arrays are (cells, loci); the pi parameter is state-major (P, cells,
-loci) throughout (``layout.py``).  Site-type semantics follow the JAX
+Arrays are (cells, loci); the pi parameter is state-major throughout
+(``layout.py``): ``pi_logits`` (P, cells, loci) under the categorical
+encoding, ``pi_bin_logits`` (Kb, cells, loci) under the independent-binary
+one (``spec.binary_pi``, arXiv 2206.00093).  Site-type semantics follow the JAX
 module (and the reference): lambda and beta_stds are params without a
 prior, tau is a param when t_init is given, conditioned sites still add
 their log-prob.
@@ -35,8 +37,12 @@ from scdna_replication_tools_tpu_torch.ops.dists import (
     normal_log_prob,
 )
 from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
+    binary_code_matrix,
+    binary_code_width,
     enum_loglik_fused,
+    enum_loglik_fused_binary,
     enum_loglik_fused_sparse,
+    enum_loglik_fused_sparse_binary,
 )
 from scdna_replication_tools_tpu_torch.ops.gc import gc_rate
 from scdna_replication_tools_tpu_torch.ops.transforms import (
@@ -59,7 +65,10 @@ class PertModelSpec:
     ``tau_mode``: 'param' (t_init given), 'beta_prior' or
     'beta_default' (reference: pert_model.py:580-585).  ``step1``
     observes cn/rep; ``sparse_etas`` selects the one-hot prior planes
-    (eta_idx, eta_w) over the dense etas tensor.
+    (eta_idx, eta_w) over the dense etas tensor; ``binary_pi`` the
+    independent-binary pi encoding (the JAX spec's ``enum_impl``
+    'binary_*' values): Kb = ceil(log2 P) logit planes ``pi_bin_logits``
+    masked to the P valid states, instead of the P-plane ``pi_logits``.
     """
 
     P: int = 13
@@ -72,6 +81,7 @@ class PertModelSpec:
     cond_a: bool = False
     fixed_lamb: bool = False
     sparse_etas: bool = False
+    binary_pi: bool = False
 
 
 class PertBatch:
@@ -134,8 +144,9 @@ def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
                 t_init=None) -> dict:
     """Initial unconstrained parameters: AutoDelta's init-at-prior-median
     for sample sites and the explicit inits of the param sites
-    (reference: pert_model.py:542, 557, 561-562, 583).  Categorical pi
-    only (the binary encoding is not ported yet)."""
+    (reference: pert_model.py:542, 557, 561-562, 583); the pi parameter
+    starts at the prior mean (categorical) or at its binary counterpart
+    (:func:`_init_binary_pi`)."""
     dev = batch.reads.device
     f32 = dict(dtype=torch.float32, device=dev)
     num_cells, num_loci = batch.reads.shape
@@ -179,7 +190,9 @@ def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
     params["betas"] = torch.as_tensor(beta_means0, **f32)[batch.libs] \
         .contiguous()
 
-    if not spec.step1 and batch.etas is not None:
+    if spec.binary_pi:
+        params["pi_bin_logits"] = _init_binary_pi(spec, batch)
+    elif not spec.step1 and batch.etas is not None:
         pi0 = batch.etas / torch.sum(batch.etas, dim=-1, keepdim=True)
         params["pi_logits"] = state_major(
             torch.log(torch.clamp(pi0, min=1e-30)))
@@ -195,6 +208,42 @@ def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
         params["pi_logits"] = torch.zeros((spec.P, num_cells, num_loci),
                                           **f32)
     return {k: v.contiguous() for k, v in params.items()}
+
+
+def _init_binary_pi(spec: PertModelSpec, batch: PertBatch) -> torch.Tensor:
+    """(Kb, cells, loci) initial binary logit planes.  The encoding cannot
+    hold an arbitrary simplex point, so the init targets the mode of the
+    categorical init:
+
+    * sparse one-hot prior: ``z_k = log1p(w) (2 bit_k(idx) - 1)``, whose
+      masked softmax has its unique argmax at idx (w = 0 gives z = 0);
+    * dense etas: the mean-field fit ``z_k = logit(q_k)`` of the per-bit
+      marginals ``q_k = sum_s bit_k(s) pi0_s`` of the prior mean;
+    * no prior (step 1, uniform): zeros.
+    """
+    dev = batch.reads.device
+    num_cells, num_loci = batch.reads.shape
+    Kb = binary_code_width(spec.P)
+    if not spec.step1 and batch.eta_idx is not None:
+        kk = torch.arange(Kb, dtype=torch.int32, device=dev)[:, None, None]
+        idx = batch.eta_idx[None].to(torch.int32)
+        bits = ((idx >> kk) & 1).to(torch.float32)
+        return torch.log1p(batch.eta_w)[None] * (2.0 * bits - 1.0)
+    if not spec.step1 and batch.etas is not None:
+        B = torch.as_tensor(binary_code_matrix(spec.P), device=dev)
+        pi0 = batch.etas / torch.sum(batch.etas, dim=-1, keepdim=True)
+        q = torch.clamp(torch.einsum("clp,pk->clk", pi0, B), 1e-6, 1.0 - 1e-6)
+        return state_major(torch.log(q) - torch.log1p(-q))
+    return torch.zeros((Kb, num_cells, num_loci), dtype=torch.float32,
+                       device=dev)
+
+
+def binary_log_pi(spec: PertModelSpec, zbin_t: torch.Tensor) -> torch.Tensor:
+    """(cells, loci, P) log-softmax over the valid states of the (Kb,
+    cells, loci) binary planes: only codes 0..P-1 are expanded."""
+    B = torch.as_tensor(binary_code_matrix(spec.P), device=zbin_t.device)
+    logits = torch.einsum("kcl,pk->clp", zbin_t, B)
+    return torch.log_softmax(logits, dim=-1)
 
 
 def _loci_mean(x: torch.Tensor, lmask: torch.Tensor) -> torch.Tensor:
@@ -238,9 +287,11 @@ def _sites(spec: PertModelSpec, params: dict, fixed: dict) -> dict:
     return out
 
 
-def _log_pi(params: dict) -> torch.Tensor:
+def _log_pi(spec: PertModelSpec, params: dict) -> torch.Tensor:
     """(cells, loci, P) log-space simplex: log_softmax stays finite where
     log(softmax) would give -inf under the 1e6 prior concentrations."""
+    if spec.binary_pi:
+        return binary_log_pi(spec, params["pi_bin_logits"])
     return cells_major(torch.log_softmax(params["pi_logits"], dim=0))
 
 
@@ -249,7 +300,7 @@ def constrained(spec: PertModelSpec, params: dict, fixed: dict) -> dict:
     ``log_pi`` and ``pi``.  The fused training path never needs those
     two and uses :func:`_sites` instead."""
     out = _sites(spec, params, fixed)
-    out["log_pi"] = _log_pi(params)
+    out["log_pi"] = _log_pi(spec, params)
     out["pi"] = torch.exp(out["log_pi"])
     return out
 
@@ -382,7 +433,7 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
     phi = _phi(c)
     omega = gc_rate(c["betas"], batch.gamma_feats)
     if spec.step1:
-        log_pi = _log_pi(params)
+        log_pi = _log_pi(spec, params)
         lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi, sparse=False)
         lp = lp + torch.sum(lp_pi * bin_mask)
         ll = _observed_bin_loglik(batch.reads, c["u"], omega, log_pi, phi,
@@ -394,6 +445,7 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
     # term; only the parameter-free normaliser stays here
     _require_fixed_lamb(spec)
     mu = c["u"][:, None] * omega
+    pi_param = params["pi_bin_logits" if spec.binary_pi else "pi_logits"]
     if spec.sparse_etas:
         if batch.eta_idx is None or batch.eta_w is None:
             raise ValueError("spec.sparse_etas=True but the batch carries "
@@ -401,8 +453,13 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
         lp_pi = batch.cached("dir_norm", lambda: _dirichlet_normaliser(
             spec.P, batch, sparse=True))
         lp = lp + torch.sum(lp_pi * bin_mask)
-        ll = enum_loglik_fused_sparse(batch.reads, mu, params["pi_logits"],
-                                      phi, batch.eta_idx, batch.eta_w, lamb)
+        if spec.binary_pi:
+            ll = enum_loglik_fused_sparse_binary(
+                batch.reads, mu, pi_param, phi, batch.eta_idx, batch.eta_w,
+                lamb, spec.P)
+        else:
+            ll = enum_loglik_fused_sparse(batch.reads, mu, pi_param, phi,
+                                          batch.eta_idx, batch.eta_w, lamb)
     else:
         if batch.etas is None and batch.eta_idx is not None:
             raise ValueError(
@@ -414,8 +471,12 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
         lp = lp + torch.sum(lp_pi * bin_mask)
         etas_t = batch.cached("etas_t", lambda: state_major(
             batch.etas_or_ones(spec.P)))
-        ll = enum_loglik_fused(batch.reads, mu, params["pi_logits"], phi,
-                               etas_t, lamb)
+        if spec.binary_pi:
+            ll = enum_loglik_fused_binary(batch.reads, mu, pi_param, phi,
+                                          etas_t, lamb, spec.P)
+        else:
+            ll = enum_loglik_fused(batch.reads, mu, pi_param, phi, etas_t,
+                                   lamb)
     return lp + torch.sum(ll * bin_mask)
 
 
@@ -430,9 +491,10 @@ def pert_loss(spec: PertModelSpec, params: dict, fixed: dict,
 # discrete decode (infer_discrete, temperature=0)
 # ---------------------------------------------------------------------------
 
-# per-cell parameters and the axis their cells live on (pi_logits is
-# state-major, so its cells axis is 1); the rest are global or per-locus
-_PER_CELL_PARAM_AXIS = {"tau_raw": 0, "u": 0, "betas": 0, "pi_logits": 1}
+# per-cell parameters and the axis their cells live on (the pi planes are
+# state-major, so their cells axis is 1); the rest are global or per-locus
+_PER_CELL_PARAM_AXIS = {"tau_raw": 0, "u": 0, "betas": 0, "pi_logits": 1,
+                        "pi_bin_logits": 1}
 
 # target size of one decode slab's (chunk, loci, P, 2) joint tensor
 _DECODE_SLAB_BYTES = 1 << 30

@@ -36,19 +36,19 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "enum_fused": {
         # reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P,
-        # sparse, stream
-        "scrt_fused_fwd": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, _P],
+        # sparse, binary, stream
+        "scrt_fused_fwd": [_P] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [_P],
         # reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi,
-        # dpi, n, P, sparse, stream
-        "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, _P],
+        # dpi, n, P, sparse, binary, stream
+        "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [_P],
     },
     "adam": {
         # p_out, m_out, v_out, p, g, m, v, scal, b1, 1-b1, b2, 1-b2, n,
-        # stream
+        # bf16_moments, stream
         "scrt_adam": [_P] * 8 + [ctypes.c_float] * 4
-        + [ctypes.c_longlong, _P],
+        + [ctypes.c_longlong, ctypes.c_int, _P],
     },
 }
 
@@ -57,7 +57,12 @@ LAUNCHES: Dict[str, int] = {
     "fused_bwd_dense": 0,
     "fused_fwd_sparse": 0,
     "fused_bwd_sparse": 0,
+    "fused_fwd_dense_binary": 0,
+    "fused_bwd_dense_binary": 0,
+    "fused_fwd_sparse_binary": 0,
+    "fused_bwd_sparse_binary": 0,
     "adam": 0,
+    "adam_bf16": 0,
 }
 
 # name -> {"seconds", "path", "log"} of the last build (or cache hit)
@@ -164,11 +169,15 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check_operands(what: str, device: torch.device, **tensors) -> None:
+def check_operands(what: str, device: torch.device,
+                   dtypes: Optional[Dict[str, torch.dtype]] = None,
+                   **tensors) -> None:
     """Device, dtype and contiguity checks of a kernel's operands (run
     for the plain versions on the CPU too, so a CPU run catches what the
     kernel would refuse).  ``device`` must be the CPU (plain version) or
-    a CUDA device (kernel): nothing else has a path."""
+    a CUDA device (kernel): nothing else has a path.  Every operand is
+    float32 unless ``dtypes`` names another dtype for it."""
+    dtypes = dtypes or {}
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: tensors must lie on the CPU (plain "
                          f"version) or a CUDA device (kernel); got {device}")
@@ -178,8 +187,9 @@ def check_operands(what: str, device: torch.device, **tensors) -> None:
         if t.device != device:
             raise ValueError(f"{what}: {key} is on {t.device}, expected "
                              f"{device}")
-        if t.dtype != torch.float32:
+        want = dtypes.get(key, torch.float32)
+        if t.dtype != want:
             raise ValueError(f"{what}: {key} has dtype {t.dtype}, expected "
-                             "torch.float32")
+                             f"{want}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {key} must be contiguous")

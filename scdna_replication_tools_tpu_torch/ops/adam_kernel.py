@@ -13,7 +13,11 @@ tensor, :func:`adam_update_plain` for a CPU tensor.  Every other leaf is
 O(cells) or O(loci) and takes :func:`adam_update_plain` on any device,
 as the JAX fit sends them through ``adam_update_xla``.  lr and the bias
 corrections ride in a (3,) device tensor (:func:`adam_scalars`), so no
-step needs a host value.  Moments are float32.
+step needs a host value.  The pi parameter's moments may be stored in
+bfloat16 (``optimizer_state_dtype='bfloat16'``): they are widened to
+float32 for the arithmetic and the fresh ones narrowed back (round to
+nearest even, as XLA's ``astype``), and the parameter update uses this
+step's float32 moments.  Every other moment is float32.
 """
 
 from __future__ import annotations
@@ -25,6 +29,16 @@ import torch
 from scdna_replication_tools_tpu_torch.ops import _cuda
 
 ADAM_EPS = 1e-8
+
+_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def moment_torch_dtype(moment_dtype: str) -> torch.dtype:
+    """torch dtype of the stored Adam moments ('float32'/'bfloat16')."""
+    if moment_dtype not in _MOMENT_DTYPES:
+        raise ValueError(f"unknown optimizer_state_dtype {moment_dtype!r}; "
+                         "expected 'float32' or 'bfloat16'")
+    return _MOMENT_DTYPES[moment_dtype]
 
 
 def adam_scalars(lr: float, count: torch.Tensor, b1: float, b2: float
@@ -40,19 +54,24 @@ def adam_scalars(lr: float, count: torch.Tensor, b1: float, b2: float
 
 def adam_update_plain(param, grad, m, v, scal, b1: float, b2: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Adam sweep as plain PyTorch ops: ``(param', m', v')``."""
+    """One Adam sweep as plain PyTorch ops: ``(param', m', v')``, the
+    moments returned in their stored dtype."""
     lr, bc1, bc2 = scal[0], scal[1], scal[2]
     g = grad
-    m2 = (1.0 - b1) * g + b1 * m
-    v2 = (1.0 - b2) * (g * g) + b2 * v
+    m2 = (1.0 - b1) * g + b1 * m.to(torch.float32)
+    v2 = (1.0 - b2) * (g * g) + b2 * v.to(torch.float32)
     update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + ADAM_EPS)
-    return param + (-lr) * update, m2, v2
+    return param + (-lr) * update, m2.to(m.dtype), v2.to(v.dtype)
 
 
-def adam_update(param, grad, m, v, scal, b1: float, b2: float
+def adam_update(param, grad, m, v, scal, b1: float, b2: float,
+                moment_dtype: str = "float32"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Adam sweep of the pi parameter: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (new output tensors either way)."""
+    the CUDA kernel for CUDA tensors (new output tensors either way).
+    ``m``/``v`` are stored in ``moment_dtype``; everything else is
+    float32."""
+    mdt = moment_torch_dtype(moment_dtype)
     if not (param.shape == grad.shape == m.shape == v.shape):
         raise ValueError("adam_update: param/grad/m/v shapes differ: "
                          f"{tuple(param.shape)}, {tuple(grad.shape)}, "
@@ -61,8 +80,8 @@ def adam_update(param, grad, m, v, scal, b1: float, b2: float
         raise ValueError("adam_update: scal must be the (3,) [lr, bc1, bc2] "
                          f"tensor; got shape {tuple(scal.shape)}")
     grad = grad.contiguous()
-    _cuda.check_operands("adam_update", param.device, param=param,
-                         grad=grad, m=m, v=v, scal=scal)
+    _cuda.check_operands("adam_update", param.device, {"m": mdt, "v": mdt},
+                         param=param, grad=grad, m=m, v=v, scal=scal)
     if param.device.type == "cpu":
         return adam_update_plain(param, grad, m, v, scal, b1, b2)
     lib = _cuda.library("adam")
@@ -73,7 +92,7 @@ def adam_update(param, grad, m, v, scal, b1: float, b2: float
         _cuda.ptr(p_out), _cuda.ptr(m_out), _cuda.ptr(v_out),
         _cuda.ptr(param), _cuda.ptr(grad), _cuda.ptr(m), _cuda.ptr(v),
         _cuda.ptr(scal), float(b1), 1.0 - b1, float(b2), 1.0 - b2,
-        param.numel(), _cuda.stream_of(param))
+        param.numel(), int(mdt == torch.bfloat16), _cuda.stream_of(param))
     _cuda.check(lib, rc, "adam_update")
-    _cuda.LAUNCHES["adam"] += 1
+    _cuda.LAUNCHES["adam_bf16" if mdt == torch.bfloat16 else "adam"] += 1
     return p_out, m_out, v_out

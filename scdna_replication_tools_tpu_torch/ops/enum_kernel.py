@@ -1,16 +1,23 @@
 """Fused enumerated PERT bin objective: CUDA kernels and plain versions.
 
 Port of the fused entry points of ``ops/enum_kernel.py``
-(``enum_loglik_fused`` and ``enum_loglik_fused_sparse``).  Per
-(cell, locus) bin the objective is
+(``enum_loglik_fused``, ``enum_loglik_fused_sparse`` and their
+independent-binary twins ``enum_loglik_fused_binary`` and
+``enum_loglik_fused_sparse_binary``).  Per (cell, locus) bin the
+objective is
 
     logsumexp_{s, r} (lp_s + log Bern(r | phi) + nb(chi = s (1 + r)))
       + x log(lamb) - lgamma(x + 1) + sum_s (etas_s - 1) lp_s
 
 with ``lp = log_softmax(pi_logits)`` over the P states (sparse prior:
-the data term is ``eta_w * lp_{eta_idx}``).  The CUDA kernels
-(``csrc/enum_fused.cu``) read the state-major ``(P, cells, loci)``
-logits once, keep the per-state terms in registers and never
+the data term is ``eta_w * lp_{eta_idx}``).  Under the binary encoding
+the pi parameter is Kb = ceil(log2 P) planes z_k and state s's logit is
+the sum of the planes of its set bits, ``x_s = z[b0] + z[b1] + ...`` in
+ascending bit order (``x_0 = 0``); the backward folds
+``dz_k = sum_{s: bit_k(s) = 1} dpi_s`` in ascending s (the TPU kernel's
+order of summation, which float32 parity rests on).  The CUDA kernels
+(``csrc/enum_fused.cu``) read the state-major ``(P | Kb, cells, loci)``
+planes once, keep the per-state terms in registers and never
 materialise the ``(cells, loci, P, 2)`` enumeration tensor; the backward
 recomputes from the inputs and the saved enumeration-only logsumexp.
 
@@ -27,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from scdna_replication_tools_tpu_torch.ops import _cuda
@@ -103,20 +111,75 @@ def scalars(lamb: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# independent-binary CN encoding (arXiv 2206.00093)
+# ---------------------------------------------------------------------------
+
+def binary_code_width(P: int) -> int:
+    """Kb = ceil(log2 P): binary logit planes encoding P states."""
+    return max(1, math.ceil(math.log2(max(P, 2))))
+
+
+def state_codes(P: int) -> List[Tuple[int, ...]]:
+    """Per-state tuples of set bit indices, ascending: state s -> the k
+    with bit_k(s) = 1.  The kernels unroll the same table."""
+    Kb = binary_code_width(P)
+    return [tuple(k for k in range(Kb) if (s >> k) & 1) for s in range(P)]
+
+
+def binary_code_matrix(P: int) -> np.ndarray:
+    """(P, Kb) float32 bit matrix B with B[s, k] = bit_k(s)."""
+    B = np.zeros((P, binary_code_width(P)), np.float32)
+    for s, bits in enumerate(state_codes(P)):
+        B[s, list(bits)] = 1.0
+    return B
+
+
+def planes_per_iter(P: int = 13, *, binary: bool = False,
+                    sparse_etas: bool = True,
+                    moment_dtype: str = "float32") -> int:
+    """Analytic HBM traffic of one fused step-2 iteration in (cells x
+    loci) float32 planes: the kernels' ``6 + 2 Kp + (4 | 2P) + 4 + 2 +
+    Kp`` plus Adam's ``Kp (3 + 4 m)``, m = 0.5 for bfloat16 moments and
+    Kp the pi planes (P, or Kb under the binary encoding)."""
+    Kp = binary_code_width(P) if binary else P
+    kernel = 6 + 2 * Kp + (4 if sparse_etas else 2 * P) + 4 + 2 + Kp
+    mom = 0.5 if moment_dtype == "bfloat16" else 1.0
+    return int(round(kernel + Kp * (3 + 4 * mom)))
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _log_softmax_planes(pi_t: torch.Tensor) -> List[torch.Tensor]:
+def _state_logits(pi_t: torch.Tensor,
+                  binary_P: Optional[int]) -> List[torch.Tensor]:
+    """Per-state unnormalised logit planes: the P planes of a categorical
+    ``pi_t``, or, with ``binary_P``, each state's sum of its set bits' z
+    planes in ascending bit order (state 0 has no set bit: logit 0)."""
+    if binary_P is None:
+        return [pi_t[s] for s in range(pi_t.shape[0])]
+    xs = []
+    for bits in state_codes(binary_P):
+        if not bits:
+            xs.append(torch.zeros_like(pi_t[0]))
+            continue
+        x = pi_t[bits[0]]
+        for k in bits[1:]:
+            x = x + pi_t[k]
+        xs.append(x)
+    return xs
+
+
+def _log_softmax_planes(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Per-state log-softmax planes, max-then-sum like the kernels."""
-    P = pi_t.shape[0]
-    m = pi_t[0]
-    for s in range(1, P):
-        m = torch.maximum(m, pi_t[s])
+    m = xs[0]
+    for x in xs[1:]:
+        m = torch.maximum(m, x)
     z = torch.zeros_like(m)
-    for s in range(P):
-        z = z + torch.exp(pi_t[s] - m)
+    for x in xs:
+        z = z + torch.exp(x - m)
     log_z = m + torch.log(z)
-    return [pi_t[s] - log_z for s in range(P)]
+    return [x - log_z for x in xs]
 
 
 def _nb_core(x, mu, chi, q, log1m_lamb):
@@ -125,15 +188,18 @@ def _nb_core(x, mu, chi, q, log1m_lamb):
 
 
 def fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
-                    eta_w=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    eta_w=None, binary_P=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse), each (cells, loci): the kernels' forward as plain
     PyTorch ops.  ``etas_t`` (P, cells, loci) selects the dense prior,
-    ``eta_idx``/``eta_w`` (cells, loci) the sparse one."""
-    P = pi_t.shape[0]
+    ``eta_idx``/``eta_w`` (cells, loci) the sparse one.  ``binary_P``
+    (the number of states) marks ``pi_t`` as the (Kb, cells, loci)
+    binary planes; None is the categorical (P, cells, loci) logits."""
     log_lamb, log1m_lamb, q = scal[0], scal[1], scal[2]
     x = reads
     bern = (torch.log1p(-phi), torch.log(phi))
-    lp = _log_softmax_planes(pi_t)
+    lp = _log_softmax_planes(_state_logits(pi_t, binary_P))
+    P = len(lp)
 
     lp_acc = torch.zeros_like(x)
     for s in range(P):
@@ -161,17 +227,18 @@ def fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
 
 
 def fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
-                    eta_idx=None, eta_w=None
+                    eta_idx=None, eta_w=None, binary_P=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dmu, dphi, dpi_t): the kernels' explicit backward as plain
     PyTorch ops (posterior weights against the saved ``lse``, the
-    Dirichlet term's ``g * (etas - 1)`` and the softmax Jacobian)."""
-    P = pi_t.shape[0]
+    Dirichlet term's ``g * (etas - 1)`` and the softmax Jacobian; with
+    ``binary_P``, dpi folded onto the Kb planes, (Kb, cells, loci))."""
     log1m_lamb, q = scal[1], scal[2]
     x = reads
     bern = (torch.log1p(-phi), torch.log(phi))
     dbern = (-1.0 / (1.0 - phi), 1.0 / phi)
-    lp = _log_softmax_planes(pi_t)
+    lp = _log_softmax_planes(_state_logits(pi_t, binary_P))
+    P = len(lp)
 
     tot = torch.zeros_like(x)
     dlp = []
@@ -205,8 +272,15 @@ def fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
             dphi = dphi + gw * dbern[r]
             dlp[s] = dlp[s] + gw
             tot = tot + gw
-    dpi = torch.stack([dlp[s] - torch.exp(lp[s]) * tot for s in range(P)])
-    return dmu, dphi, dpi
+    dpi = [dlp[s] - torch.exp(lp[s]) * tot for s in range(P)]
+    if binary_P is None:
+        return dmu, dphi, torch.stack(dpi)
+    # chain through x_s = sum_{k in bits(s)} z_k, in ascending s
+    dz = [torch.zeros_like(x) for _ in range(pi_t.shape[0])]
+    for s, bits in enumerate(state_codes(P)):
+        for k in bits:
+            dz[k] = dz[k] + dpi[s]
+    return dmu, dphi, torch.stack(dz)
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +288,7 @@ def fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
 # ---------------------------------------------------------------------------
 
 def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
-                  lse=None, g=None):
+                  binary_P, lse=None, g=None):
     if reads.ndim != 2 or any(t is not None and t.shape != reads.shape
                               for t in (mu, phi, lse, g)):
         raise ValueError(f"{what}: reads/mu/phi (and lse/g) must share one "
@@ -223,40 +297,54 @@ def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
     if scal.shape != (3,):
         raise ValueError(f"{what}: scal must be the (3,) tensor of "
                          f"scalars(lamb); got shape {tuple(scal.shape)}")
-    if pi_t.ndim != 3 or pi_t.shape[1:] != reads.shape:
+    if binary_P is not None:
+        Kb = binary_code_width(binary_P)
+        if pi_t.shape != (Kb,) + tuple(reads.shape):
+            raise ValueError(
+                f"{what} expects STATE-MAJOR binary logits of shape "
+                f"(Kb={Kb},) + reads.shape = {(Kb,) + tuple(reads.shape)}; "
+                f"got {tuple(pi_t.shape)} (Kb = ceil(log2 P) planes, see "
+                "binary_code_width)")
+        P = binary_P
+    elif pi_t.ndim != 3 or pi_t.shape[1:] != reads.shape:
         raise ValueError(
             f"{what} expects STATE-MAJOR pi_logits_t of shape ('P',) + "
             f"{tuple(reads.shape)}; got {tuple(pi_t.shape)} (transpose "
             "cells-major tensors with layout.state_major)")
+    else:
+        P = pi_t.shape[0]
     if etas_t is not None:
-        if etas_t.shape != pi_t.shape:
+        if etas_t.shape != (P,) + tuple(reads.shape):
             raise ValueError(f"{what} expects STATE-MAJOR etas_t of shape "
-                             f"{tuple(pi_t.shape)}; got {tuple(etas_t.shape)}")
+                             f"{(P,) + tuple(reads.shape)}; got "
+                             f"{tuple(etas_t.shape)}")
     elif eta_idx is None or eta_w is None \
             or eta_idx.shape != reads.shape or eta_w.shape != reads.shape:
         raise ValueError(f"{what}: the sparse prior needs (cells, loci) "
                          "eta_idx and eta_w")
+    if reads.device.type == "cuda" and P > MAX_P:
+        raise ValueError(f"{what}: the kernel takes P <= {MAX_P}; got {P}")
+    return P
 
 
-def _kernel_key(kind: str, etas_t) -> str:
-    return f"fused_{kind}_{'sparse' if etas_t is None else 'dense'}"
+def _kernel_key(kind: str, etas_t, binary_P) -> str:
+    key = f"fused_{kind}_{'sparse' if etas_t is None else 'dense'}"
+    return key if binary_P is None else key + "_binary"
 
 
 def fused_fwd(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
-              eta_w=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              eta_w=None, binary_P=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused forward ``(out, lse)``: the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
-    _check_shapes("fused_fwd", reads, mu, pi_t, phi, scal, etas_t, eta_idx,
-                  eta_w)
+    the CUDA kernel for CUDA tensors.  ``binary_P``: see
+    :func:`fused_fwd_plain`."""
+    P = _check_shapes("fused_fwd", reads, mu, pi_t, phi, scal, etas_t,
+                      eta_idx, eta_w, binary_P)
     _cuda.check_operands("fused_fwd", reads.device, reads=reads, mu=mu,
                          pi_t=pi_t, phi=phi, scal=scal, etas_t=etas_t,
                          eta_idx=eta_idx, eta_w=eta_w)
     if reads.device.type == "cpu":
         return fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t, eta_idx,
-                               eta_w)
-    P = pi_t.shape[0]
-    if P > MAX_P:
-        raise ValueError(f"fused_fwd: the kernel takes P <= {MAX_P}; got {P}")
+                               eta_w, binary_P)
     lib = _cuda.library("enum_fused")
     out = torch.empty_like(reads)
     lse = torch.empty_like(reads)
@@ -264,28 +352,28 @@ def fused_fwd(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
         _cuda.ptr(reads), _cuda.ptr(mu), _cuda.ptr(phi), _cuda.ptr(pi_t),
         _cuda.ptr(etas_t), _cuda.ptr(eta_idx), _cuda.ptr(eta_w),
         _cuda.ptr(scal), _cuda.ptr(out), _cuda.ptr(lse), reads.numel(), P,
-        int(etas_t is None), _cuda.stream_of(reads))
+        int(etas_t is None), int(binary_P is not None),
+        _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_fwd")
-    _cuda.LAUNCHES[_kernel_key("fwd", etas_t)] += 1
+    _cuda.LAUNCHES[_kernel_key("fwd", etas_t, binary_P)] += 1
     return out, lse
 
 
 def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
-              eta_w=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              eta_w=None, binary_P=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused backward ``(dmu, dphi, dpi_t)``: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    _check_shapes("fused_bwd", reads, mu, pi_t, phi, scal, etas_t, eta_idx,
-                  eta_w, lse, g)
+    tensors, the CUDA kernel for CUDA tensors.  ``binary_P``: see
+    :func:`fused_bwd_plain`."""
+    P = _check_shapes("fused_bwd", reads, mu, pi_t, phi, scal, etas_t,
+                      eta_idx, eta_w, binary_P, lse, g)
     g = g.contiguous()
     _cuda.check_operands("fused_bwd", reads.device, reads=reads, mu=mu,
                          pi_t=pi_t, phi=phi, scal=scal, lse=lse, g=g,
                          etas_t=etas_t, eta_idx=eta_idx, eta_w=eta_w)
     if reads.device.type == "cpu":
         return fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t,
-                               eta_idx, eta_w)
-    P = pi_t.shape[0]
-    if P > MAX_P:
-        raise ValueError(f"fused_bwd: the kernel takes P <= {MAX_P}; got {P}")
+                               eta_idx, eta_w, binary_P)
     lib = _cuda.library("enum_fused")
     dmu = torch.empty_like(reads)
     dphi = torch.empty_like(reads)
@@ -295,9 +383,10 @@ def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
         _cuda.ptr(etas_t), _cuda.ptr(eta_idx), _cuda.ptr(eta_w),
         _cuda.ptr(scal), _cuda.ptr(lse), _cuda.ptr(g), _cuda.ptr(dmu),
         _cuda.ptr(dphi), _cuda.ptr(dpi), reads.numel(), P,
-        int(etas_t is None), _cuda.stream_of(reads))
+        int(etas_t is None), int(binary_P is not None),
+        _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_bwd")
-    _cuda.LAUNCHES[_kernel_key("bwd", etas_t)] += 1
+    _cuda.LAUNCHES[_kernel_key("bwd", etas_t, binary_P)] += 1
     return dmu, dphi, dpi
 
 
@@ -306,52 +395,56 @@ def _zeros_if(needed: bool, t: Optional[torch.Tensor]):
 
 
 class _FusedDense(torch.autograd.Function):
-    """Dense-prior fused objective.  Cotangents for mu, pi_logits_t and
+    """Dense-prior fused objective.  Cotangents for mu, the pi planes and
     phi; silent zeros for reads, etas_t and the lambda scalars."""
 
     @staticmethod
-    def forward(ctx, reads, mu, pi_t, phi, etas_t, scal):
-        out, lse = fused_fwd(reads, mu, pi_t, phi, scal, etas_t=etas_t)
+    def forward(ctx, reads, mu, pi_t, phi, etas_t, scal, binary_P):
+        out, lse = fused_fwd(reads, mu, pi_t, phi, scal, etas_t=etas_t,
+                             binary_P=binary_P)
         ctx.save_for_backward(reads, mu, pi_t, phi, etas_t, scal, lse)
+        ctx.binary_P = binary_P
         return out
 
     @staticmethod
     def backward(ctx, g):
         reads, mu, pi_t, phi, etas_t, scal, lse = ctx.saved_tensors
         dmu, dphi, dpi = fused_bwd(reads, mu, pi_t, phi, scal, lse, g,
-                                   etas_t=etas_t)
+                                   etas_t=etas_t, binary_P=ctx.binary_P)
         need = ctx.needs_input_grad
         return (_zeros_if(need[0], reads), dmu, dpi, dphi,
-                _zeros_if(need[4], etas_t), _zeros_if(need[5], scal))
+                _zeros_if(need[4], etas_t), _zeros_if(need[5], scal), None)
 
 
 class _FusedSparse(torch.autograd.Function):
-    """Sparse-prior fused objective.  Cotangents for mu, pi_logits_t and
+    """Sparse-prior fused objective.  Cotangents for mu, the pi planes and
     phi; silent zeros for reads, eta_idx, eta_w and the lambda scalars."""
 
     @staticmethod
-    def forward(ctx, reads, mu, pi_t, phi, eta_idx, eta_w, scal):
+    def forward(ctx, reads, mu, pi_t, phi, eta_idx, eta_w, scal, binary_P):
         out, lse = fused_fwd(reads, mu, pi_t, phi, scal, eta_idx=eta_idx,
-                             eta_w=eta_w)
+                             eta_w=eta_w, binary_P=binary_P)
         ctx.save_for_backward(reads, mu, pi_t, phi, eta_idx, eta_w, scal, lse)
+        ctx.binary_P = binary_P
         return out
 
     @staticmethod
     def backward(ctx, g):
         reads, mu, pi_t, phi, eta_idx, eta_w, scal, lse = ctx.saved_tensors
         dmu, dphi, dpi = fused_bwd(reads, mu, pi_t, phi, scal, lse, g,
-                                   eta_idx=eta_idx, eta_w=eta_w)
+                                   eta_idx=eta_idx, eta_w=eta_w,
+                                   binary_P=ctx.binary_P)
         need = ctx.needs_input_grad
         return (_zeros_if(need[0], reads), dmu, dpi, dphi,
                 _zeros_if(need[4], eta_idx), _zeros_if(need[5], eta_w),
-                _zeros_if(need[6], scal))
+                _zeros_if(need[6], scal), None)
 
 
 def enum_loglik_fused(reads, mu, pi_logits_t, phi, etas_t, lamb):
     """(cells, loci) fused objective with a dense prior;
     ``pi_logits_t``/``etas_t`` are STATE-MAJOR (P, cells, loci)."""
     return _FusedDense.apply(reads, mu, pi_logits_t, phi, etas_t,
-                             scalars(lamb))
+                             scalars(lamb), None)
 
 
 def enum_loglik_fused_sparse(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
@@ -360,4 +453,22 @@ def enum_loglik_fused_sparse(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
     ``eta_idx``/``eta_w`` are (cells, loci) float32, the index of each
     bin's non-unit state and its concentration minus one."""
     return _FusedSparse.apply(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
-                              scalars(lamb))
+                              scalars(lamb), None)
+
+
+def enum_loglik_fused_binary(reads, mu, zbin_t, phi, etas_t, lamb, P):
+    """Fused objective with the independent-binary pi encoding and a
+    dense prior: ``zbin_t`` is the (Kb, cells, loci) binary logit planes,
+    ``etas_t`` (P, cells, loci); ``P`` is explicit because the parameter
+    no longer carries it.  Cotangents for mu, zbin_t and phi."""
+    return _FusedDense.apply(reads, mu, zbin_t, phi, etas_t, scalars(lamb),
+                             int(P))
+
+
+def enum_loglik_fused_sparse_binary(reads, mu, zbin_t, phi, eta_idx, eta_w,
+                                    lamb, P):
+    """The binary encoding with the one-hot sparse prior: operands as
+    :func:`enum_loglik_fused_sparse` with ``zbin_t`` the (Kb, cells,
+    loci) binary planes and ``P`` explicit."""
+    return _FusedSparse.apply(reads, mu, zbin_t, phi, eta_idx, eta_w,
+                              scalars(lamb), int(P))

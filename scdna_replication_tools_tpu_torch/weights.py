@@ -3,8 +3,9 @@
 The JAX package's parameter pytrees, optax Adam state and conditioning
 dicts, fetched to NumPy (``numpy.asarray`` on each leaf), become the
 port's tensors here: same keys, the same state-major (P, cells, loci)
-pi layout, float32.  The tests use these to start both packages from the
-same point.  Nothing here imports JAX: the inputs are duck-typed.
+pi layout, float32 (bfloat16 Adam moments stay bfloat16).  The tests use
+these to start both packages from the same point.  Nothing here imports
+JAX: the inputs are duck-typed.
 """
 
 from __future__ import annotations
@@ -24,6 +25,16 @@ def params_from_jax(params: dict, device) -> dict:
     return {k: _f32(v, device) for k, v in params.items()}
 
 
+def _moment(x, device) -> torch.Tensor:
+    """An Adam moment leaf: float32, or bfloat16 where the JAX state
+    stores it so (an ``ml_dtypes`` bfloat16 array, which widens to
+    float32 and narrows back exactly)."""
+    t = _f32(x, device)
+    if np.asarray(x).dtype.name == "bfloat16":
+        return t.to(torch.bfloat16)
+    return t
+
+
 def opt_state_from_jax(opt_state, device) -> AdamState:
     """An optax ``adam`` state — the ``(ScaleByAdamState(count, mu, nu),
     EmptyState())`` tuple, or anything with ``count``/``mu``/``nu``
@@ -34,8 +45,8 @@ def opt_state_from_jax(opt_state, device) -> AdamState:
     return AdamState(
         count=torch.as_tensor(np.array(inner.count, dtype=np.int32),
                               device=device),
-        mu=params_from_jax(dict(inner.mu), device),
-        nu=params_from_jax(dict(inner.nu), device))
+        mu={k: _moment(v, device) for k, v in dict(inner.mu).items()},
+        nu={k: _moment(v, device) for k, v in dict(inner.nu).items()})
 
 
 def fixed_from_jax(fixed: dict, device) -> dict:

@@ -8,6 +8,7 @@ import torch
 from scdna_replication_tools_tpu.ops import adam_kernel as jak
 from scdna_replication_tools_tpu_torch.ops import adam_kernel as tak
 
+from test_torch_gpu import bf16_ulps
 from test_torch_model import one_torch_thread  # noqa: F401
 
 
@@ -45,6 +46,66 @@ def test_adam_plain_matches_jax(step, jax_impl):
         b = np.asarray(b)
         rel = np.max(np.abs(a.numpy() - b)) / np.max(np.abs(b))
         assert rel < 1e-6, (name, float(rel))
+
+
+def _jax_bf16(x) -> torch.Tensor:
+    """A JAX bfloat16 array as a torch bfloat16 tensor (exact: the value
+    widens to float32 and narrows back)."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("step", [1, 7, 300])
+@pytest.mark.parametrize("jax_impl", ["pallas_interpret", "xla"])
+def test_adam_bf16_moments_match_jax(step, jax_impl):
+    """bfloat16 stored moments, float32 arithmetic: (param', m', v') of
+    one sweep against adam_update_xla / the interpreted Pallas kernel
+    with moment_dtype='bfloat16'.  m' and v' within one bfloat16 ulp per
+    element (the two sides' float32 moments can differ by a rounding,
+    which tips a round-to-nearest-even at a boundary); readings: 0 or 1
+    element apart by one ulp over the six cases.  param' within 1e-6
+    relative (readings up to 5.8e-8): it uses this step's float32
+    moments on both sides."""
+    lr, b1, b2 = 0.05, 0.8, 0.99
+    p, g, m, v = _state((13, 16, 300), seed=step, step=step)
+    m16 = jnp.asarray(m, jnp.bfloat16)
+    v16 = jnp.asarray(v, jnp.bfloat16)
+    count = jnp.asarray(step, jnp.int32)
+    args = (jnp.asarray(p), jnp.asarray(g), m16, v16, lr, b1, b2, count)
+    if jax_impl == "xla":
+        ref = jak.adam_update_xla(*args, moment_dtype="bfloat16")
+    else:
+        ref = jak.adam_update_pallas(*args, moment_dtype="bfloat16",
+                                     interpret=True)
+    scal = tak.adam_scalars(lr, torch.tensor(step, dtype=torch.int32),
+                            b1, b2)
+    got = tak.adam_update(torch.from_numpy(p), torch.from_numpy(g),
+                          _jax_bf16(m16), _jax_bf16(v16), scal, b1, b2,
+                          "bfloat16")
+    assert got[0].dtype == torch.float32
+    assert got[1].dtype == got[2].dtype == torch.bfloat16
+    ref_p = np.asarray(ref[0])
+    rel = np.max(np.abs(got[0].numpy() - ref_p)) / np.max(np.abs(ref_p))
+    assert rel < 1e-6, ("param", float(rel))
+    for name, a, b in zip(("m", "v"), got[1:], ref[1:]):
+        ulps = bf16_ulps(a, _jax_bf16(b))
+        assert int(ulps.max()) <= 1, (name, int(ulps.max()),
+                                      int((ulps > 0).sum()))
+
+
+def test_adam_refuses_mixed_moment_dtypes():
+    """m and v share the dtype the caller names: a bfloat16 pair under
+    'float32', a float32 pair under 'bfloat16' or a mixed pair is
+    refused on the CPU as the kernel would refuse it."""
+    p = torch.zeros(2, 3, 5, dtype=torch.float32)
+    h = p.to(torch.bfloat16)
+    scal = tak.adam_scalars(0.05, torch.tensor(1, dtype=torch.int32),
+                            0.8, 0.99)
+    for m, v, mdt in ((h, h, "float32"), (p, p, "bfloat16"),
+                      (h, p, "bfloat16")):
+        with pytest.raises(ValueError, match="dtype"):
+            tak.adam_update(p, p, m, v, scal, 0.8, 0.99, mdt)
+    with pytest.raises(ValueError, match="optimizer_state_dtype"):
+        tak.adam_update(p, p, p, p, scal, 0.8, 0.99, "float16")
 
 
 def test_adam_scalars_are_optax_bias_corrections():

@@ -2,7 +2,9 @@
 
 Both fits start from the same parameters and inputs; the JAX side runs
 the step-2 objective through the interpreted fused kernel and the
-interpreted fused Adam (``fused_adam='pallas_interpret'``).
+interpreted fused Adam (``fused_adam='pallas_interpret'``), or, with
+bfloat16 moments, the XLA fused Adam (``fused_adam='xla'``) and the
+binary encoding through the interpreted binary kernels.
 """
 
 import jax.numpy as jnp
@@ -12,33 +14,54 @@ import torch
 
 from scdna_replication_tools_tpu.infer import svi as jsvi
 from scdna_replication_tools_tpu.infer.runner import _PertLossFn
+from scdna_replication_tools_tpu.models import pert as jpert
 from scdna_replication_tools_tpu_torch import weights
 from scdna_replication_tools_tpu_torch.infer import svi as tsvi
 from scdna_replication_tools_tpu_torch.infer.runner import (
     _PertLossFn as _TorchLossFn,
 )
+from scdna_replication_tools_tpu_torch.models import pert as tpert
 
 from test_torch_model import _build, _inputs, one_torch_thread  # noqa: F401
 
 
-def _fits(kind, max_iter, min_iter, rel_tol, seed):
+def _fits(kind, max_iter, min_iter, rel_tol, seed, binary=False,
+          moment_dtype="float32"):
     # dense prior at 1e3-scale concentrations: at the production 1e6 the
     # loss is (etas - 1) * log_pi summed over bins, and an ulp of pi moves
     # it by ~1e6 ulps, which would measure float32 conditioning rather
     # than the loop (test_torch_model holds the 1e6 objective)
     inp = _inputs(kind, seed=seed, prior_scale=1e-3)
+    if binary and kind == "sparse":
+        # the same 1e3 scale for the one-hot prior: under the binary
+        # encoding its 1e6 weight meets logits of |z| ~ 15, and two
+        # trajectories a float32 ulp apart read losses ~1e3 apart
+        inp["fields"] = inp["init_fields"] = {
+            k: v * np.float32(1e-3) if k == "eta_w" else v
+            for k, v in inp["fields"].items()}
     jspec, tspec, jbatch, tbatch, jfixed, params = _build(inp)
+    fused_adam = "pallas_interpret"
+    if binary:
+        jspec = jpert.PertModelSpec(enum_impl="binary_interpret",
+                                    **inp["spec_kw"])
+        tspec = tpert.PertModelSpec(binary_pi=True, **inp["spec_kw"])
+        params = {k: v for k, v in params.items() if k != "pi_logits"}
+        params["pi_bin_logits"] = np.asarray(jpert.init_params(
+            jspec, jbatch, jfixed, t_init=inp["t_init"])["pi_bin_logits"])
+    if moment_dtype != "float32":
+        fused_adam = "xla"
     jfit = jsvi.fit_map(_PertLossFn(spec=jspec),
                         {k: jnp.asarray(v) for k, v in params.items()},
                         (jfixed, jbatch), max_iter=max_iter,
                         min_iter=min_iter, rel_tol=rel_tol,
-                        fused_adam="pallas_interpret")
+                        fused_adam=fused_adam, moment_dtype=moment_dtype)
     tfit = tsvi.fit_map(_TorchLossFn(tspec),
                         weights.params_from_jax(params, "cpu"),
                         (weights.fixed_from_jax(inp["fixed"], "cpu"),
                          tbatch),
                         max_iter=max_iter, min_iter=min_iter,
-                        rel_tol=rel_tol, device="cpu")
+                        rel_tol=rel_tol, device="cpu",
+                        moment_dtype=moment_dtype)
     return jfit, tfit
 
 
@@ -68,6 +91,62 @@ def test_fit_trajectory_matches_jax(kind):
     state = weights.opt_state_from_jax(jfit.opt_state, "cpu")
     assert int(state.count) == int(tfit.opt_state.count) == 30
     assert set(state.mu) == set(tfit.opt_state.mu)
+
+
+@pytest.mark.parametrize("kind,binary", [("dense", False), ("sparse", True),
+                                         ("dense", True)],
+                         ids=["dense", "sparse_binary", "dense_binary"])
+def test_bf16_moment_trajectory_matches_jax(kind, binary):
+    """30 iterations with the pi parameter's moments stored in bfloat16,
+    against JAX ``fit_map(fused_adam='xla', moment_dtype='bfloat16')``,
+    categorical and binary.  Losses within 1e-5 of the trajectory's
+    largest magnitude, as the float32 trajectory.  Final parameters:
+    where the two sides' float32 moments straddle a bfloat16 rounding
+    boundary, the stored moments differ by one bfloat16 ulp (2^-8
+    relative), and where m' = (1 - b1) g + b1 m nearly cancels that can
+    swing a later step of that element by a sizeable part of lr.  So
+    each leaf is held to 1e-3 of its scale on all but 0.1 % of its
+    elements and every element to lr / 2; readings (seed 27): 3 of
+    31,200 categorical pi elements beyond 1e-3 of scale (max 0.0156),
+    none of the binary ones.  The moments' dtypes agree with the JAX
+    state: the pi parameter's bfloat16, every other one float32."""
+    jfit, tfit = _fits(kind, 30, 30, 1e-6, seed=27, binary=binary,
+                       moment_dtype="bfloat16")
+    assert tfit.num_iters == jfit.num_iters == 30
+    assert not tfit.nan_abort
+    jl = np.asarray(jfit.losses, np.float64)
+    rel = np.abs(tfit.losses.astype(np.float64) - jl).max() / np.abs(jl).max()
+    assert rel < 1e-5, rel
+    assert tfit.losses[-1] < tfit.losses[0]
+    for k, v in tfit.params.items():
+        ref = np.asarray(jfit.params[k])
+        err = np.abs(v.numpy() - ref)
+        beyond = int((err >= 1e-3 * max(1.0, np.max(np.abs(ref)))).sum())
+        assert beyond <= 1e-3 * err.size, (k, beyond, err.size)
+        assert err.max() < 0.05 / 2, (k, float(err.max()))
+    pi = "pi_bin_logits" if binary else "pi_logits"
+    assert pi in tfit.params
+    state = weights.opt_state_from_jax(jfit.opt_state, "cpu")
+    for moments, jmoments in ((tfit.opt_state.mu, state.mu),
+                              (tfit.opt_state.nu, state.nu)):
+        assert set(moments) == set(jmoments)
+        for k, m in moments.items():
+            want = torch.bfloat16 if k == pi else torch.float32
+            assert m.dtype == jmoments[k].dtype == want, (k, m.dtype)
+
+
+def test_make_opt_state_moment_dtypes():
+    """A fresh state: zero moments, the pi parameter's in the asked
+    dtype and the rest float32; no pi key, all float32."""
+    params = {"pi_bin_logits": torch.ones(4, 2, 3, dtype=torch.float32),
+              "u": torch.ones(2, dtype=torch.float32)}
+    st = tsvi.make_opt_state(params, "bfloat16")
+    assert st.mu["pi_bin_logits"].dtype == torch.bfloat16
+    assert st.nu["u"].dtype == torch.float32
+    assert not any(t.any() for t in (*st.mu.values(), *st.nu.values()))
+    assert tsvi.pi_param_name({"x": params["u"]}) is None
+    st = tsvi.make_opt_state({"x": params["u"]}, "bfloat16")
+    assert st.mu["x"].dtype == torch.float32
 
 
 def test_convergence_stop_matches_jax():

@@ -21,6 +21,11 @@ dpi.  A second, flat prior (etas = 1, eta_w = 0) leaves out - lse as the
 hoisted read term alone and dpi as the enumeration's own share, O(|g|):
 the bounds then hold the posterior weights absolutely (TOL_FLAT, dpi
 3e-3), and the hoisted term is held per element as |a - b| / (1 + |b|).
+The binary kernels are held to the same bounds: dz sums dpi terms of
+the same size and rounding.  With bfloat16 Adam moments, m' and v' are
+held to one bfloat16 ulp per element and param' to 1e-6 (the kernel
+repeats the plain version's roundings, so the readings are 0; one ulp is
+what a float32 rounding that tips a round-to-nearest-even would leave).
 """
 
 import numpy as np
@@ -60,6 +65,7 @@ def _inputs(C, L, P, seed, dev, flat=False):
         "mu": rng.uniform(0.2, 60, (C, L)),
         "phi": rng.uniform(0.001, 0.999, (C, L)),
         "pi_t": rng.normal(0, 2, (P, C, L)),
+        "z_t": rng.normal(0, 2, (ek.binary_code_width(P), C, L)),
         "g": rng.normal(0, 1, (C, L)),
         "etas_t": np.ones((P, C, L)),
         "eidx": rng.integers(0, P, (C, L)),
@@ -77,29 +83,26 @@ def _inputs(C, L, P, seed, dev, flat=False):
             for k, v in arr.items()}
 
 
-@pytest.mark.parametrize("flat", [False, True], ids=["prior", "flat"])
-@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
-@pytest.mark.parametrize("P", [13, 7])
-def test_fused_kernels_match_plain(dev, sparse, P, flat):
-    """Forward (out, lse) and backward (dmu, dphi, dpi) of the kernel
-    against the plain version, at a (37, 1001) grid that is ragged
-    against the 256-thread blocks, with a 1e6 prior and with a flat one;
-    each launch is counted once."""
-    x = _inputs(37, 1001, P, seed=P + int(sparse), dev=dev, flat=flat)
+def _check_fused(x, P, sparse, flat, binary, dev):
     tol = TOL_FLAT if flat else TOL
     scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32, device=dev))
     prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
         else dict(etas_t=x["etas_t"])
-    args = (x["reads"], x["mu"], x["pi_t"], x["phi"], scal)
-    kind = "sparse" if sparse else "dense"
+    if binary:
+        prior["binary_P"] = P
+    args = (x["reads"], x["mu"], x["z_t"] if binary else x["pi_t"], x["phi"],
+            scal)
+    key = ("sparse" if sparse else "dense") + ("_binary" if binary else "")
     _cuda.reset_launches()
     out_k, lse_k = ek.fused_fwd(*args, **prior)
     out_p, lse_p = ek.fused_fwd_plain(*args, **prior)
     got = ek.fused_bwd(*args, lse_p, x["g"], **prior)
     ref = ek.fused_bwd_plain(*args, lse_p, x["g"], **prior)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES[f"fused_fwd_{kind}"] == 1
-    assert _cuda.LAUNCHES[f"fused_bwd_{kind}"] == 1
+    assert _cuda.LAUNCHES[f"fused_fwd_{key}"] == 1
+    assert _cuda.LAUNCHES[f"fused_bwd_{key}"] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    assert got[2].shape == args[2].shape
     weight = x["ew"] if sparse else x["etas_t"] - 1.0
     scale = {"out": max(_amax(lse_p), _amax(out_p - lse_p)),
              "dpi": _amax(x["g"]) * _amax(weight)}
@@ -115,18 +118,49 @@ def test_fused_kernels_match_plain(dev, sparse, P, flat):
         assert per_bin <= tol["hoisted"], ("hoisted", per_bin)
 
 
+@pytest.mark.parametrize("flat", [False, True], ids=["prior", "flat"])
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
-def test_autograd_function_on_cuda_matches_cpu(dev, sparse):
+@pytest.mark.parametrize("P", [13, 7])
+def test_fused_kernels_match_plain(dev, sparse, P, flat):
+    """Forward (out, lse) and backward (dmu, dphi, dpi) of the kernel
+    against the plain version, at a (37, 1001) grid that is ragged
+    against the 256-thread blocks, with a 1e6 prior and with a flat one;
+    each launch is counted once."""
+    x = _inputs(37, 1001, P, seed=P + int(sparse), dev=dev, flat=flat)
+    _check_fused(x, P, sparse, flat, False, dev)
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["prior", "flat"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("P", [13, 7, 2])
+def test_binary_kernels_match_plain(dev, sparse, P, flat):
+    """The four binary kernels (Kb planes in, Kb dz planes out) against
+    their plain versions on the same ragged grid, prior and flat; P = 2
+    is the one-plane edge."""
+    x = _inputs(37, 1001, P, seed=30 + P + int(sparse), dev=dev, flat=flat)
+    _check_fused(x, P, sparse, flat, True, dev)
+
+
+@pytest.mark.parametrize("binary", [False, True], ids=["cat", "binary"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_autograd_function_on_cuda_matches_cpu(dev, sparse, binary):
     """The autograd entry points on the card (kernels) and on the CPU
     (plain versions) give the same value and cotangents."""
     x = _inputs(8, 300, 13, seed=21, dev=dev)
     lamb = torch.tensor(0.75, dtype=torch.float32)
+    pkey = "z_t" if binary else "pi_t"
     res = []
     for d in (dev, torch.device("cpu")):
         t = {k: v.to(d) for k, v in x.items()}
         mu, pi_t, phi = (t[k].clone().requires_grad_(True)
-                         for k in ("mu", "pi_t", "phi"))
-        if sparse:
+                         for k in ("mu", pkey, "phi"))
+        if sparse and binary:
+            out = ek.enum_loglik_fused_sparse_binary(
+                t["reads"], mu, pi_t, phi, t["eidx"], t["ew"], lamb.to(d), 13)
+        elif binary:
+            out = ek.enum_loglik_fused_binary(t["reads"], mu, pi_t, phi,
+                                              t["etas_t"], lamb.to(d), 13)
+        elif sparse:
             out = ek.enum_loglik_fused_sparse(t["reads"], mu, pi_t, phi,
                                               t["eidx"], t["ew"], lamb.to(d))
         else:
@@ -157,3 +191,37 @@ def test_adam_kernel_matches_plain(dev, step):
     assert _cuda.LAUNCHES["adam"] == 1
     for name, a, b in zip(("param", "m", "v"), got, ref):
         assert _rel(a, b) <= TOL[name], (name, _rel(a, b))
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-element distance of two bfloat16 tensors in bfloat16 ulps
+    (steps between adjacent representable values; +0 and -0 one
+    point)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("step", [1, 7, 300])
+def test_adam_bf16_kernel_matches_plain(dev, step):
+    """One sweep with bfloat16 stored moments: param' within 1e-6 of the
+    plain version, m' and v' within one bfloat16 ulp per element; one
+    launch of the bf16 instance and none of the float32 one."""
+    gen = torch.Generator(device=dev).manual_seed(100 + step)
+    shape = (4, 37, 1001)
+    f32 = dict(dtype=torch.float32, device=dev)
+    p, g = (torch.randn(shape, generator=gen, **f32) for _ in range(2))
+    m = (0.1 * torch.randn(shape, generator=gen, **f32)).to(torch.bfloat16)
+    v = (0.1 * torch.rand(shape, generator=gen, **f32)).to(torch.bfloat16)
+    scal = ak.adam_scalars(0.05, torch.tensor(step, dtype=torch.int32,
+                                              device=dev), 0.8, 0.99)
+    _cuda.reset_launches()
+    got = ak.adam_update(p, g, m, v, scal, 0.8, 0.99, "bfloat16")
+    ref = ak.adam_update_plain(p, g, m, v, scal, 0.8, 0.99)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["adam_bf16"] == 1 and _cuda.LAUNCHES["adam"] == 0
+    assert got[1].dtype == got[2].dtype == torch.bfloat16
+    assert _rel(got[0], ref[0]) <= TOL["param"]
+    for name, a, b in zip(("m", "v"), got[1:], ref[1:]):
+        assert int(bf16_ulps(a, b).max()) <= 1, name

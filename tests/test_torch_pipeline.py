@@ -98,8 +98,8 @@ def test_port_recovers_simulated_truth(outputs):
 
 @pytest.mark.parametrize("option", [
     dict(controller=True), dict(qc=True), dict(mirror_rescue=True),
-    dict(telemetry_path="auto"), dict(enum_impl="binary"),
-    dict(optimizer_state_dtype="bfloat16"), dict(cell_chunk=8),
+    dict(telemetry_path="auto"), dict(trace_spans=True),
+    dict(executable_cache_dir="ec"), dict(cell_chunk=8),
     dict(num_shards=2), dict(checkpoint_dir="ck"),
     dict(cn_hmm_self_prob=0.9)])
 def test_unported_options_raise(sim_data, option):
@@ -107,6 +107,20 @@ def test_unported_options_raise(sim_data, option):
     ROADMAP item; it is never silently replaced."""
     sim_s, sim_g = sim_data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+
+
+@pytest.mark.parametrize("option", [
+    dict(enum_impl="binary_xla"), dict(enum_impl="pallas"),
+    dict(enum_impl="binary_interpret"), dict(optimizer_state_dtype="float16"),
+    dict(fused_adam="xla")])
+def test_backend_specific_values_raise(sim_data, option):
+    """The JAX package's backend-specific values have no meaning in the
+    port ('auto' and 'binary' each run the CUDA kernels on the GPU and
+    their plain versions on the CPU): ValueError, not a silent
+    substitute."""
+    sim_s, sim_g = sim_data
+    with pytest.raises(ValueError, match=next(iter(option))):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
 
 
