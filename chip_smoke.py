@@ -25,7 +25,18 @@ Phases, each printing its own lines:
    frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
    in all three steps), with two more bars against the categorical run:
    tau correlation >= 0.99 x and CN accuracy >= its value - 0.02;
-7. the card's name and power limit, one JSON line of the kernels, then
+7. phase 4 again for the mirror-rescue path, ``scRT(...,
+   mirror_rescue=True)`` on the same frames: the categorical fit, then
+   the rescue's sub-fit of the boundary-tau cells (the dense kernels and
+   Adam) and its per-cell scoring, which runs the unfused enumeration
+   kernel twice; it fails without candidates or without an enum_fwd
+   launch, and holds tau correlation to no more than 0.01 below the
+   categorical run's.  Then, on the rescue's own operands, the dense
+   fused pair and Adam against their plain versions over one more
+   sub-fit iteration, per_cell_objective on the card against the same
+   function through the plain enumeration, and both unfused kernels
+   against their plain versions;
+8. the card's name and power limit, one JSON line of the kernels, then
    the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
@@ -81,6 +92,20 @@ TOL = {"out": 1e-5, "lse": 1e-5, "dpi": 1e-5, "dmu": 1e-3, "dphi": 1e-3,
 TOL_FLAT = {"out": 1e-5, "lse": 1e-5, "hoisted": 1e-5, "dmu": 1e-3,
             "dphi": 1e-3, "dpi": 3e-3}
 
+# The unfused pair has no prior.  Its ll = lse + x log(lamb) - lgamma(x
+# + 1) is a few units where the three terms run to thousands (a float32
+# ulp ~1e-4 there), so ll is held per element to 1e-5 of 1 + |lse| +
+# |x log(lamb) - lgamma(x + 1)| (ll_scale), the fused kernels' out
+# bound: inside lse the NB core's lgamma(x + delta) and lgamma(delta)
+# are larger still, and their ulps land on ll (readings up to 1.2e-6,
+# ~8 ulps of the scale).  dmu and dphi as above, dlog_pi, a sum of
+# posterior weights, like the flat prior's dpi.  per_cell_objective with
+# the kernel against the same with the plain enumeration differs only
+# by the enumerated term: held per cell to 1e-6 of the sum over loci of
+# that scale (rounding errors of opposite signs cancel in the sum).
+TOL_ENUM = {"ll": 1e-5, "dmu": 1e-3, "dphi": 1e-3, "dlog_pi": 3e-3,
+            "per_cell": 1e-6}
+
 # bfloat16 moments (m', v'): at most one bfloat16 ulp per element apart.
 # The kernel repeats the plain version's roundings (no FMA contraction,
 # csrc/adam.cu), so readings are 0; one ulp is what a float32 rounding
@@ -90,6 +115,8 @@ BF16_ULPS = 1
 
 _EK = "scdna_replication_tools_tpu/ops/enum_kernel.py"
 TPU_KERNEL = {
+    "enum_fwd": f"{_EK}:444",
+    "enum_bwd": f"{_EK}:466",
     "fused_fwd_dense": f"{_EK}:741",
     "fused_bwd_dense": f"{_EK}:766",
     "fused_fwd_sparse": f"{_EK}:856",
@@ -153,17 +180,42 @@ def bwd_ops_per_bin(P: int, sparse: bool, binary: bool = False) -> int:
     return 5 + softmax + init + slots + pairs + 3 * P + extra
 
 
-def transcendentals_per_bin(P: int, backward: bool) -> int:
+def enum_fwd_ops_per_bin(P: int) -> int:
+    """The unfused forward: the fused one's enumeration and read term,
+    without the softmax and the Dirichlet data term."""
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    nonzero = len(chi_slots(P)) - 1
+    slots = nonzero * (3 + 2 * LGAMMA_OPS + 4) + 1
+    pairs = 2 * P * 8
+    return 2 + (1 + LGAMMA_OPS) + slots + pairs + 5
+
+
+def enum_bwd_ops_per_bin(P: int) -> int:
+    """The unfused backward: lgamma(x + 1) and ll less the read term,
+    then the fused backward's chi sweep, without its softmax, Dirichlet
+    start and softmax Jacobian."""
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    nonzero = len(chi_slots(P)) - 1
+    slots = nonzero * (4 + 2 * LGDG_OPS + 10) + 1
+    pairs = 2 * P * 11
+    return 5 + (1 + LGAMMA_OPS) + 3 + slots + pairs
+
+
+def transcendentals_per_bin(P: int, backward: bool,
+                            unfused: bool = False) -> int:
     """exp/log calls per bin (counted inside the operations above; the
     card runs them as multi-instruction sequences on the special-function
     units, whose rate the bound's table does not give): the softmax's P
     exps and one log, two Bernoulli logs, two logs per lgamma (four per
     non-zero chi slot, two for chi = 0), one exp per (state, rep) pair,
-    then the lse log (forward) or the softmax's P exps again (backward)."""
+    then the lse log (forward) or the softmax's P exps again (backward).
+    The unfused pair has no softmax."""
     from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
     nonzero = len(chi_slots(P)) - 1
-    common = (P + 1) + 2 + 2 + 4 * nonzero + 2 * P
-    return common + (P if backward else 1)
+    common = (0 if unfused else P + 1) + 2 + 2 + 4 * nonzero + 2 * P
+    if backward:
+        return common + (0 if unfused else P)
+    return common + 1
 
 
 ADAM_OPS = 14        # bfloat16 moments add 4 conversions, not counted
@@ -247,8 +299,12 @@ def kernel_inputs(C, L, gen, dev):
     ew = torch.where(torch.rand((C, L), generator=gen, **f32) < 0.95,
                      torch.full((C, L), 1e6, **f32), torch.zeros((C, L), **f32))
     lamb = torch.tensor(0.75, **f32)
+    # the unfused pair's cells-major log-simplex: random and non-uniform,
+    # so that a swapped state index shows
+    log_pi = torch.log_softmax(
+        2.0 * torch.randn((C, L, P), generator=gen, **f32), dim=-1)
     return dict(reads=reads, mu=mu, phi=phi, pi_t=pi_t, g=g, etas_t=etas_t,
-                eidx=eidx, ew=ew, lamb=lamb)
+                eidx=eidx, ew=ew, lamb=lamb, log_pi=log_pi)
 
 
 def flat_prior(prior: dict) -> dict:
@@ -317,6 +373,69 @@ def check_fused(results, args, prior, g, sparse, label, binary_P=None):
         for kind, errs in (("fwd", fwd), ("bwd", bwd)):
             report(results, kernel_name(kind, sparse, binary_P), errs, tol,
                    f"{label}, {tag}")
+
+
+def ll_scale(ll, reads, scal):
+    """Per element 1 + |lse| + |x log(lamb) - lgamma(x + 1)|: the size of
+    the terms that the unfused ll sums."""
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    hoisted = reads * scal[0] - ek.lgamma_ge1(reads + 1.0)
+    return 1.0 + (ll - hoisted).abs() + hoisted.abs()
+
+
+def enum_errors(args, g) -> tuple:
+    """The unfused kernels against their plain versions on one set of
+    operands (reads, mu, log_pi, phi, scal); the backward takes the
+    plain forward's ll, so each kernel is judged alone."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    ll_k = ek.enum_fwd(*args)
+    ll_p = ek.enum_fwd_plain(*args)
+    got = ek.enum_bwd(*args, ll_p, g)
+    ref = ek.enum_bwd_plain(*args, ll_p, g)
+    torch.cuda.synchronize()
+    d = (ll_k - ll_p).abs()
+    fwd = {"ll": (float(d.max()),
+                  float((d / ll_scale(ll_p, args[0], args[4])).max()))}
+    bwd = {name: rel_err(a, b) for name, a, b in
+           zip(("dmu", "dphi", "dlog_pi"), got, ref)}
+    return fwd, bwd
+
+
+def check_enum(results, args, g, label) -> None:
+    fwd, bwd = enum_errors(args, g)
+    report(results, "enum_fwd", fwd, TOL_ENUM, label)
+    report(results, "enum_bwd", bwd, TOL_ENUM, label)
+
+
+def time_enum(results, args, g) -> None:
+    """Kernel, plain version and bound of the unfused pair at the
+    full-width shape."""
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    ll = ek.enum_fwd_plain(*args)
+    bargs = args + (ll, g)
+    n_bins = args[0].numel()
+    for name, fk, fp, ins, ops, bwd in (
+            ("enum_fwd", lambda: ek.enum_fwd(*args),
+             lambda: ek.enum_fwd_plain(*args), args, enum_fwd_ops_per_bin(P),
+             False),
+            ("enum_bwd", lambda: ek.enum_bwd(*bargs),
+             lambda: ek.enum_bwd_plain(*bargs), bargs,
+             enum_bwd_ops_per_bin(P), True)):
+        outs = fk()
+        moved = nbytes(*ins, *(outs if isinstance(outs, tuple) else (outs,)))
+        del outs
+        b_ms, b_by = bound(moved, ops * n_bins)
+        k_ms = time_ms(fk)
+        p_ms = time_ms(fp, reps=20, warmup=1)
+        entry = results[name]
+        entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, bytes=moved, ops=ops * n_bins,
+                     transcendentals=n_bins * transcendentals_per_bin(
+                         P, bwd, unfused=True))
+        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {entry['ops']} "
+              f"float32 operations, {entry['transcendentals']} exp/log")
 
 
 def bf16_ulps(a, b):
@@ -450,6 +569,13 @@ def compare_kernels(dev, record):
         full = shape == (CELLS, LOCI)
         label = f"{shape[0]}x{shape[1]}"
         print(f"[kernels] shape cells x loci = {label}, P = {P}, Kb = {KB}")
+        eargs = (x["reads"], x["mu"], x["log_pi"], x["phi"], scal)
+        check_enum(results, eargs, x["g"], label)
+        if full:
+            time_enum(results, eargs, x["g"])
+        del eargs
+        x.pop("log_pi")
+        torch.cuda.empty_cache()
         for binary_P in (None, P):
             args = (x["reads"], x["mu"], x["pi_t"] if binary_P is None
                     else z_t, x["phi"], scal)
@@ -530,32 +656,40 @@ def check_main_path_shapes(dev, scrt, results, path: str) -> None:
     from the step's fitted parameters, through the same entry points,
     yields the operands of each launch (after the main path, so that its
     peak memory holds none of them)."""
-    import torch
-    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
-    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
-
     mdt = scrt.config.optimizer_state_dtype
     print(f"[kernels] on the operands of each step of the {path} path, from "
           "its fitted parameters")
     for name, step in zip(("step1", "step2", "step3"), scrt.steps):
-        with LaunchOperands() as operands:
-            fit_map(_PertLossFn(step.spec), step.fit.params,
-                    (step.fixed, step.batch), max_iter=1, min_iter=1,
-                    device=dev, moment_dtype=mdt)
-        for (attr, kind, shape), (a, kw) in sorted(operands.calls.items()):
-            label = f"{path} {name} {'x'.join(map(str, shape))}"
-            a = tuple(t.detach() if torch.is_tensor(t) else t for t in a)
-            kw = {k: t.detach() if torch.is_tensor(t) else t
-                  for k, t in kw.items() if t is not None}
-            with torch.no_grad():
-                if attr == "fused_bwd":
-                    binary_P = kw.pop("binary_P", None)
-                    check_fused(results, a[:5], kw, a[6],
-                                kind.startswith("sparse"), label, binary_P)
-                else:
-                    check_adam(results, a[:7], label, kind)
-        del operands
-        torch.cuda.empty_cache()
+        check_one_iteration(dev, results, step.spec, step.fit.params,
+                            step.fixed, step.batch, mdt, f"{path} {name}")
+
+
+def check_one_iteration(dev, results, spec, params, fixed, batch, mdt,
+                        prefix: str) -> None:
+    """One ``fit_map`` iteration from ``params`` under ``LaunchOperands``,
+    then each captured launch of the fused backward (with its forward) and
+    of Adam against the plain versions on its operands."""
+    import torch
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+
+    with LaunchOperands() as operands:
+        fit_map(_PertLossFn(spec), params, (fixed, batch), max_iter=1,
+                min_iter=1, device=dev, moment_dtype=mdt)
+    for (attr, kind, shape), (a, kw) in sorted(operands.calls.items()):
+        label = f"{prefix} {'x'.join(map(str, shape))}"
+        a = tuple(t.detach() if torch.is_tensor(t) else t for t in a)
+        kw = {k: t.detach() if torch.is_tensor(t) else t
+              for k, t in kw.items() if t is not None}
+        with torch.no_grad():
+            if attr == "fused_bwd":
+                binary_P = kw.pop("binary_P", None)
+                check_fused(results, a[:5], kw, a[6],
+                            kind.startswith("sparse"), label, binary_P)
+            else:
+                check_adam(results, a[:7], label, kind)
+    del operands
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -662,19 +796,23 @@ CATEGORICAL = ("fused_fwd_dense", "fused_bwd_dense", "fused_fwd_sparse",
                "fused_bwd_sparse", "adam")
 BINARY = ("fused_fwd_dense_binary", "fused_bwd_dense_binary",
           "fused_fwd_sparse_binary", "fused_bwd_sparse_binary", "adam_bf16")
+RESCUE = CATEGORICAL + ("enum_fwd",)
 PATHS = {
-    # path -> (extra scRT options, the kernels its main path launches)
-    "categorical": ({}, CATEGORICAL),
-    "binary": (dict(enum_impl="binary", optimizer_state_dtype="bfloat16"),
-               BINARY),
+    # path -> (scRT options, the kernels its main path launches); the
+    # unfused backward runs on no path (the rescue scores without
+    # gradients), so enum_bwd is held against its plain version only
+    "categorical": (dict(mirror_rescue=False), CATEGORICAL),
+    "binary": (dict(mirror_rescue=False, enum_impl="binary",
+                    optimizer_state_dtype="bfloat16"), BINARY),
+    "rescue": (dict(mirror_rescue=True), RESCUE),
 }
 
 
 def main_path(dev, record, frames, path: str, reference=None):
     """``scRT(...).infer('pert')`` of one path on the simulated frames:
     launch counts against iteration counts, times, peak memory and the
-    recovery bars (the binary path also against the categorical run's
-    ``reference`` figures)."""
+    recovery bars (the binary and rescue paths also against the
+    categorical run's ``reference`` figures)."""
     import torch
     from scdna_replication_tools_tpu_torch import scRT
     from scdna_replication_tools_tpu_torch.ops import _cuda
@@ -685,7 +823,7 @@ def main_path(dev, record, frames, path: str, reference=None):
                 clone_col="clone_id", assign_col="copy",
                 cn_prior_method="g1_composite", max_iter=MAX_ITER,
                 min_iter=100, rt_prior_col=None, controller=False, qc=False,
-                mirror_rescue=False, telemetry_path=None, **options)
+                telemetry_path=None, **options)
     tag = f"[main {path}]"
     check(scrt.device.type == "cuda", f"{path}: scRT runs on {scrt.device}")
     torch.cuda.synchronize()
@@ -699,7 +837,7 @@ def main_path(dev, record, frames, path: str, reference=None):
     peak = torch.cuda.max_memory_allocated()
     step1, step2, step3 = scrt.steps
     iters = [s.fit.num_iters for s in (step1, step2, step3)]
-    print(f"{tag} {json.dumps(options) if options else 'default encoding'}: "
+    print(f"{tag} {json.dumps(options)}: "
           f"infer('pert') wall {wall:.2f} s; phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in scrt.phase_report.items()))
     for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
@@ -718,16 +856,27 @@ def main_path(dev, record, frames, path: str, reference=None):
     check(not step2.spec.sparse_etas and step3.spec.sparse_etas,
           f"{path}: step 2 fits the dense composite prior, step 3 the "
           "sparse one")
-    fwd_d, bwd_d, fwd_s, bwd_s, adam = kernels
-    check(launches[fwd_d] == iters[1] and launches[bwd_d] == iters[1],
+    rescue = rescue_record(scrt, tag) if options["mirror_rescue"] else None
+    # the rescue's sub-fit runs the dense pair and Adam on the candidates
+    sub = rescue["iters"] if rescue else 0
+    fwd_d, bwd_d, fwd_s, bwd_s, adam = kernels[:5]
+    check(launches[fwd_d] == iters[1] + sub
+          and launches[bwd_d] == iters[1] + sub,
           f"{path}: {fwd_d}/{bwd_d} launched once per step-2 iteration "
-          f"({iters[1]})")
+          f"({iters[1]}) and rescue sub-fit iteration ({sub})")
     check(launches[fwd_s] == iters[2] and launches[bwd_s] == iters[2],
           f"{path}: {fwd_s}/{bwd_s} launched once per step-3 iteration "
           f"({iters[2]})")
-    check(launches[adam] == sum(iters),
-          f"{path}: {adam} launched once per iteration of every step "
-          f"({sum(iters)})")
+    check(launches[adam] == sum(iters) + sub,
+          f"{path}: {adam} launched once per iteration of every step and "
+          f"of the rescue sub-fit ({sum(iters) + sub})")
+    if rescue is not None:
+        check(rescue["candidates"] > 0,
+              f"{path}: {rescue['candidates']} boundary-tau candidates > 0")
+        check(launches["enum_fwd"] == 2 and sub > 0,
+              f"{path}: enum_fwd launched twice, once per scored parameter "
+              f"set ({launches['enum_fwd']}), after a sub-fit of {sub} "
+              "iterations")
     check(all(launches[k] > 0 for k in kernels)
           and not any(v for k, v in launches.items() if k not in kernels),
           f"{path}: every kernel of the path launched, no other kernel")
@@ -751,7 +900,13 @@ def main_path(dev, record, frames, path: str, reference=None):
     check(cn_acc > 0.90, f"{path}: CN accuracy {cn_acc:.4f} > 0.90")
     check(tau_r > 0.8, f"{path}: tau correlation {tau_r:.4f} > 0.8")
     check(0.5 < lamb < 0.95, f"{path}: lambda {lamb:.4f} in (0.5, 0.95)")
-    if reference is not None:
+    if reference is not None and rescue is not None:
+        # the rescue is objective-improving per cell: it may move tau,
+        # but not lose the categorical run's recovery
+        check(tau_r >= reference["tau_r"] - 0.01,
+              f"{path}: tau correlation {tau_r:.4f} >= categorical "
+              f"{reference['tau_r']:.4f} - 0.01")
+    elif reference is not None:
         # the JAX package's own bars for the binary encoding against the
         # categorical one (tests/test_binary_encoding.py:445-464)
         check(tau_r >= 0.99 * reference["tau_r"],
@@ -768,9 +923,112 @@ def main_path(dev, record, frames, path: str, reference=None):
                         for s in (step1, step2, step3)],
         "step2_cells_per_s": cells_per_s, "peak_bytes": peak,
         "launches": launches, "rep_acc": rep_acc, "cn_acc": cn_acc,
-        "tau_r": tau_r, "lambda": lamb,
+        "tau_r": tau_r, "lambda": lamb, "rescue": rescue,
     }
     return launches, scrt
+
+
+def rescue_record(scrt, tag) -> dict:
+    """The mirror rescue's statistics, sub-fit and phase time, printed."""
+    stats = dict(scrt.mirror_rescue_stats or {})
+    sub = scrt.mirror_rescue_fit
+    fit = sub.fit if sub else None
+    rec = {**stats, "iters": fit.num_iters if fit else 0,
+           "fit_s": fit.timings["fit"] if fit else 0.0,
+           "ms_per_iter": fit.timings["ms_per_iter"] if fit else None,
+           "fitted_cells": int(len(sub.cells)) if sub else 0,
+           "phase_s": scrt.phase_report.get("step2/rescue")}
+    print(f"  rescue: {stats.get('candidates', 0)} candidates, "
+          f"{stats.get('accepted', 0)} accepted, capped_to "
+          f"{stats.get('capped_to', 'none')}; sub-fit of "
+          f"{rec['fitted_cells']} cells, {rec['iters']} iterations in "
+          f"{rec['fit_s']:.3f} s; step2/rescue phase "
+          f"{rec['phase_s'] or 0.0:.3f} s")
+    return rec
+
+
+class SwapEnumFwd:
+    """Replaces the unfused forward that ``enum_loglik`` calls (the module
+    attribute ``enum_fwd``) while open: ``plain=True`` sends every call to
+    the plain version; otherwise each call's operands are kept and the
+    kernel runs as before."""
+
+    def __init__(self, plain: bool = False):
+        self.plain = plain
+        self.calls: list = []
+
+    def __enter__(self):
+        from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+        self.orig = ek.enum_fwd
+
+        def swapped(*a):
+            if self.plain:
+                return ek.enum_fwd_plain(*a)
+            self.calls.append(a)
+            return self.orig(*a)
+        ek.enum_fwd = swapped
+        return self
+
+    def __exit__(self, *exc):
+        from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+        ek.enum_fwd = self.orig
+        return False
+
+
+def check_rescue_scoring(dev, scrt, results) -> None:
+    """On the rescue's own operands (the re-fitted candidates' sub-batch
+    under the rescue's conditioning): the dense fused pair and Adam
+    against their plain versions over one more sub-fit iteration from the
+    sub-fit's parameters; then per_cell_objective on the card (the
+    unfused kernel) against the same function through the plain
+    enumeration, and both unfused kernels against their plain versions,
+    with the step-2 parameters (after the splice) and with the
+    sub-fit's."""
+    import dataclasses
+
+    import torch
+    from scdna_replication_tools_tpu_torch.models import pert as mp
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    from scdna_replication_tools_tpu_torch.ops.transforms import (
+        to_positive,
+        to_unit_interval,
+    )
+
+    step2, sub = scrt.steps[1], scrt.mirror_rescue_fit
+    cells = sub.cells
+    params = step2.fit.params
+    spec = dataclasses.replace(step2.spec, cond_rho=True, cond_a=True)
+    with torch.no_grad():
+        fixed = dict(step2.fixed, rho=to_unit_interval(params["rho_raw"]),
+                     a=to_positive(params["a_raw"]))
+        sub_params, sub_batch = mp.slice_cells(params, step2.batch, cells)
+    print(f"[kernels] on the operands of the rescue sub-fit, from its "
+          f"fitted parameters ({len(cells)} cells)")
+    check_one_iteration(dev, results, spec, sub.fit.params, fixed, sub_batch,
+                        scrt.config.optimizer_state_dtype, "rescue sub-fit")
+    rescued = dict(sub.fit.params, beta_stds_raw=params["beta_stds_raw"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    label = f"rescue {len(cells)}x{LOCI}"
+    print(f"[kernels] per_cell_objective and the unfused pair on the "
+          f"rescue's operands ({label})")
+    for name, p in (("step-2 fit", sub_params), ("sub-fit", rescued)):
+        with torch.no_grad():
+            with SwapEnumFwd() as kept:
+                obj_k = mp.per_cell_objective(spec, p, fixed, sub_batch)
+            with SwapEnumFwd(plain=True):
+                obj_p = mp.per_cell_objective(spec, p, fixed, sub_batch)
+            (args,) = kept.calls
+            scale = ll_scale(ek.enum_fwd_plain(*args), args[0],
+                             args[4]).sum(dim=1)
+            err = float(((obj_k - obj_p).abs() / scale).max())
+            g = torch.randn(args[0].shape, generator=gen, device=dev)
+            check_enum(results, args, g, f"{label} {name}")
+        check(err <= TOL_ENUM["per_cell"] and bool(torch.isfinite(obj_k).all()),
+              f"per_cell_objective {label} {name}: kernel against plain "
+              f"enumeration, max |diff| / ll scale per cell {err:.3e} <= "
+              f"{TOL_ENUM['per_cell']:.0e}")
+        del kept, args, obj_k, obj_p
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -778,7 +1036,8 @@ def main_path(dev, record, frames, path: str, reference=None):
 # ---------------------------------------------------------------------------
 
 PROFILE_ITERS = 30
-PORT_KERNELS = ("fused_fwd_kernel", "fused_bwd_kernel", "adam_kernel")
+PORT_KERNELS = ("fused_fwd_kernel", "fused_bwd_kernel", "adam_kernel",
+                "enum_fwd_kernel", "enum_bwd_kernel")
 
 
 def _short(kernel: str) -> str:
@@ -913,6 +1172,13 @@ def main() -> int:
     check_main_path_shapes(dev, scrt, results, "binary")
     profile_steps(dev, scrt, record, "binary", steps=("step2", "step3"))
     launches.update({k: bin_launches[k] for k in BINARY})
+    del scrt
+    torch.cuda.empty_cache()
+
+    res_launches, scrt = main_path(dev, record, frames, "rescue", reference)
+    if scrt.mirror_rescue_fit is not None:
+        check_rescue_scoring(dev, scrt, results)
+    launches.update({k: res_launches[k] for k in ("enum_fwd", "enum_bwd")})
     del scrt
     torch.cuda.empty_cache()
 

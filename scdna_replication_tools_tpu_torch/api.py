@@ -7,10 +7,11 @@ four DataFrames.
 
 Several JAX features are on by default but not ported yet.  A caller who
 leaves one of them on gets ``NotImplementedError`` naming its ROADMAP
-item; the port never runs something else in its place.  The
-reference-faithful call is therefore
-``scRT(..., controller=False, qc=False, mirror_rescue=False,
-telemetry_path=None)``.
+item; the port never runs something else in its place.  The call that
+runs is therefore ``scRT(..., controller=False, qc=False,
+telemetry_path=None)``, with the mirror rescue on (its default, as in the
+JAX package without the controller) or ``mirror_rescue=False`` for the
+reference-faithful trajectory.
 """
 
 from __future__ import annotations
@@ -41,8 +42,6 @@ def _unported(options: dict) -> None:
     checks = [
         ("controller", options["controller"],
          "A7 (default-on features: the adaptive controller)"),
-        ("mirror_rescue", options["mirror_rescue"],
-         "A7 (default-on features: the mirror rescue)"),
         ("qc", options["qc"], "A7 (default-on features: model-health QC)"),
         ("telemetry_path", options["telemetry_path"] not in _OFF,
          "A11 (observability: the run log)"),
@@ -75,9 +74,9 @@ def _unported(options: dict) -> None:
         if on:
             raise NotImplementedError(
                 f"scRT option {name}={options[name]!r} is not ported to the "
-                f"PyTorch package yet (ROADMAP {item}); pass the "
-                "reference-faithful value (controller=False, qc=False, "
-                "mirror_rescue=False, telemetry_path=None) or use "
+                f"PyTorch package yet (ROADMAP {item}); pass "
+                "controller=False, qc=False, telemetry_path=None (and the "
+                "defaults of the other options) or use "
                 "scdna_replication_tools_tpu")
     if options["fused_adam"] != "auto":
         raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
@@ -132,7 +131,7 @@ class scRT:
                  clustering_method='kmeans', clustering_kwargs=None,
                  device=None):
         _unported(dict(
-            controller=controller, mirror_rescue=mirror_rescue, qc=qc,
+            controller=controller, qc=qc,
             telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
             trace_spans=trace_spans,
             heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
@@ -164,8 +163,15 @@ class scRT:
             min_iter_step3=min_iter_step3, run_step3=run_step3,
             pad_cells_to=pad_cells_to, pad_loci_to=pad_loci_to,
             enum_impl=enum_impl, optimizer_state_dtype=optimizer_state_dtype,
+            mirror_rescue=mirror_rescue,
         )
         self.clone_profiles = None
+        # {candidates, accepted[, capped_to]} of the last mirror rescue
+        # (None unless it ran)
+        self.mirror_rescue_stats = None
+        # the last mirror rescue's sub-fit, ``infer.runner.RescueFit``
+        # (re-fitted cells and their FitResult; None unless it ran)
+        self.mirror_rescue_fit = None
         # {stage: wall seconds} of the last infer(level='pert')
         self.phase_report = None
 
@@ -222,6 +228,8 @@ class scRT:
         phases["load"] = time.perf_counter() - t0
         step1, step2, step3 = inference.run()
         phases.update(inference.phases)
+        self.mirror_rescue_stats = inference.mirror_rescue_stats
+        self.mirror_rescue_fit = inference.rescue_fit
 
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -229,7 +237,8 @@ class scRT:
                                      step1.fixed)["lamb"].reshape(-1)[0])
         cn_s_out, supp_s_out = package_step_output(
             self.cn_s, inference._step2_data, step2, lamb,
-            step1.fit.losses, step2.fit.losses, c)
+            step1.fit.losses, step2.fit.losses, c,
+            mirror_rescue_stats=inference.mirror_rescue_stats)
         if step3 is not None:
             cn_g1_out, supp_g1_out = package_step_output(
                 self.cn_g1, inference._step3_data, step3, lamb,

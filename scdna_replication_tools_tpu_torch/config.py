@@ -1,10 +1,11 @@
 """Typed configuration: the fields of the port's slice.
 
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
-whole, and the :class:`PertConfig` fields the three-step fit reads.  The
-JAX config's other knobs (controller, QC, mirror rescue, telemetry,
-sharding, checkpoints, cell chunking) belong to modules not yet ported;
-``api.scRT`` refuses them by name instead of carrying dead fields here.
+whole, and the :class:`PertConfig` fields the three-step fit and the
+mirror rescue read.  The JAX config's other knobs (controller, QC,
+telemetry, sharding, checkpoints, cell chunking) belong to modules not
+yet ported; ``api.scRT`` refuses them by name instead of carrying dead
+fields here.
 """
 
 from __future__ import annotations
@@ -81,6 +82,18 @@ class PertConfig:
     # stored dtype of the pi parameter's Adam moments: 'float32' or
     # 'bfloat16' (the arithmetic stays float32)
     optimizer_state_dtype: str = "float32"
+    # post-step-2 mirror rescue (JAX config.py:429-456): cells whose
+    # fitted tau lies outside [mirror_tau_lo, mirror_tau_hi] are re-fit
+    # from the mirrored initialisation (tau' = 1 - tau) with every global
+    # site conditioned, and each keeps the fit with the higher per-cell
+    # log-joint; at most mirror_max_cells candidates, the most
+    # boundary-extreme first.  False is the reference-faithful trajectory
+    mirror_rescue: bool = True
+    mirror_tau_lo: float = 0.1
+    mirror_tau_hi: float = 0.9
+    mirror_max_iter: int = 400
+    mirror_min_iter: int = 50
+    mirror_max_cells: int = 256
 
     def __post_init__(self):
         if self.enum_impl not in ("auto", "binary"):

@@ -1,9 +1,12 @@
-// Fused PERT enumeration kernels for Hopper (sm_90a), forward and backward.
+// PERT enumeration kernels for Hopper (sm_90a), forward and backward: the
+// fused objective and the unfused enumerated log-likelihood.
 //
 // Replaces the TPU kernels _fused_fwd_kernel / _fused_bwd_kernel of
 // scdna_replication_tools_tpu/ops/enum_kernel.py (:547, :608) in all four
 // configurations: dense (pallas_call :741, :766), sparse (:856, :881),
-// dense binary (:976, :1002) and sparse binary (:1073, :1100).
+// dense binary (:976, :1002) and sparse binary (:1073, :1100); and the
+// unfused pair _fwd_kernel / _bwd_kernel (:174, :207; pallas_call :444,
+// :466).
 //
 // Per (cell, locus) bin, with pi_t the state-major (P, cells, loci) logits:
 //   lp_s  = log_softmax(pi_t[:, bin])_s
@@ -18,6 +21,18 @@
 // 0 has logit 0), and the backward writes dz_k = sum_{s: bit_k(s)=1} dpi_s
 // (ascending s) instead of the P dpi planes.
 //
+// The unfused pair (enum_fwd_kernel / enum_bwd_kernel) takes lp itself:
+// log_pi, the CELLS-MAJOR (cells, loci, P) already normalised log-simplex
+// of the JAX entry point, with no softmax and no Dirichlet term:
+//   ll    = lse + x log(lamb) - lgamma(x + 1)
+// and its backward normalises the posterior weights against
+// ll - (x log(lamb) - lgamma(x + 1)) and writes dmu, dphi and the
+// cells-major dlog_pi_s = sum of the weights of state s.  Each thread
+// reads (and the backward writes) its bin's P consecutive floats: a warp
+// covers one contiguous span of 32 P floats, which the first of the P
+// loads brings into L1 for the rest, so no transpose is needed on either
+// side and the bytes moved stay each operand's own.
+//
 // What bounds it on this card: each bin reads 3 + Kp (+ P dense | + 2
 // sparse) planes and writes 2 (forward) or 2 + Kp (backward), Kp = P or
 // Kb -- 0.07-0.3 ms of HBM traffic at 1000 x 5451 x 13 -- against ~19 NB
@@ -31,7 +46,8 @@
 // Kb dz accumulators and the NB values of the two-pass logsumexp stay in
 // registers (the TPU kernel kept 19 VMEM tiles resident instead); the chi
 // loop and the bit tables are unrolled at compile time (each distinct
-// total CN chi = s(1+r) evaluates its NB core once).  P is a runtime
+// total CN chi = s(1+r) evaluates its NB core once; enum_lse and
+// enum_sweep_bwd hold that loop once for all six kernels).  P is a runtime
 // argument up to MAXP; the unrolled loops are guarded by it.  lgamma and
 // digamma use the TPU kernel's Stirling series (z >= 1 shifted up by 8),
 // so kernel, plain PyTorch version and JAX agree to float32 rounding
@@ -136,6 +152,89 @@ __device__ __forceinline__ void log_softmax_bin(const float* __restrict__ pi,
     if (s < P) lp[s] = lp[s] - log_z;
 }
 
+// two-pass logsumexp over the bin's (state, rep) pairs, one NB core per
+// distinct chi; chi = 0 has delta == 1 and reuses lgx1 = lgamma(x + 1)
+__device__ __forceinline__ float enum_lse(float x, float mui, float bern0,
+                                          float bern1, float lgx1,
+                                          float log1m_lamb, float q,
+                                          const float (&lp)[MAXP], int P) {
+  float nb[MAXCHI];
+  float m = -INFINITY;
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (!has0 && !has1) continue;
+    float v;
+    if (chi == 0) {
+      v = lgx1 + log1m_lamb;
+    } else {
+      const float delta = fmaxf(mui * ((float)chi * q), 1.0f);
+      v = lgamma_ge1(x + delta) - lgamma_ge1(delta) + delta * log1m_lamb;
+    }
+    nb[chi] = v;
+    if (chi < MAXP && has0) m = fmaxf(m, lp[chi < MAXP ? chi : 0] + bern0 + v);
+    if (has1) m = fmaxf(m, lp[chi / 2] + bern1 + v);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (chi < MAXP && has0)
+      acc = acc + expf(lp[chi < MAXP ? chi : 0] + bern0 + nb[chi] - m);
+    if (has1) acc = acc + expf(lp[chi / 2] + bern1 + nb[chi] - m);
+  }
+  return m + logf(acc);
+}
+
+// the backward's chi sweep: each (state, rep) pair's posterior weight
+// g exp(lp_s + bern_r + nb - lse), accumulated into dmu, dphi, dlp[s] and
+// tot (the fused backward's softmax Jacobian needs the sum; the unfused
+// one drops it)
+__device__ __forceinline__ void enum_sweep_bwd(
+    float x, float mui, float g, float lse, float bern0, float bern1,
+    float dbern0, float dbern1, float lgx1, float log1m_lamb, float q,
+    const float (&lp)[MAXP], int P, float (&dlp)[MAXP], float& tot,
+    float& dmu, float& dphi) {
+#pragma unroll
+  for (int chi = 0; chi < MAXCHI; ++chi) {
+    const bool has0 = chi < MAXP && chi < P;
+    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
+    if (!has0 && !has1) continue;
+    float nbv, dmu_slot = 0.0f;
+    if (chi == 0) {
+      nbv = lgx1 + log1m_lamb;
+    } else {
+      const float cq = (float)chi * q;
+      const float delta = fmaxf(mui * cq, 1.0f);
+      float lg_xd, psi_xd, lg_d, psi_d;
+      lgamma_digamma_ge1(x + delta, lg_xd, psi_xd);
+      lgamma_digamma_ge1(delta, lg_d, psi_d);
+      nbv = lg_xd - lg_d + delta * log1m_lamb;
+      const float ddelta = psi_xd - psi_d + log1m_lamb;
+      // d nb / d mu, gated on the delta > 1 clamp region
+      dmu_slot = ddelta * (mui * cq > 1.0f ? 1.0f : 0.0f) * cq;
+    }
+    if (chi < MAXP && has0) {
+      const int s = chi < MAXP ? chi : 0;
+      const float gw = g * expf(lp[s] + bern0 + nbv - lse);
+      if (chi != 0) dmu = dmu + gw * dmu_slot;
+      dphi = dphi + gw * dbern0;
+      dlp[s] = dlp[s] + gw;
+      tot = tot + gw;
+    }
+    if (has1) {
+      const int s = chi / 2;
+      const float gw = g * expf(lp[s] + bern1 + nbv - lse);
+      if (chi != 0) dmu = dmu + gw * dmu_slot;
+      dphi = dphi + gw * dbern1;
+      dlp[s] = dlp[s] + gw;
+      tot = tot + gw;
+    }
+  }
+}
+
 template <bool SPARSE, bool BINARY>
 __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
     const float* __restrict__ reads, const float* __restrict__ mu,
@@ -165,37 +264,9 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
       if (s < P) lp_acc = lp_acc + (etas[s * n + i] - 1.0f) * lp[s];
   }
 
-  // two-pass logsumexp over the (state, rep) pairs, one NB core per
-  // distinct chi; chi = 0 has delta == 1 and reuses lgamma(x + 1)
   const float lgx1 = lgamma_ge1(x + 1.0f);
-  float nb[MAXCHI];
-  float m = -INFINITY;
-#pragma unroll
-  for (int chi = 0; chi < MAXCHI; ++chi) {
-    const bool has0 = chi < MAXP && chi < P;
-    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
-    if (!has0 && !has1) continue;
-    float v;
-    if (chi == 0) {
-      v = lgx1 + log1m_lamb;
-    } else {
-      const float delta = fmaxf(mui * ((float)chi * q), 1.0f);
-      v = lgamma_ge1(x + delta) - lgamma_ge1(delta) + delta * log1m_lamb;
-    }
-    nb[chi] = v;
-    if (chi < MAXP && has0) m = fmaxf(m, lp[chi < MAXP ? chi : 0] + bern0 + v);
-    if (has1) m = fmaxf(m, lp[chi / 2] + bern1 + v);
-  }
-  float acc = 0.0f;
-#pragma unroll
-  for (int chi = 0; chi < MAXCHI; ++chi) {
-    const bool has0 = chi < MAXP && chi < P;
-    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
-    if (chi < MAXP && has0)
-      acc = acc + expf(lp[chi < MAXP ? chi : 0] + bern0 + nb[chi] - m);
-    if (has1) acc = acc + expf(lp[chi / 2] + bern1 + nb[chi] - m);
-  }
-  const float lse = m + logf(acc);
+  const float lse =
+      enum_lse(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
   lse_out[i] = lse;
   out[i] = lse + x * log_lamb - lgx1 + lp_acc;
 }
@@ -241,42 +312,9 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
   }
 
   float dmu = 0.0f, dphi = 0.0f;
-#pragma unroll
-  for (int chi = 0; chi < MAXCHI; ++chi) {
-    const bool has0 = chi < MAXP && chi < P;
-    const bool has1 = (chi % 2 == 0) && (chi / 2 < P);
-    if (!has0 && !has1) continue;
-    float nbv, dmu_slot = 0.0f;
-    if (chi == 0) {
-      nbv = lgamma_ge1(x + 1.0f) + log1m_lamb;
-    } else {
-      const float cq = (float)chi * q;
-      const float delta = fmaxf(mui * cq, 1.0f);
-      float lg_xd, psi_xd, lg_d, psi_d;
-      lgamma_digamma_ge1(x + delta, lg_xd, psi_xd);
-      lgamma_digamma_ge1(delta, lg_d, psi_d);
-      nbv = lg_xd - lg_d + delta * log1m_lamb;
-      const float ddelta = psi_xd - psi_d + log1m_lamb;
-      // d nb / d mu, gated on the delta > 1 clamp region
-      dmu_slot = ddelta * (mui * cq > 1.0f ? 1.0f : 0.0f) * cq;
-    }
-    if (chi < MAXP && has0) {
-      const int s = chi < MAXP ? chi : 0;
-      const float gw = g * expf(lp[s] + bern0 + nbv - lse);
-      if (chi != 0) dmu = dmu + gw * dmu_slot;
-      dphi = dphi + gw * dbern0;
-      dlp[s] = dlp[s] + gw;
-      tot = tot + gw;
-    }
-    if (has1) {
-      const int s = chi / 2;
-      const float gw = g * expf(lp[s] + bern1 + nbv - lse);
-      if (chi != 0) dmu = dmu + gw * dmu_slot;
-      dphi = dphi + gw * dbern1;
-      dlp[s] = dlp[s] + gw;
-      tot = tot + gw;
-    }
-  }
+  enum_sweep_bwd(x, mui, g, lse, bern0, bern1, dbern0, dbern1,
+                 lgamma_ge1(x + 1.0f), log1m_lamb, q, lp, P, dlp, tot, dmu,
+                 dphi);
   dmu_out[i] = dmu;
   dphi_out[i] = dphi;
   // softmax Jacobian: dpi_s = dlog_pi_s - softmax_s * sum_s' dlog_pi_s'
@@ -302,6 +340,64 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
     for (int s = 0; s < MAXP; ++s)
       if (s < P) dpi_out[s * n + i] = dlp[s] - expf(lp[s]) * tot;
   }
+}
+
+// unfused forward: ll from the cells-major log_pi as given
+__global__ void __launch_bounds__(THREADS) enum_fwd_kernel(
+    const float* __restrict__ reads, const float* __restrict__ mu,
+    const float* __restrict__ phi, const float* __restrict__ log_pi,
+    const float* __restrict__ scal, float* __restrict__ ll_out, int64_t n,
+    int P) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
+  const float x = reads[i], mui = mu[i], ph = phi[i];
+  const float bern0 = log1pf(-ph), bern1 = logf(ph);
+  const float* row = log_pi + i * P;
+  float lp[MAXP];
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) lp[s] = row[s];
+  const float lgx1 = lgamma_ge1(x + 1.0f);
+  const float lse =
+      enum_lse(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  ll_out[i] = lse + x * log_lamb - lgx1;
+}
+
+// unfused backward: the weights normalise against ll less the hoisted
+// x log(lamb) - lgamma(x + 1), and dlog_pi_s is state s's weight sum
+__global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
+    const float* __restrict__ reads, const float* __restrict__ mu,
+    const float* __restrict__ phi, const float* __restrict__ log_pi,
+    const float* __restrict__ scal, const float* __restrict__ ll_in,
+    const float* __restrict__ g_in, float* __restrict__ dmu_out,
+    float* __restrict__ dphi_out, float* __restrict__ dlog_pi_out, int64_t n,
+    int P) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
+  const float x = reads[i], mui = mu[i], ph = phi[i], g = g_in[i];
+  const float lgx1 = lgamma_ge1(x + 1.0f);
+  const float ll_state = ll_in[i] - (x * log_lamb - lgx1);
+  const float bern0 = log1pf(-ph), bern1 = logf(ph);
+  const float dbern0 = -1.0f / (1.0f - ph), dbern1 = 1.0f / ph;
+  const float* row = log_pi + i * P;
+  float lp[MAXP], dlp[MAXP];
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) {
+      lp[s] = row[s];
+      dlp[s] = 0.0f;
+    }
+  float tot = 0.0f, dmu = 0.0f, dphi = 0.0f;
+  enum_sweep_bwd(x, mui, g, ll_state, bern0, bern1, dbern0, dbern1, lgx1,
+                 log1m_lamb, q, lp, P, dlp, tot, dmu, dphi);
+  dmu_out[i] = dmu;
+  dphi_out[i] = dphi;
+  float* drow = dlog_pi_out + i * P;
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s)
+    if (s < P) drow[s] = dlp[s];
 }
 
 inline unsigned int blocks_for(int64_t n) {
@@ -378,6 +474,29 @@ int scrt_fused_bwd(const float* reads, const float* mu, const float* phi,
                              : launch_bwd<false, false>);
   fn(reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n, P,
      st);
+  return (int)cudaGetLastError();
+}
+
+// log_pi: the cells-major (n, P) normalised log-simplex
+int scrt_enum_fwd(const float* reads, const float* mu, const float* phi,
+                  const float* log_pi, const float* scal, float* ll,
+                  long long n, int P, void* stream) {
+  if (refused(P, 0, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  enum_fwd_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      reads, mu, phi, log_pi, scal, ll, n, P);
+  return (int)cudaGetLastError();
+}
+
+// dlog_pi: cells-major (n, P), as log_pi
+int scrt_enum_bwd(const float* reads, const float* mu, const float* phi,
+                  const float* log_pi, const float* scal, const float* ll,
+                  const float* g, float* dmu, float* dphi, float* dlog_pi,
+                  long long n, int P, void* stream) {
+  if (refused(P, 0, n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  enum_bwd_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      reads, mu, phi, log_pi, scal, ll, g, dmu, dphi, dlog_pi, n, P);
   return (int)cudaGetLastError();
 }
 

@@ -15,14 +15,17 @@ Each step is one fixed-budget ``fit_map`` on one device.  Steps 2 and 3
 take the configured pi encoding (``enum_impl='binary'``: the
 independent-binary planes), step 1 stays categorical as in the JAX
 runner; every step stores the pi parameter's Adam moments in
-``optimizer_state_dtype``.  The JAX
-runner's controller, mirror rescue, QC, checkpoints, telemetry and
-sharding are not ported yet (``api.scRT`` refuses them by name).
+``optimizer_state_dtype``.  With ``mirror_rescue`` (the default) step 2
+is followed by the mirror rescue, always on as in the JAX runner without
+an active controller.  The JAX runner's controller, QC, checkpoints,
+telemetry and sharding are not ported yet (``api.scRT`` refuses them by
+name).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional, Tuple
 
@@ -46,10 +49,18 @@ from scdna_replication_tools_tpu_torch.models.pert import (
     constrained,
     decode_discrete,
     init_params,
+    per_cell_objective,
     pert_loss,
+    slice_cells,
 )
 from scdna_replication_tools_tpu_torch.ops.gc import gc_features
 from scdna_replication_tools_tpu_torch.ops.stats import guess_times, pearson_matrix
+from scdna_replication_tools_tpu_torch.ops.transforms import (
+    to_positive,
+    to_unit_interval,
+)
+
+logger = logging.getLogger(__name__)
 
 
 def _pad_etas(etas: np.ndarray, target_cells: int,
@@ -80,6 +91,15 @@ class StepOutput:
     fixed: dict
     batch: PertBatch
     wall_time: float
+
+
+@dataclasses.dataclass(frozen=True)
+class RescueFit:
+    """The mirror rescue's sub-fit: the re-fitted cells (indices into the
+    step-2 batch, after the cap) and the fit from their mirrored
+    initialisation."""
+    cells: np.ndarray
+    fit: FitResult
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +138,14 @@ class PertInference:
         self.L = s_data.num_libraries
         # wall seconds per stage (build, prior, fit) of the last run
         self.phases: dict = {}
+        # {candidates, accepted[, capped_to]} of the last mirror rescue
+        self.mirror_rescue_stats: Optional[dict] = None
+        # the rescue's candidate, re-fitted (after the cap) and accepted
+        # cell indices (for the QC candidate flags, which are not ported
+        # yet)
+        self._rescue_cells: Optional[dict] = None
+        # the last rescue's sub-fit (None unless it re-fitted cells)
+        self.rescue_fit: Optional[RescueFit] = None
 
     # -- batches ----------------------------------------------------------
 
@@ -288,7 +316,134 @@ class PertInference:
         out = self._fit(spec, batch, fixed, t_init, iters["max_iter"],
                         iters["min_iter"], "step2")
         self._step2_data = s
+        if self.config.mirror_rescue:
+            t0 = time.perf_counter()
+            out = self._mirror_rescue(out, batch)
+            self.phases["step2/rescue"] = time.perf_counter() - t0
+        else:
+            # reference-faithful path: surface the symptom the rescue
+            # exists for
+            cfg = self.config
+            _, cand = self._mirror_candidates(out, batch)
+            if cand.size:
+                logger.info(
+                    "step 2: %d cells fitted at boundary tau (outside "
+                    "[%.2f, %.2f]) — if their profiles look fully "
+                    "replicated this may be the tau mirror degeneracy; "
+                    "consider mirror_rescue=True",
+                    cand.size, cfg.mirror_tau_lo, cfg.mirror_tau_hi)
         return out
+
+    def _mirror_candidates(self, out: StepOutput, batch: PertBatch):
+        """(tau, candidate indices) on the host: the real cells whose
+        fitted tau lies outside [mirror_tau_lo, mirror_tau_hi]; shared by
+        the rescue and the no-rescue hint."""
+        cfg = self.config
+        with torch.no_grad():
+            tau = to_unit_interval(out.fit.params["tau_raw"]).cpu().numpy()
+        mask = batch.mask.cpu().numpy()
+        cand = np.flatnonzero(((tau < cfg.mirror_tau_lo)
+                               | (tau > cfg.mirror_tau_hi)) & (mask > 0.5))
+        return tau, cand
+
+    def _mirror_rescue(self, out: StepOutput, batch: PertBatch) -> StepOutput:
+        """Post-step-2 mirror-basin rescue (JAX ``runner._mirror_rescue``).
+
+        A nearly fully replicated cell at read rate u is
+        likelihood-equivalent to an unreplicated one at ~2u, and the u
+        prior's mean tracks the fitted tau, so step 2 can settle in
+        either basin.  The boundary-tau candidates are re-fit from the
+        mirrored initialisation (tau' = 1 - tau, u re-seeded by its prior
+        at tau') with every global site (rho, a, beta_means, lambda)
+        conditioned at the step-2 fit, on the candidates' sub-batch
+        through the same fused kernels.  Each candidate keeps whichever
+        parameter set scores the higher ``per_cell_objective`` (the
+        unfused enumeration), both scored under the step-2
+        ``beta_stds``; accepted cells are spliced into the step-2
+        parameters on ``self.device``.  Per-cell selection makes the pass
+        objective-improving.
+        """
+        cfg = self.config
+        tau, cand = self._mirror_candidates(out, batch)
+        self.rescue_fit = None
+        self.mirror_rescue_stats = {"candidates": int(cand.size),
+                                    "accepted": 0}
+        self._rescue_cells = {"candidates": cand.copy(),
+                              "accepted": np.zeros(0, cand.dtype)}
+        if cand.size == 0:
+            return out
+        if cand.size > cfg.mirror_max_cells:
+            # the most boundary-extreme first (mirrored cells sit at tau
+            # ~ 0.005; genuinely early-S cells land higher)
+            extremity = np.minimum(tau[cand], 1.0 - tau[cand])
+            cand = cand[np.argsort(extremity)[:cfg.mirror_max_cells]]
+            logger.info("mirror rescue: capping %d candidates to the %d "
+                        "most boundary-extreme (mirror_max_cells)",
+                        self.mirror_rescue_stats["candidates"],
+                        cfg.mirror_max_cells)
+            self.mirror_rescue_stats["capped_to"] = int(cand.size)
+
+        self._rescue_cells["fitted"] = cand.copy()
+        params = out.fit.params
+        sub_params, sub_batch = slice_cells(params, batch, cand)
+        # every global site conditioned: the sub-fit moves only the
+        # candidates' per-cell sites, so splicing them back cannot shift
+        # the other cells' objective
+        spec = dataclasses.replace(out.spec, cond_rho=True, cond_a=True)
+        fixed = dict(out.fixed)
+        with torch.no_grad():
+            if not out.spec.cond_rho:
+                fixed["rho"] = to_unit_interval(params["rho_raw"])
+            if not out.spec.cond_a:
+                fixed["a"] = to_positive(params["a_raw"])
+        pi_key = "pi_bin_logits" if out.spec.binary_pi else "pi_logits"
+        orig_sub = {k: sub_params[k]
+                    for k in ("tau_raw", "u", "betas", pi_key)}
+        orig_sub["beta_stds_raw"] = params["beta_stds_raw"]
+
+        t_flip = np.clip(1.0 - tau[cand], 0.05, 0.95).astype(np.float32)
+        params0 = init_params(spec, sub_batch, fixed, t_init=t_flip)
+        # warm-seed the sites the flip does not mirror, from fresh copies
+        # (the acceptance scoring and the splice read the originals
+        # after the fit): beta_stds, the width the candidates are scored
+        # under, and the incumbent GC coefficients
+        params0["beta_stds_raw"] = params["beta_stds_raw"].clone()
+        params0["betas"] = sub_params["betas"].clone()
+        fit = fit_map(_PertLossFn(spec), params0, (fixed, sub_batch),
+                      max_iter=cfg.mirror_max_iter,
+                      min_iter=cfg.mirror_min_iter, rel_tol=cfg.rel_tol,
+                      learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
+                      b2=cfg.adam_b2, device=self.device,
+                      moment_dtype=cfg.optimizer_state_dtype)
+        self.rescue_fit = RescueFit(cand.copy(), fit)
+
+        # both scored under the step-2 beta_stds (the sub-fit also moves
+        # that global param; its drift is discarded)
+        rescued = dict(fit.params)
+        rescued["beta_stds_raw"] = orig_sub["beta_stds_raw"]
+        with torch.no_grad():
+            obj_orig = per_cell_objective(spec, orig_sub, fixed, sub_batch)
+            obj_new = per_cell_objective(spec, rescued, fixed, sub_batch)
+        accept = (obj_new > obj_orig).cpu().numpy()
+        self.mirror_rescue_stats["accepted"] = int(accept.sum())
+        logger.info("mirror rescue: %d boundary-tau candidates, %d accepted "
+                    "(per-cell log-joint improved)", cand.size,
+                    int(accept.sum()))
+        if not accept.any():
+            return out
+
+        keep = cand[accept]
+        self._rescue_cells["accepted"] = keep.copy()
+        dst = torch.as_tensor(keep, device=self.device)
+        src = torch.as_tensor(np.flatnonzero(accept), device=self.device)
+        new_params = dict(params)
+        for key in ("tau_raw", "u", "betas"):
+            new_params[key] = params[key].index_copy(
+                0, dst, rescued[key].index_select(0, src))
+        new_params[pi_key] = params[pi_key].index_copy(
+            1, dst, rescued[pi_key].index_select(1, src))
+        new_fit = dataclasses.replace(out.fit, params=new_params)
+        return dataclasses.replace(out, fit=new_fit)
 
     def run_step3(self, step1: StepOutput, step2: StepOutput) -> StepOutput:
         iters = self.config.resolved_iters()
@@ -341,12 +496,14 @@ def package_step_output(
     losses_g: np.ndarray,
     losses_s: np.ndarray,
     cols: ColumnConfig = ColumnConfig(),
+    mirror_rescue_stats: Optional[dict] = None,
 ) -> Tuple[pd.DataFrame, pd.DataFrame]:
     """Decode the discretes and attach the fitted values to the long-form
     contract (reference: pert_model.py:466-538): model_cn_state,
     model_rep_state, model_p_rep, model_tau, model_u and model_rho
     columns, plus the supplementary table (model_lambda, model_a, loss_g,
-    loss_s)."""
+    loss_s, and one ``mirror_rescue_<stat>`` row per rescue statistic
+    when ``mirror_rescue_stats`` is given)."""
     spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
         step.batch
     decoded = decode_discrete(spec, params, fixed, batch)
@@ -381,4 +538,10 @@ def package_step_output(
                       "level": np.arange(len(losses_s)),
                       "value": np.asarray(losses_s, np.float64)}),
     ]
+    if mirror_rescue_stats is not None:
+        supp.append(pd.DataFrame({
+            "param": [f"mirror_rescue_{k}" for k in mirror_rescue_stats],
+            "level": ["all"] * len(mirror_rescue_stats),
+            "value": [float(v) for v in mirror_rescue_stats.values()],
+        }))
     return out, pd.concat(supp, ignore_index=True)

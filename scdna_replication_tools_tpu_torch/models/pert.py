@@ -39,6 +39,7 @@ from scdna_replication_tools_tpu_torch.ops.dists import (
 from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
     binary_code_matrix,
     binary_code_width,
+    enum_loglik,
     enum_loglik_fused,
     enum_loglik_fused_binary,
     enum_loglik_fused_sparse,
@@ -413,6 +414,16 @@ def _require_fixed_lamb(spec: PertModelSpec) -> None:
             "does not differentiate through lambda")
 
 
+def _enum_bin_loglik(spec: PertModelSpec, reads, u, omega, log_pi, phi,
+                     lamb) -> torch.Tensor:
+    """(cells, loci) enumerated bin log-likelihood (states summed out)
+    from a materialised cells-major ``log_pi``, without the Dirichlet
+    term: the unfused ``enum_loglik`` (its kernel on the card, its plain
+    version on the CPU)."""
+    _require_fixed_lamb(spec)
+    return enum_loglik(reads, u[:, None] * omega, log_pi, phi, lamb)
+
+
 def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
               batch: PertBatch) -> torch.Tensor:
     """Total log-joint (the negative of the SVI loss), discretes summed
@@ -485,6 +496,39 @@ def pert_loss(spec: PertModelSpec, params: dict, fixed: dict,
     """SVI loss = -log_joint (point-mass posterior; reference:
     pert_model.py:742-758)."""
     return -log_joint(spec, params, fixed, batch)
+
+
+def per_cell_objective(spec: PertModelSpec, params: dict, fixed: dict,
+                       batch: PertBatch) -> torch.Tensor:
+    """(cells,) per-cell terms of the log-joint: the tau/u/betas priors,
+    the full Dirichlet pi term and the enumerated bin log-likelihood,
+    each summed over the real loci.  The global priors (a, beta_means)
+    are left out: two parameter sets that share the conditioned globals
+    have the same ones, which is what the mirror rescue compares
+    (infer/runner.py).  The enumerated term goes through the unfused
+    ``enum_loglik``; log_pi comes from either encoding."""
+    c = _sites(spec, params, fixed)
+    lamb, log_lamb, log1m_lamb = _nb_pieces(c)
+    lmask = batch.effective_loci_mask()
+    reads_mean = _loci_mean(batch.reads, lmask)
+    ploidies = _cell_ploidies(spec, batch)
+    obj = _per_cell_log_prior(spec, c, batch, reads_mean, ploidies)
+
+    log_pi = _log_pi(spec, params)
+    lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi,
+                               sparse=batch.eta_idx is not None)
+    obj = obj + torch.sum(lp_pi * lmask[None, :], dim=1)
+
+    phi = _phi(c)
+    omega = gc_rate(c["betas"], batch.gamma_feats)
+    if spec.step1:
+        ll = _observed_bin_loglik(batch.reads, c["u"], omega, log_pi, phi,
+                                  batch.cn_obs, batch.rep_obs, lamb,
+                                  log_lamb, log1m_lamb)
+    else:
+        ll = _enum_bin_loglik(spec, batch.reads, c["u"], omega, log_pi, phi,
+                              lamb)
+    return obj + torch.sum(ll * lmask[None, :], dim=1)
 
 
 # ---------------------------------------------------------------------------

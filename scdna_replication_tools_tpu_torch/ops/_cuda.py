@@ -43,6 +43,11 @@ _SIGNATURES = {
         # dpi, n, P, sparse, binary, stream
         "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [_P],
+        # reads, mu, phi, log_pi, scal, ll, n, P, stream
+        "scrt_enum_fwd": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P],
+        # reads, mu, phi, log_pi, scal, ll, g, dmu, dphi, dlog_pi, n, P,
+        # stream
+        "scrt_enum_bwd": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int, _P],
     },
     "adam": {
         # p_out, m_out, v_out, p, g, m, v, scal, b1, 1-b1, b2, 1-b2, n,
@@ -53,6 +58,8 @@ _SIGNATURES = {
 }
 
 LAUNCHES: Dict[str, int] = {
+    "enum_fwd": 0,
+    "enum_bwd": 0,
     "fused_fwd_dense": 0,
     "fused_bwd_dense": 0,
     "fused_fwd_sparse": 0,

@@ -1,10 +1,10 @@
-"""Fused enumerated PERT bin objective: CUDA kernels and plain versions.
+"""PERT bin enumeration: CUDA kernels and plain versions.
 
-Port of the fused entry points of ``ops/enum_kernel.py``
+Port of ``ops/enum_kernel.py``: the fused entry points
 (``enum_loglik_fused``, ``enum_loglik_fused_sparse`` and their
 independent-binary twins ``enum_loglik_fused_binary`` and
-``enum_loglik_fused_sparse_binary``).  Per (cell, locus) bin the
-objective is
+``enum_loglik_fused_sparse_binary``) and the unfused ``enum_loglik``.
+Per (cell, locus) bin the fused objective is
 
     logsumexp_{s, r} (lp_s + log Bern(r | phi) + nb(chi = s (1 + r)))
       + x log(lamb) - lgamma(x + 1) + sum_s (etas_s - 1) lp_s
@@ -15,18 +15,24 @@ the pi parameter is Kb = ceil(log2 P) planes z_k and state s's logit is
 the sum of the planes of its set bits, ``x_s = z[b0] + z[b1] + ...`` in
 ascending bit order (``x_0 = 0``); the backward folds
 ``dz_k = sum_{s: bit_k(s) = 1} dpi_s`` in ascending s (the TPU kernel's
-order of summation, which float32 parity rests on).  The CUDA kernels
+order of summation, which float32 parity rests on).  The unfused
+``enum_loglik`` is the enumerated log-likelihood alone: it takes the
+cells-major log-simplex ``log_pi`` as given (no softmax, no Dirichlet
+term) and its backward emits ``dlog_pi`` itself.  The fused CUDA kernels
 (``csrc/enum_fused.cu``) read the state-major ``(P | Kb, cells, loci)``
-planes once, keep the per-state terms in registers and never
-materialise the ``(cells, loci, P, 2)`` enumeration tensor; the backward
-recomputes from the inputs and the saved enumeration-only logsumexp.
+planes once, the unfused ones each bin's P consecutive ``log_pi``
+floats; all keep the per-state terms in registers and never materialise
+the ``(cells, loci, P, 2)`` enumeration tensor.  The backward recomputes
+from the inputs and the saved enumeration-only logsumexp (the unfused
+one from the saved log-likelihood).
 
-Beside them sit the plain PyTorch versions, :func:`fused_fwd_plain` and
-the explicit :func:`fused_bwd_plain`, which repeat the kernels'
-arithmetic operation for operation (same Stirling series, same chi
-order).  :func:`fused_fwd` / :func:`fused_bwd` take the plain version
-for a CPU tensor and launch the kernel for a CUDA tensor; there is no
-fallback between the two.
+Beside them sit the plain PyTorch versions (:func:`fused_fwd_plain`,
+the explicit :func:`fused_bwd_plain`, :func:`enum_fwd_plain` and
+:func:`enum_bwd_plain`), which repeat the kernels' arithmetic operation
+for operation (same Stirling series, same chi order).  The wrappers
+(:func:`fused_fwd`, :func:`fused_bwd`, :func:`enum_fwd`,
+:func:`enum_bwd`) take the plain version for a CPU tensor and launch the
+kernel for a CUDA tensor; there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -187,6 +193,55 @@ def _nb_core(x, mu, chi, q, log1m_lamb):
     return lgamma_ge1(x + delta) - lgamma_ge1(delta) + delta * log1m_lamb
 
 
+def _enum_lse(x, mu, lp, bern, lgx1, log1m_lamb, q) -> torch.Tensor:
+    """Two-pass logsumexp over the bin's (state, rep) pairs of
+    ``lp_s + bern_r + nb(chi)``, one NB core per distinct chi (chi = 0
+    reuses ``lgx1 = lgamma(x + 1)``): the kernels' ``enum_lse``."""
+    slots = chi_slots(len(lp))
+    nbs = [lgx1 + log1m_lamb if chi == 0.0
+           else _nb_core(x, mu, chi, q, log1m_lamb) for chi, _ in slots]
+    m = torch.full_like(x, -math.inf)
+    for nb, (_, pairs) in zip(nbs, slots):
+        for s, r in pairs:
+            m = torch.maximum(m, lp[s] + bern[r] + nb)
+    acc = torch.zeros_like(x)
+    for nb, (_, pairs) in zip(nbs, slots):
+        for s, r in pairs:
+            acc = acc + torch.exp(lp[s] + bern[r] + nb - m)
+    return m + torch.log(acc)
+
+
+def _enum_sweep_bwd(x, mu, g, lse, lp, bern, dbern, lgx1, log1m_lamb, q,
+                    dlp, tot=None):
+    """The backward's chi sweep (the kernels' ``enum_sweep_bwd``): each
+    (state, rep) pair's posterior weight ``g exp(lp_s + bern_r + nb -
+    lse)`` is added to dmu, dphi, ``dlp[s]`` (in place) and, when given,
+    ``tot``.  Returns (dmu, dphi, tot)."""
+    dmu = torch.zeros_like(x)
+    dphi = torch.zeros_like(x)
+    for chi, pairs in chi_slots(len(lp)):
+        if chi == 0.0:
+            nb = lgx1 + log1m_lamb
+            dmu_slot = None
+        else:
+            cq = chi * q
+            delta = torch.clamp(mu * cq, min=1.0)
+            lg_xd, psi_xd = lgamma_digamma_ge1(x + delta)
+            lg_d, psi_d = lgamma_digamma_ge1(delta)
+            nb = lg_xd - lg_d + delta * log1m_lamb
+            ddelta = psi_xd - psi_d + log1m_lamb
+            dmu_slot = ddelta * (mu * cq > 1.0).to(x.dtype) * cq
+        for s, r in pairs:
+            gw = g * torch.exp(lp[s] + bern[r] + nb - lse)
+            if dmu_slot is not None:
+                dmu = dmu + gw * dmu_slot
+            dphi = dphi + gw * dbern[r]
+            dlp[s] = dlp[s] + gw
+            if tot is not None:
+                tot = tot + gw
+    return dmu, dphi, tot
+
+
 def fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
                     eta_w=None, binary_P=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,18 +266,7 @@ def fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
             lp_acc = lp_acc + (etas_t[s] - 1.0) * lp[s]
 
     lgx1 = lgamma_ge1(x + 1.0)
-    slots = chi_slots(P)
-    nbs = [lgx1 + log1m_lamb if chi == 0.0
-           else _nb_core(x, mu, chi, q, log1m_lamb) for chi, _ in slots]
-    m = torch.full_like(x, -math.inf)
-    for nb, (_, pairs) in zip(nbs, slots):
-        for s, r in pairs:
-            m = torch.maximum(m, lp[s] + bern[r] + nb)
-    acc = torch.zeros_like(x)
-    for nb, (_, pairs) in zip(nbs, slots):
-        for s, r in pairs:
-            acc = acc + torch.exp(lp[s] + bern[r] + nb - m)
-    lse = m + torch.log(acc)
+    lse = _enum_lse(x, mu, lp, bern, lgx1, log1m_lamb, q)
     return lse + x * log_lamb - lgx1 + lp_acc, lse
 
 
@@ -251,27 +295,9 @@ def fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
         dlp.append(dlp0)
         tot = tot + dlp0
 
-    dmu = torch.zeros_like(x)
-    dphi = torch.zeros_like(x)
-    for chi, pairs in chi_slots(P):
-        if chi == 0.0:
-            nb = lgamma_ge1(x + 1.0) + log1m_lamb
-            dmu_slot = None
-        else:
-            cq = chi * q
-            delta = torch.clamp(mu * cq, min=1.0)
-            lg_xd, psi_xd = lgamma_digamma_ge1(x + delta)
-            lg_d, psi_d = lgamma_digamma_ge1(delta)
-            nb = lg_xd - lg_d + delta * log1m_lamb
-            ddelta = psi_xd - psi_d + log1m_lamb
-            dmu_slot = ddelta * (mu * cq > 1.0).to(x.dtype) * cq
-        for s, r in pairs:
-            gw = g * torch.exp(lp[s] + bern[r] + nb - lse)
-            if dmu_slot is not None:
-                dmu = dmu + gw * dmu_slot
-            dphi = dphi + gw * dbern[r]
-            dlp[s] = dlp[s] + gw
-            tot = tot + gw
+    dmu, dphi, tot = _enum_sweep_bwd(x, mu, g, lse, lp, bern, dbern,
+                                     lgamma_ge1(x + 1.0), log1m_lamb, q,
+                                     dlp, tot)
     dpi = [dlp[s] - torch.exp(lp[s]) * tot for s in range(P)]
     if binary_P is None:
         return dmu, dphi, torch.stack(dpi)
@@ -283,12 +309,47 @@ def fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
     return dmu, dphi, torch.stack(dz)
 
 
+def _states(log_pi: torch.Tensor) -> List[torch.Tensor]:
+    return [log_pi[..., s] for s in range(log_pi.shape[-1])]
+
+
+def enum_fwd_plain(reads, mu, log_pi, phi, scal) -> torch.Tensor:
+    """(cells, loci) enumerated log-likelihood from the cells-major
+    ``(cells, loci, P)`` log-simplex as given: the unfused kernel's
+    forward as plain PyTorch ops (lse plus the hoisted
+    ``x log(lamb) - lgamma(x + 1)``)."""
+    log_lamb, log1m_lamb, q = scal[0], scal[1], scal[2]
+    x = reads
+    bern = (torch.log1p(-phi), torch.log(phi))
+    lgx1 = lgamma_ge1(x + 1.0)
+    lse = _enum_lse(x, mu, _states(log_pi), bern, lgx1, log1m_lamb, q)
+    return lse + x * log_lamb - lgx1
+
+
+def enum_bwd_plain(reads, mu, log_pi, phi, scal, ll, g
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dmu, dphi, dlog_pi): the unfused kernel's backward as plain
+    PyTorch ops.  The posterior weights normalise against ``ll`` less
+    the hoisted ``x log(lamb) - lgamma(x + 1)``; ``dlog_pi`` (cells,
+    loci, P) is each state's weight sum (no softmax Jacobian: log_pi is
+    the input)."""
+    log_lamb, log1m_lamb, q = scal[0], scal[1], scal[2]
+    x = reads
+    lgx1 = lgamma_ge1(x + 1.0)
+    ll_state = ll - (x * log_lamb - lgx1)
+    bern = (torch.log1p(-phi), torch.log(phi))
+    dbern = (-1.0 / (1.0 - phi), 1.0 / phi)
+    dlp = [torch.zeros_like(x) for _ in range(log_pi.shape[-1])]
+    dmu, dphi, _ = _enum_sweep_bwd(x, mu, g, ll_state, _states(log_pi),
+                                   bern, dbern, lgx1, log1m_lamb, q, dlp)
+    return dmu, dphi, torch.stack(dlp, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
-                  binary_P, lse=None, g=None):
+def _check_bins(what, reads, mu, phi, scal, lse=None, g=None) -> None:
     if reads.ndim != 2 or any(t is not None and t.shape != reads.shape
                               for t in (mu, phi, lse, g)):
         raise ValueError(f"{what}: reads/mu/phi (and lse/g) must share one "
@@ -297,6 +358,11 @@ def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
     if scal.shape != (3,):
         raise ValueError(f"{what}: scal must be the (3,) tensor of "
                          f"scalars(lamb); got shape {tuple(scal.shape)}")
+
+
+def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
+                  binary_P, lse=None, g=None):
+    _check_bins(what, reads, mu, phi, scal, lse, g)
     if binary_P is not None:
         Kb = binary_code_width(binary_P)
         if pi_t.shape != (Kb,) + tuple(reads.shape):
@@ -390,6 +456,65 @@ def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
     return dmu, dphi, dpi
 
 
+def _check_unfused(what, reads, mu, log_pi, phi, scal, ll=None,
+                   g=None) -> int:
+    _check_bins(what, reads, mu, phi, scal, ll, g)
+    if log_pi.ndim != 3 or log_pi.shape[:2] != reads.shape:
+        raise ValueError(
+            f"{what} expects CELLS-MAJOR log_pi of shape (cells, loci, P) = "
+            f"{tuple(reads.shape) + ('P',)}; got {tuple(log_pi.shape)} "
+            "(state-major input belongs to enum_loglik_fused)")
+    P = log_pi.shape[-1]
+    if reads.device.type == "cuda" and P > MAX_P:
+        raise ValueError(f"{what}: the kernel takes P <= {MAX_P}; got {P}")
+    return P
+
+
+def enum_fwd(reads, mu, log_pi, phi, scal) -> torch.Tensor:
+    """Unfused forward ``ll`` (cells, loci) from the cells-major
+    log-simplex: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    P = _check_unfused("enum_fwd", reads, mu, log_pi, phi, scal)
+    _cuda.check_operands("enum_fwd", reads.device, reads=reads, mu=mu,
+                         log_pi=log_pi, phi=phi, scal=scal)
+    if reads.device.type == "cpu":
+        return enum_fwd_plain(reads, mu, log_pi, phi, scal)
+    lib = _cuda.library("enum_fused")
+    ll = torch.empty_like(reads)
+    rc = lib.scrt_enum_fwd(
+        _cuda.ptr(reads), _cuda.ptr(mu), _cuda.ptr(phi), _cuda.ptr(log_pi),
+        _cuda.ptr(scal), _cuda.ptr(ll), reads.numel(), P,
+        _cuda.stream_of(reads))
+    _cuda.check(lib, rc, "enum_fwd")
+    _cuda.LAUNCHES["enum_fwd"] += 1
+    return ll
+
+
+def enum_bwd(reads, mu, log_pi, phi, scal, ll, g
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unfused backward ``(dmu, dphi, dlog_pi)``, dlog_pi cells-major:
+    the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors."""
+    P = _check_unfused("enum_bwd", reads, mu, log_pi, phi, scal, ll, g)
+    g = g.contiguous()
+    _cuda.check_operands("enum_bwd", reads.device, reads=reads, mu=mu,
+                         log_pi=log_pi, phi=phi, scal=scal, ll=ll, g=g)
+    if reads.device.type == "cpu":
+        return enum_bwd_plain(reads, mu, log_pi, phi, scal, ll, g)
+    lib = _cuda.library("enum_fused")
+    dmu = torch.empty_like(reads)
+    dphi = torch.empty_like(reads)
+    dlog_pi = torch.empty_like(log_pi)
+    rc = lib.scrt_enum_bwd(
+        _cuda.ptr(reads), _cuda.ptr(mu), _cuda.ptr(phi), _cuda.ptr(log_pi),
+        _cuda.ptr(scal), _cuda.ptr(ll), _cuda.ptr(g), _cuda.ptr(dmu),
+        _cuda.ptr(dphi), _cuda.ptr(dlog_pi), reads.numel(), P,
+        _cuda.stream_of(reads))
+    _cuda.check(lib, rc, "enum_bwd")
+    _cuda.LAUNCHES["enum_bwd"] += 1
+    return dmu, dphi, dlog_pi
+
+
 def _zeros_if(needed: bool, t: Optional[torch.Tensor]):
     return torch.zeros_like(t) if needed and t is not None else None
 
@@ -472,3 +597,32 @@ def enum_loglik_fused_sparse_binary(reads, mu, zbin_t, phi, eta_idx, eta_w,
     loci) binary planes and ``P`` explicit."""
     return _FusedSparse.apply(reads, mu, zbin_t, phi, eta_idx, eta_w,
                               scalars(lamb), int(P))
+
+
+class _EnumLoglik(torch.autograd.Function):
+    """Unfused enumerated log-likelihood.  Cotangents for mu, log_pi and
+    phi; silent zeros for reads and the lambda scalars."""
+
+    @staticmethod
+    def forward(ctx, reads, mu, log_pi, phi, scal):
+        ll = enum_fwd(reads, mu, log_pi, phi, scal)
+        ctx.save_for_backward(reads, mu, log_pi, phi, scal, ll)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        reads, mu, log_pi, phi, scal, ll = ctx.saved_tensors
+        dmu, dphi, dlog_pi = enum_bwd(reads, mu, log_pi, phi, scal, ll, g)
+        need = ctx.needs_input_grad
+        return (_zeros_if(need[0], reads), dmu, dlog_pi, dphi,
+                _zeros_if(need[4], scal))
+
+
+def enum_loglik(reads, mu, log_pi, phi, lamb):
+    """(cells, loci) enumerated bin log-likelihood, states summed out.
+
+    ``log_pi`` is the CELLS-MAJOR (cells, loci, P) log-simplex, which the
+    kernels read as it lies; ``lamb`` a scalar.  Gradient contract (JAX
+    ``enum_loglik``): cotangents for ``mu``, ``log_pi`` and ``phi``;
+    ``reads`` and ``lamb`` get silent zeros."""
+    return _EnumLoglik.apply(reads, mu, log_pi, phi, scalars(lamb))

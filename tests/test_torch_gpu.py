@@ -22,7 +22,14 @@ hoisted read term alone and dpi as the enumeration's own share, O(|g|):
 the bounds then hold the posterior weights absolutely (TOL_FLAT, dpi
 3e-3), and the hoisted term is held per element as |a - b| / (1 + |b|).
 The binary kernels are held to the same bounds: dz sums dpi terms of
-the same size and rounding.  With bfloat16 Adam moments, m' and v' are
+the same size and rounding.  The unfused pair (enum_fwd / enum_bwd) has
+no prior.  Its ll = lse + x log(lamb) - lgamma(x + 1) is a few units
+where the three terms run to thousands (a float32 ulp ~1e-4 there), so
+ll is held per element to 1e-5 of 1 + |lse| + |x log(lamb) - lgamma(x +
+1)| (_ll_err), the out bound: the NB core's lgamma terms inside lse are
+larger still and their ulps land on ll (readings ~1.2e-6).  dmu and dphi
+are held to 1e-3 and dlog_pi, a sum of posterior weights, to the flat
+prior's dpi bound (TOL_ENUM).  With bfloat16 Adam moments, m' and v' are
 held to one bfloat16 ulp per element and param' to 1e-6 (the kernel
 repeats the plain version's roundings, so the readings are 0; one ulp is
 what a float32 rounding that tips a round-to-nearest-even would leave).
@@ -42,6 +49,7 @@ TOL = {"out": 1e-5, "lse": 1e-5, "dpi": 1e-5, "dmu": 1e-3, "dphi": 1e-3,
        "param": 1e-6, "m": 1e-6, "v": 1e-6}
 TOL_FLAT = {"out": 1e-5, "lse": 1e-5, "hoisted": 1e-5, "dmu": 1e-3,
             "dphi": 1e-3, "dpi": 3e-3}
+TOL_ENUM = {"ll": 1e-5, "dmu": 1e-3, "dphi": 1e-3, "dlog_pi": 3e-3}
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +178,67 @@ def test_autograd_function_on_cuda_matches_cpu(dev, sparse, binary):
         res.append([a.detach().cpu() for a in (out, *grads)])
     for name, a, b in zip(("out", "dmu", "dphi", "dpi"), *res):
         assert _rel(a, b) <= TOL[name], (name, _rel(a, b))
+
+
+def _ll_err(got, ref, reads, lamb):
+    """max |got - ref| / (1 + |lse| + |hoisted|) over elements: the
+    scale of the terms that ll sums."""
+    hoisted = reads * torch.log(lamb) - ek.lgamma_ge1(reads + 1.0)
+    scale = 1.0 + (ref - hoisted).abs() + hoisted.abs()
+    return float(((got - ref).abs() / scale).max())
+
+
+def _log_pi(C, L, P, seed, dev):
+    """A random non-uniform cells-major log-simplex (equal states would
+    hide a swapped state index)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = 2.0 * torch.randn((C, L, P), generator=gen, device=dev)
+    return torch.log_softmax(logits, dim=-1)
+
+
+@pytest.mark.parametrize("P", [13, 7, 2])
+def test_unfused_kernels_match_plain(dev, P):
+    """enum_fwd (ll) and enum_bwd (dmu, dphi, dlog_pi) against their plain
+    versions on the ragged (37, 1001) grid with a cells-major log_pi; each
+    launch is counted once."""
+    x = _inputs(37, 1001, P, seed=60 + P, dev=dev)
+    log_pi = _log_pi(37, 1001, P, 60 + P, dev)
+    scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32, device=dev))
+    args = (x["reads"], x["mu"], log_pi, x["phi"], scal)
+    _cuda.reset_launches()
+    ll_k = ek.enum_fwd(*args)
+    ll_p = ek.enum_fwd_plain(*args)
+    got = ek.enum_bwd(*args, ll_p, x["g"])
+    ref = ek.enum_bwd_plain(*args, ll_p, x["g"])
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["enum_fwd"] == _cuda.LAUNCHES["enum_bwd"] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    assert got[2].shape == log_pi.shape
+    assert all(bool(torch.isfinite(a).all()) for a in (ll_k, *got))
+    errs = {"ll": _ll_err(ll_k, ll_p, x["reads"], scal.new_tensor(0.75))}
+    errs.update({name: _rel(a, b) for name, a, b in
+                 zip(("dmu", "dphi", "dlog_pi"), got, ref)})
+    assert all(e <= TOL_ENUM[k] for k, e in errs.items()), errs
+
+
+def test_unfused_autograd_on_cuda_matches_cpu(dev):
+    """enum_loglik on the card (kernels) and on the CPU (plain versions)
+    gives the same value and cotangents."""
+    x = _inputs(8, 300, 13, seed=71, dev=dev)
+    log_pi = _log_pi(8, 300, 13, 71, dev)
+    lamb = torch.tensor(0.75, dtype=torch.float32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        mu, lp, phi = (t.to(d).clone().requires_grad_(True)
+                       for t in (x["mu"], log_pi, x["phi"]))
+        out = ek.enum_loglik(x["reads"].to(d), mu, lp, phi, lamb.to(d))
+        grads = torch.autograd.grad(out, (mu, phi, lp), x["g"].to(d))
+        res.append([a.detach().cpu() for a in (out, *grads)])
+    (ll_k, *got), (ll_p, *ref) = res
+    errs = {"ll": _ll_err(ll_k, ll_p, x["reads"].cpu(), lamb)}
+    errs.update({name: _rel(a, b) for name, a, b in
+                 zip(("dmu", "dphi", "dlog_pi"), got, ref)})
+    assert all(e <= TOL_ENUM[k] for k, e in errs.items()), errs
 
 
 @pytest.mark.parametrize("step", [1, 7, 300])

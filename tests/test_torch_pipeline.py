@@ -9,6 +9,7 @@ versions of its kernels.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -19,6 +20,8 @@ from scdna_replication_tools_tpu.models.simulator import pert_simulator
 from scdna_replication_tools_tpu_torch import scRT as TorchScRT
 
 from test_torch_model import one_torch_thread  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
 
 OPTS = dict(input_col="reads", clone_col="clone_id", assign_col="copy",
             cn_prior_method="g1_composite", max_iter=300, min_iter=100,
@@ -97,10 +100,9 @@ def test_port_recovers_simulated_truth(outputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(controller=True), dict(qc=True), dict(mirror_rescue=True),
-    dict(telemetry_path="auto"), dict(trace_spans=True),
-    dict(executable_cache_dir="ec"), dict(cell_chunk=8),
-    dict(num_shards=2), dict(checkpoint_dir="ck"),
+    dict(controller=True), dict(qc=True), dict(telemetry_path="auto"),
+    dict(trace_spans=True), dict(executable_cache_dir="ec"),
+    dict(cell_chunk=8), dict(num_shards=2), dict(checkpoint_dir="ck"),
     dict(cn_hmm_self_prob=0.9)])
 def test_unported_options_raise(sim_data, option):
     """A JAX option the port lacks raises NotImplementedError naming the
@@ -125,16 +127,26 @@ def test_backend_specific_values_raise(sim_data, option):
 
 
 def test_port_imports_without_jax():
-    """Importing the port (every module) pulls in no JAX."""
+    """Importing the port (every module) and chip_smoke.py pulls in no
+    JAX, and no import statement of chip_smoke.py (its functions import
+    lazily) names JAX or the JAX package."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import ast, sys, importlib, pkgutil\n"
         "import scdna_replication_tools_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('scdna_replication_tools_tpu.')"
         " or m == 'scdna_replication_tools_tpu']\n"
+        "assert not bad, bad\n"
+        "tree = ast.parse(open(chip_smoke.__file__).read())\n"
+        "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)"
+        " for a in n.names] + [n.module for n in ast.walk(tree)"
+        " if isinstance(n, ast.ImportFrom) and n.module]\n"
+        "bad = [n for n in names if n.split('.')[0] in"
+        " ('jax', 'scdna_replication_tools_tpu')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
