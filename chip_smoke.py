@@ -6,18 +6,24 @@
 Phases, each printing its own lines:
 
 1. the card (exits non-zero without a CUDA device);
-2. nvcc builds of every kernel source of the port, in parallel;
+2. nvcc builds of every kernel source of the port, in parallel, and each
+   kernel's instruction, MUFU, vote and branch counts from
+   ``cuobjdump -sass`` where the toolkit has it;
 3. each kernel entry point against its plain PyTorch version on the
    card, at the full-width shape and at a ragged one, with a 1e6 prior
    and with a flat one (the enumeration's own share of out and dpi), with
-   its time, the plain version's time, its bound and (Adam) a PyTorch
-   library call;
+   its time (launches back to back between one pair of CUDA events; the
+   single-call reading beside it), the plain version's time, its bound
+   from the operations these operands need and (Adam) a PyTorch library
+   call;
 4. the port's main path, ``scRT(...).infer('pert')``, on simulated
    long-form frames of 1000 S + 250 G1 cells x 5451 loci (500 kb bins):
    kernel launch counts, per-step times, peak memory and the
    simulate-and-recover bars of tests/test_end_to_end.py; then each
    kernel against its plain version on the operands of one more
-   iteration of each step, from the step's fitted parameters;
+   iteration of each step, from the step's fitted parameters, and each
+   fused kernel's time and bound there, with the share of its warps that
+   take the NB cores' shift branch;
 5. where each step's time goes: device time by kernel from
    torch.profiler over a window of iterations, and the card's idle share;
 6. phases 4 and 5 again for the binary path, ``scRT(...,
@@ -144,8 +150,14 @@ def check(ok: bool, what: str) -> None:
 # operation counts (for the bound), from the kernels' own loop structure
 # ---------------------------------------------------------------------------
 
-LGAMMA_OPS = 34        # _lgamma_ge1: shift product, series, two logs
-LGDG_OPS = 56          # fused lgamma + digamma: + 8 reciprocals, psi series
+# The Stirling series of csrc/enum_fused.cu, split at its shift: each call
+# costs its series at one argument; the 8-step recurrence is what an
+# argument below 8 needs on top (shift_census).  With every argument
+# shifted the sums are the full 34 and 56.
+LGAMMA_OPS = 16        # lgamma_ge1: compare, zz, 1/zz, series, log, terms
+LGAMMA_SHIFT_OPS = 18  # min, 7 adds, 7 products, their log, subtract, select
+LGDG_OPS = 24          # lgamma_digamma_ge1: both series on one 1/zz, log
+LGDG_SHIFT_OPS = 32    # + 8 reciprocals and their 7 adds, two subtractions
 
 
 def binary_adds(P: int) -> tuple:
@@ -201,21 +213,77 @@ def enum_bwd_ops_per_bin(P: int) -> int:
     return 5 + (1 + LGAMMA_OPS) + 3 + slots + pairs
 
 
-def transcendentals_per_bin(P: int, backward: bool,
-                            unfused: bool = False) -> int:
-    """exp/log calls per bin (counted inside the operations above; the
-    card runs them as multi-instruction sequences on the special-function
-    units, whose rate the bound's table does not give): the softmax's P
-    exps and one log, two Bernoulli logs, two logs per lgamma (four per
-    non-zero chi slot, two for chi = 0), one exp per (state, rep) pair,
-    then the lse log (forward) or the softmax's P exps again (backward).
-    The unfused pair has no softmax."""
+def transcendentals(name: str, P: int, census: dict) -> int:
+    """exp/log calls of one launch (counted inside the operations above;
+    the card runs them as multi-instruction sequences on the
+    special-function units, whose rate the bound's table does not give):
+    per bin the softmax's P exps and one log, two Bernoulli logs, one log
+    per lgamma call (lgamma(x + 1) and two per nonzero chi slot), one exp
+    per (state, rep) pair, then the lse log (forward) or the softmax's P
+    exps again (backward); plus the shift's log of every argument below
+    8.  The unfused pair has no softmax."""
     from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
     nonzero = len(chi_slots(P)) - 1
-    common = (0 if unfused else P + 1) + 2 + 2 + 4 * nonzero + 2 * P
-    if backward:
-        return common + (0 if unfused else P)
-    return common + 1
+    softmax = 0 if name.startswith("enum_") else P
+    per_bin = (softmax + (softmax > 0)) + 2 + 1 + 2 * nonzero + 2 * P \
+        + (softmax if "_bwd" in name else 1)
+    return per_bin * census["bins"] + census["x1"] + census["xd"] \
+        + census["d"]
+
+
+WARP = 32
+
+
+def shift_census(reads, mu, q, P: int) -> dict:
+    """Where the NB cores' shift is needed on these operands.  Per bin the
+    kernels call lgamma(x + 1) once and, for each nonzero chi slot,
+    lgamma(x + delta) and lgamma(delta) (delta = max(mu chi q, 1), float32
+    as the kernels round it).  Returns the arguments below 8 of each call
+    (``x1``, ``xd``, ``d``), the share of (bin, chi) pairs with x + delta
+    < 8 or delta < 8, and the share of warps (32 consecutive bins of the
+    flattened grid) with a bin that has any argument below 8: such a warp
+    takes the kernels' select-form sweep, every other warp the series
+    alone."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
+    x, m = reads.reshape(-1), mu.reshape(-1)
+    n = x.numel()
+    warps = -(-n // WARP)
+    small = (x + 1.0) < 8.0
+    x1 = int(small.sum())
+    xd = d = pairs = 0
+    nonzero = [chi for chi, _ in chi_slots(P) if chi != 0.0]
+    for chi in nonzero:
+        delta = torch.clamp(m * (chi * q), min=1.0)
+        s_xd, s_d = (x + delta) < 8.0, delta < 8.0
+        xd, d = xd + int(s_xd.sum()), d + int(s_d.sum())
+        pairs += int((s_xd | s_d).sum())
+        small = small | s_xd | s_d
+    lanes = torch.zeros(warps * WARP, dtype=torch.bool, device=x.device)
+    lanes[:n] = small
+    taken = int(lanes.view(warps, WARP).any(dim=1).sum())
+    return {"bins": n, "warps": warps, "taken": taken, "x1": x1, "xd": xd,
+            "d": d, "pair_share": pairs / (n * max(len(nonzero), 1)),
+            "warp_share": taken / warps}
+
+
+def enum_ops(name: str, P: int, census: dict) -> int:
+    """float32 operations of one launch of kernel ``name`` on the operands
+    that ``census`` describes: the per-bin count without the shift, plus
+    the shift of every argument below 8."""
+    binary, sparse = name.endswith("_binary"), "_sparse" in name
+    backward = "_bwd" in name
+    if name == "enum_fwd":
+        per_bin = enum_fwd_ops_per_bin(P)
+    elif name == "enum_bwd":
+        per_bin = enum_bwd_ops_per_bin(P)
+    elif backward:
+        per_bin = bwd_ops_per_bin(P, sparse, binary)
+    else:
+        per_bin = fwd_ops_per_bin(P, sparse, binary)
+    chi_shift = LGDG_SHIFT_OPS if backward else LGAMMA_SHIFT_OPS
+    return (per_bin * census["bins"] + LGAMMA_SHIFT_OPS * census["x1"]
+            + chi_shift * (census["xd"] + census["d"]))
 
 
 ADAM_OPS = 14        # bfloat16 moments add 4 conversions, not counted
@@ -237,7 +305,30 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` calls of CUDA-event time (after warm-up)."""
+    """Device time per call: after warm-up, ``reps`` calls back to back
+    between one pair of CUDA events, over ``reps``.  While the card runs
+    call k the host enqueues call k + 1, so the wrapper's host work (shape
+    checks, allocation, the ctypes call) stays out of the window wherever
+    it is shorter than the kernel."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_single_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` calls, each alone between its own pair of
+    events: the card is idle when the first is stamped, so each window
+    also holds the wrapper's host work.  Kept beside :func:`time_ms` for
+    comparison with readings taken this way."""
     import torch
     for _ in range(warmup):
         fn()
@@ -270,6 +361,112 @@ def elementwise_err(got, ref) -> tuple:
     """(max abs error, max over elements of |got - ref| / (1 + |ref|))."""
     d = (got - ref).abs()
     return float(d.max()), float((d / (1.0 + ref.abs())).max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of each kernel
+# ---------------------------------------------------------------------------
+
+# kernel entry -> its function in the library (demangled as _sass_name does)
+SASS_FUNCTION = {
+    "enum_fwd": "enum_fwd_kernel", "enum_bwd": "enum_bwd_kernel",
+    "fused_fwd_dense": "fused_fwd_kernel<false, false>",
+    "fused_bwd_dense": "fused_bwd_kernel<false, false>",
+    "fused_fwd_sparse": "fused_fwd_kernel<true, false>",
+    "fused_bwd_sparse": "fused_bwd_kernel<true, false>",
+    "fused_fwd_dense_binary": "fused_fwd_kernel<false, true>",
+    "fused_bwd_dense_binary": "fused_bwd_kernel<false, true>",
+    "fused_fwd_sparse_binary": "fused_fwd_kernel<true, true>",
+    "fused_bwd_sparse_binary": "fused_bwd_kernel<true, true>",
+    "adam": "adam_kernel<float>", "adam_bf16": "adam_kernel<__nv_bfloat16>",
+}
+_TEMPLATE_ARGS = {"Lb0E": "false", "Lb1E": "true", "f": "float",
+                  "13__nv_bfloat16": "__nv_bfloat16"}
+
+
+def _sass_name(mangled: str) -> str:
+    """The kernel's name with its template arguments, from the mangled
+    symbol of one of this port's kernels (else the symbol itself)."""
+    import re
+    m = re.search(r"\d+((?:fused|enum)_(?:fwd|bwd)_kernel|adam_kernel)"
+                  r"(?:I((?:Lb[01]E|f|13__nv_bfloat16)+)E)?", mangled)
+    if not m:
+        return mangled
+    if not m.group(2):
+        return m.group(1)
+    args = re.findall(r"Lb[01]E|f|13__nv_bfloat16", m.group(2))
+    return f"{m.group(1)}<{', '.join(_TEMPLATE_ARGS[a] for a in args)}>"
+
+
+def parse_sass(text: str) -> dict:
+    """Per function of ``cuobjdump -sass`` output: instructions (NOPs left
+    out), MUFU instructions (the special-function unit: exp2, log2,
+    reciprocal) by kind, warp votes, branches, and the votes that a
+    predicated branch follows within 48 instructions (a vote whose result
+    the compiler folded into selects has none)."""
+    import re
+    funcs: dict = {}
+    ops: list = []
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            ops = []
+            funcs[_sass_name(head.group(1))] = ops
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)", line)
+        if ins and not ins.group(2).startswith("NOP"):
+            ops.append((bool(ins.group(1)), ins.group(2)))
+    out = {}
+    for name, ops in funcs.items():
+        votes = [k for k, (_, op) in enumerate(ops) if op.startswith("VOTE")]
+        mufu: dict = {}
+        for _, op in ops:
+            if op.startswith("MUFU"):
+                mufu[op] = mufu.get(op, 0) + 1
+        out[name] = {
+            "instructions": len(ops), "mufu": sum(mufu.values()),
+            "mufu_by_kind": mufu, "votes": len(votes),
+            "branches": sum(op.startswith("BRA") for _, op in ops),
+            "votes_guarding_a_branch": sum(
+                any(pred and op.startswith("BRA")
+                    for pred, op in ops[k + 1:k + 49]) for k in votes)}
+    return out
+
+
+def sass_report(info: dict, out_dir: Path) -> dict:
+    """Instruction, MUFU, vote and branch counts of every kernel of the
+    built libraries (:func:`parse_sass`), printed; the full listings go to
+    ``out_dir``.  Prints that cuobjdump is missing where it is (and
+    returns no counts)."""
+    import shutil
+
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        cand = Path(_cuda._nvcc()).parent / "cuobjdump"
+        tool = str(cand) if cand.exists() else None
+    if tool is None:
+        print("[sass] cuobjdump is missing: no instruction counts")
+        return {}
+    counts = {}
+    for name, meta in info.items():
+        sass = subprocess.run([tool, "-sass", meta["path"]],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            print(f"[sass] {name}: cuobjdump exited {sass.returncode}: "
+                  f"{sass.stderr[:200]}")
+            continue
+        (out_dir / f"{name}.sass").write_text(sass.stdout)
+        counts.update(parse_sass(sass.stdout))
+    print(f"[sass] cuobjdump -sass of the built libraries (listings in "
+          f"{out_dir.name}/)")
+    for fn, c in sorted(counts.items()):
+        print(f"  {fn}: {c['instructions']} instructions, {c['mufu']} MUFU "
+              f"{json.dumps(c['mufu_by_kind'])}, {c['votes']} votes "
+              f"({c['votes_guarding_a_branch']} guarding a branch), "
+              f"{c['branches']} branches")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -408,34 +605,51 @@ def check_enum(results, args, g, label) -> None:
     report(results, "enum_bwd", bwd, TOL_ENUM, label)
 
 
+def time_kernel(results, name, fk, fp, ins, census, label=None) -> None:
+    """One kernel's device time (:func:`time_ms`) and its bound from the
+    bytes of ``ins`` and of its outputs and the operations that
+    ``census``'s operands need.  Without ``label`` (the full-width
+    synthetic operands) also the single-call reading and the plain
+    version's time, in the kernel's row; with one (a main-path launch's
+    operands) under the row's ``main``."""
+    outs = fk()
+    moved = nbytes(*ins, *(outs if isinstance(outs, tuple) else (outs,)))
+    del outs
+    ops = enum_ops(name, P, census)
+    b_ms, b_by = bound(moved, ops)
+    t = {"ms": time_ms(fk), "bound_ms": b_ms, "bound_by": b_by,
+         "bytes": moved, "ops": ops,
+         "transcendentals": transcendentals(name, P, census),
+         "shift_pair_share": census["pair_share"],
+         "shift_warp_share": census["warp_share"]}
+    where = label or f"{CELLS}x{LOCI}"
+    if label is None:
+        t.update(ms_single=time_single_ms(fk),
+                 plain_ms=time_ms(fp, reps=20, warmup=1), library_ms=None)
+        results[name].update(t)
+        plain = (f", single-call {t['ms_single']:.4f} ms, plain "
+                 f"{t['plain_ms']:.4f} ms")
+    else:
+        results[name].setdefault("main", {})[label] = t
+        plain = ""
+    print(f"  {name} {where}: kernel {t['ms']:.4f} ms{plain}, bound "
+          f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {ops} float32 "
+          f"operations, {t['transcendentals']} exp/log; shift in "
+          f"{census['pair_share']:.4%} of (bin, chi) pairs, taken by "
+          f"{census['taken']} of {census['warps']} 32-bin warps")
+
+
 def time_enum(results, args, g) -> None:
     """Kernel, plain version and bound of the unfused pair at the
     full-width shape."""
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
     ll = ek.enum_fwd_plain(*args)
     bargs = args + (ll, g)
-    n_bins = args[0].numel()
-    for name, fk, fp, ins, ops, bwd in (
-            ("enum_fwd", lambda: ek.enum_fwd(*args),
-             lambda: ek.enum_fwd_plain(*args), args, enum_fwd_ops_per_bin(P),
-             False),
-            ("enum_bwd", lambda: ek.enum_bwd(*bargs),
-             lambda: ek.enum_bwd_plain(*bargs), bargs,
-             enum_bwd_ops_per_bin(P), True)):
-        outs = fk()
-        moved = nbytes(*ins, *(outs if isinstance(outs, tuple) else (outs,)))
-        del outs
-        b_ms, b_by = bound(moved, ops * n_bins)
-        k_ms = time_ms(fk)
-        p_ms = time_ms(fp, reps=20, warmup=1)
-        entry = results[name]
-        entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, bytes=moved, ops=ops * n_bins,
-                     transcendentals=n_bins * transcendentals_per_bin(
-                         P, bwd, unfused=True))
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {entry['ops']} "
-              f"float32 operations, {entry['transcendentals']} exp/log")
+    census = shift_census(args[0], args[1], args[4][2], P)
+    time_kernel(results, "enum_fwd", lambda: ek.enum_fwd(*args),
+                lambda: ek.enum_fwd_plain(*args), args, census)
+    time_kernel(results, "enum_bwd", lambda: ek.enum_bwd(*bargs),
+                lambda: ek.enum_bwd_plain(*bargs), bargs, census)
 
 
 def bf16_ulps(a, b):
@@ -478,36 +692,24 @@ def check_adam(results, args, label, moment_dtype="float32") -> tuple:
     return got
 
 
-def time_fused(results, args, prior, g, sparse, binary_P=None) -> None:
-    """Kernel, plain version and bound of both fused kernels of one
-    encoding at the full-width shape."""
+def time_fused(results, args, prior, g, sparse, binary_P=None,
+               label=None) -> None:
+    """Both fused kernels of one encoding, timed by :func:`time_kernel`:
+    at the full-width synthetic shape, or (``label``) on the operands of
+    a main-path launch.  The backward takes the plain forward's lse."""
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
     kw = dict(prior, binary_P=binary_P)
     _, lse = ek.fused_fwd_plain(*args, **kw)
     bargs = args + (lse, g)
-    n_bins = args[0].numel()
-    binary = binary_P is not None
-    for kind, fk, fp, ins, ops, bwd in (
-            ("fwd", lambda: ek.fused_fwd(*args, **kw),
-             lambda: ek.fused_fwd_plain(*args, **kw),
-             args + tuple(prior.values()), fwd_ops_per_bin(P, sparse, binary),
-             False),
-            ("bwd", lambda: ek.fused_bwd(*bargs, **kw),
-             lambda: ek.fused_bwd_plain(*bargs, **kw),
-             bargs + tuple(prior.values()), bwd_ops_per_bin(P, sparse, binary),
-             True)):
-        name = kernel_name(kind, sparse, binary_P)
-        moved = nbytes(*ins, *fk())
-        b_ms, b_by = bound(moved, ops * n_bins)
-        k_ms = time_ms(fk)
-        p_ms = time_ms(fp, reps=20, warmup=1)
-        entry = results[name]
-        entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, bytes=moved, ops=ops * n_bins,
-                     transcendentals=n_bins * transcendentals_per_bin(P, bwd))
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {entry['ops']} "
-              f"float32 operations, {entry['transcendentals']} exp/log")
+    census = shift_census(args[0], args[1], args[4][2], P)
+    time_kernel(results, kernel_name("fwd", sparse, binary_P),
+                lambda: ek.fused_fwd(*args, **kw),
+                lambda: ek.fused_fwd_plain(*args, **kw),
+                args + tuple(prior.values()), census, label)
+    time_kernel(results, kernel_name("bwd", sparse, binary_P),
+                lambda: ek.fused_bwd(*bargs, **kw),
+                lambda: ek.fused_bwd_plain(*bargs, **kw),
+                bargs + tuple(prior.values()), census, label)
 
 
 def time_adam(results, aargs, moment_dtype, dev) -> None:
@@ -523,6 +725,7 @@ def time_adam(results, aargs, moment_dtype, dev) -> None:
     del got
     b_ms, b_by = bound(moved, ADAM_OPS * n)
     k_ms = time_ms(lambda: ak.adam_update(*aargs, moment_dtype))
+    k_single = time_single_ms(lambda: ak.adam_update(*aargs, moment_dtype))
     p_ms = time_ms(lambda: ak.adam_update_plain(*aargs))
     lp, lm, lv = param.clone(), m.clone(), v.clone()
     step = [torch.tensor(7.0, device=dev)]
@@ -531,26 +734,30 @@ def time_adam(results, aargs, moment_dtype, dev) -> None:
         torch._fused_adam_([lp], [grad], [lm], [lv], [], step, lr=0.05,
                            beta1=0.8, beta2=0.99, weight_decay=0.0, eps=1e-8,
                            amsgrad=False, maximize=False)
-    l_ms, l_note = None, "torch._fused_adam_"
-    if moment_dtype == "float32":
-        l_ms = time_ms(lib)
-    else:
-        # the yardstick call may refuse float32 parameters with bfloat16
-        # moments; its refusal is recorded, not a failure of the port
-        try:
+    l_ms = l_single = None
+    l_note = "torch._fused_adam_"
+    try:
+        if moment_dtype != "float32":
+            # the yardstick call may refuse float32 parameters with
+            # bfloat16 moments; its refusal is recorded, not a failure of
+            # the port
             lib()
             torch.cuda.synchronize()
-            l_ms = time_ms(lib)
-        except RuntimeError as exc:
-            l_note = f"torch._fused_adam_ refused: {str(exc)[:120]}"
-    results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=l_ms, library=l_note,
+        l_ms, l_single = time_ms(lib), time_single_ms(lib)
+    except RuntimeError as exc:
+        if moment_dtype == "float32":
+            raise
+        l_note = f"torch._fused_adam_ refused: {str(exc)[:120]}"
+    results[name].update(ms=k_ms, ms_single=k_single, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                         library_ms_single=l_single, library=l_note,
                          bytes=moved, ops=ADAM_OPS * n,
                          shape=list(param.shape))
-    lib_s = f"{l_ms:.4f} ms" if l_ms is not None else l_note
-    print(f"  {name} {tuple(param.shape)}: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms ({b_by}); "
-          f"{moved} bytes")
+    lib_s = (f"{l_ms:.4f} ms (single-call {l_single:.4f} ms)"
+             if l_ms is not None else l_note)
+    print(f"  {name} {tuple(param.shape)}: kernel {k_ms:.4f} ms, "
+          f"single-call {k_single:.4f} ms, plain {p_ms:.4f} ms, library "
+          f"{lib_s}, bound {b_ms:.4f} ms ({b_by}); {moved} bytes")
     del lp, lm, lv
 
 
@@ -668,7 +875,9 @@ def check_one_iteration(dev, results, spec, params, fixed, batch, mdt,
                         prefix: str) -> None:
     """One ``fit_map`` iteration from ``params`` under ``LaunchOperands``,
     then each captured launch of the fused backward (with its forward) and
-    of Adam against the plain versions on its operands."""
+    of Adam against the plain versions on its operands; each fused pair
+    is also timed there, with the share of its warps that take the NB
+    cores' shift."""
     import torch
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
     from scdna_replication_tools_tpu_torch.infer.svi import fit_map
@@ -684,8 +893,11 @@ def check_one_iteration(dev, results, spec, params, fixed, batch, mdt,
         with torch.no_grad():
             if attr == "fused_bwd":
                 binary_P = kw.pop("binary_P", None)
-                check_fused(results, a[:5], kw, a[6],
-                            kind.startswith("sparse"), label, binary_P)
+                sparse = kind.startswith("sparse")
+                check_fused(results, a[:5], kw, a[6], sparse, label,
+                            binary_P)
+                time_fused(results, a[:5], kw, a[6], sparse, binary_P,
+                           label)
             else:
                 check_adam(results, a[:7], label, kind)
     del operands
@@ -1147,6 +1359,9 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}: " + (" | ".join(regs[:8]) or meta["log"][:200]))
     record["build_s"] = build_s
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    sass = record["sass"] = sass_report(info, out_dir)
 
     results = compare_kernels(dev, record)
 
@@ -1190,10 +1405,11 @@ def main() -> int:
         "bound_ms": results[name]["bound_ms"],
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
+        "ms_single": results[name]["ms_single"],
     } for name in TPU_KERNEL]
+    for name in TPU_KERNEL:
+        results[name]["sass"] = sass.get(SASS_FUNCTION[name])
     record["failures"] = FAILURES
-    out_dir = REPO / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1,
                                                         default=float))
     print(card)

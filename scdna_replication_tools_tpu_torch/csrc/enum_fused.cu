@@ -52,6 +52,24 @@
 // digamma use the TPU kernel's Stirling series (z >= 1 shifted up by 8),
 // so kernel, plain PyTorch version and JAX agree to float32 rounding
 // rather than to two libraries' approximations.
+//
+// The shift is where this card parts from the TPU.  A TPU vector unit has
+// no per-lane branch, so its kernel evaluates the 8-step recurrence (a
+// product and its log; for digamma also 8 IEEE reciprocals) for every
+// argument and discards it with a select wherever z >= 8.  A warp can
+// branch, once per bin: it votes on whether any of its 32 bins has an
+// lgamma argument below 8 -- x + 1, or delta at chi = 1, the least delta
+// (delta grows with chi, and x + delta >= delta for reads >= 0) -- and
+// runs the chi sweep either in the TPU's select form (SHIFT) or with the
+// series alone, which then gives every lane the value the select keeps.
+// On fitted operands delta = mu chi q is far above 8 for every chi >= 1
+// (tens of reads per copy), so nearly every warp takes the short sweep:
+// one reciprocal and one log per argument, branch-free.  A vote per lgamma
+// call instead reads the dense backward at 1.0 ms on fitted operands on an
+// H100 but at 3.2 ms on operands whose warps mix both sides, against
+// 2.1 ms for the select form everywhere: each vote and its reconvergence
+// point split the unrolled sweep into pieces that no longer overlap
+// (PERF.md).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,6 +80,9 @@ constexpr int MAXP = 16;
 constexpr int MAXKB = 4;  // ceil(log2 MAXP) binary planes
 constexpr int MAXCHI = 2 * MAXP - 1;
 constexpr int THREADS = 256;
+// every lane of a warp; lanes past the grid's end have exited, and a vote
+// counts only the lanes that have not
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // constants rounded from double once, as the JAX series rounds its
 // Python-float literals
@@ -72,40 +93,58 @@ constexpr float kC1260 = (float)(1.0 / 1260.0);
 constexpr float kC120 = (float)(-1.0 / 120.0);
 constexpr float kC252 = (float)(1.0 / 252.0);
 
-// float32 log-Gamma for z >= 1 (ops/enum_kernel.py _lgamma_ge1)
+// float32 log-Gamma for z >= 1 (ops/enum_kernel.py _lgamma_ge1).  SHIFT:
+// the TPU kernel's form, Stirling's series at z + 8 less log(z (z + 1) ...
+// (z + 7)) wherever z < 8, by a select.  Without SHIFT, the series at z
+// alone: the select's value wherever z >= 8, which the caller guarantees.
+template <bool SHIFT>
 __device__ __forceinline__ float lgamma_ge1(float z) {
-  const float zs = fminf(z, 8.0f);
-  const float shift_prod = zs * (zs + 1.0f) * (zs + 2.0f) * (zs + 3.0f) *
-                           (zs + 4.0f) * (zs + 5.0f) * (zs + 6.0f) *
-                           (zs + 7.0f);
-  const float zz = (z < 8.0f) ? z + 8.0f : z;
+  const float zz = (SHIFT && z < 8.0f) ? z + 8.0f : z;
   const float inv = 1.0f / zz;
   const float inv2 = inv * inv;
   const float series = inv * (kC12 + inv2 * (kC360 + inv2 * kC1260));
   const float st = (zz - 0.5f) * logf(zz) - zz + kHalfLog2Pi + series;
+  if (!SHIFT) return st;
+  const float zs = fminf(z, 8.0f);
+  const float shift_prod = zs * (zs + 1.0f) * (zs + 2.0f) * (zs + 3.0f) *
+                           (zs + 4.0f) * (zs + 5.0f) * (zs + 6.0f) *
+                           (zs + 7.0f);
   return (z < 8.0f) ? st - logf(shift_prod) : st;
 }
 
-// (lgamma(z), digamma(z)) for z >= 1 sharing the shift and log
-// (ops/enum_kernel.py _lgamma_digamma_ge1)
+// (lgamma(z), digamma(z)) for z >= 1 sharing 1/zz and log(zz)
+// (ops/enum_kernel.py _lgamma_digamma_ge1); SHIFT as in lgamma_ge1, where
+// the shift also takes 8 reciprocals off digamma
+template <bool SHIFT>
 __device__ __forceinline__ void lgamma_digamma_ge1(float z, float& lg,
                                                    float& psi) {
+  const float zz = (SHIFT && z < 8.0f) ? z + 8.0f : z;
+  const float inv = 1.0f / zz;
+  const float inv2 = inv * inv;
+  const float logzz = logf(zz);
+  const float series = inv * (kC12 + inv2 * (kC360 + inv2 * kC1260));
+  lg = (zz - 0.5f) * logzz - zz + kHalfLog2Pi + series;
+  psi = logzz - 0.5f * inv - inv2 * (kC12 + inv2 * (kC120 + inv2 * kC252));
+  if (!SHIFT) return;
   const float zs = fminf(z, 8.0f);
   const float t1 = zs + 1.0f, t2 = zs + 2.0f, t3 = zs + 3.0f;
   const float t4 = zs + 4.0f, t5 = zs + 5.0f, t6 = zs + 6.0f, t7 = zs + 7.0f;
   const float shift_prod = zs * t1 * t2 * t3 * t4 * t5 * t6 * t7;
   const float shift_sum = 1.0f / zs + 1.0f / t1 + 1.0f / t2 + 1.0f / t3 +
                           1.0f / t4 + 1.0f / t5 + 1.0f / t6 + 1.0f / t7;
-  const float zz = (z < 8.0f) ? z + 8.0f : z;
-  const float inv = 1.0f / zz;
-  const float inv2 = inv * inv;
-  const float logzz = logf(zz);
-  const float series = inv * (kC12 + inv2 * (kC360 + inv2 * kC1260));
-  const float st = (zz - 0.5f) * logzz - zz + kHalfLog2Pi + series;
-  lg = (z < 8.0f) ? st - logf(shift_prod) : st;
-  const float p = logzz - 0.5f * inv -
-                  inv2 * (kC12 + inv2 * (kC120 + inv2 * kC252));
-  psi = (z < 8.0f) ? p - shift_sum : p;
+  lg = (z < 8.0f) ? lg - logf(shift_prod) : lg;
+  psi = (z < 8.0f) ? psi - shift_sum : psi;
+}
+
+// whether the SHIFT sweep is needed anywhere in the warp: a vote on each
+// bin's least lgamma arguments, x + 1 and delta at chi = 1 (delta =
+// max(mu chi q, 1) grows with chi, x + delta >= delta, and (float)1 * q
+// is q)
+__device__ __forceinline__ bool warp_needs_shift(float x, float mui, float q,
+                                                 int P) {
+  const bool small =
+      x + 1.0f < 8.0f || (P > 1 && fmaxf(mui * q, 1.0f) < 8.0f);
+  return __any_sync(kFullMask, small);
 }
 
 // log-softmax of the bin's P states into lp[] (two passes: max, sum).  The
@@ -153,7 +192,10 @@ __device__ __forceinline__ void log_softmax_bin(const float* __restrict__ pi,
 }
 
 // two-pass logsumexp over the bin's (state, rep) pairs, one NB core per
-// distinct chi; chi = 0 has delta == 1 and reuses lgx1 = lgamma(x + 1)
+// distinct chi; chi = 0 has delta == 1 and reuses lgx1 = lgamma(x + 1).
+// SHIFT: the series' shift by select, as lgamma_ge1; without it the caller
+// guarantees every argument >= 8 (warp_needs_shift)
+template <bool SHIFT>
 __device__ __forceinline__ float enum_lse(float x, float mui, float bern0,
                                           float bern1, float lgx1,
                                           float log1m_lamb, float q,
@@ -170,7 +212,8 @@ __device__ __forceinline__ float enum_lse(float x, float mui, float bern0,
       v = lgx1 + log1m_lamb;
     } else {
       const float delta = fmaxf(mui * ((float)chi * q), 1.0f);
-      v = lgamma_ge1(x + delta) - lgamma_ge1(delta) + delta * log1m_lamb;
+      v = lgamma_ge1<SHIFT>(x + delta) - lgamma_ge1<SHIFT>(delta) +
+          delta * log1m_lamb;
     }
     nb[chi] = v;
     if (chi < MAXP && has0) m = fmaxf(m, lp[chi < MAXP ? chi : 0] + bern0 + v);
@@ -191,7 +234,8 @@ __device__ __forceinline__ float enum_lse(float x, float mui, float bern0,
 // the backward's chi sweep: each (state, rep) pair's posterior weight
 // g exp(lp_s + bern_r + nb - lse), accumulated into dmu, dphi, dlp[s] and
 // tot (the fused backward's softmax Jacobian needs the sum; the unfused
-// one drops it)
+// one drops it); SHIFT as in enum_lse
+template <bool SHIFT>
 __device__ __forceinline__ void enum_sweep_bwd(
     float x, float mui, float g, float lse, float bern0, float bern1,
     float dbern0, float dbern1, float lgx1, float log1m_lamb, float q,
@@ -209,8 +253,8 @@ __device__ __forceinline__ void enum_sweep_bwd(
       const float cq = (float)chi * q;
       const float delta = fmaxf(mui * cq, 1.0f);
       float lg_xd, psi_xd, lg_d, psi_d;
-      lgamma_digamma_ge1(x + delta, lg_xd, psi_xd);
-      lgamma_digamma_ge1(delta, lg_d, psi_d);
+      lgamma_digamma_ge1<SHIFT>(x + delta, lg_xd, psi_xd);
+      lgamma_digamma_ge1<SHIFT>(delta, lg_d, psi_d);
       nbv = lg_xd - lg_d + delta * log1m_lamb;
       const float ddelta = psi_xd - psi_d + log1m_lamb;
       // d nb / d mu, gated on the delta > 1 clamp region
@@ -264,9 +308,14 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
       if (s < P) lp_acc = lp_acc + (etas[s * n + i] - 1.0f) * lp[s];
   }
 
-  const float lgx1 = lgamma_ge1(x + 1.0f);
-  const float lse =
-      enum_lse(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  float lgx1, lse;
+  if (warp_needs_shift(x, mui, q, P)) {
+    lgx1 = lgamma_ge1<true>(x + 1.0f);
+    lse = enum_lse<true>(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  } else {
+    lgx1 = lgamma_ge1<false>(x + 1.0f);
+    lse = enum_lse<false>(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  }
   lse_out[i] = lse;
   out[i] = lse + x * log_lamb - lgx1 + lp_acc;
 }
@@ -312,9 +361,14 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
   }
 
   float dmu = 0.0f, dphi = 0.0f;
-  enum_sweep_bwd(x, mui, g, lse, bern0, bern1, dbern0, dbern1,
-                 lgamma_ge1(x + 1.0f), log1m_lamb, q, lp, P, dlp, tot, dmu,
-                 dphi);
+  if (warp_needs_shift(x, mui, q, P))
+    enum_sweep_bwd<true>(x, mui, g, lse, bern0, bern1, dbern0, dbern1,
+                         lgamma_ge1<true>(x + 1.0f), log1m_lamb, q, lp, P,
+                         dlp, tot, dmu, dphi);
+  else
+    enum_sweep_bwd<false>(x, mui, g, lse, bern0, bern1, dbern0, dbern1,
+                          lgamma_ge1<false>(x + 1.0f), log1m_lamb, q, lp, P,
+                          dlp, tot, dmu, dphi);
   dmu_out[i] = dmu;
   dphi_out[i] = dphi;
   // softmax Jacobian: dpi_s = dlog_pi_s - softmax_s * sum_s' dlog_pi_s'
@@ -358,9 +412,14 @@ __global__ void __launch_bounds__(THREADS) enum_fwd_kernel(
 #pragma unroll
   for (int s = 0; s < MAXP; ++s)
     if (s < P) lp[s] = row[s];
-  const float lgx1 = lgamma_ge1(x + 1.0f);
-  const float lse =
-      enum_lse(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  float lgx1, lse;
+  if (warp_needs_shift(x, mui, q, P)) {
+    lgx1 = lgamma_ge1<true>(x + 1.0f);
+    lse = enum_lse<true>(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  } else {
+    lgx1 = lgamma_ge1<false>(x + 1.0f);
+    lse = enum_lse<false>(x, mui, bern0, bern1, lgx1, log1m_lamb, q, lp, P);
+  }
   ll_out[i] = lse + x * log_lamb - lgx1;
 }
 
@@ -377,7 +436,9 @@ __global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
   if (i >= n) return;
   const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
   const float x = reads[i], mui = mu[i], ph = phi[i], g = g_in[i];
-  const float lgx1 = lgamma_ge1(x + 1.0f);
+  const bool shift = warp_needs_shift(x, mui, q, P);
+  const float lgx1 =
+      shift ? lgamma_ge1<true>(x + 1.0f) : lgamma_ge1<false>(x + 1.0f);
   const float ll_state = ll_in[i] - (x * log_lamb - lgx1);
   const float bern0 = log1pf(-ph), bern1 = logf(ph);
   const float dbern0 = -1.0f / (1.0f - ph), dbern1 = 1.0f / ph;
@@ -390,8 +451,12 @@ __global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
       dlp[s] = 0.0f;
     }
   float tot = 0.0f, dmu = 0.0f, dphi = 0.0f;
-  enum_sweep_bwd(x, mui, g, ll_state, bern0, bern1, dbern0, dbern1, lgx1,
-                 log1m_lamb, q, lp, P, dlp, tot, dmu, dphi);
+  if (shift)
+    enum_sweep_bwd<true>(x, mui, g, ll_state, bern0, bern1, dbern0, dbern1,
+                         lgx1, log1m_lamb, q, lp, P, dlp, tot, dmu, dphi);
+  else
+    enum_sweep_bwd<false>(x, mui, g, ll_state, bern0, bern1, dbern0, dbern1,
+                          lgx1, log1m_lamb, q, lp, P, dlp, tot, dmu, dphi);
   dmu_out[i] = dmu;
   dphi_out[i] = dphi;
   float* drow = dlog_pi_out + i * P;

@@ -29,7 +29,12 @@ one from the saved log-likelihood).
 Beside them sit the plain PyTorch versions (:func:`fused_fwd_plain`,
 the explicit :func:`fused_bwd_plain`, :func:`enum_fwd_plain` and
 :func:`enum_bwd_plain`), which repeat the kernels' arithmetic operation
-for operation (same Stirling series, same chi order).  The wrappers
+for operation (same Stirling series, same chi order).  The series' shift
+for arguments below 8 is the one difference of form: the plain versions
+evaluate it everywhere and select, as the TPU kernel does, while a warp
+of the CUDA kernels evaluates it so only where one of its 32 bins has an
+argument below 8, and otherwise takes the series alone, which is the
+select's value there.  The wrappers
 (:func:`fused_fwd`, :func:`fused_bwd`, :func:`enum_fwd`,
 :func:`enum_bwd`) take the plain version for a CPU tensor and launch the
 kernel for a CUDA tensor; there is no fallback between the two.

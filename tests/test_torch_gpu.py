@@ -33,6 +33,13 @@ prior's dpi bound (TOL_ENUM).  With bfloat16 Adam moments, m' and v' are
 held to one bfloat16 ulp per element and param' to 1e-6 (the kernel
 repeats the plain version's roundings, so the readings are 0; one ulp is
 what a float32 rounding that tips a round-to-nearest-even would leave).
+
+The NB cores' Stirling series shifts an argument below 8 up by 8, and a
+warp runs the shift (in the plain version's select form) only when one of
+its 32 bins needs it, otherwise the series alone; each lane keeps the value
+the plain version's select keeps.  The ``across_the_shift`` tests hold every
+enumeration kernel to the same bounds with whole warps that need the shift
+in no bin, in every bin, and in every other bin.
 """
 
 import numpy as np
@@ -67,7 +74,28 @@ def _rel(got, ref, scale=0.0):
     return float((got - ref).abs().max()) / max(1.0, _amax(ref), scale)
 
 
-def _inputs(C, L, P, seed, dev, flat=False):
+def _regime(rng, C, L, regime):
+    """(mu, reads) of one regime of the NB cores' shift, on whole warps of
+    32 consecutive bins of the flattened grid: "high" has every argument
+    of every lgamma at 8 or above (mu 40-80, reads around mu chi), so no
+    warp takes the shift; "low" has x + 1 < 8 and delta at its clamp of 1
+    at chi = 1 in every bin, and below 8 over the low chi slots (mu
+    0.2-3, reads 0-5), so every warp takes it there; "mixed" alternates
+    the two lane by lane, so every warp that takes it has half its lanes
+    keeping the unshifted value."""
+    hi_mu = rng.uniform(40, 80, (C, L))
+    hi_reads = rng.poisson(hi_mu * rng.integers(1, 7, (C, L)))
+    lo_mu = rng.uniform(0.2, 3, (C, L))
+    lo_reads = rng.integers(0, 6, (C, L))
+    if regime == "high":
+        return hi_mu, hi_reads
+    if regime == "low":
+        return lo_mu, lo_reads
+    odd = (np.arange(C * L).reshape(C, L) % 2).astype(bool)
+    return np.where(odd, lo_mu, hi_mu), np.where(odd, lo_reads, hi_reads)
+
+
+def _inputs(C, L, P, seed, dev, flat=False, regime=None):
     rng = np.random.default_rng(seed)
     arr = {
         "mu": rng.uniform(0.2, 60, (C, L)),
@@ -82,6 +110,8 @@ def _inputs(C, L, P, seed, dev, flat=False):
     # reads around mu * chi: the low-chi slots, where delta sits at its
     # clamp of 1, carry posterior weight
     arr["reads"] = rng.poisson(arr["mu"] * rng.integers(1, 7, (C, L)))
+    if regime is not None:
+        arr["mu"], arr["reads"] = _regime(rng, C, L, regime)
     if flat:
         arr["ew"] = np.zeros((C, L))
     else:
@@ -149,6 +179,59 @@ def test_binary_kernels_match_plain(dev, sparse, P, flat):
     _check_fused(x, P, sparse, flat, True, dev)
 
 
+def _assert_regime(x, regime):
+    """The operands are the regime that they are named for, warp by warp
+    (the last, ragged warp included): per bin of the flattened grid,
+    whether lgamma(x + 1) or any NB core's argument lies below 8.  chi = 1
+    has the smallest delta = max(mu chi q, 1), rounded as the kernels
+    round it, and x + delta >= delta."""
+    reads, mu = x["reads"].reshape(-1), x["mu"].reshape(-1)
+    q = ek.scalars(torch.tensor(0.75, dtype=torch.float32,
+                                device=mu.device))[2]
+    delta1 = torch.clamp(mu * (1.0 * q), min=1.0)
+    any_small = ((reads + 1.0) < 8.0) | (delta1 < 8.0)
+    n = any_small.numel()
+    lanes = torch.zeros(-(-n // 32) * 32, dtype=torch.bool,
+                        device=any_small.device)
+    lanes[:n] = any_small
+    per_warp = lanes.view(-1, 32)
+    if regime == "high":
+        assert not bool(any_small.any())
+    elif regime == "low":
+        assert bool(any_small.all())
+    else:
+        assert bool(per_warp.any(dim=1).all())
+        assert not bool(any_small[0::2].any()) and bool(any_small[1::2].all())
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["prior", "flat"])
+@pytest.mark.parametrize("kind", ["dense", "sparse", "dense_binary",
+                                  "sparse_binary"])
+@pytest.mark.parametrize("P", [13, 7])
+@pytest.mark.parametrize("regime", ["high", "low", "mixed"])
+def test_fused_kernels_match_plain_across_the_shift(dev, regime, P, kind,
+                                                    flat):
+    """Both fused kernels of every encoding against their plain versions,
+    with whole warps that skip the NB cores' shift (high), take it (low)
+    or need it in every other bin (mixed), on the ragged (37, 1001)
+    grid, at the unchanged bounds."""
+    x = _inputs(37, 1001, P, seed=80 + P + len(kind), dev=dev, flat=flat,
+                regime=regime)
+    _assert_regime(x, regime)
+    _check_fused(x, P, kind.startswith("sparse"), flat,
+                 kind.endswith("binary"), dev)
+
+
+@pytest.mark.parametrize("P", [13, 7])
+@pytest.mark.parametrize("regime", ["high", "low", "mixed"])
+def test_unfused_kernels_match_plain_across_the_shift(dev, regime, P):
+    """enum_fwd and enum_bwd against their plain versions in the three
+    regimes of the shift, on the ragged grid, at TOL_ENUM."""
+    x = _inputs(37, 1001, P, seed=90 + P, dev=dev, regime=regime)
+    _assert_regime(x, regime)
+    _check_unfused(x, P, _log_pi(37, 1001, P, 90 + P, dev))
+
+
 @pytest.mark.parametrize("binary", [False, True], ids=["cat", "binary"])
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 def test_autograd_function_on_cuda_matches_cpu(dev, sparse, binary):
@@ -202,8 +285,12 @@ def test_unfused_kernels_match_plain(dev, P):
     versions on the ragged (37, 1001) grid with a cells-major log_pi; each
     launch is counted once."""
     x = _inputs(37, 1001, P, seed=60 + P, dev=dev)
-    log_pi = _log_pi(37, 1001, P, 60 + P, dev)
-    scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32, device=dev))
+    _check_unfused(x, P, _log_pi(37, 1001, P, 60 + P, dev))
+
+
+def _check_unfused(x, P, log_pi):
+    scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32,
+                                   device=log_pi.device))
     args = (x["reads"], x["mu"], log_pi, x["phi"], scal)
     _cuda.reset_launches()
     ll_k = ek.enum_fwd(*args)
