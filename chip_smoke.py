@@ -5,17 +5,21 @@
 
 Phases, each printing its own lines:
 
-1. the card (exits non-zero without a CUDA device);
+1. the card (exits non-zero without a CUDA device), with its maximum SM
+   clock, which sets the bounds' special-function-unit rate;
 2. nvcc builds of every kernel source of the port, in parallel, and each
-   kernel's instruction, MUFU, vote and branch counts from
-   ``cuobjdump -sass`` where the toolkit has it;
+   kernel's instruction, MUFU, vote, branch and bulk-copy counts from
+   ``cuobjdump -sass`` where the toolkit has it, with its registers,
+   shared memory and spills from ptxas, and a check that the kernels
+   that ``UNCHANGED_SASS`` lists compiled as before;
 3. each kernel entry point against its plain PyTorch version on the
    card, at the full-width shape and at a ragged one, with a 1e6 prior
-   and with a flat one (the enumeration's own share of out and dpi), with
-   its time (launches back to back between one pair of CUDA events; the
-   single-call reading beside it), the plain version's time, its bound
-   from the operations these operands need and (Adam) a PyTorch library
-   call;
+   and with a flat one (the enumeration's own share of out and dpi), the
+   unfused pair also at P = 15 and 16, with its time (launches back to
+   back between one pair of CUDA events; the single-call reading beside
+   it), the plain version's time, its bound (the largest of the bytes,
+   float32 operations and special-function-unit instructions that these
+   operands need) and (Adam) a PyTorch library call;
 4. the port's main path, ``scRT(...).infer('pert')``, on simulated
    long-form frames of 1000 S + 250 G1 cells x 5451 loci (500 kb bins):
    kernel launch counts, per-step times, peak memory and the
@@ -41,7 +45,7 @@ Phases, each printing its own lines:
    fused pair and Adam against their plain versions over one more
    sub-fit iteration, per_cell_objective on the card against the same
    function through the plain enumeration, and both unfused kernels
-   against their plain versions;
+   against their plain versions and timed there, each with its bound;
 8. the card's name and power limit, one JSON line of the kernels, then
    the result line.
 
@@ -213,22 +217,49 @@ def enum_bwd_ops_per_bin(P: int) -> int:
     return 5 + (1 + LGAMMA_OPS) + 3 + slots + pairs
 
 
-def transcendentals(name: str, P: int, census: dict) -> int:
-    """exp/log calls of one launch (counted inside the operations above;
-    the card runs them as multi-instruction sequences on the
-    special-function units, whose rate the bound's table does not give):
-    per bin the softmax's P exps and one log, two Bernoulli logs, one log
-    per lgamma call (lgamma(x + 1) and two per nonzero chi slot), one exp
-    per (state, rep) pair, then the lse log (forward) or the softmax's P
-    exps again (backward); plus the shift's log of every argument below
-    8.  The unfused pair has no softmax."""
+def mufu_calls_per_bin(name: str, P: int) -> dict:
+    """Calls per bin of the functions that run on the special-function
+    unit (SFU), by kind, with every argument at 8 or above: ``exp``
+    (expf), ``log`` (logf, log1pf) and ``rcp`` (a float32 division).
+    The fused kernels' softmax takes P exps and one log (and the
+    backward's Jacobian P exps more); the two Bernoulli logs; lgamma(x +
+    1), one reciprocal and one log; two lgamma (backward: lgamma and
+    digamma on one reciprocal and one log) per nonzero chi slot; one exp
+    per (state, rep) pair; the forward's final log; the backward's two
+    Bernoulli slopes, one division each.  The unfused pair has no
+    softmax."""
     from scdna_replication_tools_tpu_torch.ops.enum_kernel import chi_slots
     nonzero = len(chi_slots(P)) - 1
+    backward = "_bwd" in name
     softmax = 0 if name.startswith("enum_") else P
-    per_bin = (softmax + (softmax > 0)) + 2 + 1 + 2 * nonzero + 2 * P \
-        + (softmax if "_bwd" in name else 1)
-    return per_bin * census["bins"] + census["x1"] + census["xd"] \
-        + census["d"]
+    return {"exp": softmax * (2 if backward else 1) + 2 * P,
+            "log": (softmax > 0) + 2 + 1 + 2 * nonzero + (not backward),
+            "rcp": 1 + 2 * nonzero + 2 * backward}
+
+
+# SFU instructions per call of each kind, as the kernels' SASS listings
+# show them (nvcc 12.9, sm_90a): expf one MUFU.EX2, a float32 division
+# one MUFU.RCP (with FMA refinement), and logf / log1pf none -- they are
+# a polynomial of some 25 instructions on the FMA pipes.  The rest of
+# each function is float32 work, counted in the operations above.
+MUFU_PER_CALL = {"exp": 1, "log": 0, "rcp": 1}
+# Hopper's SFU: 16 results per SM per clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+MUFU_PER_SM_PER_CLOCK = 16
+
+
+def mufu_ops(name: str, P: int, census: dict) -> int:
+    """SFU instructions of one launch of kernel ``name`` on the operands
+    that ``census`` describes: the per-bin calls without the shift, plus
+    the shift of every argument below 8 (one log of the product; the
+    digamma's 8 reciprocals besides in the backward's chi slots), each
+    call at its ``MUFU_PER_CALL``."""
+    per_bin = sum(MUFU_PER_CALL[k] * v
+                  for k, v in mufu_calls_per_bin(name, P).items())
+    chi_shift = MUFU_PER_CALL["log"] + ("_bwd" in name) * 8 \
+        * MUFU_PER_CALL["rcp"]
+    return (per_bin * census["bins"] + MUFU_PER_CALL["log"] * census["x1"]
+            + chi_shift * (census["xd"] + census["d"]))
 
 
 WARP = 32
@@ -289,10 +320,28 @@ def enum_ops(name: str, P: int, census: dict) -> int:
 ADAM_OPS = 14        # bfloat16 moments add 4 conversions, not counted
 
 
-def bound(nbytes: int, ops: int) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+# SFU results per second of the card in use: its SM count times
+# MUFU_PER_SM_PER_CLOCK times its maximum SM clock (main() sets it)
+MUFU_PER_S = None
+
+
+def bound_terms(nbytes: int, ops: int, mufu: int = 0,
+                mufu_per_s=None) -> dict:
+    """ms of the bytes over the HBM rate, the float32 operations over the
+    float32 rate and the SFU instructions over the SFU rate."""
+    rate = mufu_per_s or MUFU_PER_S
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "float32": ops / F32_OPS_PER_S * 1e3,
+            "mufu": mufu / rate * 1e3 if mufu else 0.0}
+
+
+def bound(nbytes: int, ops: int, mufu: int = 0, mufu_per_s=None) -> tuple:
+    """(ms, "bytes" | "operations", term): the largest of
+    :func:`bound_terms` (``term`` says which of "bytes", "float32" and
+    "mufu")."""
+    terms = bound_terms(nbytes, ops, mufu, mufu_per_s)
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def nbytes(*tensors) -> int:
@@ -398,12 +447,19 @@ def _sass_name(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(_TEMPLATE_ARGS[a] for a in args)}>"
 
 
+ASYNC_OPS = ("UBLKCP", "UTMA", "SYNCS")
+
+
 def parse_sass(text: str) -> dict:
     """Per function of ``cuobjdump -sass`` output: instructions (NOPs left
     out), MUFU instructions (the special-function unit: exp2, log2,
-    reciprocal) by kind, warp votes, branches, and the votes that a
+    reciprocal) by kind, warp votes, branches, the votes that a
     predicated branch follows within 48 instructions (a vote whose result
-    the compiler folded into selects has none)."""
+    the compiler folded into selects has none), the bulk-copy and barrier
+    instructions by kind (``UBLKCP``: cp.async.bulk; ``UTMA``: the
+    tensor-map forms and the bulk groups' commit; ``SYNCS``: mbarrier
+    operations) and the bulk copies among them (``UBLKCP``, ``UTMALDG``,
+    ``UTMASTG``)."""
     import re
     funcs: dict = {}
     ops: list = []
@@ -421,24 +477,81 @@ def parse_sass(text: str) -> dict:
     for name, ops in funcs.items():
         votes = [k for k, (_, op) in enumerate(ops) if op.startswith("VOTE")]
         mufu: dict = {}
+        asyncs: dict = {}
         for _, op in ops:
             if op.startswith("MUFU"):
                 mufu[op] = mufu.get(op, 0) + 1
+            if op.startswith(ASYNC_OPS):
+                asyncs[op] = asyncs.get(op, 0) + 1
         out[name] = {
             "instructions": len(ops), "mufu": sum(mufu.values()),
             "mufu_by_kind": mufu, "votes": len(votes),
             "branches": sum(op.startswith("BRA") for _, op in ops),
             "votes_guarding_a_branch": sum(
                 any(pred and op.startswith("BRA")
-                    for pred, op in ops[k + 1:k + 49]) for k in votes)}
+                    for pred, op in ops[k + 1:k + 49]) for k in votes),
+            "bulk_copies": sum(v for k, v in asyncs.items() if k.startswith(
+                ("UBLKCP", "UTMALDG", "UTMASTG"))),
+            "async_by_kind": asyncs}
     return out
 
 
+def parse_ptxas(log: str) -> dict:
+    """Per kernel of ``nvcc -Xptxas -v`` output: registers, shared memory
+    per block (static, bytes) and spill stores and loads (bytes)."""
+    import re
+    out: dict = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _sass_name(m.group(1))
+            out[entry] = {"registers": None, "smem": 0, "spill_stores": 0,
+                          "spill_loads": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = _sass_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in out:
+            out[props].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry].update(registers=int(m.group(1)),
+                              smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+# Rows 1 and 3-10 as their present design compiles (instructions, MUFU
+# instructions), read from this script's [sass] phase on the H100 (nvcc
+# 12.9, sm_90a): a change that leaves these kernels alone must not move
+# their listings (a redesign of one of them, or another nvcc, updates
+# this table)
+UNCHANGED_SASS = {
+    "enum_fwd_kernel": (8799, 162),
+    "fused_fwd_kernel<false, false>": (9319, 178),
+    "fused_bwd_kernel<false, false>": (15916, 566),
+    "fused_fwd_kernel<true, false>": (9080, 178),
+    "fused_bwd_kernel<true, false>": (15765, 566),
+    "fused_fwd_kernel<false, true>": (9227, 178),
+    "fused_bwd_kernel<false, true>": (15763, 565),
+    "fused_fwd_kernel<true, true>": (8998, 178),
+    "fused_bwd_kernel<true, true>": (15613, 565),
+}
+
+
 def sass_report(info: dict, out_dir: Path) -> dict:
-    """Instruction, MUFU, vote and branch counts of every kernel of the
-    built libraries (:func:`parse_sass`), printed; the full listings go to
-    ``out_dir``.  Prints that cuobjdump is missing where it is (and
-    returns no counts)."""
+    """Instruction, MUFU, vote, branch and bulk-copy counts of every
+    kernel of the built libraries (:func:`parse_sass`) with its
+    registers, shared memory and spills (:func:`parse_ptxas`), printed;
+    the full listings go to ``out_dir``.  Checks that rows 1 and 3-10
+    compiled to :data:`UNCHANGED_SASS`.  Prints that cuobjdump is missing
+    where it is (and returns no counts)."""
     import shutil
 
     from scdna_replication_tools_tpu_torch.ops import _cuda
@@ -458,14 +571,29 @@ def sass_report(info: dict, out_dir: Path) -> dict:
                   f"{sass.stderr[:200]}")
             continue
         (out_dir / f"{name}.sass").write_text(sass.stdout)
-        counts.update(parse_sass(sass.stdout))
+        found = parse_sass(sass.stdout)
+        ptxas = parse_ptxas(meta["log"])
+        for fn, c in found.items():
+            c.update(ptxas.get(fn, {}))
+        counts.update(found)
     print(f"[sass] cuobjdump -sass of the built libraries (listings in "
           f"{out_dir.name}/)")
     for fn, c in sorted(counts.items()):
         print(f"  {fn}: {c['instructions']} instructions, {c['mufu']} MUFU "
               f"{json.dumps(c['mufu_by_kind'])}, {c['votes']} votes "
               f"({c['votes_guarding_a_branch']} guarding a branch), "
-              f"{c['branches']} branches")
+              f"{c['branches']} branches; {c.get('registers')} registers, "
+              f"{c.get('smem')} B shared memory, spills "
+              f"{c.get('spill_stores')}/{c.get('spill_loads')} B; "
+              f"{c['bulk_copies']} bulk copies "
+              f"{json.dumps(c['async_by_kind'])}")
+    for fn, (ins, mufu) in UNCHANGED_SASS.items():
+        c = counts.get(fn, {})
+        check(c.get("instructions") == ins and c.get("mufu") == mufu
+              and not c.get("bulk_copies"),
+              f"[sass] {fn}: {c.get('instructions')} instructions, "
+              f"{c.get('mufu')} MUFU, no bulk copy, as recorded: {ins} and "
+              f"{mufu}")
     return counts
 
 
@@ -583,73 +711,114 @@ def ll_scale(ll, reads, scal):
 def enum_errors(args, g) -> tuple:
     """The unfused kernels against their plain versions on one set of
     operands (reads, mu, log_pi, phi, scal); the backward takes the
-    plain forward's ll, so each kernel is judged alone."""
+    plain forward's ll, so each kernel is judged alone.  Also returns the
+    launch keys that the two kernel calls counted."""
     import torch
+    from scdna_replication_tools_tpu_torch.ops import _cuda
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    before = dict(_cuda.LAUNCHES)
     ll_k = ek.enum_fwd(*args)
     ll_p = ek.enum_fwd_plain(*args)
     got = ek.enum_bwd(*args, ll_p, g)
     ref = ek.enum_bwd_plain(*args, ll_p, g)
     torch.cuda.synchronize()
+    keys = sorted(k for k, v in _cuda.LAUNCHES.items() if v != before[k])
     d = (ll_k - ll_p).abs()
     fwd = {"ll": (float(d.max()),
                   float((d / ll_scale(ll_p, args[0], args[4])).max()))}
     bwd = {name: rel_err(a, b) for name, a, b in
            zip(("dmu", "dphi", "dlog_pi"), got, ref)}
-    return fwd, bwd
+    return fwd, bwd, keys
 
 
 def check_enum(results, args, g, label) -> None:
-    fwd, bwd = enum_errors(args, g)
+    """:func:`enum_errors` at ``TOL_ENUM``, and that the backward staged
+    its dlog_pi (every grid here holds a full block)."""
+    fwd, bwd, keys = enum_errors(args, g)
     report(results, "enum_fwd", fwd, TOL_ENUM, label)
     report(results, "enum_bwd", bwd, TOL_ENUM, label)
+    want = ["enum_bwd_staged", "enum_fwd"]
+    check(keys == want, f"enum pair {label}: launched {keys}, expected "
+          f"{want}")
 
 
-def time_kernel(results, name, fk, fp, ins, census, label=None) -> None:
+def time_kernel(results, name, fk, fp, ins, census, label=None,
+                single=False) -> None:
     """One kernel's device time (:func:`time_ms`) and its bound from the
-    bytes of ``ins`` and of its outputs and the operations that
-    ``census``'s operands need.  Without ``label`` (the full-width
-    synthetic operands) also the single-call reading and the plain
-    version's time, in the kernel's row; with one (a main-path launch's
-    operands) under the row's ``main``."""
+    bytes of ``ins`` and of its outputs, the float32 operations and the
+    SFU instructions that ``census``'s operands need.  Without ``label``
+    (the full-width synthetic operands) also the single-call reading and
+    the plain version's time, in the kernel's row; with one (a main-path
+    launch's operands) under the row's ``main``, with the single-call
+    reading where ``single``."""
     outs = fk()
     moved = nbytes(*ins, *(outs if isinstance(outs, tuple) else (outs,)))
     del outs
     ops = enum_ops(name, P, census)
-    b_ms, b_by = bound(moved, ops)
+    mufu = mufu_ops(name, P, census)
+    b_ms, b_by, b_term = bound(moved, ops, mufu)
     t = {"ms": time_ms(fk), "bound_ms": b_ms, "bound_by": b_by,
-         "bytes": moved, "ops": ops,
-         "transcendentals": transcendentals(name, P, census),
+         "bound_term": b_term,
+         "bound_terms_ms": bound_terms(moved, ops, mufu),
+         "bytes": moved, "ops": ops, "mufu": mufu,
          "shift_pair_share": census["pair_share"],
          "shift_warp_share": census["warp_share"]}
     where = label or f"{CELLS}x{LOCI}"
+    plain = ""
+    if label is None or single:
+        t["ms_single"] = time_single_ms(fk)
+        plain = f", single-call {t['ms_single']:.4f} ms"
     if label is None:
-        t.update(ms_single=time_single_ms(fk),
-                 plain_ms=time_ms(fp, reps=20, warmup=1), library_ms=None)
+        t.update(plain_ms=time_ms(fp, reps=20, warmup=1), library_ms=None)
         results[name].update(t)
-        plain = (f", single-call {t['ms_single']:.4f} ms, plain "
-                 f"{t['plain_ms']:.4f} ms")
+        plain += f", plain {t['plain_ms']:.4f} ms"
     else:
         results[name].setdefault("main", {})[label] = t
-        plain = ""
     print(f"  {name} {where}: kernel {t['ms']:.4f} ms{plain}, bound "
-          f"{b_ms:.4f} ms ({b_by}); {moved} bytes, {ops} float32 "
-          f"operations, {t['transcendentals']} exp/log; shift in "
+          f"{b_ms:.4f} ms ({b_term}); {moved} bytes, {ops} float32 "
+          f"operations, {mufu} SFU instructions; shift in "
           f"{census['pair_share']:.4%} of (bin, chi) pairs, taken by "
           f"{census['taken']} of {census['warps']} 32-bin warps")
 
 
-def time_enum(results, args, g) -> None:
+def time_enum(results, args, g, label=None) -> None:
     """Kernel, plain version and bound of the unfused pair at the
-    full-width shape."""
+    full-width shape, or (``label``) kernel times, single-call too, and
+    bound on a main-path launch's operands."""
     from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
     ll = ek.enum_fwd_plain(*args)
     bargs = args + (ll, g)
     census = shift_census(args[0], args[1], args[4][2], P)
     time_kernel(results, "enum_fwd", lambda: ek.enum_fwd(*args),
-                lambda: ek.enum_fwd_plain(*args), args, census)
+                lambda: ek.enum_fwd_plain(*args), args, census, label, True)
     time_kernel(results, "enum_bwd", lambda: ek.enum_bwd(*bargs),
-                lambda: ek.enum_bwd_plain(*bargs), bargs, census)
+                lambda: ek.enum_bwd_plain(*bargs), bargs, census, label,
+                True)
+
+
+def time_even_p(results, x, scal) -> None:
+    """The staged backward's shared-memory writes at stride P words: at
+    odd P a warp's 32 writes fall in 32 banks, at P = 16 in 2 (16-way
+    conflicts).  Both kernels at P = 15 and 16 on the full-width
+    operands, back to back (PERF.md compares them with per-thread
+    stores)."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    g, dev = x["g"], x["mu"].device
+    for p in (15, 16):
+        gen = torch.Generator(device=dev).manual_seed(SEED + p)
+        log_pi = torch.log_softmax(2.0 * torch.randn(
+            (CELLS, LOCI, p), generator=gen, device=dev), dim=-1)
+        args = (x["reads"], x["mu"], log_pi, x["phi"], scal)
+        ll = ek.enum_fwd_plain(*args)
+        fwd = time_ms(lambda: ek.enum_fwd(*args))
+        bwd = time_ms(lambda: ek.enum_bwd(*args, ll, g))
+        for name, ms in (("enum_fwd", fwd), ("enum_bwd", bwd)):
+            results[name].setdefault("even_p", {})[f"P={p}"] = ms
+        print(f"  enum pair {CELLS}x{LOCI}, P = {p}: forward {fwd:.4f} ms, "
+              f"backward {bwd:.4f} ms")
+        del args, ll, log_pi
+        torch.cuda.empty_cache()
 
 
 def bf16_ulps(a, b):
@@ -723,7 +892,7 @@ def time_adam(results, aargs, moment_dtype, dev) -> None:
     n = param.numel()
     moved = nbytes(param, grad, m, v) + nbytes(*got)
     del got
-    b_ms, b_by = bound(moved, ADAM_OPS * n)
+    b_ms, b_by, _ = bound(moved, ADAM_OPS * n)
     k_ms = time_ms(lambda: ak.adam_update(*aargs, moment_dtype))
     k_single = time_single_ms(lambda: ak.adam_update(*aargs, moment_dtype))
     p_ms = time_ms(lambda: ak.adam_update_plain(*aargs))
@@ -780,6 +949,7 @@ def compare_kernels(dev, record):
         check_enum(results, eargs, x["g"], label)
         if full:
             time_enum(results, eargs, x["g"])
+            time_even_p(results, x, scal)
         del eargs
         x.pop("log_pi")
         torch.cuda.empty_cache()
@@ -1010,7 +1180,7 @@ BINARY = ("fused_fwd_dense_binary", "fused_bwd_dense_binary",
           "fused_fwd_sparse_binary", "fused_bwd_sparse_binary", "adam_bf16")
 RESCUE = CATEGORICAL + ("enum_fwd",)
 PATHS = {
-    # path -> (scRT options, the kernels its main path launches); the
+    # path -> (scRT options, the launch keys its main path counts); the
     # unfused backward runs on no path (the rescue scores without
     # gradients), so enum_bwd is held against its plain version only
     "categorical": (dict(mirror_rescue=False), CATEGORICAL),
@@ -1193,9 +1363,9 @@ def check_rescue_scoring(dev, scrt, results) -> None:
     against their plain versions over one more sub-fit iteration from the
     sub-fit's parameters; then per_cell_objective on the card (the
     unfused kernel) against the same function through the plain
-    enumeration, and both unfused kernels against their plain versions,
-    with the step-2 parameters (after the splice) and with the
-    sub-fit's."""
+    enumeration, and both unfused kernels against their plain versions
+    and timed (back to back and single-call, with their bounds), with the
+    step-2 parameters (after the splice) and with the sub-fit's."""
     import dataclasses
 
     import torch
@@ -1235,6 +1405,8 @@ def check_rescue_scoring(dev, scrt, results) -> None:
             err = float(((obj_k - obj_p).abs() / scale).max())
             g = torch.randn(args[0].shape, generator=gen, device=dev)
             check_enum(results, args, g, f"{label} {name}")
+            # timed with the cotangent of per_cell_objective's sum
+            time_enum(results, args, torch.ones_like(g), f"{label} {name}")
         check(err <= TOL_ENUM["per_cell"] and bool(torch.isfinite(obj_k).all()),
               f"per_cell_objective {label} {name}: kernel against plain "
               f"enumeration, max |diff| / ll scale per cell {err:.3e} <= "
@@ -1345,9 +1517,23 @@ def main() -> int:
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "unknown"
-    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+    try:
+        sm_mhz = float(clock.stdout.split()[0])
+    except (IndexError, ValueError):
+        print(f"chip_smoke: nvidia-smi gave no SM clock: {clock.stdout!r} "
+              f"{clock.stderr!r}", file=sys.stderr)
+        return 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global MUFU_PER_S
+    MUFU_PER_S = sms * MUFU_PER_SM_PER_CLOCK * sm_mhz * 1e6
+    print(f"[card] {card}; max SM clock {sm_mhz:g} MHz, {sms} SMs (SFU "
+          f"{MUFU_PER_S:.4g}/s); torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    record["card"] = card
+    record.update(card=card, sm_clock_mhz=sm_mhz, sms=sms,
+                  mufu_per_s=MUFU_PER_S)
 
     from scdna_replication_tools_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
@@ -1372,7 +1558,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s; depth cut: "
           f"max_iter={MAX_ITER} (steps 1 and 3: {MAX_ITER // 2}), "
           "min_iter=100")
-    launches = {}
+    launches = dict.fromkeys(TPU_KERNEL, 0)
     cat_launches, scrt = main_path(dev, record, frames, "categorical")
     check_main_path_shapes(dev, scrt, results, "categorical")
     profile_steps(dev, scrt, record, "categorical")
@@ -1393,7 +1579,11 @@ def main() -> int:
     res_launches, scrt = main_path(dev, record, frames, "rescue", reference)
     if scrt.mirror_rescue_fit is not None:
         check_rescue_scoring(dev, scrt, results)
-    launches.update({k: res_launches[k] for k in ("enum_fwd", "enum_bwd")})
+    by_path = {p: res_launches[f"enum_bwd_{p}"]
+               for p in ("staged", "per_thread")}
+    launches.update(enum_fwd=res_launches["enum_fwd"],
+                    enum_bwd=sum(by_path.values()))
+    results["enum_bwd"]["launch_paths"] = by_path
     del scrt
     torch.cuda.empty_cache()
 
@@ -1406,6 +1596,10 @@ def main() -> int:
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
         "ms_single": results[name]["ms_single"],
+        "main_ms": {label: t["ms"] for label, t in
+                    results[name].get("main", {}).items()},
+        **({"launch_paths": results[name]["launch_paths"]}
+           if "launch_paths" in results[name] else {}),
     } for name in TPU_KERNEL]
     for name in TPU_KERNEL:
         results[name]["sass"] = sass.get(SASS_FUNCTION[name])

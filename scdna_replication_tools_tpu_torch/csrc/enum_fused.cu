@@ -27,11 +27,22 @@
 //   ll    = lse + x log(lamb) - lgamma(x + 1)
 // and its backward normalises the posterior weights against
 // ll - (x log(lamb) - lgamma(x + 1)) and writes dmu, dphi and the
-// cells-major dlog_pi_s = sum of the weights of state s.  Each thread
-// reads (and the backward writes) its bin's P consecutive floats: a warp
-// covers one contiguous span of 32 P floats, which the first of the P
-// loads brings into L1 for the rest, so no transpose is needed on either
-// side and the bytes moved stay each operand's own.
+// cells-major dlog_pi_s = sum of the weights of state s.  Both read each
+// bin's P consecutive log_pi floats per thread: a bin's floats sit P * 4
+// bytes from its neighbour's, so each of a warp's P load instructions
+// touches about 32 sectors of the warp's contiguous 32 P floats, which
+// the first brings into L1 for the rest.  The backward stages its dlog_pi
+// instead: a block of THREADS bins owns one contiguous span of THREADS * P
+// floats (1024 P bytes, a multiple of 16), each thread writes its P
+// floats to a shared tile and one bulk asynchronous copy (cp.async.bulk,
+// the TMA's non-tensor form) writes the span back, where P strided stores
+// would each write about 32 partial sectors; the grid's short last block
+// stores per thread.  Staging log_pi the same way (a bulk copy on an
+// mbarrier, or cooperative 16-B cp.async copies, per block or per warp)
+// made both kernels slower on an H100 than the per-thread loads, which
+// cost the issue-bound sweep nothing it could win back (PERF.md).  No
+// transpose is needed on either side and the bytes moved stay each
+// operand's own.
 //
 // What bounds it on this card: each bin reads 3 + Kp (+ P dense | + 2
 // sparse) planes and writes 2 (forward) or 2 + Kp (backward), Kp = P or
@@ -423,8 +434,33 @@ __global__ void __launch_bounds__(THREADS) enum_fwd_kernel(
   ll_out[i] = lse + x * log_lamb - lgx1;
 }
 
+// the shared-memory address of p, as the bulk-copy instructions take it
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one thread, after every thread's shared-memory writes, a proxy fence
+// (fence.proxy.async) and the block's barrier: the bulk asynchronous copy
+// (the TMA's non-tensor form) of `bytes` from shared `src` to global `dst`,
+// both 16-B aligned, bytes a multiple of 16; it waits until the copy has
+// read the shared memory, which the block's exit releases
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // unfused backward: the weights normalise against ll less the hoisted
-// x log(lamb) - lgamma(x + 1), and dlog_pi_s is state s's weight sum
+// x log(lamb) - lgamma(x + 1), and dlog_pi_s is state s's weight sum.  A
+// full block stages its dlog_pi span: each thread writes its bin's P
+// floats to its own slots of a shared tile (stride P words: conflict-free
+// at odd P), and one bulk copy writes the block's contiguous THREADS * P
+// floats back.  The grid's short last block stores per thread.
 __global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
     const float* __restrict__ reads, const float* __restrict__ mu,
     const float* __restrict__ phi, const float* __restrict__ log_pi,
@@ -432,7 +468,10 @@ __global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
     const float* __restrict__ g_in, float* __restrict__ dmu_out,
     float* __restrict__ dphi_out, float* __restrict__ dlog_pi_out, int64_t n,
     int P) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  alignas(16) __shared__ float tile[THREADS * MAXP];
+  const int64_t first = (int64_t)blockIdx.x * THREADS;
+  const int64_t i = first + threadIdx.x;
+  const bool staged = first + THREADS <= n;  // the same for the whole block
   if (i >= n) return;
   const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
   const float x = reads[i], mui = mu[i], ph = phi[i], g = g_in[i];
@@ -459,10 +498,21 @@ __global__ void __launch_bounds__(THREADS) enum_bwd_kernel(
                           lgx1, log1m_lamb, q, lp, P, dlp, tot, dmu, dphi);
   dmu_out[i] = dmu;
   dphi_out[i] = dphi;
-  float* drow = dlog_pi_out + i * P;
+  if (staged) {
+    float* slot = tile + threadIdx.x * P;
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s)
-    if (s < P) drow[s] = dlp[s];
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) slot[s] = dlp[s];
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0)
+      bulk_store(dlog_pi_out + first * P, tile, THREADS * P * sizeof(float));
+  } else {
+    float* drow = dlog_pi_out + i * P;
+#pragma unroll
+    for (int s = 0; s < MAXP; ++s)
+      if (s < P) drow[s] = dlp[s];
+  }
 }
 
 inline unsigned int blocks_for(int64_t n) {
@@ -553,12 +603,15 @@ int scrt_enum_fwd(const float* reads, const float* mu, const float* phi,
   return (int)cudaGetLastError();
 }
 
-// dlog_pi: cells-major (n, P), as log_pi
+// dlog_pi: cells-major (n, P), as log_pi, 16-B aligned (the bulk copy's
+// requirement: every full block's span then starts aligned, THREADS * P * 4
+// bytes after the last); a launch stages a span when n holds a full block
 int scrt_enum_bwd(const float* reads, const float* mu, const float* phi,
                   const float* log_pi, const float* scal, const float* ll,
                   const float* g, float* dmu, float* dphi, float* dlog_pi,
                   long long n, int P, void* stream) {
-  if (refused(P, 0, n)) return (int)cudaErrorInvalidValue;
+  if (refused(P, 0, n) || reinterpret_cast<uintptr_t>(dlog_pi) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   enum_bwd_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       reads, mu, phi, log_pi, scal, ll, g, dmu, dphi, dlog_pi, n, P);

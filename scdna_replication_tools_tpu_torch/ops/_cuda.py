@@ -4,12 +4,14 @@ Each source under ``csrc/`` is compiled at first use by ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``.  Libraries are named by a hash
 of their source and flags, so an edited source rebuilds and an unchanged
-one loads from the build directory.  :func:`build` starts one ``nvcc``
-per source, all at once.
+one loads from the build directory, with the compiler's log (ptxas's
+registers, shared memory and spills) kept beside it.  :func:`build`
+starts one ``nvcc`` per source, all at once.
 
-``LAUNCHES`` counts kernel launches per entry point: each wrapper adds
-one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+``LAUNCHES`` counts kernel launches per entry point (the unfused
+backward's per store path): each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -59,7 +61,11 @@ _SIGNATURES = {
 
 LAUNCHES: Dict[str, int] = {
     "enum_fwd": 0,
-    "enum_bwd": 0,
+    # the unfused backward by its store path: a launch with a full block
+    # stages that block's dlog_pi span through shared memory, one without
+    # stores per thread
+    "enum_bwd_staged": 0,
+    "enum_bwd_per_thread": 0,
     "fused_fwd_dense": 0,
     "fused_bwd_dense": 0,
     "fused_fwd_sparse": 0,
@@ -112,8 +118,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         for name in names:
             out = _target(name)
             if out.exists():
-                BUILD_INFO[name] = {"seconds": 0.0, "path": str(out),
-                                    "log": "cached"}
+                log = out.with_suffix(".log")
+                BUILD_INFO[name] = {
+                    "seconds": 0.0, "path": str(out),
+                    "log": log.read_text() if log.exists() else "cached"}
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -128,6 +136,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                 errors.append(f"{SOURCES[name]}: nvcc exited "
                               f"{proc.returncode}\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
                                 "path": str(out), "log": log}

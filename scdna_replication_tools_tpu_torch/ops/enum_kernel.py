@@ -20,9 +20,11 @@ order of summation, which float32 parity rests on).  The unfused
 cells-major log-simplex ``log_pi`` as given (no softmax, no Dirichlet
 term) and its backward emits ``dlog_pi`` itself.  The fused CUDA kernels
 (``csrc/enum_fused.cu``) read the state-major ``(P | Kb, cells, loci)``
-planes once, the unfused ones each bin's P consecutive ``log_pi``
-floats; all keep the per-state terms in registers and never materialise
-the ``(cells, loci, P, 2)`` enumeration tensor.  The backward recomputes
+planes once, the unfused ones each bin's P consecutive cells-major
+``log_pi`` floats (the backward writes each full block's contiguous
+``dlog_pi`` span back with one bulk asynchronous copy); all keep the
+per-state terms in registers and never materialise the ``(cells, loci,
+P, 2)`` enumeration tensor.  The backward recomputes
 from the inputs and the saved enumeration-only logsumexp (the unfused
 one from the saved log-likelihood).
 
@@ -51,6 +53,7 @@ import torch
 from scdna_replication_tools_tpu_torch.ops import _cuda
 
 MAX_P = 16  # the kernels' register arrays (csrc/enum_fused.cu MAXP)
+THREADS = 256  # bins per block (csrc/enum_fused.cu THREADS)
 
 _HALF_LOG_2PI = 0.9189385332046727
 
@@ -516,7 +519,9 @@ def enum_bwd(reads, mu, log_pi, phi, scal, ll, g
         _cuda.ptr(dphi), _cuda.ptr(dlog_pi), reads.numel(), P,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "enum_bwd")
-    _cuda.LAUNCHES["enum_bwd"] += 1
+    # a launch with a full block stages that block's dlog_pi span
+    _cuda.LAUNCHES["enum_bwd_staged" if reads.numel() >= THREADS
+                   else "enum_bwd_per_thread"] += 1
     return dmu, dphi, dlog_pi
 
 

@@ -8,9 +8,11 @@ operations per argument that needs it (``shift_census``, ``enum_ops``)
 and reports the share of warps that take it.  With every argument
 shifted, the counts must equal the per-bin counts of the unbranched
 series (1707 and 2739 float32 operations per bin for the dense pair at
-P = 13).  ``parse_sass`` reads ``cuobjdump -sass`` listings, which only
-the card's toolkit makes: here it reads a short listing written in that
-form.
+P = 13).  ``mufu_calls_per_bin`` counts the special-function-unit calls
+of each kernel per bin, for the bound's third term.  ``parse_sass`` reads
+``cuobjdump -sass`` listings and ``parse_ptxas`` ``-Xptxas -v`` logs,
+which only the card's toolkit makes: here each reads a short text
+written in that form.
 """
 
 import importlib.util
@@ -151,8 +153,9 @@ UNBRANCHED_OPS_P13 = {
 def test_enum_ops_span_the_unbranched_and_the_skipped_shift(cs, name):
     """With every argument below 8 a launch costs the unbranched series'
     operations; with none, exactly the shift's share less (18 per lgamma,
-    32 per lgamma + digamma), and the exp/log count one log per
-    argument less."""
+    32 per lgamma + digamma), and the SFU count one log's instructions
+    per lgamma argument less (a log's and 8 reciprocals' per lgamma +
+    digamma one)."""
     P, n = 13, 3 * 45
     nonzero = len(ek.chi_slots(P)) - 1
     reads, mu = _operands(3, 45, "low", seed=1)
@@ -162,8 +165,10 @@ def test_enum_ops_span_the_unbranched_and_the_skipped_shift(cs, name):
     chi_shift = cs.LGDG_SHIFT_OPS if "_bwd" in name else cs.LGAMMA_SHIFT_OPS
     assert cs.enum_ops(name, P, all_shift) - cs.enum_ops(name, P, none) == \
         n * (cs.LGAMMA_SHIFT_OPS + 2 * nonzero * chi_shift)
-    assert cs.transcendentals(name, P, all_shift) \
-        - cs.transcendentals(name, P, none) == n * (1 + 2 * nonzero)
+    log, rcp = cs.MUFU_PER_CALL["log"], cs.MUFU_PER_CALL["rcp"]
+    per_chi = log + (8 * rcp if "_bwd" in name else 0)
+    assert cs.mufu_ops(name, P, all_shift) - cs.mufu_ops(name, P, none) \
+        == n * (log + 2 * nonzero * per_chi)
     # a census of real operands lands between the two
     census = cs.shift_census(reads, mu, _q(), P)
     assert cs.enum_ops(name, P, none) <= cs.enum_ops(name, P, census) \
@@ -191,21 +196,131 @@ SASS = """
 \t\tFunction : _ZN12_GLOBAL__N_111adam_kernelI13__nv_bfloat16EEvPfS2_
         /*0000*/                   MUFU.RSQ R1, R2 ;                 /* 0x0000000000007802 */
         /*0010*/                   EXIT ;                            /* 0x0000000000007802 */
-\t\tFunction : _ZN12_GLOBAL__N_115enum_fwd_kernelEPKfS1_
+\t\tFunction : _ZN12_GLOBAL__N_115enum_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_PfS2_S2_li
+        /*0000*/                   STS [R0], R2 ;                    /* 0x0000000000007802 */
+        /*0010*/                   FENCE.VIEW.ASYNC.S ;              /* 0x0000000000007802 */
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;     /* 0x0000000000007802 */
+        /*0030*/                   UBLKCP.G.S [UR8], [UR10], UR12 ;  /* 0x0000000000007802 */
+        /*0040*/                   UTMACMDFLUSH ;                    /* 0x0000000000007802 */
+        /*0050*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;  /* 0x0000000000007802 */
+        /*0060*/                   EXIT ;                            /* 0x0000000000007802 */
+\t\tFunction : _ZN12_GLOBAL__N_115enum_fwd_kernelEPKfS1_S1_S1_S1_Pfli
         /*0000*/                   EXIT ;                            /* 0x0000000000007802 */
 """
 
 
 def test_parse_sass_counts_votes_branches_and_mufu(cs):
     """Names demangled with their template arguments; NOPs and encoding
-    words left out; one of two votes guards a predicated branch."""
+    words left out; one of two votes guards a predicated branch; the bulk
+    copy, its group's commit and an mbarrier wait counted by kind, and the
+    bulk copy alone as one, where a kernel has them."""
     got = cs.parse_sass(SASS)
     assert set(got) == {"fused_bwd_kernel<false, true>",
-                        "adam_kernel<__nv_bfloat16>", "enum_fwd_kernel"}
+                        "adam_kernel<__nv_bfloat16>", "enum_bwd_kernel",
+                        "enum_fwd_kernel"}
     bwd = got["fused_bwd_kernel<false, true>"]
     assert bwd == {"instructions": 12, "mufu": 3,
                    "mufu_by_kind": {"MUFU.LG2": 2, "MUFU.RCP": 1},
-                   "votes": 2, "branches": 2, "votes_guarding_a_branch": 1}
+                   "votes": 2, "branches": 2, "votes_guarding_a_branch": 1,
+                   "bulk_copies": 0, "async_by_kind": {}}
     assert got["adam_kernel<__nv_bfloat16>"]["mufu"] == 1
-    assert got["enum_fwd_kernel"]["instructions"] == 1
+    staged = got["enum_bwd_kernel"]
+    assert staged["instructions"] == 7 and staged["bulk_copies"] == 1
+    assert staged["async_by_kind"] == {
+        "UBLKCP.G.S": 1, "UTMACMDFLUSH": 1,
+        "SYNCS.PHASECHK.TRANS64.TRYWAIT": 1}
+    assert got["enum_fwd_kernel"]["bulk_copies"] == 0
     assert set(cs.SASS_FUNCTION.values()) >= set(got)
+
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115enum_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_PfS2_S2_li' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115enum_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_PfS2_S2_li
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+ptxas info    : Function properties for __internal_0_$__cuda_sm3x_div_rn_noftz_f32_slowpath
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116fused_bwd_kernelILb0ELb1EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116fused_bwd_kernelILb0ELb1EEEvPKfS2_
+    0 bytes stack frame, 280 bytes spill stores, 280 bytes spill loads
+ptxas info    : Used 64 registers, 448 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_reads_registers_shared_memory_and_spills(cs):
+    """Per entry function of ``-Xptxas -v``: registers, static shared
+    memory (0 where the line names none) and spills; a called
+    function's properties are not an entry's."""
+    got = cs.parse_ptxas(PTXAS)
+    assert got == {
+        "enum_bwd_kernel": {"registers": 80, "smem": 16384,
+                                  "spill_stores": 0, "spill_loads": 0},
+        "fused_bwd_kernel<false, true>": {"registers": 64, "smem": 0,
+                                          "spill_stores": 280,
+                                          "spill_loads": 280}}
+
+
+def _brute_mufu_calls(name, P):
+    """SFU calls per bin, walking the kernels' structure: the fused
+    kernels' log-softmax (P exps, one log), the Bernoulli logs (and the
+    backward's two slope divisions), lgamma(x + 1), two lgamma (+
+    digamma) per nonzero chi slot, one exp per (state, rep) pair of each
+    slot, the fused backward's Jacobian (P exps), the forward's final
+    log."""
+    fused, bwd = not name.startswith("enum_"), "_bwd" in name
+    calls = {"exp": 0, "log": 0, "rcp": 0}
+    if fused:
+        calls["exp"] += P
+        calls["log"] += 1
+    calls["log"] += 2
+    calls["rcp"] += 2 if bwd else 0
+    calls["rcp"] += 1
+    calls["log"] += 1
+    for chi, pairs in ek.chi_slots(P):
+        if chi != 0.0:
+            calls["rcp"] += 2
+            calls["log"] += 2
+        calls["exp"] += len(pairs)
+    if fused and bwd:
+        calls["exp"] += P
+    if not bwd:
+        calls["log"] += 1
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(UNBRANCHED_OPS_P13))
+def test_mufu_calls_per_bin_match_a_brute_count(cs, name):
+    """chip_smoke.py's closed-form SFU calls per bin against a walk over
+    chi_slots(P), for every P the kernels take (1..16); at P = 13 the
+    unfused forward makes 103 (the 18 nonzero chi slots' 36 lgamma,
+    26 exps, lgamma(x + 1), two Bernoulli logs and the final log)."""
+    for P in range(1, ek.MAX_P + 1):
+        assert cs.mufu_calls_per_bin(name, P) == _brute_mufu_calls(name, P)
+    if name == "enum_fwd":
+        assert sum(cs.mufu_calls_per_bin(name, 13).values()) == 103
+    none = {"bins": 7, "x1": 0, "xd": 0, "d": 0}
+    assert cs.mufu_ops(name, 13, none) == 7 * sum(
+        cs.MUFU_PER_CALL[k] * v
+        for k, v in cs.mufu_calls_per_bin(name, 13).items())
+
+
+@pytest.mark.parametrize("term", ["bytes", "float32", "mufu"])
+def test_bound_takes_the_largest_of_its_three_terms(cs, term):
+    """bytes over the HBM rate, float32 operations over the float32 rate,
+    SFU instructions over the SFU rate (here 132 SMs x 16 x 1.98 GHz):
+    the largest sets the bound, and only bytes is named "bytes"."""
+    rate = 132 * 16 * 1.98e9
+    # one second of the named term, a millisecond of each other
+    per_s = {"bytes": cs.HBM_BYTES_PER_S, "float32": cs.F32_OPS_PER_S,
+             "mufu": rate}
+    sizes = [int(v if k == term else v / 1e3) for k, v in per_s.items()]
+    ms, by, got = cs.bound(*sizes, mufu_per_s=rate)
+    assert got == term
+    assert by == ("bytes" if term == "bytes" else "operations")
+    assert ms == pytest.approx(1e3, rel=1e-9)
+    terms = cs.bound_terms(*sizes, mufu_per_s=rate)
+    assert terms[term] == ms and all(
+        v == pytest.approx(1.0, rel=1e-6) for k, v in terms.items()
+        if k != term)
+    # without SFU work the two older terms decide
+    assert cs.bound(10, 0)[2] == "bytes"

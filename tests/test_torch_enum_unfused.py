@@ -262,3 +262,13 @@ def test_chip_smoke_measures_catch_a_planted_forward_fault(monkeypatch,
     per_cell = float((d.sum(dim=1).abs() / scale.sum(dim=1)).max())
     assert per_bin > cs.TOL_ENUM["ll"], per_bin
     assert per_cell > cs.TOL_ENUM["per_cell"], per_cell
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrappers' block size (which picks enum_bwd's launch key) and
+    state limit are the CUDA source's THREADS and MAXP."""
+    import re
+    src = (_cuda.CSRC_DIR / _cuda.SOURCES["enum_fused"]).read_text()
+    found = {k: int(v) for k, v in re.findall(
+        r"constexpr int (THREADS|MAXP) = (\d+);", src)}
+    assert found == {"THREADS": tek.THREADS, "MAXP": tek.MAX_P}

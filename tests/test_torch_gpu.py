@@ -40,6 +40,13 @@ its 32 bins needs it, otherwise the series alone; each lane keeps the value
 the plain version's select keeps.  The ``across_the_shift`` tests hold every
 enumeration kernel to the same bounds with whole warps that need the shift
 in no bin, in every bin, and in every other bin.
+
+The unfused pair reads each bin's P cells-major log_pi floats per thread;
+the backward stages each full 256-bin block's dlog_pi span in shared
+memory and writes it back with one bulk asynchronous copy, and stores per
+thread in a grid's short last block (or a grid of one short block).  Its
+tests cover both store paths and assert the launch key that counted each
+call; the C entry refuses a dlog_pi that is not 16-B aligned.
 """
 
 import numpy as np
@@ -226,10 +233,11 @@ def test_fused_kernels_match_plain_across_the_shift(dev, regime, P, kind,
 @pytest.mark.parametrize("regime", ["high", "low", "mixed"])
 def test_unfused_kernels_match_plain_across_the_shift(dev, regime, P):
     """enum_fwd and enum_bwd against their plain versions in the three
-    regimes of the shift, on the ragged grid, at TOL_ENUM."""
+    regimes of the shift, on the ragged grid, at TOL_ENUM; the backward
+    stages the dlog_pi span of every full block."""
     x = _inputs(37, 1001, P, seed=90 + P, dev=dev, regime=regime)
     _assert_regime(x, regime)
-    _check_unfused(x, P, _log_pi(37, 1001, P, 90 + P, dev))
+    _check_unfused(x, P, _log_pi(37, 1001, P, 90 + P, dev), "staged")
 
 
 @pytest.mark.parametrize("binary", [False, True], ids=["cat", "binary"])
@@ -279,16 +287,31 @@ def _log_pi(C, L, P, seed, dev):
     return torch.log_softmax(logits, dim=-1)
 
 
-@pytest.mark.parametrize("P", [13, 7, 2])
-def test_unfused_kernels_match_plain(dev, P):
+# (cells, loci) grids by the last 256-bin block's span: 173 bins (the
+# ragged grid), 255 and 1 (spans of 255 P and P floats, whose byte counts
+# are no multiple of 16 at odd P), and a grid of one short block (no
+# block stages its dlog_pi)
+UNFUSED_GRIDS = {"tail173": (37, 1001), "tail255": (3, 597),
+                 "tail1": (1, 257), "short": (2, 50)}
+
+
+@pytest.mark.parametrize("grid", sorted(UNFUSED_GRIDS))
+@pytest.mark.parametrize("P", [13, 7, 2, 1, 16])
+def test_unfused_kernels_match_plain(dev, P, grid):
     """enum_fwd (ll) and enum_bwd (dmu, dphi, dlog_pi) against their plain
-    versions on the ragged (37, 1001) grid with a cells-major log_pi; each
-    launch is counted once."""
-    x = _inputs(37, 1001, P, seed=60 + P, dev=dev)
-    _check_unfused(x, P, _log_pi(37, 1001, P, 60 + P, dev))
+    versions with a cells-major log_pi, on grids whose last block is
+    short, at odd P
+    (conflict-free shared-memory writes of the staged dlog_pi), even P
+    (bank conflicts) and P = 1; each launch is counted once, the backward
+    under its staged path where a full block exists, else under its
+    per-thread path."""
+    C, L = UNFUSED_GRIDS[grid]
+    x = _inputs(C, L, P, seed=60 + P, dev=dev)
+    _check_unfused(x, P, _log_pi(C, L, P, 60 + P, dev),
+                   "staged" if C * L >= 256 else "per_thread")
 
 
-def _check_unfused(x, P, log_pi):
+def _check_unfused(x, P, log_pi, path):
     scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32,
                                    device=log_pi.device))
     args = (x["reads"], x["mu"], log_pi, x["phi"], scal)
@@ -298,7 +321,8 @@ def _check_unfused(x, P, log_pi):
     got = ek.enum_bwd(*args, ll_p, x["g"])
     ref = ek.enum_bwd_plain(*args, ll_p, x["g"])
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["enum_fwd"] == _cuda.LAUNCHES["enum_bwd"] == 1
+    assert _cuda.LAUNCHES["enum_fwd"] == 1
+    assert _cuda.LAUNCHES[f"enum_bwd_{path}"] == 1
     assert sum(_cuda.LAUNCHES.values()) == 2
     assert got[2].shape == log_pi.shape
     assert all(bool(torch.isfinite(a).all()) for a in (ll_k, *got))
@@ -306,6 +330,28 @@ def _check_unfused(x, P, log_pi):
     errs.update({name: _rel(a, b) for name, a, b in
                  zip(("dmu", "dphi", "dlog_pi"), got, ref)})
     assert all(e <= TOL_ENUM[k] for k, e in errs.items()), errs
+
+
+def test_unfused_backward_refuses_an_unaligned_dlog_pi(dev):
+    """The C entry of enum_bwd refuses a dlog_pi whose base is not 16-B
+    aligned (the bulk store's requirement) with cudaErrorInvalidValue and
+    writes nothing; the wrapper's fresh buffer is always aligned."""
+    n, P = 300, 13
+    x = _inputs(1, n, P, seed=72, dev=dev)
+    log_pi = _log_pi(1, n, P, 72, dev)
+    scal = ek.scalars(torch.tensor(0.75, dtype=torch.float32, device=dev))
+    ll = ek.enum_fwd_plain(x["reads"], x["mu"], log_pi, x["phi"], scal)
+    dmu, dphi = torch.empty_like(ll), torch.empty_like(ll)
+    buf = torch.full((n * P + 1,), float("nan"), device=dev)
+    dlog_pi = buf[1:]
+    assert dlog_pi.data_ptr() % 16 == 4
+    lib = _cuda.library("enum_fused")
+    rc = lib.scrt_enum_bwd(*(_cuda.ptr(t) for t in (
+        x["reads"], x["mu"], x["phi"], log_pi, scal, ll, x["g"], dmu, dphi,
+        dlog_pi)), n, P, _cuda.stream_of(ll))
+    torch.cuda.synchronize()
+    assert rc == 1  # cudaErrorInvalidValue
+    assert bool(buf.isnan().all())
 
 
 def test_unfused_autograd_on_cuda_matches_cpu(dev):
