@@ -19,35 +19,53 @@ Phases, each printing its own lines:
    back between one pair of CUDA events; the single-call reading beside
    it), the plain version's time, its bound (the largest of the bytes,
    float32 operations and special-function-unit instructions that these
-   operands need) and (Adam) a PyTorch library call;
-4. the port's main path, ``scRT(...).infer('pert')``, on simulated
-   long-form frames of 1000 S + 250 G1 cells x 5451 loci (500 kb bins):
-   kernel launch counts, per-step times, peak memory and the
-   simulate-and-recover bars of tests/test_end_to_end.py; then each
-   kernel against its plain version on the operands of one more
-   iteration of each step, from the step's fitted parameters, and each
-   fused kernel's time and bound there, with the share of its warps that
-   take the NB cores' shift branch;
+   operands need) and (Adam) a PyTorch library call; Adam's live gate
+   bit for bit (live = 0 writes its operands through, live = 1 equals
+   the plain version);
+4. the port's main path with the controller and the QC off,
+   ``scRT(..., controller=False, qc=False, mirror_rescue=False)``, on
+   simulated long-form frames of 1000 S + 250 G1 cells x 5451 loci
+   (500 kb bins): kernel launch counts against dispatched iterations
+   (the fit reads the host once per chunk of 25 iterations, and a
+   chunk's iterations after the stop are launched and masked), per-step
+   times, peak memory and the simulate-and-recover bars of
+   tests/test_end_to_end.py; then each kernel against its plain version
+   on the operands of one more iteration of each step, from the step's
+   fitted parameters, and each fused kernel's time and bound there,
+   with the share of its warps that take the NB cores' shift branch;
 5. where each step's time goes: device time by kernel from
    torch.profiler over a window of iterations, and the card's idle share;
-6. phases 4 and 5 again for the binary path, ``scRT(...,
+6. the default config, ``scRT(..., telemetry_path=None)`` with nothing
+   else overridden: the adaptive controller, the model-health QC and the
+   controller-gated mirror rescue; per step the controller's decisions,
+   the verdict and the counted and dispatched iterations, the rescue
+   gate's decision and trigger, the rescue's candidates and accepted
+   cells, the cell_qc flag counts, the launch checks (enum_fwd twice if
+   and only if the gate let the rescue run) and the recovery bars with
+   tau correlation no more than 0.01 below the categorical run's; the
+   chunks of a short controlled step-2 fit under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no operation inside a
+   chunk waits on the card); phase 5 for steps 2 and 3;
+7. phases 4 and 5 again for the binary path, ``scRT(...,
    enum_impl='binary', optimizer_state_dtype='bfloat16')`` on the same
    frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
    in all three steps), with two more bars against the categorical run:
    tau correlation >= 0.99 x and CN accuracy >= its value - 0.02;
-7. phase 4 again for the mirror-rescue path, ``scRT(...,
-   mirror_rescue=True)`` on the same frames: the categorical fit, then
-   the rescue's sub-fit of the boundary-tau cells (the dense kernels and
-   Adam) and its per-cell scoring, which runs the unfused enumeration
-   kernel twice; it fails without candidates or without an enum_fwd
-   launch, and holds tau correlation to no more than 0.01 below the
-   categorical run's.  Then, on the rescue's own operands, the dense
-   fused pair and Adam against their plain versions over one more
-   sub-fit iteration, per_cell_objective on the card against the same
-   function through the plain enumeration, and both unfused kernels
-   against their plain versions and timed there, each with its bound;
-8. the card's name and power limit, one JSON line of the kernels, then
-   the result line.
+8. phase 4 again for the mirror-rescue path, ``scRT(...,
+   mirror_rescue=True)`` without the controller on the same frames: the
+   categorical fit, then the rescue's sub-fit of the boundary-tau cells
+   (the dense kernels and Adam) and its per-cell scoring, which runs the
+   unfused enumeration kernel twice; it fails without candidates or
+   without an enum_fwd launch, and holds tau correlation to no more than
+   0.01 below the categorical run's.  Then, on the rescue's own
+   operands, the dense fused pair and Adam against their plain versions
+   over one more sub-fit iteration, per_cell_objective on the card
+   against the same function through the plain enumeration, and both
+   unfused kernels against their plain versions and timed there, each
+   with its bound;
+9. the card's name and power limit, one JSON line of the kernels (each
+   with its launches summed over the four paths' runs and by path),
+   then the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -861,6 +879,39 @@ def check_adam(results, args, label, moment_dtype="float32") -> tuple:
     return got
 
 
+def adam_scal(dev, step: int, live: bool = True):
+    """The (4,) [lr, bc1, bc2, live] device operand of one Adam step at
+    count ``step``."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    return ak.adam_scalars(ak.adam_constants(0.05, 0.8, 0.99, dev),
+                           torch.tensor(step, dtype=torch.int32, device=dev),
+                           torch.tensor(live, device=dev))
+
+
+def check_adam_gate(results, args, label, moment_dtype, dev) -> None:
+    """The live gate: with live = 0 the kernel writes param, m and v
+    through bit for bit; with live = 1 it equals the plain version bit
+    for bit (it repeats the plain version's roundings)."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    name = "adam" if moment_dtype == "float32" else "adam_bf16"
+    off = ak.adam_update(*args[:4], adam_scal(dev, 7, False), *args[5:],
+                         moment_dtype)
+    on = ak.adam_update(*args, moment_dtype)
+    ref = ak.adam_update_plain(*args)
+    torch.cuda.synchronize()
+    through = all(torch.equal(a, b)
+                  for a, b in zip(off, (args[0], args[2], args[3])))
+    same = all(torch.equal(a, b) for a, b in zip(on, ref))
+    check(through, f"{name} {label}: live = 0 writes param, m and v "
+          "through bit for bit")
+    check(same, f"{name} {label}: live = 1 equals the plain version bit "
+          "for bit")
+    results[name].setdefault("gate", {})[label] = {
+        "live0_bit_exact": through, "live1_bit_exact": same}
+
+
 def time_fused(results, args, prior, g, sparse, binary_P=None,
                label=None) -> None:
     """Both fused kernels of one encoding, timed by :func:`time_kernel`:
@@ -978,10 +1029,9 @@ def compare_kernels(dev, record):
                 .to(ak.moment_torch_dtype(mdt))
             v = (0.1 * torch.rand(pshape, generator=gen, device=dev)) \
                 .to(ak.moment_torch_dtype(mdt))
-            ascal = ak.adam_scalars(0.05, torch.tensor(
-                7, dtype=torch.int32, device=dev), 0.8, 0.99)
-            aargs = (param, grad, m, v, ascal, 0.8, 0.99)
+            aargs = (param, grad, m, v, adam_scal(dev, 7), 0.8, 0.99)
             check_adam(results, aargs, f"{planes}x{label}", mdt)
+            check_adam_gate(results, aargs, f"{planes}x{label}", mdt, dev)
             if full:
                 time_adam(results, aargs, mdt, dev)
             del param, grad, m, v, aargs
@@ -1179,33 +1229,53 @@ CATEGORICAL = ("fused_fwd_dense", "fused_bwd_dense", "fused_fwd_sparse",
 BINARY = ("fused_fwd_dense_binary", "fused_bwd_dense_binary",
           "fused_fwd_sparse_binary", "fused_bwd_sparse_binary", "adam_bf16")
 RESCUE = CATEGORICAL + ("enum_fwd",)
+# the reference-faithful paths run without the controller and the QC
+OFF = dict(controller=False, qc=False)
 PATHS = {
     # path -> (scRT options, the launch keys its main path counts); the
     # unfused backward runs on no path (the rescue scores without
     # gradients), so enum_bwd is held against its plain version only
-    "categorical": (dict(mirror_rescue=False), CATEGORICAL),
-    "binary": (dict(mirror_rescue=False, enum_impl="binary",
+    "categorical": (dict(OFF, mirror_rescue=False), CATEGORICAL),
+    # the default config: controller, QC and the controller-gated
+    # rescue (enum_fwd only when the gate lets the rescue run)
+    "default": (dict(), CATEGORICAL),
+    "binary": (dict(OFF, mirror_rescue=False, enum_impl="binary",
                     optimizer_state_dtype="bfloat16"), BINARY),
-    "rescue": (dict(mirror_rescue=True), RESCUE),
+    "rescue": (dict(OFF, mirror_rescue=True), RESCUE),
 }
+
+
+class DecisionLog:
+    """The run log handed to ``scRT``: keeps its ``control_decision``
+    events."""
+
+    def __init__(self):
+        self.decisions: list = []
+
+    def emit(self, event: str, **payload) -> None:
+        if event == "control_decision":
+            self.decisions.append(payload)
 
 
 def main_path(dev, record, frames, path: str, reference=None):
     """``scRT(...).infer('pert')`` of one path on the simulated frames:
-    launch counts against iteration counts, times, peak memory and the
-    recovery bars (the binary and rescue paths also against the
-    categorical run's ``reference`` figures)."""
+    launch counts against dispatched iteration counts (a chunk's
+    iterations after a fit stopped are launched and masked), times,
+    peak memory, the controller's decisions and the recovery bars (the
+    other paths also against the categorical run's ``reference``
+    figures)."""
     import torch
     from scdna_replication_tools_tpu_torch import scRT
     from scdna_replication_tools_tpu_torch.ops import _cuda
 
     options, kernels = PATHS[path]
     cn_s, cn_g1 = frames
+    log = DecisionLog()
     scrt = scRT(cn_s.copy(), cn_g1.copy(), input_col="reads",
                 clone_col="clone_id", assign_col="copy",
                 cn_prior_method="g1_composite", max_iter=MAX_ITER,
-                min_iter=100, rt_prior_col=None, controller=False, qc=False,
-                telemetry_path=None, **options)
+                min_iter=100, rt_prior_col=None, telemetry_path=None,
+                run_log=log, **options)
     tag = f"[main {path}]"
     check(scrt.device.type == "cuda", f"{path}: scRT runs on {scrt.device}")
     torch.cuda.synchronize()
@@ -1219,17 +1289,22 @@ def main_path(dev, record, frames, path: str, reference=None):
     peak = torch.cuda.max_memory_allocated()
     step1, step2, step3 = scrt.steps
     iters = [s.fit.num_iters for s in (step1, step2, step3)]
+    disp = [s.fit.timings["dispatched"] for s in (step1, step2, step3)]
     print(f"{tag} {json.dumps(options)}: "
           f"infer('pert') wall {wall:.2f} s; phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in scrt.phase_report.items()))
     for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
         f = st.fit
-        print(f"  {name}: {f.num_iters} iterations, fit "
-              f"{f.timings['fit']:.3f} s = {f.timings['ms_per_iter']:.3f} "
+        print(f"  {name}: {f.num_iters} iterations counted, "
+              f"{f.timings['dispatched']} dispatched (budget {f.budget}), "
+              f"fit {f.timings['fit']:.3f} s = {f.timings['ms_per_iter']:.3f} "
               f"ms/iteration, cells {int(st.batch.reads.shape[0])}, "
               f"prior {'sparse' if st.spec.sparse_etas else 'dense'}, pi "
               f"{'binary' if st.spec.binary_pi else 'categorical'}, "
-              f"loss {f.losses[0]:.6g} -> {f.losses[-1]:.6g}")
+              f"loss {f.losses[0]:.6g} -> {f.losses[-1]:.6g}; verdict "
+              f"{f.verdict}; decisions "
+              + (", ".join(f"{d['action']}@{d['iter']}" for d in f.decisions)
+                 or "none"))
     cells_per_s = CELLS * step2.fit.num_iters / step2.fit.timings["fit"]
     print(f"  step2: {cells_per_s:.1f} cells/s (cell-iterations per second)")
     print(f"  peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)")
@@ -1238,27 +1313,37 @@ def main_path(dev, record, frames, path: str, reference=None):
     check(not step2.spec.sparse_etas and step3.spec.sparse_etas,
           f"{path}: step 2 fits the dense composite prior, step 3 the "
           "sparse one")
-    rescue = rescue_record(scrt, tag) if options["mirror_rescue"] else None
+    gate = next((d for d in log.decisions
+                 if d["action"] in ("rescue", "rescue_skip")), None)
+    if gate is not None:
+        print(f"  rescue gate: {gate['action']} at iteration {gate['iter']}"
+              f", trigger {json.dumps(gate['trigger'])}")
+    ran = scrt.mirror_rescue_fit is not None
+    rescue = rescue_record(scrt, tag) if options.get("mirror_rescue", True) \
+        else None
+    if ran and "enum_fwd" not in kernels:
+        kernels = kernels + ("enum_fwd",)
     # the rescue's sub-fit runs the dense pair and Adam on the candidates
-    sub = rescue["iters"] if rescue else 0
+    sub = rescue["dispatched"] if rescue else 0
     fwd_d, bwd_d, fwd_s, bwd_s, adam = kernels[:5]
-    check(launches[fwd_d] == iters[1] + sub
-          and launches[bwd_d] == iters[1] + sub,
-          f"{path}: {fwd_d}/{bwd_d} launched once per step-2 iteration "
-          f"({iters[1]}) and rescue sub-fit iteration ({sub})")
-    check(launches[fwd_s] == iters[2] and launches[bwd_s] == iters[2],
-          f"{path}: {fwd_s}/{bwd_s} launched once per step-3 iteration "
-          f"({iters[2]})")
-    check(launches[adam] == sum(iters) + sub,
-          f"{path}: {adam} launched once per iteration of every step and "
-          f"of the rescue sub-fit ({sum(iters) + sub})")
+    check(launches[fwd_d] == disp[1] + sub
+          and launches[bwd_d] == disp[1] + sub,
+          f"{path}: {fwd_d}/{bwd_d} launched once per dispatched step-2 "
+          f"iteration ({disp[1]}) and rescue sub-fit iteration ({sub})")
+    check(launches[fwd_s] == disp[2] and launches[bwd_s] == disp[2],
+          f"{path}: {fwd_s}/{bwd_s} launched once per dispatched step-3 "
+          f"iteration ({disp[2]})")
+    check(launches[adam] == sum(disp) + sub,
+          f"{path}: {adam} launched once per dispatched iteration of every "
+          f"step and of the rescue sub-fit ({sum(disp) + sub})")
     if rescue is not None:
-        check(rescue["candidates"] > 0,
-              f"{path}: {rescue['candidates']} boundary-tau candidates > 0")
-        check(launches["enum_fwd"] == 2 and sub > 0,
-              f"{path}: enum_fwd launched twice, once per scored parameter "
-              f"set ({launches['enum_fwd']}), after a sub-fit of {sub} "
-              "iterations")
+        check(launches["enum_fwd"] == (2 if ran else 0),
+              f"{path}: enum_fwd launched {launches['enum_fwd']} times, "
+              f"{'twice (the gate let the rescue run)' if ran else 'never (no rescue ran)'}")
+    if path == "rescue":
+        check(rescue["candidates"] > 0 and ran,
+              f"{path}: {rescue['candidates']} boundary-tau candidates > 0, "
+              f"sub-fit of {rescue['iters']} iterations")
     check(all(launches[k] > 0 for k in kernels)
           and not any(v for k, v in launches.items() if k not in kernels),
           f"{path}: every kernel of the path launched, no other kernel")
@@ -1267,6 +1352,16 @@ def main_path(dev, record, frames, path: str, reference=None):
         check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
               and not st.fit.nan_abort,
               f"{path}: {name} losses finite and falling")
+    qc_counts = None
+    if scrt.config.qc:
+        qc = scrt.cell_qc()
+        flags = [f for s in qc["qc_flags"] for f in s.split(",") if f]
+        qc_counts = {f: flags.count(f) for f in sorted(set(flags))}
+        qc_counts["qc_pass"] = int(qc["qc_pass"].sum())
+        print(f"  cell_qc: {len(qc)} cells, flags {json.dumps(qc_counts)}")
+        check(len(qc) == CELLS and "model_cn_entropy" in out_s.columns,
+              f"{path}: cell_qc has a row per S cell ({len(qc)}) and the S "
+              "frame a model_cn_entropy column")
 
     rep_acc = float((out_s["model_rep_state"] == out_s["true_rep"]).mean())
     cn_acc = float((out_s["model_cn_state"]
@@ -1283,8 +1378,9 @@ def main_path(dev, record, frames, path: str, reference=None):
     check(tau_r > 0.8, f"{path}: tau correlation {tau_r:.4f} > 0.8")
     check(0.5 < lamb < 0.95, f"{path}: lambda {lamb:.4f} in (0.5, 0.95)")
     if reference is not None and rescue is not None:
-        # the rescue is objective-improving per cell: it may move tau,
-        # but not lose the categorical run's recovery
+        # the rescue is objective-improving per cell and the controller
+        # only stops, extends or gates: neither may lose the categorical
+        # run's recovery
         check(tau_r >= reference["tau_r"] - 0.01,
               f"{path}: tau correlation {tau_r:.4f} >= categorical "
               f"{reference['tau_r']:.4f} - 0.01")
@@ -1300,7 +1396,12 @@ def main_path(dev, record, frames, path: str, reference=None):
     record[f"main_{path}"] = {
         "options": options, "cells_s": CELLS, "cells_g1": G1_CELLS,
         "loci": LOCI, "P": P, "clones": CLONES, "max_iter": MAX_ITER,
-        "iters": iters, "wall_s": wall, "phases_s": scrt.phase_report,
+        "iters": iters, "dispatched": disp,
+        "budgets": [s.fit.budget for s in (step1, step2, step3)],
+        "verdicts": [s.fit.verdict for s in (step1, step2, step3)],
+        "decisions": [s.fit.decisions for s in (step1, step2, step3)],
+        "gate": gate, "cell_qc_flags": qc_counts,
+        "wall_s": wall, "phases_s": scrt.phase_report,
         "ms_per_iter": [s.fit.timings["ms_per_iter"]
                         for s in (step1, step2, step3)],
         "step2_cells_per_s": cells_per_s, "peak_bytes": peak,
@@ -1316,6 +1417,7 @@ def rescue_record(scrt, tag) -> dict:
     sub = scrt.mirror_rescue_fit
     fit = sub.fit if sub else None
     rec = {**stats, "iters": fit.num_iters if fit else 0,
+           "dispatched": fit.timings["dispatched"] if fit else 0,
            "fit_s": fit.timings["fit"] if fit else 0.0,
            "ms_per_iter": fit.timings["ms_per_iter"] if fit else None,
            "fitted_cells": int(len(sub.cells)) if sub else 0,
@@ -1323,7 +1425,8 @@ def rescue_record(scrt, tag) -> dict:
     print(f"  rescue: {stats.get('candidates', 0)} candidates, "
           f"{stats.get('accepted', 0)} accepted, capped_to "
           f"{stats.get('capped_to', 'none')}; sub-fit of "
-          f"{rec['fitted_cells']} cells, {rec['iters']} iterations in "
+          f"{rec['fitted_cells']} cells, {rec['iters']} iterations "
+          f"({rec['dispatched']} dispatched) in "
           f"{rec['fit_s']:.3f} s; step2/rescue phase "
           f"{rec['phase_s'] or 0.0:.3f} s")
     return rec
@@ -1413,6 +1516,58 @@ def check_rescue_scoring(dev, scrt, results) -> None:
               f"{TOL_ENUM['per_cell']:.0e}")
         del kept, args, obj_k, obj_p
     torch.cuda.empty_cache()
+
+
+def check_sync_free_chunk(dev, scrt, record) -> None:
+    """The chunks of a short controlled step-2 fit of the default path
+    (one chunk, and any the controller extends it by), from the step's
+    fitted parameters, with every launch of each chunk under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that
+    waits on the card inside a chunk (a ``.item()``, a host-to-device
+    copy from a Python number, a NumPy conversion) raises there.  The
+    chunk's one read follows outside the guard."""
+    import torch
+    from scdna_replication_tools_tpu_torch.infer import svi
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.obs.controller import (
+        ControllerPolicy,
+    )
+
+    step = scrt.steps[1]
+    cfg = scrt.config
+    every = cfg.fit_diag_every
+    orig = svi._launch_chunk
+    guarded = []
+
+    def launch(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        guarded.append((a[3], a[4]))
+        return out
+    svi._launch_chunk = launch
+    err, fit = None, None
+    try:
+        fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
+                          (step.fixed, step.batch), max_iter=every,
+                          min_iter=5, device=dev,
+                          moment_dtype=cfg.optimizer_state_dtype,
+                          diag_every=every,
+                          controller=ControllerPolicy.from_config(cfg,
+                                                                  every))
+    except RuntimeError as exc:
+        err = f"{type(exc).__name__}: {str(exc)[:300]}"
+    finally:
+        svi._launch_chunk = orig
+    ok = err is None and guarded[:1] == [(0, every)]
+    check(ok, f"[sync] step-2 chunks of up to {every} iterations "
+          f"({CELLS}x{LOCI}) under set_sync_debug_mode('error'): "
+          f"{'no synchronizing operation' if err is None else err}; "
+          f"chunks {guarded}")
+    record["sync_free_chunk"] = {"ok": ok, "error": err,
+                                 "chunks": guarded}
 
 
 # ---------------------------------------------------------------------------
@@ -1558,34 +1713,49 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s; depth cut: "
           f"max_iter={MAX_ITER} (steps 1 and 3: {MAX_ITER // 2}), "
           "min_iter=100")
-    launches = dict.fromkeys(TPU_KERNEL, 0)
-    cat_launches, scrt = main_path(dev, record, frames, "categorical")
+    by_path: dict = {}
+    by_path["categorical"], scrt = main_path(dev, record, frames,
+                                             "categorical")
     check_main_path_shapes(dev, scrt, results, "categorical")
     profile_steps(dev, scrt, record, "categorical")
     reference = record["main_categorical"]
-    launches.update({k: cat_launches[k] for k in CATEGORICAL})
-    # the categorical run's device state goes before the binary run, so
-    # that the binary path's peak memory is its own
+    # each run's device state goes before the next run, so that each
+    # path's peak memory is its own
     del scrt
     torch.cuda.empty_cache()
 
-    bin_launches, scrt = main_path(dev, record, frames, "binary", reference)
+    by_path["default"], scrt = main_path(dev, record, frames, "default",
+                                         reference)
+    check_sync_free_chunk(dev, scrt, record)
+    profile_steps(dev, scrt, record, "default", steps=("step2", "step3"))
+    del scrt
+    torch.cuda.empty_cache()
+
+    by_path["binary"], scrt = main_path(dev, record, frames, "binary",
+                                        reference)
     check_main_path_shapes(dev, scrt, results, "binary")
     profile_steps(dev, scrt, record, "binary", steps=("step2", "step3"))
-    launches.update({k: bin_launches[k] for k in BINARY})
     del scrt
     torch.cuda.empty_cache()
 
-    res_launches, scrt = main_path(dev, record, frames, "rescue", reference)
+    by_path["rescue"], scrt = main_path(dev, record, frames, "rescue",
+                                        reference)
     if scrt.mirror_rescue_fit is not None:
         check_rescue_scoring(dev, scrt, results)
-    by_path = {p: res_launches[f"enum_bwd_{p}"]
-               for p in ("staged", "per_thread")}
-    launches.update(enum_fwd=res_launches["enum_fwd"],
-                    enum_bwd=sum(by_path.values()))
-    results["enum_bwd"]["launch_paths"] = by_path
     del scrt
     torch.cuda.empty_cache()
+
+    # launches of each kernel summed over the four paths' runs (each read
+    # from zero just before its run, just after it), by path beside it
+    paths_of = {name: {p: (sum(v for k, v in counts.items()
+                               if k.startswith("enum_bwd_"))
+                           if name == "enum_bwd" else counts[name])
+                       for p, counts in by_path.items()}
+                for name in TPU_KERNEL}
+    launches = {name: sum(v.values()) for name, v in paths_of.items()}
+    results["enum_bwd"]["launch_paths"] = {
+        p: by_path["rescue"][f"enum_bwd_{p}"]
+        for p in ("staged", "per_thread")}
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCE[name],
@@ -1596,6 +1766,7 @@ def main() -> int:
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
         "ms_single": results[name]["ms_single"],
+        "launches_by_path": paths_of[name],
         "main_ms": {label: t["ms"] for label, t in
                     results[name].get("main", {}).items()},
         **({"launch_paths": results[name]["launch_paths"]}

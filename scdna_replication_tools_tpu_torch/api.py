@@ -5,13 +5,15 @@ infer_scRT.py:25-105), plus ``device``.  ``infer(level='pert')`` runs the
 three-step fit on the GPU (or on ``device='cpu'``) and returns the same
 four DataFrames.
 
-Several JAX features are on by default but not ported yet.  A caller who
-leaves one of them on gets ``NotImplementedError`` naming its ROADMAP
+The adaptive controller, the model-health QC (``cell_qc()``) and the
+controller-gated mirror rescue run as in the JAX package, at its
+defaults.  The run log (``telemetry_path``, on by default in the JAX
+package) is not ported yet: a caller who leaves it on, or any other JAX
+option the port lacks, gets ``NotImplementedError`` naming its ROADMAP
 item; the port never runs something else in its place.  The call that
-runs is therefore ``scRT(..., controller=False, qc=False,
-telemetry_path=None)``, with the mirror rescue on (its default, as in the
-JAX package without the controller) or ``mirror_rescue=False`` for the
-reference-faithful trajectory.
+runs is therefore ``scRT(cn_s, cn_g1, telemetry_path=None)``.  Decisions
+of the controller go to ``run_log`` (any object with ``emit(event,
+**payload)``; by default a sink that drops them).
 """
 
 from __future__ import annotations
@@ -40,11 +42,8 @@ _OFF = (None, "none", "off")
 def _unported(options: dict) -> None:
     """Raise for the first JAX option left on that the port lacks."""
     checks = [
-        ("controller", options["controller"],
-         "A7 (default-on features: the adaptive controller)"),
-        ("qc", options["qc"], "A7 (default-on features: model-health QC)"),
         ("telemetry_path", options["telemetry_path"] not in _OFF,
-         "A11 (observability: the run log)"),
+         "A11a (the run log)"),
         ("metrics_textfile", options["metrics_textfile"] is not None,
          "A11 (observability: the metrics registry)"),
         ("trace_spans", options["trace_spans"],
@@ -75,9 +74,8 @@ def _unported(options: dict) -> None:
             raise NotImplementedError(
                 f"scRT option {name}={options[name]!r} is not ported to the "
                 f"PyTorch package yet (ROADMAP {item}); pass "
-                "controller=False, qc=False, telemetry_path=None (and the "
-                "defaults of the other options) or use "
-                "scdna_replication_tools_tpu")
+                "telemetry_path=None (and the defaults of the other "
+                "options) or use scdna_replication_tools_tpu")
     if options["fused_adam"] != "auto":
         raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
                          "has one Adam path, 'auto' (the CUDA kernel on the "
@@ -88,13 +86,13 @@ class scRT:
     """Single-cell replication-timing inference facade.
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
-    where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda``, ``seed``, ``resume``, ``checkpoint_every``,
+    where the fit runs (None = the GPU, raising when there is none) and
+    ``run_log`` receives the controller's ``control_decision`` events.
+    ``backend``, ``cuda``, ``resume``, ``checkpoint_every``,
     ``elastic_mesh``, ``request_id``, ``slab_width``, ``trace_parent``,
-    ``compile_cache_dir``, ``heartbeat_interval_seconds``,
-    ``fit_diag_every``, the ``qc_*`` thresholds, ``controller_max_extra_iters``
-    and ``clustering_*`` only act inside features the port refuses, and
-    are accepted and unused.
+    ``compile_cache_dir``, ``heartbeat_interval_seconds`` and
+    ``clustering_*`` only act inside features the port refuses, and are
+    accepted and unused.
     """
 
     def __init__(self, cn_s, cn_g1, input_col='reads', assign_col='copy',
@@ -129,9 +127,8 @@ class scRT:
                  qc_ppc_replicates=8, qc_ppc_z=5.0,
                  controller=True, controller_max_extra_iters=None,
                  clustering_method='kmeans', clustering_kwargs=None,
-                 device=None):
+                 device=None, run_log=None):
         _unported(dict(
-            controller=controller, qc=qc,
             telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
             trace_spans=trace_spans,
             heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
@@ -163,8 +160,15 @@ class scRT:
             min_iter_step3=min_iter_step3, run_step3=run_step3,
             pad_cells_to=pad_cells_to, pad_loci_to=pad_loci_to,
             enum_impl=enum_impl, optimizer_state_dtype=optimizer_state_dtype,
-            mirror_rescue=mirror_rescue,
+            mirror_rescue=mirror_rescue, seed=seed,
+            fit_diag_every=fit_diag_every, qc=qc,
+            qc_entropy_thresh=qc_entropy_thresh,
+            qc_frac_thresh=qc_frac_thresh,
+            qc_ppc_replicates=qc_ppc_replicates, qc_ppc_z=qc_ppc_z,
+            controller=controller,
+            controller_max_extra_iters=controller_max_extra_iters,
         )
+        self.run_log = run_log
         self.clone_profiles = None
         # {candidates, accepted[, capped_to]} of the last mirror rescue
         # (None unless it ran)
@@ -174,6 +178,8 @@ class scRT:
         self.mirror_rescue_fit = None
         # {stage: wall seconds} of the last infer(level='pert')
         self.phase_report = None
+        # the per-cell model-health table of the last run (qc=True)
+        self._cell_qc_df = None
 
     def infer(self, level: str = 'pert'):
         if level in ('pyro', 'pert', 'jax'):
@@ -224,7 +230,8 @@ class scRT:
             s_data, g1_data, self.config,
             clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
             clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
-            num_clones=len(clone_ids), device=self.device)
+            num_clones=len(clone_ids), device=self.device,
+            run_log=self.run_log)
         phases["load"] = time.perf_counter() - t0
         step1, step2, step3 = inference.run()
         phases.update(inference.phases)
@@ -235,17 +242,41 @@ class scRT:
         with torch.no_grad():
             lamb = float(constrained(step1.spec, step1.fit.params,
                                      step1.fixed)["lamb"].reshape(-1)[0])
+        qc_collect = {} if self.config.qc else None
         cn_s_out, supp_s_out = package_step_output(
             self.cn_s, inference._step2_data, step2, lamb,
             step1.fit.losses, step2.fit.losses, c,
-            mirror_rescue_stats=inference.mirror_rescue_stats)
+            mirror_rescue_stats=inference.mirror_rescue_stats,
+            qc_collect=qc_collect,
+            qc_entropy_thresh=self.config.qc_entropy_thresh)
+        phases["package"] = time.perf_counter() - t0
+        if qc_collect is not None:
+            self._cell_qc_df = inference.build_cell_qc(
+                step2, inference._step2_data, qc_collect)
+            phases["qc/ppc"] = inference.phases["qc/ppc"]
+        t0 = time.perf_counter()
         if step3 is not None:
             cn_g1_out, supp_g1_out = package_step_output(
                 self.cn_g1, inference._step3_data, step3, lamb,
                 step1.fit.losses, step3.fit.losses, c)
         else:
             cn_g1_out, supp_g1_out = None, None
-        phases["package"] = time.perf_counter() - t0
+        phases["package"] += time.perf_counter() - t0
         self.phase_report = phases
         self.steps = (step1, step2, step3)
         return cn_s_out, supp_s_out, cn_g1_out, supp_g1_out
+
+    def cell_qc(self):
+        """Per-cell model-health QC table of the last PERT run (JAX
+        ``scRT.cell_qc``): one row per S-phase cell with ``model_tau``,
+        the posterior-entropy aggregates (``mean_cn_entropy``,
+        ``max_cn_entropy``, ``frac_low_conf``, ``mean_rep_entropy``),
+        the posterior-predictive check (``ppc_deviance``, ``ppc_z``),
+        the mirror rescue's status, and ``qc_flags`` (comma-joined:
+        ``high_entropy``, ``ppc_outlier``, ``boundary_tau``,
+        ``non_finite``) with ``qc_pass`` their negation."""
+        if self._cell_qc_df is None:
+            raise RuntimeError(
+                "cell_qc() needs a completed infer(level='pert') run with "
+                "qc=True (the default) - run infer first, or drop qc=False")
+        return self._cell_qc_df

@@ -1,11 +1,11 @@
 """Typed configuration: the fields of the port's slice.
 
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
-whole, and the :class:`PertConfig` fields the three-step fit and the
-mirror rescue read.  The JAX config's other knobs (controller, QC,
-telemetry, sharding, checkpoints, cell chunking) belong to modules not
-yet ported; ``api.scRT`` refuses them by name instead of carrying dead
-fields here.
+whole, and the :class:`PertConfig` fields the three-step fit, the mirror
+rescue, the adaptive controller and the model-health QC read.  The JAX
+config's other knobs (telemetry, sharding, checkpoints, cell chunking)
+belong to modules not yet ported; ``api.scRT`` refuses them by name
+instead of carrying dead fields here.
 """
 
 from __future__ import annotations
@@ -66,6 +66,9 @@ class PertConfig:
     max_iter_step3: Optional[int] = None
     min_iter_step3: Optional[int] = None
     run_step3: bool = True
+    # seeds the controller's re-seed draws and the posterior-predictive
+    # check's replicates
+    seed: int = 0
 
     # shape-bucket padding: pad cells / loci up to at least this many
     # masked entries (None keeps the exact shapes)
@@ -94,6 +97,42 @@ class PertConfig:
     mirror_max_iter: int = 400
     mirror_min_iter: int = 50
     mirror_max_cells: int = 256
+
+    # in-fit diagnostics sampling stride (infer/svi.py ring buffer):
+    # every K iterations the fit records loss and the global grad/param
+    # norms on the device (last 64 samples kept); the chunk length of
+    # the controlled fit; 0 disables it (and the controller)
+    fit_diag_every: int = 25
+    # model-health QC: posterior-entropy maps, the posterior-predictive
+    # check and the scRT.cell_qc() table
+    qc: bool = True
+    # a bin is low-confidence above this normalized CN entropy
+    qc_entropy_thresh: float = 0.5
+    # a cell is 'high_entropy' above this fraction of low-confidence bins
+    qc_frac_thresh: float = 0.25
+    # replicate datasets per cell of the posterior-predictive check
+    qc_ppc_replicates: int = 8
+    # a cell is 'ppc_outlier' above this replicate z-score
+    qc_ppc_z: float = 5.0
+    # convergence-doctor thresholds (obs/doctor.py)
+    doctor_window: int = 16
+    doctor_slope_tol: float = 1e-4
+    doctor_var_tol: float = 1e-3
+    doctor_grad_ratio: float = 0.1
+    # adaptive fit controller (obs/controller.py); inert when
+    # min_iter >= max_iter or fit_diag_every == 0
+    controller: bool = True
+    # total extra iterations one fit may be granted; None = max_iter // 2
+    controller_max_extra_iters: Optional[int] = None
+    controller_extend_step: int = 50
+    controller_max_reseeds: int = 1
+    controller_reseed_scale: float = 0.02
+    controller_nan_lr_factor: float = 0.1
+    controller_stop_patience: int = 50
+    controller_stop_ftol: float = 3e-3
+    # rescue gate: a boundary-tau candidate within this distance of 0/1
+    # is suspect (else the QC entropy signal decides)
+    controller_rescue_extreme_tau: float = 0.02
 
     def __post_init__(self):
         if self.enum_impl not in ("auto", "binary"):

@@ -9,6 +9,9 @@
 //   v' = (1 - b2) g g + b2 v
 //   p' = p + (-lr) * (m' / bc1) / (sqrt(v' / bc2) + eps)   (eps outside)
 // with bc1 = 1 - b1^t and bc2 = 1 - b2^t at the incremented step count.
+// A live gate of 0 (an iteration launched after the fit stopped, before
+// the host read the stop) writes p, m and v through unchanged, bit for
+// bit, and does no arithmetic.
 // The arithmetic is float32 for either moment type: bfloat16 moments are
 // widened on load and narrowed (round to nearest even) on store, and the
 // parameter update uses this step's float32 moments, not the rounded ones
@@ -23,9 +26,10 @@
 // and writes three, about 15 float32 operations against 28 bytes (20 with
 // bfloat16 moments).  Design: a grid-stride elementwise sweep that streams
 // every operand exactly once; the stored moment type is a template
-// parameter.  lr, bc1 and bc2 arrive in a 3-float device tensor, not as
-// host floats, so the step count never has to come back to the host and
-// the fit loop stays capturable in a CUDA graph.
+// parameter.  lr, bc1, bc2 and the live gate arrive in a 4-float device
+// tensor, not as host floats, so neither the step count nor the fit's
+// stop ever has to come back to the host inside a chunk of iterations,
+// and the fit loop stays capturable in a CUDA graph.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +62,15 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(
     float omb2, int64_t n) {
   const float lr = scal[0], bc1 = scal[1], bc2 = scal[2];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (scal[3] == 0.f) {
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      p_out[i] = p[i];
+      m_out[i] = m[i];
+      v_out[i] = v[i];
+    }
+    return;
+  }
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float gi = g[i];

@@ -11,14 +11,20 @@
            conditioned and the one-hot clone prior (sparse)
            (reference: pert_model.py:832-899).
 
-Each step is one fixed-budget ``fit_map`` on one device.  Steps 2 and 3
-take the configured pi encoding (``enum_impl='binary'``: the
-independent-binary planes), step 1 stays categorical as in the JAX
-runner; every step stores the pi parameter's Adam moments in
-``optimizer_state_dtype``.  With ``mirror_rescue`` (the default) step 2
-is followed by the mirror rescue, always on as in the JAX runner without
-an active controller.  The JAX runner's controller, QC, checkpoints,
-telemetry and sharding are not ported yet (``api.scRT`` refuses them by
+Each step is one ``fit_map`` on one device, under the adaptive
+controller (``obs/controller.py``) when it is active (``controller`` on,
+``fit_diag_every > 0``, ``min_iter < max_iter``).  Steps 2 and 3 take the
+configured pi encoding (``enum_impl='binary'``: the independent-binary
+planes), step 1 stays categorical as in the JAX runner; every step
+stores the pi parameter's Adam moments in ``optimizer_state_dtype``.
+With ``mirror_rescue`` (the default) step 2 is followed by the mirror
+rescue: always, without an active controller, or when the controller's
+gate (``_gate_rescue``) finds a suspect candidate.  With ``qc`` the
+packaging decode also returns the posterior-entropy planes, and
+:meth:`PertInference.build_cell_qc` adds the posterior-predictive check
+and the per-cell QC table.  Decisions go to ``run_log`` as
+``control_decision`` events.  The JAX runner's checkpoints, telemetry
+files and sharding are not ported yet (``api.scRT`` refuses them by
 name).
 """
 
@@ -46,13 +52,17 @@ from scdna_replication_tools_tpu_torch.models import priors
 from scdna_replication_tools_tpu_torch.models.pert import (
     PertBatch,
     PertModelSpec,
+    cell_entropy_aggregates,
     constrained,
     decode_discrete,
+    entropy_aggregates_from_planes,
     init_params,
     per_cell_objective,
     pert_loss,
+    ppc_discrepancy,
     slice_cells,
 )
+from scdna_replication_tools_tpu_torch.obs.controller import ControllerPolicy
 from scdna_replication_tools_tpu_torch.ops.gc import gc_features
 from scdna_replication_tools_tpu_torch.ops.stats import guess_times, pearson_matrix
 from scdna_replication_tools_tpu_torch.ops.transforms import (
@@ -82,6 +92,20 @@ def _pad_etas(etas: np.ndarray, target_cells: int,
         etas = np.concatenate(
             [etas, np.broadcast_to(pad_row, (pad,) + etas.shape[1:])], axis=0)
     return etas
+
+
+class NullRunLog:
+    """The default run log: drops every event, as JAX's ``RunLog(None)``
+    does.  Any object with ``emit(event, **payload)`` may stand in."""
+
+    def emit(self, event: str, **payload) -> None:
+        pass
+
+
+def _finite(value):
+    """float(value), or None when non-finite (strict JSON)."""
+    v = float(value)
+    return v if np.isfinite(v) else None
 
 
 @dataclasses.dataclass
@@ -122,8 +146,11 @@ class PertInference:
                  config: PertConfig = PertConfig(),
                  clone_idx_s: Optional[np.ndarray] = None,
                  clone_idx_g1: Optional[np.ndarray] = None,
-                 num_clones: int = 0, device=None):
+                 num_clones: int = 0, device=None, run_log=None):
         self.device = resolve_device(device)
+        # sink of the control_decision events (JAX PertInference's
+        # run_log); the default drops them
+        self.run_log = run_log if run_log is not None else NullRunLog()
         if config.rho_from_rt_prior and s_data.rt_prior is None:
             raise ValueError(
                 "rho_from_rt_prior=True but no RT-prior column was found "
@@ -141,8 +168,7 @@ class PertInference:
         # {candidates, accepted[, capped_to]} of the last mirror rescue
         self.mirror_rescue_stats: Optional[dict] = None
         # the rescue's candidate, re-fitted (after the cap) and accepted
-        # cell indices (for the QC candidate flags, which are not ported
-        # yet)
+        # cell indices (the QC table's rescue columns)
         self._rescue_cells: Optional[dict] = None
         # the last rescue's sub-fit (None unless it re-fitted cells)
         self.rescue_fit: Optional[RescueFit] = None
@@ -264,18 +290,41 @@ class PertInference:
 
     # -- steps ------------------------------------------------------------
 
+    def _controller_active(self, min_iter, max_iter) -> bool:
+        """The controller's inert conditions in one place, for the
+        in-fit controller and the rescue gate (JAX
+        ``_controller_active``): it needs the diagnostics ring
+        (``fit_diag_every > 0``) and a budget that is not pinned exact
+        (``min_iter < max_iter``)."""
+        cfg = self.config
+        return bool(cfg.controller and cfg.fit_diag_every
+                    and int(min_iter) < int(max_iter))
+
     def _fit(self, spec, batch, fixed, t_init, max_iter, min_iter,
              step_name) -> StepOutput:
         cfg = self.config
         t0 = time.perf_counter()
         params0 = init_params(spec, batch, fixed, t_init=t_init)
+        controller = None
+        if self._controller_active(min_iter, max_iter):
+            controller = ControllerPolicy.from_config(cfg, max_iter)
         fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
                       max_iter=max_iter, min_iter=min_iter,
                       rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
                       b1=cfg.adam_b1, b2=cfg.adam_b2, device=self.device,
-                      moment_dtype=cfg.optimizer_state_dtype)
+                      moment_dtype=cfg.optimizer_state_dtype,
+                      diag_every=cfg.fit_diag_every,
+                      doctor_thresholds=dict(
+                          window=cfg.doctor_window,
+                          slope_tol=cfg.doctor_slope_tol,
+                          var_tol=cfg.doctor_var_tol,
+                          grad_ratio=cfg.doctor_grad_ratio),
+                      controller=controller)
         wall = time.perf_counter() - t0
         self.phases[f"{step_name}/fit"] = fit.timings["fit"]
+        for decision in fit.decisions:
+            self.run_log.emit("control_decision", step=step_name,
+                              **decision)
         return StepOutput(fit, spec, fixed, batch, wall)
 
     def run_step1(self) -> StepOutput:
@@ -317,9 +366,15 @@ class PertInference:
                         iters["min_iter"], "step2")
         self._step2_data = s
         if self.config.mirror_rescue:
-            t0 = time.perf_counter()
-            out = self._mirror_rescue(out, batch)
-            self.phases["step2/rescue"] = time.perf_counter() - t0
+            # an active controller runs the rescue only when the gate
+            # finds a suspect candidate; an inert one leaves it on
+            run_rescue = self._gate_rescue(out, batch) \
+                if self._controller_active(iters["min_iter"],
+                                           iters["max_iter"]) else True
+            if run_rescue:
+                t0 = time.perf_counter()
+                out = self._mirror_rescue(out, batch)
+                self.phases["step2/rescue"] = time.perf_counter() - t0
         else:
             # reference-faithful path: surface the symptom the rescue
             # exists for
@@ -345,6 +400,74 @@ class PertInference:
         cand = np.flatnonzero(((tau < cfg.mirror_tau_lo)
                                | (tau > cfg.mirror_tau_hi)) & (mask > 0.5))
         return tau, cand
+
+    def _gate_rescue(self, out: StepOutput, batch: PertBatch) -> bool:
+        """The controller's gate of the mirror rescue (JAX
+        ``_gate_rescue``): run the sub-fit only when a boundary-tau
+        candidate is also suspect -- fitted tau within
+        ``controller_rescue_extreme_tau`` of 0 or 1, or (consulted only
+        when no candidate is extreme, and only with ``qc``) more than
+        ``qc_frac_thresh`` of its bins low-confidence.  Emits one
+        ``control_decision`` event (``rescue`` / ``rescue_skip``) with
+        the trigger signals; a skip leaves the same statistics as a
+        0-accepted pass."""
+        cfg = self.config
+        tau, cand = self._mirror_candidates(out, batch)
+        trigger: dict = {"candidates": int(cand.size)}
+        thresholds = {
+            "mirror_tau_lo": float(cfg.mirror_tau_lo),
+            "mirror_tau_hi": float(cfg.mirror_tau_hi),
+            "extreme_tau": float(cfg.controller_rescue_extreme_tau),
+            "entropy_thresh": float(cfg.qc_entropy_thresh),
+            "frac_thresh": float(cfg.qc_frac_thresh),
+        }
+        run = False
+        if cand.size:
+            extremity = np.minimum(tau[cand], 1.0 - tau[cand])
+            extreme = extremity < cfg.controller_rescue_extreme_tau
+            run = bool(extreme.any())
+            trigger.update(
+                extreme_tau_count=int(extreme.sum()),
+                suspect_count=int(extreme.sum()),
+                min_extremity=_finite(extremity.min()))
+            if not run and not cfg.qc:
+                trigger["qc"] = "off"
+            elif not run:
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    _, frac_low, mean_rep = (
+                        t.cpu().numpy() for t in cell_entropy_aggregates(
+                            out.spec, out.fit.params, out.fixed, batch,
+                            entropy_thresh=cfg.qc_entropy_thresh))
+                self.phases["step2/rescue_gate"] = time.perf_counter() - t0
+                high_ent = frac_low[cand] > cfg.qc_frac_thresh
+                run = bool(high_ent.any())
+                trigger.update(
+                    high_entropy_count=int(high_ent.sum()),
+                    suspect_count=int(high_ent.sum()),
+                    max_frac_low_conf=_finite(frac_low[cand].max()),
+                    mean_rep_entropy=_finite(
+                        float(np.mean(mean_rep[cand]))))
+        self.run_log.emit(
+            "control_decision", step="step2",
+            action="rescue" if run else "rescue_skip",
+            iter=int(out.fit.num_iters),
+            budget=int(out.fit.budget if out.fit.budget is not None
+                       else out.fit.num_iters),
+            trigger=trigger, thresholds=thresholds,
+            detail=("mirror rescue gated IN: suspect boundary-tau "
+                    "candidates present" if run else
+                    "mirror rescue gated OUT: no suspect boundary-tau "
+                    "candidates (no wasted refit-and-reject sub-fit)"))
+        if not run:
+            self.mirror_rescue_stats = {"candidates": int(cand.size),
+                                        "accepted": 0}
+            self._rescue_cells = {"candidates": cand.copy(),
+                                  "accepted": np.zeros(0, cand.dtype)}
+            logger.info("mirror rescue skipped by the controller: %d "
+                        "boundary-tau candidate(s), none extreme or "
+                        "high-entropy", cand.size)
+        return run
 
     def _mirror_rescue(self, out: StepOutput, batch: PertBatch) -> StepOutput:
         """Post-step-2 mirror-basin rescue (JAX ``runner._mirror_rescue``).
@@ -472,6 +595,68 @@ class PertInference:
         self._step3_data = g1
         return out
 
+    def build_cell_qc(self, out: StepOutput, data: PertData,
+                      qc_stats: dict) -> pd.DataFrame:
+        """Per-cell QC table of a fitted step (JAX ``build_cell_qc``):
+        tau, the entropy aggregates that packaging collected
+        (``package_step_output``'s ``qc_collect``), the
+        posterior-predictive check at the packaged MAP states, the
+        mirror rescue's status, and the flags ``high_entropy``,
+        ``ppc_outlier``, ``boundary_tau`` and ``non_finite`` with
+        ``qc_pass`` their negation.  One row per real cell."""
+        cfg = self.config
+        n = int(np.sum(data.cell_mask)) if data.cell_mask is not None \
+            else data.num_cells
+        cell_ids = list(data.cell_ids)[:n]
+        t0 = time.perf_counter()
+        ppc_dev, ppc_z = (t.cpu().numpy()[:n] for t in ppc_discrepancy(
+            out.spec, out.fit.params, out.fixed, out.batch, seed=cfg.seed,
+            num_replicates=cfg.qc_ppc_replicates,
+            maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+        self.phases["qc/ppc"] = time.perf_counter() - t0
+
+        tau = np.asarray(qc_stats["tau"])[:n]
+        mean_ent = np.asarray(qc_stats["mean_cn_entropy"])[:n]
+        max_ent = np.asarray(qc_stats["max_cn_entropy"])[:n]
+        frac_low = np.asarray(qc_stats["frac_low_conf"])[:n]
+        mean_rep = np.asarray(qc_stats["mean_rep_entropy"])[:n]
+        rescue_cand = np.zeros(n, bool)
+        rescue_acc = np.zeros(n, bool)
+        if self._rescue_cells is not None:
+            c = self._rescue_cells["candidates"]
+            a = self._rescue_cells["accepted"]
+            rescue_cand[c[c < n]] = True
+            rescue_acc[a[a < n]] = True
+        finite = np.isfinite(tau) & np.isfinite(mean_ent) \
+            & np.isfinite(ppc_z)
+        # NaN comparisons are False: a poisoned cell lands only in
+        # non_finite, the flag that subsumes the others
+        flag_arrays = {
+            "high_entropy": frac_low > cfg.qc_frac_thresh,
+            "ppc_outlier": ppc_z > cfg.qc_ppc_z,
+            "boundary_tau": ((tau < cfg.mirror_tau_lo)
+                             | (tau > cfg.mirror_tau_hi)),
+            "non_finite": ~finite,
+        }
+        flags = np.full(n, "", object)
+        for name, arr in flag_arrays.items():
+            sep = np.where(flags == "", "", ",")
+            flags = np.where(arr, flags + sep + name, flags)
+        return pd.DataFrame({
+            "cell_id": cell_ids,
+            "model_tau": tau,
+            "mean_cn_entropy": mean_ent,
+            "max_cn_entropy": max_ent,
+            "frac_low_conf": frac_low,
+            "mean_rep_entropy": mean_rep,
+            "ppc_deviance": ppc_dev,
+            "ppc_z": ppc_z,
+            "rescue_candidate": rescue_cand,
+            "rescue_accepted": rescue_acc,
+            "qc_flags": flags,
+            "qc_pass": flags == "",
+        })
+
     def run(self):
         """Run steps 1-3; returns (step1, step2, step3-or-None)."""
         step1 = self.run_step1()
@@ -497,19 +682,32 @@ def package_step_output(
     losses_s: np.ndarray,
     cols: ColumnConfig = ColumnConfig(),
     mirror_rescue_stats: Optional[dict] = None,
+    qc_collect: Optional[dict] = None,
+    qc_entropy_thresh: float = 0.5,
 ) -> Tuple[pd.DataFrame, pd.DataFrame]:
     """Decode the discretes and attach the fitted values to the long-form
     contract (reference: pert_model.py:466-538): model_cn_state,
     model_rep_state, model_p_rep, model_tau, model_u and model_rho
     columns, plus the supplementary table (model_lambda, model_a, loss_g,
     loss_s, and one ``mirror_rescue_<stat>`` row per rescue statistic
-    when ``mirror_rescue_stats`` is given)."""
+    when ``mirror_rescue_stats`` is given).
+
+    ``qc_collect`` (a dict, filled in place) adds the posterior-entropy
+    pass: the decode also returns the per-bin entropy planes, the long
+    output gains ``model_cn_entropy``, and ``qc_collect`` receives the
+    per-cell aggregates (reduced on the device), tau and the MAP planes
+    that ``PertInference.build_cell_qc`` reads."""
     spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
         step.batch
-    decoded = decode_discrete(spec, params, fixed, batch)
+    want_entropy = qc_collect is not None
+    decoded = decode_discrete(spec, params, fixed, batch,
+                              want_entropy=want_entropy)
     with torch.no_grad():
         c = constrained(spec, params, fixed)
-    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded)
+        qc_device = entropy_aggregates_from_planes(
+            decoded[3], decoded[4], batch.effective_loci_mask(),
+            qc_entropy_thresh, want_max=True) if want_entropy else {}
+    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded[:3])
     tau, u, rho, a_c = (c[k].detach().cpu().numpy()
                         for k in ("tau", "u", "rho", "a"))
 
@@ -518,11 +716,15 @@ def package_step_output(
     cell_ids = list(data.cell_ids)[:n]
     cn_long = cn_long.copy()
     cn_long[cols.chr_col] = cn_long[cols.chr_col].astype(str)
+    per_bin = {"model_cn_state": cn_map[:n], "model_rep_state": rep_map[:n],
+               "model_p_rep": p_rep[:n]}
+    if want_entropy:
+        per_bin["model_cn_entropy"] = decoded[3].cpu().numpy()[:n]
+        qc_collect.update({k: v.cpu().numpy() for k, v in qc_device.items()})
+        qc_collect.update(tau=tau, cn_map=cn_map, rep_map=rep_map)
     out = attach_dense_columns(
         cn_long, cell_ids, data.loci, cols,
-        per_bin={"model_cn_state": cn_map[:n],
-                 "model_rep_state": rep_map[:n],
-                 "model_p_rep": p_rep[:n]},
+        per_bin=per_bin,
         per_cell={"model_tau": tau[:n], "model_u": u[:n]},
         per_locus={"model_rho": rho},
     )

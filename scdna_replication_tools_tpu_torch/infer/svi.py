@@ -1,24 +1,40 @@
-"""Fixed-budget MAP-SVI loop (port of ``infer/svi.py``'s ``fit_map``).
+"""MAP-SVI fit loop (port of ``infer/svi.py``'s ``fit_map``).
 
 The per-iteration semantics are those of the JAX ``_fit_loop``
-(reference: pert_model.py:748-758):
+(reference: pert_model.py:748-758), in one copy on the device:
 
 * value and gradient of the loss, then the Adam update, applied BEFORE
   the convergence test (the NaN iteration's update lands too);
-* the loss history in a float32 buffer of ``max_iter`` zeros;
+* the loss history in a float32 device buffer of zeros;
 * convergence once ``i >= min_iter`` and
   ``(max - min)(losses[i-w:i]) / |losses[0] - losses[i]| < rel_tol``
   with ``w = min(9, max_iter)`` (``_window_stat``);
-* a NaN loss aborts the fit.
+* a NaN loss stops the fit;
+* every ``diag_every``-th iteration records loss, global gradient norm
+  and global parameter norm in a ring of ``DIAG_RING`` slots.
 
-The JAX loop runs on device in one ``lax.while_loop``; here it is a
-Python loop that reads the loss once per iteration, one host sync per
-iteration, which keeps the exact stop semantics.  Adam is optax's
-(lr 0.05, betas 0.8/0.99 by default): the pi parameter through the fused
-kernel (``ops/adam_kernel.adam_update``), with its moments stored in
+The host launches a chunk of iterations ``i0 .. stop-1`` without a
+blocking read: the loss, the stop flags and the iteration count stay
+device tensors, and an iteration launched after the fit stopped is
+masked (the Adam kernel's live gate writes every parameter and moment
+through, the loss history and the ring are left alone, the step count
+does not move).  On the card the host also peeks, without waiting, at
+the stop flags of the iterations the card has finished, and launches no
+more of the chunk once one reports the stop.  The host reads one packed
+device-to-host copy per chunk (the count, the flags, the loss history
+and the ring), so a fit's trajectory and stop iteration are the JAX
+loop's while the card never waits on the host inside a chunk.  A chunk
+is ``diag_every`` iterations long, or ``HOST_READ_EVERY`` when the ring
+is off.
+
+With a controller policy (``obs/controller.py``) the host reads the
+flight recorder between chunks and may early-stop, extend, re-seed or
+retry a NaN-poisoned fit at a lower learning rate, as JAX's
+``_fit_map_controlled`` / ``_chunk_loop`` do.  Adam is optax's (lr 0.05,
+betas 0.8/0.99 by default): the pi parameter through the fused kernel
+(``ops/adam_kernel.adam_update``), with its moments stored in
 ``moment_dtype`` (float32 or bfloat16), every other leaf through the same
-math as plain ops with float32 moments.  lr and the bias corrections stay
-on device.
+math as plain ops with float32 moments.
 """
 
 from __future__ import annotations
@@ -31,12 +47,21 @@ import numpy as np
 import torch
 
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.obs import controller as _controller
+from scdna_replication_tools_tpu_torch.obs import doctor as _doctor
 from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
+    adam_constants,
     adam_scalars,
     adam_update,
     adam_update_plain,
     moment_torch_dtype,
 )
+from scdna_replication_tools_tpu_torch.ops.dists import seeded_generator
+
+# slots of the in-fit diagnostics ring (JAX svi.py:47)
+DIAG_RING = 64
+# iterations per host read of a fit without the diagnostics ring
+HOST_READ_EVERY = 25
 
 
 def pi_param_name(params: dict) -> Optional[str]:
@@ -67,7 +92,22 @@ class FitResult:
     converged: bool
     nan_abort: bool
     opt_state: Optional[AdamState] = None
+    # {"fit": seconds, "ms_per_iter": per counted iteration,
+    #  "dispatched": iterations launched (>= num_iters: a chunk's
+    #  iterations after the stop are launched and masked, on the card
+    #  only until the host sees the stop)}
     timings: dict = dataclasses.field(default_factory=dict)
+    # the ring's samples (``_decode_diag``): "every", "iter", "loss",
+    # "grad_norm", "param_norm"; None when diag_every == 0
+    diagnostics: Optional[dict] = None
+    # convergence-doctor class of the loss tail (obs/doctor.py) and the
+    # full report behind it
+    verdict: Optional[str] = None
+    health: Optional[dict] = None
+    # the controller's decisions, one dict each (empty without one)
+    decisions: list = dataclasses.field(default_factory=list)
+    # the final iteration budget (max_iter plus any extension)
+    budget: Optional[int] = None
 
 
 def make_opt_state(params: dict, moment_dtype: str = "float32") -> AdamState:
@@ -84,13 +124,13 @@ def make_opt_state(params: dict, moment_dtype: str = "float32") -> AdamState:
                      mu=zeros(), nu=zeros())
 
 
-def _adam_apply(params: dict, grads: dict, state: AdamState, lr: float,
-                b1: float, b2: float, moment_dtype: str):
-    """One Adam step of every leaf; the pi parameter takes the fused
-    kernel with ``moment_dtype`` moments, the rest the same math as plain
-    ops."""
-    count = state.count + 1
-    scal = adam_scalars(lr, count, b1, b2)
+def _adam_apply(params: dict, grads: dict, state: AdamState,
+                const: torch.Tensor, live: torch.Tensor, b1: float,
+                b2: float, moment_dtype: str):
+    """One Adam step of every leaf, gated by the device bool ``live``;
+    the pi parameter takes the fused kernel with ``moment_dtype``
+    moments, the rest the same math as plain ops."""
+    scal = adam_scalars(const, state.count + 1, live)
     pi = pi_param_name(params)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
@@ -98,22 +138,255 @@ def _adam_apply(params: dict, grads: dict, state: AdamState, lr: float,
         new_p[k], new_m[k], new_v[k] = (
             adam_update(*args, moment_dtype) if k == pi
             else adam_update_plain(*args))
+    count = state.count + live.to(torch.int32)
     return new_p, AdamState(count=count, mu=new_m, nu=new_v)
 
 
-def _window_stat(losses: np.ndarray, i: int, win: int) -> np.float32:
-    """max - min over losses[i-win:i]; the start clamps to [0, n - win]
-    as lax.dynamic_slice does (unwritten tail values are zeros)."""
+def _global_norm(tree: dict) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every leaf,
+    summed in the JAX pytree's (sorted-key) leaf order."""
+    return torch.sqrt(sum(torch.sum(tree[k] * tree[k]) for k in sorted(tree)))
+
+
+def _window_stat(losses, i: int, win: int):
+    """max - min over losses[i-win:i] (numpy array or tensor, ``i`` a
+    host index); the start clamps to [0, n - win] as lax.dynamic_slice
+    does (unwritten tail values are zeros)."""
     start = min(max(i - win, 0), len(losses) - win)
     window = losses[start:start + win]
-    return np.float32(window.max() - window.min())
+    return window.max() - window.min()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Loop:
+    """The per-fit constants of the iteration."""
+    min_iter: int
+    rel_tol: float
+    win: int
+    diag_every: int
+    b1: float
+    b2: float
+    moment_dtype: str
+
+
+@dataclasses.dataclass
+class _Carry:
+    """The device state of a fit between iterations: parameters, Adam
+    state, loss history, diagnostics ring (or None), and the chunk's
+    iteration count and stop flags (0-d device tensors)."""
+    params: dict
+    state: AdamState
+    losses: torch.Tensor
+    diag: Optional[torch.Tensor]
+    i: Optional[torch.Tensor] = None
+    done: Optional[torch.Tensor] = None
+    converged: Optional[torch.Tensor] = None
+    is_nan: Optional[torch.Tensor] = None
+
+
+def _iteration(loss_fn: Callable, loss_args: tuple, c: _Carry, it: int,
+               loop: _Loop, const: torch.Tensor) -> _Carry:
+    """Iteration ``it`` of the JAX ``_fit_loop`` body, gated by the
+    device flag ``done``.  While the fit runs the device count equals
+    the host index ``it``, so every slot index is a host integer."""
+    live = torch.logical_not(c.done)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in c.params.items()}
+    loss = loss_fn(leaves, *loss_args)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    grads = {k: (g if g is not None else torch.zeros_like(leaves[k]))
+             for k, g in zip(leaves, grads)}
+    with torch.no_grad():
+        loss = loss.detach().to(torch.float32)
+        if loop.diag_every and it % loop.diag_every == 0:
+            row = torch.stack([loss, _global_norm(grads),
+                               _global_norm(c.params)])
+            slot = (it // loop.diag_every) % DIAG_RING
+            c.diag[slot] = torch.where(live, row, c.diag[slot])
+        params, state = _adam_apply(c.params, grads, c.state, const, live,
+                                    loop.b1, loop.b2, loop.moment_dtype)
+        losses = c.losses
+        losses[it] = torch.where(live, loss, losses[it])
+        is_nan = torch.isnan(loss)
+        stop = is_nan
+        converged = c.converged
+        if it >= loop.min_iter:
+            denom = torch.abs(losses[0] - loss)
+            conv = _window_stat(losses, it, loop.win) / denom < loop.rel_tol
+            stop = torch.logical_or(is_nan, conv)
+            converged = torch.logical_or(converged,
+                                         torch.logical_and(live, conv))
+        return _Carry(
+            params=params, state=state, losses=losses, diag=c.diag,
+            i=c.i + live.to(torch.int32),
+            done=torch.logical_or(c.done, torch.logical_and(live, stop)),
+            converged=converged,
+            is_nan=torch.logical_or(c.is_nan,
+                                    torch.logical_and(live, is_nan)))
+
+
+class _StopProbe:
+    """A lagged, non-blocking view of a chunk's ``done`` flag on the card:
+    after each launched iteration its flag is copied into pinned host
+    memory behind a CUDA event, and the host, before launching the next
+    one, reads only the flags whose events have completed
+    (``Event.query``, which never waits).  A chunk whose fit stopped
+    then launches only the masked iterations already queued, not the
+    rest of the chunk.  Made once per fit; each slot is reused only
+    after the chunk's read has waited for the card."""
+
+    def __init__(self, n: int):
+        self.flags = torch.zeros((n,), dtype=torch.bool, pin_memory=True)
+        self.events = [torch.cuda.Event() for _ in range(n)]
+        self.seen = 0
+
+    def post(self, k: int, done: torch.Tensor) -> None:
+        self.flags[k].copy_(done, non_blocking=True)
+        self.events[k].record()
+
+    def stopped(self, k: int) -> bool:
+        """Whether an iteration before position ``k`` that the card has
+        finished left the fit stopped."""
+        while self.seen < k and self.events[self.seen].query():
+            if bool(self.flags[self.seen]):
+                return True
+            self.seen += 1
+        return False
+
+
+def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
+                  stop: int, loop: _Loop, const: torch.Tensor,
+                  probe: Optional[_StopProbe] = None):
+    """Launch iterations ``i0 .. stop-1`` from fresh stop flags, reading
+    nothing back: no operation here waits on the device.  With a
+    ``probe`` (CUDA) the launches end early once the card has reported
+    the fit stopped.  Returns the carry and the iterations launched."""
+    dev = c.losses.device
+    flag = dict(dtype=torch.bool, device=dev)
+    c = dataclasses.replace(
+        c, i=torch.full((), i0, dtype=torch.int32, device=dev),
+        done=torch.zeros((), **flag), converged=torch.zeros((), **flag),
+        is_nan=torch.zeros((), **flag))
+    if probe is not None:
+        probe.seen = 0
+    for k, it in enumerate(range(i0, stop)):
+        if probe is not None and probe.stopped(k):
+            return c, k
+        c = _iteration(loss_fn, loss_args, c, it, loop, const)
+        if probe is not None:
+            probe.post(k, c.done)
+    return c, stop - i0
+
+
+@dataclasses.dataclass
+class _ChunkRead:
+    i: int
+    converged: bool
+    is_nan: bool
+    losses: np.ndarray          # losses[:stop]
+    diag: Optional[np.ndarray]  # (DIAG_RING, 3) or None
+
+
+def _read_chunk(c: _Carry, stop: int) -> _ChunkRead:
+    """The chunk's one device-to-host copy: count, flags, the loss
+    history up to ``stop`` and the ring, packed into one float32
+    vector (the count is exact in float32 far beyond any budget)."""
+    parts = [torch.stack([c.i.to(torch.float32),
+                          c.converged.to(torch.float32),
+                          c.is_nan.to(torch.float32)]), c.losses[:stop]]
+    if c.diag is not None:
+        parts.append(c.diag.reshape(-1))
+    host = torch.cat(parts).cpu().numpy()
+    diag = host[3 + stop:].reshape(DIAG_RING, 3) if c.diag is not None \
+        else None
+    return _ChunkRead(int(host[0]), bool(host[1]), bool(host[2]),
+                      host[3:3 + stop].copy(), diag)
+
+
+def _decode_diag(diag: np.ndarray, num_iters: int, i0: int,
+                 diag_every: int) -> dict:
+    """Map ring slots back to the iterations they sampled (JAX
+    ``_decode_diag``): the multiples of ``diag_every`` in ``[i0,
+    num_iters)``, the last ``DIAG_RING`` of them, slot ``(iter //
+    diag_every) % DIAG_RING`` each."""
+    first = -(-i0 // diag_every) * diag_every  # ceil to a multiple
+    sampled = list(range(first, num_iters, diag_every))
+    kept = sampled[-DIAG_RING:]
+    rows = [(it // diag_every) % DIAG_RING for it in kept]
+    return {
+        "every": diag_every,
+        "iter": np.asarray(kept, np.int64),
+        "loss": diag[rows, 0] if kept else np.zeros(0, np.float32),
+        "grad_norm": diag[rows, 1] if kept else np.zeros(0, np.float32),
+        "param_norm": diag[rows, 2] if kept else np.zeros(0, np.float32),
+    }
+
+
+def _diagnose(losses: np.ndarray, converged: bool, nan_abort: bool,
+              diagnostics: Optional[dict],
+              thresholds: Optional[dict]) -> dict:
+    """Convergence-doctor report of one completed fit (JAX
+    ``_diagnose``)."""
+    grad = diagnostics["grad_norm"] if diagnostics is not None \
+        and len(diagnostics.get("grad_norm", ())) else None
+    return _doctor.diagnose_fit(
+        losses, converged=converged, nan_abort=nan_abort,
+        grad_norm_first=float(grad[0]) if grad is not None else None,
+        grad_norm_last=float(grad[-1]) if grad is not None else None,
+        **dict(thresholds or {}))
+
+
+def _perturb_params(params: dict, scale: float, seed: int, salt: int,
+                    noise: Optional[dict] = None) -> dict:
+    """Re-seed perturbation around a checkpointed parameter dict (JAX
+    ``_perturb_params``): each leaf plus ``scale * (std(leaf) + 1e-3)``
+    times standard normal noise.  ``noise`` ({name: tensor}) supplies
+    the draws; by default they come from a generator seeded by
+    ``(seed, salt)``, one leaf after another in sorted-key order, so the
+    same run re-seeds the same way."""
+    if noise is None:
+        dev = next(iter(params.values())).device
+        gen = seeded_generator(seed, salt, dev)
+        noise = {k: torch.randn(params[k].shape, generator=gen,
+                                dtype=torch.float32, device=dev)
+                 for k in sorted(params)}
+    out = {}
+    with torch.no_grad():
+        for k, leaf in params.items():
+            sigma = scale * (torch.std(leaf, correction=0) + 1e-3)
+            out[k] = leaf + sigma * noise[k].to(leaf.device)
+    return out
+
+
+def _result(params, state, losses_np, n, converged, nan_abort, wall,
+            dispatched, diag_np, diag_every, thresholds, decisions,
+            budget) -> FitResult:
+    losses = (losses_np[:n] if losses_np is not None
+              else np.zeros(0, np.float32)).astype(np.float32)
+    diagnostics = None
+    if diag_every:
+        diagnostics = _decode_diag(
+            diag_np if diag_np is not None
+            else np.zeros((DIAG_RING, 3), np.float32), n, 0, diag_every)
+    health = _diagnose(losses, converged, nan_abort, diagnostics,
+                       thresholds)
+    return FitResult(
+        params={k: v.detach() for k, v in params.items()},
+        losses=losses, num_iters=n, converged=converged,
+        nan_abort=nan_abort, opt_state=state,
+        timings={"fit": wall, "ms_per_iter": 1e3 * wall / max(n, 1),
+                 "dispatched": dispatched},
+        diagnostics=diagnostics, verdict=health["verdict"], health=health,
+        decisions=decisions, budget=int(budget))
 
 
 def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
             max_iter: int = 2000, min_iter: int = 100, rel_tol: float = 1e-6,
             learning_rate: float = 0.05, b1: float = 0.8, b2: float = 0.99,
             opt_state0: Optional[AdamState] = None,
-            device=None, moment_dtype: str = "float32") -> FitResult:
+            device=None, moment_dtype: str = "float32",
+            diag_every: int = 0, doctor_thresholds: Optional[dict] = None,
+            controller=None) -> FitResult:
     """Fit ``params`` by MAP ascent of ``-loss_fn`` with the reference's
     stop semantics, for at most ``max_iter`` iterations.
 
@@ -121,49 +394,169 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
     dict of float32 tensors, not modified) is copied to ``device`` (see
     ``device.resolve_device``: the GPU unless ``'cpu'`` is passed), where
     ``loss_args`` must already lie; ``opt_state0`` continues from a
-    previous Adam state.
+    previous Adam state.  ``diag_every = K > 0`` records the ring every
+    K iterations and reads the host every K; ``doctor_thresholds``
+    overrides the doctor's window/slope_tol/var_tol/grad_ratio.
+    ``controller`` (an ``obs.controller.ControllerPolicy``; needs
+    ``diag_every > 0``) runs the adaptive chunk loop, whose decisions
+    land on ``FitResult.decisions``.
     """
     dev = resolve_device(device)
     params = {k: v.detach().to(dev).clone() for k, v in params0.items()}
     state = opt_state0 if opt_state0 is not None \
         else make_opt_state(params, moment_dtype)
-    losses = np.zeros((max_iter,), np.float32)
-    win = min(9, max_iter)
-    tol = np.float32(rel_tol)
-    converged = is_nan = False
-    n = 0
+    loop = _Loop(min_iter=int(min_iter), rel_tol=float(rel_tol),
+                 win=min(9, int(max_iter)), diag_every=int(diag_every),
+                 b1=float(b1), b2=float(b2), moment_dtype=moment_dtype)
+    if controller is not None and diag_every:
+        return _fit_map_controlled(loss_fn, params, state, loss_args,
+                                   int(max_iter), float(learning_rate),
+                                   loop, doctor_thresholds, controller)
+    f32 = dict(dtype=torch.float32, device=dev)
+    carry = _Carry(params, state, torch.zeros((int(max_iter),), **f32),
+                   torch.zeros((DIAG_RING, 3), **f32) if diag_every else None)
+    const = adam_constants(learning_rate, b1, b2, dev)
+    every = loop.diag_every or HOST_READ_EVERY
+    probe = _StopProbe(every) if dev.type == "cuda" else None
+    i_host = dispatched = 0
+    read = None
     t0 = time.perf_counter()
-    while n < max_iter:
-        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(leaves, *loss_args)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        grads = {k: (g if g is not None else torch.zeros_like(leaves[k]))
-                 for k, g in zip(leaves, grads)}
-        with torch.no_grad():
-            params, state = _adam_apply(
-                {k: v.detach() for k, v in leaves.items()}, grads, state,
-                learning_rate, b1, b2, moment_dtype)
-        # the one host sync of the iteration
-        loss_v = np.float32(loss.detach().item())
-        losses[n] = loss_v
-        is_nan = bool(np.isnan(loss_v))
-        with np.errstate(divide="ignore", invalid="ignore"):
-            denom = np.float32(abs(losses[0] - loss_v))
-            loss_diff = np.float32(_window_stat(losses, n, win) / denom)
-        converged = n >= min_iter and bool(loss_diff < tol)
-        n += 1
-        if is_nan or converged:
+    while i_host < max_iter:
+        stop = min(i_host + every, int(max_iter))
+        carry, launched = _launch_chunk(loss_fn, loss_args, carry, i_host,
+                                        stop, loop, const, probe)
+        dispatched += launched
+        read = _read_chunk(carry, stop)
+        i_host = read.i
+        if read.converged or read.is_nan:
             break
-    if params and next(iter(params.values())).is_cuda:
-        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return FitResult(
-        params={k: v.detach() for k, v in params.items()},
-        losses=losses[:n].copy(),
-        num_iters=n,
-        converged=converged,
-        nan_abort=is_nan,
-        opt_state=state,
-        timings={"fit": wall, "ms_per_iter": 1e3 * wall / max(n, 1)},
-    )
+    return _result(carry.params, carry.state,
+                   read.losses if read else None, i_host,
+                   bool(read and read.converged), bool(read and read.is_nan),
+                   wall, dispatched, read.diag if read else None,
+                   loop.diag_every, doctor_thresholds, [], max_iter)
+
+
+def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
+                        loss_args: tuple, max_iter: int,
+                        learning_rate: float, loop: _Loop,
+                        doctor_thresholds: Optional[dict],
+                        policy) -> FitResult:
+    """The adaptive chunk loop (JAX ``_fit_map_controlled`` and
+    ``_chunk_loop``, without their checkpoint, fault-injection,
+    deadline, heartbeat, span, meter and slab-dispatcher hooks).
+
+    Each chunk is ``diag_every`` iterations (fewer at a budget edge),
+    then one host read.  Between chunks: the best-loss checkpoint at
+    chunk granularity (the params that entered a chunk scored its first
+    loss; they stay alive, one extra params copy); a NaN chunk asks the
+    policy to escalate, and a retry restarts from the best checkpoint
+    with fresh Adam state at ``nan_lr_factor`` times the learning rate;
+    the reference's criterion ends the fit; otherwise the policy reads
+    the loss tail and the ring's gradient norms and may early-stop
+    (handing back the best checkpoint when the final state is worse),
+    extend the budget, or re-seed from the best checkpoint."""
+    dev = next(iter(params.values())).device
+    f32 = dict(dtype=torch.float32, device=dev)
+    every = loop.diag_every
+    buf_len = max_iter + max(int(policy.max_extra_iters), 0)
+    carry = _Carry(params, state, torch.zeros((buf_len,), **f32),
+                   torch.zeros((DIAG_RING, 3), **f32))
+    lr_now = learning_rate
+    const = adam_constants(lr_now, loop.b1, loop.b2, dev)
+    probe = _StopProbe(every) if dev.type == "cuda" else None
+    i_host = dispatched = 0
+    budget = max_iter
+    decisions: list = []
+    reseeds = extra_granted = nan_retries = 0
+    converged_flag = nan_flag = False
+    best_loss, best_it, best_params = float("inf"), 0, params
+    prev_verdict = None
+    stagnation_anchor = 0
+    read = None
+    t0 = time.perf_counter()
+    while i_host < budget:
+        entry_params, entry_it = carry.params, i_host
+        stop = min(i_host + every, budget)
+        carry, launched = _launch_chunk(loss_fn, loss_args, carry, i_host,
+                                        stop, loop, const, probe)
+        dispatched += launched
+        read = _read_chunk(carry, stop)
+        i_host = read.i
+        traj = read.losses[:i_host]
+        entry_loss = float(read.losses[entry_it])
+        if entry_it < i_host and np.isfinite(entry_loss) \
+                and entry_loss < best_loss:
+            best_loss, best_params, best_it = entry_loss, entry_params, \
+                entry_it
+        converged_flag, nan_flag = read.converged, read.is_nan
+
+        if nan_flag:
+            decision = dict(_controller.decide(
+                policy, losses=traj, it=i_host, budget=budget,
+                min_iter=loop.min_iter, nan=True,
+                nan_retries_done=nan_retries))
+            prev_verdict = None
+            decisions.append(decision)
+            if decision.get("outcome") != "retry":
+                break
+            nan_retries += 1
+            lr_now = lr_now * float(policy.nan_lr_factor)
+            const = adam_constants(lr_now, loop.b1, loop.b2, dev)
+            carry = dataclasses.replace(
+                carry, params=best_params,
+                state=make_opt_state(best_params, loop.moment_dtype))
+            # redo from the checkpointed iteration: the poisoned entries
+            # beyond it are overwritten as the retry re-runs them
+            i_host = stagnation_anchor = best_it
+            nan_flag = False
+            continue
+
+        if converged_flag:
+            break  # the reference's own rel-tol criterion fired
+
+        d = _decode_diag(read.diag, i_host, 0, every)
+        grad = d["grad_norm"] if len(d["iter"]) else None
+        decision, prev_verdict = _controller.evaluate(
+            policy, losses=traj, it=i_host, budget=budget,
+            min_iter=loop.min_iter,
+            grad_norm_first=float(grad[0]) if grad is not None else None,
+            grad_norm_last=float(grad[-1]) if grad is not None else None,
+            exhausted=i_host >= budget, reseeds_done=reseeds,
+            extra_granted=extra_granted, prev_verdict=prev_verdict,
+            stagnation_start=stagnation_anchor)
+        if decision is None:
+            continue
+        action = decision["action"]
+        if action == "early_stop":
+            if best_loss < float(traj[-1]):
+                carry = dataclasses.replace(carry, params=best_params)
+                decision["detail"] = (
+                    f"restored the best-loss checkpoint (iter {best_it}"
+                    f", loss {best_loss:.6g}) — the final state was "
+                    f"worse (loss {float(traj[-1]):.6g})")
+            converged_flag = True
+            decisions.append(decision)
+            break
+        decisions.append(decision)
+        if action == "extend":
+            grant = int(decision["iters_granted"])
+            budget += grant
+            extra_granted += grant
+        elif action == "reseed":
+            reseeds += 1
+            new_params = _perturb_params(best_params, policy.reseed_scale,
+                                         policy.seed, reseeds)
+            carry = dataclasses.replace(
+                carry, params=new_params,
+                state=make_opt_state(new_params, loop.moment_dtype))
+            # a new trajectory regime: instability must re-prove itself
+            # and the stagnation stop measures the restart on its own
+            prev_verdict = None
+            stagnation_anchor = i_host
+    wall = time.perf_counter() - t0
+    return _result(carry.params, carry.state,
+                   read.losses if read else None, i_host, converged_flag,
+                   nan_flag, wall, dispatched, read.diag if read else None,
+                   every, doctor_thresholds, decisions, budget)

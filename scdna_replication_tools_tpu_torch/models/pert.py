@@ -23,6 +23,7 @@ their log-prob.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -34,7 +35,9 @@ from scdna_replication_tools_tpu_torch.ops.dists import (
     beta_log_prob,
     gamma_log_prob,
     nb_log_prob,
+    nb_sample,
     normal_log_prob,
+    seeded_generator,
 )
 from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
     binary_code_matrix,
@@ -598,14 +601,42 @@ def p_rep_marginal(joint: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.logsumexp(joint[..., 1], dim=-1) - norm)
 
 
+def _plogp_sum(log_p: torch.Tensor, dim: int) -> torch.Tensor:
+    """-sum(p log p) along ``dim`` from log-probabilities, with the
+    0 * -inf corner (an underflowed state) defined as 0."""
+    term = torch.where(torch.isfinite(log_p), torch.exp(log_p) * log_p,
+                       torch.zeros_like(log_p))
+    return -torch.sum(term, dim=dim)
+
+
+def entropy_from_joint(joint: torch.Tensor):
+    """(cells, loci) posterior-confidence maps from the joint logits:
+    the Shannon entropies of the per-bin CN and replication-state
+    posterior marginals, normalized by log P and log 2 into [0, 1]
+    (0 = certain, 1 = uniform)."""
+    P = joint.shape[-2]
+    flat = joint.reshape(joint.shape[:-2] + (P * 2,))
+    log_z = torch.logsumexp(flat, dim=-1)
+    log_post = joint - log_z[..., None, None]
+    cn_ent = _plogp_sum(torch.logsumexp(log_post, dim=-1), -1) / math.log(P)
+    rep_ent = _plogp_sum(torch.logsumexp(log_post, dim=-2), -1) \
+        / math.log(2.0)
+    # float32 rounding can leave the normalized entropy an epsilon
+    # outside [0, 1]; the QC thresholds treat the bounds as exact
+    return torch.clamp(cn_ent, 0.0, 1.0), torch.clamp(rep_ent, 0.0, 1.0)
+
+
 @torch.no_grad()
 def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
-                    batch: PertBatch, cell_chunk: Optional[int] = None):
+                    batch: PertBatch, cell_chunk: Optional[int] = None,
+                    want_entropy: bool = False):
     """MAP cn/rep per bin + marginal replication probability: the
     temperature-0 ``infer_discrete`` of the reference, an independent
     argmax over each bin's (P, 2) joint logits, in cell slabs.
 
-    Returns (cn_map, rep_map, p_rep), each (cells, loci), on device.
+    Returns (cn_map, rep_map, p_rep), each (cells, loci), on device;
+    ``want_entropy=True`` appends the (cn_entropy, rep_entropy) maps of
+    :func:`entropy_from_joint`, from the same joint tensor.
     """
     num_cells = batch.reads.shape[0]
     outs = []
@@ -615,11 +646,150 @@ def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
         joint = model_joint_logits(spec, p, fixed, b)
         flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
         best = torch.argmax(flat, dim=-1)
-        outs.append(((best // 2).to(torch.int32), (best % 2).to(torch.int32),
-                     p_rep_marginal(joint)))
+        out = ((best // 2).to(torch.int32), (best % 2).to(torch.int32),
+               p_rep_marginal(joint))
+        if want_entropy:
+            out = out + entropy_from_joint(joint)
+        outs.append(out)
         del joint, flat
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
-                 for i in range(3))
+                 for i in range(len(outs[0])))
+
+
+def posterior_entropy(spec: PertModelSpec, params: dict, fixed: dict,
+                      batch: PertBatch, cell_chunk: Optional[int] = None):
+    """(cn_entropy, rep_entropy) posterior-confidence maps alone."""
+    out = decode_discrete(spec, params, fixed, batch, cell_chunk=cell_chunk,
+                          want_entropy=True)
+    return out[3], out[4]
+
+
+def entropy_aggregates_from_planes(cn_ent, rep_ent, lmask,
+                                   entropy_thresh: float,
+                                   want_max: bool = False) -> dict:
+    """Per-cell reduction of the (cells, loci) entropy planes over the
+    real loci: the one copy of the aggregate math that the rescue gate
+    (:func:`cell_entropy_aggregates`) and the QC table share."""
+    denom = torch.clamp(torch.sum(lmask), min=1.0)
+    w = lmask[None, :]
+    out = {
+        "mean_cn_entropy": torch.sum(cn_ent * w, dim=1) / denom,
+        "frac_low_conf": torch.sum((cn_ent > entropy_thresh) * w,
+                                   dim=1) / denom,
+        "mean_rep_entropy": torch.sum(rep_ent * w, dim=1) / denom,
+    }
+    if want_max:
+        out["max_cn_entropy"] = torch.max(
+            torch.where(w > 0, cn_ent, torch.zeros_like(cn_ent)), dim=1).values
+    return out
+
+
+def cell_entropy_aggregates(spec: PertModelSpec, params: dict, fixed: dict,
+                            batch: PertBatch, entropy_thresh: float = 0.5,
+                            cell_chunk: Optional[int] = None):
+    """(mean_cn_entropy, frac_low_conf, mean_rep_entropy), each (cells,),
+    over the real loci, on device: the QC table's aggregates, standalone
+    for the controller's rescue gate."""
+    cn_ent, rep_ent = posterior_entropy(spec, params, fixed, batch,
+                                        cell_chunk=cell_chunk)
+    agg = entropy_aggregates_from_planes(
+        cn_ent, rep_ent, batch.effective_loci_mask(), entropy_thresh)
+    return (agg["mean_cn_entropy"], agg["frac_low_conf"],
+            agg["mean_rep_entropy"])
+
+
+# ---------------------------------------------------------------------------
+# posterior-predictive check (model-health QC)
+# ---------------------------------------------------------------------------
+
+def _ppc_model(spec: PertModelSpec, params: dict, fixed: dict,
+               batch: PertBatch, cn_map: torch.Tensor,
+               rep_map: torch.Tensor):
+    """(delta, lamb, log_lamb, log1m_lamb) of the fitted NB observation
+    model at the MAP discrete states."""
+    c = _sites(spec, params, fixed)
+    lamb, log_lamb, log1m_lamb = _nb_pieces(c)
+    omega = gc_rate(c["betas"], batch.gamma_feats)
+    theta = c["u"][:, None] * omega * cn_map.to(torch.float32) \
+        * (1.0 + rep_map.to(torch.float32))
+    delta = torch.clamp(theta * (1.0 - lamb) / lamb, min=1.0)
+    return delta, lamb, log_lamb, log1m_lamb
+
+
+def ppc_replicates(spec: PertModelSpec, params: dict, fixed: dict,
+                   batch: PertBatch, cn_map: torch.Tensor,
+                   rep_map: torch.Tensor, num_replicates: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """(num_replicates, cells, loci) replicate read counts from the
+    fitted NB model at the MAP states: Gamma then Poisson
+    (``ops.dists.nb_sample``), on ``generator``."""
+    delta, lamb, _, _ = _ppc_model(spec, params, fixed, batch, cn_map,
+                                   rep_map)
+    return nb_sample(delta, lamb, int(num_replicates), generator)
+
+
+def _ppc_slab(spec: PertModelSpec, params: dict, fixed: dict,
+              batch: PertBatch, cn_map: torch.Tensor, rep_map: torch.Tensor,
+              replicates: torch.Tensor):
+    """Per-cell (observed deviance, z-score) of one slab: the deviance D
+    = -2 sum_l log NB(y_l | .) over real loci of the observed reads,
+    standardised against the replicates' deviances (JAX
+    ``_ppc_slab``)."""
+    delta, _, log_lamb, log1m_lamb = _ppc_model(spec, params, fixed, batch,
+                                                cn_map, rep_map)
+    lmask = batch.effective_loci_mask()
+
+    def deviance(y):
+        return -2.0 * torch.sum(
+            nb_log_prob(y, delta, log_lamb, log1m_lamb) * lmask, dim=-1)
+
+    obs = deviance(batch.reads)
+    rep = deviance(replicates)
+    z = (obs - torch.mean(rep, dim=0)) \
+        / torch.clamp(torch.std(rep, dim=0, correction=0), min=1e-6)
+    return obs, z
+
+
+@torch.no_grad()
+def ppc_discrepancy(spec: PertModelSpec, params: dict, fixed: dict,
+                    batch: PertBatch, seed: int = 0,
+                    num_replicates: int = 8,
+                    cell_chunk: Optional[int] = None,
+                    maps: Optional[tuple] = None,
+                    replicates: Optional[torch.Tensor] = None):
+    """Per-cell posterior-predictive discrepancy, cell-slabbed (JAX
+    ``ppc_discrepancy``): ``(obs_deviance, ppc_z)``, each (cells,), on
+    device.  ``maps`` = (cn_map, rep_map) are the MAP states the
+    replicates are drawn at (None decodes them here).  ``replicates``
+    ((num_replicates, cells, loci) read counts) supplies the draws;
+    without it slab ``k`` draws its own from a generator seeded by
+    ``(seed, k)``."""
+    num_cells = batch.reads.shape[0]
+    dev = batch.reads.device
+    if maps is None:
+        cn_map, rep_map, _ = decode_discrete(spec, params, fixed, batch,
+                                             cell_chunk=cell_chunk)
+    else:
+        cn_map, rep_map = (torch.tensor(np.asarray(m), device=dev)
+                           for m in maps)
+    outs = []
+    for si, idx in enumerate(_decode_slabs(spec, batch, cell_chunk)):
+        p, b = (params, batch) if idx is None \
+            else slice_cells(params, batch, idx)
+        sel = slice(None) if idx is None \
+            else torch.as_tensor(idx, device=dev)
+        cm, rm = cn_map[sel], rep_map[sel]
+        if replicates is None:
+            reps = ppc_replicates(spec, p, fixed, b, cm, rm, num_replicates,
+                                  seeded_generator(seed, si, dev))
+        else:
+            reps = torch.as_tensor(replicates, dtype=torch.float32,
+                                   device=dev)[:, sel]
+        outs.append(_ppc_slab(spec, p, fixed, b, cm, rm, reps))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
+                 for i in range(2))
 

@@ -11,9 +11,12 @@ The big (planes, cells, loci) pi parameter goes through
 :func:`adam_update`: the CUDA kernel (``csrc/adam.cu``) for a CUDA
 tensor, :func:`adam_update_plain` for a CPU tensor.  Every other leaf is
 O(cells) or O(loci) and takes :func:`adam_update_plain` on any device,
-as the JAX fit sends them through ``adam_update_xla``.  lr and the bias
-corrections ride in a (3,) device tensor (:func:`adam_scalars`), so no
-step needs a host value.  The pi parameter's moments may be stored in
+as the JAX fit sends them through ``adam_update_xla``.  lr, the bias
+corrections and the live gate ride in a (4,) device tensor
+(:func:`adam_scalars`, from the per-fit :func:`adam_constants` and the
+device step count), so no step needs a host value: ``live = 0`` (an
+iteration after the fit stopped, launched before the host read the stop)
+writes param, m and v through unchanged, bit for bit.  The pi parameter's moments may be stored in
 bfloat16 (``optimizer_state_dtype='bfloat16'``): they are widened to
 float32 for the arithmetic and the fresh ones narrowed back (round to
 nearest even, as XLA's ``astype``), and the parameter update uses this
@@ -41,27 +44,41 @@ def moment_torch_dtype(moment_dtype: str) -> torch.dtype:
     return _MOMENT_DTYPES[moment_dtype]
 
 
-def adam_scalars(lr: float, count: torch.Tensor, b1: float, b2: float
-                 ) -> torch.Tensor:
-    """(3,) float32 [lr, 1 - b1^t, 1 - b2^t] on count's device, at the
-    INCREMENTED step count ``count`` (optax's bias_correction)."""
+def adam_constants(lr: float, b1: float, b2: float, device
+                   ) -> torch.Tensor:
+    """(3,) float32 [lr, b1, b2] on ``device``, made once per fit (and
+    again when the learning rate changes) by device fills: no host
+    copy."""
+    return torch.stack([torch.full((), float(x), dtype=torch.float32,
+                                   device=device) for x in (lr, b1, b2)])
+
+
+def adam_scalars(const: torch.Tensor, count: torch.Tensor,
+                 live: torch.Tensor) -> torch.Tensor:
+    """(4,) float32 [lr, 1 - b1^t, 1 - b2^t, live] on count's device:
+    ``const`` from :func:`adam_constants`, ``count`` the step's
+    INCREMENTED count t (optax's bias_correction), ``live`` 1 to apply
+    the step and 0 to write every operand through unchanged."""
     c = count.to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=count.device)
-    bc1 = 1.0 - torch.tensor(b1, **f32) ** c
-    bc2 = 1.0 - torch.tensor(b2, **f32) ** c
-    return torch.stack([torch.tensor(lr, **f32), bc1, bc2])
+    bc1 = 1.0 - const[1] ** c
+    bc2 = 1.0 - const[2] ** c
+    return torch.stack([const[0], bc1, bc2, live.to(torch.float32)])
 
 
 def adam_update_plain(param, grad, m, v, scal, b1: float, b2: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Adam sweep as plain PyTorch ops: ``(param', m', v')``, the
-    moments returned in their stored dtype."""
-    lr, bc1, bc2 = scal[0], scal[1], scal[2]
+    moments returned in their stored dtype; with ``scal[3] == 0`` the
+    inputs' values, bit for bit."""
+    lr, bc1, bc2, live = scal[0], scal[1], scal[2], scal[3]
     g = grad
     m2 = (1.0 - b1) * g + b1 * m.to(torch.float32)
     v2 = (1.0 - b2) * (g * g) + b2 * v.to(torch.float32)
     update = (m2 / bc1) / (torch.sqrt(v2 / bc2) + ADAM_EPS)
-    return param + (-lr) * update, m2.to(m.dtype), v2.to(v.dtype)
+    skip = live == 0.0
+    return (torch.where(skip, param, param + (-lr) * update),
+            torch.where(skip, m, m2.to(m.dtype)),
+            torch.where(skip, v, v2.to(v.dtype)))
 
 
 def adam_update(param, grad, m, v, scal, b1: float, b2: float,
@@ -76,9 +93,9 @@ def adam_update(param, grad, m, v, scal, b1: float, b2: float,
         raise ValueError("adam_update: param/grad/m/v shapes differ: "
                          f"{tuple(param.shape)}, {tuple(grad.shape)}, "
                          f"{tuple(m.shape)}, {tuple(v.shape)}")
-    if scal.shape != (3,):
-        raise ValueError("adam_update: scal must be the (3,) [lr, bc1, bc2] "
-                         f"tensor; got shape {tuple(scal.shape)}")
+    if scal.shape != (4,):
+        raise ValueError("adam_update: scal must be the (4,) [lr, bc1, bc2, "
+                         f"live] tensor; got shape {tuple(scal.shape)}")
     grad = grad.contiguous()
     _cuda.check_operands("adam_update", param.device, {"m": mdt, "v": mdt},
                          param=param, grad=grad, m=m, v=v, scal=scal)

@@ -12,6 +12,14 @@ from test_torch_gpu import bf16_ulps
 from test_torch_model import one_torch_thread  # noqa: F401
 
 
+def _scal(lr, b1, b2, step, live=True):
+    """The (4,) [lr, bc1, bc2, live] operand of one step at count
+    ``step``."""
+    return tak.adam_scalars(tak.adam_constants(lr, b1, b2, "cpu"),
+                            torch.tensor(step, dtype=torch.int32),
+                            torch.tensor(live))
+
+
 def _state(shape, seed, step):
     rng = np.random.default_rng(seed)
     p = rng.normal(0, 1, shape).astype(np.float32)
@@ -39,8 +47,7 @@ def test_adam_plain_matches_jax(step, jax_impl):
     else:
         ref = jak.adam_update_pallas(*map(jnp.asarray, (p, g, m, v)), lr,
                                      b1, b2, count, interpret=True)
-    scal = tak.adam_scalars(lr, torch.tensor(step, dtype=torch.int32),
-                            b1, b2)
+    scal = _scal(lr, b1, b2, step)
     got = tak.adam_update(*map(torch.from_numpy, (p, g, m, v)), scal, b1, b2)
     for name, a, b in zip(("param", "m", "v"), got, ref):
         b = np.asarray(b)
@@ -76,8 +83,7 @@ def test_adam_bf16_moments_match_jax(step, jax_impl):
     else:
         ref = jak.adam_update_pallas(*args, moment_dtype="bfloat16",
                                      interpret=True)
-    scal = tak.adam_scalars(lr, torch.tensor(step, dtype=torch.int32),
-                            b1, b2)
+    scal = _scal(lr, b1, b2, step)
     got = tak.adam_update(torch.from_numpy(p), torch.from_numpy(g),
                           _jax_bf16(m16), _jax_bf16(v16), scal, b1, b2,
                           "bfloat16")
@@ -98,8 +104,7 @@ def test_adam_refuses_mixed_moment_dtypes():
     refused on the CPU as the kernel would refuse it."""
     p = torch.zeros(2, 3, 5, dtype=torch.float32)
     h = p.to(torch.bfloat16)
-    scal = tak.adam_scalars(0.05, torch.tensor(1, dtype=torch.int32),
-                            0.8, 0.99)
+    scal = _scal(0.05, 0.8, 0.99, 1)
     for m, v, mdt in ((h, h, "float32"), (p, p, "bfloat16"),
                       (h, p, "bfloat16")):
         with pytest.raises(ValueError, match="dtype"):
@@ -109,13 +114,17 @@ def test_adam_refuses_mixed_moment_dtypes():
 
 
 def test_adam_scalars_are_optax_bias_corrections():
-    """[lr, 1 - b1^t, 1 - b2^t] at the incremented count, float32."""
-    scal = tak.adam_scalars(0.05, torch.tensor(3, dtype=torch.int32),
-                            0.8, 0.99)
+    """[lr, 1 - b1^t, 1 - b2^t, live] at the incremented count, float32,
+    from the per-fit constants [lr, b1, b2]."""
+    const = tak.adam_constants(0.05, 0.8, 0.99, "cpu")
+    assert const.dtype == torch.float32 and const.shape == (3,)
+    scal = tak.adam_scalars(const, torch.tensor(3, dtype=torch.int32),
+                            torch.tensor(True))
     bc1, bc2 = jak._bias_corrections(jnp.asarray(3, jnp.int32), 0.8, 0.99)
     np.testing.assert_allclose(scal.numpy(),
-                               [0.05, float(bc1), float(bc2)], rtol=1e-6)
-    assert scal.dtype == torch.float32 and scal.shape == (3,)
+                               [0.05, float(bc1), float(bc2), 1.0],
+                               rtol=1e-6)
+    assert scal.dtype == torch.float32 and scal.shape == (4,)
 
 
 def test_adam_zero_padding_gives_zero_update():
@@ -123,8 +132,7 @@ def test_adam_zero_padding_gives_zero_update():
     property the TPU kernel's zero padding relies on)."""
     p = torch.randn(2, 3, 5, dtype=torch.float32)
     z = torch.zeros_like(p)
-    scal = tak.adam_scalars(0.05, torch.tensor(1, dtype=torch.int32),
-                            0.8, 0.99)
+    scal = _scal(0.05, 0.8, 0.99, 1)
     p2, m2, v2 = tak.adam_update(p, z, z, z, scal, 0.8, 0.99)
     assert torch.equal(p2, p) and not m2.any() and not v2.any()
 
@@ -132,4 +140,24 @@ def test_adam_zero_padding_gives_zero_update():
 def test_adam_refuses_devices_without_a_path():
     p = torch.zeros(2, 3, 5, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        tak.adam_update(p, p, p, p, torch.zeros(3, device="meta"), 0.8, 0.99)
+        tak.adam_update(p, p, p, p, torch.zeros(4, device="meta"), 0.8, 0.99)
+
+
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_adam_live_gate_writes_through(mdt):
+    """live = 0 returns param, m and v bit for bit (the masked iterations
+    of a chunk after the fit stopped); live = 1 is the ungated sweep."""
+    p, g, m, v = (torch.from_numpy(x) for x in _state((3, 8, 50), 5, 7))
+    m, v = m.to(tak.moment_torch_dtype(mdt)), v.to(tak.moment_torch_dtype(mdt))
+    off = tak.adam_update(p, g, m, v, _scal(0.05, 0.8, 0.99, 7, False),
+                          0.8, 0.99, mdt)
+    for a, b in zip(off, (p, m, v)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    on = tak.adam_update(p, g, m, v, _scal(0.05, 0.8, 0.99, 7), 0.8, 0.99,
+                         mdt)
+    assert not torch.equal(on[0], p)
+    # the masked sweep leaves even a zero step count's bias corrections
+    # (0 / 0 in the ungated arithmetic) out of the result
+    zero = tak.adam_update(p, g, m, v, _scal(0.05, 0.8, 0.99, 0, False),
+                           0.8, 0.99, mdt)
+    assert all(torch.equal(a, b) for a, b in zip(zero, (p, m, v)))

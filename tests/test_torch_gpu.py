@@ -374,6 +374,15 @@ def test_unfused_autograd_on_cuda_matches_cpu(dev):
     assert all(e <= TOL_ENUM[k] for k, e in errs.items()), errs
 
 
+def _adam_scal(dev, step, live=True):
+    """The (4,) [lr, bc1, bc2, live] device operand of one step at count
+    ``step``."""
+    return ak.adam_scalars(
+        ak.adam_constants(0.05, 0.8, 0.99, dev),
+        torch.tensor(step, dtype=torch.int32, device=dev),
+        torch.tensor(live, device=dev))
+
+
 @pytest.mark.parametrize("step", [1, 7, 300])
 def test_adam_kernel_matches_plain(dev, step):
     """One sweep of the kernel against the plain version on a ragged
@@ -384,8 +393,7 @@ def test_adam_kernel_matches_plain(dev, step):
     p, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
     m = 0.1 * torch.randn(shape, generator=gen, device=dev)
     v = 0.1 * torch.rand(shape, generator=gen, device=dev)
-    scal = ak.adam_scalars(0.05, torch.tensor(step, dtype=torch.int32,
-                                              device=dev), 0.8, 0.99)
+    scal = _adam_scal(dev, step)
     _cuda.reset_launches()
     got = ak.adam_update(p, g, m, v, scal, 0.8, 0.99)
     ref = ak.adam_update_plain(p, g, m, v, scal, 0.8, 0.99)
@@ -416,8 +424,7 @@ def test_adam_bf16_kernel_matches_plain(dev, step):
     p, g = (torch.randn(shape, generator=gen, **f32) for _ in range(2))
     m = (0.1 * torch.randn(shape, generator=gen, **f32)).to(torch.bfloat16)
     v = (0.1 * torch.rand(shape, generator=gen, **f32)).to(torch.bfloat16)
-    scal = ak.adam_scalars(0.05, torch.tensor(step, dtype=torch.int32,
-                                              device=dev), 0.8, 0.99)
+    scal = _adam_scal(dev, step)
     _cuda.reset_launches()
     got = ak.adam_update(p, g, m, v, scal, 0.8, 0.99, "bfloat16")
     ref = ak.adam_update_plain(p, g, m, v, scal, 0.8, 0.99)
@@ -427,3 +434,52 @@ def test_adam_bf16_kernel_matches_plain(dev, step):
     assert _rel(got[0], ref[0]) <= TOL["param"]
     for name, a, b in zip(("m", "v"), got[1:], ref[1:]):
         assert int(bf16_ulps(a, b).max()) <= 1, name
+
+
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_adam_live_gate_kernel(dev, mdt):
+    """The live gate on the card: live = 0 writes p, m and v through bit
+    for bit (one launch), live = 1 equals the plain version bit for bit
+    (the kernel repeats its roundings), for both moment dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (13 if mdt == "float32" else 4, 37, 1001)
+    f32 = dict(dtype=torch.float32, device=dev)
+    p, g = (torch.randn(shape, generator=gen, **f32) for _ in range(2))
+    mt = ak.moment_torch_dtype(mdt)
+    m = (0.1 * torch.randn(shape, generator=gen, **f32)).to(mt)
+    v = (0.1 * torch.rand(shape, generator=gen, **f32)).to(mt)
+    key = "adam" if mdt == "float32" else "adam_bf16"
+    _cuda.reset_launches()
+    off = ak.adam_update(p, g, m, v, _adam_scal(dev, 7, False), 0.8, 0.99,
+                         mdt)
+    on = ak.adam_update(p, g, m, v, _adam_scal(dev, 7), 0.8, 0.99, mdt)
+    ref = ak.adam_update_plain(p, g, m, v, _adam_scal(dev, 7), 0.8, 0.99)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == 2
+    for a, b in zip(off, (p, m, v)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(on, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_chunk_stops_launching_once_the_card_reports_the_stop(dev):
+    """On the card the fit loop peeks at the stop flags of finished
+    iterations without waiting: a fit whose criterion fires at iteration
+    14 of a 25-iteration chunk counts the iterations the CPU run counts,
+    with the same losses, and launches fewer than the whole chunk (the
+    masked ones already queued, not the rest)."""
+    from scdna_replication_tools_tpu_torch.infer import svi
+
+    def loss(p):
+        return ((p["x"] - 3.0) ** 2).sum() + (p["y"] ** 2).sum()
+
+    params = {"x": torch.zeros(64), "y": torch.ones(32)}
+    kw = dict(max_iter=100, min_iter=12, rel_tol=0.52, learning_rate=0.1,
+              diag_every=25)
+    cpu = svi.fit_map(loss, params, device="cpu", **kw)
+    gpu = svi.fit_map(loss, params, device=dev, **kw)
+    assert cpu.converged and gpu.converged
+    assert gpu.num_iters == cpu.num_iters < 25
+    assert cpu.timings["dispatched"] == 25
+    assert gpu.num_iters <= gpu.timings["dispatched"] < 25
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-6)

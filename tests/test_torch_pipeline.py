@@ -100,7 +100,8 @@ def test_port_recovers_simulated_truth(outputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(controller=True), dict(qc=True), dict(telemetry_path="auto"),
+    dict(metrics_textfile="m.prom"), dict(faults="oom@step2/fit"),
+    dict(telemetry_path="auto"),
     dict(trace_spans=True), dict(executable_cache_dir="ec"),
     dict(cell_chunk=8), dict(num_shards=2), dict(checkpoint_dir="ck"),
     dict(cn_hmm_self_prob=0.9)])

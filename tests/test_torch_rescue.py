@@ -22,6 +22,7 @@ from scdna_replication_tools_tpu.infer.runner import (
 )
 from scdna_replication_tools_tpu.models import pert as jpert
 from scdna_replication_tools_tpu.models.simulator import pert_simulator
+from scdna_replication_tools_tpu.obs.runlog import RunLog
 from scdna_replication_tools_tpu_torch import scRT as TorchScRT
 from scdna_replication_tools_tpu_torch import weights
 from scdna_replication_tools_tpu_torch.config import PertConfig
@@ -301,3 +302,124 @@ def test_scrt_mirror_rescue_frames_match_jax(rescued_outputs):
     tau = m.groupby("cell_id")[["model_tau_jax", "model_tau_torch"]].first()
     assert np.corrcoef(tau["model_tau_jax"], tau["model_tau_torch"])[0, 1] \
         >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# measurement: the gated mirror rescue of both packages on chip_smoke.py's
+# simulated frames (not a test)
+# ---------------------------------------------------------------------------
+
+def measure_gated_rescue(cells: int, loci: int, g1_cells: int,
+                         configs=("default",)) -> dict:
+    """Both packages' ``scRT(..., telemetry_path=None)`` on the CPU on
+    chip_smoke.py's simulated frames at ``cells`` S + ``g1_cells`` G1
+    cells x ``loci`` loci (its flagship shape cut in scale only): the
+    default config (controller, QC, gated rescue; 1e6 composite prior,
+    tau window [0.1, 0.9]) and, with ``"ungated"`` in ``configs``, the
+    always-on rescue without the controller (QC on, which moves no fit).
+    Per package: the decisions, the gate's trigger, the candidate and
+    accepted cell sets, each re-fitted cell's scoring margin (sub-fit
+    minus step-2 per-cell objective; accepted when positive), tau
+    correlation with the simulated truth, and the wall seconds."""
+    import sys
+    import time
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from scdna_replication_tools_tpu.infer import runner as jax_runner
+    from scdna_replication_tools_tpu_torch.infer import runner as port_runner
+
+    chip_smoke.CELLS, chip_smoke.LOCI, chip_smoke.G1_CELLS = \
+        cells, loci, g1_cells
+    cn_s, cn_g1 = chip_smoke.simulate_frames()
+    opts = dict(input_col="reads", clone_col="clone_id", assign_col="copy",
+                cn_prior_method="g1_composite", max_iter=300, min_iter=100,
+                rt_prior_col=None, telemetry_path=None)
+    extra = {"default": {},
+             "ungated": dict(controller=False)}
+    out = {"shape": [cells, g1_cells, loci]}
+    for cfg in configs:
+        for package in ("jax", "port"):
+            log = []
+
+            class Log(RunLog):
+                def __init__(self):
+                    super().__init__(None)
+
+                def emit(self, event, **payload):
+                    log.append((event, payload))
+                    super().emit(event, **payload)
+            mp = pytest.MonkeyPatch()
+            # the rescue's two per-cell scorings (step-2 and sub-fit
+            # parameters), kept to give each candidate's margin
+            scores = []
+            runner = jax_runner if package == "jax" else port_runner
+
+            def scored(*a, _orig=runner.per_cell_objective, **k):
+                out = _orig(*a, **k)
+                scores.append(np.asarray(out, np.float64))
+                return out
+            mp.setattr(runner, "per_cell_objective", scored)
+            t0 = time.perf_counter()
+            if package == "jax":
+                mp.setattr(RunLog, "create",
+                           classmethod(lambda cls, *a, **k: Log()))
+                scrt = JaxScRT(cn_s.copy(), cn_g1.copy(),
+                               compile_cache_dir=None, **opts, **extra[cfg])
+            else:
+                scrt = TorchScRT(cn_s.copy(), cn_g1.copy(), device="cpu",
+                                 run_log=Log(), **opts, **extra[cfg])
+            try:
+                frames = scrt.infer(level="pert")
+            finally:
+                mp.undo()
+            wall = time.perf_counter() - t0
+            per_cell = frames[0].groupby("cell_id").agg(
+                tau=("model_tau", "first"), true_t=("true_t", "first"))
+            rec = {"wall_s": wall,
+                   "stats": dict(scrt.mirror_rescue_stats or {}),
+                   "tau_r": float(np.corrcoef(per_cell["tau"],
+                                              per_cell["true_t"])[0, 1]),
+                   "decisions": [
+                       {k: p[k] for k in ("step", "action", "iter", "budget")}
+                       for e, p in log if e == "control_decision"],
+                   "gate_trigger": [p["trigger"] for e, p in log
+                                    if e == "control_decision"
+                                    and p["action"].startswith("rescue")]}
+            qc = scrt.cell_qc()
+            if len(scores) == 2:
+                # per_cell_objective(new) - (orig) per re-fitted cell, in
+                # the rescue's candidate order (the QC table's cell order
+                # when no cap applies)
+                fitted = qc.loc[qc["rescue_candidate"], "cell_id"]
+                if len(fitted) == len(scores[0]):
+                    rec["margins"] = dict(zip(
+                        fitted, (scores[1] - scores[0]).tolist()))
+            rec["candidates"] = sorted(qc.loc[qc["rescue_candidate"],
+                                              "cell_id"])
+            rec["accepted"] = sorted(qc.loc[qc["rescue_accepted"],
+                                            "cell_id"])
+            rec["qc_flags"] = qc["qc_flags"].value_counts().to_dict()
+            out[f"{cfg} {package}"] = rec
+            print(cfg, package, {k: v for k, v in rec.items()
+                                 if k not in ("candidates", "margins")},
+                  flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_rescue.py CELLS LOCI G1_CELLS OUT.json
+    # [default] [ungated]: the measurement above (default config alone
+    # without a config name), from the repository root with
+    # JAX_PLATFORMS=cpu and the repository on PYTHONPATH
+    import json
+    import sys
+
+    import conftest  # noqa: F401  (JAX on the CPU, before its first use)
+
+    n, l, g, path = sys.argv[1:5]
+    result = measure_gated_rescue(int(n), int(l), int(g),
+                                  tuple(sys.argv[5:]) or ("default",))
+    with open(path, "w") as fh:
+        json.dump(result, fh, indent=1, default=float)
