@@ -35,17 +35,26 @@ Phases, each printing its own lines:
    with the share of its warps that take the NB cores' shift branch;
 5. where each step's time goes: device time by kernel from
    torch.profiler over a window of iterations, and the card's idle share;
-6. the default config, ``scRT(..., telemetry_path=None)`` with nothing
-   else overridden: the adaptive controller, the model-health QC and the
-   controller-gated mirror rescue; per step the controller's decisions,
+6. the default config, ``scRT(cn_s, cn_g1)`` with no option given: the
+   adaptive controller, the model-health QC, the controller-gated mirror
+   rescue and the run log at ``telemetry_path='auto'``, at the default
+   iteration budgets; per step the controller's decisions,
    the verdict and the counted and dispatched iterations, the rescue
    gate's decision and trigger, the rescue's candidates and accepted
    cells, the cell_qc flag counts, the launch checks (enum_fwd twice if
    and only if the gate let the rescue run) and the recovery bars with
    tau correlation no more than 0.01 below the categorical run's; the
-   chunks of a short controlled step-2 fit under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no operation inside a
-   chunk waits on the card); phase 5 for steps 2 and 3;
+   run log: every line valid under the port's schema, one ``fit_end``
+   per step with the counted iterations, the decisions, the rescue and
+   the QC flag counts of the run, a ``compile`` event per kernel library
+   loaded, ``run_end`` with status ok, and the registry's peak device
+   memory equal to ``torch.cuda.max_memory_allocated`` (the log is
+   copied to ``chiprun_out/default_run.jsonl``, to render on a machine
+   with the JAX package: ``python tools/pert_report.py``); the chunks of
+   a short controlled step-2 fit under
+   ``torch.cuda.set_sync_debug_mode("error")`` with a run-log session
+   open (no operation inside a chunk waits on the card, and nothing is
+   emitted there); phase 5 for steps 2 and 3;
 7. phases 4 and 5 again for the binary path, ``scRT(...,
    enum_impl='binary', optimizer_state_dtype='bfloat16')`` on the same
    frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
@@ -74,6 +83,7 @@ It imports nothing of JAX or the JAX package.  The full record goes to
 from __future__ import annotations
 
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -1229,32 +1239,26 @@ CATEGORICAL = ("fused_fwd_dense", "fused_bwd_dense", "fused_fwd_sparse",
 BINARY = ("fused_fwd_dense_binary", "fused_bwd_dense_binary",
           "fused_fwd_sparse_binary", "fused_bwd_sparse_binary", "adam_bf16")
 RESCUE = CATEGORICAL + ("enum_fwd",)
-# the reference-faithful paths run without the controller and the QC
-OFF = dict(controller=False, qc=False)
+# the options of every path but the default one: the frames' columns,
+# the depth cut and no run log; the reference-faithful paths run without
+# the controller and the QC
+FIXED = dict(input_col="reads", clone_col="clone_id", assign_col="copy",
+             cn_prior_method="g1_composite", max_iter=MAX_ITER, min_iter=100,
+             rt_prior_col=None, telemetry_path=None)
+OFF = dict(FIXED, controller=False, qc=False)
 PATHS = {
     # path -> (scRT options, the launch keys its main path counts); the
     # unfused backward runs on no path (the rescue scores without
     # gradients), so enum_bwd is held against its plain version only
     "categorical": (dict(OFF, mirror_rescue=False), CATEGORICAL),
-    # the default config: controller, QC and the controller-gated
-    # rescue (enum_fwd only when the gate lets the rescue run)
+    # the default config, scRT(cn_s, cn_g1) with no option given:
+    # controller, QC, the controller-gated rescue (enum_fwd only when the
+    # gate lets it run) and the run log
     "default": (dict(), CATEGORICAL),
     "binary": (dict(OFF, mirror_rescue=False, enum_impl="binary",
                     optimizer_state_dtype="bfloat16"), BINARY),
     "rescue": (dict(OFF, mirror_rescue=True), RESCUE),
 }
-
-
-class DecisionLog:
-    """The run log handed to ``scRT``: keeps its ``control_decision``
-    events."""
-
-    def __init__(self):
-        self.decisions: list = []
-
-    def emit(self, event: str, **payload) -> None:
-        if event == "control_decision":
-            self.decisions.append(payload)
 
 
 def main_path(dev, record, frames, path: str, reference=None):
@@ -1270,27 +1274,33 @@ def main_path(dev, record, frames, path: str, reference=None):
 
     options, kernels = PATHS[path]
     cn_s, cn_g1 = frames
-    log = DecisionLog()
-    scrt = scRT(cn_s.copy(), cn_g1.copy(), input_col="reads",
-                clone_col="clone_id", assign_col="copy",
-                cn_prior_method="g1_composite", max_iter=MAX_ITER,
-                min_iter=100, rt_prior_col=None, telemetry_path=None,
-                run_log=log, **options)
+    scrt = scRT(cn_s.copy(), cn_g1.copy(), **options)
     tag = f"[main {path}]"
     check(scrt.device.type == "cuda", f"{path}: scRT runs on {scrt.device}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the libraries this process loaded before the run: the run's first
+    # compile event of each is a hit, of any other a miss or disk hit
+    loaded_before = set(_cuda._LIBS)
+    # a run log that could not be created, or disabled itself on a failed
+    # write, says so once on the package's logger (the fit goes on)
+    disabled = _LogDisabled()
+    pkg_logger = logging.getLogger("scdna_replication_tools_tpu_torch")
+    pkg_logger.addHandler(disabled)
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    out_s, supp_s, out_g1, supp_g1 = scrt.infer("pert")
-    torch.cuda.synchronize()
+    try:
+        out_s, supp_s, out_g1, supp_g1 = scrt.infer("pert")
+        torch.cuda.synchronize()
+    finally:
+        pkg_logger.removeHandler(disabled)
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step1, step2, step3 = scrt.steps
     iters = [s.fit.num_iters for s in (step1, step2, step3)]
     disp = [s.fit.timings["dispatched"] for s in (step1, step2, step3)]
-    print(f"{tag} {json.dumps(options)}: "
+    print(f"{tag} {json.dumps(options) if options else 'no option given'}: "
           f"infer('pert') wall {wall:.2f} s; phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in scrt.phase_report.items()))
     for name, st in zip(("step1", "step2", "step3"), (step1, step2, step3)):
@@ -1313,8 +1323,11 @@ def main_path(dev, record, frames, path: str, reference=None):
     check(not step2.spec.sparse_etas and step3.spec.sparse_etas,
           f"{path}: step 2 fits the dense composite prior, step 3 the "
           "sparse one")
-    gate = next((d for d in log.decisions
-                 if d["action"] in ("rescue", "rescue_skip")), None)
+    events = [json.loads(line) for line in
+              Path(scrt.run_log_path).read_text().splitlines()] \
+        if scrt.run_log_path else []
+    gate = next((e for e in events if e["event"] == "control_decision"
+                 and e["action"] in ("rescue", "rescue_skip")), None)
     if gate is not None:
         print(f"  rescue gate: {gate['action']} at iteration {gate['iter']}"
               f", trigger {json.dumps(gate['trigger'])}")
@@ -1362,6 +1375,14 @@ def main_path(dev, record, frames, path: str, reference=None):
         check(len(qc) == CELLS and "model_cn_entropy" in out_s.columns,
               f"{path}: cell_qc has a row per S cell ({len(qc)}) and the S "
               "frame a model_cn_entropy column")
+    if path == "default":
+        # the default run writes its log; none may be missing or cut
+        check(scrt.run_log_path is not None and not disabled.messages,
+              f"[runlog] the run wrote its log ({scrt.run_log_path}) and "
+              "it stayed enabled"
+              + (": " + "; ".join(disabled.messages)
+                 if disabled.messages else ""))
+        check_run_log(scrt, events, qc_counts, peak, record, loaded_before)
 
     rep_acc = float((out_s["model_rep_state"] == out_s["true_rep"]).mean())
     cn_acc = float((out_s["model_cn_state"]
@@ -1395,7 +1416,8 @@ def main_path(dev, record, frames, path: str, reference=None):
               f"{reference['cn_acc']:.4f} - 0.02")
     record[f"main_{path}"] = {
         "options": options, "cells_s": CELLS, "cells_g1": G1_CELLS,
-        "loci": LOCI, "P": P, "clones": CLONES, "max_iter": MAX_ITER,
+        "loci": LOCI, "P": P, "clones": CLONES,
+        "max_iter": scrt.config.max_iter,
         "iters": iters, "dispatched": disp,
         "budgets": [s.fit.budget for s in (step1, step2, step3)],
         "verdicts": [s.fit.verdict for s in (step1, step2, step3)],
@@ -1409,6 +1431,113 @@ def main_path(dev, record, frames, path: str, reference=None):
         "tau_r": tau_r, "lambda": lamb, "rescue": rescue,
     }
     return launches, scrt
+
+
+class _LogDisabled(logging.Handler):
+    """Keeps the package logger's warnings that a run log or telemetry
+    was disabled."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(("telemetry disabled", "run log disabled")):
+            self.messages.append(msg)
+
+
+def check_run_log(scrt, events, qc_counts, peak, record,
+                  loaded_before) -> None:
+    """The default run's log against the run: schema-valid, one fit_end
+    per step with its counted iterations, the controller's decisions,
+    the rescue's statistics and the QC flag counts, a compile event per
+    kernel library and step (a hit unless the run loaded the library
+    first), run_end last with status ok, and the registry's peak device
+    memory.  Copied to chiprun_out/default_run.jsonl."""
+    import shutil
+
+    from scdna_replication_tools_tpu_torch.obs import schema
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+
+    path = Path(scrt.run_log_path)
+    errors = schema.validate_run(path)
+    check(not errors, f"[runlog] {len(events)} lines valid under the "
+          f"port's schema (v{schema.load_schema()['schema_version']})"
+          + (f": {errors[:5]}" if errors else ""))
+    kinds = [e["event"] for e in events]
+    steps = [("step1", "step2", "step3")[i] for i, st in enumerate(scrt.steps)
+             if st is not None]
+    fit_ends = [(e["step"], e["iters"]) for e in events
+                if e["event"] == "fit_end"]
+    check(fit_ends == [(n, st.fit.num_iters)
+                       for n, st in zip(steps, scrt.steps)],
+          f"[runlog] fit_end per step with the counted iterations: "
+          f"{fit_ends}")
+    logged = [(e["step"], e["action"], e["iter"]) for e in events
+              if e["event"] == "control_decision"
+              and e["action"] not in ("rescue", "rescue_skip")]
+    fitted = [(n, d["action"], d["iter"])
+              for n, st in zip(steps, scrt.steps) for d in st.fit.decisions]
+    gates = [e["action"] for e in events if e["event"] == "control_decision"
+             and e["action"] in ("rescue", "rescue_skip")]
+    ran = scrt.mirror_rescue_fit is not None
+    check(logged == fitted and gates == ["rescue" if ran else "rescue_skip"],
+          f"[runlog] control_decision events equal the steps' decisions "
+          f"{fitted} and the gate {gates}")
+    (rescue,) = [e for e in events if e["event"] == "rescue"]
+    stats = scrt.mirror_rescue_stats
+    check({k: rescue[k] for k in ("candidates", "accepted", "capped_to")}
+          == {"candidates": stats["candidates"],
+              "accepted": stats["accepted"],
+              "capped_to": stats.get("capped_to")},
+          f"[runlog] rescue event equals mirror_rescue_stats {stats}")
+    (qc_event,) = [e for e in events if e["event"] == "cell_qc_summary"]
+    flags = {k: v for k, v in qc_counts.items() if k != "qc_pass"}
+    check(qc_event["flag_counts"] == flags
+          and qc_event["num_cells"] == CELLS,
+          f"[runlog] cell_qc_summary flag counts "
+          f"{qc_event['flag_counts']} equal cell_qc()'s {flags}")
+    compiled = [(e["label"], e["cache"]) for e in events
+                if e["event"] == "compile"]
+    want, seen = [], set(loaded_before)
+    for _ in steps:
+        for name, source in _cuda.SOURCES.items():
+            want.append((source, "hit" if name in seen else "loaded"))
+            seen.add(name)
+    got = [(label, "hit" if cache == "hit" else
+            "loaded" if cache in ("miss", "disk_hit") else cache)
+           for label, cache in compiled]
+    check(got == want,
+          f"[runlog] a compile event per kernel library and step, a hit "
+          f"unless the run loaded it first: {compiled}")
+    end = events[-1]
+    check(end["event"] == "run_end" and end["status"] == "ok"
+          and end["events_emitted"] == len(events) - 1,
+          f"[runlog] last line run_end, status {end.get('status')}, "
+          f"{end.get('events_emitted')} events before it")
+    gauge = scrt.metrics_registry.gauge(
+        "pert_device_hbm_peak_bytes", labels={"device": "0"}).value
+    check(gauge == peak, f"[runlog] pert_device_hbm_peak_bytes {gauge} = "
+          f"torch.cuda.max_memory_allocated {peak}")
+    out = REPO / "chiprun_out" / "default_run.jsonl"
+    shutil.copyfile(path, out)
+    nbytes_log = path.stat().st_size
+    create_s = scrt.phase_report.get("telemetry/create")
+    print(f"[runlog] {len(events)} events, {nbytes_log} bytes, "
+          f"telemetry/create {create_s} s, telemetry/open "
+          f"{scrt.phase_report.get('telemetry/open')} s; event counts "
+          + json.dumps({k: kinds.count(k) for k in sorted(set(kinds))})
+          + f"; copied to {out.relative_to(REPO)}")
+    record["run_log"] = {
+        "events": len(events), "bytes": nbytes_log,
+        "telemetry_create_s": create_s,
+        "telemetry_open_s": scrt.phase_report.get("telemetry/open"),
+        "hbm_peak_gauge": gauge, "max_memory_allocated": peak,
+        "schema_errors": errors, "compile": [
+            {k: e.get(k) for k in ("label", "cache", "compile_seconds",
+                                   "deserialize_seconds")}
+            for e in events if e["event"] == "compile"]}
 
 
 def rescue_record(scrt, tag) -> dict:
@@ -1525,9 +1654,12 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
     ``torch.cuda.set_sync_debug_mode("error")``: any operation that
     waits on the card inside a chunk (a ``.item()``, a host-to-device
     copy from a Python number, a NumPy conversion) raises there.  The
-    chunk's one read follows outside the guard."""
+    chunk's one read follows outside the guard.  A run-log session is
+    open and current around the fit, and the log must hold nothing but
+    its run_start and run_end: no event is emitted inside a fit."""
     import torch
     from scdna_replication_tools_tpu_torch.infer import svi
+    from scdna_replication_tools_tpu_torch.obs import runlog
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
     from scdna_replication_tools_tpu_torch.obs.controller import (
         ControllerPolicy,
@@ -1548,26 +1680,35 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
         guarded.append((a[3], a[4]))
         return out
     svi._launch_chunk = launch
-    err, fit = None, None
+    log_path = REPO / "chiprun_out" / "sync_chunk.jsonl"
+    log = runlog.RunLog(str(log_path))
+    err, fit, current = None, None, False
     try:
-        fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
-                          (step.fixed, step.batch), max_iter=every,
-                          min_iter=5, device=dev,
-                          moment_dtype=cfg.optimizer_state_dtype,
-                          diag_every=every,
-                          controller=ControllerPolicy.from_config(cfg,
-                                                                  every))
+        with log.session(config=cfg, device=dev):
+            current = runlog.current() is log
+            fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
+                              (step.fixed, step.batch), max_iter=every,
+                              min_iter=5, device=dev,
+                              moment_dtype=cfg.optimizer_state_dtype,
+                              diag_every=every,
+                              controller=ControllerPolicy.from_config(
+                                  cfg, every))
     except RuntimeError as exc:
         err = f"{type(exc).__name__}: {str(exc)[:300]}"
     finally:
         svi._launch_chunk = orig
-    ok = err is None and guarded[:1] == [(0, every)]
+    logged = [json.loads(line)["event"]
+              for line in log_path.read_text().splitlines()] \
+        if log_path.exists() else []
+    ok = err is None and guarded[:1] == [(0, every)] and current \
+        and logged == ["run_start", "run_end"]
     check(ok, f"[sync] step-2 chunks of up to {every} iterations "
-          f"({CELLS}x{LOCI}) under set_sync_debug_mode('error'): "
+          f"({CELLS}x{LOCI}) under set_sync_debug_mode('error'), a run-log "
+          f"session open and current ({current}): "
           f"{'no synchronizing operation' if err is None else err}; "
-          f"chunks {guarded}")
+          f"chunks {guarded}; the session's log holds {logged}")
     record["sync_free_chunk"] = {"ok": ok, "error": err,
-                                 "chunks": guarded}
+                                 "chunks": guarded, "log": logged}
 
 
 # ---------------------------------------------------------------------------
@@ -1712,7 +1853,8 @@ def main() -> int:
           f"{CLONES} clones ({sum(len(f) for f in frames)} long-form rows) "
           f"in {time.perf_counter() - t0:.1f} s; depth cut: "
           f"max_iter={MAX_ITER} (steps 1 and 3: {MAX_ITER // 2}), "
-          "min_iter=100")
+          "min_iter=100, except the default path (its default budgets, "
+          "2000 and 1000, under the controller)")
     by_path: dict = {}
     by_path["categorical"], scrt = main_path(dev, record, frames,
                                              "categorical")

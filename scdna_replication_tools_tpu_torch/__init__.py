@@ -5,7 +5,8 @@ names its reference module there.  It imports ``torch`` and never
 ``jax``, nor anything of the JAX package.  The three-step PERT fit runs
 through ``scRT(...).infer(level='pert')`` on a CUDA device, with the
 fused enumeration kernels and the fused Adam update written in CUDA C++
-for Hopper (``csrc/``, built with ``nvcc`` at first use).
+for Hopper (``csrc/``, built with ``nvcc`` at first use), and each run
+writes the JAX package's schema-v9 JSONL run log (``obs/runlog.py``).
 
 Entry points (:class:`scRT`, :class:`PertInference`, :func:`fit_map`)
 run on ``cuda`` unless the caller passes ``device='cpu'``; with no

@@ -5,20 +5,19 @@ infer_scRT.py:25-105), plus ``device``.  ``infer(level='pert')`` runs the
 three-step fit on the GPU (or on ``device='cpu'``) and returns the same
 four DataFrames.
 
-The adaptive controller, the model-health QC (``cell_qc()``) and the
-controller-gated mirror rescue run as in the JAX package, at its
-defaults.  The run log (``telemetry_path``, on by default in the JAX
-package) is not ported yet: a caller who leaves it on, or any other JAX
-option the port lacks, gets ``NotImplementedError`` naming its ROADMAP
-item; the port never runs something else in its place.  The call that
-runs is therefore ``scRT(cn_s, cn_g1, telemetry_path=None)``.  Decisions
-of the controller go to ``run_log`` (any object with ``emit(event,
-**payload)``; by default a sink that drops them).
+The adaptive controller, the model-health QC (``cell_qc()``), the
+controller-gated mirror rescue and the run log run as in the JAX
+package, at its defaults, so ``scRT(cn_s, cn_g1)`` with no option given
+runs.  The run log (``telemetry_path``, 'auto' = one schema-v9 JSONL per
+run under the repository's ``.pert_runs/``; the written path is
+``scRT.run_log_path``) renders with ``tools/pert_report.py``; the run's
+metrics registry is ``scRT.metrics_registry`` (``metrics_textfile``
+adds its Prometheus textfile).  A caller who sets a JAX option the port
+lacks gets ``NotImplementedError`` naming its ROADMAP item; the port
+never runs something else in its place.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -31,25 +30,25 @@ from scdna_replication_tools_tpu_torch.infer.runner import (
     package_step_output,
 )
 from scdna_replication_tools_tpu_torch.models.pert import constrained
+from scdna_replication_tools_tpu_torch.obs import heartbeat as heartbeat_mod
+from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
+from scdna_replication_tools_tpu_torch.obs.runlog import RunLog
 from scdna_replication_tools_tpu_torch.pipeline.assign import assign_s_to_clones
 from scdna_replication_tools_tpu_torch.pipeline.consensus import (
     compute_consensus_clone_profiles,
 )
-
-_OFF = (None, "none", "off")
+from scdna_replication_tools_tpu_torch.utils.profiling import PhaseTimer
 
 
 def _unported(options: dict) -> None:
     """Raise for the first JAX option left on that the port lacks."""
     checks = [
-        ("telemetry_path", options["telemetry_path"] not in _OFF,
-         "A11a (the run log)"),
-        ("metrics_textfile", options["metrics_textfile"] is not None,
-         "A11 (observability: the metrics registry)"),
         ("trace_spans", options["trace_spans"],
          "A11 (observability: span tracing)"),
-        ("heartbeat_dir", options["heartbeat_dir"] not in _OFF + ("auto",),
-         "A11 (observability: run-health heartbeats)"),
+        ("heartbeat_dir",
+         heartbeat_mod.resolve_dir(options["heartbeat_dir"],
+                                   options["checkpoint_dir"]) is not None,
+         "A8 (durable runs: the run-health heartbeat writer)"),
         ("checkpoint_dir", options["checkpoint_dir"] is not None,
          "A8 (durable runs)"),
         ("faults", options["faults"] is not None, "A8 (durable runs)"),
@@ -73,9 +72,8 @@ def _unported(options: dict) -> None:
         if on:
             raise NotImplementedError(
                 f"scRT option {name}={options[name]!r} is not ported to the "
-                f"PyTorch package yet (ROADMAP {item}); pass "
-                "telemetry_path=None (and the defaults of the other "
-                "options) or use scdna_replication_tools_tpu")
+                f"PyTorch package yet (ROADMAP {item}); leave it at its "
+                "default or use scdna_replication_tools_tpu")
     if options["fused_adam"] != "auto":
         raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
                          "has one Adam path, 'auto' (the CUDA kernel on the "
@@ -86,8 +84,7 @@ class scRT:
     """Single-cell replication-timing inference facade.
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
-    where the fit runs (None = the GPU, raising when there is none) and
-    ``run_log`` receives the controller's ``control_decision`` events.
+    where the fit runs (None = the GPU, raising when there is none).
     ``backend``, ``cuda``, ``resume``, ``checkpoint_every``,
     ``elastic_mesh``, ``request_id``, ``slab_width``, ``trace_parent``,
     ``compile_cache_dir``, ``heartbeat_interval_seconds`` and
@@ -127,9 +124,8 @@ class scRT:
                  qc_ppc_replicates=8, qc_ppc_z=5.0,
                  controller=True, controller_max_extra_iters=None,
                  clustering_method='kmeans', clustering_kwargs=None,
-                 device=None, run_log=None):
+                 device=None):
         _unported(dict(
-            telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
             trace_spans=trace_spans,
             heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
             faults=faults, watchdog_compile_seconds=watchdog_compile_seconds,
@@ -167,8 +163,8 @@ class scRT:
             qc_ppc_replicates=qc_ppc_replicates, qc_ppc_z=qc_ppc_z,
             controller=controller,
             controller_max_extra_iters=controller_max_extra_iters,
+            telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
         )
-        self.run_log = run_log
         self.clone_profiles = None
         # {candidates, accepted[, capped_to]} of the last mirror rescue
         # (None unless it ran)
@@ -176,8 +172,13 @@ class scRT:
         # the last mirror rescue's sub-fit, ``infer.runner.RescueFit``
         # (re-fitted cells and their FitResult; None unless it ran)
         self.mirror_rescue_fit = None
-        # {stage: wall seconds} of the last infer(level='pert')
+        # {stage: wall seconds} of the last infer(level='pert'), with
+        # "total_accounted"
         self.phase_report = None
+        # the last run's metrics registry and the path its run log was
+        # written to (None with telemetry off)
+        self.metrics_registry = None
+        self.run_log_path = None
         # the per-cell model-health table of the last run (qc=True)
         self._cell_qc_df = None
 
@@ -207,63 +208,83 @@ class scRT:
     def infer_pert_model(self):
         """The three-step fit (reference: infer_scRT.py:127-168): returns
         (cn_s_out, supp_s_out, cn_g1_out, supp_g1_out); the G1 pair is
-        None when ``run_step3=False``."""
+        None when ``run_step3=False``.
+
+        The facade owns the telemetry, as in the JAX package: the metrics
+        registry is installed before the run-log session opens (so the
+        early phases and ``run_start`` count), both ride the facade's
+        PhaseTimer, and the session around clone_prep .. package
+        guarantees ``run_end``, even on an exception."""
         c = self.cols
-        phases = {}
-        t0 = time.perf_counter()
-        self._ensure_clones(c.assign_col)
-        phases["clone_prep"] = time.perf_counter() - t0
+        timer = PhaseTimer()
+        with timer.phase("telemetry/create"):
+            registry = metrics_mod.MetricsRegistry.create(
+                textfile_path=self.config.metrics_textfile)
+            metrics_mod.install(registry)
+            metrics_mod.attach_phase_sink(timer, registry=registry)
+            heartbeat_mod.attach_phase_sink(timer)
+            self.metrics_registry = registry
+            run_log = RunLog.create(self.config.telemetry_path)
+        run_log.metrics_registry = registry
+        self.run_log_path = run_log.path
+        with run_log.session(config=self.config, timer=timer,
+                             device=self.device):
+            with timer.phase("clone_prep"):
+                self._ensure_clones(c.assign_col)
 
-        t0 = time.perf_counter()
-        s_data, g1_data = build_pert_inputs(self.cn_s, self.cn_g1, c)
-        clone_ids = sorted(self.cn_g1[self.clone_col].astype(str).unique())
-        clone_map = {cid: i for i, cid in enumerate(clone_ids)}
+            with timer.phase("load"):
+                s_data, g1_data = build_pert_inputs(self.cn_s, self.cn_g1, c)
+                clone_ids = sorted(
+                    self.cn_g1[self.clone_col].astype(str).unique())
+                clone_map = {cid: i for i, cid in enumerate(clone_ids)}
 
-        def _clone_idx(cn, cell_ids):
-            per_cell = cn[[c.cell_col, self.clone_col]] \
-                .drop_duplicates(c.cell_col) \
-                .set_index(c.cell_col)[self.clone_col]
-            return np.array([clone_map[str(per_cell[cid])]
-                             for cid in cell_ids], np.int32)
+                def _clone_idx(cn, cell_ids):
+                    per_cell = cn[[c.cell_col, self.clone_col]] \
+                        .drop_duplicates(c.cell_col) \
+                        .set_index(c.cell_col)[self.clone_col]
+                    return np.array([clone_map[str(per_cell[cid])]
+                                     for cid in cell_ids], np.int32)
 
-        inference = PertInference(
-            s_data, g1_data, self.config,
-            clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
-            clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
-            num_clones=len(clone_ids), device=self.device,
-            run_log=self.run_log)
-        phases["load"] = time.perf_counter() - t0
-        step1, step2, step3 = inference.run()
-        phases.update(inference.phases)
-        self.mirror_rescue_stats = inference.mirror_rescue_stats
-        self.mirror_rescue_fit = inference.rescue_fit
+                inference = PertInference(
+                    s_data, g1_data, self.config,
+                    clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
+                    clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
+                    num_clones=len(clone_ids), device=self.device)
+            # the runner accumulates its phases into the same ledger
+            inference.phases = timer
+            step1, step2, step3 = inference.run()
+            self.mirror_rescue_stats = inference.mirror_rescue_stats
+            self.mirror_rescue_fit = inference.rescue_fit
 
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            lamb = float(constrained(step1.spec, step1.fit.params,
-                                     step1.fixed)["lamb"].reshape(-1)[0])
-        qc_collect = {} if self.config.qc else None
-        cn_s_out, supp_s_out = package_step_output(
-            self.cn_s, inference._step2_data, step2, lamb,
-            step1.fit.losses, step2.fit.losses, c,
-            mirror_rescue_stats=inference.mirror_rescue_stats,
-            qc_collect=qc_collect,
-            qc_entropy_thresh=self.config.qc_entropy_thresh)
-        phases["package"] = time.perf_counter() - t0
-        if qc_collect is not None:
-            self._cell_qc_df = inference.build_cell_qc(
-                step2, inference._step2_data, qc_collect)
-            phases["qc/ppc"] = inference.phases["qc/ppc"]
-        t0 = time.perf_counter()
-        if step3 is not None:
-            cn_g1_out, supp_g1_out = package_step_output(
-                self.cn_g1, inference._step3_data, step3, lamb,
-                step1.fit.losses, step3.fit.losses, c)
-        else:
-            cn_g1_out, supp_g1_out = None, None
-        phases["package"] += time.perf_counter() - t0
-        self.phase_report = phases
+            with timer.phase("package"):
+                with torch.no_grad():
+                    lamb = float(constrained(step1.spec, step1.fit.params,
+                                             step1.fixed)["lamb"]
+                                 .reshape(-1)[0])
+                qc_collect = {} if self.config.qc else None
+                cn_s_out, supp_s_out = package_step_output(
+                    self.cn_s, inference._step2_data, step2, lamb,
+                    step1.fit.losses, step2.fit.losses, c,
+                    mirror_rescue_stats=inference.mirror_rescue_stats,
+                    qc_collect=qc_collect,
+                    qc_entropy_thresh=self.config.qc_entropy_thresh)
+            if qc_collect is not None:
+                self._cell_qc_df = inference.build_cell_qc(
+                    step2, inference._step2_data, qc_collect)
+            with timer.phase("package"):
+                if step3 is not None:
+                    cn_g1_out, supp_g1_out = package_step_output(
+                        self.cn_g1, inference._step3_data, step3, lamb,
+                        step1.fit.losses, step3.fit.losses, c)
+                else:
+                    cn_g1_out, supp_g1_out = None, None
+        self.phase_report = timer.report()
         self.steps = (step1, step2, step3)
+        # the textfile's final refresh (a telemetry-off run has no run_end
+        # snapshot); the registry then leaves the seam and stays readable
+        # as scRT.metrics_registry
+        registry.write_textfile()
+        metrics_mod.uninstall(registry)
         return cn_s_out, supp_s_out, cn_g1_out, supp_g1_out
 
     def cell_qc(self):

@@ -2,16 +2,24 @@
 
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
-rescue, the adaptive controller and the model-health QC read.  The JAX
-config's other knobs (telemetry, sharding, checkpoints, cell chunking)
-belong to modules not yet ported; ``api.scRT`` refuses them by name
-instead of carrying dead fields here.
+rescue, the adaptive controller, the model-health QC and the run log
+read.  The JAX config's other knobs (sharding, checkpoints, cell
+chunking, span tracing) belong to modules not yet ported; ``api.scRT``
+refuses them by name instead of carrying dead fields here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+# PertConfig fields left out of the run log's config hash
+# (obs.runlog._config_digest): pure observability, so two runs that
+# differ only in where their log and textfile land hash equal
+NON_HASH_FIELDS = (
+    "telemetry_path",       # where THIS run's RunLog lands
+    "metrics_textfile",     # where the Prometheus textfile lands
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +127,15 @@ class PertConfig:
     doctor_slope_tol: float = 1e-4
     doctor_var_tol: float = 1e-3
     doctor_grad_ratio: float = 0.1
+    # structured run log (obs/runlog.py): 'auto' writes one JSONL per
+    # run under the repository's .pert_runs/ (the newest 50 kept); a
+    # path names the file (or a directory, which gets a timestamped
+    # file); None/'none'/'off' disables.  tools/pert_report.py renders it
+    telemetry_path: Optional[str] = "auto"
+    # Prometheus text exposition of the run's metrics registry
+    # (obs/metrics.py), rewritten atomically at every phase-boundary
+    # snapshot; None disables the file (the registry runs either way)
+    metrics_textfile: Optional[str] = None
     # adaptive fit controller (obs/controller.py); inert when
     # min_iter >= max_iter or fit_diag_every == 0
     controller: bool = True

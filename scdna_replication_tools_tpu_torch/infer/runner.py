@@ -22,10 +22,22 @@ rescue: always, without an active controller, or when the controller's
 gate (``_gate_rescue``) finds a suspect candidate.  With ``qc`` the
 packaging decode also returns the posterior-entropy planes, and
 :meth:`PertInference.build_cell_qc` adds the posterior-predictive check
-and the per-cell QC table.  Decisions go to ``run_log`` as
-``control_decision`` events.  The JAX runner's checkpoints, telemetry
-files and sharding are not ported yet (``api.scRT`` refuses them by
-name).
+and the per-cell QC table.
+
+Telemetry as in the JAX runner: the stages accumulate into a
+``PhaseTimer`` (``self.phases``), and the run log receives
+``control_decision``, ``fit_end``, ``fit_health``, ``nan_abort``,
+``rescue``, ``cell_qc_summary`` and, at every step's end,
+``metrics_snapshot``, each built after the fit from what the fit
+returned (nothing is emitted, and the card is not read for the log,
+inside a fit chunk).  On the GPU each step's ``compile`` phase loads the
+kernel libraries before its fit and reports each as a ``compile``
+event (``miss``/``disk_hit`` when that step built or loaded it, else
+``hit``).  The runner writes into the log open on this thread
+(``obs.runlog.active()``: the facade's session); a runner driven
+directly opens its own from ``telemetry_path`` in :meth:`run`.  The JAX
+runner's checkpoints and sharding are not ported yet (``api.scRT``
+refuses them by name).
 """
 
 from __future__ import annotations
@@ -62,13 +74,18 @@ from scdna_replication_tools_tpu_torch.models.pert import (
     ppc_discrepancy,
     slice_cells,
 )
+from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
+from scdna_replication_tools_tpu_torch.obs import runlog as runlog_mod
 from scdna_replication_tools_tpu_torch.obs.controller import ControllerPolicy
+from scdna_replication_tools_tpu_torch.ops import _cuda
+from scdna_replication_tools_tpu_torch.ops.enum_kernel import planes_per_iter
 from scdna_replication_tools_tpu_torch.ops.gc import gc_features
 from scdna_replication_tools_tpu_torch.ops.stats import guess_times, pearson_matrix
 from scdna_replication_tools_tpu_torch.ops.transforms import (
     to_positive,
     to_unit_interval,
 )
+from scdna_replication_tools_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -92,14 +109,6 @@ def _pad_etas(etas: np.ndarray, target_cells: int,
         etas = np.concatenate(
             [etas, np.broadcast_to(pad_row, (pad,) + etas.shape[1:])], axis=0)
     return etas
-
-
-class NullRunLog:
-    """The default run log: drops every event, as JAX's ``RunLog(None)``
-    does.  Any object with ``emit(event, **payload)`` may stand in."""
-
-    def emit(self, event: str, **payload) -> None:
-        pass
 
 
 def _finite(value):
@@ -146,11 +155,13 @@ class PertInference:
                  config: PertConfig = PertConfig(),
                  clone_idx_s: Optional[np.ndarray] = None,
                  clone_idx_g1: Optional[np.ndarray] = None,
-                 num_clones: int = 0, device=None, run_log=None):
+                 num_clones: int = 0, device=None):
         self.device = resolve_device(device)
-        # sink of the control_decision events (JAX PertInference's
-        # run_log); the default drops them
-        self.run_log = run_log if run_log is not None else NullRunLog()
+        # the run log open on this thread and the installed metrics
+        # registry (the facade's), else disabled no-ops; run() puts this
+        # runner's own in their place when no facade opened them
+        self.run_log = runlog_mod.current()
+        self.metrics = metrics_mod.current()
         if config.rho_from_rt_prior and s_data.rt_prior is None:
             raise ValueError(
                 "rho_from_rt_prior=True but no RT-prior column was found "
@@ -163,8 +174,9 @@ class PertInference:
         self.clone_idx_g1 = clone_idx_g1
         self.num_clones = num_clones
         self.L = s_data.num_libraries
-        # wall seconds per stage (build, prior, fit) of the last run
-        self.phases: dict = {}
+        # wall seconds per stage (build, prior, fit, ...) of the last
+        # run; the facade hands in its own timer
+        self.phases = profiling.PhaseTimer()
         # {candidates, accepted[, capped_to]} of the last mirror rescue
         self.mirror_rescue_stats: Optional[dict] = None
         # the rescue's candidate, re-fitted (after the cap) and accepted
@@ -303,11 +315,30 @@ class PertInference:
     def _fit(self, spec, batch, fixed, t_init, max_iter, min_iter,
              step_name) -> StepOutput:
         cfg = self.config
-        t0 = time.perf_counter()
-        params0 = init_params(spec, batch, fixed, t_init=t_init)
+        # the device's memory high-water before the step's fit, so the
+        # step-end snapshot's change is the step's own
+        self.metrics.sample_device_memory()
+        with self.phases.phase(f"{step_name}/init"):
+            params0 = init_params(spec, batch, fixed, t_init=t_init)
+        if self.device.type == "cuda":
+            # build or load the kernel libraries before the fit, so the
+            # first chunk neither waits on nvcc nor emits an event; one
+            # compile event per library and step, as JAX's per program
+            with self.phases.phase(f"{step_name}/compile"):
+                for name in _cuda.SOURCES:
+                    self.run_log.emit("compile", **_cuda.load_event(name))
+        if not spec.step1:
+            # analytic (cells x loci) planes one iteration moves
+            self.metrics.gauge(
+                "pert_planes_moved_per_iter",
+                labels={"step": step_name}).set(planes_per_iter(
+                    spec.P, binary=spec.binary_pi,
+                    sparse_etas=spec.sparse_etas,
+                    moment_dtype=cfg.optimizer_state_dtype))
         controller = None
         if self._controller_active(min_iter, max_iter):
             controller = ControllerPolicy.from_config(cfg, max_iter)
+        t0 = time.perf_counter()
         fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
                       max_iter=max_iter, min_iter=min_iter,
                       rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
@@ -321,19 +352,76 @@ class PertInference:
                           grad_ratio=cfg.doctor_grad_ratio),
                       controller=controller)
         wall = time.perf_counter() - t0
-        self.phases[f"{step_name}/fit"] = fit.timings["fit"]
+        self.phases.add(f"{step_name}/fit", fit.timings["fit"])
+        num_cells = int(batch.reads.shape[0])
+        profiling.log_step_summary(step_name, fit, wall, num_cells)
+        self._emit_fit_events(step_name, fit, wall, num_cells)
+        with self.phases.phase(f"{step_name}/metrics"):
+            self.metrics.emit_snapshot(self.run_log, f"{step_name}/end")
+        return StepOutput(fit, spec, fixed, batch, wall)
+
+    def _emit_fit_events(self, step_name: str, fit: FitResult, wall: float,
+                         num_cells: int) -> None:
+        """The controller's decisions, ``fit_end``, ``fit_health`` (with
+        ``qc``) and, on a poisoned fit, ``nan_abort`` with the loss
+        tail, for one completed step fit (JAX ``_emit_fit_events``);
+        every value comes from the returned FitResult."""
         for decision in fit.decisions:
             self.run_log.emit("control_decision", step=step_name,
                               **decision)
-        return StepOutput(fit, spec, fixed, batch, wall)
+        iters = max(fit.num_iters, 1)
+        diag = None
+        if fit.diagnostics is not None and len(fit.diagnostics["iter"]):
+            # the ring keeps the last samples: a trailing window of the
+            # trajectory, whose bounds ride along
+            d = fit.diagnostics
+            diag = {
+                "every": int(d["every"]),
+                "samples": int(len(d["iter"])),
+                "window_start_iter": int(d["iter"][0]),
+                "window_end_iter": int(d["iter"][-1]),
+                "grad_norm_first": _finite(d["grad_norm"][0]),
+                "grad_norm_last": _finite(d["grad_norm"][-1]),
+                "grad_norm_max": _finite(np.max(d["grad_norm"])),
+                "param_norm_last": _finite(d["param_norm"][-1]),
+            }
+        self.run_log.emit(
+            "fit_end", step=step_name, iters=int(fit.num_iters),
+            resumed_from_iter=None,
+            final_loss=(float(fit.losses[-1])
+                        if len(fit.losses) and np.isfinite(fit.losses[-1])
+                        else None),
+            converged=bool(fit.converged), nan_abort=bool(fit.nan_abort),
+            wall_seconds=round(wall, 4),
+            iters_per_second=round(iters / max(wall, 1e-9), 2),
+            cells_per_second=round(num_cells * iters / max(wall, 1e-9), 1),
+            num_cells=num_cells, program_cache=None, diagnostics=diag)
+        if self.config.qc and fit.health is not None:
+            h = fit.health
+            self.run_log.emit(
+                "fit_health", step=step_name, verdict=h["verdict"],
+                reason=h["reason"],
+                drift=_finite(h["drift"]) if h["drift"] is not None
+                else None,
+                rel_var=_finite(h["rel_var"])
+                if h["rel_var"] is not None else None,
+                window=int(h.get("window", 0)),
+                grad_decay=_finite(h["grad_decay"])
+                if h["grad_decay"] is not None else None,
+                converged=bool(fit.converged),
+                nan_abort=bool(fit.nan_abort))
+        if fit.nan_abort:
+            tail = [_finite(v) for v in fit.losses[-20:]]
+            self.run_log.emit("nan_abort", step=step_name,
+                              iters=int(fit.num_iters), loss_tail=tail)
 
     def run_step1(self) -> StepOutput:
         iters = self.config.resolved_iters()
-        t0 = time.perf_counter()
-        batch, _ = self.g1_g2_doubled_batch()
-        spec = PertModelSpec(P=self.config.P, K=self.config.K, L=self.L,
-                             tau_mode="beta_default", step1=True)
-        self.phases["step1/build"] = time.perf_counter() - t0
+        with self.phases.phase("step1/build"):
+            batch, _ = self.g1_g2_doubled_batch()
+            spec = PertModelSpec(P=self.config.P, K=self.config.K,
+                                 L=self.L, tau_mode="beta_default",
+                                 step1=True)
         return self._fit(spec, batch, {}, None, iters["max_iter_step1"],
                          iters["min_iter_step1"], "step1")
 
@@ -361,7 +449,7 @@ class PertInference:
             step1=False, cond_beta_means=True, cond_rho=cond_rho,
             fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
             binary_pi=self.config.binary_pi)
-        self.phases["step2/build"] = time.perf_counter() - t0
+        self.phases.add("step2/build", time.perf_counter() - t0)
         out = self._fit(spec, batch, fixed, t_init, iters["max_iter"],
                         iters["min_iter"], "step2")
         self._step2_data = s
@@ -372,9 +460,8 @@ class PertInference:
                 if self._controller_active(iters["min_iter"],
                                            iters["max_iter"]) else True
             if run_rescue:
-                t0 = time.perf_counter()
-                out = self._mirror_rescue(out, batch)
-                self.phases["step2/rescue"] = time.perf_counter() - t0
+                with self.phases.phase("step2/rescue"):
+                    out = self._mirror_rescue(out, batch)
         else:
             # reference-faithful path: surface the symptom the rescue
             # exists for
@@ -433,13 +520,12 @@ class PertInference:
             if not run and not cfg.qc:
                 trigger["qc"] = "off"
             elif not run:
-                t0 = time.perf_counter()
-                with torch.no_grad():
+                with self.phases.phase("step2/rescue_gate"), \
+                        torch.no_grad():
                     _, frac_low, mean_rep = (
                         t.cpu().numpy() for t in cell_entropy_aggregates(
                             out.spec, out.fit.params, out.fixed, batch,
                             entropy_thresh=cfg.qc_entropy_thresh))
-                self.phases["step2/rescue_gate"] = time.perf_counter() - t0
                 high_ent = frac_low[cand] > cfg.qc_frac_thresh
                 run = bool(high_ent.any())
                 trigger.update(
@@ -464,6 +550,7 @@ class PertInference:
                                         "accepted": 0}
             self._rescue_cells = {"candidates": cand.copy(),
                                   "accepted": np.zeros(0, cand.dtype)}
+            self._emit_rescue_event()
             logger.info("mirror rescue skipped by the controller: %d "
                         "boundary-tau candidate(s), none extreme or "
                         "high-entropy", cand.size)
@@ -494,6 +581,7 @@ class PertInference:
         self._rescue_cells = {"candidates": cand.copy(),
                               "accepted": np.zeros(0, cand.dtype)}
         if cand.size == 0:
+            self._emit_rescue_event()
             return out
         if cand.size > cfg.mirror_max_cells:
             # the most boundary-extreme first (mirrored cells sit at tau
@@ -547,11 +635,13 @@ class PertInference:
         with torch.no_grad():
             obj_orig = per_cell_objective(spec, orig_sub, fixed, sub_batch)
             obj_new = per_cell_objective(spec, rescued, fixed, sub_batch)
+            tau_new = to_unit_interval(fit.params["tau_raw"]).cpu().numpy()
         accept = (obj_new > obj_orig).cpu().numpy()
         self.mirror_rescue_stats["accepted"] = int(accept.sum())
         logger.info("mirror rescue: %d boundary-tau candidates, %d accepted "
                     "(per-cell log-joint improved)", cand.size,
                     int(accept.sum()))
+        self._emit_rescue_event((tau_new - tau[cand])[accept])
         if not accept.any():
             return out
 
@@ -567,6 +657,22 @@ class PertInference:
             1, dst, rescued[pi_key].index_select(1, src))
         new_fit = dataclasses.replace(out.fit, params=new_params)
         return dataclasses.replace(out, fit=new_fit)
+
+    def _emit_rescue_event(self, tau_deltas=None) -> None:
+        """``rescue`` event from ``mirror_rescue_stats`` and the accepted
+        cells' tau changes (the first 64)."""
+        stats = self.mirror_rescue_stats or {}
+        deltas = (np.asarray(tau_deltas, np.float64)
+                  if tau_deltas is not None else np.zeros(0))
+        self.run_log.emit(
+            "rescue", step="step2",
+            candidates=int(stats.get("candidates", 0)),
+            accepted=int(stats.get("accepted", 0)),
+            capped_to=stats.get("capped_to"),
+            tau_deltas=[_finite(round(float(d), 4)) for d in deltas[:64]],
+            tau_mean_abs_delta=(
+                _finite(round(float(np.mean(np.abs(deltas))), 4))
+                if deltas.size else None))
 
     def run_step3(self, step1: StepOutput, step2: StepOutput) -> StepOutput:
         iters = self.config.resolved_iters()
@@ -588,7 +694,7 @@ class PertInference:
             step1=False, cond_beta_means=True, cond_rho=True, cond_a=True,
             fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
             binary_pi=self.config.binary_pi)
-        self.phases["step3/build"] = time.perf_counter() - t0
+        self.phases.add("step3/build", time.perf_counter() - t0)
         out = self._fit(spec, batch, fixed, t_init2,
                         iters["max_iter_step3"], iters["min_iter_step3"],
                         "step3")
@@ -608,13 +714,21 @@ class PertInference:
         n = int(np.sum(data.cell_mask)) if data.cell_mask is not None \
             else data.num_cells
         cell_ids = list(data.cell_ids)[:n]
-        t0 = time.perf_counter()
-        ppc_dev, ppc_z = (t.cpu().numpy()[:n] for t in ppc_discrepancy(
-            out.spec, out.fit.params, out.fixed, out.batch, seed=cfg.seed,
-            num_replicates=cfg.qc_ppc_replicates,
-            maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
-        self.phases["qc/ppc"] = time.perf_counter() - t0
+        with self.phases.phase("qc/ppc"):
+            ppc_dev, ppc_z = (t.cpu().numpy()[:n] for t in ppc_discrepancy(
+                out.spec, out.fit.params, out.fixed, out.batch,
+                seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
+                maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+        with self.phases.phase("qc/package"):
+            return self._cell_qc_table(cell_ids, ppc_dev, ppc_z, qc_stats)
 
+    def _cell_qc_table(self, cell_ids, ppc_dev, ppc_z,
+                       qc_stats: dict) -> pd.DataFrame:
+        """The QC table of :meth:`build_cell_qc` and its
+        ``cell_qc_summary`` event (the flagged cells, the first 64, most
+        suspect first)."""
+        cfg = self.config
+        n = len(cell_ids)
         tau = np.asarray(qc_stats["tau"])[:n]
         mean_ent = np.asarray(qc_stats["mean_cn_entropy"])[:n]
         max_ent = np.asarray(qc_stats["max_cn_entropy"])[:n]
@@ -642,6 +756,39 @@ class PertInference:
         for name, arr in flag_arrays.items():
             sep = np.where(flags == "", "", ",")
             flags = np.where(arr, flags + sep + name, flags)
+        flagged = flags != ""
+        order = np.argsort(-(np.nan_to_num(ppc_z, nan=np.inf, posinf=np.inf)
+                             + np.nan_to_num(frac_low, nan=1.0)))
+        worst = order[flagged[order]][:64]
+        self.run_log.emit(
+            "cell_qc_summary", step="step2",
+            num_cells=int(n), num_flagged=int(flagged.sum()),
+            flag_counts={k: int(v.sum())
+                         for k, v in flag_arrays.items() if v.any()},
+            thresholds={
+                "entropy_thresh": float(cfg.qc_entropy_thresh),
+                "frac_thresh": float(cfg.qc_frac_thresh),
+                "ppc_z": float(cfg.qc_ppc_z),
+                "ppc_replicates": int(cfg.qc_ppc_replicates),
+            },
+            entropy_hist=[int(v) for v in np.histogram(
+                mean_ent[np.isfinite(mean_ent)], bins=10,
+                range=(0.0, 1.0))[0]],
+            mean_cn_entropy_mean=_finite(np.nanmean(mean_ent))
+            if n else None,
+            ppc_z_max=_finite(np.nanmax(ppc_z))
+            if n and np.isfinite(ppc_z).any() else None,
+            flagged_cells=[{
+                "cell_id": str(cell_ids[i]),
+                "reasons": flags[i].split(","),
+                "tau": _finite(tau[i]),
+                "frac_low_conf": _finite(frac_low[i]),
+                "ppc_z": _finite(ppc_z[i]),
+            } for i in worst])
+        logger.info("cell QC: %d/%d cells flagged (%s)", int(flagged.sum()),
+                    n, ", ".join(f"{k}={int(v.sum())}"
+                                 for k, v in flag_arrays.items() if v.any())
+                    or "all clean")
         return pd.DataFrame({
             "cell_id": cell_ids,
             "model_tau": tau,
@@ -654,18 +801,42 @@ class PertInference:
             "rescue_candidate": rescue_cand,
             "rescue_accepted": rescue_acc,
             "qc_flags": flags,
-            "qc_pass": flags == "",
+            "qc_pass": ~flagged,
         })
 
     def run(self):
-        """Run steps 1-3; returns (step1, step2, step3-or-None)."""
-        step1 = self.run_step1()
-        t0 = time.perf_counter()
-        etas = self.build_etas()
-        self.phases["step2/prior"] = time.perf_counter() - t0
-        step2 = self.run_step2(step1, etas)
-        step3 = self.run_step3(step1, step2) if self.config.run_step3 \
-            else None
+        """Run steps 1-3; returns (step1, step2, step3-or-None).
+
+        Under the facade this writes into its open session and
+        installed registry.  A runner driven directly creates its own
+        run log from ``telemetry_path`` and its own registry here,
+        installs the registry for the run and retires it after."""
+        self.run_log = runlog_mod.active() \
+            or runlog_mod.RunLog.create(self.config.telemetry_path)
+        registry = metrics_mod.current()
+        owns_metrics = not registry.enabled
+        self.metrics = metrics_mod.MetricsRegistry.create(
+            textfile_path=self.config.metrics_textfile) \
+            if owns_metrics else registry
+        self.run_log.metrics_registry = self.metrics
+        metrics_mod.attach_phase_sink(self.phases, registry=self.metrics)
+        if owns_metrics:
+            metrics_mod.install(self.metrics)
+        try:
+            # re-entrant: under the facade's open log this is a
+            # pass-through and the facade's run_end closes the file
+            with self.run_log.session(config=self.config, timer=self.phases,
+                                      device=self.device):
+                step1 = self.run_step1()
+                with self.phases.phase("step2/prior"):
+                    etas = self.build_etas()
+                step2 = self.run_step2(step1, etas)
+                step3 = self.run_step3(step1, step2) \
+                    if self.config.run_step3 else None
+            self.metrics.write_textfile()
+        finally:
+            if owns_metrics:
+                metrics_mod.uninstall(self.metrics)
         return step1, step2, step3
 
 

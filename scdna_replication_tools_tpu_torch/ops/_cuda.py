@@ -12,6 +12,12 @@ starts one ``nvcc`` per source, all at once.
 backward's per store path): each wrapper adds one where it launches its
 kernel and nowhere else, so a run can show that its main path went
 through the kernels.
+
+A library's build or load is the port's counterpart of the JAX
+package's program compile: :func:`load_event` loads a library and
+describes that as a ``compile`` event (``cache: "miss"`` with the nvcc
+seconds, ``"disk_hit"`` with the load seconds of a library built
+before, or ``"hit"`` when the process had it loaded already).
 """
 
 from __future__ import annotations
@@ -78,7 +84,9 @@ LAUNCHES: Dict[str, int] = {
     "adam_bf16": 0,
 }
 
-# name -> {"seconds", "path", "log"} of the last build (or cache hit)
+# name -> {"seconds", "path", "log", "key_hash", "cache"} of the last
+# build ("miss") or of a library found built ("disk_hit"), and
+# "load_seconds" once the library is loaded
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -106,6 +114,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _key_hash(lib: Path) -> str:
+    """The build's hash (of source and flags), from the library's name."""
+    return lib.stem.rsplit("-", 1)[1]
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named sources (default: all) in parallel, one ``nvcc``
     each; sources whose library is already built are skipped.  Returns
@@ -121,7 +134,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                 log = out.with_suffix(".log")
                 BUILD_INFO[name] = {
                     "seconds": 0.0, "path": str(out),
-                    "log": log.read_text() if log.exists() else "cached"}
+                    "log": log.read_text() if log.exists() else "cached",
+                    "key_hash": _key_hash(out), "cache": "disk_hit"}
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -139,7 +153,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                                "path": str(out), "log": log}
+                                "path": str(out), "log": log,
+                                "key_hash": _key_hash(out), "cache": "miss"}
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
@@ -159,14 +174,37 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         if name not in BUILD_INFO:
             build([name])
-        lib = ctypes.CDLL(BUILD_INFO[name]["path"])
+        info = BUILD_INFO[name]
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(info["path"])
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.scrt_error_string.argtypes = [ctypes.c_int]
         lib.scrt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
+        info["load_seconds"] = time.perf_counter() - t0
     return lib
+
+
+def load_event(name: str) -> dict:
+    """Load library ``name`` (built on first use) and return the payload
+    of its ``compile`` event: ``miss`` with the nvcc seconds or
+    ``disk_hit`` with the load seconds when this call loaded it, ``hit``
+    when it was loaded already."""
+    loaded = name in _LIBS
+    library(name)
+    info = BUILD_INFO[name]
+    event = {"key_hash": info["key_hash"], "label": SOURCES[name],
+             "tag": "kernel_library"}
+    if loaded:
+        event.update(cache="hit", compile_seconds=0.0)
+    elif info["cache"] == "miss":
+        event.update(cache="miss", compile_seconds=round(info["seconds"], 4))
+    else:
+        event.update(cache="disk_hit",
+                     deserialize_seconds=round(info["load_seconds"], 6))
+    return event
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

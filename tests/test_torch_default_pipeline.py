@@ -1,74 +1,56 @@
 """The port's default configuration as a whole against the JAX package:
-``scRT(cn_s, cn_g1, telemetry_path=None)`` with every other option at
-its default -- the adaptive controller, the model-health QC and the
-controller-gated mirror rescue -- on the simulator frames of
-tests/test_torch_pipeline.py.  The port runs on the CPU through the
-plain versions of its kernels; both sides record their
-``control_decision`` events through a run log.
+``scRT(cn_s, cn_g1)`` with every option at its default -- the adaptive
+controller, the model-health QC, the controller-gated mirror rescue and
+the run log -- on the simulator frames of tests/test_torch_pipeline.py.
+The port runs on the CPU through the plain versions of its kernels; the
+``control_decision`` and ``fit_health`` events are read from the run
+log each side wrote (to a file under the test's temporary directory).
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import pytest
 
 from scdna_replication_tools_tpu.api import scRT as JaxScRT
-from scdna_replication_tools_tpu.obs.runlog import RunLog
 from scdna_replication_tools_tpu_torch import scRT as TorchScRT
 
 from test_torch_model import one_torch_thread  # noqa: F401
 from test_torch_pipeline import _merged, sim_data  # noqa: F401
 
 DEFAULTS = dict(input_col="reads", clone_col="clone_id", assign_col="copy",
-                max_iter=300, min_iter=100, rt_prior_col=None,
-                telemetry_path=None)
+                max_iter=300, min_iter=100, rt_prior_col=None)
 
 
-class _Recorder:
-    """A run log that keeps every event it is given."""
-
-    def __init__(self):
-        self.events = []
-
-    def emit(self, event, **payload):
-        self.events.append((event, payload))
-
-    def decisions(self):
-        return [dict(p) for e, p in self.events if e == "control_decision"]
+def _logged(scrt):
+    """(event, payload) of every line of the run's log."""
+    out = []
+    for line in Path(scrt.run_log_path).read_text().splitlines():
+        payload = json.loads(line)
+        out.append((payload.pop("event"), payload))
+    return out
 
 
-class _JaxRecorder(RunLog):
-    """The JAX package's RunLog, disabled, that also keeps every event."""
-
-    def __init__(self):
-        super().__init__(None)
-        self.events = []
-
-    def emit(self, event, **payload):
-        self.events.append((event, payload))
-        super().emit(event, **payload)
+def _decisions(events):
+    return [dict(p) for e, p in events if e == "control_decision"]
 
 
 @pytest.fixture(scope="module")
-def outputs(sim_data):  # noqa: F811
+def outputs(sim_data, tmp_path_factory):  # noqa: F811
     sim_s, sim_g = sim_data
-    jlog = _JaxRecorder()
-    mp = pytest.MonkeyPatch()
-    # the facade builds its own log from telemetry_path; hand it the
-    # recorder instead
-    mp.setattr(RunLog, "create", classmethod(lambda cls, *a, **k: jlog))
-    try:
-        jscrt = JaxScRT(sim_s.copy(), sim_g.copy(), compile_cache_dir=None,
-                        **DEFAULTS)
-        jax_out = jscrt.infer(level="pert")
-    finally:
-        mp.undo()
-    tlog = _Recorder()
+    root = tmp_path_factory.mktemp("default")
+    jscrt = JaxScRT(sim_s.copy(), sim_g.copy(), compile_cache_dir=None,
+                    telemetry_path=str(root / "jax.jsonl"), **DEFAULTS)
+    jax_out = jscrt.infer(level="pert")
     tscrt = TorchScRT(sim_s.copy(), sim_g.copy(), device="cpu",
-                      run_log=tlog, **DEFAULTS)
+                      telemetry_path=str(root / "port.jsonl"), **DEFAULTS)
     torch_out = tscrt.infer(level="pert")
-    jdec = [dict(p) for e, p in jlog.events if e == "control_decision"]
-    return dict(jax=(jscrt, jax_out, jdec), jax_events=jlog.events,
-                torch=(tscrt, torch_out, tlog.decisions()))
+    jevents, tevents = _logged(jscrt), _logged(tscrt)
+    return dict(jax=(jscrt, jax_out, _decisions(jevents)),
+                jax_events=jevents,
+                torch=(tscrt, torch_out, _decisions(tevents)))
 
 
 def test_default_config_runs_in_the_port(outputs):
@@ -116,7 +98,7 @@ def _decision_key(d):
 
 def test_decision_lists_agree_with_jax(outputs):
     """The same decisions per step -- action, iteration, budget, grant --
-    recorded through each side's run log, in the same order."""
+    read from each side's run log, in the same order."""
     jdec = outputs["jax"][2]
     tdec = outputs["torch"][2]
     assert [_decision_key(d) for d in tdec] \

@@ -49,6 +49,8 @@ tests cover both store paths and assert the launch key that counted each
 call; the C entry refuses a dlog_pi that is not 16-B aligned.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -483,3 +485,33 @@ def test_chunk_stops_launching_once_the_card_reports_the_stop(dev):
     assert cpu.timings["dispatched"] == 25
     assert gpu.num_iters <= gpu.timings["dispatched"] < 25
     np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-6)
+
+
+def test_library_loads_become_compile_events(dev, tmp_path):
+    """Each kernel library a step loads is a ``compile`` event (its
+    source, the build's hash, ``miss`` with the nvcc seconds or
+    ``disk_hit`` with the load seconds when that call loaded it, ``hit``
+    after), valid under the port's schema."""
+    from scdna_replication_tools_tpu_torch.obs import runlog, schema
+
+    path = tmp_path / "compile.jsonl"
+    log = runlog.RunLog(str(path))
+    with log.session(device=dev):
+        for _ in range(2):
+            for name in _cuda.SOURCES:
+                log.emit("compile", **_cuda.load_event(name))
+    assert schema.validate_run(path) == []
+    events = [json.loads(line) for line in path.read_text().splitlines()]
+    compiled = [e for e in events if e["event"] == "compile"]
+    assert [e["label"] for e in compiled] \
+        == list(_cuda.SOURCES.values()) * 2
+    for e in compiled:
+        assert e["key_hash"] in _cuda.BUILD_INFO[
+            next(k for k, v in _cuda.SOURCES.items()
+                 if v == e["label"])]["path"]
+    for e in compiled[len(_cuda.SOURCES):]:
+        assert e["cache"] == "hit"
+    for e in compiled[:len(_cuda.SOURCES)]:
+        if e["cache"] != "hit":
+            assert ("compile_seconds" if e["cache"] == "miss"
+                    else "deserialize_seconds") in e

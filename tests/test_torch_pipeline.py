@@ -100,8 +100,8 @@ def test_port_recovers_simulated_truth(outputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(metrics_textfile="m.prom"), dict(faults="oom@step2/fit"),
-    dict(telemetry_path="auto"),
+    dict(heartbeat_dir="hb"), dict(faults="oom@step2/fit"),
+    dict(watchdog_chunk_seconds=5.0),
     dict(trace_spans=True), dict(executable_cache_dir="ec"),
     dict(cell_chunk=8), dict(num_shards=2), dict(checkpoint_dir="ck"),
     dict(cn_hmm_self_prob=0.9)])
@@ -127,15 +127,25 @@ def test_backend_specific_values_raise(sim_data, option):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
 
 
+# the observability modules, among the modules the check walks
+OBS_MODULES = ("obs.schema", "obs.metrics", "obs.heartbeat", "obs.runlog",
+               "utils.fileio", "utils.profiling")
+
+
 def test_port_imports_without_jax():
-    """Importing the port (every module) and chip_smoke.py pulls in no
-    JAX, and no import statement of chip_smoke.py (its functions import
-    lazily) names JAX or the JAX package."""
+    """Importing the port (every module, the run log's obs/ and utils/
+    modules among them) and chip_smoke.py pulls in no JAX, and no import
+    statement of chip_smoke.py (its functions import lazily) names JAX
+    or the JAX package."""
     code = (
         "import ast, sys, importlib, pkgutil\n"
         "import scdna_replication_tools_tpu_torch as p\n"
+        "walked = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    walked.add(m.name[len(p.__name__) + 1:])\n"
+        f"missing = set({OBS_MODULES!r}) - walked\n"
+        "assert not missing, missing\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('scdna_replication_tools_tpu.')"

@@ -6,6 +6,7 @@ rescue gate in each of its four branches.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from scdna_replication_tools_tpu_torch import weights
 from scdna_replication_tools_tpu_torch.config import PertConfig
 from scdna_replication_tools_tpu_torch.infer.runner import PertInference
 from scdna_replication_tools_tpu_torch.models import pert as tpert
+from scdna_replication_tools_tpu_torch.obs.runlog import RunLog as PortRunLog
 from scdna_replication_tools_tpu_torch.ops.dists import (
     nb_sample,
     seeded_generator,
@@ -222,8 +224,7 @@ def test_nb_sampler_mean_and_variance(delta, lamb):
 # ---------------------------------------------------------------------------
 
 class _Recorder(RunLog):
-    """A disabled JAX RunLog that also keeps every event (the port takes
-    the same object: anything with emit)."""
+    """A disabled JAX RunLog that also keeps every event."""
 
     def __init__(self):
         super().__init__(None)
@@ -244,13 +245,14 @@ GATE = {
 
 
 @pytest.mark.parametrize("case", sorted(GATE))
-def test_rescue_gate_matches_jax(synthetic_frames, case):
+def test_rescue_gate_matches_jax(synthetic_frames, case, tmp_path):
     """_gate_rescue on the same step-2 state (two boundary-tau cells,
     every other cell at 0.5): the same action and trigger as JAX's --
     the extreme-tau test gates an extreme candidate in; otherwise, with
     qc, the entropy signal decides (a threshold of 0 marks every bin
     low-confidence, one of 0.9999 none); without qc the gate skips on the
-    extreme-tau test alone.  Counts exactly, signals within 1e-4."""
+    extreme-tau test alone.  Counts exactly, signals within 1e-4.  The
+    port's events are read from the run log open around its runner."""
     taus, overrides, action = GATE[case]
     s, g1, clone_idx = dense_inputs_from_frames(synthetic_frames)
     inp, jspec, tspec, jbatch, tbatch, jfixed, params, _, _ = _case("dense",
@@ -274,13 +276,16 @@ def test_rescue_gate_matches_jax(synthetic_frames, case):
     tstep = dataclasses.replace(tstep, fit=dataclasses.replace(
         tstep.fit, budget=9), fixed=weights.fixed_from_jax(inp["fixed"],
                                                             "cpu"))
-    tlog = _Recorder()
-    tinf = PertInference(s, g1, PertConfig(**overrides), device="cpu",
-                         run_log=tlog)
-    tran = tinf._gate_rescue(tstep, tstep.batch)
+    tlog = PortRunLog(str(tmp_path / "gate.jsonl"))
+    with tlog.session():
+        tinf = PertInference(s, g1, PertConfig(**overrides), device="cpu")
+        assert tinf.run_log is tlog
+        tran = tinf._gate_rescue(tstep, tstep.batch)
     assert tran == jran == (action == "rescue")
+    tevents = [json.loads(line) for line in
+               (tmp_path / "gate.jsonl").read_text().splitlines()]
     (jd,) = [p for e, p in jlog.events if e == "control_decision"]
-    (td,) = [p for e, p in tlog.events if e == "control_decision"]
+    (td,) = [p for p in tevents if p["event"] == "control_decision"]
     assert td["action"] == jd["action"] == action
     for k in ("step", "iter", "budget", "thresholds", "detail"):
         assert td[k] == jd[k], k
@@ -293,3 +298,7 @@ def test_rescue_gate_matches_jax(synthetic_frames, case):
             assert td["trigger"][k] == jv, k
     if action == "rescue_skip":
         assert tinf.mirror_rescue_stats == jinf.mirror_rescue_stats
+        # a skip leaves the rescue event of a 0-accepted pass
+        (jr,) = [p for e, p in jlog.events if e == "rescue"]
+        (tr,) = [p for p in tevents if p["event"] == "rescue"]
+        assert {k: tr[k] for k in jr} == jr
