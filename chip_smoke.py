@@ -53,14 +53,30 @@ Phases, each printing its own lines:
    with the JAX package: ``python tools/pert_report.py``); the chunks of
    a short controlled step-2 fit under
    ``torch.cuda.set_sync_debug_mode("error")`` with a run-log session
-   open (no operation inside a chunk waits on the card, and nothing is
-   emitted there); phase 5 for steps 2 and 3;
-7. phases 4 and 5 again for the binary path, ``scRT(...,
+   open and a checkpoint after every chunk (no operation inside a chunk
+   waits on the card, nothing is emitted there, and the saves copy to
+   the host between chunks); phase 5 for steps 2 and 3;
+7. durable runs: the default config three more times with
+   ``checkpoint_dir`` in a temporary directory outside the checkout —
+   uninterrupted, killed by ``faults='preempt@step2/chunk#3'`` and
+   resumed with ``resume='auto'`` — with the launch checks on the
+   uninterrupted run (the durable path), the kill raising
+   ``SimulatedPreemption`` with its log ending ``run_end`` 'error', the
+   resume restoring step 1 and resuming step 2 from the killed run's
+   save, both complete runs' output columns, losses and parameters bit
+   for bit phase 6's and their decisions phase 6's (a suffix after the
+   restore), every step complete in the manifest and the heartbeat
+   ending 'done' with its sequence number rising; each step's
+   checkpoint bytes and save and load seconds, and each run's wall and
+   peak memory beside phase 6's (the logs, the manifest and the
+   heartbeat go to ``chiprun_out/durable_*``; on a difference, the ops
+   PyTorch reports as nondeterministic);
+8. phases 4 and 5 again for the binary path, ``scRT(...,
    enum_impl='binary', optimizer_state_dtype='bfloat16')`` on the same
    frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
    in all three steps), with two more bars against the categorical run:
    tau correlation >= 0.99 x and CN accuracy >= its value - 0.02;
-8. phase 4 again for the mirror-rescue path, ``scRT(...,
+9. phase 4 again for the mirror-rescue path, ``scRT(...,
    mirror_rescue=True)`` without the controller on the same frames: the
    categorical fit, then the rescue's sub-fit of the boundary-tau cells
    (the dense kernels and Adam) and its per-cell scoring, which runs the
@@ -72,9 +88,9 @@ Phases, each printing its own lines:
    against the same function through the plain enumeration, and both
    unfused kernels against their plain versions and timed there, each
    with its bound;
-9. the card's name and power limit, one JSON line of the kernels (each
-   with its launches summed over the four paths' runs and by path),
-   then the result line.
+10. the card's name and power limit, one JSON line of the kernels (each
+    with its launches summed over the five paths' runs and by path),
+    then the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -84,6 +100,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -1649,15 +1666,23 @@ def check_rescue_scoring(dev, scrt, results) -> None:
 
 def check_sync_free_chunk(dev, scrt, record) -> None:
     """The chunks of a short controlled step-2 fit of the default path
-    (one chunk, and any the controller extends it by), from the step's
-    fitted parameters, with every launch of each chunk under
+    (two chunks, ``min_iter`` at the budget so that the controller cannot
+    stop it before its second, and any the controller extends it by),
+    from the
+    step's fitted parameters, with every launch of each chunk under
     ``torch.cuda.set_sync_debug_mode("error")``: any operation that
     waits on the card inside a chunk (a ``.item()``, a host-to-device
     copy from a Python number, a NumPy conversion) raises there.  The
     chunk's one read follows outside the guard.  A run-log session is
     open and current around the fit, and the log must hold nothing but
-    its run_start and run_end: no event is emitted inside a fit."""
+    its run_start and run_end: no event is emitted inside a fit.  The
+    fit checkpoints after every chunk (``checkpoint_every=1``, into a
+    temporary directory): the saves copy the chunk boundary's tensors to
+    the host between the guarded chunks."""
+    import tempfile
+
     import torch
+    from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
     from scdna_replication_tools_tpu_torch.infer import svi
     from scdna_replication_tools_tpu_torch.obs import runlog
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
@@ -1683,32 +1708,302 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
     log_path = REPO / "chiprun_out" / "sync_chunk.jsonl"
     log = runlog.RunLog(str(log_path))
     err, fit, current = None, None, False
-    try:
-        with log.session(config=cfg, device=dev):
-            current = runlog.current() is log
-            fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
-                              (step.fixed, step.batch), max_iter=every,
-                              min_iter=5, device=dev,
-                              moment_dtype=cfg.optimizer_state_dtype,
-                              diag_every=every,
-                              controller=ControllerPolicy.from_config(
-                                  cfg, every))
-    except RuntimeError as exc:
-        err = f"{type(exc).__name__}: {str(exc)[:300]}"
-    finally:
-        svi._launch_chunk = orig
+    saves = []
+    with tempfile.TemporaryDirectory(prefix="pert_sync_") as ck:
+        def save(*, params, opt_state, losses, num_iters, state=None,
+                 exact=True):
+            saves.append(int(num_iters))
+            ckpt.save_step(ck, "step2", params, losses, opt_state=opt_state,
+                           num_iters=num_iters, converged=False,
+                           extra=ckpt.pack_controller_state(state))
+        try:
+            with log.session(config=cfg, device=dev):
+                current = runlog.current() is log
+                fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
+                                  (step.fixed, step.batch),
+                                  max_iter=2 * every,
+                                  min_iter=2 * every, device=dev,
+                                  moment_dtype=cfg.optimizer_state_dtype,
+                                  diag_every=every,
+                                  controller=ControllerPolicy.from_config(
+                                      cfg, 2 * every),
+                                  checkpoint_every=1, checkpoint_cb=save)
+        except RuntimeError as exc:
+            err = f"{type(exc).__name__}: {str(exc)[:300]}"
+        finally:
+            svi._launch_chunk = orig
     logged = [json.loads(line)["event"]
               for line in log_path.read_text().splitlines()] \
         if log_path.exists() else []
-    ok = err is None and guarded[:1] == [(0, every)] and current \
-        and logged == ["run_start", "run_end"]
+    ok = err is None and guarded[:2] == [(0, every), (every, 2 * every)] \
+        and current and logged == ["run_start", "run_end"] \
+        and saves[:1] == [every]
     check(ok, f"[sync] step-2 chunks of up to {every} iterations "
           f"({CELLS}x{LOCI}) under set_sync_debug_mode('error'), a run-log "
-          f"session open and current ({current}): "
+          f"session open and current ({current}), a checkpoint after every "
+          f"chunk (saved at {saves}): "
           f"{'no synchronizing operation' if err is None else err}; "
           f"chunks {guarded}; the session's log holds {logged}")
-    record["sync_free_chunk"] = {"ok": ok, "error": err,
+    record["sync_free_chunk"] = {"ok": ok, "error": err, "saves": saves,
                                  "chunks": guarded, "log": logged}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: durable runs (checkpoints, the kill, the resume)
+# ---------------------------------------------------------------------------
+
+DURABLE_KILL = "preempt@step2/chunk#3"
+OUT_COLUMNS = ("model_tau", "model_cn_state", "model_rep_state")
+
+
+def durable_reference(scrt) -> dict:
+    """What the durable runs are held to, copied to the host from phase
+    6's run (its device state then goes): the S frame's output columns,
+    each step's losses, parameters and decisions, wall and peak."""
+    rec = {"cols": {c: scrt.cn_s[c].to_numpy() for c in OUT_COLUMNS},
+           "losses": [s.fit.losses for s in scrt.steps],
+           "params": [{k: v.detach().cpu() for k, v in s.fit.params.items()}
+                      for s in scrt.steps],
+           "decisions": [[(d["action"], d["iter"]) for d in s.fit.decisions]
+                         for s in scrt.steps]}
+    return rec
+
+
+def _same_run(scrt, ref) -> tuple:
+    """(identical, where it first differs): the run's S output columns,
+    every step's losses and parameters, bit for bit, against ``ref``."""
+    import torch
+
+    for c in OUT_COLUMNS:
+        if not np.array_equal(scrt.cn_s[c].to_numpy(), ref["cols"][c]):
+            return False, f"column {c}"
+    for i, st in enumerate(scrt.steps):
+        if not np.array_equal(st.fit.losses, ref["losses"][i]):
+            return False, f"step{i + 1} losses"
+        for k, v in ref["params"][i].items():
+            got = st.fit.params[k].detach().cpu()
+            if not torch.equal(got, v):
+                return False, (f"step{i + 1} {k} (max abs diff "
+                               f"{float((got - v).abs().max()):.3g})")
+    return True, ""
+
+
+def _ckpt_events(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def name_nondeterministic_ops(dev, scrt) -> list:
+    """The ops of a few iterations of each step that PyTorch reports as
+    nondeterministic (``use_deterministic_algorithms(warn_only=True)``):
+    the diagnosis when two runs of one input part."""
+    import warnings
+
+    import torch
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+
+    names = set()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for st in scrt.steps:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fit_map(_PertLossFn(st.spec), st.fit.params,
+                        (st.fixed, st.batch), max_iter=3, min_iter=3,
+                        device=dev,
+                        moment_dtype=scrt.config.optimizer_state_dtype)
+                torch.cuda.synchronize()
+            names |= {str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted(names)
+
+
+def durable_runs(dev, record, frames, ref) -> dict:
+    """The default cell three ways with ``checkpoint_dir`` (a temporary
+    directory outside the checkout): uninterrupted, killed by
+    ``faults='preempt@step2/chunk#3'``, and resumed with
+    ``resume='auto'``.  Checks: the kill raises SimulatedPreemption and
+    its log has the fault and ends run_end 'error'; the resumed log
+    restores step 1 and resumes step 2 from the killed run's last save;
+    the output columns, losses and parameters of both complete runs are
+    phase 6's bit for bit, and their decisions phase 6's (the resumed
+    step 2's a suffix); the manifest marks every step complete; the
+    heartbeat ends 'done' with its sequence number rising across the
+    kill.  Prints each step's checkpoint bytes and save and load seconds
+    and the walls and peaks beside phase 6's; the three logs, the
+    manifest and the heartbeat go to chiprun_out/ (no checkpoint)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from scdna_replication_tools_tpu_torch import scRT
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    cn_s, cn_g1 = frames
+    out = REPO / "chiprun_out"
+    tag = "[durable]"
+    logs = {k: out / f"durable_{k}.jsonl"
+            for k in ("uninterrupted", "killed", "resumed")}
+    res: dict = {}
+
+    def run(name, ck, **kw):
+        """One run; returns (scRT, the class of what it raised, or
+        None).  The exception itself is not kept: its traceback holds
+        the killed fit's device tensors, which would count in the next
+        run's peak."""
+        scrt = scRT(cn_s.copy(), cn_g1.copy(), checkpoint_dir=ck,
+                    telemetry_path=str(logs[name]), **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        err = None
+        try:
+            scrt.infer("pert")
+        except BaseException as exc:  # noqa: BLE001 — the kill is checked
+            err = type(exc)
+            print(f"  {tag} {name} run raised {exc!r}")
+        torch.cuda.synchronize()
+        res[name] = {"wall_s": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        return scrt, err
+
+    with tempfile.TemporaryDirectory(prefix="pert_durable_") as tmp:
+        ck1, ck2 = str(Path(tmp) / "uninterrupted"), str(Path(tmp) / "kill")
+        _cuda.reset_launches()
+        scrt, err = run("uninterrupted", ck1)
+        launches = dict(_cuda.LAUNCHES)
+        check(err is None, f"{tag} uninterrupted durable run completed")
+        kernels = CATEGORICAL + (("enum_fwd",) if scrt.mirror_rescue_fit
+                                 is not None else ())
+        check(all(launches[k] > 0 for k in kernels)
+              and not any(v for k, v in launches.items() if k not in kernels),
+              f"{tag} every kernel of the path launched, no other kernel: "
+              + json.dumps({k: v for k, v in launches.items() if v}))
+        same, where = _same_run(scrt, ref)
+        if not same:
+            ops = name_nondeterministic_ops(dev, scrt)
+            print(f"  {tag} ops PyTorch reports as nondeterministic on "
+                  f"these steps: {ops or 'none'}")
+            res["nondeterministic_ops"] = ops
+        check(same, f"{tag} uninterrupted durable run: output columns, "
+              "losses and parameters bit-identical to phase 6's"
+              + (f" (first difference: {where})" if not same else ""))
+        decisions = [[(d["action"], d["iter"]) for d in s.fit.decisions]
+                     for s in scrt.steps]
+        check(decisions == ref["decisions"],
+              f"{tag} uninterrupted durable run: phase 6's decisions "
+              f"{decisions}")
+        manifest = json.loads((Path(ck1) / "manifest.json").read_text())
+        check({k: v["status"] for k, v in manifest["steps"].items()}
+              == {"step1": "complete", "step2": "complete",
+                  "step3": "complete"},
+              f"{tag} uninterrupted manifest: "
+              + json.dumps({k: v["status"]
+                            for k, v in manifest["steps"].items()}))
+        events = _ckpt_events(logs["uninterrupted"])
+        saves = [e for e in events if e["event"] == "checkpoint"
+                 and e["action"] == "save"]
+        sizes = {e["step"]: os.path.getsize(Path(ck1) / f"pert_{e['step']}"
+                                            ".npz")
+                 for e in saves}
+        for step in ("step1", "step2", "step3"):
+            mine = [e for e in saves if e["step"] == step]
+            print(f"  {tag} {step}: {len(mine)} saves ("
+                  + ", ".join(f"it {e['num_iters']}: {e['bytes']} B in "
+                              f"{e['seconds']:.3f} s" for e in mine)
+                  + f"); file {sizes.get(step)} B")
+        res["saves"] = [{k: e[k] for k in ("step", "num_iters", "bytes",
+                                           "seconds", "completed")}
+                        for e in saves]
+        del scrt
+        torch.cuda.empty_cache()
+        shutil.rmtree(ck1)
+
+        scrt, err = run("killed", ck2, faults=DURABLE_KILL)
+        faults.install(None)
+        killed = _ckpt_events(logs["killed"])
+        check(err is faults.SimulatedPreemption,
+              f"{tag} {DURABLE_KILL} raised "
+              f"{getattr(err, '__name__', None)}")
+        check(any(e["event"] == "fault_injected" for e in killed)
+              and killed[-1]["event"] == "run_end"
+              and killed[-1]["status"] == "error",
+              f"{tag} killed log: fault_injected, last line run_end status "
+              f"{killed[-1].get('status')}")
+        saved2 = [e["num_iters"] for e in killed
+                  if e["event"] == "checkpoint" and e["step"] == "step2"]
+        hb_path = Path(ck2) / "health" / "host_0.json"
+        hb_killed = json.loads(hb_path.read_text())
+        del scrt
+        torch.cuda.empty_cache()
+
+        scrt, err = run("resumed", ck2)
+        check(err is None, f"{tag} resumed run completed")
+        resumed = _ckpt_events(logs["resumed"])
+        resumes = {e["step"]: e for e in resumed if e["event"] == "resume"}
+        check(resumes.get("step1", {}).get("action") == "restored"
+              and resumes.get("step2", {}).get("action") == "resumed"
+              and saved2 and resumes["step2"]["from_iter"] == saved2[-1]
+              and all(e["fingerprint_verified"] for e in resumes.values()),
+              f"{tag} resumed log: step1 "
+              f"{resumes.get('step1', {}).get('action')}, step2 "
+              f"{resumes.get('step2', {}).get('action')} from iteration "
+              f"{resumes.get('step2', {}).get('from_iter')} (the killed "
+              f"run's step-2 saves: {saved2})")
+        same, where = _same_run(scrt, ref)
+        check(same, f"{tag} resumed run: output columns, losses and "
+              "parameters bit-identical to phase 6's and the uninterrupted "
+              "durable run's" + (f" (first difference: {where})"
+                                 if not same else ""))
+        got = [[(d["action"], d["iter"]) for d in s.fit.decisions]
+               for s in scrt.steps]
+        start = resumes.get("step2", {}).get("from_iter", 0)
+        want = [[], [d for d in ref["decisions"][1] if d[1] > start],
+                ref["decisions"][2]]
+        check(got == want, f"{tag} resumed decisions {got}: the suffix of "
+              f"phase 6's {ref['decisions']} after the restore")
+        manifest = json.loads((Path(ck2) / "manifest.json").read_text())
+        check({k: v["status"] for k, v in manifest["steps"].items()}
+              == {"step1": "complete", "step2": "complete",
+                  "step3": "complete"},
+              f"{tag} resumed manifest: "
+              + json.dumps({k: v["status"]
+                            for k, v in manifest["steps"].items()}))
+        hb_done = json.loads(hb_path.read_text())
+        check(hb_killed["state"] == "running" and hb_done["state"] == "done"
+              and hb_done["seq"] > hb_killed["seq"],
+              f"{tag} heartbeat: killed run left state "
+              f"{hb_killed['state']} at seq {hb_killed['seq']}, the resume "
+              f"ended {hb_done['state']} at seq {hb_done['seq']}")
+        loads = [e for e in resumed if e["event"] == "checkpoint"
+                 and e["action"] == "load"]
+        for e in loads:
+            print(f"  {tag} load {e['step']} (it {e['num_iters']}, "
+                  f"{'complete' if e['completed'] else 'partial'}): "
+                  f"{e['bytes']} B in {e['seconds']:.3f} s")
+        res["loads"] = [{k: e[k] for k in ("step", "num_iters", "bytes",
+                                           "seconds", "completed")}
+                        for e in loads]
+        shutil.copyfile(Path(ck2) / "manifest.json",
+                        out / "durable_manifest.json")
+        shutil.copyfile(hb_path, out / "durable_heartbeat.json")
+        del scrt
+        torch.cuda.empty_cache()
+
+    gc.collect()
+    base = record["main_default"]
+    for name in ("uninterrupted", "killed", "resumed"):
+        print(f"  {tag} {name}: wall {res[name]['wall_s']:.2f} s, peak "
+              f"{res[name]['peak_bytes']} B (phase 6: "
+              f"{base['wall_s']:.2f} s, {base['peak_bytes']} B)")
+    record["durable"] = res
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1870,8 +2165,12 @@ def main() -> int:
                                          reference)
     check_sync_free_chunk(dev, scrt, record)
     profile_steps(dev, scrt, record, "default", steps=("step2", "step3"))
+    durable_ref = durable_reference(scrt)
     del scrt
     torch.cuda.empty_cache()
+
+    by_path["durable"] = durable_runs(dev, record, frames, durable_ref)
+    del durable_ref
 
     by_path["binary"], scrt = main_path(dev, record, frames, "binary",
                                         reference)
@@ -1887,7 +2186,7 @@ def main() -> int:
     del scrt
     torch.cuda.empty_cache()
 
-    # launches of each kernel summed over the four paths' runs (each read
+    # launches of each kernel summed over the five paths' runs (each read
     # from zero just before its run, just after it), by path beside it
     paths_of = {name: {p: (sum(v for k, v in counts.items()
                                if k.startswith("enum_bwd_"))

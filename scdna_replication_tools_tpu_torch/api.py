@@ -6,9 +6,10 @@ three-step fit on the GPU (or on ``device='cpu'``) and returns the same
 four DataFrames.
 
 The adaptive controller, the model-health QC (``cell_qc()``), the
-controller-gated mirror rescue and the run log run as in the JAX
-package, at its defaults, so ``scRT(cn_s, cn_g1)`` with no option given
-runs.  The run log (``telemetry_path``, 'auto' = one schema-v9 JSONL per
+controller-gated mirror rescue, the run log and the durable runs
+(``checkpoint_dir``, ``resume``, ``faults``, the watchdogs and the
+heartbeat) run as in the JAX package, at its defaults, so
+``scRT(cn_s, cn_g1)`` with no option given runs.  The run log (``telemetry_path``, 'auto' = one schema-v9 JSONL per
 run under the repository's ``.pert_runs/``; the written path is
 ``scRT.run_log_path``) renders with ``tools/pert_report.py``; the run's
 metrics registry is ``scRT.metrics_registry`` (``metrics_textfile``
@@ -45,18 +46,6 @@ def _unported(options: dict) -> None:
     checks = [
         ("trace_spans", options["trace_spans"],
          "A11 (observability: span tracing)"),
-        ("heartbeat_dir",
-         heartbeat_mod.resolve_dir(options["heartbeat_dir"],
-                                   options["checkpoint_dir"]) is not None,
-         "A8 (durable runs: the run-health heartbeat writer)"),
-        ("checkpoint_dir", options["checkpoint_dir"] is not None,
-         "A8 (durable runs)"),
-        ("faults", options["faults"] is not None, "A8 (durable runs)"),
-        ("watchdog_compile_seconds",
-         options["watchdog_compile_seconds"] is not None,
-         "A8 (durable runs)"),
-        ("watchdog_chunk_seconds", options["watchdog_chunk_seconds"] is not None,
-         "A8 (durable runs)"),
         ("cell_chunk", options["cell_chunk"] is not None,
          "A9 (encodings and options: cell_chunk)"),
         ("cn_hmm_self_prob", options["cn_hmm_self_prob"] is not None,
@@ -85,11 +74,22 @@ class scRT:
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
     where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda``, ``resume``, ``checkpoint_every``,
-    ``elastic_mesh``, ``request_id``, ``slab_width``, ``trace_parent``,
-    ``compile_cache_dir``, ``heartbeat_interval_seconds`` and
+    ``backend``, ``cuda``, ``elastic_mesh``, ``request_id``,
+    ``slab_width``, ``trace_parent``, ``compile_cache_dir`` and
     ``clustering_*`` only act inside features the port refuses, and are
-    accepted and unused.
+    accepted and unused (the config hash records the JAX defaults of
+    those it hashes: ``config.UNPORTED_FIELDS``).
+
+    Durable runs as in the JAX package: ``checkpoint_dir`` checkpoints
+    every step (and every ``checkpoint_every`` chunks inside a
+    controlled fit) with a resume ledger beside them, and a live
+    heartbeat under ``checkpoint_dir/health/`` (``heartbeat_dir='auto'``);
+    a rerun with ``resume='auto'`` restores the completed steps and
+    resumes a partial one on the uninterrupted trajectory, also from a
+    directory the JAX package wrote.  ``faults`` injects the
+    deterministic fault plan of ``utils/faults.py``;
+    ``watchdog_compile_seconds`` / ``watchdog_chunk_seconds`` bound a
+    step's compile phase and each fit chunk.
     """
 
     def __init__(self, cn_s, cn_g1, input_col='reads', assign_col='copy',
@@ -127,9 +127,6 @@ class scRT:
                  device=None):
         _unported(dict(
             trace_spans=trace_spans,
-            heartbeat_dir=heartbeat_dir, checkpoint_dir=checkpoint_dir,
-            faults=faults, watchdog_compile_seconds=watchdog_compile_seconds,
-            watchdog_chunk_seconds=watchdog_chunk_seconds,
             fused_adam=fused_adam, cell_chunk=cell_chunk,
             cn_hmm_self_prob=cn_hmm_self_prob, num_shards=num_shards,
             loci_shards=loci_shards,
@@ -164,6 +161,12 @@ class scRT:
             controller=controller,
             controller_max_extra_iters=controller_max_extra_iters,
             telemetry_path=telemetry_path, metrics_textfile=metrics_textfile,
+            checkpoint_dir=checkpoint_dir, resume=resume,
+            checkpoint_every=checkpoint_every, faults=faults,
+            watchdog_compile_seconds=watchdog_compile_seconds,
+            watchdog_chunk_seconds=watchdog_chunk_seconds,
+            heartbeat_dir=heartbeat_dir,
+            heartbeat_interval_seconds=heartbeat_interval_seconds,
         )
         self.clone_profiles = None
         # {candidates, accepted[, capped_to]} of the last mirror rescue
@@ -267,15 +270,20 @@ class scRT:
                     step1.fit.losses, step2.fit.losses, c,
                     mirror_rescue_stats=inference.mirror_rescue_stats,
                     qc_collect=qc_collect,
-                    qc_entropy_thresh=self.config.qc_entropy_thresh)
-            if qc_collect is not None:
+                    qc_entropy_thresh=self.config.qc_entropy_thresh,
+                    phase_prefix="package_s")
+            if qc_collect is not None and not qc_collect.get("degraded"):
+                # a 'degraded' marker means the packaging decode's OOM
+                # ladder dropped the entropy surfaces: the QC table has
+                # no inputs then (the drop is a degrade event)
                 self._cell_qc_df = inference.build_cell_qc(
                     step2, inference._step2_data, qc_collect)
             with timer.phase("package"):
                 if step3 is not None:
                     cn_g1_out, supp_g1_out = package_step_output(
                         self.cn_g1, inference._step3_data, step3, lamb,
-                        step1.fit.losses, step3.fit.losses, c)
+                        step1.fit.losses, step3.fit.losses, c,
+                        phase_prefix="package_g1")
                 else:
                     cn_g1_out, supp_g1_out = None, None
         self.phase_report = timer.report()

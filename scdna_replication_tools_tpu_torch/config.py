@@ -2,10 +2,12 @@
 
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
-rescue, the adaptive controller, the model-health QC and the run log
-read.  The JAX config's other knobs (sharding, checkpoints, cell
-chunking, span tracing) belong to modules not yet ported; ``api.scRT``
-refuses them by name instead of carrying dead fields here.
+rescue, the adaptive controller, the model-health QC, the run log and
+the durable runs read.  The JAX config's other knobs (sharding, cell
+chunking, span tracing, the compiled-program caches) belong to modules
+not yet ported; ``api.scRT`` refuses them by name instead of carrying
+dead fields here, and :data:`UNPORTED_FIELDS` holds each at the JAX
+default that refusal pins it to.
 """
 
 from __future__ import annotations
@@ -13,13 +15,47 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# PertConfig fields left out of the run log's config hash
-# (obs.runlog._config_digest): pure observability, so two runs that
-# differ only in where their log and textfile land hash equal
+# PertConfig fields left out of the config hash (obs.runlog.
+# _config_digest), the JAX package's tuple: pure observability or pure
+# per-request identity, so two runs that differ only in where their log,
+# textfile and heartbeats land hash equal.  The checkpoint manifest
+# stamps the tuple (``hash_excludes``)
 NON_HASH_FIELDS = (
     "telemetry_path",       # where THIS run's RunLog lands
     "metrics_textfile",     # where the Prometheus textfile lands
+    "request_id",           # per-request identity (serve fleet index)
+    "trace_spans",          # tracing on/off is pure observability
+    "trace_parent",         # per-request trace handoff
+    "slab_width",           # serving-slab placement, not workload
+    "executable_cache_dir",  # where executables persist, not which
+    "heartbeat_dir",        # where live health heartbeats land
+    "heartbeat_interval_seconds",  # heartbeat cadence
 )
+
+# The JAX PertConfig fields this package does not carry yet: name ->
+# (the JAX default, the ROADMAP item that ports it).  ``api.scRT``
+# refuses any other value of the refused ones, and the rest only act in
+# features not ported, so every port run is a run at these values.  The
+# config hash (obs.runlog._config_digest) hashes them beside the port's
+# own fields: one setting hashes the same in both packages, which is
+# what the checkpoint manifest's resume gate compares.
+UNPORTED_FIELDS = {
+    "cell_chunk": (None, "A9"),
+    "cn_hmm_self_prob": (None, "A9"),
+    "profile_dir": (None, "A11b"),
+    "trace_spans": (False, "A11b"),
+    "trace_parent": (None, "A11b"),
+    "num_shards": (1, "A12"),
+    "loci_shards": (1, "A12"),
+    "elastic_mesh": (True, "A12"),
+    "request_id": (None, "A13"),
+    "slab_width": (None, "A13"),
+    "compile_cache_dir": ("auto", "A14"),
+    "executable_cache_dir": (None, "A14"),
+    # one Adam path (the CUDA kernel, its plain version on the CPU):
+    # JAX's backend-specific values have no counterpart
+    "fused_adam": ("auto", "none"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +186,46 @@ class PertConfig:
     # rescue gate: a boundary-tau candidate within this distance of 0/1
     # is suspect (else the QC entropy signal decides)
     controller_rescue_extreme_tau: float = 0.02
+
+    # --- durable runs (infer/checkpoint.py, infer/manifest.py,
+    # utils/faults.py) ---
+    # write step checkpoints (and in-fit ones, see checkpoint_every)
+    # into this directory, with the resume ledger manifest.json beside
+    # them; None disables the whole durable layer
+    checkpoint_dir: Optional[str] = None
+    # against an existing checkpoint_dir: 'auto' restores completed
+    # steps and resumes in-flight fits only when the manifest's data
+    # fingerprint matches this run's inputs (a config difference, e.g. a
+    # grown budget, is noted and allowed); 'force' restores regardless;
+    # 'off' ignores and quarantines existing checkpoints
+    resume: str = "auto"
+    # in-fit checkpoint cadence in controller chunks (fit_diag_every
+    # iterations each): params, Adam state, the loss prefix and the
+    # controller's ledger, so a killed fit resumes mid-budget on the
+    # uninterrupted trajectory; 0 keeps the step-end saves and the
+    # emergency save on the way out of an exception
+    checkpoint_every: int = 4
+    # deterministic fault-injection plan (utils/faults.py), e.g.
+    # 'preempt@step2/chunk#3,corrupt@step2/save'; None leaves every
+    # injection site inert (the PERT_FAULTS environment variable is the
+    # fallback).  Chaos testing only
+    faults: Optional[str] = None
+    # bounded exponential backoff of transient failures: retries per
+    # step fit and the base delay (doubled per retry, capped at 30 s)
+    retry_max_attempts: int = 2
+    retry_backoff_seconds: float = 0.5
+    # watchdog deadlines in seconds (None disables): a step's compile
+    # phase (the kernel libraries' builds and loads) or a fit chunk
+    # (its launches and its host read) that outlasts its deadline
+    # raises WatchdogTimeout, which aborts with a resumable checkpoint
+    watchdog_compile_seconds: Optional[float] = None
+    watchdog_chunk_seconds: Optional[float] = None
+    # live run-health heartbeat (obs/heartbeat.py): 'auto' writes
+    # health/host_0.json inside checkpoint_dir when one is set and
+    # nothing otherwise; a path names the directory; None/'off' disables
+    heartbeat_dir: Optional[str] = "auto"
+    # seconds between heartbeat writes (fault-ladder events write at once)
+    heartbeat_interval_seconds: float = 15.0
 
     def __post_init__(self):
         if self.enum_impl not in ("auto", "binary"):

@@ -35,15 +35,25 @@ kernel libraries before its fit and reports each as a ``compile``
 event (``miss``/``disk_hit`` when that step built or loaded it, else
 ``hit``).  The runner writes into the log open on this thread
 (``obs.runlog.active()``: the facade's session); a runner driven
-directly opens its own from ``telemetry_path`` in :meth:`run`.  The JAX
-runner's checkpoints and sharding are not ported yet (``api.scRT``
-refuses them by name).
+directly opens its own from ``telemetry_path`` in :meth:`run`.
+
+Durable runs as in the JAX runner (``checkpoint_dir``): the manifest's
+identity check and the quarantine of another workload's files at
+construction, a checkpoint at each step's end (step 2's before the
+rescue, so a resume re-runs it) and inside controlled fits, the resume
+of completed and partial steps (:meth:`_load_resumable`), the recovery
+ladder of :meth:`_fit`, the fault sites ``{step}/start``, ``{step}/fit``,
+``{step}/end``, ``compile``, ``qc/ppc`` and ``{prefix}/decode``, the
+OOM rungs of the PPC and the decode, and the heartbeat.  The JAX
+runner's sharding and its elastic rung are not ported yet (``api.scRT``
+refuses the shard counts by name).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Optional, Tuple
 
@@ -59,9 +69,12 @@ from scdna_replication_tools_tpu_torch.data.loader import (
     pad_loci,
 )
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
+from scdna_replication_tools_tpu_torch.infer import manifest as manifest_mod
 from scdna_replication_tools_tpu_torch.infer.svi import FitResult, fit_map
 from scdna_replication_tools_tpu_torch.models import priors
 from scdna_replication_tools_tpu_torch.models.pert import (
+    _DECODE_SLAB_BYTES,
     PertBatch,
     PertModelSpec,
     cell_entropy_aggregates,
@@ -74,6 +87,7 @@ from scdna_replication_tools_tpu_torch.models.pert import (
     ppc_discrepancy,
     slice_cells,
 )
+from scdna_replication_tools_tpu_torch.obs import heartbeat as heartbeat_mod
 from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
 from scdna_replication_tools_tpu_torch.obs import runlog as runlog_mod
 from scdna_replication_tools_tpu_torch.obs.controller import ControllerPolicy
@@ -85,6 +99,7 @@ from scdna_replication_tools_tpu_torch.ops.transforms import (
     to_positive,
     to_unit_interval,
 )
+from scdna_replication_tools_tpu_torch.utils import faults as faults_mod
 from scdna_replication_tools_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
@@ -156,6 +171,12 @@ class PertInference:
                  clone_idx_s: Optional[np.ndarray] = None,
                  clone_idx_g1: Optional[np.ndarray] = None,
                  num_clones: int = 0, device=None):
+        if config.resume not in ("auto", "force", "off"):
+            # validate BEFORE any manifest mutation below: a typo'd
+            # resume value must not cost durable resume state
+            raise ValueError(
+                f"resume must be 'auto', 'force' or 'off', got "
+                f"{config.resume!r}")
         self.device = resolve_device(device)
         # the run log open on this thread and the installed metrics
         # registry (the facade's), else disabled no-ops; run() puts this
@@ -184,6 +205,75 @@ class PertInference:
         self._rescue_cells: Optional[dict] = None
         # the last rescue's sub-fit (None unless it re-fitted cells)
         self.rescue_fit: Optional[RescueFit] = None
+        # fault-injection plan (utils/faults.py): config/env-gated,
+        # deterministic, inert unless a spec is present.  Installed
+        # unconditionally — the newest runner's config wins, so a resume
+        # run with faults=None cannot inherit a previous run's plan
+        faults_mod.install(faults_mod.resolve_plan(config.faults))
+        # live run-health heartbeat (obs/heartbeat.py), installed
+        # process-wide (newest runner wins); run() writes the terminal
+        # state on completion or Exception — a BaseException
+        # (preemption) leaves the last heartbeat to go stale, which is
+        # how a watcher tells a lost process
+        self._heartbeat = None
+        hb_dir = heartbeat_mod.resolve_dir(config.heartbeat_dir,
+                                           config.checkpoint_dir)
+        if hb_dir:
+            self._heartbeat = heartbeat_mod.RunHeartbeat(
+                hb_dir, interval_seconds=config.heartbeat_interval_seconds,
+                config_digest=runlog_mod._config_digest(config))
+            heartbeat_mod.install(self._heartbeat)
+            heartbeat_mod.attach_phase_sink(self.phases)
+        # durable run manifest (infer/manifest.py): the resume ledger of
+        # the checkpoint directory — identity (config hash + data
+        # fingerprint) decides whether existing checkpoints belong to
+        # THIS workload; resume='auto' restores only fingerprint-
+        # verified state, and a mismatch under 'auto' voids the ledger
+        self._manifest = None
+        self._resume_ok = False
+        self._resume_reason = "checkpointing disabled"
+        # steps THIS run has checkpointed: a transient retry may always
+        # resume what this very run wrote, even when the directory's
+        # prior identity could not be verified
+        self._steps_written: set = set()
+        if config.checkpoint_dir:
+            self._open_manifest()
+
+    def _open_manifest(self) -> None:
+        """Load the checkpoint directory's manifest, judge its identity
+        against this run's (JAX ``PertInference.__init__``), quarantine
+        the checkpoints of another workload, and record this attempt."""
+        config = self.config
+        # everything the fit consumes, not just reads: changed CN
+        # states, clone assignments or the RT prior also invalidate old
+        # checkpoints (the priors and conditioning they shaped)
+        local_fp = manifest_mod.data_fingerprint(
+            self.s.reads, self.g1.reads, self.s.states, self.g1.states,
+            self.clone_idx_s, self.clone_idx_g1, self.s.rt_prior)
+        fingerprint = manifest_mod.combined_fingerprint({0: local_fp})
+        cfg_hash = runlog_mod._config_digest(config)
+        m = manifest_mod.RunManifest.load(config.checkpoint_dir)
+        self._resume_ok, self._resume_reason = m.match(
+            cfg_hash, fingerprint, host_fingerprint=local_fp,
+            process_index=0)
+        had_identity = m.doc.get("data_fingerprint") is not None
+        reset = (config.resume == "off"
+                 or (had_identity and not self._resume_ok
+                     and config.resume != "force"))
+        if reset:
+            # voiding the ledger must also retire the FILES: once this
+            # run's identity lands in the manifest, surviving stale
+            # checkpoints would fingerprint-verify for the next run and
+            # restore params fitted to other data
+            ckpt.quarantine_stale(config.checkpoint_dir)
+        m.begin_run(cfg_hash, fingerprint, run_log_path=self.run_log.path,
+                    reset_steps=reset)
+        self._manifest = m
+        if had_identity and not self._resume_ok and config.resume == "auto":
+            logger.warning(
+                "checkpoint dir %s: %s — starting fresh (use "
+                "resume='force' to override)", config.checkpoint_dir,
+                self._resume_reason)
 
     # -- batches ----------------------------------------------------------
 
@@ -314,19 +404,267 @@ class PertInference:
 
     def _fit(self, spec, batch, fixed, t_init, max_iter, min_iter,
              step_name) -> StepOutput:
+        """One step fit under the recovery ladder (JAX ``_fit``;
+        utils/faults.py):
+
+        * **transient** failures retry with bounded exponential backoff,
+          and because the chunk loop saved an in-flight checkpoint on
+          the way out, each retry RESUMES the fit rather than restarting
+          it;
+        * **oom** / **hang** abort with the resumable artifact that same
+          save left behind, audited by a ``degrade`` event — the next
+          ``resume='auto'`` run continues mid-budget;
+        * **preemption** (BaseException) propagates untouched after the
+          graceful save: the process is going away;
+        * **deterministic** errors propagate immediately — retrying a
+          real bug only hides it.
+
+        JAX's elastic rung (rebuild a smaller mesh on a host loss or a
+        repeated OOM and re-enter) needs a mesh: it comes with multi-GPU
+        runs (ROADMAP A12), so a ``hostloss`` aborts like an OOM here.
+        """
         cfg = self.config
+
+        def attempt():
+            try:
+                return self._fit_once(spec, batch, fixed, t_init,
+                                      max_iter, min_iter, step_name)
+            except Exception as exc:
+                kind = faults_mod.classify_exception(exc)
+                if kind in ("oom", "hang", "hostloss"):
+                    self.run_log.emit(
+                        "degrade", step=step_name,
+                        action=("watchdog_abort" if kind == "hang"
+                                else "abort_resumable"),
+                        error_class=kind,
+                        error=f"{type(exc).__name__}: {str(exc)[:300]}",
+                        detail=("fit aborted on a non-retryable "
+                                f"{kind}; the in-flight checkpoint "
+                                "(when checkpointing is enabled) makes "
+                                "the next resume='auto' run continue "
+                                "mid-budget"))
+                raise
+
+        # each retry re-enters _fit_once, whose _load_resumable picks up
+        # the in-flight checkpoint — retries RESUME, not restart
+        return faults_mod.retry_call(
+            attempt, label=f"{step_name}/fit",
+            max_attempts=int(cfg.retry_max_attempts),
+            base_delay=float(cfg.retry_backoff_seconds))
+
+    def _load_resumable(self, step_name, max_iter, spec, fixed, batch):
+        """Resume-mode + manifest-aware checkpoint restore for one step
+        (JAX ``_load_resumable``).
+
+        Returns a completed :class:`StepOutput` (restore, no refit), a
+        ``(params0, opt_state0, losses_prefix, resume_ctrl)`` tuple for
+        a partial fit, or None for a fresh fit.  Every outcome that
+        touched a checkpoint emits a ``resume`` event, so the decision
+        is reproducible from the artifact alone.
+        """
+        cfg = self.config
+        if cfg.resume == "off" and step_name not in self._steps_written:
+            # 'off' ignores PRE-EXISTING state; a transient retry still
+            # resumes the checkpoints this very run wrote
+            return None
+        if cfg.resume == "auto" and not self._resume_ok \
+                and step_name not in self._steps_written:
+            # only audit a refusal when there was something to refuse
+            if os.path.exists(os.path.join(
+                    cfg.checkpoint_dir, f"pert_{step_name}.npz")):
+                self.run_log.emit(
+                    "resume", step=step_name, mode=cfg.resume,
+                    action="fresh", fingerprint_verified=False,
+                    reason=self._resume_reason)
+            return None
+        t0 = time.perf_counter()
+        try:
+            restored = ckpt.load_step(cfg.checkpoint_dir, step_name)
+        except ckpt.CheckpointCorrupt as exc:
+            # graceful degradation: a corrupt artifact (and no valid
+            # retained predecessor) costs a refit, never the run
+            self.run_log.emit("degrade", step=step_name,
+                              action="checkpoint_discarded",
+                              error_class="corrupt",
+                              detail=str(exc)[:500])
+            logger.warning("%s — refitting %s from scratch", exc,
+                           step_name)
+            return None
+        if restored is None:
+            return None
+        params, losses, extra = restored
+        params = ckpt.restore_params(params, self.device)
+        num_iters = int(extra.get("meta.num_iters", len(losses)))
+        converged = bool(extra.get("meta.converged", True))
+        nan_abort = bool(extra.get("meta.nan_abort", False))
+        resume_ctrl = ckpt.restore_controller_state(extra)
+        # the geometry change of a resume is audited as JAX's is: one
+        # process with no mesh here, so a checkpoint from a sharded or
+        # multi-process run is a resharding resume
+        saved_topo = extra.get("meta.topology") \
+            if isinstance(extra.get("meta.topology"), dict) else None
+        cur_topo = {"mesh_axes": {}, "process_count": 1}
+        resharded = saved_topo is not None and (
+            saved_topo.get("mesh_axes") != cur_topo["mesh_axes"]
+            or int(saved_topo.get("process_count", 1)) != 1)
+        reshard_fields = dict(
+            resharded=bool(resharded),
+            from_topology=({"mesh_axes": saved_topo.get("mesh_axes"),
+                            "process_count":
+                                saved_topo.get("process_count")}
+                           if saved_topo is not None else None),
+            to_topology=cur_topo)
+        # a controller-extended budget survives in the resume state (a
+        # fit killed past max_iter but inside its extended budget is
+        # still PARTIAL) — but a GROWN config budget wins: resuming with
+        # a larger max_iter is the documented budget-growth workflow
+        budget = int(max_iter)
+        if resume_ctrl:
+            budget = max(int(resume_ctrl["budget"]), budget)
+            resume_ctrl["budget"] = budget
+        completed = bool(converged or nan_abort or num_iters >= budget)
+        path = ckpt._step_path(cfg.checkpoint_dir, step_name)
+        self.run_log.emit(
+            "checkpoint", action="load", step=step_name,
+            path=str(cfg.checkpoint_dir), num_iters=num_iters,
+            completed=completed,
+            seconds=round(time.perf_counter() - t0, 4),
+            bytes=os.path.getsize(path) if os.path.exists(path) else None)
+        own_write = step_name in self._steps_written
+        self.run_log.emit(
+            "resume", step=step_name, mode=cfg.resume,
+            action="restored" if completed else "resumed",
+            from_iter=num_iters,
+            fingerprint_verified=bool(self._resume_ok or own_write),
+            reason=("checkpoint written by this run (retry resume)"
+                    if own_write and not self._resume_ok
+                    else self._resume_reason),
+            **reshard_fields)
+        if completed:
+            # completed step: restore, no refit (the rescue gate types
+            # budget as an integer, restored fits included)
+            fit = FitResult(params=params, losses=np.asarray(losses),
+                            num_iters=num_iters, converged=converged,
+                            nan_abort=nan_abort,
+                            timings={"fit": 0.0, "ms_per_iter": 0.0,
+                                     "dispatched": 0},
+                            budget=max(budget, num_iters))
+            if self._manifest is not None:
+                self._manifest.update_step(step_name, "complete",
+                                           num_iters=num_iters)
+            return StepOutput(fit, spec, fixed, batch, 0.0)
+        # partial step: resume from the saved iteration with the Adam
+        # moments (and, for controlled fits, the controller's ledger)
+        # intact.  The moments' stored dtype is part of that contract: a
+        # resume across moment dtypes cannot be bit-exact, so a mismatch
+        # refuses loudly instead of degrading
+        saved_dt = str(extra.get("meta.opt_moment_dtype", "float32"))
+        has_opt = any(k.startswith("opt.") for k in extra)
+        if has_opt and saved_dt != cfg.optimizer_state_dtype:
+            raise ValueError(
+                f"checkpoint for {step_name} in {cfg.checkpoint_dir} "
+                f"stores Adam moments as {saved_dt} but this run "
+                f"configures optimizer_state_dtype="
+                f"{cfg.optimizer_state_dtype!r}: a mid-budget resume "
+                "across moment dtypes cannot be bit-exact — rerun with "
+                f"optimizer_state_dtype='{saved_dt}', or resume='off' "
+                "to refit the step fresh")
+        opt_state0 = ckpt.restore_opt_state(extra, params, self.device)
+        losses_prefix = np.asarray(losses)[:num_iters]
+        return params, opt_state0, losses_prefix, resume_ctrl
+
+    def _compile(self, step_name: str) -> None:
+        """The step's compile phase: the ``compile`` fault site, then (on
+        the GPU) the kernel libraries' builds or loads, each reported as
+        a ``compile`` event, all under ``watchdog_compile_seconds``.  The
+        site fires once per step, as JAX's fires once per step's program
+        in a cold process; on the CPU there is nothing to load and no
+        phase is recorded."""
+        def load():
+            faults_mod.point("compile")
+            if self.device.type != "cuda":
+                return []
+            return [_cuda.load_event(name) for name in _cuda.SOURCES]
+
+        deadline = self.config.watchdog_compile_seconds
+        label = f"compile:{step_name}"
+        if self.device.type != "cuda":
+            faults_mod.run_with_deadline(load, deadline, label)
+            return
+        # build or load the kernel libraries before the fit, so the
+        # first chunk neither waits on nvcc nor emits an event; one
+        # compile event per library and step, as JAX's per program
+        with self.phases.phase(f"{step_name}/compile"):
+            for event in faults_mod.run_with_deadline(
+                    load, deadline, label, device=self.device):
+                self.run_log.emit("compile", **event)
+
+    def _save(self, step_name: str, params, losses, completed: bool,
+              **kw) -> str:
+        """One checkpoint save of ``step_name`` with its ``checkpoint``
+        event (the file's bytes and the save's seconds beside JAX's
+        fields)."""
+        t0 = time.perf_counter()
+        path = ckpt.save_step(self.config.checkpoint_dir, step_name, params,
+                              losses, **kw)
+        self._steps_written.add(step_name)
+        self.run_log.emit(
+            "checkpoint", action="save", step=step_name,
+            path=str(self.config.checkpoint_dir),
+            num_iters=int(kw["num_iters"]), completed=bool(completed),
+            seconds=round(time.perf_counter() - t0, 4),
+            bytes=os.path.getsize(path))
+        return path
+
+    def _checkpoint_cb(self, step_name: str):
+        """The durability sink of the controlled chunk loop: periodic
+        in-fit saves (every ``checkpoint_every`` chunks) and the
+        emergency save on an escaping exception both land here."""
+        def checkpoint_cb(*, params, opt_state, losses, num_iters,
+                          state=None, exact=True):
+            extra = ckpt.pack_controller_state(state) if state else None
+            path = self._save(step_name, params, losses, False,
+                              opt_state=opt_state, num_iters=int(num_iters),
+                              converged=False, nan_abort=False, extra=extra)
+            if not exact:
+                self.run_log.emit(
+                    "degrade", step=step_name, action="inexact_checkpoint",
+                    detail=(f"optimizer state was unavailable at the "
+                            f"emergency save (a CUDA error left the "
+                            f"device state unreadable); a resume restarts "
+                            f"the Adam moments at iteration {num_iters}"))
+            if self._manifest is not None:
+                self._manifest.update_step(
+                    step_name, "in_flight", num_iters=int(num_iters),
+                    checkpoint=path, exact=bool(exact))
+        return checkpoint_cb
+
+    def _fit_once(self, spec, batch, fixed, t_init, max_iter, min_iter,
+                  step_name) -> StepOutput:
+        cfg = self.config
+        params0 = opt_state0 = losses_prefix = resume_ctrl = None
+        if cfg.checkpoint_dir:
+            loaded = self._load_resumable(step_name, max_iter, spec, fixed,
+                                          batch)
+            if isinstance(loaded, StepOutput):
+                return loaded
+            if loaded is not None:
+                params0, opt_state0, losses_prefix, resume_ctrl = loaded
+        # phase-boundary injection site: a preemption here models the
+        # kill-between-steps window
+        faults_mod.point(f"{step_name}/start")
         # the device's memory high-water before the step's fit, so the
         # step-end snapshot's change is the step's own
         self.metrics.sample_device_memory()
-        with self.phases.phase(f"{step_name}/init"):
-            params0 = init_params(spec, batch, fixed, t_init=t_init)
-        if self.device.type == "cuda":
-            # build or load the kernel libraries before the fit, so the
-            # first chunk neither waits on nvcc nor emits an event; one
-            # compile event per library and step, as JAX's per program
-            with self.phases.phase(f"{step_name}/compile"):
-                for name in _cuda.SOURCES:
-                    self.run_log.emit("compile", **_cuda.load_event(name))
+        if self._manifest is not None:
+            self._manifest.update_step(
+                step_name, "in_flight",
+                num_iters=len(losses_prefix)
+                if losses_prefix is not None else 0)
+        if params0 is None:
+            with self.phases.phase(f"{step_name}/init"):
+                params0 = init_params(spec, batch, fixed, t_init=t_init)
+        self._compile(step_name)
         if not spec.step1:
             # analytic (cells x loci) planes one iteration moves
             self.metrics.gauge(
@@ -338,11 +676,16 @@ class PertInference:
         controller = None
         if self._controller_active(min_iter, max_iter):
             controller = ControllerPolicy.from_config(cfg, max_iter)
+        # injection site at the fit dispatch itself: a spec can fail a
+        # whole step fit on its first attempt
+        faults_mod.point(f"{step_name}/fit")
         t0 = time.perf_counter()
         fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
                       max_iter=max_iter, min_iter=min_iter,
                       rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
-                      b1=cfg.adam_b1, b2=cfg.adam_b2, device=self.device,
+                      b1=cfg.adam_b1, b2=cfg.adam_b2,
+                      opt_state0=opt_state0, losses_prefix=losses_prefix,
+                      device=self.device,
                       moment_dtype=cfg.optimizer_state_dtype,
                       diag_every=cfg.fit_diag_every,
                       doctor_thresholds=dict(
@@ -350,26 +693,54 @@ class PertInference:
                           slope_tol=cfg.doctor_slope_tol,
                           var_tol=cfg.doctor_var_tol,
                           grad_ratio=cfg.doctor_grad_ratio),
-                      controller=controller)
+                      controller=controller,
+                      escalate_dir=cfg.checkpoint_dir,
+                      escalate_tag=step_name,
+                      checkpoint_every=cfg.checkpoint_every,
+                      checkpoint_cb=(self._checkpoint_cb(step_name)
+                                     if cfg.checkpoint_dir else None),
+                      resume_state=resume_ctrl,
+                      chunk_deadline=cfg.watchdog_chunk_seconds)
         wall = time.perf_counter() - t0
         self.phases.add(f"{step_name}/fit", fit.timings["fit"])
         num_cells = int(batch.reads.shape[0])
         profiling.log_step_summary(step_name, fit, wall, num_cells)
-        self._emit_fit_events(step_name, fit, wall, num_cells)
+        self._emit_fit_events(step_name, fit, wall, num_cells,
+                              prior_iters=(len(losses_prefix)
+                                           if losses_prefix is not None
+                                           else 0))
+        if cfg.checkpoint_dir:
+            completed = bool(fit.converged or fit.nan_abort
+                             or fit.num_iters >= (fit.budget
+                                                  if fit.budget is not None
+                                                  else max_iter))
+            with self.phases.phase(f"{step_name}/checkpoint"):
+                self._save(step_name, fit.params, fit.losses, completed,
+                           opt_state=fit.opt_state, num_iters=fit.num_iters,
+                           converged=fit.converged, nan_abort=fit.nan_abort)
+            if self._manifest is not None:
+                self._manifest.update_step(
+                    step_name, "complete" if completed else "in_flight",
+                    num_iters=fit.num_iters)
+        # phase-boundary injection site: the step's outputs are durably
+        # committed — a preemption here must resume at the NEXT step
+        faults_mod.point(f"{step_name}/end")
         with self.phases.phase(f"{step_name}/metrics"):
             self.metrics.emit_snapshot(self.run_log, f"{step_name}/end")
         return StepOutput(fit, spec, fixed, batch, wall)
 
     def _emit_fit_events(self, step_name: str, fit: FitResult, wall: float,
-                         num_cells: int) -> None:
+                         num_cells: int, prior_iters: int = 0) -> None:
         """The controller's decisions, ``fit_end``, ``fit_health`` (with
         ``qc``) and, on a poisoned fit, ``nan_abort`` with the loss
         tail, for one completed step fit (JAX ``_emit_fit_events``);
-        every value comes from the returned FitResult."""
+        every value comes from the returned FitResult.  ``prior_iters``
+        (iterations restored from a checkpoint) count in ``iters`` but
+        not in the rates, whose wall covers the resumed segment only."""
         for decision in fit.decisions:
             self.run_log.emit("control_decision", step=step_name,
                               **decision)
-        iters = max(fit.num_iters, 1)
+        iters = max(fit.num_iters - prior_iters, 1)
         diag = None
         if fit.diagnostics is not None and len(fit.diagnostics["iter"]):
             # the ring keeps the last samples: a trailing window of the
@@ -387,7 +758,7 @@ class PertInference:
             }
         self.run_log.emit(
             "fit_end", step=step_name, iters=int(fit.num_iters),
-            resumed_from_iter=None,
+            resumed_from_iter=(int(prior_iters) if prior_iters else None),
             final_loss=(float(fit.losses[-1])
                         if len(fit.losses) and np.isfinite(fit.losses[-1])
                         else None),
@@ -714,19 +1085,42 @@ class PertInference:
         n = int(np.sum(data.cell_mask)) if data.cell_mask is not None \
             else data.num_cells
         cell_ids = list(data.cell_ids)[:n]
+        ppc_dropped = False
         with self.phases.phase("qc/ppc"):
-            ppc_dev, ppc_z = (t.cpu().numpy()[:n] for t in ppc_discrepancy(
-                out.spec, out.fit.params, out.fixed, out.batch,
-                seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
-                maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+            try:
+                faults_mod.point("qc/ppc")
+                ppc_dev, ppc_z = (t.cpu().numpy()[:n]
+                                  for t in ppc_discrepancy(
+                    out.spec, out.fit.params, out.fixed, out.batch,
+                    seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
+                    maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+            except Exception as exc:
+                if faults_mod.classify_exception(exc) != "oom":
+                    raise
+                # degradation ladder, QC rung: the PPC is an optional
+                # health surface — drop it rather than kill a run whose
+                # inference results are already computed and durable
+                ppc_dropped = True
+                ppc_dev = np.full(n, np.nan, np.float64)
+                ppc_z = np.full(n, np.nan, np.float64)
+                self.run_log.emit(
+                    "degrade", step="step2", action="drop_ppc",
+                    error_class="oom",
+                    detail=("posterior-predictive check OOMed — PPC "
+                            "columns are NaN and the ppc_outlier flag "
+                            "is disabled for this run"),
+                    error=f"{type(exc).__name__}: {str(exc)[:300]}")
+                logger.warning("cell QC: PPC dropped after OOM (%s)", exc)
         with self.phases.phase("qc/package"):
-            return self._cell_qc_table(cell_ids, ppc_dev, ppc_z, qc_stats)
+            return self._cell_qc_table(cell_ids, ppc_dev, ppc_z, qc_stats,
+                                       ppc_dropped)
 
-    def _cell_qc_table(self, cell_ids, ppc_dev, ppc_z,
-                       qc_stats: dict) -> pd.DataFrame:
+    def _cell_qc_table(self, cell_ids, ppc_dev, ppc_z, qc_stats: dict,
+                       ppc_dropped: bool = False) -> pd.DataFrame:
         """The QC table of :meth:`build_cell_qc` and its
         ``cell_qc_summary`` event (the flagged cells, the first 64, most
-        suspect first)."""
+        suspect first).  A dropped PPC (its OOM rung) leaves NaN columns
+        that flag no cell ``non_finite``."""
         cfg = self.config
         n = len(cell_ids)
         tau = np.asarray(qc_stats["tau"])[:n]
@@ -741,8 +1135,9 @@ class PertInference:
             a = self._rescue_cells["accepted"]
             rescue_cand[c[c < n]] = True
             rescue_acc[a[a < n]] = True
-        finite = np.isfinite(tau) & np.isfinite(mean_ent) \
-            & np.isfinite(ppc_z)
+        finite = np.isfinite(tau) & np.isfinite(mean_ent)
+        if not ppc_dropped:
+            finite &= np.isfinite(ppc_z)
         # NaN comparisons are False: a poisoned cell lands only in
         # non_finite, the flag that subsumes the others
         flag_arrays = {
@@ -810,9 +1205,14 @@ class PertInference:
         Under the facade this writes into its open session and
         installed registry.  A runner driven directly creates its own
         run log from ``telemetry_path`` and its own registry here,
-        installs the registry for the run and retires it after."""
+        installs the registry for the run and retires it after.  The
+        heartbeat (with ``checkpoint_dir`` or ``heartbeat_dir``) closes
+        ``done`` on return and ``error`` on an Exception; a
+        BaseException (a preemption) leaves it as it was, to go stale."""
         self.run_log = runlog_mod.active() \
             or runlog_mod.RunLog.create(self.config.telemetry_path)
+        if self._manifest is not None:
+            self._manifest.note_run_log(self.run_log.path)
         registry = metrics_mod.current()
         owns_metrics = not registry.enabled
         self.metrics = metrics_mod.MetricsRegistry.create(
@@ -834,15 +1234,94 @@ class PertInference:
                 step3 = self.run_step3(step1, step2) \
                     if self.config.run_step3 else None
             self.metrics.write_textfile()
+        except Exception as exc:
+            if self._heartbeat is not None:
+                self._heartbeat.close("error", error=exc)
+            raise
         finally:
             if owns_metrics:
                 metrics_mod.uninstall(self.metrics)
+            if self._heartbeat is not None:
+                heartbeat_mod.uninstall(self._heartbeat)
+        if self._heartbeat is not None:
+            self._heartbeat.close("done")
         return step1, step2, step3
 
 
 # ---------------------------------------------------------------------------
 # output packaging (pandas parity)
 # ---------------------------------------------------------------------------
+
+def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
+                             phase_prefix: str):
+    """The packaging decode under the OOM degradation ladder (JAX
+    ``_decode_with_degradation``, without its Viterbi branch: ROADMAP
+    A9).
+
+    Returns ``(decoded, ent_planes, want_entropy)``.  On an ``oom`` the
+    ladder walks: halve the decode slab (three times — each halving
+    halves the live joint tensor), then drop the optional QC entropy
+    surfaces, then re-raise — at which point every step's results are
+    already in durable checkpoints, so the abort is resumable.  Every
+    rung is a ``degrade`` event; other errors propagate from the first
+    attempt untouched.  The fault site ``{phase_prefix}/decode`` fires
+    on every attempt.
+    """
+    log = runlog_mod.current()
+    num_loci = batch.reads.shape[1]
+    auto_chunk = max(1, _DECODE_SLAB_BYTES
+                     // max(num_loci * spec.P * 2 * 4, 1))
+
+    def _decode(chunk, entropy):
+        faults_mod.point(f"{phase_prefix}/decode")
+        out = decode_discrete(spec, params, fixed, batch,
+                              want_entropy=entropy, cell_chunk=chunk)
+        if entropy:
+            return out[:3], out[3:]
+        return out, None
+
+    # rung 0 is the normal path (the automatic slab); rungs 1-3 halve it
+    ladder = [None] + [max(1, auto_chunk >> k) for k in (1, 2, 3)]
+    last_exc = None
+    for rung, chunk in enumerate(ladder):
+        try:
+            decoded, ent_planes = _decode(chunk, want_entropy)
+            return decoded, ent_planes, want_entropy
+        except Exception as exc:
+            if faults_mod.classify_exception(exc) != "oom":
+                raise
+            last_exc = exc
+            if rung == len(ladder) - 1:
+                break
+            log.emit(
+                "degrade", step=phase_prefix, action="halve_decode_slab",
+                detail=(f"decode OOM at slab={chunk or auto_chunk} cells — "
+                        f"retrying at {max(1, auto_chunk >> (rung + 1))}"),
+                error=f"{type(exc).__name__}: {str(exc)[:300]}")
+    if want_entropy:
+        # next rung: drop the optional QC surfaces and retry once at
+        # the smallest slab
+        log.emit(
+            "degrade", step=phase_prefix, action="drop_qc_surfaces",
+            detail=("decode still OOM at the smallest slab — dropping "
+                    "the posterior-entropy planes (model_cn_entropy "
+                    "column and the per-cell QC table) for this run"),
+            error=f"{type(last_exc).__name__}: {str(last_exc)[:300]}")
+        try:
+            decoded, ent_planes = _decode(ladder[-1], False)
+            return decoded, ent_planes, False
+        except Exception as exc:
+            if faults_mod.classify_exception(exc) != "oom":
+                raise
+            last_exc = exc
+    log.emit(
+        "degrade", step=phase_prefix, action="abort_resumable",
+        error_class="oom",
+        detail=("decode OOM after the full degradation ladder; step "
+                "checkpoints are durable, so the run is resumable"),
+        error=f"{type(last_exc).__name__}: {str(last_exc)[:300]}")
+    raise last_exc
+
 
 def package_step_output(
     cn_long: pd.DataFrame,
@@ -855,6 +1334,7 @@ def package_step_output(
     mirror_rescue_stats: Optional[dict] = None,
     qc_collect: Optional[dict] = None,
     qc_entropy_thresh: float = 0.5,
+    phase_prefix: str = "s",
 ) -> Tuple[pd.DataFrame, pd.DataFrame]:
     """Decode the discretes and attach the fitted values to the long-form
     contract (reference: pert_model.py:466-538): model_cn_state,
@@ -867,18 +1347,25 @@ def package_step_output(
     pass: the decode also returns the per-bin entropy planes, the long
     output gains ``model_cn_entropy``, and ``qc_collect`` receives the
     per-cell aggregates (reduced on the device), tau and the MAP planes
-    that ``PertInference.build_cell_qc`` reads."""
+    that ``PertInference.build_cell_qc`` reads.
+
+    The decode runs under the OOM ladder (:func:`_decode_with_degradation`,
+    fault site ``{phase_prefix}/decode``); when the ladder drops the
+    entropy surfaces, ``qc_collect`` receives ``degraded: True`` and
+    nothing else, and the QC table is skipped."""
     spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
         step.batch
-    want_entropy = qc_collect is not None
-    decoded = decode_discrete(spec, params, fixed, batch,
-                              want_entropy=want_entropy)
+    decoded, ent_planes, want_entropy = _decode_with_degradation(
+        spec, params, fixed, batch, qc_collect is not None, phase_prefix)
+    if qc_collect is not None and not want_entropy:
+        qc_collect["degraded"] = True
+        qc_collect = None
     with torch.no_grad():
         c = constrained(spec, params, fixed)
         qc_device = entropy_aggregates_from_planes(
-            decoded[3], decoded[4], batch.effective_loci_mask(),
+            ent_planes[0], ent_planes[1], batch.effective_loci_mask(),
             qc_entropy_thresh, want_max=True) if want_entropy else {}
-    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded[:3])
+    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded)
     tau, u, rho, a_c = (c[k].detach().cpu().numpy()
                         for k in ("tau", "u", "rho", "a"))
 
@@ -890,7 +1377,7 @@ def package_step_output(
     per_bin = {"model_cn_state": cn_map[:n], "model_rep_state": rep_map[:n],
                "model_p_rep": p_rep[:n]}
     if want_entropy:
-        per_bin["model_cn_entropy"] = decoded[3].cpu().numpy()[:n]
+        per_bin["model_cn_entropy"] = ent_planes[0].cpu().numpy()[:n]
         qc_collect.update({k: v.cpu().numpy() for k, v in qc_device.items()})
         qc_collect.update(tau=tau, cn_map=cn_map, rep_map=rep_map)
     out = attach_dense_columns(

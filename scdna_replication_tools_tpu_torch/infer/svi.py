@@ -30,7 +30,11 @@ is off.
 With a controller policy (``obs/controller.py``) the host reads the
 flight recorder between chunks and may early-stop, extend, re-seed or
 retry a NaN-poisoned fit at a lower learning rate, as JAX's
-``_fit_map_controlled`` / ``_chunk_loop`` do.  Adam is optax's (lr 0.05,
+``_fit_map_controlled`` / ``_chunk_loop`` do; the chunk boundaries are
+also its durability points (checkpoints, the ``{tag}/chunk`` fault
+site, the chunk watchdog, the emergency save and the heartbeat), and a
+fit resumes from a checkpoint's Adam state, loss prefix and controller
+ledger on the uninterrupted trajectory.  Adam is optax's (lr 0.05,
 betas 0.8/0.99 by default): the pi parameter through the fused kernel
 (``ops/adam_kernel.adam_update``), with its moments stored in
 ``moment_dtype`` (float32 or bfloat16), every other leaf through the same
@@ -47,8 +51,10 @@ import numpy as np
 import torch
 
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import checkpoint as _ckpt
 from scdna_replication_tools_tpu_torch.obs import controller as _controller
 from scdna_replication_tools_tpu_torch.obs import doctor as _doctor
+from scdna_replication_tools_tpu_torch.obs import heartbeat as _heartbeat
 from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
     adam_constants,
     adam_scalars,
@@ -57,6 +63,8 @@ from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
     moment_torch_dtype,
 )
 from scdna_replication_tools_tpu_torch.ops.dists import seeded_generator
+from scdna_replication_tools_tpu_torch.utils import faults as _faults
+from scdna_replication_tools_tpu_torch.utils.profiling import logger
 
 # slots of the in-fit diagnostics ring (JAX svi.py:47)
 DIAG_RING = 64
@@ -360,14 +368,15 @@ def _perturb_params(params: dict, scale: float, seed: int, salt: int,
 
 def _result(params, state, losses_np, n, converged, nan_abort, wall,
             dispatched, diag_np, diag_every, thresholds, decisions,
-            budget) -> FitResult:
+            budget, diag_i0: int = 0) -> FitResult:
     losses = (losses_np[:n] if losses_np is not None
               else np.zeros(0, np.float32)).astype(np.float32)
     diagnostics = None
     if diag_every:
         diagnostics = _decode_diag(
             diag_np if diag_np is not None
-            else np.zeros((DIAG_RING, 3), np.float32), n, 0, diag_every)
+            else np.zeros((DIAG_RING, 3), np.float32), n, diag_i0,
+            diag_every)
     health = _diagnose(losses, converged, nan_abort, diagnostics,
                        thresholds)
     return FitResult(
@@ -380,45 +389,90 @@ def _result(params, state, losses_np, n, converged, nan_abort, wall,
         decisions=decisions, budget=int(budget))
 
 
+def _state_to(state: AdamState, dev) -> AdamState:
+    """An Adam state (a checkpoint's, restored on any device) on ``dev``."""
+    return AdamState(count=state.count.to(dev),
+                     mu={k: v.to(dev) for k, v in state.mu.items()},
+                     nu={k: v.to(dev) for k, v in state.nu.items()})
+
+
+def _loss_buffer(length: int, losses_prefix, dev):
+    """(float32 device loss history of ``length`` zeros with the prefix
+    written in front, the prefix length)."""
+    losses = torch.zeros((length,), dtype=torch.float32, device=dev)
+    i0 = 0
+    if losses_prefix is not None and len(losses_prefix) > 0:
+        i0 = min(int(len(losses_prefix)), length)
+        losses[:i0] = torch.as_tensor(
+            np.asarray(losses_prefix[:i0], np.float32), device=dev)
+    return losses, i0
+
+
 def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
             max_iter: int = 2000, min_iter: int = 100, rel_tol: float = 1e-6,
             learning_rate: float = 0.05, b1: float = 0.8, b2: float = 0.99,
             opt_state0: Optional[AdamState] = None,
+            losses_prefix: Optional[np.ndarray] = None,
             device=None, moment_dtype: str = "float32",
             diag_every: int = 0, doctor_thresholds: Optional[dict] = None,
-            controller=None) -> FitResult:
+            controller=None, escalate_dir: Optional[str] = None,
+            escalate_tag: str = "fit", checkpoint_every: int = 0,
+            checkpoint_cb=None, resume_state: Optional[dict] = None,
+            chunk_deadline: Optional[float] = None) -> FitResult:
     """Fit ``params`` by MAP ascent of ``-loss_fn`` with the reference's
     stop semantics, for at most ``max_iter`` iterations.
 
     ``loss_fn(params, *loss_args) -> scalar tensor``.  ``params0`` (a
     dict of float32 tensors, not modified) is copied to ``device`` (see
     ``device.resolve_device``: the GPU unless ``'cpu'`` is passed), where
-    ``loss_args`` must already lie; ``opt_state0`` continues from a
-    previous Adam state.  ``diag_every = K > 0`` records the ring every
-    K iterations and reads the host every K; ``doctor_thresholds``
-    overrides the doctor's window/slope_tol/var_tol/grad_ratio.
-    ``controller`` (an ``obs.controller.ControllerPolicy``; needs
-    ``diag_every > 0``) runs the adaptive chunk loop, whose decisions
-    land on ``FitResult.decisions``.
+    ``loss_args`` must already lie.  ``diag_every = K > 0`` records the
+    ring every K iterations and reads the host every K;
+    ``doctor_thresholds`` overrides the doctor's window/slope_tol/
+    var_tol/grad_ratio.  ``controller`` (an
+    ``obs.controller.ControllerPolicy``; needs ``diag_every > 0``) runs
+    the adaptive chunk loop, whose decisions land on
+    ``FitResult.decisions``.
+
+    Resume (JAX ``fit_map``): pass a previous partial fit's Adam state
+    as ``opt_state0`` and its losses as ``losses_prefix``; the fit
+    continues from iteration ``len(losses_prefix)`` on the trajectory
+    the uninterrupted fit would have taken (the loop is deterministic
+    given params, Adam state and loss history).
+
+    Durability (the controlled loop only, as in JAX):
+    ``checkpoint_every = N`` calls ``checkpoint_cb`` every N completed
+    chunks, and on any exception escaping the loop, with the state an
+    exact mid-fit resume needs (params, Adam state, loss prefix and the
+    controller's ledger, ``resume_state``'s keys); ``resume_state``
+    restores that ledger; a NaN escalation saves the best-loss state as
+    ``{escalate_tag}_nan`` under ``escalate_dir``; ``chunk_deadline``
+    bounds each chunk's launches and read (``utils.faults.
+    run_with_deadline``); the fault site ``{escalate_tag}/chunk`` fires
+    at the top of every pass.
     """
     dev = resolve_device(device)
     params = {k: v.detach().to(dev).clone() for k, v in params0.items()}
-    state = opt_state0 if opt_state0 is not None \
+    state = _state_to(opt_state0, dev) if opt_state0 is not None \
         else make_opt_state(params, moment_dtype)
     loop = _Loop(min_iter=int(min_iter), rel_tol=float(rel_tol),
                  win=min(9, int(max_iter)), diag_every=int(diag_every),
                  b1=float(b1), b2=float(b2), moment_dtype=moment_dtype)
     if controller is not None and diag_every:
-        return _fit_map_controlled(loss_fn, params, state, loss_args,
-                                   int(max_iter), float(learning_rate),
-                                   loop, doctor_thresholds, controller)
-    f32 = dict(dtype=torch.float32, device=dev)
-    carry = _Carry(params, state, torch.zeros((int(max_iter),), **f32),
-                   torch.zeros((DIAG_RING, 3), **f32) if diag_every else None)
+        return _fit_map_controlled(
+            loss_fn, params, state, loss_args, int(max_iter),
+            float(learning_rate), loop, doctor_thresholds, controller,
+            losses_prefix=losses_prefix, resume_state=resume_state,
+            escalate_dir=escalate_dir, escalate_tag=escalate_tag,
+            checkpoint_every=checkpoint_every, checkpoint_cb=checkpoint_cb,
+            chunk_deadline=chunk_deadline)
+    losses, i0 = _loss_buffer(int(max_iter), losses_prefix, dev)
+    carry = _Carry(params, state, losses,
+                   torch.zeros((DIAG_RING, 3), dtype=torch.float32,
+                               device=dev) if diag_every else None)
     const = adam_constants(learning_rate, b1, b2, dev)
     every = loop.diag_every or HOST_READ_EVERY
     probe = _StopProbe(every) if dev.type == "cuda" else None
-    i_host = dispatched = 0
+    i_host, dispatched = i0, 0
     read = None
     t0 = time.perf_counter()
     while i_host < max_iter:
@@ -431,21 +485,125 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
         if read.converged or read.is_nan:
             break
     wall = time.perf_counter() - t0
-    return _result(carry.params, carry.state,
-                   read.losses if read else None, i_host,
+    losses_np = read.losses if read else (
+        np.asarray(losses_prefix[:i0], np.float32) if i0 else None)
+    return _result(carry.params, carry.state, losses_np, i_host,
                    bool(read and read.converged), bool(read and read.is_nan),
                    wall, dispatched, read.diag if read else None,
-                   loop.diag_every, doctor_thresholds, [], max_iter)
+                   loop.diag_every, doctor_thresholds, [], max_iter,
+                   diag_i0=i0)
+
+
+def _host_copy(tree):
+    """Host copy of a tensor, a dict of tensors or an Adam state (NumPy
+    passes through), or None when the copy fails: after a CUDA error the
+    context is unusable and no device tensor can be read."""
+    if tree is None:
+        return None
+
+    def one(x):
+        return x.detach().cpu() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+    try:
+        if isinstance(tree, AdamState):
+            return AdamState(count=one(tree.count),
+                             mu={k: one(v) for k, v in tree.mu.items()},
+                             nu={k: one(v) for k, v in tree.nu.items()})
+        if isinstance(tree, dict):
+            return {k: one(v) for k, v in tree.items()}
+        return one(tree)
+    except Exception:  # noqa: BLE001 — this IS the probe: None says the
+        # state is unreadable, which the caller reports as inexact
+        return None
+
+
+def _emergency_save(checkpoint_cb, snap: dict) -> None:
+    """Best-effort resumable save on the way out of an escaping
+    exception, from the chunk loop's snapshot (JAX ``_emergency_save``).
+
+    The port donates nothing, and a chunk writes only its loss buffer
+    and ring in place, whose host copies from the last read the snapshot
+    holds: after a host-side exception anywhere in the loop (a
+    preemption, a watchdog timeout, a failed launch) the snapshot is the
+    last chunk boundary's state and the save is exact.  After a CUDA
+    error the context is unusable: the copies fail, and the save
+    degrades as JAX's does after a mid-chunk failure — the best-loss
+    params without Adam state (``exact=False``), or nothing when those
+    cannot be read either."""
+    if checkpoint_cb is None or not snap:
+        return
+    try:
+        p_np = _host_copy(snap.get("params"))
+        o_np = _host_copy(snap.get("opt_state"))
+        i_host = int(snap.get("i_host", 0))
+        best_it = int(snap.get("best_it", 0))
+        l = snap.get("losses_np")
+        l_np = np.asarray(l[:i_host]) if l is not None \
+            else np.zeros(0, np.float32)
+        live = p_np is not None
+        if not live:
+            p_np, o_np = _host_copy(snap.get("best_params")), None
+            l_np = l_np[:best_it]
+        if p_np is None:
+            return
+        # the ring's host copy belongs to the live state: a save rewound
+        # to best_it restarts the ring there, so the doctor reads only
+        # the resumed segment
+        diag_np = snap.get("diag") if live else None
+        state = {
+            "reseeds": int(snap.get("reseeds", 0)),
+            "extra_granted": int(snap.get("extra_granted", 0)),
+            "nan_retries": int(snap.get("nan_retries", 0)),
+            "lr": float(snap.get("lr", 0.0)),
+            "budget": int(snap.get("budget", 0)),
+            "stagnation_anchor": int(snap.get("stagnation_anchor", 0)),
+            "prev_verdict": snap.get("prev_verdict"),
+            "best_loss": float(snap.get("best_loss", float("inf"))),
+            "best_it": best_it,
+            "best_params": _host_copy(snap.get("best_params")),
+            "diag": diag_np if diag_np is not None
+            else np.zeros((DIAG_RING, 3), np.float32),
+            "diag_i0": int(snap.get("diag_i0", 0))
+            if diag_np is not None else int(len(l_np)),
+        }
+        checkpoint_cb(params=p_np, opt_state=o_np, losses=l_np,
+                      num_iters=int(len(l_np)), state=state,
+                      exact=o_np is not None)
+    except Exception as exc:  # noqa: BLE001 — the original abort must
+        # surface, not a failed rescue save
+        logger.warning("emergency checkpoint save failed: %s", exc)
+
+
+def _save_escalation_checkpoint(escalate_dir, tag, params, losses,
+                                num_iters: int) -> Optional[str]:
+    """Persist the best-loss state of a NaN-escalated fit (diagnosable
+    artifact for the post-mortem); best-effort — a failed save must not
+    mask the escalation itself."""
+    if not escalate_dir:
+        return None
+    try:
+        return _ckpt.save_step(str(escalate_dir), f"{tag}_nan", params,
+                               np.asarray(losses), num_iters=num_iters,
+                               converged=False, nan_abort=True)
+    except Exception as exc:  # noqa: BLE001 — telemetry-adjacent path
+        logger.warning("NaN-escalation checkpoint save failed: %s", exc)
+        return None
 
 
 def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
                         loss_args: tuple, max_iter: int,
                         learning_rate: float, loop: _Loop,
-                        doctor_thresholds: Optional[dict],
-                        policy) -> FitResult:
+                        doctor_thresholds: Optional[dict], policy,
+                        losses_prefix=None,
+                        resume_state: Optional[dict] = None,
+                        escalate_dir: Optional[str] = None,
+                        escalate_tag: str = "fit",
+                        checkpoint_every: int = 0, checkpoint_cb=None,
+                        chunk_deadline: Optional[float] = None
+                        ) -> FitResult:
     """The adaptive chunk loop (JAX ``_fit_map_controlled`` and
-    ``_chunk_loop``, without their checkpoint, fault-injection,
-    deadline, heartbeat, span, meter and slab-dispatcher hooks).
+    ``_chunk_loop``, without their span, meter and slab-dispatcher
+    hooks).
 
     Each chunk is ``diag_every`` iterations (fewer at a budget edge),
     then one host read.  Between chunks: the best-loss checkpoint at
@@ -456,107 +614,219 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
     the reference's criterion ends the fit; otherwise the policy reads
     the loss tail and the ring's gradient norms and may early-stop
     (handing back the best checkpoint when the final state is worse),
-    extend the budget, or re-seed from the best checkpoint."""
+    extend the budget, or re-seed from the best checkpoint.
+
+    The chunk boundaries are the durability points (see :func:`fit_map`):
+    at the top of a pass every carry is the last chunk's output and
+    every decision on the completed chunks is applied, so a save there
+    replays the uninterrupted run's remaining chunks and decisions.  The
+    saves read that boundary's tensors (a later chunk makes new ones)
+    and the host copies of its read; each heartbeat note follows a
+    chunk's outcome."""
     dev = next(iter(params.values())).device
-    f32 = dict(dtype=torch.float32, device=dev)
     every = loop.diag_every
-    buf_len = max_iter + max(int(policy.max_extra_iters), 0)
-    carry = _Carry(params, state, torch.zeros((buf_len,), **f32),
-                   torch.zeros((DIAG_RING, 3), **f32))
-    lr_now = learning_rate
+    resume_state = dict(resume_state or {})
+    # the loss buffer holds the larger of the configured and a resumed
+    # (already extended) budget plus the full extension headroom
+    buf_len = max(max_iter, int(resume_state.get("budget", 0))) \
+        + max(int(policy.max_extra_iters), 0)
+    losses, i0 = _loss_buffer(buf_len, losses_prefix, dev)
+    # diag_i0 anchors the ring's slot -> iteration mapping: the fit's
+    # start, or for a resumed fit with a restored ring the original
+    # fit's, so the doctor reads the window an uninterrupted run would
+    diag_host = np.zeros((DIAG_RING, 3), np.float32)
+    diag_i0 = i0
+    if resume_state.get("diag") is not None:
+        diag_host = np.asarray(resume_state["diag"], np.float32)
+        diag_i0 = int(resume_state.get("diag_i0", 0))
+    carry = _Carry(params, state, losses,
+                   torch.as_tensor(diag_host, device=dev).clone())
+    lr_now = float(resume_state.get("lr", learning_rate))
     const = adam_constants(lr_now, loop.b1, loop.b2, dev)
     probe = _StopProbe(every) if dev.type == "cuda" else None
-    i_host = dispatched = 0
-    budget = max_iter
+    i_host, dispatched = i0, 0
+    budget = int(resume_state.get("budget", max_iter))
     decisions: list = []
-    reseeds = extra_granted = nan_retries = 0
+    reseeds = int(resume_state.get("reseeds", 0))
+    extra_granted = int(resume_state.get("extra_granted", 0))
+    nan_retries = int(resume_state.get("nan_retries", 0))
     converged_flag = nan_flag = False
-    best_loss, best_it, best_params = float("inf"), 0, params
-    prev_verdict = None
-    stagnation_anchor = 0
-    read = None
+    best_loss = float(resume_state.get("best_loss", float("inf")))
+    best_it = int(resume_state.get("best_it", i0))
+    best_params = params
+    if resume_state.get("best_params") is not None:
+        best_params = _ckpt.restore_params(resume_state["best_params"], dev)
+    prev_verdict = resume_state.get("prev_verdict") or None
+    # iteration the current trajectory regime began at: 0 for a fresh
+    # or resumed fit, bumped by reseed / NaN retry
+    stagnation_anchor = int(resume_state.get("stagnation_anchor", 0))
+    fault_site = f"{escalate_tag}/chunk"
+    # the host copies of the last read (a resumed fit starts from its
+    # restored prefix, so an abort before the first read does not
+    # supersede the iteration-N checkpoint with a zero-iteration one)
+    losses_np = None
+    entry_losses = np.asarray(losses_prefix[:i0], np.float32) if i0 \
+        else None
+    snap: dict = {}
+    chunks_done = 0
+    chunk_t0 = chunk_t1 = 0.0
+
+    def _note(entry_it, i_now, action, verdict=None):
+        """One chunk outcome into the heartbeat (a no-op without one)."""
+        _heartbeat.note_chunk(
+            step=escalate_tag, chunk=chunks_done, iteration=int(i_now),
+            budget=int(budget), wall_seconds=chunk_t1 - chunk_t0,
+            iters=int(i_now) - int(entry_it), action=str(action),
+            verdict=verdict)
+
+    def _ledger():
+        return {"reseeds": reseeds, "extra_granted": extra_granted,
+                "nan_retries": nan_retries, "lr": lr_now, "budget": budget,
+                "stagnation_anchor": stagnation_anchor,
+                "prev_verdict": prev_verdict, "best_loss": best_loss,
+                "best_it": best_it, "best_params": best_params,
+                "diag": diag_host, "diag_i0": diag_i0}
+
     t0 = time.perf_counter()
-    while i_host < budget:
-        entry_params, entry_it = carry.params, i_host
-        stop = min(i_host + every, budget)
-        carry, launched = _launch_chunk(loss_fn, loss_args, carry, i_host,
-                                        stop, loop, const, probe)
-        dispatched += launched
-        read = _read_chunk(carry, stop)
-        i_host = read.i
-        traj = read.losses[:i_host]
-        entry_loss = float(read.losses[entry_it])
-        if entry_it < i_host and np.isfinite(entry_loss) \
-                and entry_loss < best_loss:
-            best_loss, best_params, best_it = entry_loss, entry_params, \
-                entry_it
-        converged_flag, nan_flag = read.converged, read.is_nan
+    try:
+        while i_host < budget:
+            snap.update(params=carry.params, opt_state=carry.state,
+                        losses_np=losses_np if losses_np is not None
+                        else entry_losses, i_host=i_host, **_ledger())
+            # periodic durability point, at the top of the pass (saving
+            # before the decisions on the last chunk would make the
+            # resumed run skip one and diverge); the cadence counts
+            # dispatched chunks, so saving never perturbs the fit
+            if checkpoint_cb is not None and checkpoint_every \
+                    and chunks_done and losses_np is not None \
+                    and chunks_done % int(checkpoint_every) == 0:
+                checkpoint_cb(params=carry.params, opt_state=carry.state,
+                              losses=losses_np[:i_host], num_iters=i_host,
+                              state=_ledger(), exact=True)
+            # every carry is a live chunk output here, so a simulated
+            # preemption aborts with exactly-resumable state
+            poison = _faults.point(fault_site) == "nan"
+            entry_params, entry_it = carry.params, i_host
+            stop = min(i_host + every, budget)
 
-        if nan_flag:
-            decision = dict(_controller.decide(
+            def _dispatch(c=carry, i=i_host, stop=stop, const=const):
+                c, launched = _launch_chunk(loss_fn, loss_args, c, i, stop,
+                                            loop, const, probe)
+                # the read waits for the card INSIDE the deadline: a
+                # stalled chunk is the hang the watchdog exists for
+                return c, launched, _read_chunk(c, stop)
+
+            chunk_t0 = time.time()
+            carry, launched, read = _faults.run_with_deadline(
+                _dispatch, chunk_deadline, f"{escalate_tag} fit chunk",
+                device=dev)
+            chunk_t1 = time.time()
+            dispatched += launched
+            chunks_done += 1
+            i_host = read.i
+            losses_np, diag_host = read.losses, read.diag
+            converged_flag, nan_flag = read.converged, read.is_nan
+            if poison:
+                # the injected-NaN fault: poison the chunk's last loss
+                # so everything downstream of detection (escalation,
+                # diagnosable checkpoint, reduced-LR retry, rewind) is
+                # the real machinery
+                losses_np[max(i_host - 1, 0)] = np.nan
+                nan_flag = True
+            traj = losses_np[:i_host]
+            entry_loss = float(losses_np[entry_it])
+            if entry_it < i_host and np.isfinite(entry_loss) \
+                    and entry_loss < best_loss:
+                best_loss, best_params, best_it = entry_loss, entry_params, \
+                    entry_it
+
+            if nan_flag:
+                decision = dict(_controller.decide(
+                    policy, losses=traj, it=i_host, budget=budget,
+                    min_iter=loop.min_iter, nan=True,
+                    nan_retries_done=nan_retries))
+                prev_verdict = None
+                # the artifact is self-consistent: best_params belong to
+                # iteration best_it, so it records THAT prefix
+                ckpt_path = _save_escalation_checkpoint(
+                    escalate_dir, escalate_tag, best_params,
+                    traj[:best_it], num_iters=best_it)
+                if ckpt_path:
+                    decision["detail"] = (decision.get("detail", "")
+                                          + f"; checkpoint saved to "
+                                            f"{ckpt_path}")
+                decisions.append(decision)
+                _note(entry_it, i_host, decision.get("action", "escalate"),
+                      verdict="nan")
+                if decision.get("outcome") != "retry":
+                    break
+                nan_retries += 1
+                lr_now = lr_now * float(policy.nan_lr_factor)
+                const = adam_constants(lr_now, loop.b1, loop.b2, dev)
+                carry = dataclasses.replace(
+                    carry, params=best_params,
+                    state=make_opt_state(best_params, loop.moment_dtype))
+                # redo from the checkpointed iteration: the poisoned
+                # entries beyond it are overwritten as the retry re-runs
+                i_host = stagnation_anchor = best_it
+                nan_flag = False
+                continue
+
+            if converged_flag:
+                _note(entry_it, i_host, "converged")
+                break  # the reference's own rel-tol criterion fired
+
+            d = _decode_diag(diag_host, i_host, diag_i0, every)
+            grad = d["grad_norm"] if len(d["iter"]) else None
+            decision, prev_verdict = _controller.evaluate(
                 policy, losses=traj, it=i_host, budget=budget,
-                min_iter=loop.min_iter, nan=True,
-                nan_retries_done=nan_retries))
-            prev_verdict = None
-            decisions.append(decision)
-            if decision.get("outcome") != "retry":
+                min_iter=loop.min_iter,
+                grad_norm_first=float(grad[0]) if grad is not None else None,
+                grad_norm_last=float(grad[-1]) if grad is not None else None,
+                exhausted=i_host >= budget, reseeds_done=reseeds,
+                extra_granted=extra_granted, prev_verdict=prev_verdict,
+                stagnation_start=stagnation_anchor)
+            if decision is None:
+                _note(entry_it, i_host, "continue", verdict=prev_verdict)
+                continue
+            action = decision["action"]
+            _note(entry_it, i_host, action,
+                  verdict=(decision.get("trigger") or {}).get("verdict"))
+            if action == "early_stop":
+                if best_loss < float(traj[-1]):
+                    carry = dataclasses.replace(carry, params=best_params)
+                    decision["detail"] = (
+                        f"restored the best-loss checkpoint (iter {best_it}"
+                        f", loss {best_loss:.6g}) — the final state was "
+                        f"worse (loss {float(traj[-1]):.6g})")
+                converged_flag = True
+                decisions.append(decision)
                 break
-            nan_retries += 1
-            lr_now = lr_now * float(policy.nan_lr_factor)
-            const = adam_constants(lr_now, loop.b1, loop.b2, dev)
-            carry = dataclasses.replace(
-                carry, params=best_params,
-                state=make_opt_state(best_params, loop.moment_dtype))
-            # redo from the checkpointed iteration: the poisoned entries
-            # beyond it are overwritten as the retry re-runs them
-            i_host = stagnation_anchor = best_it
-            nan_flag = False
-            continue
-
-        if converged_flag:
-            break  # the reference's own rel-tol criterion fired
-
-        d = _decode_diag(read.diag, i_host, 0, every)
-        grad = d["grad_norm"] if len(d["iter"]) else None
-        decision, prev_verdict = _controller.evaluate(
-            policy, losses=traj, it=i_host, budget=budget,
-            min_iter=loop.min_iter,
-            grad_norm_first=float(grad[0]) if grad is not None else None,
-            grad_norm_last=float(grad[-1]) if grad is not None else None,
-            exhausted=i_host >= budget, reseeds_done=reseeds,
-            extra_granted=extra_granted, prev_verdict=prev_verdict,
-            stagnation_start=stagnation_anchor)
-        if decision is None:
-            continue
-        action = decision["action"]
-        if action == "early_stop":
-            if best_loss < float(traj[-1]):
-                carry = dataclasses.replace(carry, params=best_params)
-                decision["detail"] = (
-                    f"restored the best-loss checkpoint (iter {best_it}"
-                    f", loss {best_loss:.6g}) — the final state was "
-                    f"worse (loss {float(traj[-1]):.6g})")
-            converged_flag = True
             decisions.append(decision)
-            break
-        decisions.append(decision)
-        if action == "extend":
-            grant = int(decision["iters_granted"])
-            budget += grant
-            extra_granted += grant
-        elif action == "reseed":
-            reseeds += 1
-            new_params = _perturb_params(best_params, policy.reseed_scale,
-                                         policy.seed, reseeds)
-            carry = dataclasses.replace(
-                carry, params=new_params,
-                state=make_opt_state(new_params, loop.moment_dtype))
-            # a new trajectory regime: instability must re-prove itself
-            # and the stagnation stop measures the restart on its own
-            prev_verdict = None
-            stagnation_anchor = i_host
+            if action == "extend":
+                grant = int(decision["iters_granted"])
+                budget += grant
+                extra_granted += grant
+            elif action == "reseed":
+                reseeds += 1
+                new_params = _perturb_params(best_params,
+                                             policy.reseed_scale,
+                                             policy.seed, reseeds)
+                carry = dataclasses.replace(
+                    carry, params=new_params,
+                    state=make_opt_state(new_params, loop.moment_dtype))
+                # a new trajectory regime: instability must re-prove
+                # itself and the stagnation stop measures the restart on
+                # its own
+                prev_verdict = None
+                stagnation_anchor = i_host
+    except BaseException:
+        _emergency_save(checkpoint_cb, snap)
+        raise
     wall = time.perf_counter() - t0
-    return _result(carry.params, carry.state,
-                   read.losses if read else None, i_host, converged_flag,
-                   nan_flag, wall, dispatched, read.diag if read else None,
-                   every, doctor_thresholds, decisions, budget)
+    if losses_np is None and entry_losses is not None:
+        losses_np = entry_losses
+    return _result(carry.params, carry.state, losses_np, i_host,
+                   converged_flag, nan_flag, wall, dispatched, diag_host,
+                   every, doctor_thresholds, decisions, budget,
+                   diag_i0=diag_i0)

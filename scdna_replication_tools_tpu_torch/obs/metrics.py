@@ -22,12 +22,13 @@ registry when no run is active.  Recording never raises.
 
 Taken from the JAX module: the registry, its event mapping for the
 events the port emits (``compile``, ``fit_end``, ``control_decision``,
-``rescue``, ``nan_abort``), the snapshot and exposition exports, and
-the seams.  Device memory is read from ``torch.cuda.memory_stats``
+``rescue``, ``nan_abort`` and the durable runs' ``fault_injected``,
+``retry``, ``degrade``, ``resume`` and ``checkpoint``), the snapshot and
+exposition exports, and the seams.  Device memory is read from ``torch.cuda.memory_stats``
 (current and peak allocated bytes) under the catalogue's HBM names.
-Left for the items that own them: the event mappings of the durable-run
-and serving events (A8, A13) and the regression verdict of the fleet
-tools.
+Left for the items that own them: the mesh-shrink counter (A12), the
+event mappings of the serving events (A13) and the regression verdict of
+the fleet tools.
 """
 
 from __future__ import annotations
@@ -63,6 +64,15 @@ def load_manifest() -> dict:
 def manifest_metrics() -> dict:
     """``name -> spec`` dict from the manifest ({} when unreadable)."""
     return load_manifest().get("metrics", {})
+
+
+def metric_base_name(series_key: str) -> str:
+    """Manifest name of a flat series key: strip labels and the
+    histogram ``_count`` suffix."""
+    name = series_key.split("{", 1)[0]
+    if name.endswith("_count") and name[:-6] in manifest_metrics():
+        return name[:-6]
+    return name
 
 
 def _labels_key(labels: Optional[dict]) -> Tuple[Tuple[str, str], ...]:
@@ -306,6 +316,23 @@ class MetricsRegistry:
             if payload.get("iters_granted"):
                 self.counter("pert_controller_iters_granted_total").inc(
                     int(payload["iters_granted"]))
+        elif event == "fault_injected":
+            self.counter("pert_faults_injected_total",
+                         labels={"kind": str(payload.get("kind"))}).inc()
+        elif event == "retry":
+            self.counter("pert_retries_total").inc()
+        elif event == "degrade":
+            self.counter("pert_degrades_total",
+                         labels={"action": str(payload.get("action"))}
+                         ).inc()
+        elif event == "resume":
+            if payload.get("resharded"):
+                self.counter("pert_resume_reshard_total").inc()
+        elif event == "checkpoint":
+            if payload.get("action") == "save":
+                self.counter("pert_checkpoint_saves_total").inc()
+            elif payload.get("action") == "load":
+                self.counter("pert_checkpoint_loads_total").inc()
         elif event == "rescue":
             self.counter("pert_rescue_candidates_total").inc(
                 int(payload.get("candidates") or 0))

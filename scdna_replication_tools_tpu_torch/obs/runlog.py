@@ -20,8 +20,9 @@
 The port runs one process, so the log always writes (the JAX package's
 rank gate has nothing to gate), and ``run_start`` takes its topology from
 ``torch.cuda``.  Left out with the items that own them: span tracing and
-the cost ledger (A11b), ``add_context`` and the cross-thread stack
-handoff (A13).
+the cost ledger (A11b) and ``add_context`` (A13).  The cross-thread
+stack handoff (:func:`stack_snapshot`/:func:`install_stack`) serves the
+watchdog's worker thread.
 """
 
 from __future__ import annotations
@@ -124,12 +125,19 @@ _RUN_COUNTER = itertools.count()
 
 def _config_digest(config) -> Optional[str]:
     """Short content hash of the config for run comparison, without
-    ``config.NON_HASH_FIELDS`` (where the log and the textfile land)."""
-    from scdna_replication_tools_tpu_torch.config import NON_HASH_FIELDS
+    ``config.NON_HASH_FIELDS`` (where the log, the textfile and the
+    heartbeats land).  A port ``PertConfig`` hashes the JAX package's
+    field set: its own fields plus ``config.UNPORTED_FIELDS`` at their
+    JAX defaults, so one setting gives one hash in both packages."""
+    from scdna_replication_tools_tpu_torch.config import (
+        NON_HASH_FIELDS,
+        UNPORTED_FIELDS,
+    )
 
     try:
         if dataclasses.is_dataclass(config):
-            config = dataclasses.asdict(config)
+            config = {**{k: v for k, (v, _) in UNPORTED_FIELDS.items()},
+                      **dataclasses.asdict(config)}
         if isinstance(config, dict):
             config = {k: v for k, v in config.items()
                       if k not in NON_HASH_FIELDS}
@@ -363,6 +371,17 @@ def _stack() -> list:
     if stack is None:
         stack = _TLS.stack = []
     return stack
+
+
+def stack_snapshot() -> tuple:
+    """The calling thread's RunLog stack, for a handoff to a worker
+    thread (``utils.faults.run_with_deadline``)."""
+    return tuple(_stack())
+
+
+def install_stack(snapshot) -> None:
+    """Adopt another thread's stack (see :func:`stack_snapshot`)."""
+    _TLS.stack = list(snapshot)
 
 
 def active() -> Optional[RunLog]:

@@ -27,8 +27,8 @@ def params_from_jax(params: dict, device) -> dict:
 
 def _moment(x, device) -> torch.Tensor:
     """An Adam moment leaf: float32, or bfloat16 where the JAX state
-    stores it so (an ``ml_dtypes`` bfloat16 array, which widens to
-    float32 and narrows back exactly)."""
+    stores it so (a NumPy array of the JAX package's bfloat16 dtype,
+    which widens to float32 and narrows back exactly)."""
     t = _f32(x, device)
     if np.asarray(x).dtype.name == "bfloat16":
         return t.to(torch.bfloat16)

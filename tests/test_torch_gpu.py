@@ -515,3 +515,152 @@ def test_library_loads_become_compile_events(dev, tmp_path):
         if e["cache"] != "hit":
             assert ("compile_seconds" if e["cache"] == "miss"
                     else "deserialize_seconds") in e
+
+# ---------------------------------------------------------------------------
+# durable runs on the card (ROADMAP A8)
+# ---------------------------------------------------------------------------
+
+
+def _durable_inputs():
+    """(s, g1, clone_idx) through the port's loader: two clones of 12 S
+    and 12 G1 cells x 120 loci, reads Poisson around 40 x CN (the shape
+    of tests/conftest.py's synthetic frames, made here without it)."""
+    import pandas as pd
+
+    from scdna_replication_tools_tpu_torch.config import ColumnConfig
+    from scdna_replication_tools_tpu_torch.data.loader import (
+        build_pert_inputs,
+    )
+
+    rng = np.random.default_rng(7)
+    n = 120
+    starts = (np.arange(n) * 500_000).astype(np.int64)
+    gc = np.clip(0.45 + 0.08 * np.sin(np.arange(n) / 9.0)
+                 + rng.normal(0, 0.02, n), 0.3, 0.65)
+    cn = {"A": np.where((np.arange(n) >= 80) & (np.arange(n) < 100), 4, 2),
+          "B": np.where((np.arange(n) >= 20) & (np.arange(n) < 50), 3, 2)}
+
+    def frame(prefix):
+        rows = [pd.DataFrame({
+            "cell_id": f"{prefix}_{clone}_{i}", "chr": "1", "start": starts,
+            "end": starts + 500_000, "gc": gc, "library_id": "LIB0",
+            "clone_id": clone, "state": cn[clone],
+            "reads": rng.poisson(40 * cn[clone]).astype(float)})
+            for clone in ("A", "B") for i in range(12)]
+        return pd.concat(rows, ignore_index=True)
+
+    s, g1 = build_pert_inputs(frame("s"), frame("g"),
+                              ColumnConfig(rt_prior_col=None))
+    return s, g1, np.array([0] * 12 + [1] * 12, np.int32)
+
+
+DURABLE = dict(cn_prior_method="g1_clones", rel_tol=0.0, run_step3=False,
+               max_iter=75, min_iter=25, max_iter_step1=30,
+               min_iter_step1=10, fit_diag_every=25,
+               controller_max_extra_iters=25, mirror_rescue=False,
+               telemetry_path=None)
+
+
+def _run(dev, **kw):
+    from scdna_replication_tools_tpu_torch.config import PertConfig
+    from scdna_replication_tools_tpu_torch.infer.runner import PertInference
+
+    s, g1, ci = _durable_inputs()
+    inf = PertInference(s, g1, PertConfig(**{**DURABLE, **kw}),
+                        clone_idx_s=ci, clone_idx_g1=ci, num_clones=2,
+                        device=dev)
+    return inf.run()
+
+
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_checkpoint_of_cuda_tensors_is_bit_exact(dev, tmp_path, mdt):
+    """save_step of CUDA parameters and an Adam state (pi moments in
+    ``mdt``), load_step and the restores onto the card: every tensor back
+    bit for bit, in its dtype."""
+    from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
+    from scdna_replication_tools_tpu_torch.infer.svi import AdamState
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    params = {"tau_raw": randn(37), "u": randn(37),
+              "pi_logits": randn(13, 37, 1001), "rho_raw": randn(1001)}
+    mt = torch.bfloat16 if mdt == "bfloat16" else torch.float32
+    state = AdamState(
+        count=torch.tensor(11, dtype=torch.int32, device=dev),
+        mu={k: (randn(*v.shape).to(mt) if k == "pi_logits" else
+                randn(*v.shape)) for k, v in params.items()},
+        nu={k: (randn(*v.shape).abs().to(mt) if k == "pi_logits" else
+                randn(*v.shape).abs()) for k, v in params.items()})
+    ckpt.save_step(str(tmp_path), "step2", params,
+                   np.arange(5, dtype=np.float32), opt_state=state,
+                   num_iters=5, converged=False)
+    p, losses, extra = ckpt.load_step(str(tmp_path), "step2")
+    assert str(extra["meta.opt_moment_dtype"]) == mdt
+    assert extra["meta.topology"]["device_kind"] \
+        == torch.cuda.get_device_name(dev)
+    back = ckpt.restore_params(p, dev)
+    got = ckpt.restore_opt_state(extra, p, dev)
+    for k, v in params.items():
+        assert back[k].device == v.device and torch.equal(back[k], v), k
+    assert got.count.dtype == torch.int32 and torch.equal(got.count,
+                                                          state.count)
+    for name in ("mu", "nu"):
+        for k, v in getattr(state, name).items():
+            t = getattr(got, name)[k]
+            assert t.device == v.device and t.dtype == v.dtype, (name, k)
+            assert torch.equal(t, v), (name, k)
+
+
+def test_compile_hang_raises_watchdog_timeout(dev, tmp_path):
+    """A hang injected in a step's compile phase with a 1 s compile
+    deadline raises WatchdogTimeout, audited as ``degrade
+    watchdog_abort``."""
+    import threading
+
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    log = tmp_path / "hang.jsonl"
+    try:
+        with pytest.raises(faults.WatchdogTimeout):
+            _run(dev, faults="hang@compile#1:5", watchdog_compile_seconds=1,
+                 checkpoint_dir=str(tmp_path / "ck"),
+                 telemetry_path=str(log))
+    finally:
+        faults.install(None)
+        # the abandoned compile thread ends its sleep and its loads
+        for t in threading.enumerate():
+            if t.name.startswith("pert-watchdog-"):
+                t.join(30.0)
+    events = [json.loads(line) for line in log.read_text().splitlines()]
+    assert any(e["event"] == "fault_injected" and e["site"] == "compile"
+               for e in events)
+    assert any(e["event"] == "degrade" and e["action"] == "watchdog_abort"
+               and e["error_class"] == "hang" for e in events)
+    assert events[-1]["event"] == "run_end" \
+        and events[-1]["status"] == "error"
+
+
+def test_kill_and_resume_on_the_card_is_bit_exact(dev, tmp_path):
+    """Preempted at step2/chunk#3 and resumed with resume='auto' on the
+    card: losses and parameters of both steps bit-identical to the
+    uninterrupted run on the card."""
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    g1, g2, _ = _run(dev)
+    durable = dict(checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    try:
+        with pytest.raises(faults.SimulatedPreemption):
+            _run(dev, faults="preempt@step2/chunk#3", **durable)
+    finally:
+        faults.install(None)
+    r1, r2, _ = _run(dev, **durable)
+    for r, g in ((r1, g1), (r2, g2)):
+        np.testing.assert_array_equal(r.fit.losses, g.fit.losses)
+        for k, v in g.fit.params.items():
+            assert torch.equal(r.fit.params[k], v), k
+    assert [(d["action"], d["iter"]) for d in r2.fit.decisions] \
+        == [(d["action"], d["iter"]) for d in g2.fit.decisions
+            if d["iter"] > 50]

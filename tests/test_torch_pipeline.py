@@ -100,10 +100,9 @@ def test_port_recovers_simulated_truth(outputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(heartbeat_dir="hb"), dict(faults="oom@step2/fit"),
-    dict(watchdog_chunk_seconds=5.0),
+    dict(loci_shards=2), dict(num_shards=None), dict(clone_col=None),
     dict(trace_spans=True), dict(executable_cache_dir="ec"),
-    dict(cell_chunk=8), dict(num_shards=2), dict(checkpoint_dir="ck"),
+    dict(cell_chunk=8), dict(num_shards=2), dict(num_shards=0),
     dict(cn_hmm_self_prob=0.9)])
 def test_unported_options_raise(sim_data, option):
     """A JAX option the port lacks raises NotImplementedError naming the
@@ -111,6 +110,18 @@ def test_unported_options_raise(sim_data, option):
     sim_s, sim_g = sim_data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+
+
+@pytest.mark.parametrize("option", [
+    dict(heartbeat_dir="hb"), dict(faults="oom@step2/fit"),
+    dict(watchdog_chunk_seconds=5.0), dict(watchdog_compile_seconds=60.0),
+    dict(checkpoint_dir="ck", resume="off", checkpoint_every=2)])
+def test_durable_run_options_are_taken(sim_data, option):
+    """The durable runs' options (ROADMAP A8) reach the run's config."""
+    sim_s, sim_g = sim_data
+    scrt = TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+    for key, value in option.items():
+        assert getattr(scrt.config, key) == value
 
 
 @pytest.mark.parametrize("option", [
