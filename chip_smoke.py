@@ -88,8 +88,32 @@ Phases, each printing its own lines:
    against the same function through the plain enumeration, and both
    unfused kernels against their plain versions and timed there, each
    with its bound;
-10. the card's name and power limit, one JSON line of the kernels (each
-    with its launches summed over the five paths' runs and by path),
+10. serving: four requests of the same shape (seeds 0-3, every option at
+    its JAX default) submitted with ``submit_frames`` by four processes
+    while the earlier phases run, to a spool in ``/dev/shm`` (outside the
+    checkout; finished requests' checkpoints are removed as they finish,
+    since a request writes ~12 GB of them) and drained by
+    ``ServeWorker(max_batch=4,
+    exit_when_idle=True)`` on the card, then the first two by a serial
+    worker (``max_batch=1``): every ticket done, packed dispatches > 0
+    with at least two lanes each, every request log schema-valid with
+    its ``request_id`` and ``slab_width=4``, ``request_start`` and
+    ``request_end`` in the worker log, packed and serial outputs
+    decoding >= 99 % of bins alike with tau correlation within 0.01, and
+    the first request's tau correlation within 0.01 of the default
+    cell's; per request its wall and queue wait, the slab's dispatches,
+    lanes and width rungs, step 2's ms per slab iteration and
+    cell-iterations per second beside the serial run's, the idle share
+    of a profiled step-2 slab dispatch, and each drain's peak memory,
+    with the batched drain's device-memory timeline by request and phase
+    (``chiprun_out/serve_memory.jsonl``, its peak printed with every
+    request's phase then).  Then the block-axis kernels at the slab's shape (W = 4 and 2 lanes
+    of 1024 x 8192): every lane bit for bit a solo launch on its
+    operands, the plain versions within ``TOL`` (and under a flat
+    prior), Adam's lane axis with a parked lane bit for bit, each timed
+    with its bound;
+11. the card's name and power limit, one JSON line of the kernels (each
+    with its launches summed over the six paths' runs and by path),
     then the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
@@ -98,6 +122,7 @@ It imports nothing of JAX or the JAX package.  The full record goes to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -182,9 +207,18 @@ TPU_KERNEL = {
     "fused_bwd_sparse_binary": f"{_EK}:1100",
     "adam": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
     "adam_bf16": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
+    # the block axis: the same pallas_calls under jax.vmap's batching
+    # rule (infer/svi.py _run_fit_chunk_slab); the JAX slab takes XLA's
+    # Adam, the port the lane axis of row 11's kernel
+    "fused_fwd_dense_lanes": f"{_EK}:741",
+    "fused_bwd_dense_lanes": f"{_EK}:766",
+    "fused_fwd_sparse_lanes": f"{_EK}:856",
+    "fused_bwd_sparse_lanes": f"{_EK}:881",
+    "adam_lanes": "scdna_replication_tools_tpu/ops/adam_kernel.py:168",
 }
 SOURCE = {name: f"{PKG}/csrc/enum_fused.cu" for name in TPU_KERNEL}
-SOURCE["adam"] = SOURCE["adam_bf16"] = f"{PKG}/csrc/adam.cu"
+SOURCE["adam"] = SOURCE["adam_bf16"] = SOURCE["adam_lanes"] = \
+    f"{PKG}/csrc/adam.cu"
 
 FAILURES: list = []
 
@@ -473,6 +507,12 @@ SASS_FUNCTION = {
     "fused_fwd_sparse_binary": "fused_fwd_kernel<true, true>",
     "fused_bwd_sparse_binary": "fused_bwd_kernel<true, true>",
     "adam": "adam_kernel<float>", "adam_bf16": "adam_kernel<__nv_bfloat16>",
+    # a launch with a lane axis runs the same kernel with gridDim.y lanes
+    "fused_fwd_dense_lanes": "fused_fwd_kernel<false, false>",
+    "fused_bwd_dense_lanes": "fused_bwd_kernel<false, false>",
+    "fused_fwd_sparse_lanes": "fused_fwd_kernel<true, false>",
+    "fused_bwd_sparse_lanes": "fused_bwd_kernel<true, false>",
+    "adam_lanes": "adam_kernel<float>",
 }
 _TEMPLATE_ARGS = {"Lb0E": "false", "Lb1E": "true", "f": "float",
                   "13__nv_bfloat16": "__nv_bfloat16"}
@@ -574,19 +614,19 @@ def parse_ptxas(log: str) -> dict:
 
 # Rows 1 and 3-10 as their present design compiles (instructions, MUFU
 # instructions), read from this script's [sass] phase on the H100 (nvcc
-# 12.9, sm_90a): a change that leaves these kernels alone must not move
-# their listings (a redesign of one of them, or another nvcc, updates
-# this table)
+# 12.9, sm_90a; rows 3-10 with their lane axis): a change that leaves
+# these kernels alone must not move their listings (a redesign of one of
+# them, or another nvcc, updates this table)
 UNCHANGED_SASS = {
     "enum_fwd_kernel": (8799, 162),
-    "fused_fwd_kernel<false, false>": (9319, 178),
-    "fused_bwd_kernel<false, false>": (15916, 566),
-    "fused_fwd_kernel<true, false>": (9080, 178),
-    "fused_bwd_kernel<true, false>": (15765, 566),
-    "fused_fwd_kernel<false, true>": (9227, 178),
-    "fused_bwd_kernel<false, true>": (15763, 565),
-    "fused_fwd_kernel<true, true>": (8998, 178),
-    "fused_bwd_kernel<true, true>": (15613, 565),
+    "fused_fwd_kernel<false, false>": (9265, 178),
+    "fused_bwd_kernel<false, false>": (15995, 566),
+    "fused_fwd_kernel<true, false>": (9113, 178),
+    "fused_bwd_kernel<true, false>": (15818, 566),
+    "fused_fwd_kernel<false, true>": (9257, 178),
+    "fused_bwd_kernel<false, true>": (15845, 565),
+    "fused_fwd_kernel<true, true>": (9019, 178),
+    "fused_bwd_kernel<true, true>": (15637, 565),
 }
 
 
@@ -1114,8 +1154,10 @@ def check_main_path_shapes(dev, scrt, results, path: str) -> None:
     print(f"[kernels] on the operands of each step of the {path} path, from "
           "its fitted parameters")
     for name, step in zip(("step1", "step2", "step3"), scrt.steps):
-        check_one_iteration(dev, results, step.spec, step.fit.params,
-                            step.fixed, step.batch, mdt, f"{path} {name}")
+        # a finished step's pi planes may have moved to the host
+        params = {k: v.to(dev) for k, v in step.fit.params.items()}
+        check_one_iteration(dev, results, step.spec, params, step.fixed,
+                            step.batch, mdt, f"{path} {name}")
 
 
 def check_one_iteration(dev, results, spec, params, fixed, batch, mdt,
@@ -2086,6 +2128,732 @@ def profile_steps(dev, scrt, record, path: str,
             "kernels_ms_per_iter": dict(top)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving worker with continuous batching
+# ---------------------------------------------------------------------------
+
+SERVE_SEEDS = (0, 1, 2, 3)     # four requests, seeds of simulate_frames
+SERVE_SERIAL = 2               # the first two again through a serial worker
+SERVE_WIDTH = 4                # ServeWorker(max_batch=4)
+# the block-axis kernels and the row of the solo kernel each one batches
+LANES = {"fused_fwd_dense_lanes": "fused_fwd_dense",
+         "fused_bwd_dense_lanes": "fused_bwd_dense",
+         "fused_fwd_sparse_lanes": "fused_fwd_sparse",
+         "fused_bwd_sparse_lanes": "fused_bwd_sparse",
+         "adam_lanes": "adam"}
+# decoded bins of a packed request that must equal its serial run's
+SERVE_AGREE = 0.99
+
+
+class MemoryTimeline:
+    """While open, the card's allocated bytes by request and phase: a
+    sample at every change of a serving request's phase (its thread's
+    ``PhaseTimer`` phases, each step's fit, each packed dispatch) and
+    every 0.25 s, each with every request's phase at that moment.  The
+    samples go to ``path`` as JSON lines; :meth:`report` prints the peak
+    with the phases then, and per phase the most allocated while some
+    request was in it."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self.samples: list = []
+
+    def _label(self, request_thread_prefix="pert-serve-block-"):
+        import threading
+        name = threading.current_thread().name
+        return name[len(request_thread_prefix):] \
+            if name.startswith(request_thread_prefix) else None
+
+    def _sample(self):
+        import torch
+        self.samples.append((round(time.perf_counter() - self.t0, 3),
+                             torch.cuda.memory_allocated(),
+                             dict(self.phases)))
+
+    @contextlib.contextmanager
+    def _in(self, label):
+        rid = self._label()
+        if rid is None:
+            yield
+            return
+        stack = self.stacks.setdefault(rid, [])
+        stack.append(label)
+        with self.lock:
+            self.phases[rid] = label
+            self._sample()
+        try:
+            yield
+        finally:
+            stack.pop()
+            with self.lock:
+                self.phases[rid] = stack[-1] if stack else "-"
+                self._sample()
+
+    def __enter__(self):
+        import threading
+
+        from scdna_replication_tools_tpu_torch.infer import runner, svi
+        from scdna_replication_tools_tpu_torch.utils import profiling
+        self.t0 = time.perf_counter()
+        self.lock = threading.Lock()
+        self.phases: dict = {}
+        self.stacks: dict = {}
+        self.stop = threading.Event()
+        tl = self
+        self.orig = (profiling.PhaseTimer.phase, runner.PertInference._fit_map,
+                     svi.dispatch_chunk_slab)
+        phase, fit_map, slab = self.orig
+
+        @contextlib.contextmanager
+        def timed_phase(timer, name):
+            with tl._in(name), phase(timer, name):
+                yield
+
+        def timed_fit(inf, spec, *args, **kw):
+            with tl._in(f"{args[5]}/fit"):
+                return fit_map(inf, spec, *args, **kw)
+
+        def timed_slab(calls, width, timings=None):
+            with tl._in(f"slab x{len(calls)}"):
+                return slab(calls, width, timings)
+        profiling.PhaseTimer.phase = timed_phase
+        runner.PertInference._fit_map = timed_fit
+        svi.dispatch_chunk_slab = timed_slab
+        self.mods = (profiling, runner, svi)
+
+        def tick():
+            while not self.stop.wait(0.25):
+                with self.lock:
+                    self._sample()
+        self.thread = threading.Thread(target=tick, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        profiling, runner, svi = self.mods
+        (profiling.PhaseTimer.phase, runner.PertInference._fit_map,
+         svi.dispatch_chunk_slab) = self.orig
+        with open(self.path, "w") as fh:
+            for t, b, ph in self.samples:
+                fh.write(json.dumps({"t": t, "allocated": b,
+                                     "phases": ph}) + "\n")
+        return False
+
+    def report(self, tag: str) -> dict:
+        if not self.samples:
+            return {}
+        t, peak, at = max(self.samples, key=lambda s: s[1])
+        by_phase: dict = {}
+        for _, b, ph in self.samples:
+            for label in set(ph.values()):
+                by_phase[label] = max(by_phase.get(label, 0), b)
+        print(f"[serve memory] {tag}: peak allocated {peak} B at "
+              f"{t:.1f} s with the requests in {json.dumps(at)}; "
+              f"{len(self.samples)} samples in {self.path.name}")
+        print("  most allocated while some request was in: " + ", ".join(
+            f"{k} {v / 2**30:.2f} GiB" for k, v in sorted(
+                by_phase.items(), key=lambda kv: -kv[1])[:12]))
+        return {"peak": peak, "peak_t": t, "peak_phases": at,
+                "by_phase": by_phase}
+
+
+class SlabProbe:
+    """Wraps ``svi.dispatch_chunk_slab`` while open: records each packed
+    dispatch (its rung, live lanes, step, slab iterations and wall) and
+    profiles the first packed step-2 dispatch with torch.profiler
+    (device busy time against the dispatch's wall: the idle share of a
+    slab; the card also runs whatever the other lanes' threads launch
+    meanwhile)."""
+
+    def __init__(self):
+        self.dispatches: list = []
+        self.profile = None
+        self.lock = None
+
+    def __enter__(self):
+        import threading
+
+        from scdna_replication_tools_tpu_torch.infer import svi
+        self.lock = threading.Lock()
+        self.svi, self.orig = svi, svi.dispatch_chunk_slab
+
+        def probe(calls, width, timings=None, _orig=self.orig):
+            t = {} if timings is None else timings
+            spec = getattr(calls[0].loss_fn, "spec", None)
+            step = "step1" if spec is not None and spec.step1 else \
+                "step3" if spec is not None and spec.sparse_etas else "step2"
+            with self.lock:
+                want = step == "step2" and self.profile is None
+                if want:
+                    self.profile = {}
+            if not want:
+                out = _orig(calls, width, t)
+            else:
+                out = self._profiled(_orig, calls, width, t)
+            with self.lock:
+                self.dispatches.append({
+                    "step": step, "lanes": len(calls),
+                    "rung": t.get("slab_width"),
+                    "launched": t.get("launched"),
+                    "seconds": t.get("seconds")})
+            return out
+        svi.dispatch_chunk_slab = probe
+        return self
+
+    def _profiled(self, orig, calls, width, t):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = orig(calls, width, t)
+        by_name: dict = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            by_name[_short(ev.key)] = by_name.get(_short(ev.key), 0.0) \
+                + us / 1e3
+        busy = sum(by_name.values())
+        wall = 1e3 * t["seconds"]
+        n = max(int(t["launched"]), 1)
+        self.profile = {
+            "lanes": len(calls), "iterations": n, "wall_ms": wall,
+            "busy_ms": busy, "idle_share": 1.0 - busy / wall if busy
+            else None, "kernels_ms_per_iter": {
+                k: v / n for k, v in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:10]}}
+        torch.cuda.synchronize()
+        return out
+
+    def __exit__(self, *exc):
+        self.svi.dispatch_chunk_slab = self.orig
+        return False
+
+
+def _submit_seed(spool: str, seed: int) -> str:
+    """Simulate one request's frames (seed ``seed``) and submit them to
+    the spool at ``spool``: the task of one process of the pool that
+    prepares the serving phase's requests side by side (writing a
+    request's long-form TSVs takes tens of seconds)."""
+    from scdna_replication_tools_tpu_torch.serve.queue import SpoolQueue
+    cn_s, cn_g1 = simulate_frames(seed)
+    return SpoolQueue(spool).submit_frames(cn_s, cn_g1,
+                                           request_id=f"seed{seed}")
+
+
+class Janitor:
+    """While open, a thread that removes what a spool's workers no longer
+    need: every finished request's checkpoint directory and the
+    superseded ``.prev`` checkpoint files of the requests in flight.  A
+    flagship request writes 12-14 GB of checkpoints at the worker's
+    defaults (an in-fit save holds parameters, both moments and the
+    best-loss copy; step 1 fits 2048 doubled G1 cells), which four of
+    them at once would keep in the machine's memory, where the spool
+    lies: the card's machine counts every byte written to its disk,
+    deleted or not, against 45 GiB, and the phase's six requests write
+    ~75 GB, so the spool is a fresh directory in /dev/shm, removed when
+    the phase ends or fails."""
+
+    def __init__(self, queue):
+        import threading
+        self.queue = queue
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="serve-janitor")
+
+    def _run(self):
+        import shutil
+        while not self.stop.wait(0.5):
+            for ck in (self.queue.root / "results").glob("*/ckpt"):
+                doc = self.queue.status(ck.parent.name) or {}
+                if doc.get("state") in ("done", "failed"):
+                    shutil.rmtree(ck, ignore_errors=True)
+                    continue
+                for prev in ck.glob("*.prev"):
+                    prev.unlink(missing_ok=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=30)
+        return False
+
+
+def _ckpt_bytes(events) -> int:
+    """Checkpoint bytes a request's run wrote (its ``checkpoint`` save
+    events)."""
+    return int(sum(e.get("bytes") or 0 for e in events
+                   if e["event"] == "checkpoint"
+                   and e.get("action") == "save"))
+
+
+# the served output's columns the checks read
+SERVED_COLUMNS = ("cell_id", "chr", "start", "model_cn_state",
+                  "model_rep_state", "model_tau", "true_rep",
+                  "true_somatic_cn", "true_t")
+
+
+def _served(queue, rid):
+    """A request's S output frame (the columns the checks read) and its
+    run log's events."""
+    import pandas as pd
+    d = queue.results_dir(rid)
+    out = pd.read_csv(d / "output.tsv", sep="\t", dtype={"chr": str},
+                      usecols=list(SERVED_COLUMNS))
+    events = [json.loads(line) for line in
+              (d / "run.jsonl").read_text().splitlines()]
+    return out, events
+
+
+def _recovery(out) -> dict:
+    per_cell = out.groupby("cell_id").agg(tau=("model_tau", "first"),
+                                          true_t=("true_t", "first"))
+    return {
+        "rep_acc": float((out["model_rep_state"] == out["true_rep"]).mean()),
+        "cn_acc": float((out["model_cn_state"]
+                         == out["true_somatic_cn"]).mean()),
+        "tau_r": float(np.corrcoef(per_cell["tau"],
+                                   per_cell["true_t"])[0, 1])}
+
+
+def _drain(queue, max_batch: int) -> tuple:
+    """One worker over ``queue`` until it is empty, on the card; returns
+    (worker, stats, wall seconds, launches, peak bytes)."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    from scdna_replication_tools_tpu_torch.serve import ServeWorker
+    worker = ServeWorker(queue, max_batch=max_batch, exit_when_idle=True)
+    check(worker.device.type == "cuda" and worker.executable_cache_dir
+          is None, f"[serve] ServeWorker(max_batch={max_batch}) runs on "
+          f"{worker.device}, no compiled-program store")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    stats = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (worker, stats, wall, dict(_cuda.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def _top_phases(events, n: int = 8) -> str:
+    """The request run's ``n`` longest phases (its run_end's ledger)."""
+    end = events[-1] if events and events[-1]["event"] == "run_end" else {}
+    phases = {k: v for k, v in (end.get("phases") or {}).items()
+              if k != "total_accounted"}
+    top = sorted(phases.items(), key=lambda kv: -kv[1])[:n]
+    return ", ".join(f"{k} {v:.1f} s" for k, v in top)
+
+
+def _step2_rate(events) -> tuple:
+    """(step-2 ms per iteration, cell-iterations per second) of one
+    request's fit, over its real S cells, without the in-fit checkpoint
+    saves that its fit wall holds (the ``checkpoint`` events before its
+    ``fit_end``)."""
+    end = next(i for i, e in enumerate(events) if e["event"] == "fit_end"
+               and e["step"] == "step2")
+    saves = sum(e.get("seconds") or 0.0 for e in events[:end]
+                if e["event"] == "checkpoint" and e.get("step") == "step2"
+                and e.get("action") == "save")
+    wall = events[end]["wall_seconds"] - saves
+    iters = max(events[end]["iters"], 1)
+    return 1e3 * wall / iters, CELLS * iters / max(wall, 1e-9)
+
+
+class ServeSpool:
+    """The serving phase's spool and its requests, prepared from the
+    start of the script: four spawned processes (they need no card)
+    simulate the requests and write their TSVs (~60 s of the host's time)
+    while the earlier phases run.  The spool lies in ``/dev/shm`` (see
+    :class:`Janitor`); :meth:`close` stops the processes and removes it,
+    also when a phase fails on the way."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing as mp
+        import tempfile
+        from concurrent.futures import ProcessPoolExecutor
+
+        shm = Path("/dev/shm")
+        self.root = Path(tempfile.mkdtemp(
+            prefix="pert_serve_", dir=shm if shm.is_dir() else None))
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(len(SERVE_SEEDS),
+                                        mp_context=mp.get_context("spawn"))
+        self.futures = [self.pool.submit(_submit_seed,
+                                         str(self.root / "batched"), seed)
+                        for seed in SERVE_SEEDS]
+        atexit.register(self.close)
+
+    def requests(self) -> list:
+        """The request ids, once every process has submitted its own."""
+        rids = [f.result() for f in self.futures]
+        self.pool.shutdown(wait=True)
+        return rids
+
+    def close(self) -> None:
+        import shutil
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
+    """The serving path: four flagship requests (seeds 0-3, every option
+    at its JAX default) through ``ServeWorker(max_batch=4)``, then the
+    first two through a serial worker; the checks of the serving phase
+    (module docstring, phase 10).  Returns the launches of the batched
+    drain."""
+    from scdna_replication_tools_tpu_torch.obs.schema import validate_run
+    from scdna_replication_tools_tpu_torch.serve import SpoolQueue
+
+    root = spool.root
+    rec = record.setdefault("serve", {})
+    try:
+        queue = SpoolQueue(root / "batched")
+        t0 = time.perf_counter()
+        rids = spool.requests()
+        print(f"[serve] {len(rids)} requests of {CELLS} S + {G1_CELLS} G1 "
+              f"cells x {LOCI} loci simulated and submitted by "
+              f"{len(SERVE_SEEDS)} processes into {root} while the earlier "
+              f"phases ran ({time.perf_counter() - spool.t0:.1f} s since "
+              f"they started; waited {time.perf_counter() - t0:.1f} s here)")
+        timeline = MemoryTimeline(REPO / "chiprun_out" / "serve_memory.jsonl")
+        with timeline, SlabProbe() as probe, Janitor(queue):
+            worker, stats, wall, launches, peak = _drain(queue, SERVE_WIDTH)
+        rec["batched_memory"] = timeline.report("batched")
+        coord = worker.slab_coordinator
+        rungs = sorted({d["rung"] for d in probe.dispatches})
+        print(f"[serve batched] ServeWorker(max_batch={SERVE_WIDTH}) drained "
+              f"{stats['processed']} requests in {wall:.2f} s: "
+              f"{json.dumps(stats['by_status'])}; fit dispatches "
+              f"{coord.dispatches}, packed {coord.packed_dispatches} with "
+              f"{coord.packed_lanes} lanes, rungs {rungs}; peak device "
+              f"memory {peak} bytes")
+        print(f"  launches {json.dumps(launches)}")
+        ends = {}
+        for line in Path(stats["worker_log"]).read_text().splitlines():
+            ev = json.loads(line)
+            if ev["event"] in ("request_start", "request_end"):
+                ends.setdefault(ev["request_id"], {})[ev["event"]] = ev
+            elif ev["event"] == "span_end" and ev["name"] in (
+                    "admission", "stream_back"):
+                rid = (ev.get("attrs") or {}).get("request_id")
+                ends.setdefault(rid, {})[ev["name"]] = ev["duration_seconds"]
+        for rid in rids:
+            doc = queue.status(rid)
+            start = ends.get(rid, {}).get("request_start", {})
+            end = ends.get(rid, {}).get("request_end", {})
+            print(f"  {rid}: {doc.get('state')} / {doc.get('status')}, wall "
+                  f"{end.get('wall_seconds')} s (admission "
+                  f"{ends.get(rid, {}).get('admission')} s, stream back "
+                  f"{ends.get(rid, {}).get('stream_back')} s), queue wait "
+                  f"{start.get('queue_wait_seconds')} s, bucket "
+                  f"{json.dumps(start.get('bucket'))}, pad_frac "
+                  f"{start.get('pad_frac')}, retired_early "
+                  f"{end.get('retired_early')}")
+            check(doc.get("state") == "done" and doc.get("status") == "ok",
+                  f"[serve] {rid} ends done/ok")
+            check("request_start" in ends.get(rid, {})
+                  and "request_end" in ends.get(rid, {}),
+                  f"[serve] {rid}: request_start and request_end in the "
+                  "worker log")
+        check(coord.packed_dispatches > 0
+              and coord.packed_lanes >= 2 * coord.packed_dispatches,
+              f"[serve] packed dispatches {coord.packed_dispatches} > 0, "
+              f"lanes {coord.packed_lanes} >= 2 x dispatches")
+        check(validate_run(stats["worker_log"]) == [],
+              "[serve] the worker log is schema-valid")
+        for name in LANES:
+            check(launches[name] > 0, f"[serve] {name} launched "
+                  f"{launches[name]} times on the serving path")
+        packed, rates = {}, {}
+        for rid in rids:
+            if queue.status(rid).get("status") != "ok":
+                continue
+            out, events = _served(queue, rid)
+            path = queue.results_dir(rid) / "run.jsonl"
+            start = events[0]
+            check(validate_run(path) == [] and start.get("request_id") == rid
+                  and start.get("slab_width") == SERVE_WIDTH,
+                  f"[serve] {rid}: its log is schema-valid, run_start "
+                  f"carries request_id {start.get('request_id')} and "
+                  f"slab_width {start.get('slab_width')}")
+            packed[rid] = (out, _recovery(out))
+            rates[rid] = _step2_rate(events)
+            ends[rid]["ckpt_bytes"] = _ckpt_bytes(events)
+            print(f"  {rid} phases: {_top_phases(events)}")
+        slab2 = [d for d in probe.dispatches if d["step"] == "step2"]
+        it2 = sum(d["launched"] for d in slab2)
+        s2 = sum(d["seconds"] for d in slab2)
+        lane_it2 = sum(d["launched"] * d["lanes"] for d in slab2)
+        slab_ms = 1e3 * s2 / max(it2, 1)
+        slab_cells = CELLS * lane_it2 / max(s2, 1e-9)
+        print(f"  step 2 packed: {len(slab2)} slab dispatches, {it2} slab "
+              f"iterations, {slab_ms:.3f} ms per slab iteration, "
+              f"{slab_cells:.1f} cell-iterations/s over the slab's live "
+              "lanes; per request (fit wall, waits included): "
+              + ", ".join(f"{r} {v[0]:.3f} ms/iteration {v[1]:.1f} "
+                          "cells/s" for r, v in rates.items())
+              + " (in-fit checkpoint saves left out)")
+        print("  checkpoint bytes written per request: " + ", ".join(
+            f"{r} {ends[r]['ckpt_bytes']}" for r in packed))
+        if probe.profile:
+            pr = probe.profile
+            print(f"[profile] serve slab step2, {pr['lanes']} lanes, "
+                  f"{pr['iterations']} iterations: wall "
+                  f"{pr['wall_ms'] / pr['iterations']:.3f} ms/iteration, "
+                  f"device busy {pr['busy_ms'] / pr['iterations']:.3f} "
+                  f"ms/iteration (idle share {pr['idle_share']:.3f})")
+            for k, v in list(pr["kernels_ms_per_iter"].items())[:8]:
+                print(f"  {v:8.4f} ms/iteration  {k}")
+        rec["batched"] = {
+            "wall_s": wall, "stats": {k: stats[k] for k in
+                                      ("processed", "by_status")},
+            "dispatches": coord.dispatches,
+            "packed_dispatches": coord.packed_dispatches,
+            "packed_lanes": coord.packed_lanes, "rungs": rungs,
+            "slab_dispatches": probe.dispatches, "profile": probe.profile,
+            "peak_bytes": peak, "launches": launches,
+            "step2_slab_ms_per_iter": slab_ms,
+            "step2_slab_cells_per_s": slab_cells,
+            "requests": {r: {"recovery": packed[r][1],
+                             "step2_ms_per_iter": rates[r][0],
+                             "step2_cells_per_s": rates[r][1],
+                             "wall_s": ends[r]["request_end"].get(
+                                 "wall_seconds"),
+                             "queue_wait_s": ends[r]["request_start"].get(
+                                 "queue_wait_seconds"),
+                             "ckpt_bytes": ends[r]["ckpt_bytes"]}
+                         for r in packed}}
+        batched_launches = launches
+        del worker, coord, probe
+
+        # the same requests' data through a serial worker (no rewrite)
+        serial = SpoolQueue(root / "serial")
+        for rid in rids[:SERVE_SERIAL]:
+            src = queue.root / "data" / rid
+            serial.submit(str(src / "cn_s.tsv"), str(src / "cn_g1.tsv"),
+                          request_id=rid)
+        with Janitor(serial):
+            worker, stats, wall, launches, peak = _drain(serial, 1)
+        print(f"[serve serial] ServeWorker(max_batch=1) drained "
+              f"{stats['processed']} requests in {wall:.2f} s: "
+              f"{json.dumps(stats['by_status'])}; peak device memory "
+              f"{peak} bytes")
+        srates = {}
+        for rid in rids[:SERVE_SERIAL]:
+            ok = serial.status(rid).get("status") == "ok"
+            check(ok, f"[serve serial] {rid} ends done/ok")
+            if not ok or rid not in packed:
+                continue
+            out_s, events = _served(serial, rid)
+            srates[rid] = _step2_rate(events)
+            print(f"  {rid} phases: {_top_phases(events)}")
+            out_p, rec_p = packed[rid]
+            same = float(((out_p["model_cn_state"] == out_s["model_cn_state"])
+                          & (out_p["model_rep_state"]
+                             == out_s["model_rep_state"])).mean())
+            rec_s = _recovery(out_s)
+            print(f"  {rid}: step 2 {srates[rid][0]:.3f} ms/iteration, "
+                  f"{srates[rid][1]:.1f} cells/s; packed vs serial: "
+                  f"{same:.4%} of bins decode alike, tau r "
+                  f"{rec_p['tau_r']:.4f} / {rec_s['tau_r']:.4f}; outputs "
+                  f"bit-identical: {out_p.equals(out_s)}")
+            check(same >= SERVE_AGREE, f"[serve] {rid}: packed and serial "
+                  f"decode {same:.4%} of bins alike >= {SERVE_AGREE:.0%}")
+            check(rec_p["tau_r"] >= rec_s["tau_r"] - 0.01,
+                  f"[serve] {rid}: packed tau r {rec_p['tau_r']:.4f} >= "
+                  f"serial {rec_s['tau_r']:.4f} - 0.01")
+            rec.setdefault("serial", {})[rid] = {
+                "recovery": rec_s, "agree": same,
+                "bit_identical": bool(out_p.equals(out_s)),
+                "step2_ms_per_iter": srates[rid][0],
+                "step2_cells_per_s": srates[rid][1]}
+        rec["serial_wall_s"], rec["serial_peak_bytes"] = wall, peak
+        tau0 = packed[rids[0]][1]["tau_r"] if rids[0] in packed \
+            else float("nan")
+        check(tau0 >= default_ref["tau_r"] - 0.01,
+              f"[serve] {rids[0]} (the default cell's frames) packed tau r "
+              f"{tau0:.4f} >= the default cell's {default_ref['tau_r']:.4f} "
+              "- 0.01")
+        del worker
+        return batched_launches
+    finally:
+        spool.close()
+
+
+def check_lanes(dev, results) -> None:
+    """The block-axis kernels at the slab's shape (W lanes of 1024 x 8192,
+    P = 13, each lane its own operands and lambda): every lane of one
+    launch equals a solo launch on its operands bit for bit, the plain
+    versions within ``TOL`` (and ``TOL_FLAT`` under a flat prior), and
+    Adam's lane axis with one parked lane (live = 0) bit for bit; timed
+    at W = 2 and 4 with the bound of the W lanes' bytes and operations."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import adam_kernel as ak
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    C, L = 1024, 8192
+    gen = torch.Generator(device=dev)
+    for name in LANES:
+        results.setdefault(name, {"max_abs_err": 0.0})
+    for W in (SERVE_WIDTH, 2):
+        gen.manual_seed(SEED + W)
+        lanes = [kernel_inputs(C, L, gen, dev) for _ in range(W)]
+        for x in lanes:
+            x.pop("log_pi")
+        x = {k: torch.stack([ln[k] for ln in lanes]) for k in lanes[0]
+             if k != "lamb"}
+        del lanes
+        torch.cuda.empty_cache()
+        scal = torch.stack([ek.scalars(torch.tensor(
+            0.6 + 0.05 * b, dtype=torch.float32, device=dev))
+            for b in range(W)])
+        args = (x["reads"], x["mu"], x["pi_t"], x["phi"], scal)
+        label = f"W={W} x {C}x{L}"
+        print(f"[lanes] {label}, P = {P}")
+        for sparse in (False, True):
+            prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
+                else dict(etas_t=x["etas_t"])
+            for flat in ((False, True) if W == SERVE_WIDTH else (False,)):
+                pr = flat_prior(prior) if flat else prior
+                _lanes_pair(results, args, pr, x["g"], sparse, flat, label)
+            _time_lanes(results, args, prior, x["g"], sparse, W)
+            torch.cuda.empty_cache()
+        del x, args
+        torch.cuda.empty_cache()
+        shape = (W, P, C, L)
+        p, g = (torch.randn(shape, generator=gen, device=dev)
+                for _ in range(2))
+        m = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        v = 0.1 * torch.rand(shape, generator=gen, device=dev)
+        const = torch.tensor([[0.05 * (b + 1), 0.8, 0.99] for b in range(W)],
+                             dtype=torch.float32, device=dev)
+        count = torch.tensor([3 + 50 * b for b in range(W)],
+                             dtype=torch.int32, device=dev)
+        live = torch.tensor([b != 1 for b in range(W)], device=dev)
+        scal_a = ak.adam_scalars(const, count, live)
+        got = ak.adam_update(p, g, m, v, scal_a, 0.8, 0.99)
+        ref = ak.adam_update_plain(p, g, m, v, scal_a, 0.8, 0.99)
+        solo = all(torch.equal(a[b], c) for b in range(W)
+                   for a, c in zip(got, ak.adam_update(
+                       p[b], g[b], m[b], v[b], scal_a[b], 0.8, 0.99)))
+        parked = all(torch.equal(a[1], c[1]) for a, c in zip(got, (p, m, v)))
+        plain = all(torch.equal(a, c) for a, c in zip(got, ref))
+        torch.cuda.synchronize()
+        check(solo, f"adam_lanes {label}: every lane equals a solo launch "
+              "with its scalar row bit for bit")
+        check(parked, f"adam_lanes {label}: the parked lane (live = 0) "
+              "writes param, m and v through bit for bit")
+        check(plain, f"adam_lanes {label}: equals the plain lane-axis "
+              "version bit for bit")
+        entry = results["adam_lanes"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], max(
+            amax(a - c) for a, c in zip(got, ref)))
+        moved = nbytes(p, g, m, v) + nbytes(*got)
+        del got, ref
+        b_ms, b_by, _ = bound(moved, ADAM_OPS * p.numel())
+        t = {"ms": time_ms(lambda: ak.adam_update(
+                 p, g, m, v, scal_a, 0.8, 0.99)),
+             "ms_single": time_single_ms(lambda: ak.adam_update(
+                 p, g, m, v, scal_a, 0.8, 0.99)),
+             "plain_ms": time_ms(lambda: ak.adam_update_plain(
+                 p, g, m, v, scal_a, 0.8, 0.99), reps=5, warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+             "library_ms": None}
+        entry.setdefault("by_width", {})[W] = t
+        if W == SERVE_WIDTH:
+            entry.update(t)
+        print(f"  adam_lanes {tuple(shape)}: kernel {t['ms']:.4f} ms, "
+              f"single-call {t['ms_single']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
+              "library call takes a learning rate and step per lane")
+        del p, g, m, v
+        torch.cuda.empty_cache()
+
+
+def _lanes_pair(results, args, prior, g, sparse, flat, label) -> None:
+    """One block-axis pair against solo launches (bit for bit) and the
+    batched plain versions (``TOL``/``TOL_FLAT`` per lane)."""
+    import torch
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    kind = "sparse" if sparse else "dense"
+    out_k, lse_k = ek.fused_fwd(*args, **prior)
+    got = ek.fused_bwd(*args, lse_k, g, **prior)
+    tol, tag = (TOL_FLAT, "flat prior") if flat else (TOL, "prior")
+    solo_ok = True
+    fwd_errs, bwd_errs = {}, {}
+    for b in range(args[0].shape[0]):
+        lane = tuple(a[b] for a in args)
+        lp = {k: v[b] for k, v in prior.items()}
+        o, s = ek.fused_fwd(*lane, **lp)
+        d = ek.fused_bwd(*lane, s, g[b], **lp)
+        solo_ok &= all(torch.equal(a, c) for a, c in zip(
+            (out_k[b], lse_k[b]) + tuple(t[b] for t in got), (o, s) + d))
+        del o, s, d
+        fwd, bwd = fused_errors(lane, lp, g[b], flat)
+        for errs, acc in ((fwd, fwd_errs), (bwd, bwd_errs)):
+            for part, e in errs.items():
+                old = acc.get(part, (0.0, 0.0))
+                acc[part] = (max(old[0], e[0]), max(old[1], e[1]))
+    torch.cuda.synchronize()
+    check(solo_ok, f"fused_*_{kind}_lanes {label}, {tag}: every lane equals "
+          "a solo launch on its operands bit for bit")
+    report(results, f"fused_fwd_{kind}_lanes", fwd_errs, tol,
+           f"{label}, {tag} (per lane, plain)")
+    report(results, f"fused_bwd_{kind}_lanes", bwd_errs, tol,
+           f"{label}, {tag} (per lane, plain)")
+
+
+def _time_lanes(results, args, prior, g, sparse, W) -> None:
+    """Both block-axis kernels of one prior at W lanes: kernel and plain
+    times, and the bound of the lanes' bytes, float32 operations and SFU
+    instructions (each lane's own shift census)."""
+    from scdna_replication_tools_tpu_torch.ops import enum_kernel as ek
+    kind = "sparse" if sparse else "dense"
+    _, lse = ek.fused_fwd(*args, **prior)
+    bargs = args + (lse, g)
+    censuses = [shift_census(args[0][b], args[1][b], args[4][b][2], P)
+                for b in range(W)]
+    for part, fk, fp, ins in (
+            ("fwd", lambda: ek.fused_fwd(*args, **prior),
+             lambda: ek.fused_fwd_plain_batched(*args, **prior),
+             args + tuple(prior.values())),
+            ("bwd", lambda: ek.fused_bwd(*bargs, **prior),
+             lambda: ek.fused_bwd_plain_batched(*bargs, **prior),
+             bargs + tuple(prior.values()))):
+        name = f"fused_{part}_{kind}_lanes"
+        solo = f"fused_{part}_{kind}"
+        outs = fk()
+        moved = nbytes(*ins, *outs)
+        del outs
+        ops = sum(enum_ops(solo, P, c) for c in censuses)
+        mufu = sum(mufu_ops(solo, P, c) for c in censuses)
+        b_ms, b_by, b_term = bound(moved, ops, mufu)
+        t = {"ms": time_ms(fk), "ms_single": time_single_ms(fk),
+             "plain_ms": time_ms(fp, reps=3, warmup=1), "bound_ms": b_ms,
+             "bound_by": b_by, "bound_term": b_term, "bytes": moved,
+             "ops": ops, "mufu": mufu, "library_ms": None,
+             "shift_warp_share": sum(c["taken"] for c in censuses)
+             / sum(c["warps"] for c in censuses)}
+        entry = results[name]
+        entry.setdefault("by_width", {})[W] = t
+        if W == SERVE_WIDTH:
+            entry.update(t)
+        print(f"  {name} W={W}: kernel {t['ms']:.4f} ms, single-call "
+              f"{t['ms_single']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_term}); {moved} bytes, {ops} float32 "
+              f"operations, {mufu} SFU instructions")
+
+
 def main() -> int:
     try:
         import torch
@@ -2102,6 +2870,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda", 0)
     record: dict = {}
+    # phase 10's requests are written by four processes meanwhile
+    spool = ServeSpool()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2186,7 +2956,10 @@ def main() -> int:
     del scrt
     torch.cuda.empty_cache()
 
-    # launches of each kernel summed over the five paths' runs (each read
+    by_path["serve"] = serving(dev, record, record["main_default"], spool)
+    check_lanes(dev, results)
+
+    # launches of each kernel summed over the six paths' runs (each read
     # from zero just before its run, just after it), by path beside it
     paths_of = {name: {p: (sum(v for k, v in counts.items()
                                if k.startswith("enum_bwd_"))
@@ -2212,6 +2985,10 @@ def main() -> int:
                     results[name].get("main", {}).items()},
         **({"launch_paths": results[name]["launch_paths"]}
            if "launch_paths" in results[name] else {}),
+        **({"by_width": {w: {k: t[k] for k in ("ms", "plain_ms",
+                                               "bound_ms", "bound_by")}
+                         for w, t in results[name]["by_width"].items()}}
+           if "by_width" in results[name] else {}),
     } for name in TPU_KERNEL]
     for name in TPU_KERNEL:
         results[name]["sass"] = sass.get(SASS_FUNCTION[name])

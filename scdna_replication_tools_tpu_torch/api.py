@@ -30,9 +30,10 @@ from scdna_replication_tools_tpu_torch.infer.runner import (
     PertInference,
     package_step_output,
 )
-from scdna_replication_tools_tpu_torch.models.pert import constrained
+from scdna_replication_tools_tpu_torch.models.pert import _sites
 from scdna_replication_tools_tpu_torch.obs import heartbeat as heartbeat_mod
 from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
+from scdna_replication_tools_tpu_torch.obs import spans as spans_mod
 from scdna_replication_tools_tpu_torch.obs.runlog import RunLog
 from scdna_replication_tools_tpu_torch.pipeline.assign import assign_s_to_clones
 from scdna_replication_tools_tpu_torch.pipeline.consensus import (
@@ -44,8 +45,6 @@ from scdna_replication_tools_tpu_torch.utils.profiling import PhaseTimer
 def _unported(options: dict) -> None:
     """Raise for the first JAX option left on that the port lacks."""
     checks = [
-        ("trace_spans", options["trace_spans"],
-         "A11 (observability: span tracing)"),
         ("cell_chunk", options["cell_chunk"] is not None,
          "A9 (encodings and options: cell_chunk)"),
         ("cn_hmm_self_prob", options["cn_hmm_self_prob"] is not None,
@@ -74,8 +73,7 @@ class scRT:
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
     where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda``, ``elastic_mesh``, ``request_id``,
-    ``slab_width``, ``trace_parent``, ``compile_cache_dir`` and
+    ``backend``, ``cuda``, ``elastic_mesh``, ``compile_cache_dir`` and
     ``clustering_*`` only act inside features the port refuses, and are
     accepted and unused (the config hash records the JAX defaults of
     those it hashes: ``config.UNPORTED_FIELDS``).
@@ -126,7 +124,6 @@ class scRT:
                  clustering_method='kmeans', clustering_kwargs=None,
                  device=None):
         _unported(dict(
-            trace_spans=trace_spans,
             fused_adam=fused_adam, cell_chunk=cell_chunk,
             cn_hmm_self_prob=cn_hmm_self_prob, num_shards=num_shards,
             loci_shards=loci_shards,
@@ -167,6 +164,8 @@ class scRT:
             watchdog_chunk_seconds=watchdog_chunk_seconds,
             heartbeat_dir=heartbeat_dir,
             heartbeat_interval_seconds=heartbeat_interval_seconds,
+            request_id=request_id, slab_width=slab_width,
+            trace_spans=trace_spans, trace_parent=trace_parent,
         )
         self.clone_profiles = None
         # {candidates, accepted[, capped_to]} of the last mirror rescue
@@ -229,6 +228,19 @@ class scRT:
             self.metrics_registry = registry
             run_log = RunLog.create(self.config.telemetry_path)
         run_log.metrics_registry = registry
+        if self.config.trace_spans:
+            # the facade owns the log, so it attaches the tracer (the
+            # runner defers to one already attached) and points the span
+            # phase sink at the timer every phase of the run accumulates
+            # into; the session below opens the root 'run' span
+            spans_mod.attach_tracer(
+                run_log, spans_mod.tracer_for_run(self.config))
+            spans_mod.attach_phase_sink(timer, run_log.tracer)
+        if self.config.request_id:
+            run_log.add_context(request_id=str(self.config.request_id))
+        if self.config.slab_width:
+            # this run was one lane of a width-K serving slab
+            run_log.add_context(slab_width=int(self.config.slab_width))
         self.run_log_path = run_log.path
         with run_log.session(config=self.config, timer=timer,
                              device=self.device):
@@ -261,9 +273,8 @@ class scRT:
 
             with timer.phase("package"):
                 with torch.no_grad():
-                    lamb = float(constrained(step1.spec, step1.fit.params,
-                                             step1.fixed)["lamb"]
-                                 .reshape(-1)[0])
+                    lamb = float(_sites(step1.spec, step1.fit.params,
+                                        step1.fixed)["lamb"].reshape(-1)[0])
                 qc_collect = {} if self.config.qc else None
                 cn_s_out, supp_s_out = package_step_output(
                     self.cn_s, inference._step2_data, step2, lamb,

@@ -2,9 +2,10 @@
 
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
-rescue, the adaptive controller, the model-health QC, the run log and
-the durable runs read.  The JAX config's other knobs (sharding, cell
-chunking, span tracing, the compiled-program caches) belong to modules
+rescue, the adaptive controller, the model-health QC, the run log, span
+tracing, the durable runs and serving read.  The JAX config's other
+knobs (sharding, cell chunking, the compiled-program caches) belong to
+modules
 not yet ported; ``api.scRT`` refuses them by name instead of carrying
 dead fields here, and :data:`UNPORTED_FIELDS` holds each at the JAX
 default that refusal pins it to.
@@ -43,13 +44,9 @@ UNPORTED_FIELDS = {
     "cell_chunk": (None, "A9"),
     "cn_hmm_self_prob": (None, "A9"),
     "profile_dir": (None, "A11b"),
-    "trace_spans": (False, "A11b"),
-    "trace_parent": (None, "A11b"),
     "num_shards": (1, "A12"),
     "loci_shards": (1, "A12"),
     "elastic_mesh": (True, "A12"),
-    "request_id": (None, "A13"),
-    "slab_width": (None, "A13"),
     "compile_cache_dir": ("auto", "A14"),
     "executable_cache_dir": (None, "A14"),
     # one Adam path (the CUDA kernel, its plain version on the CPU):
@@ -226,6 +223,16 @@ class PertConfig:
     heartbeat_dir: Optional[str] = "auto"
     # seconds between heartbeat writes (fault-ladder events write at once)
     heartbeat_interval_seconds: float = 15.0
+    # serving identity (serve/worker.py): the request id folded into
+    # run_start and the cost ledger's scope, and the width of the slab
+    # this run was one lane of
+    request_id: Optional[str] = None
+    slab_width: Optional[int] = None
+    # causal span tracing (obs/spans.py): the run's span tree in its log;
+    # trace_parent continues a serving worker's request span
+    # ('<trace_id>:<span_id>')
+    trace_spans: bool = False
+    trace_parent: Optional[str] = None
 
     def __post_init__(self):
         if self.enum_impl not in ("auto", "binary"):

@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel _adam_kernel of
 // scdna_replication_tools_tpu/ops/adam_kernel.py (:120, pallas_call :168),
-// with float32 or bfloat16 stored moments.
+// with float32 or bfloat16 stored moments, and with a lane axis (W
+// stacked fits in one launch, each with its own lr, bias corrections and
+// live gate: the serving slab's optimizer, where the JAX slab of
+// infer/svi.py _run_fit_chunk_slab takes XLA's Adam).
 // Math in optax operation order (adam_kernel.py:99-117):
 //   m' = (1 - b1) g + b1 m
 //   v' = (1 - b2) g g + b2 v
@@ -60,6 +63,13 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(
     const M* __restrict__ m, const M* __restrict__ v,
     const float* __restrict__ scal, float b1, float omb1, float b2,
     float omb2, int64_t n) {
+  // the lane axis: fit blockIdx.y of gridDim.y stacked ones, its n
+  // elements lane * n into every operand and its [lr, bc1, bc2, live] at
+  // scal + 4 * lane, so a parked fit (live = 0) writes its operands
+  // through while the others step; a one-fit launch has lane 0
+  const int64_t off = (int64_t)blockIdx.y * n;
+  p_out += off, m_out += off, v_out += off, p += off, g += off, m += off;
+  v += off, scal += 4 * blockIdx.y;
   const float lr = scal[0], bc1 = scal[1], bc2 = scal[2];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   if (scal[3] == 0.f) {
@@ -88,10 +98,10 @@ template <typename M>
 int launch(float* p_out, void* m_out, void* v_out, const float* p,
            const float* g, const void* m, const void* v, const float* scal,
            float b1, float omb1, float b2, float omb2, long long n,
-           cudaStream_t st) {
+           int lanes, cudaStream_t st) {
   const int64_t want = (n + THREADS - 1) / THREADS;
   const unsigned int blocks = (unsigned int)(want < 65536 ? want : 65536);
-  adam_kernel<M><<<blocks, THREADS, 0, st>>>(
+  adam_kernel<M><<<dim3(blocks, (unsigned int)lanes), THREADS, 0, st>>>(
       p_out, (M*)m_out, (M*)v_out, p, g, (const M*)m, (const M*)v, scal, b1,
       omb1, b2, omb2, n);
   return (int)cudaGetLastError();
@@ -105,19 +115,21 @@ const char* scrt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// m, v, m_out, v_out: float32, or bfloat16 when bf16_moments != 0
+// m, v, m_out, v_out: float32, or bfloat16 when bf16_moments != 0;
+// `lanes` stacked fits of n elements each (every operand (lanes, n), scal
+// (lanes, 4)), one for a solo fit
 int scrt_adam(float* p_out, void* m_out, void* v_out, const float* p,
               const float* g, const void* m, const void* v,
               const float* scal, float b1, float omb1, float b2, float omb2,
-              long long n, int bf16_moments, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+              long long n, int lanes, int bf16_moments, void* stream) {
+  if (n < 0 || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   return bf16_moments
              ? launch<__nv_bfloat16>(p_out, m_out, v_out, p, g, m, v, scal,
-                                     b1, omb1, b2, omb2, n, st)
+                                     b1, omb1, b2, omb2, n, lanes, st)
              : launch<float>(p_out, m_out, v_out, p, g, m, v, scal, b1, omb1,
-                             b2, omb2, n, st);
+                             b2, omb2, n, lanes, st);
 }
 
 }  // extern "C"

@@ -4,8 +4,10 @@
 // Replaces the TPU kernels _fused_fwd_kernel / _fused_bwd_kernel of
 // scdna_replication_tools_tpu/ops/enum_kernel.py (:547, :608) in all four
 // configurations: dense (pallas_call :741, :766), sparse (:856, :881),
-// dense binary (:976, :1002) and sparse binary (:1073, :1100); and the
-// unfused pair _fwd_kernel / _bwd_kernel (:174, :207; pallas_call :444,
+// dense binary (:976, :1002) and sparse binary (:1073, :1100), the
+// dense and sparse ones also with a block axis (W stacked fits in one
+// launch, the form the pallas_call batching rule gives under jax.vmap in
+// infer/svi.py _run_fit_chunk_slab); and the unfused pair _fwd_kernel / _bwd_kernel (:174, :207; pallas_call :444,
 // :466).
 //
 // Per (cell, locus) bin, with pi_t the state-major (P, cells, loci) logits:
@@ -145,6 +147,13 @@ __device__ __forceinline__ void lgamma_digamma_ge1(float z, float& lg,
                           1.0f / t4 + 1.0f / t5 + 1.0f / t6 + 1.0f / t7;
   lg = (z < 8.0f) ? lg - logf(shift_prod) : lg;
   psi = (z < 8.0f) ? psi - shift_sum : psi;
+}
+
+// Kb = ceil(log2 P) for P >= 2, and 1 for P = 1
+__host__ __device__ __forceinline__ int binary_width(int P) {
+  int kb = 1;
+  while ((1 << kb) < P) ++kb;
+  return kb;
 }
 
 // whether the SHIFT sweep is needed anywhere in the warp: a vote on each
@@ -290,6 +299,12 @@ __device__ __forceinline__ void enum_sweep_bwd(
   }
 }
 
+// The block axis: fit blockIdx.y of gridDim.y stacked ones.  Its bin
+// planes start lane * n into the (lanes, n) operands, its pi planes lane *
+// Kp * n into the (lanes, Kp, n) ones, its dense etas lane * P * n in and
+// its scalars at scal + 3 * lane.  Every block lies inside one fit, so a
+// warp's vote and each bin's arithmetic are a one-fit launch's on that
+// fit's operands, bit for bit.  A one-fit launch has lane 0.
 template <bool SPARSE, bool BINARY>
 __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
     const float* __restrict__ reads, const float* __restrict__ mu,
@@ -299,6 +314,12 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
     float* __restrict__ out, float* __restrict__ lse_out, int64_t n, int P) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int64_t bins = (int64_t)blockIdx.y * n;
+  reads += bins, mu += bins, phi += bins, out += bins, lse_out += bins;
+  pi += bins * (BINARY ? binary_width(P) : P);
+  if (SPARSE) eidx += bins, ew += bins;
+  else etas += bins * P;
+  scal += 3 * blockIdx.y;
   const float log_lamb = scal[0], log1m_lamb = scal[1], q = scal[2];
   const float x = reads[i], mui = mu[i], ph = phi[i];
   const float bern0 = log1pf(-ph), bern1 = logf(ph);
@@ -342,6 +363,14 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(
     float* __restrict__ dpi_out, int64_t n, int P) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  // the block axis (see fused_fwd_kernel)
+  const int64_t bins = (int64_t)blockIdx.y * n;
+  const int64_t planes = bins * (BINARY ? binary_width(P) : P);
+  reads += bins, mu += bins, phi += bins, lse_in += bins, g_in += bins;
+  dmu_out += bins, dphi_out += bins, pi += planes, dpi_out += planes;
+  if (SPARSE) eidx += bins, ew += bins;
+  else etas += bins * P;
+  scal += 3 * blockIdx.y;
   const float log1m_lamb = scal[1], q = scal[2];
   const float x = reads[i], mui = mu[i], ph = phi[i];
   const float g = g_in[i], lse = lse_in[i];
@@ -519,19 +548,13 @@ inline unsigned int blocks_for(int64_t n) {
   return (unsigned int)((n + THREADS - 1) / THREADS);
 }
 
-// Kb = ceil(log2 P) for P >= 2, and 1 for P = 1
-inline int binary_width(int P) {
-  int kb = 1;
-  while ((1 << kb) < P) ++kb;
-  return kb;
-}
-
 template <bool SPARSE, bool BINARY>
 void launch_fwd(const float* reads, const float* mu, const float* phi,
                 const float* pi, const float* etas, const float* eidx,
                 const float* ew, const float* scal, float* out, float* lse,
-                int64_t n, int P, cudaStream_t st) {
-  fused_fwd_kernel<SPARSE, BINARY><<<blocks_for(n), THREADS, 0, st>>>(
+                int64_t n, int P, int lanes, cudaStream_t st) {
+  const dim3 grid(blocks_for(n), (unsigned int)lanes);
+  fused_fwd_kernel<SPARSE, BINARY><<<grid, THREADS, 0, st>>>(
       reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P);
 }
 
@@ -540,14 +563,18 @@ void launch_bwd(const float* reads, const float* mu, const float* phi,
                 const float* pi, const float* etas, const float* eidx,
                 const float* ew, const float* scal, const float* lse,
                 const float* g, float* dmu, float* dphi, float* dpi,
-                int64_t n, int P, cudaStream_t st) {
-  fused_bwd_kernel<SPARSE, BINARY><<<blocks_for(n), THREADS, 0, st>>>(
+                int64_t n, int P, int lanes, cudaStream_t st) {
+  const dim3 grid(blocks_for(n), (unsigned int)lanes);
+  fused_bwd_kernel<SPARSE, BINARY><<<grid, THREADS, 0, st>>>(
       reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n,
       P);
 }
 
-inline bool refused(int P, int binary, long long n) {
-  return P < 1 || P > MAXP || n < 0 || (binary && binary_width(P) > MAXKB);
+inline bool refused(int P, int binary, long long n, int lanes = 1) {
+  // the binary encoding with more than one lane has no caller and is
+  // not ported (ROADMAP B1)
+  return P < 1 || P > MAXP || n < 0 || (binary && binary_width(P) > MAXKB) ||
+         lanes < 1 || lanes > 65535 || (binary && lanes != 1);
 }
 
 }  // namespace
@@ -558,37 +585,39 @@ const char* scrt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// pi: P planes, or Kb planes when binary != 0
+// pi: P planes, or Kb planes when binary != 0; `lanes` stacked fits of n
+// bins each, every operand lane-major ((lanes, n) bins, (lanes, Kp, n)
+// planes, (lanes, 3) scal), one for a solo fit
 int scrt_fused_fwd(const float* reads, const float* mu, const float* phi,
                    const float* pi, const float* etas, const float* eidx,
                    const float* ew, const float* scal, float* out,
                    float* lse, long long n, int P, int sparse, int binary,
-                   void* stream) {
-  if (refused(P, binary, n)) return (int)cudaErrorInvalidValue;
+                   int lanes, void* stream) {
+  if (refused(P, binary, n, lanes)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   auto fn = sparse ? (binary ? launch_fwd<true, true> : launch_fwd<true, false>)
                    : (binary ? launch_fwd<false, true>
                              : launch_fwd<false, false>);
-  fn(reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P, st);
+  fn(reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P, lanes, st);
   return (int)cudaGetLastError();
 }
 
-// dpi: P planes, or Kb planes when binary != 0
+// dpi: P planes, or Kb planes when binary != 0; lanes as scrt_fused_fwd
 int scrt_fused_bwd(const float* reads, const float* mu, const float* phi,
                    const float* pi, const float* etas, const float* eidx,
                    const float* ew, const float* scal, const float* lse,
                    const float* g, float* dmu, float* dphi, float* dpi,
-                   long long n, int P, int sparse, int binary,
+                   long long n, int P, int sparse, int binary, int lanes,
                    void* stream) {
-  if (refused(P, binary, n)) return (int)cudaErrorInvalidValue;
+  if (refused(P, binary, n, lanes)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   auto fn = sparse ? (binary ? launch_bwd<true, true> : launch_bwd<true, false>)
                    : (binary ? launch_bwd<false, true>
                              : launch_bwd<false, false>);
   fn(reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi, dpi, n, P,
-     st);
+     lanes, st);
   return (int)cudaGetLastError();
 }
 

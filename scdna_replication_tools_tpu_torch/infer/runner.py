@@ -71,25 +71,33 @@ from scdna_replication_tools_tpu_torch.data.loader import (
 from scdna_replication_tools_tpu_torch.device import resolve_device
 from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
 from scdna_replication_tools_tpu_torch.infer import manifest as manifest_mod
-from scdna_replication_tools_tpu_torch.infer.svi import FitResult, fit_map
+from scdna_replication_tools_tpu_torch.infer.svi import (
+    AdamState,
+    FitResult,
+    fit_map,
+    pi_param_name,
+)
 from scdna_replication_tools_tpu_torch.models import priors
 from scdna_replication_tools_tpu_torch.models.pert import (
     _DECODE_SLAB_BYTES,
+    _sites,
     PertBatch,
     PertModelSpec,
     cell_entropy_aggregates,
-    constrained,
     decode_discrete,
     entropy_aggregates_from_planes,
     init_params,
     per_cell_objective,
     pert_loss,
     ppc_discrepancy,
+    prime_cache,
     slice_cells,
 )
 from scdna_replication_tools_tpu_torch.obs import heartbeat as heartbeat_mod
+from scdna_replication_tools_tpu_torch.obs import meter as meter_mod
 from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
 from scdna_replication_tools_tpu_torch.obs import runlog as runlog_mod
+from scdna_replication_tools_tpu_torch.obs import spans as spans_mod
 from scdna_replication_tools_tpu_torch.obs.controller import ControllerPolicy
 from scdna_replication_tools_tpu_torch.ops import _cuda
 from scdna_replication_tools_tpu_torch.ops.enum_kernel import planes_per_iter
@@ -141,6 +149,29 @@ class StepOutput:
     wall_time: float
 
 
+def _retire(out: StepOutput, pi: bool) -> StepOutput:
+    """A finished step with the device state that no later step reads
+    moved to the host, where the facade still keeps it (``scRT.steps``):
+    its Adam moments (saved at the step's end already) and, with
+    ``pi``, its pi planes.  At a serving bucket's shape step 1's alone
+    are three 872 MB planes sets, held through steps 2 and 3, and a
+    batched worker holds several requests on the card at once."""
+    def host(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+    fit = out.fit
+    params = dict(fit.params)
+    if pi:
+        key = pi_param_name(params)
+        if key is not None:
+            params[key] = params[key].cpu()
+    state = fit.opt_state
+    if state is not None:
+        state = AdamState(count=state.count.cpu(), mu=host(state.mu),
+                          nu=host(state.nu))
+    return dataclasses.replace(
+        out, fit=dataclasses.replace(fit, params=params, opt_state=state))
+
+
 @dataclasses.dataclass(frozen=True)
 class RescueFit:
     """The mirror rescue's sub-fit: the re-fitted cells (indices into the
@@ -156,6 +187,20 @@ class _PertLossFn:
 
     def __call__(self, params, fixed, batch):
         return pert_loss(self.spec, params, fixed, batch)
+
+    @property
+    def packable(self) -> bool:
+        """Whether the serving slab may pack this objective's chunks
+        (``infer/svi.ChunkCall.signature``): the enumerated steps only.
+        Step 1's observed objective is plain PyTorch ops whose (cells,
+        loci, P) intermediates, at a bucket's doubled G1 cells, do not
+        fit W lanes at once on the card; its chunks run alone."""
+        return not self.spec.step1
+
+    def prime(self, fixed, batch) -> None:
+        """Fill the batch's fit-constant cache before the serving slab
+        stacks it (``infer/svi.dispatch_chunk_slab``)."""
+        prime_cache(self.spec, batch)
 
 
 class PertInference:
@@ -183,6 +228,14 @@ class PertInference:
         # runner's own in their place when no facade opened them
         self.run_log = runlog_mod.current()
         self.metrics = metrics_mod.current()
+        # device-cost attribution (obs/meter.py): run() hangs the ledger
+        # on the run log, where the fit's chunk loop, the PPC and the
+        # decode book into it; its summary lands in run_end's `meter`
+        # section and the manifest
+        meter_scope = {"run": "pert"}
+        if config.request_id:
+            meter_scope["request"] = str(config.request_id)
+        self.meter = meter_mod.CostLedger(scope=meter_scope)
         if config.rho_from_rt_prior and s_data.rt_prior is None:
             raise ValueError(
                 "rho_from_rt_prior=True but no RT-prior column was found "
@@ -680,27 +733,11 @@ class PertInference:
         # whole step fit on its first attempt
         faults_mod.point(f"{step_name}/fit")
         t0 = time.perf_counter()
-        fit = fit_map(_PertLossFn(spec), params0, (fixed, batch),
-                      max_iter=max_iter, min_iter=min_iter,
-                      rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
-                      b1=cfg.adam_b1, b2=cfg.adam_b2,
-                      opt_state0=opt_state0, losses_prefix=losses_prefix,
-                      device=self.device,
-                      moment_dtype=cfg.optimizer_state_dtype,
-                      diag_every=cfg.fit_diag_every,
-                      doctor_thresholds=dict(
-                          window=cfg.doctor_window,
-                          slope_tol=cfg.doctor_slope_tol,
-                          var_tol=cfg.doctor_var_tol,
-                          grad_ratio=cfg.doctor_grad_ratio),
-                      controller=controller,
-                      escalate_dir=cfg.checkpoint_dir,
-                      escalate_tag=step_name,
-                      checkpoint_every=cfg.checkpoint_every,
-                      checkpoint_cb=(self._checkpoint_cb(step_name)
-                                     if cfg.checkpoint_dir else None),
-                      resume_state=resume_ctrl,
-                      chunk_deadline=cfg.watchdog_chunk_seconds)
+        with self.meter.context(step=step_name,
+                                **self._meter_attrs(step_name, batch)):
+            fit = self._fit_map(spec, params0, fixed, batch, max_iter,
+                                min_iter, step_name, opt_state0,
+                                losses_prefix, controller, resume_ctrl)
         wall = time.perf_counter() - t0
         self.phases.add(f"{step_name}/fit", fit.timings["fit"])
         num_cells = int(batch.reads.shape[0])
@@ -728,6 +765,50 @@ class PertInference:
         with self.phases.phase(f"{step_name}/metrics"):
             self.metrics.emit_snapshot(self.run_log, f"{step_name}/end")
         return StepOutput(fit, spec, fixed, batch, wall)
+
+    def _fit_map(self, spec, params0, fixed, batch, max_iter, min_iter,
+                 step_name, opt_state0, losses_prefix, controller,
+                 resume_ctrl) -> FitResult:
+        cfg = self.config
+        return fit_map(_PertLossFn(spec), params0, (fixed, batch),
+                       max_iter=max_iter, min_iter=min_iter,
+                       rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
+                       b1=cfg.adam_b1, b2=cfg.adam_b2,
+                       opt_state0=opt_state0, losses_prefix=losses_prefix,
+                       device=self.device,
+                       moment_dtype=cfg.optimizer_state_dtype,
+                       diag_every=cfg.fit_diag_every,
+                       doctor_thresholds=dict(
+                           window=cfg.doctor_window,
+                           slope_tol=cfg.doctor_slope_tol,
+                           var_tol=cfg.doctor_var_tol,
+                           grad_ratio=cfg.doctor_grad_ratio),
+                       controller=controller,
+                       escalate_dir=cfg.checkpoint_dir,
+                       escalate_tag=step_name,
+                       checkpoint_every=cfg.checkpoint_every,
+                       checkpoint_cb=(self._checkpoint_cb(step_name)
+                                      if cfg.checkpoint_dir else None),
+                       resume_state=resume_ctrl,
+                       chunk_deadline=cfg.watchdog_chunk_seconds)
+
+    def _meter_attrs(self, step_name: str, batch) -> dict:
+        """Cost-attribution context of one step's dispatches (JAX
+        ``_meter_attrs``): the real (unpadded) cell count, the bucket's
+        ``pad_frac`` (the share of the billed time spent on padding
+        cells and loci) and the bucket's name."""
+        real = self.g1 if step_name == "step3" else self.s
+        padded_cells = int(batch.reads.shape[0])
+        padded_loci = int(batch.reads.shape[1])
+        real_cells = min(int(real.num_cells), padded_cells)
+        real_loci = min(int(real.num_loci), padded_loci)
+        pad_frac = 1.0 - (real_cells * real_loci) \
+            / max(padded_cells * padded_loci, 1)
+        return {
+            "cells": real_cells,
+            "pad_frac": round(max(pad_frac, 0.0), 6),
+            "bucket": f"c{padded_cells}xl{padded_loci}",
+        }
 
     def _emit_fit_events(self, step_name: str, fit: FitResult, wall: float,
                          num_cells: int, prior_iters: int = 0) -> None:
@@ -800,7 +881,9 @@ class PertInference:
         iters = self.config.resolved_iters()
         t0 = time.perf_counter()
         with torch.no_grad():
-            c1 = constrained(step1.spec, step1.fit.params, step1.fixed)
+            # the sites alone: the constrained log_pi and pi of step 1's
+            # 2 x padded-G1-cells planes would be built only to be dropped
+            c1 = _sites(step1.spec, step1.fit.params, step1.fixed)
         fixed = {"beta_means": c1["beta_means"],   # pert_model.py:782-787
                  "lamb": c1["lamb"]}               # pert_model.py:801
         cond_rho = bool(self.config.rho_from_rt_prior)
@@ -1049,8 +1132,8 @@ class PertInference:
         iters = self.config.resolved_iters()
         t0 = time.perf_counter()
         with torch.no_grad():
-            c1 = constrained(step1.spec, step1.fit.params, step1.fixed)
-            c2 = constrained(step2.spec, step2.fit.params, step2.fixed)
+            c1 = _sites(step1.spec, step1.fit.params, step1.fixed)
+            c2 = _sites(step2.spec, step2.fit.params, step2.fixed)
         fixed = {"beta_means": c1["beta_means"], "lamb": c1["lamb"],
                  "rho": c2["rho"], "a": c2["a"]}   # pert_model.py:844-851
         etas2_real = self.build_etas_step3()
@@ -1089,11 +1172,16 @@ class PertInference:
         with self.phases.phase("qc/ppc"):
             try:
                 faults_mod.point("qc/ppc")
+                ppc_t0 = time.perf_counter()
                 ppc_dev, ppc_z = (t.cpu().numpy()[:n]
                                   for t in ppc_discrepancy(
                     out.spec, out.fit.params, out.fixed, out.batch,
                     seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
                     maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+                self.meter.book_exec(
+                    kind="ppc", seconds=time.perf_counter() - ppc_t0,
+                    ctx={"step": "step2",
+                         **self._meter_attrs("step2", out.batch)})
             except Exception as exc:
                 if faults_mod.classify_exception(exc) != "oom":
                     raise
@@ -1209,7 +1297,8 @@ class PertInference:
         heartbeat (with ``checkpoint_dir`` or ``heartbeat_dir``) closes
         ``done`` on return and ``error`` on an Exception; a
         BaseException (a preemption) leaves it as it was, to go stale."""
-        self.run_log = runlog_mod.active() \
+        facade_log = runlog_mod.active()
+        self.run_log = facade_log \
             or runlog_mod.RunLog.create(self.config.telemetry_path)
         if self._manifest is not None:
             self._manifest.note_run_log(self.run_log.path)
@@ -1220,6 +1309,25 @@ class PertInference:
             if owns_metrics else registry
         self.run_log.metrics_registry = self.metrics
         metrics_mod.attach_phase_sink(self.phases, registry=self.metrics)
+        self.meter.metrics_registry = self.metrics
+        self.run_log.meter_ledger = self.meter
+        # span tracing: the facade attaches the tracer to the log it
+        # owns; a runner driven directly attaches its own.  Phases become
+        # spans through the timer's chain, and the chunk loop records
+        # fit/chunk spans through the runlog.current() seam
+        if self.config.trace_spans and self.run_log.tracer is None:
+            spans_mod.attach_tracer(self.run_log,
+                                    spans_mod.tracer_for_run(self.config))
+        if self.run_log.tracer is not None:
+            spans_mod.attach_phase_sink(self.phases, self.run_log.tracer)
+        if facade_log is None:
+            # the facade stamps the log it owns itself
+            if self.config.request_id:
+                self.run_log.add_context(
+                    request_id=str(self.config.request_id))
+            if self.config.slab_width:
+                self.run_log.add_context(
+                    slab_width=int(self.config.slab_width))
         if owns_metrics:
             metrics_mod.install(self.metrics)
         try:
@@ -1227,13 +1335,17 @@ class PertInference:
             # pass-through and the facade's run_end closes the file
             with self.run_log.session(config=self.config, timer=self.phases,
                                       device=self.device):
-                step1 = self.run_step1()
+                step1 = _retire(self.run_step1(), pi=True)
                 with self.phases.phase("step2/prior"):
                     etas = self.build_etas()
-                step2 = self.run_step2(step1, etas)
-                step3 = self.run_step3(step1, step2) \
+                step2 = _retire(self.run_step2(step1, etas), pi=False)
+                step3 = _retire(self.run_step3(step1, step2), pi=False) \
                     if self.config.run_step3 else None
             self.metrics.write_textfile()
+            if self._manifest is not None:
+                # the durable cost record, for a run without a log
+                self._manifest.doc["meter"] = self.meter.summary()
+                self._manifest.save()
         except Exception as exc:
             if self._heartbeat is not None:
                 self._heartbeat.close("error", error=exc)
@@ -1355,17 +1467,32 @@ def package_step_output(
     nothing else, and the QC table is skipped."""
     spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
         step.batch
+    decode_t0 = time.perf_counter()
     decoded, ent_planes, want_entropy = _decode_with_degradation(
         spec, params, fixed, batch, qc_collect is not None, phase_prefix)
     if qc_collect is not None and not want_entropy:
         qc_collect["degraded"] = True
         qc_collect = None
     with torch.no_grad():
-        c = constrained(spec, params, fixed)
+        c = _sites(spec, params, fixed)
         qc_device = entropy_aggregates_from_planes(
             ent_planes[0], ent_planes[1], batch.effective_loci_mask(),
             qc_entropy_thresh, want_max=True) if want_entropy else {}
     cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded)
+    ledger = meter_mod.ledger_of(runlog_mod.current())
+    if ledger is not None:
+        # the decode runs at the fit's padded shape: its time books with
+        # the same bucket attribution (no iteration work units)
+        padded = (int(batch.reads.shape[0]), int(batch.reads.shape[1]))
+        real = (min(int(data.num_cells), padded[0]),
+                min(int(data.num_loci), padded[1]))
+        ledger.book_exec(
+            kind="decode", seconds=time.perf_counter() - decode_t0,
+            ctx={"step": f"{phase_prefix}/decode",
+                 "bucket": f"c{padded[0]}xl{padded[1]}",
+                 "pad_frac": round(max(1.0 - (real[0] * real[1])
+                                       / max(padded[0] * padded[1], 1),
+                                       0.0), 6)})
     tau, u, rho, a_c = (c[k].detach().cpu().numpy()
                         for k in ("tau", "u", "rho", "a"))
 

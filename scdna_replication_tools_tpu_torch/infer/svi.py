@@ -44,6 +44,7 @@ math as plain ops with float32 moments.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Optional
 
@@ -55,6 +56,8 @@ from scdna_replication_tools_tpu_torch.infer import checkpoint as _ckpt
 from scdna_replication_tools_tpu_torch.obs import controller as _controller
 from scdna_replication_tools_tpu_torch.obs import doctor as _doctor
 from scdna_replication_tools_tpu_torch.obs import heartbeat as _heartbeat
+from scdna_replication_tools_tpu_torch.obs import meter as _meter
+from scdna_replication_tools_tpu_torch.obs import runlog as _runlog
 from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
     adam_constants,
     adam_scalars,
@@ -134,17 +137,18 @@ def make_opt_state(params: dict, moment_dtype: str = "float32") -> AdamState:
 
 def _adam_apply(params: dict, grads: dict, state: AdamState,
                 const: torch.Tensor, live: torch.Tensor, b1: float,
-                b2: float, moment_dtype: str):
+                b2: float, moment_dtype: str, in_place: bool = False):
     """One Adam step of every leaf, gated by the device bool ``live``;
     the pi parameter takes the fused kernel with ``moment_dtype``
-    moments, the rest the same math as plain ops."""
+    moments (``in_place``: into its own planes), the rest the same math
+    as plain ops."""
     scal = adam_scalars(const, state.count + 1, live)
     pi = pi_param_name(params)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         args = (p, grads[k], state.mu[k], state.nu[k], scal, b1, b2)
         new_p[k], new_m[k], new_v[k] = (
-            adam_update(*args, moment_dtype) if k == pi
+            adam_update(*args, moment_dtype, in_place=in_place) if k == pi
             else adam_update_plain(*args))
     count = state.count + live.to(torch.int32)
     return new_p, AdamState(count=count, mu=new_m, nu=new_v)
@@ -193,10 +197,14 @@ class _Carry:
 
 
 def _iteration(loss_fn: Callable, loss_args: tuple, c: _Carry, it: int,
-               loop: _Loop, const: torch.Tensor) -> _Carry:
+               loop: _Loop, const: torch.Tensor,
+               in_place: bool = False) -> _Carry:
     """Iteration ``it`` of the JAX ``_fit_loop`` body, gated by the
     device flag ``done``.  While the fit runs the device count equals
-    the host index ``it``, so every slot index is a host integer."""
+    the host index ``it``, so every slot index is a host integer.
+    ``in_place`` steps the pi parameter and its moments in their own
+    planes: only for a carry that this chunk made, which nothing else
+    holds."""
     live = torch.logical_not(c.done)
     leaves = {k: v.detach().requires_grad_(True) for k, v in c.params.items()}
     loss = loss_fn(leaves, *loss_args)
@@ -212,7 +220,8 @@ def _iteration(loss_fn: Callable, loss_args: tuple, c: _Carry, it: int,
             slot = (it // loop.diag_every) % DIAG_RING
             c.diag[slot] = torch.where(live, row, c.diag[slot])
         params, state = _adam_apply(c.params, grads, c.state, const, live,
-                                    loop.b1, loop.b2, loop.moment_dtype)
+                                    loop.b1, loop.b2, loop.moment_dtype,
+                                    in_place)
         losses = c.losses
         losses[it] = torch.where(live, loss, losses[it])
         is_nan = torch.isnan(loss)
@@ -280,7 +289,13 @@ def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
     for k, it in enumerate(range(i0, stop)):
         if probe is not None and probe.stopped(k):
             return c, k
-        c = _iteration(loss_fn, loss_args, c, it, loop, const)
+        # the chunk's entry state stays as it was (the controlled loop
+        # keeps it for its best-loss checkpoint and its exact emergency
+        # save); the planes each later iteration steps are the chunk's
+        # own, so they step in place: one generation of the pi
+        # parameter and its moments fewer on the card
+        c = _iteration(loss_fn, loss_args, c, it, loop, const,
+                       in_place=k > 0)
         if probe is not None:
             probe.post(k, c.done)
     return c, stop - i0
@@ -309,6 +324,375 @@ def _read_chunk(c: _Carry, stop: int) -> _ChunkRead:
         else None
     return _ChunkRead(int(host[0]), bool(host[1]), bool(host[2]),
                       host[3:3 + stop].copy(), diag)
+
+
+# ---------------------------------------------------------------------------
+# the slab: one launch per iteration for W fits (continuous batching)
+# ---------------------------------------------------------------------------
+#
+# ``_run_fit_chunk_slab`` is the chunk of ``_launch_chunk`` over a
+# leading lane axis (JAX ``_run_fit_chunk_slab``, a ``jax.vmap`` of the
+# chunk program): W same-shaped fits (the serving bucket ladder pads a
+# rung's requests to one shape) advance together, each lane with its own
+# parameters, Adam state, loss history, ring and loss arguments and its
+# own ``i0``/``stop``/``min_iter``/``rel_tol``/learning rate.  Each
+# iteration evaluates the objective of every lane in one
+# ``torch.func.vmap`` of the solo objective (the fused enumeration's
+# vmap rule launches the block-axis kernels once for all W lanes, as the
+# Pallas call's batching rule does under ``jax.vmap``), takes the
+# gradient of the lanes' summed losses (each lane's own gradient: the
+# lanes share nothing) and steps every lane's pi parameter in one
+# lane-axis Adam launch, with one row of [lr, bias corrections, live]
+# per lane.  A lane is live at iteration k of the slab while k < stop -
+# i0 and its fit has not stopped; a lane with ``stop == i0`` is parked:
+# the live gate writes its parameters and moments through and its loss
+# history and ring are left alone, bit for bit.  Lanes never exchange
+# values, but a packed lane's reductions may order differently from a
+# solo fit's, so packed lanes are held to a tolerance and only a group
+# of one, which the coordinator sends through ``ChunkCall.solo``, is
+# bit-identical with a serial fit.
+
+
+def _flatten(tree, leaves: list):
+    """Append ``tree``'s tensors to ``leaves`` (dicts by sorted key,
+    tuples and lists in order, dataclasses field by field, objects with
+    ``slab_state()``/``from_slab_state()`` through their state) and
+    return the hashable skeleton that :func:`_unflatten` rebuilds it
+    from; any other value (None, numbers, strings) is part of the
+    skeleton."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("T",)
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _flatten(tree[k], leaves))
+                           for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return ("t" if isinstance(tree, tuple) else "l",
+                tuple(_flatten(x, leaves) for x in tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return ("c", type(tree), tuple(
+            (f.name, _flatten(getattr(tree, f.name), leaves))
+            for f in dataclasses.fields(tree)))
+    if hasattr(tree, "slab_state"):
+        return ("o", type(tree), _flatten(tree.slab_state(), leaves))
+    return ("v", tree)
+
+
+def _unflatten(skel, leaves):
+    """The tree of ``skel`` with its tensors taken in order from the
+    iterator ``leaves`` (see :func:`_flatten`)."""
+    kind = skel[0]
+    if kind == "T":
+        return next(leaves)
+    if kind == "d":
+        return {k: _unflatten(sk, leaves) for k, sk in skel[1]}
+    if kind in ("t", "l"):
+        out = [_unflatten(sk, leaves) for sk in skel[1]]
+        return tuple(out) if kind == "t" else out
+    if kind == "c":
+        return skel[1](**{k: _unflatten(sk, leaves) for k, sk in skel[2]})
+    if kind == "o":
+        return skel[1].from_slab_state(_unflatten(skel[2], leaves))
+    return skel[1]
+
+
+def _abstract_sig(tree):
+    """The pack-compatibility key of a tree: its skeleton and each
+    tensor's shape, dtype and device."""
+    leaves: list = []
+    skel = _flatten(tree, leaves)
+    return skel, tuple((tuple(t.shape), t.dtype, str(t.device))
+                       for t in leaves)
+
+
+def slab_pack(blocks):
+    """Stack per-lane trees (equal skeletons and shapes) along a new
+    leading lane axis."""
+    cols, skel = [], None
+    for block in blocks:
+        leaves: list = []
+        skel = _flatten(block, leaves)
+        cols.append(leaves)
+    return _unflatten(skel, iter([torch.stack(col) for col in zip(*cols)]))
+
+
+def slab_block(slab, index: int):
+    """Lane ``index`` of a slab tree (the lane axis dropped; views)."""
+    leaves: list = []
+    skel = _flatten(slab, leaves)
+    return _unflatten(skel, iter([t[index] for t in leaves]))
+
+
+def slab_fill(slab, index: int, block):
+    """A copy of ``slab`` with lane ``index`` replaced by ``block`` (the
+    refill of a vacated lane); ``slab`` itself is left as it is."""
+    leaves: list = []
+    skel = _flatten(slab, leaves)
+    fresh: list = []
+    _flatten(block, fresh)
+    out = []
+    for t, b in zip(leaves, fresh):
+        t = t.clone()
+        t[index] = b
+        out.append(t)
+    return _unflatten(skel, iter(out))
+
+
+def _lane_table(i0s, stops, min_iters, win, buf_len, diag_every, dev):
+    """The slab's per-iteration, per-lane host facts as one (6, K, W)
+    int64 device tensor made by one copy: the loss slot each lane writes
+    at iteration k (clamped into the buffer for lanes past their stop),
+    whether it is still within its chunk, whether it samples the ring and
+    into which slot, whether the convergence test applies, and where its
+    window starts."""
+    W, K = len(i0s), max(max(s - i for i, s in zip(i0s, stops)), 0)
+    tab = np.zeros((6, K, W), np.int64)
+    for b, (i0, stop, mi) in enumerate(zip(i0s, stops, min_iters)):
+        for k in range(K):
+            it = i0 + k
+            active = k < stop - i0
+            tab[0, k, b] = min(it, buf_len - 1)
+            tab[1, k, b] = active
+            tab[2, k, b] = active and bool(diag_every) \
+                and it % diag_every == 0
+            tab[3, k, b] = (it // diag_every) % DIAG_RING if diag_every \
+                else 0
+            tab[4, k, b] = active and it >= mi
+            tab[5, k, b] = min(max(it - win, 0), buf_len - win)
+    return tab, torch.as_tensor(tab, device=dev)
+
+
+def _run_fit_chunk_slab(loss_fn: Callable, params0: dict,
+                        opt_state0: AdamState, losses0: torch.Tensor,
+                        diag0: Optional[torch.Tensor], i0, stop, min_iter,
+                        rel_tol, lr, loss_args: tuple, conv_window: int,
+                        b1: float, b2: float, diag_every: int,
+                        moment_dtype: str = "float32"):
+    """Advance W stacked fits by one chunk each (see the section comment):
+    lane b runs iterations ``i0[b] .. stop[b]-1`` from fresh stop flags.
+    ``params0``/``opt_state0``/``losses0``/``diag0``/``loss_args`` carry
+    the lanes on their leading axis (``slab_pack``), ``i0``, ``stop``,
+    ``min_iter``, ``rel_tol`` and ``lr`` are per-lane host lists.  Reads
+    nothing back (on the card the host peeks, without waiting, at whether
+    every lane has stopped).  Returns ``(i, params, opt_state, losses,
+    diag, converged, is_nan, launched)``: the per-lane (W,) iteration
+    counts and flags and the stacked state as device tensors, and the
+    slab iterations launched."""
+    dev = losses0.device
+    W, buf_len = losses0.shape
+    i0, stop = [int(x) for x in i0], [int(x) for x in stop]
+    tab_host, tab = _lane_table(i0, stop, [int(x) for x in min_iter],
+                                conv_window, buf_len, diag_every, dev)
+    K = tab_host.shape[1]
+    ar = torch.arange(W, device=dev)
+    win_off = torch.arange(conv_window, device=dev)
+    tol = torch.as_tensor(np.asarray(rel_tol, np.float32), device=dev)
+    const = torch.as_tensor(np.asarray(
+        [[x, b1, b2] for x in lr], np.float32), device=dev)
+    pi = pi_param_name(params0)
+    keys = list(params0)
+    arg_leaves: list = []
+    arg_skel = _flatten(tuple(loss_args), arg_leaves)
+
+    def lane_loss(p_leaves, a_leaves):
+        args = _unflatten(arg_skel, iter(a_leaves))
+        return loss_fn(dict(zip(keys, p_leaves)), *args)
+
+    batched_loss = torch.func.vmap(lane_loss)
+    flag = dict(dtype=torch.bool, device=dev)
+    # the stacked state is this function's to replace: the first Adam
+    # step frees the entry copies
+    params, state = dict(params0), opt_state0
+    del params0, opt_state0
+    losses, diag = losses0, diag0
+    i_dev = torch.as_tensor(np.asarray(i0, np.int32), device=dev)
+    done = torch.as_tensor(np.asarray(
+        [s <= i for i, s in zip(i0, stop)]), device=dev)
+    converged = torch.zeros((W,), **flag)
+    is_nan_f = torch.zeros((W,), **flag)
+    probe = _StopProbe(K) if dev.type == "cuda" and K else None
+    launched = 0
+    for k in range(K):
+        if probe is not None and probe.stopped(k):
+            break
+        live = torch.logical_and(tab[1, k].bool(), torch.logical_not(done))
+        leaves = [params[key].detach().requires_grad_(True) for key in keys]
+        loss = batched_loss(leaves, arg_leaves)
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = {key: (g if g is not None else torch.zeros_like(x))
+                     for key, x, g in zip(keys, leaves, grads)}
+            loss = loss.detach().to(torch.float32)
+            if diag is not None and tab_host[2, k].any():
+                row = torch.stack([loss, _lane_norm(grads, W),
+                                   _lane_norm(params, W)], dim=1)
+                slot = tab[3, k]
+                rec = torch.logical_and(live, tab[2, k].bool())
+                diag[ar, slot] = torch.where(rec[:, None], row,
+                                             diag[ar, slot])
+            scal = adam_scalars(const, state.count + 1, live)
+            new_p, new_m, new_v = {}, {}, {}
+            for key in keys:
+                args = (params[key], grads[key], state.mu[key],
+                        state.nu[key], scal, b1, b2)
+                # the pi parameter's stacked planes are this slab's own
+                # copies: stepped in place, as no one else reads them
+                new_p[key], new_m[key], new_v[key] = (
+                    adam_update(*args, moment_dtype, in_place=True)
+                    if key == pi else adam_update_plain(*args))
+            state = AdamState(count=state.count + live.to(torch.int32),
+                              mu=new_m, nu=new_v)
+            params = new_p
+            slot = tab[0, k]
+            losses[ar, slot] = torch.where(live, loss, losses[ar, slot])
+            nan = torch.isnan(loss)
+            stop_now = nan
+            if tab_host[4, k].any():
+                window = losses[ar[:, None], tab[5, k][:, None] + win_off]
+                stat = window.max(dim=1).values - window.min(dim=1).values
+                conv = torch.logical_and(
+                    stat / torch.abs(losses[:, 0] - loss) < tol,
+                    tab[4, k].bool())
+                stop_now = torch.logical_or(nan, conv)
+                converged = torch.logical_or(
+                    converged, torch.logical_and(live, conv))
+            i_dev = i_dev + live.to(torch.int32)
+            done = torch.logical_or(done, torch.logical_and(live, stop_now))
+            is_nan_f = torch.logical_or(is_nan_f,
+                                        torch.logical_and(live, nan))
+        launched = k + 1
+        if probe is not None:
+            rest = tab[1, k + 1].bool() if k + 1 < K \
+                else torch.zeros((W,), **flag)
+            probe.post(k, torch.all(torch.logical_or(
+                done, torch.logical_not(rest))))
+    return (i_dev, params, state, losses, diag, converged, is_nan_f,
+            launched)
+
+
+def _lane_norm(tree: dict, W: int) -> torch.Tensor:
+    """(W,) :func:`_global_norm` of each lane of a stacked tree."""
+    return torch.sqrt(sum(torch.sum((tree[k] * tree[k]).reshape(W, -1),
+                                    dim=1) for k in sorted(tree)))
+
+
+_CHUNK_DISPATCHER_TLS = threading.local()
+
+
+def set_chunk_dispatcher(dispatcher) -> None:
+    """Install (None clears) this thread's chunk dispatcher (JAX
+    ``set_chunk_dispatcher``): an object with ``dispatch(call:
+    ChunkCall)``, which returns what ``call.solo(call.args)`` returns,
+    and ``fit_begin()``/``fit_end()``, which the controlled loop calls
+    around each fit so the dispatcher knows how many threads are
+    fitting.  Thread-local: the serving worker's block threads opt in
+    one by one, and nothing else ever sees a dispatcher."""
+    _CHUNK_DISPATCHER_TLS.dispatcher = dispatcher
+
+
+def get_chunk_dispatcher():
+    """This thread's chunk dispatcher, or None (the default)."""
+    return getattr(_CHUNK_DISPATCHER_TLS, "dispatcher", None)
+
+
+@dataclasses.dataclass
+class ChunkCall:
+    """One chunk of a controlled fit, reified for a dispatcher (JAX
+    ``ChunkCall``).
+
+    ``args`` is ``(params, opt_state, losses, diag, i0, stop, min_iter,
+    rel_tol, lr, loss_args)``: the chunk's state (tensors, and the
+    ring), its host integers and floats, and the loss arguments.
+    ``solo(args)`` runs it alone and returns ``(carry, launched,
+    read)``; ``signature()`` is the pack-compatibility key: calls pack
+    into one slab only when the loss function, the statics and every
+    tensor's shape, dtype and device agree, and never when the loss
+    function says it is not ``packable`` (then the key is the call's
+    own, and the coordinator runs it alone).  ``meter`` is ``(ledger,
+    context snapshot)`` taken on the lane's own thread, so the slab's
+    leader books each lane's share into that lane's ledger (None:
+    unmetered)."""
+
+    loss_fn: Callable
+    args: tuple
+    static_kwargs: dict
+    solo: Callable
+    meter: Optional[tuple] = None
+
+    def signature(self):
+        if not getattr(self.loss_fn, "packable", True):
+            return ("alone", id(self))
+        try:
+            lf = hash(self.loss_fn)
+        except TypeError:
+            lf = id(self.loss_fn)
+        state = (self.args[0], self.args[1], self.args[2], self.args[3],
+                 self.args[9])
+        return (lf, tuple(sorted(self.static_kwargs.items())),
+                _abstract_sig(state))
+
+
+def dispatch_chunk_slab(calls, width: int, timings: Optional[dict] = None):
+    """Advance every call's lane in one slab launch per iteration and
+    read the host once; returns one ``(carry, launched, read)`` per call,
+    in order (JAX ``dispatch_chunk_slab``).
+
+    The slab runs at the power-of-two width at or above the live lane
+    count (2, 4, 8, ...; ``width`` is the caller's cap), its vacancies
+    parked copies of the lead lane (``stop == i0``, results dropped).
+    The calls must share one ``ChunkCall.signature()``.  Each call's
+    loss arguments are primed first (``loss_fn.prime``, when the loss
+    function has one), so their caches stack with the rest."""
+    W = 2
+    while W < len(calls):
+        W *= 2
+    lead = calls[0]
+    prime = getattr(lead.loss_fn, "prime", None)
+    if prime is not None:
+        for c in calls:
+            prime(*c.args[9])
+    lanes = [c.args for c in calls]
+    lanes += [lead.args[:5] + (lead.args[4],) + lead.args[6:]] \
+        * (W - len(calls))
+    sk = dict(lead.static_kwargs)
+    diag = None if lanes[0][3] is None \
+        else slab_pack([a[3] for a in lanes])
+    t0 = time.perf_counter()
+    (i_dev, params, state, losses, diag, conv, nan,
+     launched) = _run_fit_chunk_slab(
+        lead.loss_fn, slab_pack([a[0] for a in lanes]),
+        slab_pack([a[1] for a in lanes]), slab_pack([a[2] for a in lanes]),
+        diag, [a[4] for a in lanes], [a[5] for a in lanes],
+        [a[6] for a in lanes], [a[7] for a in lanes], [a[8] for a in lanes],
+        slab_pack([tuple(a[9]) for a in lanes]), **sk)
+    stop_max = max(a[5] for a in lanes[:len(calls)])
+    parts = [torch.stack([i_dev.to(torch.float32), conv.to(torch.float32),
+                          nan.to(torch.float32)], dim=1),
+             losses[:, :stop_max]]
+    if diag is not None:
+        parts.append(diag.reshape(W, -1))
+    host = torch.cat(parts, dim=1).cpu().numpy()
+    if timings is not None:
+        timings["slab_width"] = W
+        timings["launched"] = launched
+        timings["seconds"] = time.perf_counter() - t0
+    out = []
+    for b, call in enumerate(calls):
+        stop_b = call.args[5]
+        read = _ChunkRead(
+            int(host[b, 0]), bool(host[b, 1]), bool(host[b, 2]),
+            host[b, 3:3 + stop_b].copy(),
+            host[b, 3 + stop_max:].reshape(DIAG_RING, 3).copy()
+            if diag is not None else None)
+        # views into the stacked outputs, as JAX's slab_block: a copy
+        # per lane would double the stacked state at every boundary; a
+        # lane's later chunks make new planes before they step any in
+        # place, so no lane writes into another's
+        carry = _Carry(
+            params=slab_block(params, b), state=slab_block(state, b),
+            losses=losses[b], diag=diag[b] if diag is not None else None)
+        out.append((carry, min(launched, stop_b - call.args[4]), read))
+    return out
 
 
 def _decode_diag(diag: np.ndarray, num_iters: int, i0: int,
@@ -451,22 +835,22 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
     at the top of every pass.
     """
     dev = resolve_device(device)
-    params = {k: v.detach().to(dev).clone() for k, v in params0.items()}
-    state = _state_to(opt_state0, dev) if opt_state0 is not None \
-        else make_opt_state(params, moment_dtype)
+    # no copy: a chunk makes new planes before it steps any in place, so
+    # the fit writes none of the tensors it is handed
+    params = {k: v.detach().to(dev) for k, v in params0.items()}
     loop = _Loop(min_iter=int(min_iter), rel_tol=float(rel_tol),
                  win=min(9, int(max_iter)), diag_every=int(diag_every),
                  b1=float(b1), b2=float(b2), moment_dtype=moment_dtype)
     if controller is not None and diag_every:
         return _fit_map_controlled(
-            loss_fn, params, state, loss_args, int(max_iter),
+            loss_fn, params, opt_state0, loss_args, int(max_iter),
             float(learning_rate), loop, doctor_thresholds, controller,
             losses_prefix=losses_prefix, resume_state=resume_state,
             escalate_dir=escalate_dir, escalate_tag=escalate_tag,
             checkpoint_every=checkpoint_every, checkpoint_cb=checkpoint_cb,
             chunk_deadline=chunk_deadline)
     losses, i0 = _loss_buffer(int(max_iter), losses_prefix, dev)
-    carry = _Carry(params, state, losses,
+    carry = _Carry(params, _start_state(params, opt_state0, loop), losses,
                    torch.zeros((DIAG_RING, 3), dtype=torch.float32,
                                device=dev) if diag_every else None)
     const = adam_constants(learning_rate, b1, b2, dev)
@@ -590,7 +974,18 @@ def _save_escalation_checkpoint(escalate_dir, tag, params, losses,
         return None
 
 
-def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
+def _start_state(params: dict, opt_state0: Optional[AdamState],
+                 loop: _Loop) -> AdamState:
+    """A fit's first Adam state: a resumed one on the parameters' device,
+    else zeros.  Only the carry holds it, so the first chunk's new planes
+    replace it on the card."""
+    dev = next(iter(params.values())).device
+    return _state_to(opt_state0, dev) if opt_state0 is not None \
+        else make_opt_state(params, loop.moment_dtype)
+
+
+def _fit_map_controlled(loss_fn: Callable, params: dict,
+                        opt_state0: Optional[AdamState],
                         loss_args: tuple, max_iter: int,
                         learning_rate: float, loop: _Loop,
                         doctor_thresholds: Optional[dict], policy,
@@ -602,8 +997,7 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
                         chunk_deadline: Optional[float] = None
                         ) -> FitResult:
     """The adaptive chunk loop (JAX ``_fit_map_controlled`` and
-    ``_chunk_loop``, without their span, meter and slab-dispatcher
-    hooks).
+    ``_chunk_loop``).
 
     Each chunk is ``diag_every`` iterations (fewer at a budget edge),
     then one host read.  Between chunks: the best-loss checkpoint at
@@ -622,7 +1016,15 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
     replays the uninterrupted run's remaining chunks and decisions.  The
     saves read that boundary's tensors (a later chunk makes new ones)
     and the host copies of its read; each heartbeat note follows a
-    chunk's outcome."""
+    chunk's outcome, as do the ``fit/chunk`` span (with a tracer on the
+    thread's run log) and, for a chunk run alone, its booking in the
+    run's cost ledger.
+
+    With a chunk dispatcher installed on the thread
+    (:func:`set_chunk_dispatcher`, the serving worker's slab
+    coordinator) every chunk goes to it as a :class:`ChunkCall`, and
+    ``fit_begin``/``fit_end`` bracket the loop; the coordinator then
+    books the chunks it packs, each lane its share."""
     dev = next(iter(params.values())).device
     every = loop.diag_every
     resume_state = dict(resume_state or {})
@@ -639,7 +1041,7 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
     if resume_state.get("diag") is not None:
         diag_host = np.asarray(resume_state["diag"], np.float32)
         diag_i0 = int(resume_state.get("diag_i0", 0))
-    carry = _Carry(params, state, losses,
+    carry = _Carry(params, _start_state(params, opt_state0, loop), losses,
                    torch.as_tensor(diag_host, device=dev).clone())
     lr_now = float(resume_state.get("lr", learning_rate))
     const = adam_constants(lr_now, loop.b1, loop.b2, dev)
@@ -670,14 +1072,35 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
     snap: dict = {}
     chunks_done = 0
     chunk_t0 = chunk_t1 = 0.0
+    # taken once per fit: the dispatcher seam and the run log are the
+    # thread's, and a fit never changes engines midway
+    dispatcher = get_chunk_dispatcher()
+    run_log = _runlog.current()
+    ledger = _meter.ledger_of(run_log)
+    tracer = getattr(run_log, "tracer", None)
+    static_kwargs = dict(conv_window=loop.win, b1=loop.b1, b2=loop.b2,
+                         diag_every=every, moment_dtype=loop.moment_dtype)
 
     def _note(entry_it, i_now, action, verdict=None):
-        """One chunk outcome into the heartbeat (a no-op without one)."""
+        """One chunk outcome into the heartbeat (a no-op without one),
+        the run's cost ledger (a chunk run alone; the slab coordinator
+        books packed ones) and the ``fit/chunk`` span."""
         _heartbeat.note_chunk(
             step=escalate_tag, chunk=chunks_done, iteration=int(i_now),
             budget=int(budget), wall_seconds=chunk_t1 - chunk_t0,
             iters=int(i_now) - int(entry_it), action=str(action),
             verdict=verdict)
+        if dispatcher is None and ledger is not None:
+            # a NaN rewind books i_now below the step's high-water mark,
+            # which the ledger counts as retry_refit
+            ledger.book_chunk(entry_it=int(entry_it), end_it=int(i_now),
+                              wall_seconds=chunk_t1 - chunk_t0)
+        if tracer is not None:
+            attrs = dict(chunk=chunks_done, iter_start=int(entry_it),
+                         iter_end=int(i_now), action=str(action))
+            if verdict:
+                attrs["verdict"] = str(verdict)
+            tracer.record_span("fit/chunk", chunk_t0, chunk_t1, **attrs)
 
     def _ledger():
         return {"reseeds": reseeds, "extra_granted": extra_granted,
@@ -688,6 +1111,13 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
                 "diag": diag_host, "diag_i0": diag_i0}
 
     t0 = time.perf_counter()
+    if dispatcher is not None:
+        # the loss arguments' fit-constant caches, filled now, are part
+        # of every chunk's pack signature
+        prime = getattr(loss_fn, "prime", None)
+        if prime is not None:
+            prime(*loss_args)
+        dispatcher.fit_begin()
     try:
         while i_host < budget:
             snap.update(params=carry.params, opt_state=carry.state,
@@ -709,12 +1139,24 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
             entry_params, entry_it = carry.params, i_host
             stop = min(i_host + every, budget)
 
-            def _dispatch(c=carry, i=i_host, stop=stop, const=const):
-                c, launched = _launch_chunk(loss_fn, loss_args, c, i, stop,
-                                            loop, const, probe)
+            def _solo(args, const=const):
+                c = _Carry(args[0], args[1], args[2], args[3])
+                c, launched = _launch_chunk(loss_fn, loss_args, c, args[4],
+                                            args[5], loop, const, probe)
                 # the read waits for the card INSIDE the deadline: a
                 # stalled chunk is the hang the watchdog exists for
-                return c, launched, _read_chunk(c, stop)
+                return c, launched, _read_chunk(c, args[5])
+
+            def _dispatch(c=carry, i=i_host, stop=stop, lr=lr_now):
+                args = (c.params, c.state, c.losses, c.diag, i, stop,
+                        loop.min_iter, loop.rel_tol, lr, loss_args)
+                if dispatcher is None:
+                    return _solo(args)
+                return dispatcher.dispatch(ChunkCall(
+                    loss_fn=loss_fn, args=args, static_kwargs=static_kwargs,
+                    solo=_solo,
+                    meter=(ledger, ledger.ctx_snapshot())
+                    if ledger is not None else None))
 
             chunk_t0 = time.time()
             carry, launched, read = _faults.run_with_deadline(
@@ -823,6 +1265,9 @@ def _fit_map_controlled(loss_fn: Callable, params: dict, state: AdamState,
     except BaseException:
         _emergency_save(checkpoint_cb, snap)
         raise
+    finally:
+        if dispatcher is not None:
+            dispatcher.fit_end()
     wall = time.perf_counter() - t0
     if losses_np is None and entry_losses is not None:
         losses_np = entry_losses

@@ -120,10 +120,36 @@ class PertBatch:
         self.eta_w = eta_w
         self.cache: dict = {}
 
+    FIELDS = ("reads", "libs", "gamma_feats", "mask", "etas", "cn_obs",
+              "rep_obs", "t_alpha", "t_beta", "loci_mask", "eta_idx",
+              "eta_w")
+
     def cached(self, key: str, fn):
         if key not in self.cache:
             self.cache[key] = fn()
         return self.cache[key]
+
+    def slab_state(self) -> dict:
+        """The batch as ``{field: tensor}`` (fields that are None left
+        out) plus ``{'cache': {key: tensor}}``: what the serving slab
+        stacks lane by lane (``infer/svi.py``).  Once the state-major
+        ``etas_t`` is cached the cells-major ``etas`` is left out too:
+        the objective reads only the cached copy (``prime_cache``)."""
+        skip = ("etas",) if "etas_t" in self.cache else ()
+        state = {k: getattr(self, k) for k in self.FIELDS
+                 if getattr(self, k) is not None and k not in skip}
+        state["cache"] = dict(self.cache)
+        return state
+
+    @classmethod
+    def from_slab_state(cls, state: dict) -> "PertBatch":
+        """The batch :meth:`slab_state` describes (one lane's view inside
+        the slab's ``torch.func.vmap``), its cache included."""
+        fields = dict(state)
+        cache = fields.pop("cache", {})
+        batch = cls(**fields)
+        batch.cache = dict(cache)
+        return batch
 
     def effective_loci_mask(self) -> torch.Tensor:
         """(loci,) float mask; all-ones when loci_mask is None."""
@@ -372,11 +398,10 @@ def _joint_logits(P, reads, u, omega, log_pi, phi, lamb, log_lamb,
     return log_pi[..., :, None] + bern[..., None, :] + nb
 
 
-def _observed_bin_loglik(reads, u, omega, log_pi, phi, cn_obs, rep_obs,
+def _observed_bin_loglik(reads, u, omega, lp_cn, phi, cn_obs, rep_obs,
                          lamb, log_lamb, log1m_lamb):
-    """(cells, loci) bin log-likelihood with cn/rep observed (step 1)."""
-    cn_idx = cn_obs.to(torch.int64)
-    lp_cn = torch.gather(log_pi, -1, cn_idx[..., None])[..., 0]
+    """(cells, loci) bin log-likelihood with cn/rep observed (step 1);
+    ``lp_cn`` is log pi at each bin's observed state."""
     lp_rep = bernoulli_log_prob(rep_obs, phi)
     theta = u[:, None] * omega * cn_obs * (1.0 + rep_obs)
     delta = torch.clamp(theta * (1.0 - lamb) / lamb, min=1.0)
@@ -396,6 +421,16 @@ def _dirichlet_normaliser(P: int, batch: PertBatch,
     etas = batch.etas_or_ones(P)
     return (torch.lgamma(torch.sum(etas, dim=-1))
             - torch.sum(torch.lgamma(etas), dim=-1))
+
+
+def _flat_dirichlet(P: int, batch: PertBatch) -> torch.Tensor:
+    """(cells, loci) Dirichlet pi term of a batch without a prior (etas
+    all ones): its data term is zero and its normaliser lgamma(P), the
+    value :func:`_dirichlet_pi_term` gives there (lgamma of the float32
+    sum of P ones, less P lgamma(1) = 0)."""
+    return torch.lgamma(torch.full(batch.reads.shape, float(P),
+                                   dtype=torch.float32,
+                                   device=batch.reads.device))
 
 
 def _dirichlet_pi_term(P: int, batch: PertBatch, log_pi: torch.Tensor,
@@ -427,6 +462,35 @@ def _enum_bin_loglik(spec: PertModelSpec, reads, u, omega, log_pi, phi,
     return enum_loglik(reads, u[:, None] * omega, log_pi, phi, lamb)
 
 
+def prime_cache(spec: PertModelSpec, batch: PertBatch) -> dict:
+    """Fill ``batch.cache`` with every fit-constant term :func:`log_joint`
+    reads (the per-cell read means and ploidies, and for the fused path
+    the Dirichlet normaliser and the state-major dense etas) and return
+    it.  :func:`log_joint` reads them through here; the serving slab
+    primes each lane's batch before it stacks the caches, so the batched
+    objective computes none of them inside its ``torch.func.vmap``."""
+    lmask = batch.effective_loci_mask()
+    batch.cached("reads_mean", lambda: _loci_mean(batch.reads, lmask))
+    batch.cached("ploidies", lambda: _cell_ploidies(spec, batch))
+    if spec.step1:
+        return batch.cache
+    if spec.sparse_etas:
+        if batch.eta_idx is None or batch.eta_w is None:
+            raise ValueError("spec.sparse_etas=True but the batch carries "
+                             "no eta_idx/eta_w planes")
+    elif batch.etas is None and batch.eta_idx is not None:
+        raise ValueError(
+            "batch carries the sparse eta_idx/eta_w encoding but "
+            "spec.sparse_etas=False — the dense path would silently "
+            "fit a uniform CN prior")
+    batch.cached("dir_norm", lambda: _dirichlet_normaliser(
+        spec.P, batch, sparse=spec.sparse_etas))
+    if not spec.sparse_etas:
+        batch.cached("etas_t", lambda: state_major(
+            batch.etas_or_ones(spec.P)))
+    return batch.cache
+
+
 def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
               batch: PertBatch) -> torch.Tensor:
     """Total log-joint (the negative of the SVI loss), discretes summed
@@ -436,21 +500,32 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
     mask = batch.mask
     lmask = batch.effective_loci_mask()
     bin_mask = mask[:, None] * lmask[None, :]
+    cache = prime_cache(spec, batch)
 
     lp = _global_log_prior(c)
-    reads_mean = batch.cached("reads_mean",
-                              lambda: _loci_mean(batch.reads, lmask))
-    ploidies = batch.cached("ploidies", lambda: _cell_ploidies(spec, batch))
-    lp = lp + torch.sum(
-        _per_cell_log_prior(spec, c, batch, reads_mean, ploidies) * mask)
+    lp = lp + torch.sum(_per_cell_log_prior(
+        spec, c, batch, cache["reads_mean"], cache["ploidies"]) * mask)
 
     phi = _phi(c)
     omega = gc_rate(c["betas"], batch.gamma_feats)
     if spec.step1:
-        log_pi = _log_pi(spec, params)
-        lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi, sparse=False)
+        cn_idx = batch.cn_obs.to(torch.int64)
+        if batch.etas is None and not spec.binary_pi:
+            # no CN prior (step 1 as the runner builds it): the Dirichlet
+            # term is 0 * log_pi plus lgamma(P) in every bin, so the
+            # all-ones etas and a cells-major log_pi are not built (each
+            # 872 MB at a serving bucket's 2048 doubled G1 cells); for
+            # finite logits the loss and gradients are the full terms'
+            # bit for bit
+            log_pi_t = torch.log_softmax(params["pi_logits"], dim=0)
+            lp_pi = _flat_dirichlet(spec.P, batch)
+            lp_cn = torch.gather(log_pi_t, 0, cn_idx[None])[0]
+        else:
+            log_pi = _log_pi(spec, params)
+            lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi, sparse=False)
+            lp_cn = torch.gather(log_pi, -1, cn_idx[..., None])[..., 0]
         lp = lp + torch.sum(lp_pi * bin_mask)
-        ll = _observed_bin_loglik(batch.reads, c["u"], omega, log_pi, phi,
+        ll = _observed_bin_loglik(batch.reads, c["u"], omega, lp_cn, phi,
                                   batch.cn_obs, batch.rep_obs, lamb,
                                   log_lamb, log1m_lamb)
         return lp + torch.sum(ll * bin_mask)
@@ -460,13 +535,8 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
     _require_fixed_lamb(spec)
     mu = c["u"][:, None] * omega
     pi_param = params["pi_bin_logits" if spec.binary_pi else "pi_logits"]
+    lp = lp + torch.sum(cache["dir_norm"] * bin_mask)
     if spec.sparse_etas:
-        if batch.eta_idx is None or batch.eta_w is None:
-            raise ValueError("spec.sparse_etas=True but the batch carries "
-                             "no eta_idx/eta_w planes")
-        lp_pi = batch.cached("dir_norm", lambda: _dirichlet_normaliser(
-            spec.P, batch, sparse=True))
-        lp = lp + torch.sum(lp_pi * bin_mask)
         if spec.binary_pi:
             ll = enum_loglik_fused_sparse_binary(
                 batch.reads, mu, pi_param, phi, batch.eta_idx, batch.eta_w,
@@ -474,23 +544,12 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
         else:
             ll = enum_loglik_fused_sparse(batch.reads, mu, pi_param, phi,
                                           batch.eta_idx, batch.eta_w, lamb)
+    elif spec.binary_pi:
+        ll = enum_loglik_fused_binary(batch.reads, mu, pi_param, phi,
+                                      cache["etas_t"], lamb, spec.P)
     else:
-        if batch.etas is None and batch.eta_idx is not None:
-            raise ValueError(
-                "batch carries the sparse eta_idx/eta_w encoding but "
-                "spec.sparse_etas=False — the dense path would silently "
-                "fit a uniform CN prior")
-        lp_pi = batch.cached("dir_norm", lambda: _dirichlet_normaliser(
-            spec.P, batch, sparse=False))
-        lp = lp + torch.sum(lp_pi * bin_mask)
-        etas_t = batch.cached("etas_t", lambda: state_major(
-            batch.etas_or_ones(spec.P)))
-        if spec.binary_pi:
-            ll = enum_loglik_fused_binary(batch.reads, mu, pi_param, phi,
-                                          etas_t, lamb, spec.P)
-        else:
-            ll = enum_loglik_fused(batch.reads, mu, pi_param, phi, etas_t,
-                                   lamb)
+        ll = enum_loglik_fused(batch.reads, mu, pi_param, phi,
+                               cache["etas_t"], lamb)
     return lp + torch.sum(ll * bin_mask)
 
 
@@ -525,7 +584,9 @@ def per_cell_objective(spec: PertModelSpec, params: dict, fixed: dict,
     phi = _phi(c)
     omega = gc_rate(c["betas"], batch.gamma_feats)
     if spec.step1:
-        ll = _observed_bin_loglik(batch.reads, c["u"], omega, log_pi, phi,
+        lp_cn = torch.gather(log_pi, -1,
+                             batch.cn_obs.to(torch.int64)[..., None])[..., 0]
+        ll = _observed_bin_loglik(batch.reads, c["u"], omega, lp_cn, phi,
                                   batch.cn_obs, batch.rep_obs, lamb,
                                   log_lamb, log1m_lamb)
     else:

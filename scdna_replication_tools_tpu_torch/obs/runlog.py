@@ -19,10 +19,15 @@
 
 The port runs one process, so the log always writes (the JAX package's
 rank gate has nothing to gate), and ``run_start`` takes its topology from
-``torch.cuda``.  Left out with the items that own them: span tracing and
-the cost ledger (A11b) and ``add_context`` (A13).  The cross-thread
-stack handoff (:func:`stack_snapshot`/:func:`install_stack`) serves the
-watchdog's worker thread.
+``torch.cuda``.  A span tracer riding the log (``obs/spans.
+attach_tracer``) adds the run's root span, ``trace_id`` on ``run_start``
+and the ``span`` envelope on every other event; a cost ledger riding it
+(``meter_ledger``) adds ``run_end``'s ``meter`` section; ``add_context``
+folds run metadata (a serving request's ``request_id`` and
+``slab_width``) into ``run_start``.  The :func:`current` stack is
+thread-local (the serving worker runs one request per thread); the
+cross-thread handoff (:func:`stack_snapshot`/:func:`install_stack`)
+serves the watchdog's worker thread.
 """
 
 from __future__ import annotations
@@ -191,6 +196,20 @@ class RunLog:
         # the facade that created both): close_run emits the guaranteed
         # run_end metrics_snapshot from it, and every emit feeds it
         self.metrics_registry = None
+        # metadata folded into run_start (add_context before the open)
+        self._pending_context: dict = {}
+        # the cost ledger riding this log (obs/meter.CostLedger, set by
+        # the runner or worker that owns the run): booking sites resolve
+        # it through meter.ledger_of(runlog.current()), and close_run
+        # lands its summary as run_end's `meter` section; None = unmetered
+        self.meter_ledger = None
+        # the span tracer riding this log (obs/spans.attach_tracer); None
+        # keeps the stream free of span material (no envelope, no
+        # span_end, no trace_id)
+        self.tracer = None
+        # the root 'run' span the session opens when a tracer rides the
+        # log, closed just before run_end
+        self._root_span = None
         # serialises the seq counter and the file write
         self._emit_lock = threading.Lock()
 
@@ -209,6 +228,16 @@ class RunLog:
 
     # -- lifecycle --------------------------------------------------------
 
+    def add_context(self, **fields) -> None:
+        """Attach run metadata: folded into ``run_start`` when the run is
+        not yet open, emitted as a ``note`` event afterwards."""
+        if not self.enabled:
+            return
+        if self._open:
+            self.emit("note", **fields)
+        else:
+            self._pending_context.update(fields)
+
     def open_run(self, config=None, run_name: str = "pert",
                  device=None) -> None:
         if not self.enabled or self._open:
@@ -224,6 +253,7 @@ class RunLog:
             "pid": os.getpid(),
             "started_unix": round(time.time(), 3),
             **_device_topology(device),
+            **self._pending_context,
         }
         import numpy
 
@@ -236,7 +266,16 @@ class RunLog:
                 payload["config"] = dataclasses.asdict(config)
             elif isinstance(config, dict):
                 payload["config"] = config
+        if self.tracer is not None:
+            # the key that stitches the logs of one trace (a serving
+            # request's worker and request logs)
+            payload.setdefault("trace_id", self.tracer.trace_id)
+        self._pending_context = {}
         self.emit("run_start", **payload)
+        if self.tracer is not None:
+            # the run's root span: every phase and chunk span parents
+            # under it (or under the trace_parent the tracer carries)
+            self._root_span = self.tracer.begin("run", run_name=run_name)
 
     def close_run(self, status: str = "ok", error=None,
                   phases: Optional[dict] = None) -> None:
@@ -244,6 +283,11 @@ class RunLog:
         # still needs its session state reset and its handle closed
         if not self._open:
             return
+        if self.tracer is not None and self._root_span is not None:
+            # the run span (and any still open under it) closes first:
+            # its span_end lands inside the stream, before run_end
+            self.tracer.end(self._root_span, status=status)
+            self._root_span = None
         # the guaranteed final metrics snapshot, inside events_emitted
         if self.metrics_registry is not None:
             self.metrics_registry.emit_snapshot(self, "run_end")
@@ -255,6 +299,12 @@ class RunLog:
                                 "message": str(error)[:2000]}
         if phases:
             payload["phases"] = dict(phases)
+        if self.meter_ledger is not None:
+            try:
+                payload["meter"] = self.meter_ledger.summary()
+            except Exception:  # noqa: BLE001 — a torn ledger must not
+                # cost the run_end record; the missing section shows it
+                pass
         self.emit("run_end", **payload)
         self._open = False
         if self._fh is not None:
@@ -335,6 +385,16 @@ class RunLog:
                 return
             record = {"event": event, "seq": self._seq,
                       "t": round(self._elapsed(), 4), **payload}
+            # the span envelope: every event emitted while a span is open
+            # carries the causal context it happened under (only with a
+            # tracer attached, and not on span_end, which carries its own)
+            if self.tracer is not None and event != "span_end" \
+                    and "span" not in record:
+                cur = self.tracer.current()
+                if cur is not None:
+                    record["span"] = {"trace_id": cur.trace_id,
+                                      "span_id": cur.span_id,
+                                      "parent_id": cur.parent_id}
             self._seq += 1
             try:
                 if self._fh is None:

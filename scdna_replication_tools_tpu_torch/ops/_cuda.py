@@ -27,7 +27,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+import uuid
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -44,12 +46,12 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "enum_fused": {
         # reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P,
-        # sparse, binary, stream
-        "scrt_fused_fwd": [_P] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        # sparse, binary, lanes, stream
+        "scrt_fused_fwd": [_P] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4
         + [_P],
         # reads, mu, phi, pi, etas, eidx, ew, scal, lse, g, dmu, dphi,
-        # dpi, n, P, sparse, binary, stream
-        "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        # dpi, n, P, sparse, binary, lanes, stream
+        "scrt_fused_bwd": [_P] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 4
         + [_P],
         # reads, mu, phi, log_pi, scal, ll, n, P, stream
         "scrt_enum_fwd": [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P],
@@ -59,9 +61,9 @@ _SIGNATURES = {
     },
     "adam": {
         # p_out, m_out, v_out, p, g, m, v, scal, b1, 1-b1, b2, 1-b2, n,
-        # bf16_moments, stream
+        # lanes, bf16_moments, stream
         "scrt_adam": [_P] * 8 + [ctypes.c_float] * 4
-        + [ctypes.c_longlong, ctypes.c_int, _P],
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     },
 }
 
@@ -82,6 +84,13 @@ LAUNCHES: Dict[str, int] = {
     "fused_bwd_sparse_binary": 0,
     "adam": 0,
     "adam_bf16": 0,
+    # launches with a lane axis (the serving slab's W stacked fits)
+    "fused_fwd_dense_lanes": 0,
+    "fused_bwd_dense_lanes": 0,
+    "fused_fwd_sparse_lanes": 0,
+    "fused_bwd_sparse_lanes": 0,
+    "adam_lanes": 0,
+    "adam_bf16_lanes": 0,
 }
 
 # name -> {"seconds", "path", "log", "key_hash", "cache"} of the last
@@ -89,6 +98,9 @@ LAUNCHES: Dict[str, int] = {
 # "load_seconds" once the library is loaded
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one builder or loader at a time in this process: the serving worker's
+# request threads reach an unbuilt library together
+_BUILD_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
@@ -122,8 +134,14 @@ def _key_hash(lib: Path) -> str:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named sources (default: all) in parallel, one ``nvcc``
     each; sources whose library is already built are skipped.  Returns
-    ``BUILD_INFO`` for the names; raises with nvcc's output on failure."""
-    names = list(names or SOURCES)
+    ``BUILD_INFO`` for the names; raises with nvcc's output on failure.
+    Thread-safe; each build writes a temporary file of its own, so
+    builders in other processes never collide either."""
+    with _BUILD_LOCK:
+        return _build(list(names or SOURCES))
+
+
+def _build(names) -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -137,7 +155,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                     "log": log.read_text() if log.exists() else "cached",
                     "key_hash": _key_hash(out), "cache": "disk_hit"}
                 continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}-{uuid.uuid4().hex}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC_DIR / SOURCES[name])]
             procs[name] = (subprocess.Popen(
@@ -169,11 +188,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first use."""
+    """The loaded kernel library ``name``, built on first use (once, when
+    several threads ask for it together)."""
     lib = _LIBS.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
         if name not in BUILD_INFO:
-            build([name])
+            _build([name])
         info = BUILD_INFO[name]
         t0 = time.perf_counter()
         lib = ctypes.CDLL(info["path"])
@@ -192,9 +217,10 @@ def load_event(name: str) -> dict:
     of its ``compile`` event: ``miss`` with the nvcc seconds or
     ``disk_hit`` with the load seconds when this call loaded it, ``hit``
     when it was loaded already."""
-    loaded = name in _LIBS
-    library(name)
-    info = BUILD_INFO[name]
+    with _BUILD_LOCK:
+        loaded = name in _LIBS
+        library(name)
+        info = BUILD_INFO[name]
     event = {"key_hash": info["key_hash"], "label": SOURCES[name],
              "tag": "kernel_library"}
     if loaded:

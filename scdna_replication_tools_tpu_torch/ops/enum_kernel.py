@@ -401,22 +401,89 @@ def _check_shapes(what, reads, mu, pi_t, phi, scal, etas_t, eta_idx, eta_w,
     return P
 
 
-def _kernel_key(kind: str, etas_t, binary_P) -> str:
+def _kernel_key(kind: str, etas_t, binary_P, lanes=None) -> str:
+    """The launch count's key: a launch with a lane axis (``lanes``, the
+    serving slab's) counts apart from one fit's."""
     key = f"fused_{kind}_{'sparse' if etas_t is None else 'dense'}"
-    return key if binary_P is None else key + "_binary"
+    key = key if binary_P is None else key + "_binary"
+    return key if lanes is None else key + "_lanes"
+
+
+def _lane(t: Optional[torch.Tensor], b: int) -> Optional[torch.Tensor]:
+    return None if t is None else t[b]
+
+
+def fused_fwd_plain_batched(reads, mu, pi_t, phi, scal, etas_t=None,
+                            eta_idx=None, eta_w=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse), each (W, cells, loci): :func:`fused_fwd_plain` of each
+    lane of the (W, ...) operands (``scal`` (W, 3)), stacked."""
+    outs = [fused_fwd_plain(reads[b], mu[b], pi_t[b], phi[b], scal[b],
+                            _lane(etas_t, b), _lane(eta_idx, b),
+                            _lane(eta_w, b)) for b in range(reads.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def fused_bwd_plain_batched(reads, mu, pi_t, phi, scal, lse, g, etas_t=None,
+                            eta_idx=None, eta_w=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dmu, dphi, dpi_t) with a leading lane axis: :func:`fused_bwd_plain`
+    of each lane, stacked."""
+    outs = [fused_bwd_plain(reads[b], mu[b], pi_t[b], phi[b], scal[b],
+                            lse[b], g[b], _lane(etas_t, b),
+                            _lane(eta_idx, b), _lane(eta_w, b))
+            for b in range(reads.shape[0])]
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(3))
+
+
+def _lanes(what, reads, scal, binary_P, **lane_operands) -> Optional[int]:
+    """W when ``scal`` is the (W, 3) stack of W fits' scalars (then every
+    operand carries the lanes on its leading axis), None for one fit's
+    (3,) scalars."""
+    if scal.ndim != 2:
+        return None
+    if binary_P is not None:
+        raise NotImplementedError(
+            f"{what}: the batched (block-axis) form of the binary fused "
+            "kernels is not ported (ROADMAP B1): no serving path reaches "
+            "it, since enum_impl is not a requestable option")
+    if reads.ndim != 3:
+        raise ValueError(f"{what}: reads must be (W, cells, loci) with "
+                         f"(W, 3) scalars; got {tuple(reads.shape)}")
+    W = reads.shape[0]
+    if scal.shape != (W, 3):
+        raise ValueError(f"{what}: scal must be the (W, 3) stack of "
+                         f"scalars(lamb); got {tuple(scal.shape)}")
+    for key, t in lane_operands.items():
+        if t is not None and (t.ndim < 1 or t.shape[0] != W):
+            raise ValueError(f"{what}: {key} must carry the {W} lanes on "
+                             f"its leading axis; got {tuple(t.shape)}")
+    return W
 
 
 def fused_fwd(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
               eta_w=None, binary_P=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused forward ``(out, lse)``: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors.  ``binary_P``: see
-    :func:`fused_fwd_plain`."""
-    P = _check_shapes("fused_fwd", reads, mu, pi_t, phi, scal, etas_t,
-                      eta_idx, eta_w, binary_P)
+    :func:`fused_fwd_plain`.  With ``scal`` (W, 3) every operand carries
+    W stacked fits on its leading axis (the serving slab's block axis;
+    categorical only) and one launch computes them all, each lane's
+    outputs a one-fit launch's on its operands, bit for bit."""
+    W = _lanes("fused_fwd", reads, scal, binary_P, mu=mu, pi_t=pi_t,
+               phi=phi, etas_t=etas_t, eta_idx=eta_idx, eta_w=eta_w)
+    one = (lambda t: t) if W is None else (lambda t: _lane(t, 0))
+    P = _check_shapes("fused_fwd", one(reads), one(mu), one(pi_t), one(phi),
+                      one(scal), one(etas_t), one(eta_idx), one(eta_w),
+                      binary_P)
     _cuda.check_operands("fused_fwd", reads.device, reads=reads, mu=mu,
                          pi_t=pi_t, phi=phi, scal=scal, etas_t=etas_t,
                          eta_idx=eta_idx, eta_w=eta_w)
     if reads.device.type == "cpu":
+        if W is not None:
+            return fused_fwd_plain_batched(reads, mu, pi_t, phi, scal,
+                                           etas_t, eta_idx, eta_w)
         return fused_fwd_plain(reads, mu, pi_t, phi, scal, etas_t, eta_idx,
                                eta_w, binary_P)
     lib = _cuda.library("enum_fused")
@@ -425,11 +492,11 @@ def fused_fwd(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
     rc = lib.scrt_fused_fwd(
         _cuda.ptr(reads), _cuda.ptr(mu), _cuda.ptr(phi), _cuda.ptr(pi_t),
         _cuda.ptr(etas_t), _cuda.ptr(eta_idx), _cuda.ptr(eta_w),
-        _cuda.ptr(scal), _cuda.ptr(out), _cuda.ptr(lse), reads.numel(), P,
-        int(etas_t is None), int(binary_P is not None),
+        _cuda.ptr(scal), _cuda.ptr(out), _cuda.ptr(lse), one(reads).numel(),
+        P, int(etas_t is None), int(binary_P is not None), W or 1,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_fwd")
-    _cuda.LAUNCHES[_kernel_key("fwd", etas_t, binary_P)] += 1
+    _cuda.LAUNCHES[_kernel_key("fwd", etas_t, binary_P, W)] += 1
     return out, lse
 
 
@@ -438,14 +505,22 @@ def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused backward ``(dmu, dphi, dpi_t)``: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors.  ``binary_P``: see
-    :func:`fused_bwd_plain`."""
-    P = _check_shapes("fused_bwd", reads, mu, pi_t, phi, scal, etas_t,
-                      eta_idx, eta_w, binary_P, lse, g)
+    :func:`fused_bwd_plain`; a lane axis as :func:`fused_fwd`'s."""
     g = g.contiguous()
+    W = _lanes("fused_bwd", reads, scal, binary_P, mu=mu, pi_t=pi_t,
+               phi=phi, lse=lse, g=g, etas_t=etas_t, eta_idx=eta_idx,
+               eta_w=eta_w)
+    one = (lambda t: t) if W is None else (lambda t: _lane(t, 0))
+    P = _check_shapes("fused_bwd", one(reads), one(mu), one(pi_t), one(phi),
+                      one(scal), one(etas_t), one(eta_idx), one(eta_w),
+                      binary_P, one(lse), one(g))
     _cuda.check_operands("fused_bwd", reads.device, reads=reads, mu=mu,
                          pi_t=pi_t, phi=phi, scal=scal, lse=lse, g=g,
                          etas_t=etas_t, eta_idx=eta_idx, eta_w=eta_w)
     if reads.device.type == "cpu":
+        if W is not None:
+            return fused_bwd_plain_batched(reads, mu, pi_t, phi, scal, lse,
+                                           g, etas_t, eta_idx, eta_w)
         return fused_bwd_plain(reads, mu, pi_t, phi, scal, lse, g, etas_t,
                                eta_idx, eta_w, binary_P)
     lib = _cuda.library("enum_fused")
@@ -456,11 +531,11 @@ def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
         _cuda.ptr(reads), _cuda.ptr(mu), _cuda.ptr(phi), _cuda.ptr(pi_t),
         _cuda.ptr(etas_t), _cuda.ptr(eta_idx), _cuda.ptr(eta_w),
         _cuda.ptr(scal), _cuda.ptr(lse), _cuda.ptr(g), _cuda.ptr(dmu),
-        _cuda.ptr(dphi), _cuda.ptr(dpi), reads.numel(), P,
-        int(etas_t is None), int(binary_P is not None),
+        _cuda.ptr(dphi), _cuda.ptr(dpi), one(reads).numel(), P,
+        int(etas_t is None), int(binary_P is not None), W or 1,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_bwd")
-    _cuda.LAUNCHES[_kernel_key("bwd", etas_t, binary_P)] += 1
+    _cuda.LAUNCHES[_kernel_key("bwd", etas_t, binary_P, W)] += 1
     return dmu, dphi, dpi
 
 
@@ -529,20 +604,46 @@ def _zeros_if(needed: bool, t: Optional[torch.Tensor]):
     return torch.zeros_like(t) if needed and t is not None else None
 
 
+def _lanes_first(info, in_dims, *operands):
+    """The operands of a ``torch.func.vmap`` rule with the mapped axis
+    moved to the front, contiguous; an operand that is not mapped (the
+    same for every lane) is expanded over the ``info.batch_size`` lanes.
+    None stays None."""
+    out = []
+    for t, d in zip(operands, in_dims):
+        if t is None:
+            out.append(None)
+        elif d is None:
+            out.append(t.unsqueeze(0).expand(
+                (info.batch_size,) + tuple(t.shape)).contiguous())
+        else:
+            out.append(t.movedim(d, 0).contiguous())
+    return out
+
+
 class _FusedDense(torch.autograd.Function):
-    """Dense-prior fused objective.  Cotangents for mu, the pi planes and
-    phi; silent zeros for reads, etas_t and the lambda scalars."""
+    """Dense-prior fused objective: ``(out, lse)``, lse not
+    differentiable.  Cotangents for mu, the pi planes and phi; silent
+    zeros for reads, etas_t and the lambda scalars.  Under
+    ``torch.func.vmap`` (the serving slab's batched objective) the
+    :meth:`vmap` rule applies it once to the W mapped fits stacked on a
+    leading lane axis, one block-axis launch each way, as the Pallas
+    call's batching rule does under ``jax.vmap``."""
 
     @staticmethod
-    def forward(ctx, reads, mu, pi_t, phi, etas_t, scal, binary_P):
-        out, lse = fused_fwd(reads, mu, pi_t, phi, scal, etas_t=etas_t,
-                             binary_P=binary_P)
-        ctx.save_for_backward(reads, mu, pi_t, phi, etas_t, scal, lse)
+    def forward(reads, mu, pi_t, phi, etas_t, scal, binary_P):
+        return fused_fwd(reads, mu, pi_t, phi, scal, etas_t=etas_t,
+                         binary_P=binary_P)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        reads, mu, pi_t, phi, etas_t, scal, binary_P = inputs
+        ctx.save_for_backward(reads, mu, pi_t, phi, etas_t, scal, output[1])
+        ctx.mark_non_differentiable(output[1])
         ctx.binary_P = binary_P
-        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         reads, mu, pi_t, phi, etas_t, scal, lse = ctx.saved_tensors
         dmu, dphi, dpi = fused_bwd(reads, mu, pi_t, phi, scal, lse, g,
                                    etas_t=etas_t, binary_P=ctx.binary_P)
@@ -550,21 +651,33 @@ class _FusedDense(torch.autograd.Function):
         return (_zeros_if(need[0], reads), dmu, dpi, dphi,
                 _zeros_if(need[4], etas_t), _zeros_if(need[5], scal), None)
 
+    @staticmethod
+    def vmap(info, in_dims, reads, mu, pi_t, phi, etas_t, scal, binary_P):
+        ops = _lanes_first(info, in_dims[:6], reads, mu, pi_t, phi, etas_t,
+                           scal)
+        return _FusedDense.apply(*ops, binary_P), (0, 0)
+
 
 class _FusedSparse(torch.autograd.Function):
-    """Sparse-prior fused objective.  Cotangents for mu, the pi planes and
-    phi; silent zeros for reads, eta_idx, eta_w and the lambda scalars."""
+    """Sparse-prior fused objective: ``(out, lse)``.  Cotangents for mu,
+    the pi planes and phi; silent zeros for reads, eta_idx, eta_w and
+    the lambda scalars; the :meth:`vmap` rule as :class:`_FusedDense`'s."""
 
     @staticmethod
-    def forward(ctx, reads, mu, pi_t, phi, eta_idx, eta_w, scal, binary_P):
-        out, lse = fused_fwd(reads, mu, pi_t, phi, scal, eta_idx=eta_idx,
-                             eta_w=eta_w, binary_P=binary_P)
-        ctx.save_for_backward(reads, mu, pi_t, phi, eta_idx, eta_w, scal, lse)
+    def forward(reads, mu, pi_t, phi, eta_idx, eta_w, scal, binary_P):
+        return fused_fwd(reads, mu, pi_t, phi, scal, eta_idx=eta_idx,
+                         eta_w=eta_w, binary_P=binary_P)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        reads, mu, pi_t, phi, eta_idx, eta_w, scal, binary_P = inputs
+        ctx.save_for_backward(reads, mu, pi_t, phi, eta_idx, eta_w, scal,
+                              output[1])
+        ctx.mark_non_differentiable(output[1])
         ctx.binary_P = binary_P
-        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         reads, mu, pi_t, phi, eta_idx, eta_w, scal, lse = ctx.saved_tensors
         dmu, dphi, dpi = fused_bwd(reads, mu, pi_t, phi, scal, lse, g,
                                    eta_idx=eta_idx, eta_w=eta_w,
@@ -574,12 +687,19 @@ class _FusedSparse(torch.autograd.Function):
                 _zeros_if(need[4], eta_idx), _zeros_if(need[5], eta_w),
                 _zeros_if(need[6], scal), None)
 
+    @staticmethod
+    def vmap(info, in_dims, reads, mu, pi_t, phi, eta_idx, eta_w, scal,
+             binary_P):
+        ops = _lanes_first(info, in_dims[:7], reads, mu, pi_t, phi, eta_idx,
+                           eta_w, scal)
+        return _FusedSparse.apply(*ops, binary_P), (0, 0)
+
 
 def enum_loglik_fused(reads, mu, pi_logits_t, phi, etas_t, lamb):
     """(cells, loci) fused objective with a dense prior;
     ``pi_logits_t``/``etas_t`` are STATE-MAJOR (P, cells, loci)."""
     return _FusedDense.apply(reads, mu, pi_logits_t, phi, etas_t,
-                             scalars(lamb), None)
+                             scalars(lamb), None)[0]
 
 
 def enum_loglik_fused_sparse(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
@@ -588,7 +708,7 @@ def enum_loglik_fused_sparse(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
     ``eta_idx``/``eta_w`` are (cells, loci) float32, the index of each
     bin's non-unit state and its concentration minus one."""
     return _FusedSparse.apply(reads, mu, pi_logits_t, phi, eta_idx, eta_w,
-                              scalars(lamb), None)
+                              scalars(lamb), None)[0]
 
 
 def enum_loglik_fused_binary(reads, mu, zbin_t, phi, etas_t, lamb, P):
@@ -597,7 +717,7 @@ def enum_loglik_fused_binary(reads, mu, zbin_t, phi, etas_t, lamb, P):
     ``etas_t`` (P, cells, loci); ``P`` is explicit because the parameter
     no longer carries it.  Cotangents for mu, zbin_t and phi."""
     return _FusedDense.apply(reads, mu, zbin_t, phi, etas_t, scalars(lamb),
-                             int(P))
+                             int(P))[0]
 
 
 def enum_loglik_fused_sparse_binary(reads, mu, zbin_t, phi, eta_idx, eta_w,
@@ -606,7 +726,7 @@ def enum_loglik_fused_sparse_binary(reads, mu, zbin_t, phi, eta_idx, eta_w,
     :func:`enum_loglik_fused_sparse` with ``zbin_t`` the (Kb, cells,
     loci) binary planes and ``P`` explicit."""
     return _FusedSparse.apply(reads, mu, zbin_t, phi, eta_idx, eta_w,
-                              scalars(lamb), int(P))
+                              scalars(lamb), int(P))[0]
 
 
 class _EnumLoglik(torch.autograd.Function):

@@ -664,3 +664,167 @@ def test_kill_and_resume_on_the_card_is_bit_exact(dev, tmp_path):
     assert [(d["action"], d["iter"]) for d in r2.fit.decisions] \
         == [(d["action"], d["iter"]) for d in g2.fit.decisions
             if d["iter"] > 50]
+
+
+# -- the block axis: W stacked fits in one launch (the serving slab) -------
+
+
+def _lanes(W, C, L, P, flat, dev):
+    """W lanes of _inputs, each from its own seed, stacked; lambda
+    differs per lane, so each lane's scalar row differs."""
+    xs = [_inputs(C, L, P, 40 + b, dev, flat=flat) for b in range(W)]
+    stacked = {k: torch.stack([x[k] for x in xs]) for k in xs[0]}
+    lamb = torch.tensor([0.55 + 0.1 * b for b in range(W)],
+                        dtype=torch.float32, device=dev)
+    scal = torch.stack([ek.scalars(lamb[b]) for b in range(W)])
+    return xs, stacked, scal
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("flat", [False, True])
+def test_block_axis_fused_kernels_equal_solo_launches(dev, W, sparse, flat):
+    """One block-axis launch each way for W lanes at the ragged shape:
+    every lane's out, lse, dmu, dphi and dpi equal a solo launch on that
+    lane's operands bit for bit, and the batched plain versions within
+    the solo bounds; one launch each of the lane kernels."""
+    C, L, P = 37, 1001, 13
+    xs, x, scal = _lanes(W, C, L, P, flat, dev)
+    prior = dict(eta_idx=x["eidx"], eta_w=x["ew"]) if sparse \
+        else dict(etas_t=x["etas_t"])
+    args = (x["reads"], x["mu"], x["pi_t"], x["phi"], scal)
+    key = "sparse" if sparse else "dense"
+    _cuda.reset_launches()
+    out_k, lse_k = ek.fused_fwd(*args, **prior)
+    got = ek.fused_bwd(*args, lse_k, x["g"], **prior)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[f"fused_fwd_{key}_lanes"] == 1
+    assert _cuda.LAUNCHES[f"fused_bwd_{key}_lanes"] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    out_p, lse_p = ek.fused_fwd_plain_batched(*args, **prior)
+    ref = ek.fused_bwd_plain_batched(*args, lse_p, x["g"], **prior)
+    tol = TOL_FLAT if flat else TOL
+    for b in range(W):
+        lane_prior = {k: v[b] for k, v in prior.items()}
+        lane = (x["reads"][b], x["mu"][b], x["pi_t"][b], x["phi"][b],
+                scal[b])
+        o, s = ek.fused_fwd(*lane, **lane_prior)
+        d = ek.fused_bwd(*lane, s, x["g"][b], **lane_prior)
+        for a, c in zip((out_k[b], lse_k[b]) + tuple(t[b] for t in got),
+                        (o, s) + d):
+            assert torch.equal(a, c), b
+        weight = x["ew"][b] if sparse else x["etas_t"][b] - 1.0
+        scale = {"out": max(_amax(lse_p[b]), _amax(out_p[b] - lse_p[b])),
+                 "dpi": _amax(x["g"][b]) * _amax(weight)}
+        pairs = [("out", out_k[b], out_p[b]), ("lse", lse_k[b], lse_p[b])] \
+            + [(n, t[b], r[b]) for n, t, r in zip(("dmu", "dphi", "dpi"),
+                                                   got, ref)]
+        for name, a, c in pairs:
+            assert _rel(a, c, scale.get(name, 0.0)) <= tol[name], (b, name)
+        if flat:
+            hk, hp = out_k[b] - lse_k[b], out_p[b] - lse_p[b]
+            per_bin = float(((hk - hp).abs() / (1.0 + hp.abs())).max())
+            assert per_bin <= tol["hoisted"], (b, per_bin)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_vmap_of_the_fused_objective_launches_the_block_axis_pair(dev,
+                                                                  sparse):
+    """torch.func.vmap of the solo fused objective (the slab's batched
+    loss) goes through the vmap rule to one launch of each lane kernel,
+    and each lane's value and gradients equal the solo objective's."""
+    W, C, L, P = 3, 37, 1001, 13
+    xs, x, _ = _lanes(W, C, L, P, False, dev)
+    lamb = torch.tensor([0.55, 0.65, 0.75], dtype=torch.float32, device=dev)
+
+    def obj(mu, pi_t, phi, reads, prior, lam):
+        if sparse:
+            return ek.enum_loglik_fused_sparse(reads, mu, pi_t, phi,
+                                               prior[0], prior[1], lam)
+        return ek.enum_loglik_fused(reads, mu, pi_t, phi, prior[0], lam)
+
+    prior = (x["eidx"], x["ew"]) if sparse else (x["etas_t"],)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x["mu"], x["pi_t"], x["phi"])]
+    _cuda.reset_launches()
+    out = torch.func.vmap(obj)(*leaves, x["reads"], prior, lamb)
+    grads = torch.autograd.grad(out.sum(), leaves)
+    torch.cuda.synchronize()
+    key = "sparse" if sparse else "dense"
+    assert _cuda.LAUNCHES[f"fused_fwd_{key}_lanes"] == 1
+    assert _cuda.LAUNCHES[f"fused_bwd_{key}_lanes"] == 1
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    for b in range(W):
+        solo = [t[b].clone().requires_grad_(True) for t in leaves]
+        o = obj(*solo, x["reads"][b], tuple(p[b] for p in prior), lamb[b])
+        g = torch.autograd.grad(o.sum(), solo)
+        assert torch.equal(out[b], o)
+        for a, c in zip(grads, g):
+            assert torch.equal(a[b], c)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_adam_lanes_kernel_equals_solo_launches(dev, W, mdt):
+    """One lane-axis Adam launch for W lanes, each with its own step
+    count and learning rate and lane 1 parked (live = 0): every lane
+    equals a solo launch with its scalar row bit for bit (the parked one
+    its operands), and the plain lane-axis version bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(W)
+    shape = (W, 13 if mdt == "float32" else 4, 37, 1001)
+    f32 = dict(dtype=torch.float32, device=dev)
+    p, g = (torch.randn(shape, generator=gen, **f32) for _ in range(2))
+    mt = ak.moment_torch_dtype(mdt)
+    m = (0.1 * torch.randn(shape, generator=gen, **f32)).to(mt)
+    v = (0.1 * torch.rand(shape, generator=gen, **f32)).to(mt)
+    const = torch.tensor([[0.05 * (b + 1), 0.8, 0.99] for b in range(W)],
+                         **f32)
+    count = torch.tensor([3 + 5 * b for b in range(W)], dtype=torch.int32,
+                         device=dev)
+    live = torch.tensor([b != 1 for b in range(W)], device=dev)
+    scal = ak.adam_scalars(const, count, live)
+    key = "adam_lanes" if mdt == "float32" else "adam_bf16_lanes"
+    _cuda.reset_launches()
+    got = ak.adam_update(p, g, m, v, scal, 0.8, 0.99, mdt)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == 1 and sum(_cuda.LAUNCHES.values()) == 1
+    ref = ak.adam_update_plain(p, g, m, v, scal, 0.8, 0.99)
+    for a, c in zip(got, ref):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+    for b in range(W):
+        solo = ak.adam_update(p[b], g[b], m[b], v[b], scal[b], 0.8, 0.99,
+                              mdt)
+        for a, c in zip(got, solo):
+            assert torch.equal(a[b], c), b
+        if b == 1:
+            for a, c in zip(got, (p, m, v)):
+                assert torch.equal(a[b], c[b])
+    # in place (the slab's own stacked copies): the same values
+    dst = [t.clone() for t in (p, m, v)]
+    inplace = ak.adam_update(dst[0], g, dst[1], dst[2], scal, 0.8,
+                                   0.99, mdt, in_place=True)
+    for a, c, d in zip(inplace, got, dst):
+        assert a is d and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_adam_kernel_in_place_equals_new_outputs(dev, mdt):
+    """The solo kernel stepping its operands in place (the fit loop's
+    iterations after a chunk's first) gives the new-output launch's
+    values bit for bit, live and parked."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shape = (13 if mdt == "float32" else 4, 37, 1001)
+    f32 = dict(dtype=torch.float32, device=dev)
+    p, g = (torch.randn(shape, generator=gen, **f32) for _ in range(2))
+    mt = ak.moment_torch_dtype(mdt)
+    m = (0.1 * torch.randn(shape, generator=gen, **f32)).to(mt)
+    v = (0.1 * torch.rand(shape, generator=gen, **f32)).to(mt)
+    for live in (True, False):
+        scal = _adam_scal(dev, 9, live)
+        ref = ak.adam_update(p, g, m, v, scal, 0.8, 0.99, mdt)
+        dst = [t.clone() for t in (p, m, v)]
+        got = ak.adam_update(dst[0], g, dst[1], dst[2], scal, 0.8, 0.99,
+                             mdt, in_place=True)
+        torch.cuda.synchronize()
+        for a, b, d in zip(got, ref, dst):
+            assert a is d and torch.equal(a, b), live

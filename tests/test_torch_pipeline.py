@@ -101,7 +101,7 @@ def test_port_recovers_simulated_truth(outputs):
 
 @pytest.mark.parametrize("option", [
     dict(loci_shards=2), dict(num_shards=None), dict(clone_col=None),
-    dict(trace_spans=True), dict(executable_cache_dir="ec"),
+    dict(executable_cache_dir="auto"), dict(executable_cache_dir="ec"),
     dict(cell_chunk=8), dict(num_shards=2), dict(num_shards=0),
     dict(cn_hmm_self_prob=0.9)])
 def test_unported_options_raise(sim_data, option):
@@ -125,6 +125,18 @@ def test_durable_run_options_are_taken(sim_data, option):
 
 
 @pytest.mark.parametrize("option", [
+    dict(trace_spans=True), dict(trace_parent="00aa11bb22cc33dd:r0.1"),
+    dict(request_id="req-1"), dict(slab_width=4)])
+def test_serving_and_tracing_options_are_taken(sim_data, option):
+    """Span tracing (ROADMAP A11b) and the serving worker's per-request
+    identity (A13) reach the run's config."""
+    sim_s, sim_g = sim_data
+    scrt = TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+    for key, value in option.items():
+        assert getattr(scrt.config, key) == value
+
+
+@pytest.mark.parametrize("option", [
     dict(enum_impl="binary_xla"), dict(enum_impl="pallas"),
     dict(enum_impl="binary_interpret"), dict(optimizer_state_dtype="float16"),
     dict(fused_adam="xla")])
@@ -138,16 +150,20 @@ def test_backend_specific_values_raise(sim_data, option):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
 
 
-# the observability modules, among the modules the check walks
+# the observability and serving modules, among the modules the check
+# walks
 OBS_MODULES = ("obs.schema", "obs.metrics", "obs.heartbeat", "obs.runlog",
-               "utils.fileio", "utils.profiling")
+               "obs.spans", "obs.meter", "obs.summary", "utils.fileio",
+               "utils.profiling", "serve.buckets", "serve.queue",
+               "serve.slab", "serve.worker", "serve.cli")
 
 
 def test_port_imports_without_jax():
     """Importing the port (every module, the run log's obs/ and utils/
-    modules among them) and chip_smoke.py pulls in no JAX, and no import
-    statement of chip_smoke.py (its functions import lazily) names JAX
-    or the JAX package."""
+    modules and the serving worker among them) and chip_smoke.py pulls
+    in no JAX, and no import statement of chip_smoke.py or of any module
+    of the port (their functions may import lazily) names JAX or the JAX
+    package."""
     code = (
         "import ast, sys, importlib, pkgutil\n"
         "import scdna_replication_tools_tpu_torch as p\n"
@@ -162,13 +178,17 @@ def test_port_imports_without_jax():
         " or m.startswith('scdna_replication_tools_tpu.')"
         " or m == 'scdna_replication_tools_tpu']\n"
         "assert not bad, bad\n"
-        "tree = ast.parse(open(chip_smoke.__file__).read())\n"
-        "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)"
-        " for a in n.names] + [n.module for n in ast.walk(tree)"
-        " if isinstance(n, ast.ImportFrom) and n.module]\n"
-        "bad = [n for n in names if n.split('.')[0] in"
+        "import pathlib\n"
+        "files = [chip_smoke.__file__] + sorted(str(f) for f in"
+        " pathlib.Path(p.__path__[0]).rglob('*.py'))\n"
+        "for f in files:\n"
+        "    tree = ast.parse(open(f).read())\n"
+        "    names = [a.name for n in ast.walk(tree)"
+        " if isinstance(n, ast.Import) for a in n.names] + [n.module for n"
+        " in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]\n"
+        "    bad = [n for n in names if n.split('.')[0] in"
         " ('jax', 'scdna_replication_tools_tpu')]\n"
-        "assert not bad, bad\n")
+        "    assert not bad, (f, bad)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
