@@ -88,13 +88,39 @@ Phases, each printing its own lines:
    against the same function through the plain enumeration, and both
    unfused kernels against their plain versions and timed there, each
    with its bound;
-10. serving: four requests of the same shape (seeds 0-3, every option at
+10. the unlabelled path, a lab's sample without clone labels: the
+    port's ``pert_simulator`` on the card at the full shape (and
+    ``simulate_s_reads`` against its CPU run on the card's draws: phi,
+    theta and delta within 1e-5, the NB counts' mean and variance), then
+    ``scRT(cn_s, cn_g1, clone_col=None, cell_chunk=256,
+    cn_hmm_self_prob=0.99).infer('pert')`` on the frames without
+    clone_id, every other option at its default, with phase 4's checks
+    (the fused pair once per chunk of each iteration: 1000 S cells pad
+    to 1024, four chunks; step 3 one) and: k-means on the card picks
+    k = 3 and recovers the simulated clones (adjusted Rand index 1.0),
+    the chunked loss and gradients equal the unchunked ones from step
+    2's fitted state (1e-5 relative), the Viterbi paths on the card
+    equal the CPU's on the same emissions (the first 128 cells), every
+    kernel against its plain version at the chunk shapes this path gave
+    it (as phase 4); then the
+    LOWESS curve on the card (and against its float64 CPU run on the
+    first 1000 loci's points), ``infer(level='clone'|'bulk'|'cell')``
+    (the cell level on a listed cut of 250 S cells) with rt_state held
+    against the simulated replication state (``LEVEL_BARS``), ``SPF``
+    with clone discovery, and ``simulator_main``, ``infer_scrt_main``
+    (pert at its default --max-iter, then --level clone) and
+    ``infer_spf_main`` end to end through TSVs on a listed cut of 200 S +
+    100 G1 cells; seconds per part, peak memory and the card beside them
+    (``[unlabelled ...]`` lines).  The levels, SPF and the CLI (host
+    pandas, TSVs and changepoint sweeps) run in a spawned process beside
+    phase 11 and print when it is joined (``[unlabelled tail]``);
+11. serving: four requests of the same shape (seeds 0-3, every option at
     its JAX default) submitted with ``submit_frames`` by four processes
     while the earlier phases run, to a spool in ``/dev/shm`` (outside the
     checkout; finished requests' checkpoints are removed as they finish,
     since a request writes ~12 GB of them) and drained by
     ``ServeWorker(max_batch=4,
-    exit_when_idle=True)`` on the card, then the first two by a serial
+    exit_when_idle=True)`` on the card, then the first again by a serial
     worker (``max_batch=1``): every ticket done, packed dispatches > 0
     with at least two lanes each, every request log schema-valid with
     its ``request_id`` and ``slab_width=4``, ``request_start`` and
@@ -112,8 +138,8 @@ Phases, each printing its own lines:
     operands, the plain versions within ``TOL`` (and under a flat
     prior), Adam's lane axis with a parked lane bit for bit, each timed
     with its bound;
-11. the card's name and power limit, one JSON line of the kernels (each
-    with its launches summed over the six paths' runs and by path),
+12. the card's name and power limit, one JSON line of the kernels (each
+    with its launches summed over the seven paths' runs and by path),
     then the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
@@ -1290,7 +1316,13 @@ def simulate_frames(seed: int = SEED, num_reads: float = 1e6,
         })
         return frame
 
+    # each clone's RT profile, for the simulator's rt columns (phase 10)
+    CLONE_RT[seed] = {f"C{c}": rt for c, rt in enumerate(clone_rt)}
     return cells(CELLS, "s"), cells(G1_CELLS, "g")
+
+
+# seed -> {clone: RT profile} of the frames simulate_frames made
+CLONE_RT: dict = {}
 
 
 CATEGORICAL = ("fused_fwd_dense", "fused_bwd_dense", "fused_fwd_sparse",
@@ -1317,6 +1349,12 @@ PATHS = {
     "binary": (dict(OFF, mirror_rescue=False, enum_impl="binary",
                     optimizer_state_dtype="bfloat16"), BINARY),
     "rescue": (dict(OFF, mirror_rescue=True), RESCUE),
+    # a lab's sample without clone labels (phase 10): the frames without
+    # clone_id, clones found by k-means on the card, the fused kernels
+    # run per chunk of 256 cells, CN decoded by Viterbi; every other
+    # option at its default
+    "unlabelled": (dict(clone_col=None, cell_chunk=256,
+                        cn_hmm_self_prob=0.99), CATEGORICAL),
 }
 
 
@@ -1396,15 +1434,22 @@ def main_path(dev, record, frames, path: str, reference=None):
     if ran and "enum_fwd" not in kernels:
         kernels = kernels + ("enum_fwd",)
     # the rescue's sub-fit runs the dense pair and Adam on the candidates
+    # (unchunked); with cell_chunk each step's pair runs once per chunk of
+    # its padded cells per iteration
     sub = rescue["dispatched"] if rescue else 0
+    chunk = options.get("cell_chunk")
+    ch2, ch3 = ((int(st.batch.reads.shape[0]) // chunk if chunk else 1)
+                for st in (step2, step3))
     fwd_d, bwd_d, fwd_s, bwd_s, adam = kernels[:5]
-    check(launches[fwd_d] == disp[1] + sub
-          and launches[bwd_d] == disp[1] + sub,
-          f"{path}: {fwd_d}/{bwd_d} launched once per dispatched step-2 "
-          f"iteration ({disp[1]}) and rescue sub-fit iteration ({sub})")
-    check(launches[fwd_s] == disp[2] and launches[bwd_s] == disp[2],
-          f"{path}: {fwd_s}/{bwd_s} launched once per dispatched step-3 "
-          f"iteration ({disp[2]})")
+    check(launches[fwd_d] == ch2 * disp[1] + sub
+          and launches[bwd_d] == ch2 * disp[1] + sub,
+          f"{path}: {fwd_d}/{bwd_d} launched once per chunk ({ch2}) of "
+          f"each dispatched step-2 iteration ({disp[1]}) and once per "
+          f"rescue sub-fit iteration ({sub})")
+    check(launches[fwd_s] == ch3 * disp[2]
+          and launches[bwd_s] == ch3 * disp[2],
+          f"{path}: {fwd_s}/{bwd_s} launched once per chunk ({ch3}) of "
+          f"each dispatched step-3 iteration ({disp[2]})")
     check(launches[adam] == sum(disp) + sub,
           f"{path}: {adam} launched once per dispatched iteration of every "
           f"step and of the rescue sub-fit ({sum(disp) + sub})")
@@ -1473,6 +1518,8 @@ def main_path(dev, record, frames, path: str, reference=None):
         check(cn_acc >= reference["cn_acc"] - 0.02,
               f"{path}: CN accuracy {cn_acc:.4f} >= categorical "
               f"{reference['cn_acc']:.4f} - 0.02")
+    if chunk:
+        record.setdefault("unlabelled", {})["chunks"] = [ch2, ch3]
     record[f"main_{path}"] = {
         "options": options, "cells_s": CELLS, "cells_g1": G1_CELLS,
         "loci": LOCI, "P": P, "clones": CLONES,
@@ -2129,11 +2176,509 @@ def profile_steps(dev, scrt, record, path: str,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the serving worker with continuous batching
+# phase 10: the unlabelled path (clone discovery, chunked fit, Viterbi,
+# the deterministic levels, SPF, the command line)
+# ---------------------------------------------------------------------------
+
+UNLABELLED_CHUNK = 256
+UNLABELLED_HMM = 0.99
+# the deterministic levels' rt_state against the simulated replication
+# state, bars set before the first run on the card (PERF.md §6)
+LEVEL_BARS = {"clone": 0.85, "bulk": 0.75, "cell": 0.70}
+# the columns a simulator input carries (with an rt column per clone)
+SIM_INPUT = ["cell_id", "chr", "start", "gc", "library_id", "clone_id",
+             "true_somatic_cn"]
+# a listed cut (S cells) of the cell level, whose per-cell changepoint
+# rounds took 63 s at 1000 S cells and would push the script past its
+# time limit; the clone and bulk levels run whole
+LEVEL_CUT = {"clone": None, "bulk": None, "cell": 250}
+# the LOWESS curve on the card is held against its float64 CPU run on
+# the G1 points of the first loci only (the CPU took 7-10 s for all
+# 5451); the card's time is taken on all of them
+LOWESS_CPU_LOCI = 1000
+# the Viterbi paths are compared with the CPU's on the first cells only
+# (the CPU takes 18 s for all 1024)
+VITERBI_CPU_CELLS = 128
+# the CLI's listed cut, at its default --max-iter: writing the TSVs
+# costs minutes of host time (200 S + 100 G1 cells took 148 s through
+# the three functions; run in a row with the other phases, the whole
+# script took 1103 s of its 1200 s on an H100 machine)
+CLI_CUT = (200, 100)
+# the LOWESS curve on the card against the float64 CPU plain version,
+# relative (summation order only)
+TOL_LOWESS = 1e-9
+# the chunked objective against the unchunked one from the same state
+TOL_CHUNKED = 1e-5
+
+
+def unlabelled_frames(frames) -> tuple:
+    """The frames without clone_id: a lab's sample with no clone labels;
+    also the simulated clone of each G1 cell."""
+    cn_s, cn_g1 = frames
+    truth = cn_g1.drop_duplicates("cell_id").set_index("cell_id")["clone_id"]
+    return (cn_s.drop(columns=["clone_id"]),
+            cn_g1.drop(columns=["clone_id"])), truth
+
+
+def adjusted_rand(a, b) -> float:
+    """Adjusted Rand index of two labelings (no sklearn on the card's
+    machine)."""
+    import pandas as pd
+    a = pd.factorize(np.asarray(a))[0]
+    b = pd.factorize(np.asarray(b))[0]
+    ct = np.zeros((a.max() + 1, b.max() + 1))
+    np.add.at(ct, (a, b), 1)
+
+    def pairs(x):
+        return x * (x - 1) / 2.0
+
+    sum_ij = pairs(ct).sum()
+    sa, sb = pairs(ct.sum(1)).sum(), pairs(ct.sum(0)).sum()
+    expected = sa * sb / pairs(len(a))
+    top = (sa + sb) / 2.0
+    return float((sum_ij - expected) / (top - expected)) \
+        if top != expected else 1.0
+
+
+def check_simulator(dev, frames, record, card) -> None:
+    """The port's ``pert_simulator`` on the card at the full shape, and
+    ``simulate_s_reads`` on the card against its plain CPU run with the
+    card's tau, beta-noise and replication draws handed in through the
+    seam: phi, theta and delta to float32 rounding, the NB counts to
+    their moments."""
+    import torch
+    from scdna_replication_tools_tpu_torch.models import simulator as sim
+
+    cn_s, cn_g1 = frames
+    rts = CLONE_RT[SEED]
+    # the simulator's input: the frames' CN, without their simulated reads
+    s_in, g_in = cn_s[SIM_INPUT].copy(), cn_g1[SIM_INPUT].copy()
+    for clone, rt in rts.items():
+        # the frames hold each cell's loci in the profiles' order
+        s_in[f"rt_{clone}"] = np.tile(rt, len(s_in) // LOCI)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim_s, sim_g = sim.pert_simulator(
+        s_in, g_in, 1_000_000, [f"rt_{c}" for c in rts], list(rts), 0.75,
+        [0.5, 0.0], 10.0, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[unlabelled simulator] {card}: pert_simulator on {dev}, "
+          f"{CELLS} S + {G1_CELLS} G1 cells x {LOCI} loci, "
+          f"{len(rts)} clones: {wall:.2f} s")
+    check(len(sim_s) == CELLS * LOCI and len(sim_g) == G1_CELLS * LOCI
+          and bool(np.isfinite(sim_s["true_reads_norm"]).all())
+          and bool(np.isfinite(sim_g["true_reads_norm"]).all()),
+          "[unlabelled] pert_simulator covers every bin, reads finite")
+
+    # the S sampler of one clone on the card, then on the CPU with the
+    # card's draws
+    first = s_in[s_in["clone_id"] == "C0"]
+    cn = first["true_somatic_cn"].to_numpy(np.float32).reshape(-1, LOCI)
+    gc = first["gc"].to_numpy(np.float32)[:LOCI]
+    rho = sim.convert_rt_units(rts["C0"])
+    libs = np.zeros(cn.shape[0], np.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    on_card = sim.simulate_s_reads(gen, cn, gc, rho, libs, 1e6, 0.75,
+                                   [0.5, 0.0], 10.0)
+    stds = torch.logspace(0.0, -1, 2, dtype=torch.float32, device=dev)
+    noise = (on_card["betas"] - torch.tensor([0.5, 0.0], device=dev)) \
+        / stds
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(SEED)
+    plain = sim.simulate_s_reads(cpu_gen, cn, gc, rho, libs, 1e6, 0.75,
+                                 [0.5, 0.0], 10.0,
+                                 tau=on_card["tau"].cpu(),
+                                 beta_noise=noise.cpu(),
+                                 rep=on_card["rep"].cpu())
+    errs = {k: float(torch.max(torch.abs(on_card[k].cpu() - plain[k])
+                               / torch.clamp(torch.abs(plain[k]), min=1.0)))
+            for k in ("p_rep", "theta", "delta")}
+    reads = on_card["reads"].double()
+    # NB(delta, 0.75): mean 3 delta (theta where delta is not clamped to
+    # 1), variance mean + mean^2 / delta, so the standardized residuals'
+    # mean square is 1 in expectation
+    mean = on_card["delta"].double() * 3.0
+    ratio = float(reads.sum() / mean.sum())
+    var = mean + mean ** 2 / on_card["delta"].double()
+    z2 = float(torch.mean((reads - mean) ** 2 / var))
+    print(f"  simulate_s_reads: card vs CPU with the card's draws, max "
+          f"relative error {json.dumps(errs)}; NB counts: sum/sum(mean) "
+          f"{ratio:.6f}, mean squared standardized residual {z2:.4f}")
+    check(all(v < 1e-5 for v in errs.values()),
+          "[unlabelled] simulator's phi, theta, delta on the card equal "
+          "its CPU run's within 1e-5")
+    check(abs(ratio - 1.0) < 1e-3 and abs(z2 - 1.0) < 0.02,
+          "[unlabelled] simulator's NB counts hold their mean (1e-3) and "
+          "variance (2 %)")
+    record["unlabelled"].update(simulator_s=wall, simulator_err=errs,
+                                nb_ratio=ratio, nb_z2=z2)
+
+
+def check_unlabelled_fit(dev, scrt, truth, record, card) -> None:
+    """What the unlabelled run must show beyond main_path's checks: the
+    clones k-means found, the chunked objective against the unchunked
+    one, the Viterbi paths on the card against the CPU's."""
+    import dataclasses
+    import torch
+    from scdna_replication_tools_tpu_torch.models import hmm
+    from scdna_replication_tools_tpu_torch.models import pert as pert_mod
+    from scdna_replication_tools_tpu_torch.utils.chrom import (
+        as_chr_categorical,
+    )
+
+    rec = record["unlabelled"]
+    found = scrt.cn_g1.drop_duplicates("cell_id").set_index("cell_id")[
+        scrt.clone_col]
+    k = int(found.nunique())
+    ari = adjusted_rand(found.to_numpy(),
+                        truth.reindex(found.index).to_numpy())
+    prep = scrt.phase_report.get("clone_prep", float("nan"))
+    print(f"[unlabelled fit] {card}: k-means on {dev} chose k = {k}, "
+          f"ARI {ari:.4f} against the simulated clones; clone_prep "
+          f"{prep:.2f} s (k-means, consensus, assignment)")
+    check(scrt.clone_col == "cluster_id" and k == CLONES,
+          f"[unlabelled] k-means picks k = {k} = {CLONES}")
+    check(ari == 1.0, f"[unlabelled] ARI {ari:.4f} = 1.0")
+
+    # chunked against unchunked, from step 2's fitted state
+    st = scrt.steps[1]
+    whole = dataclasses.replace(st.spec, cell_chunk=None)
+
+    def loss_and_grads(spec):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in st.fit.params.items()}
+        loss = pert_mod.pert_loss(spec, params, st.fixed, st.batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return float(loss.detach()), dict(zip(params, grads))
+
+    # both sides add the same parameter-free Dirichlet normaliser (~1.7e11
+    # at this shape, against a loss of ~1e9), whose float32 sum would set
+    # the loss's rounding: the comparison leaves it out of both, so the
+    # loss compared is the priors and the kernels' data term
+    cache = st.batch.cache
+    norm = cache["dir_norm"]
+    cache["dir_norm"] = torch.zeros_like(norm)
+    try:
+        l_ch, g_ch = loss_and_grads(st.spec)
+        l_wh, g_wh = loss_and_grads(whole)
+    finally:
+        cache["dir_norm"] = norm
+    rel = abs(l_ch - l_wh) / abs(l_wh)
+    grad_rel = {k: float(torch.max(torch.abs(g_ch[k] - g_wh[k]))
+                         / max(float(torch.max(torch.abs(g_wh[k]))), 1e-30))
+                for k in g_wh if g_wh[k] is not None}
+    print(f"  step 2 at its fitted state, loss without the normaliser: "
+          f"chunked {l_ch:.9g}, unchunked {l_wh:.9g} (relative difference "
+          f"{rel:.3g}); gradients' max relative error "
+          f"{max(grad_rel.values()):.3g} ({max(grad_rel, key=grad_rel.get)})")
+    check(rel <= TOL_CHUNKED and max(grad_rel.values()) <= TOL_CHUNKED,
+          f"[unlabelled] chunked loss and gradients equal the unchunked "
+          f"ones within {TOL_CHUNKED}")
+    del g_ch, g_wh
+    st.batch.cache.pop("etas_t", None)
+
+    # Viterbi on the card against the CPU, on the same emissions
+    with torch.no_grad():
+        joint = pert_mod.model_joint_logits(st.spec, st.fit.params,
+                                            st.fixed, st.batch)
+        emissions = torch.logsumexp(joint, dim=-1)
+        del joint
+    # the chain restarts where the loader's loci (genome order: the
+    # chromosome's rank, then start) change chromosome
+    loci = scrt.cn_s.drop_duplicates(["chr", "start"])[["chr", "start"]]
+    loci = loci.assign(chr=as_chr_categorical(loci["chr"]))
+    chroms = loci.sort_values(["chr", "start"])["chr"].astype(str) \
+        .to_numpy()
+    restart = np.r_[1.0, (chroms[1:] != chroms[:-1]).astype(np.float32)]
+    trans = hmm.transition_log_probs(P, UNLABELLED_HMM, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = hmm.viterbi_paths(emissions, restart, trans)
+    torch.cuda.synchronize()
+    vit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = hmm.viterbi_paths(emissions[:VITERBI_CPU_CELLS].cpu(), restart,
+                               trans.cpu())
+    cpu_s = time.perf_counter() - t0
+    same = bool(torch.equal(on_card[:VITERBI_CPU_CELLS].cpu(), on_cpu))
+    print(f"  Viterbi of {emissions.shape[0]} cells x {LOCI} loci: card "
+          f"{vit_s:.3f} s; the first {VITERBI_CPU_CELLS} cells' paths on "
+          f"the CPU ({cpu_s:.3f} s) {'equal' if same else 'DIFFER FROM'} "
+          "the card's")
+    check(same, "[unlabelled] Viterbi paths on the card equal the CPU's "
+          "bit for bit")
+    rec.update(k=k, ari=ari, clone_prep_s=prep, chunked_loss_rel=rel,
+               chunked_grad_rel=grad_rel, viterbi_s=vit_s,
+               viterbi_cpu_s=cpu_s, viterbi_equal=same)
+
+
+def check_lowess(dev, frames, record, card) -> None:
+    """The LOWESS curve of the G1 rpm against GC on the card over every
+    point, then card against its float64 CPU run on the first loci's
+    points."""
+    import torch
+    from scdna_replication_tools_tpu_torch.pipeline import gc_correction
+
+    rec = record["unlabelled"]
+    cn_s, cn_g1 = frames
+    # the LOWESS curve of the G1 rpm against GC: on the card over every
+    # point, then card against CPU on the first loci's points
+    g1 = gc_correction.compute_reads_per_million(cn_g1)
+    xv = np.sort(cn_s["gc"].unique())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gc_correction.lowess(g1["rpm"].to_numpy(), g1["gc"].to_numpy(), xv,
+                         device=dev)
+    card_s = time.perf_counter() - t0
+    cut = g1[g1.groupby("cell_id").cumcount() < LOWESS_CPU_LOCI]
+    x_cut = np.sort(cut["gc"].unique())
+    curve = gc_correction.lowess(cut["rpm"].to_numpy(),
+                                 cut["gc"].to_numpy(), x_cut, device=dev)
+    t0 = time.perf_counter()
+    plain = gc_correction.lowess(cut["rpm"].to_numpy(),
+                                 cut["gc"].to_numpy(), x_cut, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    lowess_rel = float(np.max(np.abs(curve - plain) / np.abs(plain)))
+    print(f"[unlabelled levels] {card}: LOWESS over {len(g1)} G1 points "
+          f"({len(np.unique(g1['gc']))} distinct GC values) on the card "
+          f"{card_s:.3f} s; on the first {LOWESS_CPU_LOCI} loci's "
+          f"{len(cut)} points the float64 CPU plain version took "
+          f"{cpu_s:.3f} s, max relative difference {lowess_rel:.3g}")
+    check(lowess_rel <= TOL_LOWESS,
+          f"[unlabelled] LOWESS on the card equals the CPU's within "
+          f"{TOL_LOWESS}")
+    rec.update(lowess_s=card_s, lowess_cpu_s=cpu_s, lowess_rel=lowess_rel)
+
+
+def levels_spf(dev, frames, record, card) -> None:
+    """The deterministic levels on the unlabelled frames (k-means again,
+    rt_state against the simulated replication state) and SPF."""
+    import torch
+    from scdna_replication_tools_tpu_torch import SPF, scRT
+
+    rec = record["unlabelled"]
+    cn_s, cn_g1 = frames
+    print(f"[unlabelled levels] {card}: the levels and SPF on {dev}, in a "
+          "process beside phase 11")
+    levels = {}
+    for level in ("clone", "bulk", "cell"):
+        cut = LEVEL_CUT[level]
+        s_in = cn_s if cut is None else \
+            cn_s[cn_s["cell_id"].isin(cn_s["cell_id"].unique()[:cut])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, supp_s, out_g1, supp_g1 = scRT(
+            s_in.copy(), cn_g1.copy(), clone_col=None).infer(level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = float((out["rt_state"] == out["true_rep"]).mean())
+        cols = ("rt_value", "rt_state", "frac_rt", "binary_thresh")
+        n_s = int(s_in["cell_id"].nunique())
+        levels[level] = {"wall_s": wall, "rt_state_acc": acc,
+                         "rows": len(out), "s_cells": n_s,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"  level={level}: {n_s} S cells, {wall:.2f} s, "
+              f"{len(out)} rows, rt_state "
+              f"against true_rep {acc:.4f} (bar {LEVEL_BARS[level]}), "
+              f"peak {levels[level]['peak_bytes']} bytes")
+        check(all(c in out.columns for c in cols) and supp_s.empty
+              and out_g1.empty and supp_g1.empty,
+              f"[unlabelled] level={level} adds {list(cols)}, the other "
+              "three frames empty")
+        check(acc > LEVEL_BARS[level],
+              f"[unlabelled] level={level} rt_state accuracy {acc:.4f} > "
+              f"{LEVEL_BARS[level]}")
+    rec["levels"] = levels
+
+    t0 = time.perf_counter()
+    spf_cells, spf = SPF(cn_s.copy(), cn_g1.copy(), clone_col=None).infer()
+    spf_s = time.perf_counter() - t0
+    print(f"  SPF (clones by k-means on {dev}, max_k 100): {spf_s:.2f} s, "
+          f"{len(spf)} clones: " + "; ".join(
+              f"{r.clone_id}: {r.SPF:.3f} +- {r.SPF_std:.3f} "
+              f"({r.num_s} S, {r.num_g} G1)" for r in spf.itertuples()))
+    check(int(spf["num_s"].sum()) == CELLS
+          and int(spf["num_g"].sum()) == G1_CELLS
+          and bool(spf["SPF"].between(0, 1).all())
+          and bool(np.isfinite(spf["SPF_std"]).all()),
+          "[unlabelled] SPF counts every cell, fractions in [0, 1]")
+    rec.update(spf_s=spf_s, spf_clones=len(spf))
+
+
+def cli_drive(frames, rec, card) -> None:
+    """simulator_main (on the labelled frames: it simulates clone by
+    clone), then infer_scrt_main (pert, then --level clone) and
+    infer_spf_main without the clone labels, through TSVs, on the first
+    ``CLI_CUT`` cells."""
+    import tempfile
+    import pandas as pd
+    from scdna_replication_tools_tpu_torch import cli
+
+    cn_s, cn_g1 = frames
+    n_s, n_g = CLI_CUT
+    rts = CLONE_RT[SEED]
+    keep_s = cn_s["cell_id"].isin(cn_s["cell_id"].unique()[:n_s])
+    keep_g = cn_g1["cell_id"].isin(cn_g1["cell_id"].unique()[:n_g])
+    s_in = cn_s.loc[keep_s, SIM_INPUT].copy()
+    g_in = cn_g1.loc[keep_g, SIM_INPUT].copy()
+    for clone, rt in rts.items():
+        s_in[f"rt_{clone}"] = np.tile(rt, n_s)
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="pert-cli-") as tmp:
+        d = Path(tmp)
+        s_in.to_csv(d / "s_in.tsv", sep="\t", index=False)
+        g_in.to_csv(d / "g_in.tsv", sep="\t", index=False)
+        t0 = time.perf_counter()
+        cli.simulator_main([
+            "-si", str(d / "s_in.tsv"), "-gi", str(d / "g_in.tsv"),
+            "-n", "1000000", "-l", "0.75", "-a", "10", "-b", "0.5", "0.0",
+            "-rt", *[f"rt_{c}" for c in rts], "-c", *rts,
+            "-so", str(d / "sim_s.tsv"), "-go", str(d / "sim_g.tsv")])
+        walls["simulator_main"] = time.perf_counter() - t0
+        for name in ("sim_s", "sim_g"):
+            df = pd.read_csv(d / f"{name}.tsv", sep="\t", dtype={"chr": str})
+            df = df.drop(columns=["clone_id"])
+            df["reads"] = df["true_reads_norm"]
+            df["state"] = df["true_somatic_cn"].astype(int)
+            df["copy"] = df["true_somatic_cn"].astype(float)
+            df.to_csv(d / f"{name}_in.tsv", sep="\t", index=False)
+        inputs = [str(d / "sim_s_in.tsv"), str(d / "sim_g_in.tsv")]
+        t0 = time.perf_counter()
+        cli.infer_scrt_main(inputs + [
+            str(d / "out.tsv"), str(d / "supp.tsv"), "--clone-col", "none",
+            "--telemetry", "none"])
+        walls["infer_scrt_main pert"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.infer_scrt_main(inputs + [
+            str(d / "clone.tsv"), str(d / "clone_supp.tsv"), "--clone-col",
+            "none", "--level", "clone"])
+        walls["infer_scrt_main clone"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.infer_spf_main(inputs + [
+            str(d / "spf_s.tsv"), str(d / "spf.tsv"), "--clone-col", "none"])
+        walls["infer_spf_main"] = time.perf_counter() - t0
+        out = pd.read_csv(d / "out.tsv", sep="\t", dtype={"chr": str})
+        clone = pd.read_csv(d / "clone.tsv", sep="\t", dtype={"chr": str})
+        spf = pd.read_csv(d / "spf.tsv", sep="\t")
+        supp = pd.read_csv(d / "supp.tsv", sep="\t")
+    rep_acc = float((out["model_rep_state"] == out["true_rep"]).mean())
+    print(f"[unlabelled cli] {card}: {n_s} S + {n_g} G1 cells x {LOCI} "
+          "loci through TSVs: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; pert rep-state accuracy {rep_acc:.4f}")
+    check(len(out) == n_s * LOCI and rep_acc > 0.80
+          and {"model_cn_state", "model_rep_state", "model_tau",
+               "cluster_id"} <= set(out.columns)
+          and "model_lambda" in set(supp["param"]),
+          f"[unlabelled] CLI pert output covers every bin with the model "
+          f"columns, rep-state accuracy {rep_acc:.4f} > 0.80")
+    check({"rt_value", "rt_state", "frac_rt", "binary_thresh"}
+          <= set(clone.columns) and len(spf) > 0
+          and {"SPF", "SPF_std", "num_s", "num_g"} <= set(spf.columns),
+          "[unlabelled] CLI clone level and SPF tables carry their columns")
+    rec["cli_s"] = walls
+
+
+def unlabelled(dev, record, frames, card, results) -> dict:
+    """Phase 10: the path of a lab whose sample has no clone labels, on
+    the full-width frames without clone_id.  Its host-bound tail (the
+    levels, SPF, the CLI) runs in a process of its own beside phase 11
+    (:class:`HostTail`)."""
+    import torch
+    record["unlabelled"] = {}
+    bare, truth = unlabelled_frames(frames)
+    t0 = time.perf_counter()
+    check_simulator(dev, frames, record, card)
+    launches, scrt = main_path(dev, record, bare, "unlabelled")
+    check_unlabelled_fit(dev, scrt, truth, record, card)
+    # the kernels at the chunk shapes this path gave them
+    check_main_path_shapes(dev, scrt, results, "unlabelled")
+    del scrt
+    torch.cuda.empty_cache()
+    check_lowess(dev, bare, record, card)
+    record["unlabelled"]["wall_s"] = time.perf_counter() - t0
+    print(f"[unlabelled] {card}: phase {record['unlabelled']['wall_s']:.1f} "
+          "s (without the tail that runs beside phase 11)")
+    return launches
+
+
+def _host_tail(card: str) -> dict:
+    """Phase 10's host-bound tail, the task of a process of its own: the
+    deterministic levels and SPF on the unlabelled frames, then the
+    three CLI functions through TSVs.  Returns what it printed, the
+    checks that failed and its part of the record."""
+    import io
+    import traceback
+    import torch
+
+    record = {"unlabelled": {}}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            frames = simulate_frames()
+            bare, _ = unlabelled_frames(frames)
+            levels_spf(torch.device("cuda", 0), bare, record, card)
+            cli_drive(frames, record["unlabelled"], card)
+        except Exception:
+            check(False, "[unlabelled] the host tail raised:\n"
+                  + traceback.format_exc())
+    record["unlabelled"]["tail_s"] = time.perf_counter() - t0
+    return {"log": out.getvalue(), "failures": list(FAILURES),
+            "record": record["unlabelled"]}
+
+
+class HostTail:
+    """Phase 10's levels, SPF and CLI functions (host pandas, TSVs and
+    changepoint sweeps; the card does little of it) in one spawned
+    process that runs beside phase 11, so that the script stays inside
+    its time limit: they took 250-300 s of a slow host's time in a row.
+    :meth:`finish` waits for it, prints what it printed and counts its
+    checks; :meth:`close` stops it, also when a phase fails on the
+    way."""
+
+    def __init__(self, card: str):
+        import atexit
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+        self.future = self.pool.submit(_host_tail, card)
+        atexit.register(self.close)
+
+    def finish(self, record) -> None:
+        try:
+            tail = self.future.result()
+        except Exception as exc:     # the process died
+            check(False, f"[unlabelled] the host tail's process failed: "
+                  f"{exc!r}")
+            return
+        finally:
+            self.close()
+        wait = time.perf_counter() - self.t0
+        print(tail["log"], end="")
+        print(f"[unlabelled tail] levels, SPF and CLI in a process beside "
+              f"phase 11: {tail['record']['tail_s']:.1f} s (joined after "
+              f"{wait:.1f} s)")
+        for what in tail["failures"]:
+            FAILURES.append(what)
+        record["unlabelled"].update(tail["record"])
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving worker with continuous batching
 # ---------------------------------------------------------------------------
 
 SERVE_SEEDS = (0, 1, 2, 3)     # four requests, seeds of simulate_frames
-SERVE_SERIAL = 2               # the first two again through a serial worker
+SERVE_SERIAL = 1               # the first again through a serial worker
 SERVE_WIDTH = 4                # ServeWorker(max_batch=4)
 # the block-axis kernels and the row of the solo kernel each one batches
 LANES = {"fused_fwd_dense_lanes": "fused_fwd_dense",
@@ -2509,8 +3054,8 @@ class ServeSpool:
 def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
     """The serving path: four flagship requests (seeds 0-3, every option
     at its JAX default) through ``ServeWorker(max_batch=4)``, then the
-    first two through a serial worker; the checks of the serving phase
-    (module docstring, phase 10).  Returns the launches of the batched
+    first through a serial worker; the checks of the serving phase
+    (module docstring, phase 11).  Returns the launches of the batched
     drain."""
     from scdna_replication_tools_tpu_torch.obs.schema import validate_run
     from scdna_replication_tools_tpu_torch.serve import SpoolQueue
@@ -2869,8 +3414,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda", 0)
-    record: dict = {}
-    # phase 10's requests are written by four processes meanwhile
+    record: dict = {"timeline": {}}
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        at = time.perf_counter() - t_start
+        record["timeline"][phase] = at
+        print(f"[timeline] {phase} done at {at:.1f} s")
+
+    # phase 11's requests are written by four processes meanwhile
     spool = ServeSpool()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2909,8 +3461,10 @@ def main() -> int:
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     sass = record["sass"] = sass_report(info, out_dir)
+    mark("build")
 
     results = compare_kernels(dev, record)
+    mark("kernels")
 
     t0 = time.perf_counter()
     frames = simulate_frames()
@@ -2930,6 +3484,7 @@ def main() -> int:
     # path's peak memory is its own
     del scrt
     torch.cuda.empty_cache()
+    mark("categorical")
 
     by_path["default"], scrt = main_path(dev, record, frames, "default",
                                          reference)
@@ -2938,9 +3493,11 @@ def main() -> int:
     durable_ref = durable_reference(scrt)
     del scrt
     torch.cuda.empty_cache()
+    mark("default")
 
     by_path["durable"] = durable_runs(dev, record, frames, durable_ref)
     del durable_ref
+    mark("durable")
 
     by_path["binary"], scrt = main_path(dev, record, frames, "binary",
                                         reference)
@@ -2948,6 +3505,7 @@ def main() -> int:
     profile_steps(dev, scrt, record, "binary", steps=("step2", "step3"))
     del scrt
     torch.cuda.empty_cache()
+    mark("binary")
 
     by_path["rescue"], scrt = main_path(dev, record, frames, "rescue",
                                         reference)
@@ -2955,11 +3513,21 @@ def main() -> int:
         check_rescue_scoring(dev, scrt, results)
     del scrt
     torch.cuda.empty_cache()
+    mark("rescue")
 
+    by_path["unlabelled"] = unlabelled(dev, record, frames, card, results)
+    torch.cuda.empty_cache()
+    mark("unlabelled")
+
+    tail = HostTail(card)
     by_path["serve"] = serving(dev, record, record["main_default"], spool)
+    mark("serve")
+    tail.finish(record)
+    mark("unlabelled tail")
     check_lanes(dev, results)
+    mark("lanes")
 
-    # launches of each kernel summed over the six paths' runs (each read
+    # launches of each kernel summed over the seven paths' runs (each read
     # from zero just before its run, just after it), by path beside it
     paths_of = {name: {p: (sum(v for k, v in counts.items()
                                if k.startswith("enum_bwd_"))

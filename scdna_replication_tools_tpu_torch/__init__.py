@@ -8,14 +8,15 @@ fused enumeration kernels and the fused Adam update written in CUDA C++
 for Hopper (``csrc/``, built with ``nvcc`` at first use), and each run
 writes the JAX package's schema-v9 JSONL run log (``obs/runlog.py``).
 
-Entry points (:class:`scRT`, :class:`PertInference`, :func:`fit_map`)
-run on ``cuda`` unless the caller passes ``device='cpu'``; with no
+Entry points (:class:`scRT`, :class:`SPF`, :class:`PertInference`,
+:func:`fit_map`, the simulator and the command-line functions of
+``cli.py``) run on ``cuda`` unless the caller passes ``device='cpu'``; with no
 device given and no GPU present they raise.
 """
 
-from scdna_replication_tools_tpu_torch.api import scRT
+from scdna_replication_tools_tpu_torch.api import SPF, scRT
 from scdna_replication_tools_tpu_torch.device import resolve_device
 from scdna_replication_tools_tpu_torch.infer.runner import PertInference
 from scdna_replication_tools_tpu_torch.infer.svi import fit_map
 
-__all__ = ["scRT", "PertInference", "fit_map", "resolve_device"]
+__all__ = ["scRT", "SPF", "PertInference", "fit_map", "resolve_device"]

@@ -1,9 +1,16 @@
-"""Public pandas-in / pandas-out facade: ``scRT`` (port of ``api.py``).
+"""Public pandas-in / pandas-out facade: ``scRT`` and ``SPF`` (port of
+``api.py``).
 
 Same constructor keywords and defaults as the JAX ``scRT`` (reference:
 infer_scRT.py:25-105), plus ``device``.  ``infer(level='pert')`` runs the
 three-step fit on the GPU (or on ``device='cpu'``) and returns the same
-four DataFrames.
+four DataFrames; ``level='cell'|'clone'|'bulk'`` runs the deterministic
+levels (empty frames for the outputs they do not have).  With
+``clone_col=None`` the clones are discovered by k-means on the device
+(or ``clustering_method='umap_hdbscan'``, host sklearn); ``cell_chunk``
+runs the fused kernels per chunk of cells and ``cn_hmm_self_prob``
+decodes CN with Viterbi.  ``SPF`` gives the per-clone S-phase fraction
+(reference: infer_SPF.py:18-111).
 
 The adaptive controller, the model-health QC (``cell_qc()``), the
 controller-gated mirror rescue, the run log and the durable runs
@@ -21,10 +28,14 @@ never runs something else in its place.
 from __future__ import annotations
 
 import numpy as np
+import pandas as pd
 import torch
 
 from scdna_replication_tools_tpu_torch.config import ColumnConfig, PertConfig
-from scdna_replication_tools_tpu_torch.data.loader import build_pert_inputs
+from scdna_replication_tools_tpu_torch.data.loader import (
+    build_pert_inputs,
+    check_frame_columns,
+)
 from scdna_replication_tools_tpu_torch.device import resolve_device
 from scdna_replication_tools_tpu_torch.infer.runner import (
     PertInference,
@@ -36,6 +47,9 @@ from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
 from scdna_replication_tools_tpu_torch.obs import spans as spans_mod
 from scdna_replication_tools_tpu_torch.obs.runlog import RunLog
 from scdna_replication_tools_tpu_torch.pipeline.assign import assign_s_to_clones
+from scdna_replication_tools_tpu_torch.pipeline.clustering import (
+    discover_clones,
+)
 from scdna_replication_tools_tpu_torch.pipeline.consensus import (
     compute_consensus_clone_profiles,
 )
@@ -45,16 +59,10 @@ from scdna_replication_tools_tpu_torch.utils.profiling import PhaseTimer
 def _unported(options: dict) -> None:
     """Raise for the first JAX option left on that the port lacks."""
     checks = [
-        ("cell_chunk", options["cell_chunk"] is not None,
-         "A9 (encodings and options: cell_chunk)"),
-        ("cn_hmm_self_prob", options["cn_hmm_self_prob"] is not None,
-         "A9 (encodings and options: the Viterbi decode)"),
         ("num_shards", options["num_shards"] != 1, "A12 (multi-GPU)"),
         ("loci_shards", options["loci_shards"] != 1, "A12 (multi-GPU)"),
         ("executable_cache_dir", options["executable_cache_dir"] is not None,
          "A14 (compiled-program cache)"),
-        ("clone_col", options["clone_col"] is None,
-         "A10 (clone discovery: pipeline/clustering.py)"),
     ]
     for name, on, item in checks:
         if on:
@@ -73,9 +81,9 @@ class scRT:
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
     where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda``, ``elastic_mesh``, ``compile_cache_dir`` and
-    ``clustering_*`` only act inside features the port refuses, and are
-    accepted and unused (the config hash records the JAX defaults of
+    ``backend``, ``cuda``, ``elastic_mesh`` and ``compile_cache_dir``
+    only act inside features the port refuses, and are accepted and
+    unused (the config hash records the JAX defaults of
     those it hashes: ``config.UNPORTED_FIELDS``).
 
     Durable runs as in the JAX package: ``checkpoint_dir`` checkpoints
@@ -124,10 +132,15 @@ class scRT:
                  clustering_method='kmeans', clustering_kwargs=None,
                  device=None):
         _unported(dict(
-            fused_adam=fused_adam, cell_chunk=cell_chunk,
-            cn_hmm_self_prob=cn_hmm_self_prob, num_shards=num_shards,
+            fused_adam=fused_adam, num_shards=num_shards,
             loci_shards=loci_shards,
-            executable_cache_dir=executable_cache_dir, clone_col=clone_col))
+            executable_cache_dir=executable_cache_dir))
+        if clustering_method not in ('kmeans', 'umap_hdbscan'):
+            raise ValueError(
+                f"clustering_method must be 'kmeans' or 'umap_hdbscan', "
+                f"got {clustering_method!r}")
+        self.clustering_method = clustering_method
+        self.clustering_kwargs = dict(clustering_kwargs or {})
         self.device = resolve_device(device)
         self.cn_s = cn_s
         self.cn_g1 = cn_g1
@@ -166,8 +179,11 @@ class scRT:
             heartbeat_interval_seconds=heartbeat_interval_seconds,
             request_id=request_id, slab_width=slab_width,
             trace_spans=trace_spans, trace_parent=trace_parent,
+            cell_chunk=cell_chunk, cn_hmm_self_prob=cn_hmm_self_prob,
         )
         self.clone_profiles = None
+        self.bulk_cn = None
+        self.manhattan_df = None
         # {candidates, accepted[, capped_to]} of the last mirror rescue
         # (None unless it ran)
         self.mirror_rescue_stats = None
@@ -185,19 +201,37 @@ class scRT:
         self._cell_qc_df = None
 
     def infer(self, level: str = 'pert'):
-        if level in ('pyro', 'pert', 'jax'):
-            self.cn_s, supp_s, cn_g1_out, supp_g1 = self.infer_pert_model()
-            return self.cn_s, supp_s, cn_g1_out, supp_g1
-        if level in ('cell', 'clone', 'bulk'):
-            raise NotImplementedError(
-                f"infer(level={level!r}) is not ported to the PyTorch "
-                "package yet (ROADMAP A10: the deterministic levels)")
-        raise ValueError(f"unknown level {level!r}")
+        """(cn_s_out, supp_s_out, cn_g1_out, supp_g1_out) of a level
+        (reference: infer_scRT.py:108-124); the deterministic levels
+        return empty frames for the three they do not produce."""
+        supp_s_out = pd.DataFrame({})
+        supp_g1_out = pd.DataFrame({})
+        cn_g1_out = pd.DataFrame({})
+        if level == 'cell':
+            self.cn_s = self.infer_cell_level()
+        elif level == 'clone':
+            self.cn_s = self.infer_clone_level()
+        elif level == 'bulk':
+            self.cn_s = self.infer_bulk_level()
+        elif level in ('pyro', 'pert', 'jax'):
+            self.cn_s, supp_s_out, cn_g1_out, supp_g1_out = \
+                self.infer_pert_model()
+        else:
+            raise ValueError(f"unknown level {level!r}")
+        return self.cn_s, supp_s_out, cn_g1_out, supp_g1_out
 
     def _ensure_clones(self, assign_col: str):
-        """Consensus clone profiles of the G1 cells, then S-cell clone
-        assignment (reference: infer_scRT.py:129-148)."""
+        """Clone discovery when ``clone_col`` is None (k-means on the
+        device, or umap_hdbscan), consensus clone profiles of the G1
+        cells, then S-cell clone assignment (reference:
+        infer_scRT.py:129-148)."""
         c = self.cols
+        if self.clone_col is None:
+            self.cn_g1, self.clone_col = discover_clones(
+                self.cn_g1, c.assign_col, cell_col=c.cell_col,
+                chr_col=c.chr_col, start_col=c.start_col,
+                method=self.clustering_method, device=self.device,
+                **self.clustering_kwargs)
         self.clone_profiles = compute_consensus_clone_profiles(
             self.cn_g1, assign_col, clone_col=self.clone_col,
             cell_col=c.cell_col, chr_col=c.chr_col, start_col=c.start_col,
@@ -282,7 +316,8 @@ class scRT:
                     mirror_rescue_stats=inference.mirror_rescue_stats,
                     qc_collect=qc_collect,
                     qc_entropy_thresh=self.config.qc_entropy_thresh,
-                    phase_prefix="package_s")
+                    phase_prefix="package_s",
+                    hmm_self_prob=self.config.cn_hmm_self_prob)
             if qc_collect is not None and not qc_collect.get("degraded"):
                 # a 'degraded' marker means the packaging decode's OOM
                 # ladder dropped the entropy surfaces: the QC table has
@@ -294,7 +329,8 @@ class scRT:
                     cn_g1_out, supp_g1_out = package_step_output(
                         self.cn_g1, inference._step3_data, step3, lamb,
                         step1.fit.losses, step3.fit.losses, c,
-                        phase_prefix="package_g1")
+                        phase_prefix="package_g1",
+                        hmm_self_prob=self.config.cn_hmm_self_prob)
                 else:
                     cn_g1_out, supp_g1_out = None, None
         self.phase_report = timer.report()
@@ -320,3 +356,139 @@ class scRT:
                 "cell_qc() needs a completed infer(level='pert') run with "
                 "qc=True (the default) - run infer first, or drop qc=False")
         return self._cell_qc_df
+
+    # -- deterministic levels (reference: infer_scRT.py:171-276) ---------
+
+    def infer_cell_level(self):
+        from scdna_replication_tools_tpu_torch.pipeline.deterministic import (
+            infer_cell_level,
+        )
+        cn_s, self.manhattan_df, self.clone_profiles, self.clone_col = \
+            infer_cell_level(self.cn_s, self.cn_g1, self.cols,
+                             self.clone_col, self.clustering_method,
+                             self.clustering_kwargs, device=self.device)
+        return cn_s
+
+    def infer_clone_level(self):
+        from scdna_replication_tools_tpu_torch.pipeline.deterministic import (
+            infer_clone_level,
+        )
+        cn_s, self.manhattan_df, self.clone_profiles, self.clone_col = \
+            infer_clone_level(self.cn_s, self.cn_g1, self.cols,
+                              self.clone_col, self.clustering_method,
+                              self.clustering_kwargs, device=self.device)
+        return cn_s
+
+    def infer_bulk_level(self):
+        from scdna_replication_tools_tpu_torch.pipeline.deterministic import (
+            infer_bulk_level,
+        )
+        cn_s, self.manhattan_df = infer_bulk_level(
+            self.cn_s, self.cn_g1, self.cols, self.clone_col,
+            device=self.device)
+        return cn_s
+
+    # -- downstream (reference: infer_scRT.py:279-290) --------------------
+
+    def compute_pseudobulk_rt_profiles(self, output_col='pseudobulk',
+                                       time_col='hours'):
+        from scdna_replication_tools_tpu_torch.pipeline.pseudobulk import (
+            compute_pseudobulk_rt_profiles,
+        )
+        self.bulk_cn = compute_pseudobulk_rt_profiles(
+            self.cn_s, self.cols.rv_col, output_col=output_col,
+            time_col=time_col, clone_col=self.clone_col,
+            chr_col=self.cols.chr_col, start_col=self.cols.start_col)
+        return self.bulk_cn
+
+    def calculate_twidth(self, pseudobulk_col='pseudobulk_hours',
+                         tfs_col='time_from_scheduled_rt', per_cell=False,
+                         query2=None, curve='sigmoid'):
+        from scdna_replication_tools_tpu_torch.pipeline.twidth import (
+            calculate_twidth,
+            compute_time_from_scheduled_column,
+        )
+        cn = pd.merge(self.cn_s, self.bulk_cn)
+        cn = compute_time_from_scheduled_column(
+            cn, pseudobulk_col=pseudobulk_col,
+            frac_rt_col=self.cols.frac_rt_col, tfs_col=tfs_col)
+        return calculate_twidth(cn, tfs_col=tfs_col, rs_col=self.cols.rs_col,
+                                cell_col=self.cols.cell_col,
+                                per_cell=per_cell, query2=query2, curve=curve)
+
+
+class SPF:
+    """Per-clone S-phase fraction with bootstrap errors (reference:
+    infer_SPF.py:18-111).  With ``clone_col=None`` the G1 cells' clones
+    come from k-means on ``device`` (None = the GPU); the bootstrap is
+    NumPy's ``multivariate_hypergeometric`` on ``default_rng(seed)``, as
+    in the JAX package."""
+
+    def __init__(self, cn_s, cn_g1, input_col='reads', clone_col='clone_id',
+                 seed: int = 0, device=None):
+        self.cn_s = cn_s
+        self.cn_g1 = cn_g1
+        self.input_col = input_col
+        self.clone_col = clone_col
+        self.rng = np.random.default_rng(seed)
+        self.device = device
+
+    def infer(self):
+        # fail fast with named columns; only cn_g1 needs clone_col
+        base = ['cell_id', 'chr', 'start', self.input_col]
+        problems = check_frame_columns({
+            'cn_s': (self.cn_s, base),
+            'cn_g1': (self.cn_g1, base + [self.clone_col]),
+        })
+        if problems:
+            raise ValueError("invalid SPF input: " + "; ".join(problems))
+
+        if self.clone_col is None:
+            # max_k=100: kmeans_cluster's own range, as the reference's
+            # SPF searches (infer_SPF.py:62-66)
+            self.cn_g1, self.clone_col = discover_clones(
+                self.cn_g1, self.input_col, max_k=100,
+                device=resolve_device(self.device))
+
+        self.clone_profiles = compute_consensus_clone_profiles(
+            self.cn_g1, self.input_col, clone_col=self.clone_col)
+        self.cn_s = assign_s_to_clones(self.cn_s, self.clone_profiles,
+                                       col_name=self.input_col,
+                                       clone_col=self.clone_col)
+        self.output_df = self.calculate_clone_fractions()
+        return self.cn_s, self.output_df
+
+    def calculate_clone_fractions(self, N_subsamples=500,
+                                  frac_subsample=0.75) -> pd.DataFrame:
+        """Bootstrap SPF per clone (reference: infer_SPF.py:49-111): the
+        per-(clone, phase) counts of a 75 % subsample are jointly
+        multivariate-hypergeometric, drawn ``N_subsamples`` times at
+        once."""
+        s_df = self.cn_s[['cell_id', self.clone_col]].drop_duplicates()
+        g_df = self.cn_g1[['cell_id', self.clone_col]].drop_duplicates()
+
+        s_counts = s_df[self.clone_col].value_counts().sort_index()
+        g_counts = g_df[self.clone_col].value_counts().sort_index()
+        clones = sorted(set(s_counts.index) | set(g_counts.index))
+        s_n = np.array([s_counts.get(c, 0) for c in clones], np.int64)
+        g_n = np.array([g_counts.get(c, 0) for c in clones], np.int64)
+
+        spf = s_n / np.maximum(s_n + g_n, 1)
+
+        category_counts = np.concatenate([s_n, g_n])
+        n_total = int(category_counts.sum())
+        k = int(round(frac_subsample * n_total))
+        draws = self.rng.multivariate_hypergeometric(
+            category_counts, k, size=N_subsamples)
+        s_draw = draws[:, :len(clones)].astype(np.float64)
+        g_draw = draws[:, len(clones):].astype(np.float64)
+        fracs = s_draw / np.maximum(s_draw + g_draw, 1.0)
+        spf_std = fracs.std(axis=0, ddof=1)
+
+        return pd.DataFrame({
+            'clone_id': clones,
+            'SPF': spf,
+            'SPF_std': spf_std,
+            'num_s': s_n,
+            'num_g': g_n,
+        })

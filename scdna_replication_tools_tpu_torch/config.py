@@ -4,9 +4,8 @@ Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
 rescue, the adaptive controller, the model-health QC, the run log, span
 tracing, the durable runs and serving read.  The JAX config's other
-knobs (sharding, cell chunking, the compiled-program caches) belong to
-modules
-not yet ported; ``api.scRT`` refuses them by name instead of carrying
+knobs (sharding, the compiled-program caches) belong to modules not
+yet ported; ``api.scRT`` refuses them by name instead of carrying
 dead fields here, and :data:`UNPORTED_FIELDS` holds each at the JAX
 default that refusal pins it to.
 """
@@ -41,8 +40,6 @@ NON_HASH_FIELDS = (
 # own fields: one setting hashes the same in both packages, which is
 # what the checkpoint manifest's resume gate compares.
 UNPORTED_FIELDS = {
-    "cell_chunk": (None, "A9"),
-    "cn_hmm_self_prob": (None, "A9"),
     "profile_dir": (None, "A11b"),
     "num_shards": (1, "A12"),
     "loci_shards": (1, "A12"),
@@ -115,6 +112,14 @@ class PertConfig:
     # masked entries (None keeps the exact shapes)
     pad_cells_to: Optional[int] = None
     pad_loci_to: Optional[int] = None
+    # cells per chunk of the bin log-likelihood: the fused kernels run
+    # once per chunk (the cells are padded to a multiple); None takes
+    # every cell in one launch
+    cell_chunk: Optional[int] = None
+    # genome-smoothed CN decode: Viterbi with this self-transition
+    # probability (models/hmm.py); None keeps the independent per-bin
+    # argmax of the reference
+    cn_hmm_self_prob: Optional[float] = None
     # compact one-hot CN priors to (eta_idx, eta_w) planes (the sparse
     # kernel); the composite prior always stays dense
     sparse_etas: bool = True

@@ -85,6 +85,7 @@ from scdna_replication_tools_tpu_torch.models.pert import (
     PertModelSpec,
     cell_entropy_aggregates,
     decode_discrete,
+    decode_discrete_hmm,
     entropy_aggregates_from_planes,
     init_params,
     per_cell_objective,
@@ -344,10 +345,12 @@ class PertInference:
         return self._tensor(data.loci_mask.astype(np.float32))
 
     def _pad(self, data: PertData) -> PertData:
-        """Pad to the shape-bucket targets (``pad_cells_to`` /
-        ``pad_loci_to``); one device, so no shard multiples."""
-        if self.config.pad_cells_to:
-            data = pad_cells(data, 1, minimum=self.config.pad_cells_to)
+        """Pad the cells to a multiple of ``cell_chunk`` and to the
+        shape-bucket targets (``pad_cells_to`` / ``pad_loci_to``); one
+        device, so no shard multiples."""
+        mult = self.config.cell_chunk or 1
+        if mult > 1 or self.config.pad_cells_to:
+            data = pad_cells(data, mult, minimum=self.config.pad_cells_to)
         if self.config.pad_loci_to:
             data = pad_loci(data, 1, minimum=self.config.pad_loci_to)
         return data
@@ -873,7 +876,8 @@ class PertInference:
             batch, _ = self.g1_g2_doubled_batch()
             spec = PertModelSpec(P=self.config.P, K=self.config.K,
                                  L=self.L, tau_mode="beta_default",
-                                 step1=True)
+                                 step1=True,
+                                 cell_chunk=self.config.cell_chunk)
         return self._fit(spec, batch, {}, None, iters["max_iter_step1"],
                          iters["min_iter_step1"], "step1")
 
@@ -902,7 +906,8 @@ class PertInference:
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
             step1=False, cond_beta_means=True, cond_rho=cond_rho,
             fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
-            binary_pi=self.config.binary_pi)
+            binary_pi=self.config.binary_pi,
+            cell_chunk=self.config.cell_chunk)
         self.phases.add("step2/build", time.perf_counter() - t0)
         out = self._fit(spec, batch, fixed, t_init, iters["max_iter"],
                         iters["min_iter"], "step2")
@@ -1054,7 +1059,10 @@ class PertInference:
         # every global site conditioned: the sub-fit moves only the
         # candidates' per-cell sites, so splicing them back cannot shift
         # the other cells' objective
-        spec = dataclasses.replace(out.spec, cond_rho=True, cond_a=True)
+        # the candidates are not padded to a chunk multiple: the sub-fit
+        # runs unchunked (JAX runner.py:1567-1568)
+        spec = dataclasses.replace(out.spec, cond_rho=True, cond_a=True,
+                                   cell_chunk=None)
         fixed = dict(out.fixed)
         with torch.no_grad():
             if not out.spec.cond_rho:
@@ -1147,7 +1155,8 @@ class PertInference:
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
             step1=False, cond_beta_means=True, cond_rho=True, cond_a=True,
             fixed_lamb=True, sparse_etas="eta_idx" in eta_fields,
-            binary_pi=self.config.binary_pi)
+            binary_pi=self.config.binary_pi,
+            cell_chunk=self.config.cell_chunk)
         self.phases.add("step3/build", time.perf_counter() - t0)
         out = self._fit(spec, batch, fixed, t_init2,
                         iters["max_iter_step3"], iters["min_iter_step3"],
@@ -1365,10 +1374,12 @@ class PertInference:
 # ---------------------------------------------------------------------------
 
 def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
-                             phase_prefix: str):
+                             phase_prefix: str, data=None,
+                             hmm_self_prob: Optional[float] = None):
     """The packaging decode under the OOM degradation ladder (JAX
-    ``_decode_with_degradation``, without its Viterbi branch: ROADMAP
-    A9).
+    ``_decode_with_degradation``).  ``hmm_self_prob`` selects the
+    Viterbi CN decode, its chain restarting at each chromosome start of
+    ``data.loci``.
 
     Returns ``(decoded, ent_planes, want_entropy)``.  On an ``oom`` the
     ladder walks: halve the decode slab (three times — each halving
@@ -1386,14 +1397,26 @@ def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
 
     def _decode(chunk, entropy):
         faults_mod.point(f"{phase_prefix}/decode")
-        out = decode_discrete(spec, params, fixed, batch,
-                              want_entropy=entropy, cell_chunk=chunk)
+        if hmm_self_prob is not None:
+            chroms = data.loci.get_level_values(0)
+            restart = np.r_[1.0, (chroms[1:] != chroms[:-1])
+                            .astype(np.float32)]
+            out = decode_discrete_hmm(spec, params, fixed, batch, restart,
+                                      hmm_self_prob, want_entropy=entropy)
+        else:
+            out = decode_discrete(spec, params, fixed, batch,
+                                  want_entropy=entropy, cell_chunk=chunk)
         if entropy:
             return out[:3], out[3:]
         return out, None
 
-    # rung 0 is the normal path (the automatic slab); rungs 1-3 halve it
-    ladder = [None] + [max(1, auto_chunk >> k) for k in (1, 2, 3)]
+    # rung 0 is the normal path (the automatic slab); rungs 1-3 halve it.
+    # The Viterbi decode has no slab knob, so its ladder goes from the
+    # normal attempt straight to dropping the QC surfaces
+    if hmm_self_prob is not None:
+        ladder = [None]
+    else:
+        ladder = [None] + [max(1, auto_chunk >> k) for k in (1, 2, 3)]
     last_exc = None
     for rung, chunk in enumerate(ladder):
         try:
@@ -1447,6 +1470,7 @@ def package_step_output(
     qc_collect: Optional[dict] = None,
     qc_entropy_thresh: float = 0.5,
     phase_prefix: str = "s",
+    hmm_self_prob: Optional[float] = None,
 ) -> Tuple[pd.DataFrame, pd.DataFrame]:
     """Decode the discretes and attach the fitted values to the long-form
     contract (reference: pert_model.py:466-538): model_cn_state,
@@ -1461,6 +1485,9 @@ def package_step_output(
     per-cell aggregates (reduced on the device), tau and the MAP planes
     that ``PertInference.build_cell_qc`` reads.
 
+    ``hmm_self_prob`` switches the per-bin argmax for the Viterbi CN
+    decode (``models/hmm.py``) with that self-transition probability.
+
     The decode runs under the OOM ladder (:func:`_decode_with_degradation`,
     fault site ``{phase_prefix}/decode``); when the ladder drops the
     entropy surfaces, ``qc_collect`` receives ``degraded: True`` and
@@ -1469,7 +1496,8 @@ def package_step_output(
         step.batch
     decode_t0 = time.perf_counter()
     decoded, ent_planes, want_entropy = _decode_with_degradation(
-        spec, params, fixed, batch, qc_collect is not None, phase_prefix)
+        spec, params, fixed, batch, qc_collect is not None, phase_prefix,
+        data=data, hmm_self_prob=hmm_self_prob)
     if qc_collect is not None and not want_entropy:
         qc_collect["degraded"] = True
         qc_collect = None

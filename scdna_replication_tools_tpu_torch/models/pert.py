@@ -73,6 +73,8 @@ class PertModelSpec:
     independent-binary pi encoding (the JAX spec's ``enum_impl``
     'binary_*' values): Kb = ceil(log2 P) logit planes ``pi_bin_logits``
     masked to the P valid states, instead of the P-plane ``pi_logits``.
+    ``cell_chunk`` evaluates the bin log-likelihood in chunks of that
+    many cells (the runner pads the cells to a multiple of it).
     """
 
     P: int = 13
@@ -86,6 +88,7 @@ class PertModelSpec:
     fixed_lamb: bool = False
     sparse_etas: bool = False
     binary_pi: bool = False
+    cell_chunk: Optional[int] = None
 
 
 class PertBatch:
@@ -486,9 +489,33 @@ def prime_cache(spec: PertModelSpec, batch: PertBatch) -> dict:
     batch.cached("dir_norm", lambda: _dirichlet_normaliser(
         spec.P, batch, sparse=spec.sparse_etas))
     if not spec.sparse_etas:
-        batch.cached("etas_t", lambda: state_major(
-            batch.etas_or_ones(spec.P)))
+        # (chunks, P, chunk, loci): each chunk's state-major prior
+        # contiguous, as the kernels take it (one chunk: a view), made
+        # again when a spec with other chunks reads the batch
+        etas_t = batch.cache.get("etas_t")
+        nch = _chunking(spec, batch.reads.shape[0])[1]
+        if etas_t is None or etas_t.shape[0] != nch:
+            batch.cache["etas_t"] = _chunk_state_major(
+                state_major(batch.etas_or_ones(spec.P)), spec)
     return batch.cache
+
+
+def _chunk_state_major(x_t: torch.Tensor,
+                       spec: PertModelSpec) -> torch.Tensor:
+    """(P, cells, loci) -> (chunks, P, chunk, loci), contiguous."""
+    P, cells, loci = x_t.shape
+    ch, nch = _chunking(spec, cells)
+    return x_t.reshape(P, nch, ch, loci).transpose(0, 1).contiguous()
+
+
+def _chunking(spec: PertModelSpec, num_cells: int) -> tuple:
+    """(chunk, number of chunks): all cells in one chunk unless
+    ``spec.cell_chunk`` is set."""
+    ch = spec.cell_chunk or num_cells
+    if num_cells % ch:
+        raise ValueError(f"cells={num_cells} not divisible by "
+                         f"cell_chunk={ch}; pad first")
+    return ch, num_cells // ch
 
 
 def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
@@ -517,40 +544,72 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
             # 872 MB at a serving bucket's 2048 doubled G1 cells); for
             # finite logits the loss and gradients are the full terms'
             # bit for bit
-            log_pi_t = torch.log_softmax(params["pi_logits"], dim=0)
             lp_pi = _flat_dirichlet(spec.P, batch)
-            lp_cn = torch.gather(log_pi_t, 0, cn_idx[None])[0]
+
+            def lp_cn_of(pi_logits, cn):
+                log_pi_t = torch.log_softmax(pi_logits, dim=0)
+                return torch.gather(log_pi_t, 0, cn[None])[0]
+
+            pi_param, state_major_pi = params["pi_logits"], True
         else:
             log_pi = _log_pi(spec, params)
             lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi, sparse=False)
-            lp_cn = torch.gather(log_pi, -1, cn_idx[..., None])[..., 0]
-        lp = lp + torch.sum(lp_pi * bin_mask)
-        ll = _observed_bin_loglik(batch.reads, c["u"], omega, lp_cn, phi,
-                                  batch.cn_obs, batch.rep_obs, lamb,
-                                  log_lamb, log1m_lamb)
-        return lp + torch.sum(ll * bin_mask)
 
-    # fused path: the kernel folds log_softmax and the Dirichlet data
-    # term; only the parameter-free normaliser stays here
-    _require_fixed_lamb(spec)
-    mu = c["u"][:, None] * omega
-    pi_param = params["pi_bin_logits" if spec.binary_pi else "pi_logits"]
-    lp = lp + torch.sum(cache["dir_norm"] * bin_mask)
-    if spec.sparse_etas:
-        if spec.binary_pi:
-            ll = enum_loglik_fused_sparse_binary(
-                batch.reads, mu, pi_param, phi, batch.eta_idx, batch.eta_w,
-                lamb, spec.P)
-        else:
-            ll = enum_loglik_fused_sparse(batch.reads, mu, pi_param, phi,
-                                          batch.eta_idx, batch.eta_w, lamb)
-    elif spec.binary_pi:
-        ll = enum_loglik_fused_binary(batch.reads, mu, pi_param, phi,
-                                      cache["etas_t"], lamb, spec.P)
+            def lp_cn_of(log_pi_rows, cn):
+                return torch.gather(log_pi_rows, -1, cn[..., None])[..., 0]
+
+            pi_param, state_major_pi = log_pi, False   # cells-major
+        lp = lp + torch.sum(lp_pi * bin_mask)
+
+        def bin_ll(rows, pi_rows):
+            return _observed_bin_loglik(
+                batch.reads[rows], c["u"][rows], omega[rows],
+                lp_cn_of(pi_rows, cn_idx[rows]), phi[rows],
+                batch.cn_obs[rows], batch.rep_obs[rows], lamb, log_lamb,
+                log1m_lamb)
     else:
-        ll = enum_loglik_fused(batch.reads, mu, pi_param, phi,
-                               cache["etas_t"], lamb)
-    return lp + torch.sum(ll * bin_mask)
+        # fused path: the kernel folds log_softmax and the Dirichlet data
+        # term; only the parameter-free normaliser stays here
+        _require_fixed_lamb(spec)
+        mu = c["u"][:, None] * omega
+        pi_param = params["pi_bin_logits" if spec.binary_pi
+                          else "pi_logits"]
+        state_major_pi = True
+        lp = lp + torch.sum(cache["dir_norm"] * bin_mask)
+
+        def bin_ll(rows, pi_rows, etas_rows=None):
+            reads, mu_r, phi_r = batch.reads[rows], mu[rows], phi[rows]
+            if spec.sparse_etas:
+                eidx, ew = batch.eta_idx[rows], batch.eta_w[rows]
+                if spec.binary_pi:
+                    return enum_loglik_fused_sparse_binary(
+                        reads, mu_r, pi_rows, phi_r, eidx, ew, lamb, spec.P)
+                return enum_loglik_fused_sparse(reads, mu_r, pi_rows, phi_r,
+                                                eidx, ew, lamb)
+            if spec.binary_pi:
+                return enum_loglik_fused_binary(reads, mu_r, pi_rows, phi_r,
+                                                etas_rows, lamb, spec.P)
+            return enum_loglik_fused(reads, mu_r, pi_rows, phi_r, etas_rows,
+                                     lamb)
+
+    # cell chunks (JAX: lax.map over the chunks, models/pert.py:857-900):
+    # the fused entry points run once per chunk and the chunk sums add
+    # up.  The state-major pi's chunks are not contiguous; torch.split
+    # hands each one to .contiguous(), whose gradients autograd
+    # concatenates back into the full plane.  One chunk is the whole
+    # batch: a full slice is the tensor itself, and pi is not split (its
+    # gradient would be copied)
+    ch, nch = _chunking(spec, batch.reads.shape[0])
+    pi_chunks = torch.split(pi_param, ch, dim=1 if state_major_pi else 0) \
+        if nch > 1 else (pi_param,)
+    sums = []
+    for i in range(nch):
+        rows = slice(i * ch, (i + 1) * ch)
+        extra = () if spec.step1 or spec.sparse_etas \
+            else (cache["etas_t"][i],)
+        ll = bin_ll(rows, pi_chunks[i].contiguous(), *extra)
+        sums.append(torch.sum(ll * bin_mask[rows]))
+    return lp + torch.sum(torch.stack(sums))
 
 
 def pert_loss(spec: PertModelSpec, params: dict, fixed: dict,
@@ -759,6 +818,35 @@ def cell_entropy_aggregates(spec: PertModelSpec, params: dict, fixed: dict,
         cn_ent, rep_ent, batch.effective_loci_mask(), entropy_thresh)
     return (agg["mean_cn_entropy"], agg["frac_low_conf"],
             agg["mean_rep_entropy"])
+
+
+@torch.no_grad()
+def decode_discrete_hmm(spec: PertModelSpec, params: dict, fixed: dict,
+                        batch: PertBatch, restart, self_prob: float,
+                        cell_chunk: Optional[int] = None,
+                        want_entropy: bool = False):
+    """Genome-smoothed MAP decode: Viterbi over the CN chain
+    (``models.hmm``), in the cell slabs of :func:`decode_discrete` (the
+    chain couples loci, not cells).  ``restart`` (loci,) is 1 where a
+    chromosome starts.  ``want_entropy=True`` appends the entropy maps
+    from the same per-slab joint tensor the Viterbi consumes."""
+    from scdna_replication_tools_tpu_torch.models.hmm import hmm_decode
+
+    num_cells = batch.reads.shape[0]
+    outs = []
+    for idx in _decode_slabs(spec, batch, cell_chunk):
+        p, b = (params, batch) if idx is None \
+            else slice_cells(params, batch, idx)
+        joint = model_joint_logits(spec, p, fixed, b)
+        decoded = hmm_decode(joint, restart, self_prob)
+        if want_entropy:
+            decoded = decoded + entropy_from_joint(joint)
+        outs.append(decoded)
+        del joint
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
+                 for i in range(len(outs[0])))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Build, load and launch-count the port's CUDA kernels.
 
-Each source under ``csrc/`` is compiled at first use by ``nvcc`` into a
+Each source under ``csrc/`` is compiled at first use by ``nvcc`` (the
+host C++ sources of ``HOST_SOURCES`` by the host's ``c++``) into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``.  Libraries are named by a hash
 of their source and flags, so an edited source rebuilds and an unchanged
@@ -41,8 +42,16 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"enum_fused": "enum_fused.cu", "adam": "adam.cu"}
+# host C++ libraries of the port (no CUDA), built the same way by the
+# host compiler; -ffp-contract=off: the segment sweep's exact-division
+# costs must round as its NumPy oracle's do, tie for tie
+HOST_SOURCES = {"segment": "segment.cpp"}
+HOST_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+              "-pthread")
 
 _P = ctypes.c_void_p
+_F64P = ctypes.POINTER(ctypes.c_double)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     "enum_fused": {
         # reads, mu, phi, pi, etas, eidx, ew, scal, out, lse, n, P,
@@ -64,6 +73,12 @@ _SIGNATURES = {
         # lanes, bf16_moments, stream
         "scrt_adam": [_P] * 8 + [ctypes.c_float] * 4
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    },
+    "segment": {
+        # Y, row_len, n_rows, n_loci, n_bkps, min_size, out, n_threads
+        "batch_bkps_f64": [_F64P, _I64P, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int32, ctypes.c_int32, _I64P,
+                           ctypes.c_int32],
     },
 }
 
@@ -119,9 +134,21 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
+def _source(name: str) -> str:
+    return SOURCES.get(name) or HOST_SOURCES[name]
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS if name in SOURCES else HOST_FLAGS
+
+
+def _compiler(name: str) -> str:
+    return _nvcc() if name in SOURCES else (shutil.which("c++") or "g++")
+
+
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+    src = (CSRC_DIR / _source(name)).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -132,9 +159,11 @@ def _key_hash(lib: Path) -> str:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named sources (default: all) in parallel, one ``nvcc``
-    each; sources whose library is already built are skipped.  Returns
-    ``BUILD_INFO`` for the names; raises with nvcc's output on failure.
+    """Compile the named sources (default: the CUDA ones) in parallel,
+    one compiler each (``nvcc``, or the host's ``c++`` for
+    ``HOST_SOURCES``); sources whose library is already built are
+    skipped.  Returns ``BUILD_INFO`` for the names; raises with the
+    compiler's output on failure.
     Thread-safe; each build writes a temporary file of its own, so
     builders in other processes never collide either."""
     with _BUILD_LOCK:
@@ -157,8 +186,8 @@ def _build(names) -> Dict[str, dict]:
                 continue
             tmp = out.with_name(
                 f"{out.name}.{os.getpid()}-{uuid.uuid4().hex}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / SOURCES[name])]
+            cmd = [_compiler(name), *_flags(name), "-o", str(tmp),
+                   str(CSRC_DIR / _source(name))]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
@@ -166,7 +195,7 @@ def _build(names) -> Dict[str, dict]:
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"{SOURCES[name]}: nvcc exited "
+                errors.append(f"{_source(name)}: {proc.args[0]} exited "
                               f"{proc.returncode}\n{log}")
                 continue
             out.with_suffix(".log").write_text(log)
@@ -175,7 +204,7 @@ def _build(names) -> Dict[str, dict]:
                                 "path": str(out), "log": log,
                                 "key_hash": _key_hash(out), "cache": "miss"}
         if errors:
-            raise RuntimeError("CUDA kernel build failed:\n"
+            raise RuntimeError("library build failed:\n"
                                + "\n".join(errors))
     finally:
         for proc, tmp, _ in procs.values():
@@ -188,8 +217,10 @@ def _build(names) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first use (once, when
-    several threads ask for it together)."""
+    """The loaded library ``name`` (a kernel library, or a host one of
+    ``HOST_SOURCES``), built on first use (once, when several threads
+    ask for it together).  A failed build raises: there is no
+    fallback."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -202,11 +233,13 @@ def library(name: str) -> ctypes.CDLL:
         info = BUILD_INFO[name]
         t0 = time.perf_counter()
         lib = ctypes.CDLL(info["path"])
+        cuda = name in SOURCES
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.scrt_error_string.argtypes = [ctypes.c_int]
-        lib.scrt_error_string.restype = ctypes.c_char_p
+            getattr(lib, fn).restype = ctypes.c_int if cuda else None
+        if cuda:
+            lib.scrt_error_string.argtypes = [ctypes.c_int]
+            lib.scrt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         info["load_seconds"] = time.perf_counter() - t0
     return lib

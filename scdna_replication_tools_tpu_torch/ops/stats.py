@@ -3,9 +3,10 @@
 Port of ``ops/stats.py``: :func:`pearson_matrix` (one float32 matmul on
 standardised rows), :func:`masked_pearson_matrix` (NumPy, copied),
 :func:`guess_times` with the 2-GMM EM and Manhattan binarisation it
-runs on every cell at once, and :func:`mode_int`.  The tensor functions
-take NumPy arrays or tensors and run on ``device`` (default: the
-input's device, the CPU for NumPy).
+runs on every cell at once (the binarisation also serves the
+deterministic levels, ``pipeline/binarize.py``), and :func:`mode_int`.
+The tensor functions take NumPy arrays or tensors and run on ``device``
+(default: the input's device, the CPU for NumPy).
 """
 
 from __future__ import annotations
@@ -113,20 +114,44 @@ def gmm2_em(x: torch.Tensor, num_iters: int = 60, eps: float = 1e-6
     return mu, var, w
 
 
+def linspace_f32(start: float, stop: float, num: int,
+                 device=None) -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, num)`` as XLA computes it on
+    the CPU: ``start * (1 - i r) + i (stop r)`` with r = 1 / (num - 1)
+    folded to a float32 constant and the last product fused into the
+    add; the last entry is ``stop``.  ``torch.linspace`` differs from it
+    in the last bit of about half the entries."""
+    f32, f64 = np.float32, np.float64
+    i = np.arange(num - 1, dtype=f32)
+    r = f32(1.0) / f32(num - 1)
+    head = (f32(start) * (f32(1.0) - i * r)).astype(f32)
+    fused = (i.astype(f64) * f64(f32(stop) * r) + head.astype(f64))
+    out = np.append(fused.astype(f32), f32(stop))
+    return torch.as_tensor(out, device=device)
+
+
 def manhattan_binarize(x: torch.Tensor, num_thresh: int = 100,
                        mean_gap_thresh: float = 0.7,
                        early_s_skew_thresh: float = 0.2,
-                       late_s_skew_thresh: float = -0.2):
+                       late_s_skew_thresh: float = -0.2,
+                       scale_input: bool = True,
+                       thresh_from_binaries: bool = True):
     """Binarise each cell's profile at the Manhattan-optimal threshold
-    (reference: pert_model.py:364-423): 2-GMM means set the binary
-    levels (skew-dependent percentiles when the means are closer than
-    ``mean_gap_thresh``), and ``num_thresh`` thresholds on
-    linspace(b0, b1) are scanned for the least L1 distance.
+    (reference: pert_model.py:364-423, binarize_rt_profiles.py:44-117):
+    2-GMM means set the binary levels (skew-dependent percentiles when
+    the means are closer than ``mean_gap_thresh``), and ``num_thresh``
+    thresholds are scanned for the least L1 distance between the
+    profile and its binarisation: linspace(b0, b1) per cell when
+    ``thresh_from_binaries``, else linspace(-3, 3).  ``scale_input``
+    standardises each row first.
 
     Returns (rt_state (cells, loci) int32, frac_rt (cells,),
-    best_thresh (cells,), (means, vars, weights)).
+    best_thresh (cells,), (means, vars, weights), dists (cells,
+    num_thresh)).
     """
-    x = _standardize_rows(x.to(torch.float32))
+    x = x.to(torch.float32)
+    if scale_input:
+        x = _standardize_rows(x)
     mu, var, w = gmm2_em(x)
     mean_lo = torch.min(mu, dim=1).values
     mean_hi = torch.max(mu, dim=1).values
@@ -144,13 +169,17 @@ def manhattan_binarize(x: torch.Tensor, num_thresh: int = 100,
     b0 = torch.where(close, fb_b0, mean_lo)
     b1 = torch.where(close, fb_b1, mean_hi)
 
-    frac = torch.linspace(0.0, 1.0, num_thresh, dtype=torch.float32,
-                          device=x.device)
-    threshs = b0[:, None] + (b1 - b0)[:, None] * frac[None, :]
+    if thresh_from_binaries:
+        frac = linspace_f32(0.0, 1.0, num_thresh, device=x.device)
+        threshs = b0[:, None] + (b1 - b0)[:, None] * frac[None, :]
+    else:
+        threshs = linspace_f32(-3.0, 3.0, num_thresh, device=x.device) \
+            [None, :].expand(x.shape[0], num_thresh)
 
     best_dist = torch.full((x.shape[0],), float("inf"), dtype=torch.float32,
                            device=x.device)
     best_t = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    dists = []
     for j in range(num_thresh):
         t = threshs[:, j]
         bin_x = torch.where(x > t[:, None], b1[:, None], b0[:, None])
@@ -158,10 +187,11 @@ def manhattan_binarize(x: torch.Tensor, num_thresh: int = 100,
         better = dist < best_dist
         best_dist = torch.where(better, dist, best_dist)
         best_t = torch.where(better, t, best_t)
+        dists.append(dist)
 
     rt_state = (x > best_t[:, None]).to(torch.int32)
     frac_rt = torch.mean(rt_state.to(torch.float32), dim=1)
-    return rt_state, frac_rt, best_t, (mu, var, w)
+    return rt_state, frac_rt, best_t, (mu, var, w), torch.stack(dists, 1)
 
 
 def guess_times(reads, etas, upsilon: float = 6.0, loci_mask=None,
@@ -182,7 +212,7 @@ def guess_times(reads, etas, upsilon: float = 6.0, loci_mask=None,
     cn_states = torch.argmax(etas, dim=-1).to(torch.float32)
     denom = torch.where(cn_states > 0.0, cn_states,
                         torch.full_like(cn_states, 0.5))
-    _, frac_rt, _, _ = manhattan_binarize(reads / denom)
+    _, frac_rt, _, _, _ = manhattan_binarize(reads / denom)
     t_init = frac_rt
     t_alpha = t_init * upsilon
     t_beta = upsilon - t_alpha

@@ -30,7 +30,8 @@ from test_torch_resilience import (  # noqa: F401
 )
 
 
-def _ladder(golden, spec, tmp_path, entropy=True, params=None):
+def _ladder(golden, spec, tmp_path, entropy=True, params=None,
+            hmm_self_prob=None):
     """The ladder on the uninterrupted run's step 2 under fault plan
     ``spec``, inside a run log; returns (result or exception, the
     ``degrade`` actions logged)."""
@@ -42,7 +43,8 @@ def _ladder(golden, spec, tmp_path, entropy=True, params=None):
         try:
             out = _decode_with_degradation(
                 step2.spec, params or step2.fit.params, step2.fixed,
-                step2.batch, entropy, "pkg")
+                step2.batch, entropy, "pkg", data=inf._step2_data,
+                hmm_self_prob=hmm_self_prob)
         except Exception as exc:  # noqa: BLE001 — the outcome compared
             out = exc
     assert schema.validate_run(tmp_path / "d.jsonl") == []
@@ -76,6 +78,19 @@ def test_decode_ladder_exhausted_reraises(golden, tmp_path):
     assert isinstance(exc, faults.SimulatedResourceExhausted)
     assert actions == ["halve_decode_slab"] * 3 + ["drop_qc_surfaces",
                                                    "abort_resumable"]
+
+
+def test_viterbi_decode_ladder_drops_qc_surfaces_at_once(golden, tmp_path):
+    """The Viterbi decode has no slab to halve: an OOM drops the QC
+    surfaces at once (JAX's ladder), and the retry decodes the bins the
+    undisturbed Viterbi decode does."""
+    (decoded, ent, want), actions = _ladder(golden, "oom@pkg/decode#1",
+                                            tmp_path, hmm_self_prob=0.99)
+    assert want is False and ent is None
+    assert actions == ["drop_qc_surfaces"]
+    (ref, _, _), _ = _ladder(golden, None, tmp_path, hmm_self_prob=0.99)
+    for a, b in zip(decoded, ref):
+        assert torch.equal(a, b)
 
 
 def test_decode_ladder_propagates_deterministic_errors(golden, tmp_path):

@@ -828,3 +828,80 @@ def test_adam_kernel_in_place_equals_new_outputs(dev, mdt):
         torch.cuda.synchronize()
         for a, b, d in zip(got, ref, dst):
             assert a is d and torch.equal(a, b), live
+
+
+def test_segment_library_matches_numpy_oracle(dev):
+    """The host segment library builds on the card's machine and finds
+    the NumPy search's breakpoints, row for row, 1 and 2 breakpoints,
+    ragged rows and rows too short to split."""
+    from scdna_replication_tools_tpu_torch.pipeline import segment
+    rng = np.random.default_rng(0)
+    Y = rng.normal(size=(9, 160))
+    Y[:, 40:90] += 2.0
+    row_len = np.array([160, 160, 101, 37, 5, 4, 3, 2, 160])
+    for n_bkps in (1, 2):
+        got = segment.find_breakpoints_batch(Y, n_bkps, row_len=row_len)
+        for i, n in enumerate(row_len):
+            ref = segment.find_breakpoints(Y[i, :n], n_bkps)
+            want = [-1, -1] if len(ref) == 1 else \
+                (ref[:-1] + [-1] * (3 - len(ref)))
+            assert list(got[i]) == want, (n_bkps, i, got[i], ref)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_chunked_objective_launches_each_chunk(dev, sparse):
+    """``cell_chunk``: the fused pair launches once per chunk of cells,
+    and the chunked loss and gradients equal the unchunked ones (the
+    kernels' per-bin outputs are the same; only the sums' order
+    differs)."""
+    import dataclasses
+    from scdna_replication_tools_tpu_torch.models import pert as tpert
+    from scdna_replication_tools_tpu_torch.ops.gc import gc_features
+
+    C, L, P, K, ch = 96, 700, 13, 4, 32
+    rng = np.random.default_rng(3)
+    cn = rng.integers(1, 6, (C, L)).astype(np.float32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    fields = {}
+    if sparse:
+        fields = dict(eta_idx=torch.tensor(cn, **f32),
+                      eta_w=torch.tensor(np.where(
+                          rng.uniform(size=(C, L)) < 0.9, 1e6, 0.0), **f32))
+    else:
+        etas = np.ones((C, L, P), np.float32)
+        np.put_along_axis(etas, cn.astype(np.int64)[..., None], 1e6, -1)
+        fields = dict(etas=torch.tensor(etas, **f32))
+    batch = tpert.PertBatch(
+        reads=torch.tensor(rng.poisson(30 * cn), **f32),
+        libs=torch.zeros(C, dtype=torch.int64, device=dev),
+        gamma_feats=gc_features(torch.tensor(
+            rng.uniform(0.35, 0.6, L), **f32), K),
+        mask=torch.ones(C, **f32), **fields)
+    fixed = dict(beta_means=torch.zeros((1, K + 1), **f32),
+                 lamb=torch.tensor(0.7, **f32))
+    spec = tpert.PertModelSpec(P=P, K=K, L=1, tau_mode="param",
+                               cond_beta_means=True, fixed_lamb=True,
+                               sparse_etas=sparse, cell_chunk=ch)
+    params = tpert.init_params(spec, batch, fixed,
+                               t_init=rng.uniform(0.1, 0.9, C))
+
+    def run(s):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        _cuda.reset_launches()
+        loss = tpert.pert_loss(s, p, fixed, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        return loss, dict(zip(p, grads)), dict(_cuda.LAUNCHES)
+
+    kind = "sparse" if sparse else "dense"
+    l_ch, g_ch, n_ch = run(spec)
+    l_wh, g_wh, n_wh = run(dataclasses.replace(spec, cell_chunk=None))
+    assert n_ch[f"fused_fwd_{kind}"] == n_ch[f"fused_bwd_{kind}"] == C // ch
+    assert n_wh[f"fused_fwd_{kind}"] == n_wh[f"fused_bwd_{kind}"] == 1
+    norm = float(torch.sum(batch.cache["dir_norm"]))
+    diff = float((l_ch - l_wh).detach())
+    assert abs(diff) <= 1e-6 * (abs(norm) + abs(float(l_wh.detach())))
+    for k in g_wh:
+        scale = max(float(g_wh[k].abs().max()), 1e-30)
+        assert float((g_ch[k] - g_wh[k]).abs().max()) <= 1e-5 * scale, k

@@ -100,16 +100,30 @@ def test_port_recovers_simulated_truth(outputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(loci_shards=2), dict(num_shards=None), dict(clone_col=None),
+    dict(loci_shards=2), dict(num_shards=None),
     dict(executable_cache_dir="auto"), dict(executable_cache_dir="ec"),
-    dict(cell_chunk=8), dict(num_shards=2), dict(num_shards=0),
-    dict(cn_hmm_self_prob=0.9)])
+    dict(num_shards=2), dict(num_shards=0)])
 def test_unported_options_raise(sim_data, option):
     """A JAX option the port lacks raises NotImplementedError naming the
     ROADMAP item; it is never silently replaced."""
     sim_s, sim_g = sim_data
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+
+
+@pytest.mark.parametrize("option", [
+    dict(clone_col=None), dict(cell_chunk=8), dict(cn_hmm_self_prob=0.9)])
+def test_clone_discovery_chunking_and_viterbi_options_are_taken(sim_data,
+                                                                option):
+    """The options of ROADMAP A9 and A10's clone discovery reach the
+    run (they raised before the port carried them)."""
+    sim_s, sim_g = sim_data
+    scrt = TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+    for key, value in option.items():
+        if key == "clone_col":
+            assert scrt.clone_col is None and scrt.cols.clone_col is None
+        else:
+            assert getattr(scrt.config, key) == value
 
 
 @pytest.mark.parametrize("option", [

@@ -262,3 +262,26 @@ def test_tsv_writer_writes_pandas_bytes(tmp_path, monkeypatch):
         == (tmp_path / "pandas.tsv").read_bytes()
     assert (tmp_path / "short.tsv").read_bytes() \
         == (tmp_path / "pandas_short.tsv").read_bytes()
+
+
+def test_unlabelled_request_with_viterbi_runs(tmp_path):
+    """A ticket with ``clone_col: null``, ``clustering_method`` and
+    ``cn_hmm_self_prob`` (requestable options of the JAX worker) runs in
+    the port: its clones come from k-means, its CN from the Viterbi
+    decode, and its output carries the discovered ``cluster_id``."""
+    q = SpoolQueue(tmp_path / "spool")
+    cn_s, cn_g1 = _frames(seed=3)
+    options = {**REQUEST_OPTIONS, "clone_col": None,
+               "clustering_method": "kmeans", "cn_hmm_self_prob": 0.99}
+    rid = q.submit_frames(cn_s.drop(columns=["clone_id"]),
+                          cn_g1.drop(columns=["clone_id"]),
+                          options=options, request_id="u1")
+    w = ServeWorker(q, buckets=BucketSet(cells=CELLS, loci=LOCI),
+                    max_requests=1, exit_when_idle=True, device="cpu")
+    stats = w.run()
+    faults.install(None)
+    assert stats["by_status"] == {"ok": 1}, q.status(rid)
+    out = pd.read_csv(q.results_dir(rid) / "output.tsv", sep="\t",
+                      dtype={"chr": str})
+    assert "cluster_id" in out.columns
+    assert (out["model_rep_state"] == out["true_rep"]).mean() > 0.8
