@@ -70,7 +70,12 @@ Phases, each printing its own lines:
    checkpoint bytes and save and load seconds, and each run's wall and
    peak memory beside phase 6's (the logs, the manifest and the
    heartbeat go to ``chiprun_out/durable_*``; on a difference, the ops
-   PyTorch reports as nondeterministic);
+   PyTorch reports as nondeterministic); then the run-health checks of
+   the [analysis] phase (``[analysis health]``): the resume traces its
+   spans, and ``aggregate_health`` of its ``health/`` reads every host
+   ``done`` with no missing rank, no rule of ``alert_rules.json``
+   fails, and the heartbeat's ``last_span`` is a span the resume
+   closed;
 8. phases 4 and 5 again for the binary path, ``scRT(...,
    enum_impl='binary', optimizer_state_dtype='bfloat16')`` on the same
    frames (the binary kernels in steps 2 and 3, the bfloat16-moment Adam
@@ -113,7 +118,21 @@ Phases, each printing its own lines:
     100 G1 cells; seconds per part, peak memory and the card beside them
     (``[unlabelled ...]`` lines).  The levels, SPF and the CLI (host
     pandas, TSVs and changepoint sweeps) run in a spawned process beside
-    phase 11 and print when it is joined (``[unlabelled tail]``);
+    phase 11 and print when it is joined (``[unlabelled tail]``); the
+    same process then runs the [analysis] phase on the default cell's
+    output (phase 6): ``predict_cycle_phase`` (S, G1/2 and LQ counts and
+    seconds; simulated G1 cells called G1/2 or LQ > 0.7; simulated S
+    cells called S no fewer than on the simulated states less 0.02, and
+    90 % of the labels as the simulated states give them, with the S
+    share printed against JAX's 0.7, see ``PHASE_BAR``),
+    ``compute_ccc_features`` with its 2-GMM on
+    the card and on the CPU (madn, breakpoints and both corrected
+    columns equal, lrs within ``TOL_LRS``, both seconds), the loader's
+    four ``pivot_matrix`` calls on the default cell's frames through the
+    native library and with ``use_native=False`` (bit for bit equal,
+    NaN positions included; both seconds beside the default cell's load
+    phase), and a ``matplotlib: <version>|absent`` line (nothing is
+    plotted on the card);
 11. serving: four requests of the same shape (seeds 0-3, every option at
     its JAX default) submitted with ``submit_frames`` by four processes
     while the earlier phases run, to a spool in ``/dev/shm`` (outside the
@@ -1394,6 +1413,7 @@ def main_path(dev, record, frames, path: str, reference=None):
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    scrt.outputs = (out_s, supp_s, out_g1, supp_g1)
     step1, step2, step3 = scrt.steps
     iters = [s.fit.num_iters for s in (step1, step2, step3)]
     disp = [s.fit.timings["dispatched"] for s in (step1, step2, step3)]
@@ -1909,11 +1929,51 @@ def name_nondeterministic_ops(dev, scrt) -> list:
     return sorted(names)
 
 
+def run_health(health_dir: Path, doc: dict, resumed_at: float) -> dict:
+    """The [analysis] phase's run-health checks on the durable cell's
+    ``D/health/`` after the resume: the port's ``aggregate_health`` says
+    every host is ``done`` with no missing rank, no alert rule of
+    ``alert_rules.json`` fails, and the heartbeat's ``last_span`` names a
+    span the resumed run closed."""
+    from scdna_replication_tools_tpu_torch.obs import alerts, heartbeat
+
+    tag = "[analysis health]"
+    t0 = time.perf_counter()
+    agg = heartbeat.aggregate_health(health_dir)
+    verdicts = alerts.evaluate(alerts.load_rules(), agg)
+    failing = alerts.failing(verdicts)
+    secs = time.perf_counter() - t0
+    last = doc.get("last_span")
+    print(f"{tag} aggregate_health of the resumed durable run's health/: "
+          f"states {json.dumps(agg['states'])}, {agg['hosts_seen']} of "
+          f"{agg['process_count']} hosts, missing {agg['missing_ranks']}, "
+          f"worst freshness {agg['worst_freshness']}; "
+          f"{len(verdicts)} rules, fired "
+          f"{[v['name'] for v in verdicts if v['fired']]}, failing "
+          f"{[v['name'] for v in failing]} ({secs * 1e3:.1f} ms); "
+          f"last_span {json.dumps(last)}")
+    check(agg["hosts_seen"] >= 1 and agg["states"] == {"done":
+                                                       agg["hosts_seen"]}
+          and agg["missing_ranks"] == [],
+          f"{tag} every host done, no missing rank: "
+          f"{json.dumps(agg['states'])}, missing {agg['missing_ranks']}")
+    check(not failing, f"{tag} no alert rule fails: "
+          f"{[(v['name'], v['detail']) for v in failing]}")
+    check(last is not None and last.get("end_unix", 0) >= round(
+        resumed_at, 3), f"{tag} the heartbeat's last_span is a span the "
+          f"resumed run closed: {json.dumps(last)}")
+    return {"states": agg["states"], "missing_ranks": agg["missing_ranks"],
+            "fired": [v["name"] for v in verdicts if v["fired"]],
+            "failing": [v["name"] for v in failing], "last_span": last,
+            "seconds": secs}
+
+
 def durable_runs(dev, record, frames, ref) -> dict:
     """The default cell three ways with ``checkpoint_dir`` (a temporary
     directory outside the checkout): uninterrupted, killed by
     ``faults='preempt@step2/chunk#3'``, and resumed with
-    ``resume='auto'``.  Checks: the kill raises SimulatedPreemption and
+    ``resume='auto'`` (and ``trace_spans=True``; :func:`run_health`
+    reads its ``health/``).  Checks: the kill raises SimulatedPreemption and
     its log has the fault and ends run_end 'error'; the resumed log
     restores step 1 and resumes step 2 from the killed run's last save;
     the output columns, losses and parameters of both complete runs are
@@ -2032,7 +2092,10 @@ def durable_runs(dev, record, frames, ref) -> dict:
         del scrt
         torch.cuda.empty_cache()
 
-        scrt, err = run("resumed", ck2)
+        # the resume traces its spans (pure observability, outside the
+        # config hash), so its heartbeat carries the last one it closed
+        resumed_at = time.time()
+        scrt, err = run("resumed", ck2, trace_spans=True)
         check(err is None, f"{tag} resumed run completed")
         resumed = _ckpt_events(logs["resumed"])
         resumes = {e["step"]: e for e in resumed if e["event"] == "resume"}
@@ -2070,6 +2133,8 @@ def durable_runs(dev, record, frames, ref) -> dict:
               f"{tag} heartbeat: killed run left state "
               f"{hb_killed['state']} at seq {hb_killed['seq']}, the resume "
               f"ended {hb_done['state']} at seq {hb_done['seq']}")
+        res["health"] = run_health(Path(ck2) / "health", hb_done,
+                                   resumed_at)
         loads = [e for e in resumed if e["event"] == "checkpoint"
                  and e["action"] == "load"]
         for e in loads:
@@ -2606,16 +2671,188 @@ def unlabelled(dev, record, frames, card, results) -> dict:
     return launches
 
 
-def _host_tail(card: str) -> dict:
-    """Phase 10's host-bound tail, the task of a process of its own: the
-    deterministic levels and SPF on the unlabelled frames, then the
-    three CLI functions through TSVs.  Returns what it printed, the
-    checks that failed and its part of the record."""
+# ---------------------------------------------------------------------------
+# the [analysis] phase: phase calling, cell-cycle features and the pivot
+# on the default cell's frames (in the spawned process beside phase 11);
+# its run-health checks run at the end of phase 7
+# ---------------------------------------------------------------------------
+
+# JAX's bar for simulated S cells called S (tests/test_d1_shape.py:147),
+# and the same bar for simulated G1 cells called G1/2 or LQ.  On these
+# frames the phase caller does not reach it for S cells even on the
+# simulated states themselves (true_rep, true_somatic_cn): 74 of 100 and
+# 271 of 400 simulated S cells called S on cuts of seed 0's frames (on
+# the CPU; the rest LQ, rep autocorrelation > 0.2 along the smooth
+# simulated timing, or G1/2, replicated fraction outside (0.05, 0.95)).
+# So the S share on the card's output is held to that of the simulated
+# states less PHASE_SLACK, each cell's label to the one the simulated
+# states give it for PHASE_AGREE of the cells, and the S share against
+# 0.7 is printed; the G1 share is held to 0.7
+PHASE_BAR = 0.7
+PHASE_SLACK = 0.02
+PHASE_AGREE = 0.9
+# the cell-cycle features on the card against the same call on the CPU:
+# lrs within 1e-5 of max(1, |lrs|) -- a few float32 ulps of the 2-GMM's
+# mean log-likelihood, which lrs is the difference of (the float32 EM on
+# the CPU read 2.5e-7-3.8e-7 against a float64 EM and 4.3e-7-4.6e-7
+# against JAX's; tests/test_torch_ccc_features.py); the other feature
+# columns are float64 host work and must be equal
+TOL_LRS = 1e-5
+CCC_EXACT = ("madn", "breakpoints", "corrected_madn",
+             "corrected_breakpoints")
+# the columns of the default cell's output that the analysis reads
+ANALYSIS_COLS = ["cell_id", "chr", "start", "clone_id", "reads", "state",
+                 "model_rep_state", "model_cn_state", "true_rep",
+                 "true_somatic_cn"]
+# the loader's four pivots of a run (data/loader.build_pert_inputs)
+PIVOTS = (("s", "reads"), ("g1", "reads"), ("g1", "state"), ("s", "state"))
+
+
+def analysis_input(out_s, out_g1):
+    """concat(cn_s_out, cn_g1_out) with ``rpm`` formed as JAX's
+    tests/test_d1_shape.py:140-141 forms it."""
+    import pandas as pd
+
+    cn = pd.concat([out_s[ANALYSIS_COLS], out_g1[ANALYSIS_COLS]],
+                   ignore_index=True)
+    cn["rpm"] = cn["reads"] / cn.groupby("cell_id")["reads"] \
+        .transform("sum") * 1e6
+    return cn
+
+
+def analysis(dev, frames, cn, load_s, card) -> dict:
+    """Phase calling, the cell-cycle features (the 2-GMM on the card and
+    on the CPU) and the loader's pivots through the library and NumPy."""
+    import importlib.metadata
+    import importlib.util
+
+    import pandas as pd
+    import torch
+    from scdna_replication_tools_tpu_torch.data.loader import pivot_matrix
+    from scdna_replication_tools_tpu_torch.pipeline.ccc_features import (
+        compute_ccc_features,
+    )
+    from scdna_replication_tools_tpu_torch.pipeline.phase import (
+        predict_cycle_phase,
+    )
+
+    rec: dict = {}
+    tag = "[analysis]"
+    n_cells = cn["cell_id"].nunique()
+    print(f"{tag} {card}: on the default cell's output, {n_cells} cells x "
+          f"{LOCI} loci ({len(cn)} rows), in a process beside phase 11")
+    mpl = importlib.util.find_spec("matplotlib")
+    mpl_version = importlib.metadata.version("matplotlib") if mpl else None
+    print(f"{tag} matplotlib: {mpl_version or 'absent'} (no plotting on "
+          "the card)")
+    rec["matplotlib"] = mpl_version
+
+    def call(frame):
+        t0 = time.perf_counter()
+        phased = predict_cycle_phase(frame)
+        secs = time.perf_counter() - t0
+        labels = pd.concat(phased, ignore_index=True) \
+            .groupby("cell_id")["PERT_phase"].first()
+        return labels, secs, float(
+            (labels[labels.index.str.startswith("s_")] == "S").mean())
+
+    labels, phase_s, s_share = call(cn.drop(columns=["true_rep",
+                                                     "true_somatic_cn"]))
+    truth, _, s_truth = call(cn.drop(columns=[
+        "model_rep_state", "model_cn_state"]).rename(columns={
+            "true_rep": "model_rep_state",
+            "true_somatic_cn": "model_cn_state"}))
+    counts = {k: int(v) for k, v in labels.value_counts().items()}
+    g_share = float(labels[labels.index.str.startswith("g_")]
+                    .isin(["G1/2", "LQ"]).mean())
+    agree = float((labels == truth.reindex(labels.index)).mean())
+    print(f"{tag} predict_cycle_phase: {json.dumps(counts)} in "
+          f"{phase_s:.2f} s; simulated S called S {s_share:.4f} (on the "
+          f"simulated states {s_truth:.4f}; JAX's bar {PHASE_BAR}: "
+          f"{'met' if s_share > PHASE_BAR else 'not met'}), simulated G1 "
+          f"called G1/2 or LQ {g_share:.4f}, labels as the simulated "
+          f"states' {agree:.4f}")
+    check(len(labels) == n_cells,
+          f"{tag} every cell gets a PERT_phase ({len(labels)} of {n_cells})")
+    check(s_share >= s_truth - PHASE_SLACK,
+          f"{tag} simulated S cells called S {s_share:.4f} >= "
+          f"{s_truth:.4f} (the simulated states') - {PHASE_SLACK}")
+    check(agree >= PHASE_AGREE, f"{tag} each cell's label is the one its "
+          f"simulated states give it for {agree:.4f} >= {PHASE_AGREE}")
+    check(g_share > PHASE_BAR, f"{tag} simulated G1 cells called G1/2 or "
+          f"LQ {g_share:.4f} > {PHASE_BAR}")
+    rec.update(phase_s=phase_s, phase_counts=counts, s_share=s_share,
+               s_share_simulated=s_truth, label_agreement=agree,
+               g1_share=g_share)
+
+    cn = cn.drop(columns=["true_rep", "true_somatic_cn"])
+    feats, secs = {}, {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        _, f = compute_ccc_features(cn.copy(), device=d)
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        feats[name] = f.sort_values("cell_id").reset_index(drop=True)
+    card_f, cpu_f = feats["card"], feats["cpu"]
+    same = {c: bool(np.array_equal(card_f[c].to_numpy(),
+                                   cpu_f[c].to_numpy()))
+            for c in CCC_EXACT}
+    lrs_err = float(np.max(np.abs(card_f["lrs"].to_numpy()
+                                  - cpu_f["lrs"].to_numpy())
+                           / np.maximum(1.0, np.abs(cpu_f["lrs"].to_numpy()))))
+    print(f"{tag} compute_ccc_features: card {secs['card']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s; {len(card_f)} cells, lrs "
+          f"{cpu_f['lrs'].min():.4g}..{cpu_f['lrs'].max():.4g}, card "
+          f"against CPU {lrs_err:.3g} of max(1, |lrs|) (bound {TOL_LRS})")
+    check(list(card_f["cell_id"]) == list(cpu_f["cell_id"])
+          and len(card_f) == n_cells and all(same.values()),
+          f"{tag} features on the card: {', '.join(CCC_EXACT)} equal the "
+          f"CPU's ({json.dumps(same)})")
+    check(lrs_err <= TOL_LRS and bool(np.isfinite(card_f["lrs"]).all()),
+          f"{tag} lrs on the card within {TOL_LRS} of the CPU's "
+          f"({lrs_err:.3g})")
+    rec.update(ccc_card_s=secs["card"], ccc_cpu_s=secs["cpu"],
+               lrs_err=lrs_err)
+
+    frame = dict(zip(("s", "g1"), frames))
+    route_s = {"library": 0.0, "numpy": 0.0}
+    equal = []
+    for which, col in PIVOTS:
+        mats = {}
+        for route, native in (("library", None), ("numpy", False)):
+            t0 = time.perf_counter()
+            mats[route] = pivot_matrix(frame[which], col,
+                                       use_native=native)
+            route_s[route] += time.perf_counter() - t0
+        a, b = mats["library"], mats["numpy"]
+        equal.append(a.index.equals(b.index) and a.columns.equals(b.columns)
+                     and np.array_equal(np.isnan(a.to_numpy()),
+                                        np.isnan(b.to_numpy()))
+                     and a.to_numpy().tobytes() == b.to_numpy().tobytes())
+    print(f"{tag} pivot_matrix, the loader's {len(PIVOTS)} pivots of the "
+          f"default cell's frames: library {route_s['library']:.3f} s, "
+          f"NumPy {route_s['numpy']:.3f} s; the default cell's load phase "
+          f"{load_s:.2f} s (4-6 s on the NumPy scatter, PERF.md §5)")
+    check(all(equal), f"{tag} every pivot through the library equals the "
+          "NumPy scatter bit for bit, NaN positions included")
+    rec.update(pivot_library_s=route_s["library"],
+               pivot_numpy_s=route_s["numpy"], load_s=load_s)
+    return rec
+
+
+def _host_tail(card: str, analysis_in, load_s: float) -> dict:
+    """Phase 10's host-bound tail and the [analysis] phase, the task of a
+    process of its own: the deterministic levels and SPF on the
+    unlabelled frames, the three CLI functions through TSVs, then phase
+    calling, the cell-cycle features and the pivots on the default
+    cell's output and frames.  Returns what it printed, the checks that
+    failed and its parts of the record."""
     import io
     import traceback
     import torch
 
-    record = {"unlabelled": {}}
+    record = {"unlabelled": {}, "analysis": {}}
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -2627,28 +2864,39 @@ def _host_tail(card: str) -> dict:
         except Exception:
             check(False, "[unlabelled] the host tail raised:\n"
                   + traceback.format_exc())
-    record["unlabelled"]["tail_s"] = time.perf_counter() - t0
+        record["unlabelled"]["tail_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        try:
+            record["analysis"] = analysis(torch.device("cuda", 0), frames,
+                                          analysis_in, load_s, card)
+        except Exception:
+            check(False, "[analysis] the phase raised:\n"
+                  + traceback.format_exc())
+        record["analysis"]["wall_s"] = time.perf_counter() - t1
     return {"log": out.getvalue(), "failures": list(FAILURES),
-            "record": record["unlabelled"]}
+            "record": record}
 
 
 class HostTail:
-    """Phase 10's levels, SPF and CLI functions (host pandas, TSVs and
-    changepoint sweeps; the card does little of it) in one spawned
-    process that runs beside phase 11, so that the script stays inside
-    its time limit: they took 250-300 s of a slow host's time in a row.
-    :meth:`finish` waits for it, prints what it printed and counts its
-    checks; :meth:`close` stops it, also when a phase fails on the
-    way."""
+    """Phase 10's levels, SPF and CLI functions and the [analysis] phase
+    (host pandas, TSVs and changepoint sweeps; the card does little of
+    it) in one spawned process that runs beside phase 11, so that the
+    script stays inside its time limit: the levels, SPF and CLI took
+    250-300 s of a slow host's time in a row.  ``analysis_in`` is the
+    default cell's output (:func:`analysis_input`), ``load_s`` its load
+    phase's seconds.  :meth:`finish` waits for it, prints what it printed
+    and counts its checks; :meth:`close` stops it, also when a phase
+    fails on the way."""
 
-    def __init__(self, card: str):
+    def __init__(self, card: str, analysis_in, load_s: float):
         import atexit
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
 
         self.t0 = time.perf_counter()
         self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
-        self.future = self.pool.submit(_host_tail, card)
+        self.future = self.pool.submit(_host_tail, card, analysis_in,
+                                       load_s)
         atexit.register(self.close)
 
     def finish(self, record) -> None:
@@ -2662,12 +2910,15 @@ class HostTail:
             self.close()
         wait = time.perf_counter() - self.t0
         print(tail["log"], end="")
+        rec = tail["record"]
         print(f"[unlabelled tail] levels, SPF and CLI in a process beside "
-              f"phase 11: {tail['record']['tail_s']:.1f} s (joined after "
-              f"{wait:.1f} s)")
+              f"phase 11: {rec['unlabelled']['tail_s']:.1f} s, then the "
+              f"[analysis] phase {rec['analysis']['wall_s']:.1f} s (joined "
+              f"after {wait:.1f} s)")
         for what in tail["failures"]:
             FAILURES.append(what)
-        record["unlabelled"].update(tail["record"])
+        record["unlabelled"].update(rec["unlabelled"])
+        record.setdefault("analysis", {}).update(rec["analysis"])
 
     def close(self) -> None:
         self.pool.shutdown(wait=True, cancel_futures=True)
@@ -3491,6 +3742,7 @@ def main() -> int:
     check_sync_free_chunk(dev, scrt, record)
     profile_steps(dev, scrt, record, "default", steps=("step2", "step3"))
     durable_ref = durable_reference(scrt)
+    analysis_in = analysis_input(scrt.outputs[0], scrt.outputs[2])
     del scrt
     torch.cuda.empty_cache()
     mark("default")
@@ -3519,7 +3771,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("unlabelled")
 
-    tail = HostTail(card)
+    tail = HostTail(card, analysis_in,
+                    record["main_default"]["phases_s"]["load"])
+    del analysis_in
     by_path["serve"] = serving(dev, record, record["main_default"], spool)
     mark("serve")
     tail.finish(record)

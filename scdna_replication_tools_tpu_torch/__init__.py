@@ -7,6 +7,11 @@ through ``scRT(...).infer(level='pert')`` on a CUDA device, with the
 fused enumeration kernels and the fused Adam update written in CUDA C++
 for Hopper (``csrc/``, built with ``nvcc`` at first use), and each run
 writes the JAX package's schema-v9 JSONL run log (``obs/runlog.py``).
+After a fit, ``pipeline/phase.py`` calls cell-cycle phases and
+``pipeline/ccc_features.py`` computes the classifier features;
+``plotting/`` draws the figures (it needs matplotlib, which nothing else
+imports); ``obs/heartbeat.aggregate_health`` and ``obs/alerts.py`` read
+a run's health directory.
 
 Entry points (:class:`scRT`, :class:`SPF`, :class:`PertInference`,
 :func:`fit_map`, the simulator and the command-line functions of

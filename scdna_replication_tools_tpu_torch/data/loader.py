@@ -3,8 +3,8 @@
 Port of ``data/loader.py`` (itself the replacement for
 ``pert_infer_scRT.process_input_data``, reference: pert_model.py:133-191).
 Arrays are (cells, loci) NumPy; the runner moves them to the device.
-The pivot scatters with NumPy; the JAX package's multithreaded C++
-pivot (``native/pivot.py``) is not ported yet.
+The pivot scatters on the threaded C++ library of ``native/pivot.py``,
+as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -57,13 +57,19 @@ def pivot_matrix(
     cn: pd.DataFrame,
     value_col: str,
     cols: ColumnConfig = ColumnConfig(),
+    use_native: Optional[bool] = None,
 ) -> pd.DataFrame:
     """Pivot a long-form frame to a (cell x locus) matrix in genome order.
 
     Keys are factorised once and the values scattered into the dense
-    matrix.  Duplicate (cell, locus) keys fall back to ``pivot_table``,
-    whose mean-aggregation the scatter cannot reproduce.
+    matrix by the native library (``native/pivot.scatter_pivot``; a
+    failed build raises, ``use_native=False`` takes the NumPy scatter,
+    bit for bit the same matrix).  Duplicate (cell, locus) keys fall back
+    to ``pivot_table``, whose mean-aggregation the scatter cannot
+    reproduce.
     """
+    from scdna_replication_tools_tpu_torch.native.pivot import scatter_pivot
+
     cn = cn[cn[value_col].notna()
             & cn[cols.cell_col].notna()
             & cn[cols.start_col].notna()]
@@ -106,8 +112,10 @@ def pivot_matrix(
         )
         return mat.sort_index(axis=1).astype(np.float32)
 
-    dense = np.full((len(cell_ids), len(key_vals)), np.nan, np.float32)
-    dense[cell_codes, locus_codes] = cn[value_col].to_numpy(np.float64)
+    dense = scatter_pivot(cell_codes, locus_codes,
+                          cn[value_col].to_numpy(np.float64),
+                          len(cell_ids), len(key_vals),
+                          use_native=use_native)
 
     chr_categories = chr_cat.cat.categories
     loci = pd.MultiIndex.from_arrays(

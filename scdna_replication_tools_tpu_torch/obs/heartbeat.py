@@ -1,5 +1,5 @@
-"""Run-health heartbeats: the writer and the process-global seam (port
-of ``obs/heartbeat.py:1-413``).
+"""Run-health heartbeats: the writer, the process-global seam and the
+read side (port of ``obs/heartbeat.py``).
 
 * :class:`HeartbeatFile` is the low-level writer: one JSON document per
   path, committed with ``utils.fileio.atomic_write_bytes`` (a reader
@@ -10,21 +10,29 @@ of ``obs/heartbeat.py:1-413``).
 * :class:`RunHeartbeat` is the per-process fit writer: it publishes
   ``health/host_<rank>.json`` with step/chunk/iteration progress, a
   ms/iter EWMA and the ETA it implies, the controller verdict-trail
-  tail, and device memory and fault-ladder counters sampled from the
-  installed metrics registry.  Writes are throttled to the configured
-  interval; fault-ladder events force an immediate write;
+  tail, device memory and fault-ladder counters sampled from the
+  installed metrics registry, the cost meter's live ``goodput`` and
+  ``waste_frac`` (``obs/meter.py`` notes them on every cost record) and
+  the last closed span (``spans.last_closed_span()``, the mid-fit
+  progress needle).  Writes are throttled to the configured interval;
+  fault-ladder events force an immediate write;
 * a process-global :func:`install`/:func:`current` seam plus module-level
   no-op helpers (:func:`note_chunk`, :func:`note_phase`,
   :func:`observe_event`), so the chunk loop and the run log's emit seam
-  need one call each and heartbeat-off runs cost one global read.
+  need one call each and heartbeat-off runs cost one global read;
+* the read side -- :func:`read_heartbeat`, :func:`scan_health`,
+  :func:`freshness`, :func:`aggregate_health` -- turns a ``health/``
+  directory into one summary: per-host freshness ladder (fresh ->
+  lagging -> stale -> presumed_lost, thresholds from each writer's own
+  declared interval), straggler spread within the modal step, desync,
+  missing ranks and the worst-case ETA; ``obs/alerts.py`` evaluates its
+  rules over that summary.
 
 ``resolve_dir('auto', checkpoint_dir)`` places ``health/`` inside the
 checkpoint directory, so a run with ``checkpoint_dir`` writes a live
 heartbeat at the default config.  The documents are the JAX package's,
-field for field (``last_span`` stays None until span tracing is ported),
-so its read side (``read_heartbeat``, ``freshness``, ``scan_health``,
-``aggregate_health``) and ``tools/pert_watch.py`` read them; the read
-side's port comes with ROADMAP A11b.
+field for field, so either package's read side reads either package's
+files.
 
 Lifecycle contract: :meth:`RunHeartbeat.close` is called on normal
 completion (``state="done"``) and on ``Exception`` (``state="error"``)
@@ -41,16 +49,29 @@ import json
 import logging
 import os
 import pathlib
+import re
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
+from scdna_replication_tools_tpu_torch.obs import spans as spans_mod
 from scdna_replication_tools_tpu_torch.utils.fileio import atomic_write_bytes
 
 logger = logging.getLogger("scdna_replication_tools_tpu_torch")
 
 HEARTBEAT_KIND = "pert_heartbeat"
 HEARTBEAT_VERSION = 1
+
+#: terminal states -- a document in one of these is "final", exempt from
+#: the staleness ladder (a finished run's heartbeat never goes stale).
+#: "stopped" is the serve worker's terminal state (same primitive).
+TERMINAL_STATES = frozenset({"done", "error", "stopped"})
+
+#: freshness ladder thresholds, in multiples of the writer's own
+#: declared ``interval_seconds`` (each writer stamps its cadence into
+#: the document, so the reader derives thresholds with no config)
+FRESHNESS_LADDER = (("fresh", 3.0), ("lagging", 10.0), ("stale", 30.0))
+FRESHNESS_ORDER = ("final", "fresh", "lagging", "stale", "presumed_lost")
 
 #: metrics sampled out of the installed registry into each heartbeat —
 #: the HBM gauges plus the fault-ladder counters (base names; labelled
@@ -70,6 +91,25 @@ SAMPLED_METRICS = (
 _FAULT_EVENTS = frozenset({"retry", "degrade", "fault_injected",
                            "resume", "mesh_shrink"})
 
+#: heartbeat document fields the alert grammar may reference (kept in
+#: one place so ``obs/alerts.py`` can validate rules at load time)
+HEARTBEAT_FIELDS = frozenset({
+    "seq", "written_unix", "pid", "process_index", "process_count",
+    "run_name", "config_digest", "interval_seconds", "state", "phase",
+    "step", "chunk", "iteration", "budget", "ms_per_iter_ewma",
+    "eta_seconds", "trail", "last_span", "metrics", "faults", "error",
+    "goodput", "waste_frac",
+})
+
+#: aggregate fields (``aggregate_health`` output) the alert grammar may
+#: reference
+AGGREGATE_FIELDS = frozenset({
+    "hosts_seen", "process_count", "missing_ranks", "max_lag_seconds",
+    "worst_freshness", "desync", "straggler_spread_chunks",
+    "straggler_spread_iters", "eta_seconds", "states",
+})
+
+_HOST_FILE_RE = re.compile(r"^host_(\d+)\.json$")
 _EWMA_ALPHA = 0.3
 _TRAIL_LEN = 8
 
@@ -142,8 +182,9 @@ class RunHeartbeat:
             "state": "running", "phase": None, "step": None,
             "chunk": None, "iteration": None, "budget": None,
             "ms_per_iter_ewma": None, "eta_seconds": None,
-            # the cost meter's live efficiency fields, None until the
-            # meter is ported (ROADMAP A11b)
+            # live efficiency (obs/meter.py books them on every cost
+            # record): effective cell-iters per billed device-second
+            # and the billed fraction lost to named waste
             "goodput": None, "waste_frac": None,
             "error": None,
         }
@@ -168,9 +209,7 @@ class RunHeartbeat:
             "interval_seconds": self.interval_seconds,
             "trail": list(self._trail),
             "faults": dict(sorted(self._faults.items())),
-            # the last closed span rides here once span tracing is
-            # ported (ROADMAP A11b)
-            "last_span": None,
+            "last_span": spans_mod.last_closed_span(),
             "metrics": self._sample_metrics(),
         }
         doc.update(self._fields)
@@ -356,3 +395,132 @@ def resolve_dir(setting, checkpoint_dir=None) -> Optional[str]:
             return None
         return str(pathlib.Path(checkpoint_dir) / "health")
     return str(setting)
+
+
+# ---------------------------------------------------------------------------
+# read side: freshness ladder + multi-host aggregation
+# ---------------------------------------------------------------------------
+
+def read_heartbeat(path) -> Optional[dict]:
+    """One heartbeat document, or None when absent, torn or not a JSON
+    object (the atomic write makes torn reads impossible from the shared
+    writer, but the reader stays defensive against foreign files)."""
+    try:
+        doc = json.loads(pathlib.Path(path).read_text())
+    except (OSError, ValueError):
+        return None
+    if not isinstance(doc, dict):
+        return None
+    return doc
+
+
+def freshness(doc: dict, now: Optional[float] = None) -> str:
+    """Freshness class of one heartbeat document.
+
+    Terminal states are "final" (a finished run never goes stale).
+    Otherwise the age of ``written_unix`` is laddered against the
+    writer's own declared cadence: fresh <= 3x interval, lagging <= 10x,
+    stale <= 30x, beyond that **presumed_lost** -- the pre-deadlock
+    hostloss flag.
+    """
+    if doc.get("state") in TERMINAL_STATES:
+        return "final"
+    now = time.time() if now is None else now
+    interval = max(float(doc.get("interval_seconds") or 15.0), 0.05)
+    age = max(now - float(doc.get("written_unix") or 0.0), 0.0)
+    for level, mult in FRESHNESS_LADDER:
+        if age <= mult * interval:
+            return level
+    return "presumed_lost"
+
+
+def scan_health(health_dir) -> List[dict]:
+    """All ``host_<rank>.json`` docs under ``health_dir``, as
+    ``{"rank", "path", "doc"}`` rows sorted by rank.  Unreadable files
+    are skipped (a torn foreign file must not break the reader)."""
+    root = pathlib.Path(health_dir)
+    rows = []
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return rows
+    for name in names:
+        m = _HOST_FILE_RE.match(name)
+        if not m:
+            continue
+        doc = read_heartbeat(root / name)
+        if doc is None:
+            continue
+        rows.append({"rank": int(m.group(1)), "path": str(root / name),
+                     "doc": doc})
+    rows.sort(key=lambda r: r["rank"])
+    return rows
+
+
+def _spread(values: List[int]) -> Optional[int]:
+    vals = [int(v) for v in values if v is not None]
+    return (max(vals) - min(vals)) if len(vals) >= 2 else (
+        0 if vals else None)
+
+
+def aggregate_health(health_dir, now: Optional[float] = None) -> dict:
+    """One mission-control summary of a ``health/`` directory.
+
+    Returns hosts (each with ``age_seconds``/``freshness`` annotated),
+    missing ranks against the declared ``process_count``, the straggler
+    spread in chunks and iterations (among RUNNING hosts in the modal
+    step -- chunk counters do not compare across steps), desync (running
+    hosts reporting different steps), the worst freshness level, the
+    max heartbeat lag and the worst-case ETA.
+    """
+    now = time.time() if now is None else now
+    rows = scan_health(health_dir)
+    hosts = []
+    for r in rows:
+        doc = r["doc"]
+        level = freshness(doc, now)
+        hosts.append({
+            "rank": r["rank"], "path": r["path"], "doc": doc,
+            "seq": doc.get("seq"),
+            "age_seconds": round(
+                max(now - float(doc.get("written_unix") or 0.0), 0.0), 3),
+            "freshness": level,
+        })
+    declared = max(
+        [int(h["doc"].get("process_count") or 1) for h in hosts],
+        default=0)
+    seen = {h["rank"] for h in hosts}
+    missing = sorted(set(range(declared)) - seen)
+    running = [h for h in hosts
+               if h["doc"].get("state") not in TERMINAL_STATES]
+    steps = sorted({str(h["doc"].get("step"))
+                    for h in running if h["doc"].get("step") is not None})
+    desync = len(steps) > 1
+    by_step: Dict[str, List[dict]] = {}
+    for h in running:
+        if h["doc"].get("step") is not None:
+            by_step.setdefault(str(h["doc"]["step"]), []).append(h)
+    modal = max(by_step.values(), key=len) if by_step else []
+    spread_chunks = _spread([h["doc"].get("chunk") for h in modal])
+    spread_iters = _spread([h["doc"].get("iteration") for h in modal])
+    etas = [float(h["doc"]["eta_seconds"]) for h in running
+            if h["doc"].get("eta_seconds") is not None]
+    non_final = [h for h in hosts if h["freshness"] != "final"]
+    worst = max((h["freshness"] for h in hosts),
+                key=FRESHNESS_ORDER.index, default=None)
+    return {
+        "hosts": hosts,
+        "hosts_seen": len(hosts),
+        "process_count": declared,
+        "missing_ranks": missing,
+        "max_lag_seconds": round(
+            max((h["age_seconds"] for h in non_final), default=0.0), 3),
+        "worst_freshness": worst,
+        "desync": desync,
+        "steps": steps,
+        "straggler_spread_chunks": spread_chunks,
+        "straggler_spread_iters": spread_iters,
+        "eta_seconds": max(etas, default=None),
+        "states": dict(sorted(collections.Counter(
+            str(h["doc"].get("state")) for h in hosts).items())),
+    }

@@ -43,14 +43,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"enum_fused": "enum_fused.cu", "adam": "adam.cu"}
 # host C++ libraries of the port (no CUDA), built the same way by the
-# host compiler; -ffp-contract=off: the segment sweep's exact-division
-# costs must round as its NumPy oracle's do, tie for tie
-HOST_SOURCES = {"segment": "segment.cpp"}
+# host compiler: the changepoint sweep and the loader's pivot;
+# -ffp-contract=off: the segment sweep's exact-division costs must round
+# as its NumPy oracle's do, tie for tie
+HOST_SOURCES = {"segment": "segment.cpp", "pivot": "pivot.cpp"}
 HOST_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
               "-pthread")
 
 _P = ctypes.c_void_p
+_F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     "enum_fused": {
@@ -79,6 +82,14 @@ _SIGNATURES = {
         "batch_bkps_f64": [_F64P, _I64P, ctypes.c_int64, ctypes.c_int64,
                            ctypes.c_int32, ctypes.c_int32, _I64P,
                            ctypes.c_int32],
+    },
+    "pivot": {
+        # cell_codes, locus_codes, values, n, out, n_loci, n_threads
+        "scatter_pivot_f32": [_I32P, _I32P, _F64P, ctypes.c_int64, _F32P,
+                              ctypes.c_int64, ctypes.c_int32],
+        # mat, cell_codes, locus_codes, n, n_loci, out, n_threads
+        "gather_melt_f32": [_F32P, _I32P, _I32P, ctypes.c_int64,
+                            ctypes.c_int64, _F32P, ctypes.c_int32],
     },
 }
 

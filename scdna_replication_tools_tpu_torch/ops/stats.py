@@ -4,7 +4,10 @@ Port of ``ops/stats.py``: :func:`pearson_matrix` (one float32 matmul on
 standardised rows), :func:`masked_pearson_matrix` (NumPy, copied),
 :func:`guess_times` with the 2-GMM EM and Manhattan binarisation it
 runs on every cell at once (the binarisation also serves the
-deterministic levels, ``pipeline/binarize.py``), and :func:`mode_int`.
+deterministic levels, ``pipeline/binarize.py``), the 2-GMM's per-row
+log-likelihood (the cell-cycle features, ``pipeline/ccc_features.py``),
+and the host helpers :func:`autocorrelation_mean` (phase calling) and
+:func:`mode_int`.
 The tensor functions take NumPy arrays or tensors and run on ``device``
 (default: the input's device, the CPU for NumPy).
 """
@@ -114,6 +117,21 @@ def gmm2_em(x: torch.Tensor, num_iters: int = 60, eps: float = 1e-6
     return mu, var, w
 
 
+def gmm2_log_likelihood(x: torch.Tensor, mu: torch.Tensor,
+                        var: torch.Tensor, w: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """Mean per-point log-likelihood of each row of ``x`` (cells, loci)
+    under its 2-GMM (``mu``, ``var``, ``w``: (cells, 2), as
+    :func:`gmm2_em` returns them) -> (cells,)."""
+    diff = x[:, :, None] - mu[:, None, :]
+    log_p = (
+        -0.5 * diff * diff / var[:, None, :]
+        - 0.5 * torch.log(2.0 * np.pi * var[:, None, :])
+        + torch.log(w[:, None, :] + eps)
+    )
+    return torch.mean(torch.logsumexp(log_p, dim=2), dim=1)
+
+
 def linspace_f32(start: float, stop: float, num: int,
                  device=None) -> torch.Tensor:
     """float32 ``jnp.linspace(start, stop, num)`` as XLA computes it on
@@ -217,6 +235,29 @@ def guess_times(reads, etas, upsilon: float = 6.0, loci_mask=None,
     t_alpha = t_init * upsilon
     t_beta = upsilon - t_alpha
     return t_init, t_alpha, t_beta
+
+
+def autocorrelation_mean(x: np.ndarray, min_lag: int = 10,
+                         max_lag: int = 50) -> float:
+    """Mean of the ACF over lags [min_lag, max_lag], in float64 NumPy.
+
+    Replaces ``statsmodels.tsa.acf`` in ``autocorr``
+    (reference: predict_cycle_phase.py:23-25): ACF computed with the
+    standard biased estimator (denominator n, lag-0 variance); a series
+    of no more than ``max_lag`` points stops at lag n - 1, and a
+    constant one has ACF 0 past lag 0.
+    """
+    x = np.asarray(x, np.float64)
+    n = x.size
+    x = x - x.mean()
+    denom = np.dot(x, x)
+    if denom == 0 or n <= max_lag:
+        max_lag = min(max_lag, n - 1)
+    acf = np.empty(max_lag + 1)
+    acf[0] = 1.0
+    for k in range(1, max_lag + 1):
+        acf[k] = np.dot(x[:-k], x[k:]) / denom if denom > 0 else 0.0
+    return float(np.mean(acf[min_lag - 1:]))
 
 
 def mode_int(values: np.ndarray) -> float:

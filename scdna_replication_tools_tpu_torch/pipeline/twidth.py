@@ -1,6 +1,6 @@
 """T-width: replication-timing heterogeneity metric (port, a host copy,
-of ``pipeline/twidth.py`` without its plots, which come with
-``plotting/*``).
+of ``pipeline/twidth.py``; its two plot functions import matplotlib
+inside them, as the JAX package's do).
 
 Mirrors ``calculate_twidth`` (reference: calculate_twidth.py:23-200): the
 time window over which loci go from 25% to 75% replicated, via a sigmoid
@@ -109,3 +109,45 @@ def calculate_twidth(cn: pd.DataFrame, tfs_col='time_from_scheduled_rt',
     else:
         raise ValueError(f"unknown curve {curve!r}")
     return t_width, right_time, left_time, popt, time_bins, pct_reps
+
+
+def plot_cell_variability(xdata, ydata, popt=None, left_time=None,
+                          right_time=None, t_width=None, alpha=1,
+                          title='Cell-to-cell variability', curve='sigmoid',
+                          ax=None):
+    """Scatter + fitted curve + T-width guides
+    (reference: calculate_twidth.py:117-139)."""
+    import matplotlib.pyplot as plt
+
+    if ax is None:
+        _, ax = plt.subplots(1, 1, figsize=(6, 6))
+    ax.scatter(xdata, ydata, label='data', alpha=alpha)
+    if popt is not None:
+        x = np.linspace(-10, 10, 1000)
+        y = sigmoid(x, *popt) if curve == 'sigmoid' else linear(x, *popt)
+        ax.plot(x, y, color='r', label='fit')
+        ax.axhline(y=0.75, color='k', linestyle='--')
+        ax.axhline(y=0.25, color='k', linestyle='--')
+        ax.axvline(x=left_time, color='k', linestyle='--')
+        ax.axvline(x=right_time, color='k', linestyle='--',
+                   label=f'T_width={round(t_width, 3)}')
+    ax.set_xlabel('time from scheduled replication (h)')
+    ax.set_ylabel('% replicated')
+    ax.set_title(title)
+    ax.legend(loc='best')
+    return ax
+
+
+def compute_and_plot_twidth(cn, tfs_col='time_from_scheduled_rt',
+                            rs_col='rt_state', per_cell=False, query2=None,
+                            cell_col='cell_id', alpha=1,
+                            title='Cell-to-cell variability',
+                            curve='sigmoid', ax=None):
+    t_width, right_time, left_time, popt, time_bins, pct_reps = \
+        calculate_twidth(cn, tfs_col=tfs_col, rs_col=rs_col,
+                         per_cell=per_cell, query2=query2, curve=curve,
+                         cell_col=cell_col)
+    ax = plot_cell_variability(time_bins, pct_reps, popt, left_time,
+                               right_time, t_width, alpha=alpha,
+                               title=title, curve=curve, ax=ax)
+    return ax, t_width

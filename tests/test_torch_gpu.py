@@ -905,3 +905,52 @@ def test_chunked_objective_launches_each_chunk(dev, sparse):
     for k in g_wh:
         scale = max(float(g_wh[k].abs().max()), 1e-30)
         assert float((g_ch[k] - g_wh[k]).abs().max()) <= 1e-5 * scale, k
+
+
+def test_gmm2_on_the_card_equals_the_cpu(dev):
+    """The cell-cycle features' 2-GMM (``gmm2_em`` and
+    ``gmm2_log_likelihood``) on the card against the CPU on the same
+    float32 rows: the per-cell log-likelihood within 1e-5 of max(1, |ll|)
+    (the bound tests/test_torch_ccc_features.py and chip_smoke.py hold
+    lrs to), the mixtures' means within 1e-4 relative."""
+    from scdna_replication_tools_tpu_torch.ops import stats
+
+    rng = np.random.default_rng(0)
+    x = np.where(rng.random((257, 5451)) < rng.uniform(0.1, 0.9, (257, 1)),
+                 rng.normal(0.85, 0.08, (257, 5451)),
+                 rng.normal(1.25, 0.12, (257, 5451))).astype(np.float32)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        t = torch.as_tensor(x, device=d)
+        mu, var, w = stats.gmm2_em(t)
+        ll = stats.gmm2_log_likelihood(t, mu, var, w)
+        out[d.type] = [a.cpu().numpy() for a in (mu, var, w, ll)]
+    ll_cpu, ll_card = out["cpu"][3], out["cuda"][3]
+    err = np.abs(ll_card - ll_cpu) / np.maximum(1.0, np.abs(ll_cpu))
+    assert float(err.max()) <= 1e-5, float(err.max())
+    mu_cpu, mu_card = np.sort(out["cpu"][0], 1), np.sort(out["cuda"][0], 1)
+    np.testing.assert_allclose(mu_card, mu_cpu, rtol=1e-4)
+
+
+def test_pivot_library_on_the_cards_host(dev):
+    """The loader's pivot library builds with the card machine's host
+    compiler and scatters and gathers bit for bit as NumPy does, on the
+    threaded path."""
+    from scdna_replication_tools_tpu_torch.native import pivot
+
+    rng = np.random.default_rng(1)
+    n_cells, n_loci = 1000, 5451
+    keep = rng.random((n_cells, n_loci)) < 0.9
+    cc, lc = (a.astype(np.int32) for a in np.nonzero(keep))
+    order = rng.permutation(len(cc))
+    cc, lc = cc[order], lc[order]
+    vals = rng.poisson(40, len(cc)).astype(np.float64)
+    got = pivot.scatter_pivot(cc, lc, vals, n_cells, n_loci)
+    want = pivot.scatter_pivot(cc, lc, vals, n_cells, n_loci,
+                               use_native=False)
+    assert got.tobytes() == want.tobytes()
+    assert np.isnan(got).sum() == (~keep).sum()
+    filled = np.nan_to_num(got)
+    assert pivot.gather_melt(filled, cc, lc).tobytes() == \
+        pivot.gather_melt(filled, cc, lc, use_native=False).tobytes()
+    assert _cuda.BUILD_INFO["pivot"]["path"].endswith(".so")
