@@ -157,8 +157,32 @@ Phases, each printing its own lines:
     operands, the plain versions within ``TOL`` (and under a flat
     prior), Adam's lane axis with a parked lane bit for bit, each timed
     with its bound;
-12. the card's name and power limit, one JSON line of the kernels (each
-    with its launches summed over the seven paths' runs and by path),
+12. sharded fits, in a thread beside phase 11 (``ShardedPhase``): ranks
+    spawned with ``torch.multiprocessing`` (start method ``spawn``), each
+    joining a gloo group through a ``file://`` store in a temporary
+    directory (``init_distributed('gloo', ...)``, a 300 s collective
+    timeout) and all sharing cuda:0, on the phase-4 frames: first
+    ``scRT(cn_s, cn_g1, num_shards=2)`` with every other option at its
+    default (heartbeats and the run log in the temporary directory),
+    then ``num_shards=2, loci_shards=2`` on the categorical path at its
+    depth cut (``MAX_ITER``).  Checks: every rank exits 0 within 420 s
+    and returns the same four frames; every rank launched the dense and
+    sparse fused pairs and Adam (its counts summed into the path's); the
+    recovery bars; the 2 x 1 run within 0.005 of phase 6's rep and CN
+    accuracy and tau r no more than 0.01 below, its run log once (rank
+    0's) and ``aggregate_health`` reading two hosts and no missing rank;
+    the 2 x 2 run's step 1 and 2 iteration-0 losses within 1e-5 of phase
+    4's (step 3's within ``SHARDED_LOSS0_STEP3``) and every step's losses within 5e-2 (without the Dirichlet
+    normaliser; step 1's from iteration 25 on, ``SHARDED_SETTLED``), each
+    step's converged loss within ``SHARDED_END`` and step 2's fitted rho
+    and a within ``SHARDED_RHO`` / ``SHARDED_A`` of phase 4's; each
+    kernel against its plain version on the operands of
+    one more iteration of each step at rank 0's shapes (as phase 4).
+    Printed per rank: its start-and-import seconds, ``infer`` wall, step
+    ms/iteration, peak memory, the gradient all-reduce's ms alone, its
+    launches (``[sharded ...]`` lines);
+13. the card's name and power limit, one JSON line of the kernels (each
+    with its launches summed over the paths' runs and by path),
     then the result line.
 
 It imports nothing of JAX or the JAX package.  The full record goes to
@@ -1508,13 +1532,9 @@ def main_path(dev, record, frames, path: str, reference=None):
                  if disabled.messages else ""))
         check_run_log(scrt, events, qc_counts, peak, record, loaded_before)
 
-    rep_acc = float((out_s["model_rep_state"] == out_s["true_rep"]).mean())
-    cn_acc = float((out_s["model_cn_state"]
-                    == out_s["true_somatic_cn"]).mean())
-    per_cell = out_s.groupby("cell_id").agg(tau=("model_tau", "first"),
-                                            true_t=("true_t", "first"))
-    tau_r = float(np.corrcoef(per_cell["tau"], per_cell["true_t"])[0, 1])
-    lamb = float(supp_s.query("param == 'model_lambda'")["value"].iloc[0])
+    rec = recovery(out_s, supp_s)
+    rep_acc, cn_acc, tau_r, lamb = (rec[k] for k in ("rep_acc", "cn_acc",
+                                                     "tau_r", "lambda"))
     check(len(out_s) == CELLS * LOCI and len(out_g1) == G1_CELLS * LOCI,
           f"{path}: output frames cover every bin ({len(out_s)} S, "
           f"{len(out_g1)} G1 rows)")
@@ -1555,7 +1575,12 @@ def main_path(dev, record, frames, path: str, reference=None):
         "step2_cells_per_s": cells_per_s, "peak_bytes": peak,
         "launches": launches, "rep_acc": rep_acc, "cn_acc": cn_acc,
         "tau_r": tau_r, "lambda": lamb, "rescue": rescue,
+        "losses": [[float(v) for v in s.fit.losses]
+                   for s in (step1, step2, step3)],
+        "normaliser": [_normaliser_sum(s) for s in (step1, step2, step3)],
     }
+    if path == "categorical":
+        record[f"main_{path}"]["step2_globals"] = _fitted_globals(step2)
     return launches, scrt
 
 
@@ -2925,6 +2950,404 @@ class HostTail:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: sharded fits on ranks of a gloo group that share the card
+# ---------------------------------------------------------------------------
+
+# run -> (cells x loci grid, scRT options besides the grid): the default
+# config (every option at its default; heartbeats on, so that every rank
+# publishes one) and the categorical path of phase 4 on a 2 x 2 grid at
+# its depth cut (MAX_ITER)
+SHARDED = {
+    "2x1": ((2, 1), dict()),
+    "2x2": ((2, 2), dict(OFF, mirror_rescue=False)),
+}
+# bars of the sharded runs against the one-rank runs of the same script
+SHARDED_ACC = 0.005        # rep and CN accuracy, 2 x 1 against default
+SHARDED_TAU = 0.01         # tau r, 2 x 1 against default
+SHARDED_LOSS0 = 1e-5       # iteration-0 loss of steps 1 and 2, 2 x 2
+                           # against categorical
+SHARDED_TRAJ = 5e-2        # loss trajectories, 2 x 2 against categorical
+# step 3's iteration-0 loss, 2 x 2 against categorical: it starts from
+# step 2's fitted rho and a, which the two runs reach along trajectories
+# apart (two runs on an H100 80GB HBM3 at 700 W read 2.3e-4)
+SHARDED_LOSS0_STEP3 = 1e-3
+# step 1's trajectory is held from the end of its first chunk: its first
+# Adam steps move rho on gradients that are rounding noise (the doubled
+# G1 and G2 copies' replication terms cancel), so the order of the sums
+# sets their signs and the first iterations part chaotically (JAX's own
+# 2 x 2 mesh against its one device: 0.94 at iteration 2, ROADMAP C)
+SHARDED_SETTLED = 25
+# each step's converged loss (the last of its trajectory), 2 x 2 against
+# categorical, normaliser out: two runs on an H100 80GB HBM3 at 700 W
+# read 7.5e-6 / 7.4e-6 / 3.1e-4 (steps 1 / 2 / 3, the same in both)
+SHARDED_END = (2e-5, 2e-5, 1e-3)
+# step 2's fitted rho (largest absolute difference) and a (relative), 2 x 2
+# against categorical
+SHARDED_RHO = 5e-2
+SHARDED_A = 5e-2
+# a collective waits at most this long for a peer rank (seconds); a run's
+# ranks are killed at the run's limit
+SHARDED_COLLECTIVE_S = 300.0
+SHARDED_RUN_S = 420.0
+
+
+def _normaliser_sum(step) -> float:
+    """One rank's share of a step's parameter-free Dirichlet normaliser
+    over its real bins (0 for step 1): the term the loss comparisons take
+    out, since its float32 lgamma sum at 1e6 concentrations moves with
+    the order of the sum."""
+    cache = step.batch.cache
+    if "dir_norm" not in cache:
+        return 0.0
+    b = step.batch
+    bin_mask = b.mask[:, None] * b.effective_loci_mask()[None, :]
+    return float((cache["dir_norm"] * bin_mask).sum())
+
+
+def _fitted_globals(step, mesh=None) -> dict:
+    """A step's fitted rho (the real loci, gathered over the ranks'
+    loci tiles with ``mesh``: every rank calls) and a."""
+    import torch
+
+    from scdna_replication_tools_tpu_torch.models.pert import _sites
+
+    with torch.no_grad():
+        c = _sites(step.spec, step.fit.params, step.fixed)
+    rho = c["rho"] if mesh is None else mesh.gather(c["rho"], ("loci",))
+    rho = rho.detach().cpu().numpy() if torch.is_tensor(rho) else rho
+    return {"rho": [float(v) for v in np.asarray(rho)[:LOCI]],
+            "a": float(c["a"])}
+
+
+def recovery(out_s, supp_s) -> dict:
+    """The recovery figures of the simulate-and-recover bars."""
+    per_cell = out_s.groupby("cell_id").agg(tau=("model_tau", "first"),
+                                            true_t=("true_t", "first"))
+    return {
+        "rep_acc": float((out_s["model_rep_state"]
+                          == out_s["true_rep"]).mean()),
+        "cn_acc": float((out_s["model_cn_state"]
+                         == out_s["true_somatic_cn"]).mean()),
+        "tau_r": float(np.corrcoef(per_cell["tau"],
+                                   per_cell["true_t"])[0, 1]),
+        "lambda": float(supp_s.query("param == 'model_lambda'")["value"]
+                        .iloc[0])}
+
+
+def _sharded_rank(rank, world, store, frames_path, run, tmp, spawned_at,
+                  mufu_per_s) -> None:
+    """One rank of a sharded run (spawned): joins the gloo group on
+    cuda:0, runs ``scRT(...).infer('pert')`` with the run's grid and
+    options, times the gradient all-reduce alone, and on rank 0 holds
+    the kernels against their plain versions at its shapes; writes its
+    record to ``tmp/<run>.rank<k>.pkl`` and its printed lines to
+    ``tmp/<run>.rank<k>.log``."""
+    import pickle
+
+    tmp = Path(tmp)
+    log = open(tmp / f"{run}.rank{rank}.log", "w")
+    sys.stdout = log
+    rec: dict = {"rank": rank}
+    try:
+        import pandas as pd
+        import torch
+
+        sys.path.insert(0, str(REPO))
+        from scdna_replication_tools_tpu_torch import scRT
+        from scdna_replication_tools_tpu_torch.ops import _cuda
+        from scdna_replication_tools_tpu_torch.parallel import (
+            init_distributed,
+        )
+
+        global MUFU_PER_S
+        MUFU_PER_S = mufu_per_s
+        init_distributed("gloo", f"file://{store}", world, rank,
+                         timeout=SHARDED_COLLECTIVE_S)
+        rec["ready_s"] = time.time() - spawned_at
+        cn_s, cn_g1 = pickle.loads(Path(frames_path).read_bytes())
+        (cells, loci), options = SHARDED[run]
+        options = dict(options, num_shards=cells, loci_shards=loci)
+        if run == "2x1":
+            options["heartbeat_dir"] = str(tmp / "health")
+            options["telemetry_path"] = str(tmp / "logs")
+        scrt = scRT(cn_s, cn_g1, **options)
+        dev = scrt.device
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out_s, supp_s, out_g1, supp_g1 = scrt.infer("pert")
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = dict(_cuda.LAUNCHES)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["device"] = str(dev)
+        rec["phases_s"] = scrt.phase_report
+        rec["run_log_path"] = scrt.run_log_path
+        rec["digest"] = [int(pd.util.hash_pandas_object(o).sum())
+                         for o in (out_s, supp_s, out_g1, supp_g1)]
+        rec["steps"] = [{
+            "iters": st.fit.num_iters, "dispatched":
+            st.fit.timings["dispatched"], "ms_per_iter":
+            st.fit.timings["ms_per_iter"], "cells":
+            int(st.batch.reads.shape[0]), "loci":
+            int(st.batch.reads.shape[1]), "losses":
+            [float(v) for v in st.fit.losses],
+            "normaliser": _normaliser_sum(st),
+            "decisions": [f"{d['action']}@{d['iter']}"
+                          for d in st.fit.decisions]} for st in scrt.steps]
+        rec["rescue"] = scrt.mirror_rescue_stats
+        rec["step2_globals"] = _fitted_globals(scrt.steps[1], scrt.mesh)
+        rec["rows"] = [len(out_s), len(out_g1)]
+        rec.update(recovery(out_s, supp_s))
+        rec["allreduce_ms"] = _time_allreduce(scrt)
+        if rank == 0:
+            results = {name: {"max_abs_err": 0.0} for name in TPU_KERNEL}
+            check_main_path_shapes(dev, scrt, results, f"sharded {run}")
+            rec["kernels"] = {k: v for k, v in results.items() if "main" in v}
+    except BaseException:
+        import traceback
+
+        traceback.print_exc(file=log)
+        check(False, f"[sharded {run}] rank {rank} failed: "
+              + traceback.format_exc().strip().splitlines()[-1])
+    finally:
+        rec["failures"] = list(FAILURES)
+        log.flush()
+        (tmp / f"{run}.rank{rank}.pkl").write_bytes(pickle.dumps(rec))
+
+
+def _time_allreduce(scrt, reps: int = 20) -> float:
+    """ms of one gradient all-reduce (``RankMesh.reduce_grads``) of step
+    2's parameters at this rank's shapes, alone: zeros of each gradient's
+    shape, ``reps`` times back to back, every rank at once."""
+    import torch
+
+    mesh = scrt.mesh
+    step2 = scrt.steps[1]
+    dev = scrt.device
+    grads = {k: torch.zeros_like(v, device=dev)
+             for k, v in step2.fit.params.items()}
+    loss = torch.zeros((), device=dev)
+    mesh.reduce_grads(loss, grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.reduce_grads(loss, grads)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+class ShardedPhase:
+    """Phase 12, beside phase 11: each run of ``SHARDED`` on its grid of
+    spawned ranks sharing the card (a gloo group through a ``file://``
+    store in a temporary directory), one run after the other in a
+    thread, so that the script stays inside its time limit.
+    :meth:`finish` waits for it, prints the ranks' lines and holds the
+    runs to the one-rank ones; :meth:`close` kills ranks left over."""
+
+    def __init__(self, frames, mufu_per_s):
+        import pickle
+        import tempfile
+        import threading
+
+        self.tmp = Path(tempfile.mkdtemp(prefix="pert_sharded_"))
+        (self.tmp / "frames.pkl").write_bytes(pickle.dumps(frames))
+        self.mufu_per_s = mufu_per_s
+        self.procs: list = []
+        self.runs: dict = {}
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run_all, daemon=True)
+        self.thread.start()
+
+    def _run_all(self) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        for run, ((cells, loci), _) in SHARDED.items():
+            world = cells * loci
+            store = self.tmp / f"{run}.store"
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=_sharded_rank, args=(
+                rank, world, str(store), str(self.tmp / "frames.pkl"), run,
+                str(self.tmp), time.time(), self.mufu_per_s))
+                for rank in range(world)]
+            self.procs += procs
+            for p in procs:
+                p.start()
+            deadline = time.perf_counter() + SHARDED_RUN_S
+            for p in procs:
+                p.join(max(deadline - time.perf_counter(), 0.1))
+            alive = [p for p in procs if p.is_alive()]
+            for p in alive:
+                p.kill()
+                p.join(10)
+            self.runs[run] = {"wall_s": time.perf_counter() - t0,
+                              "exitcodes": [p.exitcode for p in procs],
+                              "killed": len(alive)}
+
+    def finish(self, record, results, by_path) -> None:
+        import pickle
+
+        self.thread.join()
+        try:
+            self._finish(record, results, by_path)
+        finally:
+            self.close()
+
+    def _finish(self, record, results, by_path) -> None:
+        import pickle
+
+        rec = record.setdefault("sharded", {})
+        print(f"[sharded] the runs on ranks sharing the card, beside phase "
+              f"11 (joined after {time.perf_counter() - self.t0:.1f} s)")
+        for run, ((cells, loci), options) in SHARDED.items():
+            world = cells * loci
+            info = self.runs.get(run, {"exitcodes": [None] * world,
+                                       "killed": 0, "wall_s": 0.0})
+            ranks = []
+            for k in range(world):
+                logf = self.tmp / f"{run}.rank{k}.log"
+                if logf.exists():
+                    text = logf.read_text()
+                    if text.strip():
+                        print(f"  --- {run} rank {k} ---")
+                        print(text, end="")
+                pk = self.tmp / f"{run}.rank{k}.pkl"
+                ranks.append(pickle.loads(pk.read_bytes())
+                             if pk.exists() else {"failures": []})
+            for r in ranks:
+                FAILURES.extend(r.get("failures", []))
+            check(info["exitcodes"] == [0] * world and not info["killed"],
+                  f"[sharded {run}] {world} ranks exited 0 (exit codes "
+                  f"{info['exitcodes']}, {info['killed']} killed at the "
+                  f"{SHARDED_RUN_S:.0f} s limit) in {info['wall_s']:.1f} s")
+            if not all("steps" in r for r in ranks):
+                rec[run] = {"ranks": ranks, **info}
+                continue
+            self._report(run, cells, loci, ranks, record, results, by_path)
+            rec[run] = {"wall_s": info["wall_s"], "ranks": [
+                {k: v for k, v in r.items() if k not in ("kernels",)}
+                for r in ranks]}
+
+    def _report(self, run, cells, loci, ranks, record, results,
+                by_path) -> None:
+        from scdna_replication_tools_tpu_torch.obs.heartbeat import (
+            aggregate_health,
+        )
+
+        tag = f"[sharded {run}]"
+        r0 = ranks[0]
+        print(f"{tag} scRT(num_shards={cells}, loci_shards={loci}"
+              + (", " + json.dumps(SHARDED[run][1]) if SHARDED[run][1]
+                 else ", every other option at its default") + ")")
+        for r in ranks:
+            steps = r["steps"]
+            print(f"  rank {r['rank']} on {r['device']}: ready "
+                  f"{r['ready_s']:.1f} s after its spawn (start and imports),"
+                  f" infer('pert') {r['wall_s']:.2f} s, step 1/2/3 "
+                  + " / ".join(f"{s['ms_per_iter']:.3f}" for s in steps)
+                  + " ms/iteration ("
+                  + " / ".join(f"{s['iters']} of {s['dispatched']}"
+                               for s in steps)
+                  + " iterations counted of dispatched, cells x loci "
+                  + " / ".join(f"{s['cells']}x{s['loci']}" for s in steps)
+                  + f"), peak {r['peak_bytes']} bytes, gradient all-reduce "
+                  f"{r['allreduce_ms']:.3f} ms alone, decisions "
+                  + json.dumps([s["decisions"] for s in steps])
+                  + f", launches {json.dumps(r['launches'])}")
+        check(all(r["digest"] == r0["digest"] for r in ranks),
+              f"{tag}: every rank returns the same four output frames")
+        check(r0["rows"] == [CELLS * LOCI, G1_CELLS * LOCI],
+              f"{tag}: the frames cover every bin ({r0['rows']})")
+        for r in ranks:
+            L = r["launches"]
+            check(all(L[k] > 0 for k in CATEGORICAL),
+                  f"{tag}: rank {r['rank']} launched the dense pair, the "
+                  "sparse pair and Adam at its shapes")
+        by_path[f"sharded {run}"] = {
+            k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+        check(r0["rep_acc"] > 0.80 and r0["cn_acc"] > 0.90
+              and r0["tau_r"] > 0.8 and 0.5 < r0["lambda"] < 0.95,
+              f"{tag}: rep {r0['rep_acc']:.4f} > 0.80, CN "
+              f"{r0['cn_acc']:.4f} > 0.90, tau r {r0['tau_r']:.4f} > 0.8, "
+              f"lambda {r0['lambda']:.4f} in (0.5, 0.95)")
+        for name, entry in r0.get("kernels", {}).items():
+            res = results.setdefault(name, {"max_abs_err": 0.0})
+            res["max_abs_err"] = max(res.get("max_abs_err", 0.0),
+                                     entry["max_abs_err"])
+            res.setdefault("main", {}).update(entry["main"])
+        if run == "2x1":
+            ref = record["main_default"]
+            for key, tol in (("rep_acc", SHARDED_ACC),
+                             ("cn_acc", SHARDED_ACC)):
+                check(abs(r0[key] - ref[key]) <= tol,
+                      f"{tag}: {key} {r0[key]:.4f} within {tol} of the one-"
+                      f"rank default run's {ref[key]:.4f}")
+            check(r0["tau_r"] >= ref["tau_r"] - SHARDED_TAU,
+                  f"{tag}: tau r {r0['tau_r']:.4f} >= default "
+                  f"{ref['tau_r']:.4f} - {SHARDED_TAU}")
+            logs = [r["run_log_path"] for r in ranks]
+            check(logs[0] is not None and Path(logs[0]).exists()
+                  and logs[1:] == [None] * (len(ranks) - 1),
+                  f"{tag}: the run log exists once, rank 0's ({logs})")
+            agg = aggregate_health(str(self.tmp / "health"))
+            check(agg["hosts_seen"] == len(ranks)
+                  and agg["missing_ranks"] == [],
+                  f"{tag}: aggregate_health reads {agg['hosts_seen']} "
+                  f"hosts, missing ranks {agg['missing_ranks']}")
+            print(f"  rescue {json.dumps(r0['rescue'])}; one-rank default: "
+                  f"rep {ref['rep_acc']:.4f}, CN {ref['cn_acc']:.4f}, tau r "
+                  f"{ref['tau_r']:.4f}; sharded: rep {r0['rep_acc']:.4f}, "
+                  f"CN {r0['cn_acc']:.4f}, tau r {r0['tau_r']:.4f}, lambda "
+                  f"{r0['lambda']:.4f}")
+        else:
+            ref = record["main_categorical"]
+            for k, name in enumerate(("step1", "step2", "step3")):
+                norm = sum(r["steps"][k]["normaliser"] for r in ranks)
+                got = np.asarray(r0["steps"][k]["losses"], np.float64) + norm
+                want = np.asarray(ref["losses"][k], np.float64) \
+                    + ref["normaliser"][k]
+                n = min(len(got), len(want))
+                rel = np.abs(got[:n] - want[:n]) / np.abs(want[:n])
+                bar = SHARDED_LOSS0 if k < 2 else SHARDED_LOSS0_STEP3
+                check(rel[0] <= bar,
+                      f"{tag}: {name} iteration-0 loss {got[0]:.8g} within "
+                      f"{bar} of the categorical run's {want[0]:.8g} (rel "
+                      f"{rel[0]:.3e}; normaliser out)")
+                start = SHARDED_SETTLED if k == 0 else 0
+                check(rel[start:].max() <= SHARDED_TRAJ,
+                      f"{tag}: {name} losses within {SHARDED_TRAJ} of the "
+                      f"categorical run's over iterations {start}-{n - 1} "
+                      f"(worst {rel[start:].max():.3e}; over every "
+                      f"iteration {rel.max():.3e} at {int(rel.argmax())})")
+                # where each fit converged, whatever the iteration
+                end = abs(got[-1] - want[-1]) / abs(want[-1])
+                check(end <= SHARDED_END[k],
+                      f"{tag}: {name} converged loss {got[-1]:.8g} (iter "
+                      f"{len(got) - 1}) within {SHARDED_END[k]} of the "
+                      f"categorical run's {want[-1]:.8g} (iter "
+                      f"{len(want) - 1}; rel {end:.3e}; normaliser out)")
+            mine, theirs = r0["step2_globals"], ref["step2_globals"]
+            drho = float(np.abs(np.asarray(mine["rho"])
+                                - np.asarray(theirs["rho"])).max())
+            da = abs(mine["a"] - theirs["a"]) / abs(theirs["a"])
+            check(drho <= SHARDED_RHO and da <= SHARDED_A,
+                  f"{tag}: step 2's fitted rho within {SHARDED_RHO} (worst "
+                  f"{drho:.3e}) and a {mine['a']:.6g} within {SHARDED_A} "
+                  f"(rel {da:.3e}) of the categorical run's {theirs['a']:.6g}")
+
+    def close(self) -> None:
+        import shutil
+
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the serving worker with continuous batching
 # ---------------------------------------------------------------------------
 
@@ -3774,14 +4197,17 @@ def main() -> int:
     tail = HostTail(card, analysis_in,
                     record["main_default"]["phases_s"]["load"])
     del analysis_in
+    sharded = ShardedPhase(frames, MUFU_PER_S)
     by_path["serve"] = serving(dev, record, record["main_default"], spool)
     mark("serve")
     tail.finish(record)
     mark("unlabelled tail")
+    sharded.finish(record, results, by_path)
+    mark("sharded")
     check_lanes(dev, results)
     mark("lanes")
 
-    # launches of each kernel summed over the seven paths' runs (each read
+    # launches of each kernel summed over the paths' runs (each read
     # from zero just before its run, just after it), by path beside it
     paths_of = {name: {p: (sum(v for k, v in counts.items()
                                if k.startswith("enum_bwd_"))

@@ -59,8 +59,6 @@ from scdna_replication_tools_tpu_torch.utils.profiling import PhaseTimer
 def _unported(options: dict) -> None:
     """Raise for the first JAX option left on that the port lacks."""
     checks = [
-        ("num_shards", options["num_shards"] != 1, "A12 (multi-GPU)"),
-        ("loci_shards", options["loci_shards"] != 1, "A12 (multi-GPU)"),
         ("executable_cache_dir", options["executable_cache_dir"] is not None,
          "A14 (compiled-program cache)"),
     ]
@@ -85,6 +83,14 @@ class scRT:
     only act inside features the port refuses, and are accepted and
     unused (the config hash records the JAX defaults of
     those it hashes: ``config.UNPORTED_FIELDS``).
+
+    Sharded fits: ``num_shards=N, loci_shards=M`` on every rank of an
+    initialised process group of N x M ranks
+    (``parallel.init_distributed``, e.g. under ``torchrun``); each rank
+    loads the full frames, fits its cells slice (and loci tile) and
+    returns the same output frames.  ``num_shards`` None or 0 takes every
+    rank of the group (one rank, the plain run, without a group); a
+    grid of more than one rank without a group raises ``ValueError``.
 
     Durable runs as in the JAX package: ``checkpoint_dir`` checkpoints
     every step (and every ``checkpoint_every`` chunks inside a
@@ -132,8 +138,7 @@ class scRT:
                  clustering_method='kmeans', clustering_kwargs=None,
                  device=None):
         _unported(dict(
-            fused_adam=fused_adam, num_shards=num_shards,
-            loci_shards=loci_shards,
+            fused_adam=fused_adam,
             executable_cache_dir=executable_cache_dir))
         if clustering_method not in ('kmeans', 'umap_hdbscan'):
             raise ValueError(
@@ -180,7 +185,14 @@ class scRT:
             request_id=request_id, slab_width=slab_width,
             trace_spans=trace_spans, trace_parent=trace_parent,
             cell_chunk=cell_chunk, cn_hmm_self_prob=cn_hmm_self_prob,
+            num_shards=num_shards, loci_shards=loci_shards,
         )
+        # a grid that the process group cannot hold, or one with no
+        # group, raises here and never runs as one rank; the runner makes
+        # the grid (with its subgroups) on every rank and owns it
+        from scdna_replication_tools_tpu_torch.parallel.mesh import grid_shape
+        grid_shape(num_shards, loci_shards)
+        self.mesh = None  # the last infer(level='pert')'s rank grid
         self.clone_profiles = None
         self.bulk_cn = None
         self.manhattan_df = None
@@ -299,6 +311,7 @@ class scRT:
                     clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
                     clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
                     num_clones=len(clone_ids), device=self.device)
+                self.mesh = inference.mesh
             # the runner accumulates its phases into the same ledger
             inference.phases = timer
             step1, step2, step3 = inference.run()
@@ -317,7 +330,8 @@ class scRT:
                     qc_collect=qc_collect,
                     qc_entropy_thresh=self.config.qc_entropy_thresh,
                     phase_prefix="package_s",
-                    hmm_self_prob=self.config.cn_hmm_self_prob)
+                    hmm_self_prob=self.config.cn_hmm_self_prob,
+                    mesh=self.mesh)
             if qc_collect is not None and not qc_collect.get("degraded"):
                 # a 'degraded' marker means the packaging decode's OOM
                 # ladder dropped the entropy surfaces: the QC table has
@@ -330,7 +344,8 @@ class scRT:
                         self.cn_g1, inference._step3_data, step3, lamb,
                         step1.fit.losses, step3.fit.losses, c,
                         phase_prefix="package_g1",
-                        hmm_self_prob=self.config.cn_hmm_self_prob)
+                        hmm_self_prob=self.config.cn_hmm_self_prob,
+                        mesh=self.mesh)
                 else:
                     cn_g1_out, supp_g1_out = None, None
         self.phase_report = timer.report()

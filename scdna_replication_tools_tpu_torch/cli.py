@@ -41,7 +41,13 @@ def infer_scrt_main(argv=None):
                    choices=["kmeans", "umap_hdbscan"],
                    help="clone-discovery algorithm used when "
                         "--clone-col none")
-    p.add_argument("--num-shards", type=int, default=1)
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="cell shards of a sharded fit (PertConfig."
+                        "num_shards): run the command on every rank of a "
+                        "process group of that many ranks, e.g. under "
+                        "torchrun after parallel.init_distributed; 0 = "
+                        "every rank of the group; more than 1 without a "
+                        "group raises")
     p.add_argument("--enum-impl", default="auto",
                    choices=["auto", "xla", "pallas", "pallas_interpret",
                             "binary", "binary_xla", "binary_pallas",
@@ -90,8 +96,10 @@ def infer_scrt_main(argv=None):
     p.add_argument("--elastic-mesh", action=BooleanOptionalAction,
                    default=True,
                    help="the recovery ladder's mesh-shrink rung of "
-                        "sharded fits; accepted, sharding is not ported "
-                        "(ROADMAP A12)")
+                        "sharded fits; accepted and unused: sharded fits "
+                        "run (--num-shards), but a rank that loses a peer "
+                        "aborts resumable instead of shrinking the grid "
+                        "(the rung is ROADMAP A12's rest)")
     p.add_argument("--pad-cells-to", type=int, default=None,
                    help="pad the cells axes (S and G1) up to at least "
                         "this many entries with masked pad cells — the "

@@ -3,11 +3,11 @@
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
 rescue, the adaptive controller, the model-health QC, the run log, span
-tracing, the durable runs and serving read.  The JAX config's other
-knobs (sharding, the compiled-program caches) belong to modules not
-yet ported; ``api.scRT`` refuses them by name instead of carrying
-dead fields here, and :data:`UNPORTED_FIELDS` holds each at the JAX
-default that refusal pins it to.
+tracing, the durable runs, sharded fits and serving read.  The JAX
+config's other knobs (the compiled-program caches, the elastic mesh
+rung) belong to modules not yet ported; ``api.scRT`` refuses them by
+name instead of carrying dead fields here, and :data:`UNPORTED_FIELDS`
+holds each at the JAX default that refusal pins it to.
 """
 
 from __future__ import annotations
@@ -41,8 +41,6 @@ NON_HASH_FIELDS = (
 # what the checkpoint manifest's resume gate compares.
 UNPORTED_FIELDS = {
     "profile_dir": (None, "A11b"),
-    "num_shards": (1, "A12"),
-    "loci_shards": (1, "A12"),
     "elastic_mesh": (True, "A12"),
     "compile_cache_dir": ("auto", "A14"),
     "executable_cache_dir": (None, "A14"),
@@ -112,6 +110,13 @@ class PertConfig:
     # masked entries (None keeps the exact shapes)
     pad_cells_to: Optional[int] = None
     pad_loci_to: Optional[int] = None
+    # sharded fits (parallel/): the cells split over num_shards ranks
+    # (None or 0: every rank of the process group) and the loci over
+    # loci_shards (the long-genome regime); a grid of more than one
+    # rank runs inside an initialised process group of exactly
+    # num_shards x loci_shards ranks (parallel.init_distributed)
+    num_shards: Optional[int] = 1
+    loci_shards: int = 1
     # cells per chunk of the bin log-likelihood: the fused kernels run
     # once per chunk (the cells are padded to a multiple); None takes
     # every cell in one launch

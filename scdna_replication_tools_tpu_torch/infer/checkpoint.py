@@ -51,10 +51,23 @@ the uninterrupted run's, bit for bit.
 Loaded arrays are NumPy, except bfloat16 leaves, which come back as CPU
 ``torch.bfloat16`` tensors (NumPy itself has no bfloat16 dtype);
 :func:`restore_opt_state` rebuilds the port's
-``AdamState`` on a device from them.  The JAX package's multi-process
-two-phase commit and sharded-generation reader come with multi-GPU runs
-(ROADMAP A12): :func:`load_step` refuses a step that one committed
-rather than read the single file beside it.
+``AdamState`` on a device from them.
+
+Sharded runs (more than one rank, ``parallel.mesh.RankMesh``) save as
+the JAX package's multi-process runs do, a **two-phase commit**: every
+rank writes its block of each sharded leaf (``range.<key>`` /
+``gshape.<key>`` sidecars give its box in the global array; replicated
+leaves are whole) to ``pert_<step>.s<seq>.p<k>of<n>.npz``, then a
+barrier, then rank 0 commits the generation pointer
+``pert_<step>.commit.json`` (with the previous generation's files as a
+fallback).  Shards without a commit pointing at them are invisible, so a
+kill anywhere in the window leaves the previous complete generation.  An
+emergency save on the way out of an exception writes its shard only
+(``coordinate=False``): a dying rank cannot ask its peers to meet.
+:func:`load_step` merges a committed generation into full host arrays,
+whoever wrote it, and the runner slices them for its own grid: a
+generation written on two ranks resumes on one and the reverse, in
+either package.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import struct
 from typing import Optional
 
@@ -121,22 +135,28 @@ def _commit_path(checkpoint_dir: str, step: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def topology_stamp(device=None) -> dict:
+def topology_stamp(device=None, mesh=None) -> dict:
     """JSON-able record of the save-time topology, with the JAX package's
-    keys for one process with no mesh: process count/index, the device
-    count and kind of ``device`` (the CPU when None), ``mesh_axes`` ``{}``
-    and every parameter's layout (``layout.param_layouts``).  A JAX
-    resume compares ``mesh_axes`` and ``process_count`` with its own to
-    tell a same-geometry restore from a resharding one."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
-    if dev.type == "cuda":
-        kind = torch.cuda.get_device_name(dev)
-        count = torch.cuda.device_count()
-    else:
-        kind, count = "cpu", 1
-    return {"format": 1, "process_count": 1, "process_index": 0,
-            "num_devices": int(count), "device_kind": str(kind),
-            "mesh_axes": {}, "param_layouts": layout.param_layouts()}
+    keys: process count/index, the device count and kind of ``device``
+    (the CPU when None), the mesh's axes (``{}`` without one) and every
+    parameter's layout (``layout.param_layouts``).  A resume compares
+    ``mesh_axes`` and ``process_count`` with its own to tell a
+    same-geometry restore from a resharding one."""
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_topology,
+    )
+    from scdna_replication_tools_tpu_torch.parallel.mesh import loci_axis
+
+    stamp = {"format": 1}
+    stamp.update(process_topology(mesh, device))
+    stamp["param_layouts"] = layout.param_layouts(loci_axis(mesh))
+    return stamp
+
+
+def _shard_path(checkpoint_dir: str, step: str, seq: int, k: int,
+                n: int) -> str:
+    return os.path.join(checkpoint_dir,
+                        f"pert_{step}.s{seq}.p{k}of{n}.npz")
 
 
 def _device_of(*trees) -> Optional[torch.device]:
@@ -156,20 +176,26 @@ def opt_leaves(opt_state) -> list:
             + [opt_state.nu[k] for k in sorted(opt_state.nu)])
 
 
-def _flat_add(flat: dict, key: str, leaf) -> None:
+def _flat_add(flat: dict, key: str, leaf, dims=(), mesh=None) -> None:
     """Record one leaf under ``key`` as a host array: a tensor takes one
     copy to the host, and a bfloat16 tensor is stored as its uint16 bit
-    view with a ``leafdtype.`` sidecar (npz has no bfloat16)."""
+    view with a ``leafdtype.`` sidecar (npz has no bfloat16).  With
+    ``mesh`` a leaf of symbolic ``dims`` that the grid shards is this
+    rank's block, recorded with its global box and shape."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             flat[key] = t.contiguous().view(torch.int16).numpy() \
                 .view(np.uint16)
             flat[f"leafdtype.{key}"] = np.asarray("bfloat16")
-            return
-        flat[key] = t.numpy()
-        return
-    flat[key] = np.asarray(leaf)
+        else:
+            flat[key] = t.numpy()
+    else:
+        flat[key] = np.asarray(leaf)
+    placed = mesh.box(dims, flat[key].shape) if mesh is not None else None
+    if placed is not None:
+        flat[f"range.{key}"] = np.asarray(placed[0], np.int64)
+        flat[f"gshape.{key}"] = np.asarray(placed[1], np.int64)
 
 
 def _encode_payload(flat: dict) -> bytes:
@@ -186,19 +212,28 @@ def _encode_payload(flat: dict) -> bytes:
 def save_step(checkpoint_dir: str, step: str, params: dict,
               losses, extra: Optional[dict] = None, opt_state=None,
               num_iters: Optional[int] = None, converged: bool = True,
-              nan_abort: bool = False) -> str:
-    """Persist one step's state as ``pert_<step>.npz``; returns the path.
+              nan_abort: bool = False, mesh=None,
+              coordinate: bool = True) -> str:
+    """Persist one step's state; returns the path written.
 
     ``params``/``extra`` leaves may be tensors on any device or NumPy
-    arrays; ``opt_state`` is an ``infer.svi.AdamState``.  The previous
-    good file is rotated to ``.prev`` first, the new one committed
-    atomically with its integrity footer, and the ``{step}/save`` fault
-    site fires after the commit (``corrupt`` truncates the new file).
+    arrays; ``opt_state`` is an ``infer.svi.AdamState``.  One rank: the
+    previous good ``pert_<step>.npz`` is rotated to ``.prev`` first, the
+    new one committed atomically with its integrity footer, and the
+    ``{step}/save`` fault site fires after the commit (``corrupt``
+    truncates the new file).  Several ranks (``mesh``, this rank's
+    blocks): the two-phase commit of the module docstring, or with
+    ``coordinate=False`` its first phase alone.
     """
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_rank_and_count,
+    )
+
     os.makedirs(checkpoint_dir, exist_ok=True)
+    kproc, nproc = process_rank_and_count()
     flat: dict = {}
     for k, v in params.items():
-        _flat_add(flat, f"param.{k}", v)
+        _flat_add(flat, f"param.{k}", v, layout.param_dims(k), mesh)
     flat["losses"] = np.asarray(losses)
     flat["meta.format_version"] = np.asarray(CHECKPOINT_FORMAT_VERSION)
     flat["meta.num_iters"] = np.asarray(
@@ -206,18 +241,26 @@ def save_step(checkpoint_dir: str, step: str, params: dict,
     flat["meta.converged"] = np.asarray(bool(converged))
     flat["meta.nan_abort"] = np.asarray(bool(nan_abort))
     flat["meta.topology"] = np.asarray(json.dumps(
-        topology_stamp(_device_of(params))))
+        topology_stamp(_device_of(params), mesh)))
     if opt_state is not None:
         # the summary meta.opt_moment_dtype is what the runner's resume
         # gate compares against the configured dtype
         moment_dtype = "float32"
+        names = [None] + sorted(opt_state.mu) + sorted(opt_state.nu)
         for i, leaf in enumerate(opt_leaves(opt_state)):
-            _flat_add(flat, f"opt.{i}", leaf)
+            _flat_add(flat, f"opt.{i}", leaf, layout.param_dims(names[i])
+                      if names[i] else (), mesh)
             if f"leafdtype.opt.{i}" in flat:
                 moment_dtype = "bfloat16"
         flat["meta.opt_moment_dtype"] = np.asarray(moment_dtype)
     for k, v in (extra or {}).items():
-        _flat_add(flat, f"extra.{k}", v)
+        dims = layout.param_dims(k[len("best."):]) \
+            if k.startswith("best.") else ()
+        _flat_add(flat, f"extra.{k}", v, dims, mesh)
+    if nproc > 1:
+        return _save_step_multiprocess(checkpoint_dir, step, flat, nproc,
+                                       kproc, mesh, _device_of(params),
+                                       coordinate=coordinate)
 
     # atomic commit with retention — rotate the previous good file aside
     # BEFORE replacing it, so a corrupt new file (partial write + crash,
@@ -242,6 +285,86 @@ def save_step(checkpoint_dir: str, step: str, params: dict,
                            "checkpoint commit %s (%s)", commit, exc)
     if _faults.point(f"{step}/save") == "corrupt":
         _faults.corrupt_file(path)
+    return path
+
+
+def _read_commit(checkpoint_dir: str, step: str) -> Optional[dict]:
+    """The step's sharded-generation commit pointer, or None."""
+    path = _commit_path(checkpoint_dir, step)
+    try:
+        with open(path) as fh:
+            doc = json.load(fh)
+        if not isinstance(doc, dict) or "files" not in doc:
+            raise ValueError("not a checkpoint commit document")
+        return doc
+    except FileNotFoundError:
+        return None
+    except (OSError, ValueError) as exc:
+        logger.warning("checkpoint commit %s is unreadable (%s) — the "
+                       "sharded generation it pointed at is not "
+                       "loadable", path, exc)
+        return None
+
+
+def _save_step_multiprocess(checkpoint_dir: str, step: str, flat: dict,
+                            nproc: int, kproc: int, mesh=None, device=None,
+                            coordinate: bool = True) -> str:
+    """Phase 1: every rank atomically writes its shard file.  Barrier.
+    Phase 2: rank 0 atomically commits the generation pointer, retires
+    a single file a one-rank attempt left, and drops generations older
+    than the previous one; a last barrier, so a rank that saves again
+    at once sees this generation's seq.  ``coordinate=False``: phase 1
+    only (JAX ``_save_step_multiprocess``)."""
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        barrier,
+    )
+
+    prev_doc = _read_commit(checkpoint_dir, step)
+    seq = int(prev_doc["seq"]) + 1 if prev_doc else 1
+    path = _shard_path(checkpoint_dir, step, seq, kproc, nproc)
+    atomic_write_bytes(path, _encode_payload(flat))
+    if _faults.point(f"{step}/save") == "corrupt":
+        _faults.corrupt_file(path)
+    if not coordinate:
+        logger.warning(
+            "emergency (uncoordinated) checkpoint save for %s: wrote this "
+            "rank's shard %s but did NOT commit — the generation stays "
+            "invisible; resume uses the last committed one", step,
+            os.path.basename(path))
+        return path
+    barrier(f"pert-ckpt/{step}/s{seq}/written")
+    if kproc == 0:
+        doc = {
+            "format": 1,
+            "seq": seq,
+            "process_count": nproc,
+            "files": [os.path.basename(
+                _shard_path(checkpoint_dir, step, seq, j, nproc))
+                for j in range(nproc)],
+            "topology": topology_stamp(device, mesh),
+        }
+        if prev_doc:
+            doc["prev"] = {"seq": int(prev_doc["seq"]),
+                           "files": list(prev_doc["files"])}
+        atomic_write_bytes(_commit_path(checkpoint_dir, step),
+                           json.dumps(doc, indent=1).encode())
+        stale_single = _step_path(checkpoint_dir, step)
+        if os.path.exists(stale_single):
+            try:
+                os.replace(stale_single, stale_single + ".superseded")
+            except OSError as exc:
+                logger.warning("could not retire superseded single-file "
+                               "checkpoint %s (%s)", stale_single, exc)
+        keep = {seq} | ({int(prev_doc["seq"])} if prev_doc else set())
+        for old in glob.glob(os.path.join(
+                checkpoint_dir, f"pert_{step}.s*.p*of*.npz")):
+            m = re.search(r"\.s(\d+)\.p\d+of\d+\.npz$", old)
+            if m and int(m.group(1)) not in keep:
+                try:
+                    os.unlink(old)
+                except OSError:
+                    pass
+    barrier(f"pert-ckpt/{step}/s{seq}/committed")
     return path
 
 
@@ -308,6 +431,62 @@ def _verify_and_read(path: str) -> dict:
             path, f"unparseable npz ({type(exc).__name__}: {exc})")
 
 
+def _merge_generation(flats: list) -> dict:
+    """One flat checkpoint mapping from a generation's shard files (JAX
+    ``_merge_generation``): a leaf without a ``range.`` sidecar is the
+    same in every file (the first copy wins); a sharded one is placed
+    block by block at its recorded box in a zero array of its global
+    shape (blocks that copies of one box wrote land on the same place)."""
+    merged: dict = {}
+    keys = list(dict.fromkeys(k for flat in flats for k in flat))
+    for key in keys:
+        if key.startswith("range.") or key.startswith("gshape."):
+            continue
+        range_key = f"range.{key}"
+        if not any(range_key in flat for flat in flats):
+            merged[key] = next(flat[key] for flat in flats if key in flat)
+            continue
+        out = None
+        for flat in flats:
+            if key not in flat:
+                continue
+            block = flat[key]
+            if range_key not in flat:
+                out = np.array(block)
+                break
+            box = np.asarray(flat[range_key])
+            if out is None:
+                gshape = tuple(int(v) for v in flat[f"gshape.{key}"])
+                out = np.zeros(gshape, block.dtype)
+            out[tuple(slice(int(lo), int(hi)) for lo, hi in box)] = block
+        merged[key] = out
+    return merged
+
+
+def _load_sharded(checkpoint_dir: str, step: str, doc: dict):
+    """Load and merge one committed sharded generation, falling back to
+    the retained previous generation when a file of the committed one
+    fails verification (JAX ``_load_sharded``)."""
+    def read_gen(files):
+        return [_verify_and_read(os.path.join(checkpoint_dir, name))
+                for name in files]
+
+    try:
+        flats = read_gen(doc["files"])
+    except CheckpointCorrupt as exc:
+        prev = doc.get("prev")
+        if not prev:
+            raise
+        logger.warning("%s — falling back to the retained previous "
+                       "sharded generation (seq %s)", exc, prev.get("seq"))
+        try:
+            flats = read_gen(prev["files"])
+        except CheckpointCorrupt:
+            raise exc from None   # report the NEWEST generation
+    return _unpack(_commit_path(checkpoint_dir, step),
+                   _merge_generation(flats))
+
+
 def load_step(checkpoint_dir: str, step: str):
     """Returns (params, losses, extra), or None if no checkpoint exists.
 
@@ -319,17 +498,22 @@ def load_step(checkpoint_dir: str, step: str):
     file that is missing beside its ``.prev``; when no fallback survives
     verification either, raises :class:`CheckpointCorrupt` for the
     NEWEST file — the caller decides whether a fresh refit is
-    acceptable.  A step that a multi-process run committed as a sharded
-    generation raises ``NotImplementedError`` (ROADMAP A12).
+    acceptable.  A step committed as a sharded generation is merged into
+    full arrays, whatever grid wrote it; when a single file and a
+    committed generation are both there, the newer wins (the single file
+    on an mtime tie: JAX ``load_step``'s rule).
     """
     path = _step_path(checkpoint_dir, step)
-    if os.path.exists(_commit_path(checkpoint_dir, step)):
-        raise NotImplementedError(
-            f"checkpoint of {step} in {checkpoint_dir} is a sharded "
-            f"generation of a multi-process run (pert_{step}.commit.json);"
-            " loading it is not ported to the PyTorch package yet (ROADMAP "
-            "A12: multi-GPU); resume it with scdna_replication_tools_tpu, "
-            "or resume='off' to refit")
+    doc = _read_commit(checkpoint_dir, step)
+    if doc is not None and os.path.exists(path):
+        try:
+            if os.path.getmtime(path) >= os.path.getmtime(
+                    _commit_path(checkpoint_dir, step)):
+                doc = None
+        except OSError:
+            doc = None
+    if doc is not None:
+        return _load_sharded(checkpoint_dir, step, doc)
     if not os.path.exists(path):
         prev = _prev_path(path)
         if os.path.exists(prev):

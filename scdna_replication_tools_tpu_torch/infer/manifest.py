@@ -24,11 +24,14 @@ restores only when the data fingerprint matches (a config mismatch —
 e.g. a grown iteration budget — is legitimate and only noted);
 ``force`` restores regardless; ``off`` ignores existing state.
 
-One process writes the file.  The JAX module's multi-host pieces (the
-all-gathered per-host fingerprints and the SPMD resume consensus) come
-with multi-GPU runs (ROADMAP A12); :func:`combined_fingerprint` is here
-for one host, where it is the host's own fingerprint, and
-:meth:`RunManifest.match` keeps the per-host fallback's signature.
+Sharded runs (JAX's multi-host contract, over the ranks of a
+``torch.distributed`` group): every rank digests what it loaded,
+:func:`all_host_fingerprints` all-gathers the digests and
+:func:`combined_fingerprint` dedupes them (every rank loads the full
+frames, so the identity is the one-rank run's and a checkpoint written
+on two ranks verifies on one); :func:`consensus_ok` makes the resume
+verdict the same on every rank (any rank's refusal refuses everywhere);
+rank 0 alone writes the file, the others keep their ledger in memory.
 """
 
 from __future__ import annotations
@@ -92,6 +95,52 @@ def data_fingerprint(*arrays, samples: int = _FP_SAMPLES) -> str:
     return digest.hexdigest()[:16]
 
 
+def _host_group(mesh):
+    return mesh.host_group if mesh is not None else None
+
+
+def all_host_fingerprints(local_fp: str, mesh=None) -> dict:
+    """``{rank: fingerprint}`` over every rank (``{0: local_fp}`` with
+    one): an all-gather of each rank's 16-character digest, so every
+    rank returns the same map (host tensors, on ``mesh``'s host group
+    when it has one)."""
+    import torch
+    import torch.distributed as dist
+
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_rank_and_count,
+    )
+
+    _, nproc = process_rank_and_count()
+    if nproc <= 1:
+        return {0: str(local_fp)}
+    buf = torch.from_numpy(np.frombuffer(
+        str(local_fp).encode("ascii").ljust(64), np.uint8).copy())
+    out = [torch.empty_like(buf) for _ in range(nproc)]
+    dist.all_gather(out, buf, group=_host_group(mesh))
+    return {k: bytes(t.numpy()).decode("ascii").strip()
+            for k, t in enumerate(out)}
+
+
+def consensus_ok(local_ok: bool, mesh=None) -> bool:
+    """AND of a per-rank verdict over every rank (the verdict itself
+    with one): a split resume verdict would desynchronise the lockstep
+    fit at its first collective, so any rank's refusal refuses
+    everywhere — a spurious refit, never a wrong restore."""
+    import torch
+    import torch.distributed as dist
+
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_rank_and_count,
+    )
+
+    if process_rank_and_count()[1] <= 1:
+        return bool(local_ok)
+    flag = torch.tensor([1 if local_ok else 0], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=_host_group(mesh))
+    return bool(flag.item())
+
+
 def combined_fingerprint(host_fps: dict) -> str:
     """The canonical data fingerprint of ``{process_index: fingerprint}``:
     the per-host digests deduplicated, then (only when they genuinely
@@ -151,10 +200,10 @@ class RunManifest:
         a config-hash drift (informational — budgets legitimately grow
         between a partial run and its resume).
 
-        ``host_fingerprint``/``process_index`` arm the JAX package's
-        per-host fallback for a manifest that a multi-host run wrote:
-        with one process it can verify only a manifest that recorded
-        one host, whose combined digest is the host's own.
+        ``host_fingerprint``/``process_index`` arm the per-host
+        fallback: when the combined digest drifted but this rank's own
+        data digests what the same rank recorded, on as many ranks as
+        recorded them, this rank's data is verified.
         """
         recorded_fp = self.doc.get("data_fingerprint")
         recorded_cfg = self.doc.get("config_hash")
@@ -165,7 +214,11 @@ class RunManifest:
             hosts = self.doc.get("host_fingerprints") or {}
             recorded_n = int(self.doc.get("fingerprint_process_count",
                                           len(hosts)) or len(hosts))
-            if recorded_n == 1 and host_fingerprint is not None \
+            from scdna_replication_tools_tpu_torch.parallel.distributed \
+                import process_rank_and_count
+
+            same_shape = process_rank_and_count()[1] == recorded_n
+            if same_shape and host_fingerprint is not None \
                     and process_index is not None \
                     and hosts.get(str(int(process_index))) \
                     == str(host_fingerprint):
@@ -186,10 +239,13 @@ class RunManifest:
     def begin_run(self, config_hash: Optional[str],
                   fingerprint: Optional[str],
                   run_log_path: Optional[str] = None,
-                  reset_steps: bool = False) -> None:
+                  reset_steps: bool = False,
+                  host_fingerprints: Optional[dict] = None) -> None:
         """Record this attempt's identity (and its run-log path) in the
         ledger; ``reset_steps`` drops the step statuses (the fingerprint
-        changed — the old checkpoints are not resumable state)."""
+        changed — the old checkpoints are not resumable state);
+        ``host_fingerprints`` (several ranks) records the per-rank map
+        behind the combined digest for ``match``'s per-host fallback."""
         if reset_steps:
             self.doc["steps"] = {}
         self.doc["manifest_version"] = MANIFEST_VERSION
@@ -199,9 +255,14 @@ class RunManifest:
         # whether the exclusion contract itself changed between runs
         self.doc["hash_excludes"] = sorted(NON_HASH_FIELDS)
         self.doc["data_fingerprint"] = fingerprint
-        # one host: no per-host map (a multi-host writer's goes)
-        self.doc.pop("host_fingerprints", None)
-        self.doc.pop("fingerprint_process_count", None)
+        if host_fingerprints is not None and len(host_fingerprints) > 1:
+            self.doc["host_fingerprints"] = {
+                str(int(k)): str(v)
+                for k, v in sorted(host_fingerprints.items())}
+            self.doc["fingerprint_process_count"] = len(host_fingerprints)
+        else:
+            self.doc.pop("host_fingerprints", None)
+            self.doc.pop("fingerprint_process_count", None)
         runs = self.doc.setdefault("runs", [])
         runs.append({"started_unix": round(time.time(), 3),
                      "pid": os.getpid(),
@@ -243,7 +304,15 @@ class RunManifest:
     def save(self) -> None:
         """Atomic commit; never raises (a read-only checkpoint mount
         degrades to an unverifiable-but-working run, mirroring the run
-        log's never-abort discipline)."""
+        log's never-abort discipline).  Rank 0 only in a sharded run:
+        every rank keeps its ledger current in memory, one commits the
+        shared file."""
+        from scdna_replication_tools_tpu_torch.parallel.distributed import (
+            process_rank_and_count,
+        )
+
+        if process_rank_and_count()[0] != 0:
+            return
         try:
             blob = json.dumps(self.doc, indent=1, sort_keys=True)
             atomic_write_bytes(self.path, blob.encode())

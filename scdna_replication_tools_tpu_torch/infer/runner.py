@@ -44,9 +44,23 @@ rescue, so a resume re-runs it) and inside controlled fits, the resume
 of completed and partial steps (:meth:`_load_resumable`), the recovery
 ladder of :meth:`_fit`, the fault sites ``{step}/start``, ``{step}/fit``,
 ``{step}/end``, ``compile``, ``qc/ppc`` and ``{prefix}/decode``, the
-OOM rungs of the PPC and the decode, and the heartbeat.  The JAX
-runner's sharding and its elastic rung are not ported yet (``api.scRT``
-refuses the shard counts by name).
+OOM rungs of the PPC and the decode, and the heartbeat.
+
+Sharded fits (``num_shards`` x ``loci_shards`` ranks of a process group,
+``parallel.mesh.RankMesh``): every rank holds the full frames, pads the
+cells to a multiple of the cell shards (and the loci to one of the loci
+shards) as JAX's ``_pad`` does, and builds its batch and parameters from
+its own cells slice and loci tile (:meth:`PertInference._batch`, the
+resharding seam :meth:`PertInference._place_params`): no rank holds the
+global pi.  The fits run in lockstep (``infer/svi.py``); the decode, the
+QC and the mirror rescue run per rank and gather the per-cell and
+per-bin results on the host, so every rank returns the same frames.
+Checkpoints are sharded generations (``infer/checkpoint.py``), and a
+checkpoint loads as full host arrays sliced for this run's grid,
+whatever grid wrote it.  A failure on any rank ends every rank's run:
+the chunk read makes the verdicts common, and a collective whose peer
+died raises (``hostloss``: abort resumable).  JAX's elastic rung (a
+smaller grid after a host loss) is not ported.
 """
 
 from __future__ import annotations
@@ -107,6 +121,12 @@ from scdna_replication_tools_tpu_torch.ops.stats import guess_times, pearson_mat
 from scdna_replication_tools_tpu_torch.ops.transforms import (
     to_positive,
     to_unit_interval,
+)
+from scdna_replication_tools_tpu_torch import layout
+from scdna_replication_tools_tpu_torch.parallel import distributed as dist_mod
+from scdna_replication_tools_tpu_torch.parallel.mesh import (
+    make_mesh,
+    mesh_topology,
 )
 from scdna_replication_tools_tpu_torch.utils import faults as faults_mod
 from scdna_replication_tools_tpu_torch.utils import profiling
@@ -185,9 +205,12 @@ class RescueFit:
 @dataclasses.dataclass(frozen=True)
 class _PertLossFn:
     spec: PertModelSpec
+    # the rank grid of a sharded fit (infer/svi.py reads it to sum the
+    # ranks' losses and gradients); None for one rank
+    mesh: object = None
 
     def __call__(self, params, fixed, batch):
-        return pert_loss(self.spec, params, fixed, batch)
+        return pert_loss(self.spec, params, fixed, batch, mesh=self.mesh)
 
     @property
     def packable(self) -> bool:
@@ -201,7 +224,7 @@ class _PertLossFn:
     def prime(self, fixed, batch) -> None:
         """Fill the batch's fit-constant cache before the serving slab
         stacks it (``infer/svi.dispatch_chunk_slab``)."""
-        prime_cache(self.spec, batch)
+        prime_cache(self.spec, batch, self.mesh)
 
 
 class PertInference:
@@ -210,6 +233,9 @@ class PertInference:
 
     ``clone_idx_s`` / ``clone_idx_g1`` are dense integer clone
     assignments aligned with the cell axes of ``s_data`` / ``g1_data``.
+    ``mesh`` is the rank grid that the config's ``num_shards`` /
+    ``loci_shards`` describe (``parallel.mesh.make_mesh``, made here on
+    every rank; None: one rank).
     """
 
     def __init__(self, s_data: PertData, g1_data: PertData,
@@ -224,6 +250,17 @@ class PertInference:
                 f"resume must be 'auto', 'force' or 'off', got "
                 f"{config.resume!r}")
         self.device = resolve_device(device)
+        self.mesh = make_mesh(config.num_shards, config.loci_shards)
+        if self.mesh is not None and config.cell_chunk:
+            raise ValueError(
+                "cell_chunk is a one-rank memory knob; a sharded fit "
+                "divides the cells over its ranks instead (JAX "
+                "runner._pad's rule)")
+        if self.mesh is not None and self.mesh.loci > 1 \
+                and config.cn_hmm_self_prob is not None:
+            raise ValueError(
+                "cn_hmm_self_prob (the Viterbi decode along the genome) "
+                "needs whole rows of loci: use loci_shards=1")
         # the run log open on this thread and the installed metrics
         # registry (the facade's), else disabled no-ops; run() puts this
         # runner's own in their place when no facade opened them
@@ -273,8 +310,11 @@ class PertInference:
         hb_dir = heartbeat_mod.resolve_dir(config.heartbeat_dir,
                                            config.checkpoint_dir)
         if hb_dir:
+            # every rank publishes health/host_<rank>.json
+            hb_rank, hb_count = dist_mod.process_rank_and_count()
             self._heartbeat = heartbeat_mod.RunHeartbeat(
                 hb_dir, interval_seconds=config.heartbeat_interval_seconds,
+                process_index=hb_rank, process_count=hb_count,
                 config_digest=runlog_mod._config_digest(config))
             heartbeat_mod.install(self._heartbeat)
             heartbeat_mod.attach_phase_sink(self.phases)
@@ -292,6 +332,12 @@ class PertInference:
         self._steps_written: set = set()
         if config.checkpoint_dir:
             self._open_manifest()
+        if self.mesh is not None:
+            # the realized grid: folded into run_start, or a note event
+            # when the facade's session is already open
+            self.run_log.add_context(mesh={
+                "axes": mesh_topology(self.mesh),
+                "num_devices": int(self.mesh.size)})
 
     def _open_manifest(self) -> None:
         """Load the checkpoint directory's manifest, judge its identity
@@ -304,24 +350,41 @@ class PertInference:
         local_fp = manifest_mod.data_fingerprint(
             self.s.reads, self.g1.reads, self.s.states, self.g1.states,
             self.clone_idx_s, self.clone_idx_g1, self.s.rt_prior)
-        fingerprint = manifest_mod.combined_fingerprint({0: local_fp})
+        # each rank digests what it loaded; every rank loads the full
+        # frames, so the deduped identity is the one-rank run's
+        host_fps = manifest_mod.all_host_fingerprints(local_fp, self.mesh)
+        fingerprint = manifest_mod.combined_fingerprint(host_fps)
+        rank, _ = dist_mod.process_rank_and_count()
         cfg_hash = runlog_mod._config_digest(config)
         m = manifest_mod.RunManifest.load(config.checkpoint_dir)
         self._resume_ok, self._resume_reason = m.match(
             cfg_hash, fingerprint, host_fingerprint=local_fp,
-            process_index=0)
+            process_index=rank)
+        # a split verdict would desynchronise the lockstep fit: any
+        # rank's refusal refuses everywhere (every rank enters the
+        # collective, whatever its own verdict)
+        agreed = manifest_mod.consensus_ok(self._resume_ok, self.mesh)
+        if self._resume_ok and not agreed:
+            self._resume_ok = False
+            self._resume_reason = (
+                "a peer rank refused the data fingerprint (split per-rank "
+                "verdict — resuming on partial agreement would "
+                "desynchronise the ranks)")
         had_identity = m.doc.get("data_fingerprint") is not None
         reset = (config.resume == "off"
                  or (had_identity and not self._resume_ok
                      and config.resume != "force"))
-        if reset:
+        if reset and rank == 0:
             # voiding the ledger must also retire the FILES: once this
             # run's identity lands in the manifest, surviving stale
             # checkpoints would fingerprint-verify for the next run and
-            # restore params fitted to other data
+            # restore params fitted to other data (rank 0 alone: ranks
+            # racing the renames would half-quarantine generations)
             ckpt.quarantine_stale(config.checkpoint_dir)
         m.begin_run(cfg_hash, fingerprint, run_log_path=self.run_log.path,
-                    reset_steps=reset)
+                    reset_steps=reset, host_fingerprints=host_fps)
+        # no rank may load a checkpoint that rank 0 is quarantining
+        dist_mod.barrier("pert-manifest/begin_run")
         self._manifest = m
         if had_identity and not self._resume_ok and config.resume == "auto":
             logger.warning(
@@ -345,24 +408,85 @@ class PertInference:
         return self._tensor(data.loci_mask.astype(np.float32))
 
     def _pad(self, data: PertData) -> PertData:
-        """Pad the cells to a multiple of ``cell_chunk`` and to the
-        shape-bucket targets (``pad_cells_to`` / ``pad_loci_to``); one
-        device, so no shard multiples."""
-        mult = self.config.cell_chunk or 1
+        """Pad the cells to a multiple of the cell shards (times
+        ``cell_chunk``), the loci to one of the loci shards, and both to
+        the shape-bucket targets (``pad_cells_to`` / ``pad_loci_to``)
+        (JAX ``_pad``)."""
+        mult = (self.config.cell_chunk or 1) * (
+            self.mesh.cells if self.mesh is not None else 1)
+        loci_mult = self.mesh.loci if self.mesh is not None else 1
         if mult > 1 or self.config.pad_cells_to:
             data = pad_cells(data, mult, minimum=self.config.pad_cells_to)
-        if self.config.pad_loci_to:
-            data = pad_loci(data, 1, minimum=self.config.pad_loci_to)
+        if loci_mult > 1 or self.config.pad_loci_to:
+            data = pad_loci(data, loci_mult,
+                            minimum=self.config.pad_loci_to)
         return data
 
+    def _tile(self, x, dims):
+        """This rank's block of a full host array or tensor with
+        symbolic ``dims`` (the array itself with one rank)."""
+        if x is None or self.mesh is None:
+            return x
+        return self.mesh.tile(x, dims)
+
+    def _gather(self, x, dims) -> np.ndarray:
+        """The full host array of which ``x`` is this rank's block (its
+        host copy with one rank)."""
+        if self.mesh is None:
+            return x.detach().cpu().numpy() if torch.is_tensor(x) \
+                else np.asarray(x)
+        return self.mesh.gather(x, dims)
+
+    def _global_cells(self, batch: PertBatch) -> int:
+        return int(batch.reads.shape[0]) * (
+            self.mesh.cells if self.mesh is not None else 1)
+
     def _batch(self, data: PertData, **fields) -> PertBatch:
+        """The device batch of this rank's block of ``data`` (padded,
+        full); ``fields`` are full host arrays or tensors of the named
+        ``PertBatch`` fields, tiled alike (``layout.batch_dims``)."""
+        if self.mesh is not None:
+            cells = self.mesh.cells_slice(data.num_cells)
+            loci = self.mesh.loci_slice(data.num_loci)
+            data = dataclasses.replace(
+                data, reads=data.reads[cells, loci],
+                states=None if data.states is None
+                else data.states[cells, loci],
+                libs=data.libs[cells], gammas=data.gammas[loci],
+                rt_prior=None if data.rt_prior is None
+                else data.rt_prior[loci],
+                cell_mask=data.cell_mask[cells],
+                loci_mask=None if data.loci_mask is None
+                else data.loci_mask[loci])
+        tiles = {}
+        for name, value in fields.items():
+            value = self._tile(value, layout.batch_dims(name))
+            tiles[name] = value.to(self.device).contiguous() \
+                if torch.is_tensor(value) else self._tensor(value)
         return PertBatch(
             reads=self._tensor(data.reads),
             libs=self._tensor(data.libs, torch.int64),
             gamma_feats=self._gamma_feats(data),
             mask=self._tensor(data.cell_mask.astype(np.float32)),
             loci_mask=self._loci_mask(data),
-            **fields)
+            **tiles)
+
+    def _eta_fields(self, etas: np.ndarray) -> dict:
+        """The CN prior's batch fields, full: on the host for a sharded
+        run (the sparse encoding is decided on the whole prior, then
+        :meth:`_batch` tiles it), else on the device."""
+        return priors.eta_batch_fields(
+            etas, allow_sparse=self.config.sparse_etas,
+            device="cpu" if self.mesh is not None else self.device)
+
+    def _place_params(self, params: dict) -> dict:
+        """Full host (or device) parameters as this rank's blocks on the
+        device (JAX ``_place_params``): the seam through which a
+        checkpoint, whatever grid wrote it, lands on this run's grid."""
+        return {k: self._tile(torch.as_tensor(np.asarray(v))
+                              if not torch.is_tensor(v) else v,
+                              layout.param_dims(k)).to(self.device)
+                .contiguous() for k, v in params.items()}
 
     def g1_g2_doubled_batch(self) -> Tuple[PertBatch, PertData]:
         """Step-1 batch: every G1 cell appears as G1 (rep=0) and G2 (rep=1)
@@ -376,9 +500,8 @@ class PertInference:
         rep = np.concatenate([np.zeros_like(g1.reads),
                               np.ones_like(g1.reads)], axis=0)
         batch = self._batch(
-            doubled,
-            cn_obs=self._tensor(np.concatenate([g1.states, g1.states])),
-            rep_obs=self._tensor(rep))
+            doubled, cn_obs=np.concatenate([g1.states, g1.states]),
+            rep_obs=rep)
         return batch, g1
 
     # -- CN priors --------------------------------------------------------
@@ -476,8 +599,9 @@ class PertInference:
           real bug only hides it.
 
         JAX's elastic rung (rebuild a smaller mesh on a host loss or a
-        repeated OOM and re-enter) needs a mesh: it comes with multi-GPU
-        runs (ROADMAP A12), so a ``hostloss`` aborts like an OOM here.
+        repeated OOM and re-enter) is not ported (ROADMAP A12's rest): a
+        ``hostloss`` (in a sharded run, a collective whose peer rank
+        died) aborts like an OOM here, on every surviving rank.
         """
         cfg = self.config
 
@@ -526,8 +650,9 @@ class PertInference:
         if cfg.resume == "auto" and not self._resume_ok \
                 and step_name not in self._steps_written:
             # only audit a refusal when there was something to refuse
-            if os.path.exists(os.path.join(
-                    cfg.checkpoint_dir, f"pert_{step_name}.npz")):
+            if any(os.path.exists(os.path.join(cfg.checkpoint_dir, name))
+                   for name in (f"pert_{step_name}.npz",
+                                f"pert_{step_name}.commit.json")):
                 self.run_log.emit(
                     "resume", step=step_name, mode=cfg.resume,
                     action="fresh", fingerprint_verified=False,
@@ -548,21 +673,28 @@ class PertInference:
             return None
         if restored is None:
             return None
-        params, losses, extra = restored
-        params = ckpt.restore_params(params, self.device)
+        params_full, losses, extra = restored
+        # full host arrays, whatever grid wrote them: this rank's blocks
+        params = self._place_params(
+            ckpt.restore_params(params_full, "cpu"))
         num_iters = int(extra.get("meta.num_iters", len(losses)))
         converged = bool(extra.get("meta.converged", True))
         nan_abort = bool(extra.get("meta.nan_abort", False))
         resume_ctrl = ckpt.restore_controller_state(extra)
-        # the geometry change of a resume is audited as JAX's is: one
-        # process with no mesh here, so a checkpoint from a sharded or
-        # multi-process run is a resharding resume
+        if resume_ctrl and resume_ctrl.get("best_params") is not None:
+            resume_ctrl["best_params"] = self._place_params(
+                ckpt.restore_params(resume_ctrl["best_params"], "cpu"))
+        # the geometry change of a resume is audited as JAX's is: a
+        # checkpoint from another grid or rank count is a resharding one
         saved_topo = extra.get("meta.topology") \
             if isinstance(extra.get("meta.topology"), dict) else None
-        cur_topo = {"mesh_axes": {}, "process_count": 1}
+        cur = dist_mod.process_topology(self.mesh)
+        cur_topo = {"mesh_axes": cur["mesh_axes"],
+                    "process_count": cur["process_count"]}
         resharded = saved_topo is not None and (
             saved_topo.get("mesh_axes") != cur_topo["mesh_axes"]
-            or int(saved_topo.get("process_count", 1)) != 1)
+            or int(saved_topo.get("process_count", 1))
+            != cur_topo["process_count"])
         reshard_fields = dict(
             resharded=bool(resharded),
             from_topology=({"mesh_axes": saved_topo.get("mesh_axes"),
@@ -625,7 +757,12 @@ class PertInference:
                 "across moment dtypes cannot be bit-exact — rerun with "
                 f"optimizer_state_dtype='{saved_dt}', or resume='off' "
                 "to refit the step fresh")
-        opt_state0 = ckpt.restore_opt_state(extra, params, self.device)
+        opt_state0 = ckpt.restore_opt_state(extra, params_full, "cpu")
+        if opt_state0 is not None:
+            opt_state0 = AdamState(
+                count=opt_state0.count.to(self.device),
+                mu=self._place_params(opt_state0.mu),
+                nu=self._place_params(opt_state0.nu))
         losses_prefix = np.asarray(losses)[:num_iters]
         return params, opt_state0, losses_prefix, resume_ctrl
 
@@ -662,7 +799,7 @@ class PertInference:
         fields)."""
         t0 = time.perf_counter()
         path = ckpt.save_step(self.config.checkpoint_dir, step_name, params,
-                              losses, **kw)
+                              losses, mesh=self.mesh, **kw)
         self._steps_written.add(step_name)
         self.run_log.emit(
             "checkpoint", action="save", step=step_name,
@@ -677,11 +814,12 @@ class PertInference:
         in-fit saves (every ``checkpoint_every`` chunks) and the
         emergency save on an escaping exception both land here."""
         def checkpoint_cb(*, params, opt_state, losses, num_iters,
-                          state=None, exact=True):
+                          state=None, exact=True, coordinated=True):
             extra = ckpt.pack_controller_state(state) if state else None
             path = self._save(step_name, params, losses, False,
                               opt_state=opt_state, num_iters=int(num_iters),
-                              converged=False, nan_abort=False, extra=extra)
+                              converged=False, nan_abort=False, extra=extra,
+                              coordinate=coordinated)
             if not exact:
                 self.run_log.emit(
                     "degrade", step=step_name, action="inexact_checkpoint",
@@ -719,7 +857,9 @@ class PertInference:
                 if losses_prefix is not None else 0)
         if params0 is None:
             with self.phases.phase(f"{step_name}/init"):
-                params0 = init_params(spec, batch, fixed, t_init=t_init)
+                params0 = init_params(spec, batch, fixed,
+                                      t_init=self._tile(t_init, ("cells",)),
+                                      mesh=self.mesh)
         self._compile(step_name)
         if not spec.step1:
             # analytic (cells x loci) planes one iteration moves
@@ -743,7 +883,7 @@ class PertInference:
                                 losses_prefix, controller, resume_ctrl)
         wall = time.perf_counter() - t0
         self.phases.add(f"{step_name}/fit", fit.timings["fit"])
-        num_cells = int(batch.reads.shape[0])
+        num_cells = self._global_cells(batch)
         profiling.log_step_summary(step_name, fit, wall, num_cells)
         self._emit_fit_events(step_name, fit, wall, num_cells,
                               prior_iters=(len(losses_prefix)
@@ -773,7 +913,7 @@ class PertInference:
                  step_name, opt_state0, losses_prefix, controller,
                  resume_ctrl) -> FitResult:
         cfg = self.config
-        return fit_map(_PertLossFn(spec), params0, (fixed, batch),
+        return fit_map(_PertLossFn(spec, self.mesh), params0, (fixed, batch),
                        max_iter=max_iter, min_iter=min_iter,
                        rel_tol=cfg.rel_tol, learning_rate=cfg.learning_rate,
                        b1=cfg.adam_b1, b2=cfg.adam_b2,
@@ -801,8 +941,9 @@ class PertInference:
         ``pad_frac`` (the share of the billed time spent on padding
         cells and loci) and the bucket's name."""
         real = self.g1 if step_name == "step3" else self.s
-        padded_cells = int(batch.reads.shape[0])
-        padded_loci = int(batch.reads.shape[1])
+        padded_cells = self._global_cells(batch)
+        padded_loci = int(batch.reads.shape[1]) * (
+            self.mesh.loci if self.mesh is not None else 1)
         real_cells = min(int(real.num_cells), padded_cells)
         real_loci = min(int(real.num_loci), padded_loci)
         pad_frac = 1.0 - (real_cells * real_loci) \
@@ -897,10 +1038,9 @@ class PertInference:
         if cond_rho:
             # the reference's unused rho0 branch (pert_model.py:568-570),
             # clamped to the learned path's domain
-            fixed["rho"] = torch.clamp(self._tensor(s.rt_prior), 0.0, 1.0)
-        eta_fields = priors.eta_batch_fields(
-            etas_padded, allow_sparse=self.config.sparse_etas,
-            device=self.device)
+            fixed["rho"] = torch.clamp(self._tensor(
+                self._tile(s.rt_prior, ("loci",))), 0.0, 1.0)
+        eta_fields = self._eta_fields(etas_padded)
         batch = self._batch(s, **eta_fields)
         spec = PertModelSpec(
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
@@ -941,8 +1081,9 @@ class PertInference:
         the rescue and the no-rescue hint."""
         cfg = self.config
         with torch.no_grad():
-            tau = to_unit_interval(out.fit.params["tau_raw"]).cpu().numpy()
-        mask = batch.mask.cpu().numpy()
+            tau = self._gather(to_unit_interval(out.fit.params["tau_raw"]),
+                               ("cells",))
+        mask = self._gather(batch.mask, ("cells",))
         cand = np.flatnonzero(((tau < cfg.mirror_tau_lo)
                                | (tau > cfg.mirror_tau_hi)) & (mask > 0.5))
         return tau, cand
@@ -982,9 +1123,11 @@ class PertInference:
                 with self.phases.phase("step2/rescue_gate"), \
                         torch.no_grad():
                     _, frac_low, mean_rep = (
-                        t.cpu().numpy() for t in cell_entropy_aggregates(
+                        self._gather(t, ("cells",))
+                        for t in cell_entropy_aggregates(
                             out.spec, out.fit.params, out.fixed, batch,
-                            entropy_thresh=cfg.qc_entropy_thresh))
+                            entropy_thresh=cfg.qc_entropy_thresh,
+                            mesh=self.mesh))
                 high_ent = frac_low[cand] > cfg.qc_frac_thresh
                 run = bool(high_ent.any())
                 trigger.update(
@@ -1055,7 +1198,19 @@ class PertInference:
 
         self._rescue_cells["fitted"] = cand.copy()
         params = out.fit.params
-        sub_params, sub_batch = slice_cells(params, batch, cand)
+        # each cells shard re-fits its own candidates, padded to the
+        # largest shard's count with masked copies of its first cell, so
+        # every rank's sub-batch has one shape and the sub-fit runs in
+        # lockstep (one shard: the candidates themselves, no pad)
+        local, width = self._rescue_rows(cand, int(batch.reads.shape[0]))
+        rows = np.asarray([c for c, _ in local] + [0] * (width - len(local)),
+                          np.int64)
+        sub_params, sub_batch = slice_cells(params, batch, rows)
+        if width > len(local):
+            valid = torch.as_tensor(
+                np.arange(width) < len(local), dtype=torch.float32,
+                device=self.device)
+            sub_batch.mask = sub_batch.mask * valid
         # every global site conditioned: the sub-fit moves only the
         # candidates' per-cell sites, so splicing them back cannot shift
         # the other cells' objective
@@ -1074,16 +1229,19 @@ class PertInference:
                     for k in ("tau_raw", "u", "betas", pi_key)}
         orig_sub["beta_stds_raw"] = params["beta_stds_raw"]
 
-        t_flip = np.clip(1.0 - tau[cand], 0.05, 0.95).astype(np.float32)
-        params0 = init_params(spec, sub_batch, fixed, t_init=t_flip)
+        t_flip = np.clip(1.0 - tau[[g for _, g in local]], 0.05, 0.95) \
+            .astype(np.float32)
+        t_flip = np.pad(t_flip, (0, width - len(local)), constant_values=0.5)
+        params0 = init_params(spec, sub_batch, fixed, t_init=t_flip,
+                              mesh=self.mesh)
         # warm-seed the sites the flip does not mirror, from fresh copies
         # (the acceptance scoring and the splice read the originals
         # after the fit): beta_stds, the width the candidates are scored
         # under, and the incumbent GC coefficients
         params0["beta_stds_raw"] = params["beta_stds_raw"].clone()
         params0["betas"] = sub_params["betas"].clone()
-        fit = fit_map(_PertLossFn(spec), params0, (fixed, sub_batch),
-                      max_iter=cfg.mirror_max_iter,
+        fit = fit_map(_PertLossFn(spec, self.mesh), params0,
+                      (fixed, sub_batch), max_iter=cfg.mirror_max_iter,
                       min_iter=cfg.mirror_min_iter, rel_tol=cfg.rel_tol,
                       learning_rate=cfg.learning_rate, b1=cfg.adam_b1,
                       b2=cfg.adam_b2, device=self.device,
@@ -1095,10 +1253,17 @@ class PertInference:
         rescued = dict(fit.params)
         rescued["beta_stds_raw"] = orig_sub["beta_stds_raw"]
         with torch.no_grad():
-            obj_orig = per_cell_objective(spec, orig_sub, fixed, sub_batch)
-            obj_new = per_cell_objective(spec, rescued, fixed, sub_batch)
-            tau_new = to_unit_interval(fit.params["tau_raw"]).cpu().numpy()
-        accept = (obj_new > obj_orig).cpu().numpy()
+            obj_orig = per_cell_objective(spec, orig_sub, fixed, sub_batch,
+                                          mesh=self.mesh)
+            obj_new = per_cell_objective(spec, rescued, fixed, sub_batch,
+                                         mesh=self.mesh)
+            # each shard's first len(its candidates) rows, in cand order
+            keep_rows = self._rescue_order(cand, int(batch.reads.shape[0]),
+                                           width)
+            tau_new = self._gather(to_unit_interval(fit.params["tau_raw"]),
+                                   ("cells",))[keep_rows]
+            accept_all = self._gather(obj_new > obj_orig, ("cells",))
+        accept = accept_all[keep_rows]
         self.mirror_rescue_stats["accepted"] = int(accept.sum())
         logger.info("mirror rescue: %d boundary-tau candidates, %d accepted "
                     "(per-cell log-joint improved)", cand.size,
@@ -1109,8 +1274,12 @@ class PertInference:
 
         keep = cand[accept]
         self._rescue_cells["accepted"] = keep.copy()
-        dst = torch.as_tensor(keep, device=self.device)
-        src = torch.as_tensor(np.flatnonzero(accept), device=self.device)
+        mine = [(c, i) for i, (c, _) in enumerate(local)
+                if accept_all[self._rescue_base(width) + i]]
+        if not mine:
+            return out
+        dst = torch.as_tensor([c for c, _ in mine], device=self.device)
+        src = torch.as_tensor([i for _, i in mine], device=self.device)
         new_params = dict(params)
         for key in ("tau_raw", "u", "betas"):
             new_params[key] = params[key].index_copy(
@@ -1119,6 +1288,34 @@ class PertInference:
             1, dst, rescued[pi_key].index_select(1, src))
         new_fit = dataclasses.replace(out.fit, params=new_params)
         return dataclasses.replace(out, fit=new_fit)
+
+    def _rescue_rows(self, cand: np.ndarray, local_cells: int):
+        """(this shard's candidates as ``(local row, global index)``
+        pairs in ``cand`` order, the sub-batch width: the largest
+        shard's count)."""
+        if self.mesh is None:
+            return [(int(c), int(c)) for c in cand], int(cand.size)
+        shard = cand // local_cells
+        width = int(np.bincount(shard, minlength=self.mesh.cells).max())
+        mine = cand[shard == self.mesh.cell_index]
+        return [(int(c) % local_cells, int(c)) for c in mine], width
+
+    def _rescue_base(self, width: int) -> int:
+        """This shard's first row in the gathered sub-batch."""
+        return 0 if self.mesh is None else self.mesh.cell_index * width
+
+    def _rescue_order(self, cand: np.ndarray, local_cells: int,
+                      width: int) -> np.ndarray:
+        """Rows of the gathered sub-batch (shard-major, ``width`` each)
+        in the order of ``cand``."""
+        if self.mesh is None:
+            return np.arange(cand.size)
+        shard = cand // local_cells
+        rank_in_shard = np.zeros(cand.size, np.int64)
+        for k in range(self.mesh.cells):
+            where = np.flatnonzero(shard == k)
+            rank_in_shard[where] = np.arange(where.size)
+        return shard * width + rank_in_shard
 
     def _emit_rescue_event(self, tau_deltas=None) -> None:
         """``rescue`` event from ``mirror_rescue_stats`` and the accepted
@@ -1148,8 +1345,7 @@ class PertInference:
         g1 = self._pad(self.g1)
         t_init2 = self._t_init(self.g1, etas2_real, g1.num_cells)
         etas2 = _pad_etas(etas2_real, g1.num_cells, g1.num_loci)
-        eta_fields = priors.eta_batch_fields(
-            etas2, allow_sparse=self.config.sparse_etas, device=self.device)
+        eta_fields = self._eta_fields(etas2)
         batch = self._batch(g1, **eta_fields)
         spec = PertModelSpec(
             P=self.config.P, K=self.config.K, L=self.L, tau_mode="param",
@@ -1182,11 +1378,14 @@ class PertInference:
             try:
                 faults_mod.point("qc/ppc")
                 ppc_t0 = time.perf_counter()
-                ppc_dev, ppc_z = (t.cpu().numpy()[:n]
+                bins = ("cells", "loci")
+                ppc_dev, ppc_z = (self._gather(t, ("cells",))[:n]
                                   for t in ppc_discrepancy(
                     out.spec, out.fit.params, out.fixed, out.batch,
                     seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
-                    maps=(qc_stats["cn_map"], qc_stats["rep_map"])))
+                    maps=(self._tile(qc_stats["cn_map"], bins),
+                          self._tile(qc_stats["rep_map"], bins)),
+                    mesh=self.mesh))
                 self.meter.book_exec(
                     kind="ppc", seconds=time.perf_counter() - ppc_t0,
                     ctx={"step": "step2",
@@ -1471,6 +1670,7 @@ def package_step_output(
     qc_entropy_thresh: float = 0.5,
     phase_prefix: str = "s",
     hmm_self_prob: Optional[float] = None,
+    mesh=None,
 ) -> Tuple[pd.DataFrame, pd.DataFrame]:
     """Decode the discretes and attach the fitted values to the long-form
     contract (reference: pert_model.py:466-538): model_cn_state,
@@ -1491,7 +1691,11 @@ def package_step_output(
     The decode runs under the OOM ladder (:func:`_decode_with_degradation`,
     fault site ``{phase_prefix}/decode``); when the ladder drops the
     entropy surfaces, ``qc_collect`` receives ``degraded: True`` and
-    nothing else, and the QC table is skipped."""
+    nothing else, and the QC table is skipped.
+
+    ``mesh``: the step is this rank's block; each rank decodes its own
+    and the planes and per-cell values are gathered on the host, so
+    every rank returns the same frames."""
     spec, params, fixed, batch = step.spec, step.fit.params, step.fixed, \
         step.batch
     decode_t0 = time.perf_counter()
@@ -1505,13 +1709,20 @@ def package_step_output(
         c = _sites(spec, params, fixed)
         qc_device = entropy_aggregates_from_planes(
             ent_planes[0], ent_planes[1], batch.effective_loci_mask(),
-            qc_entropy_thresh, want_max=True) if want_entropy else {}
-    cn_map, rep_map, p_rep = (t.cpu().numpy() for t in decoded)
+            qc_entropy_thresh, want_max=True, mesh=mesh) \
+            if want_entropy else {}
+
+    def host(t, dims=("cells", "loci")):
+        if mesh is None:
+            return t.detach().cpu().numpy()
+        return mesh.gather(t, dims)
+
+    cn_map, rep_map, p_rep = (host(t) for t in decoded)
     ledger = meter_mod.ledger_of(runlog_mod.current())
     if ledger is not None:
         # the decode runs at the fit's padded shape: its time books with
         # the same bucket attribution (no iteration work units)
-        padded = (int(batch.reads.shape[0]), int(batch.reads.shape[1]))
+        padded = cn_map.shape
         real = (min(int(data.num_cells), padded[0]),
                 min(int(data.num_loci), padded[1]))
         ledger.book_exec(
@@ -1521,8 +1732,8 @@ def package_step_output(
                  "pad_frac": round(max(1.0 - (real[0] * real[1])
                                        / max(padded[0] * padded[1], 1),
                                        0.0), 6)})
-    tau, u, rho, a_c = (c[k].detach().cpu().numpy()
-                        for k in ("tau", "u", "rho", "a"))
+    tau, u = (host(c[k], ("cells",)) for k in ("tau", "u"))
+    rho, a_c = host(c["rho"], ("loci",)), c["a"].detach().cpu().numpy()
 
     n = int(np.sum(data.cell_mask)) if data.cell_mask is not None \
         else data.num_cells
@@ -1532,8 +1743,9 @@ def package_step_output(
     per_bin = {"model_cn_state": cn_map[:n], "model_rep_state": rep_map[:n],
                "model_p_rep": p_rep[:n]}
     if want_entropy:
-        per_bin["model_cn_entropy"] = ent_planes[0].cpu().numpy()[:n]
-        qc_collect.update({k: v.cpu().numpy() for k, v in qc_device.items()})
+        per_bin["model_cn_entropy"] = host(ent_planes[0])[:n]
+        qc_collect.update({k: host(v, ("cells",))
+                           for k, v in qc_device.items()})
         qc_collect.update(tau=tau, cn_map=cn_map, rep_map=rep_map)
     out = attach_dense_columns(
         cn_long, cell_ids, data.loci, cols,

@@ -39,6 +39,15 @@ betas 0.8/0.99 by default): the pi parameter through the fused kernel
 (``ops/adam_kernel.adam_update``), with its moments stored in
 ``moment_dtype`` (float32 or bfloat16), every other leaf through the same
 math as plain ops with float32 moments.
+
+A sharded fit (a loss function with a ``mesh``: ``parallel.mesh.
+RankMesh``) runs this loop on every rank in lockstep: each iteration's
+loss is this rank's share, and before Adam the loss is summed over every
+rank and each gradient over the ranks its parameter is replicated on
+(``RankMesh.reduce_grads``).  The loss history, the stop flags, the
+ring and so every host read and controller verdict are then the same on
+every rank; a rank that fails ends its peers' collectives, which raise
+at the group's timeout at the latest.  The serving slab stays one rank.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from scdna_replication_tools_tpu_torch import layout
 from scdna_replication_tools_tpu_torch.device import resolve_device
 from scdna_replication_tools_tpu_torch.infer import checkpoint as _ckpt
 from scdna_replication_tools_tpu_torch.obs import controller as _controller
@@ -160,6 +170,14 @@ def _global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(tree[k] * tree[k]) for k in sorted(tree)))
 
 
+def _norms(grads: dict, params: dict, mesh=None) -> torch.Tensor:
+    """(2,) global norms of the gradients and the parameters; with
+    ``mesh`` over the whole sharded tree (each block counted once)."""
+    if mesh is None:
+        return torch.stack([_global_norm(grads), _global_norm(params)])
+    return torch.sqrt(mesh.sum_of_squares(grads, params))
+
+
 def _window_stat(losses, i: int, win: int):
     """max - min over losses[i-win:i] (numpy array or tensor, ``i`` a
     host index); the start clamps to [0, n - win] as lax.dynamic_slice
@@ -198,13 +216,14 @@ class _Carry:
 
 def _iteration(loss_fn: Callable, loss_args: tuple, c: _Carry, it: int,
                loop: _Loop, const: torch.Tensor,
-               in_place: bool = False) -> _Carry:
+               in_place: bool = False, mesh=None) -> _Carry:
     """Iteration ``it`` of the JAX ``_fit_loop`` body, gated by the
     device flag ``done``.  While the fit runs the device count equals
     the host index ``it``, so every slot index is a host integer.
     ``in_place`` steps the pi parameter and its moments in their own
     planes: only for a carry that this chunk made, which nothing else
-    holds."""
+    holds.  ``mesh``: the loss and gradients are summed over the ranks
+    first (module docstring)."""
     live = torch.logical_not(c.done)
     leaves = {k: v.detach().requires_grad_(True) for k, v in c.params.items()}
     loss = loss_fn(leaves, *loss_args)
@@ -214,9 +233,11 @@ def _iteration(loss_fn: Callable, loss_args: tuple, c: _Carry, it: int,
              for k, g in zip(leaves, grads)}
     with torch.no_grad():
         loss = loss.detach().to(torch.float32)
+        if mesh is not None:
+            loss, grads = mesh.reduce_grads(loss, grads)
         if loop.diag_every and it % loop.diag_every == 0:
-            row = torch.stack([loss, _global_norm(grads),
-                               _global_norm(c.params)])
+            row = torch.cat([loss.reshape(1),
+                             _norms(grads, c.params, mesh)])
             slot = (it // loop.diag_every) % DIAG_RING
             c.diag[slot] = torch.where(live, row, c.diag[slot])
         params, state = _adam_apply(c.params, grads, c.state, const, live,
@@ -271,6 +292,16 @@ class _StopProbe:
         return False
 
 
+def _stop_probe(loss_fn: Callable, n: int, dev) -> Optional[_StopProbe]:
+    """The chunk's stop probe on the card, or None: on the CPU, and in a
+    sharded fit, whose ranks must launch the same iterations (each takes
+    the collectives of :func:`_iteration`), so none may stop early on
+    what its own card has reported."""
+    if dev.type != "cuda" or getattr(loss_fn, "mesh", None) is not None:
+        return None
+    return _StopProbe(n)
+
+
 def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
                   stop: int, loop: _Loop, const: torch.Tensor,
                   probe: Optional[_StopProbe] = None):
@@ -286,6 +317,7 @@ def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
         is_nan=torch.zeros((), **flag))
     if probe is not None:
         probe.seen = 0
+    mesh = getattr(loss_fn, "mesh", None)
     for k, it in enumerate(range(i0, stop)):
         if probe is not None and probe.stopped(k):
             return c, k
@@ -295,7 +327,7 @@ def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
         # own, so they step in place: one generation of the pi
         # parameter and its moments fewer on the card
         c = _iteration(loss_fn, loss_args, c, it, loop, const,
-                       in_place=k > 0)
+                       in_place=k > 0, mesh=mesh)
         if probe is not None:
             probe.post(k, c.done)
     return c, stop - i0
@@ -729,24 +761,35 @@ def _diagnose(losses: np.ndarray, converged: bool, nan_abort: bool,
 
 
 def _perturb_params(params: dict, scale: float, seed: int, salt: int,
-                    noise: Optional[dict] = None) -> dict:
+                    noise: Optional[dict] = None, mesh=None) -> dict:
     """Re-seed perturbation around a checkpointed parameter dict (JAX
     ``_perturb_params``): each leaf plus ``scale * (std(leaf) + 1e-3)``
-    times standard normal noise.  ``noise`` ({name: tensor}) supplies
-    the draws; by default they come from a generator seeded by
-    ``(seed, salt)``, one leaf after another in sorted-key order, so the
-    same run re-seeds the same way."""
+    times standard normal noise.  ``noise`` ({name: tensor of the global
+    leaf's shape}) supplies the draws; by default they come from a host
+    generator seeded by ``(seed, salt)``, one global leaf after another
+    in sorted-key order, so the same run re-seeds the same way on any
+    grid.  With ``mesh`` each leaf is this rank's block: the std is the
+    global leaf's and the noise is tiled like the leaf (the global draws
+    stay on the host)."""
+    dev = next(iter(params.values())).device
     if noise is None:
-        dev = next(iter(params.values())).device
-        gen = seeded_generator(seed, salt, dev)
-        noise = {k: torch.randn(params[k].shape, generator=gen,
-                                dtype=torch.float32, device=dev)
-                 for k in sorted(params)}
+        gen = seeded_generator(seed, salt, "cpu")
+        noise = {}
+        for k in sorted(params):
+            shape = params[k].shape
+            if mesh is not None:
+                box = mesh.box(layout.param_dims(k), shape)
+                shape = shape if box is None else box[1]
+            noise[k] = torch.randn(shape, generator=gen,
+                                   dtype=torch.float32)
     out = {}
     with torch.no_grad():
         for k, leaf in params.items():
-            sigma = scale * (torch.std(leaf, correction=0) + 1e-3)
-            out[k] = leaf + sigma * noise[k].to(leaf.device)
+            draw = noise[k] if mesh is None \
+                else mesh.tile(noise[k], layout.param_dims(k))
+            std = torch.std(leaf, correction=0) if mesh is None \
+                else mesh.leaf_std(k, leaf)
+            out[k] = leaf + scale * (std + 1e-3) * draw.to(leaf.device)
     return out
 
 
@@ -855,7 +898,7 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
                                device=dev) if diag_every else None)
     const = adam_constants(learning_rate, b1, b2, dev)
     every = loop.diag_every or HOST_READ_EVERY
-    probe = _StopProbe(every) if dev.type == "cuda" else None
+    probe = _stop_probe(loss_fn, every, dev)
     i_host, dispatched = i0, 0
     read = None
     t0 = time.perf_counter()
@@ -950,16 +993,19 @@ def _emergency_save(checkpoint_cb, snap: dict) -> None:
             "diag_i0": int(snap.get("diag_i0", 0))
             if diag_np is not None else int(len(l_np)),
         }
+        # coordinated=False: a dying rank must not wait on peers that
+        # may be mid-chunk or dead (a sharded save then writes only its
+        # own shard, which stays invisible without a commit)
         checkpoint_cb(params=p_np, opt_state=o_np, losses=l_np,
                       num_iters=int(len(l_np)), state=state,
-                      exact=o_np is not None)
+                      exact=o_np is not None, coordinated=False)
     except Exception as exc:  # noqa: BLE001 — the original abort must
         # surface, not a failed rescue save
         logger.warning("emergency checkpoint save failed: %s", exc)
 
 
 def _save_escalation_checkpoint(escalate_dir, tag, params, losses,
-                                num_iters: int) -> Optional[str]:
+                                num_iters: int, mesh=None) -> Optional[str]:
     """Persist the best-loss state of a NaN-escalated fit (diagnosable
     artifact for the post-mortem); best-effort — a failed save must not
     mask the escalation itself."""
@@ -968,7 +1014,7 @@ def _save_escalation_checkpoint(escalate_dir, tag, params, losses,
     try:
         return _ckpt.save_step(str(escalate_dir), f"{tag}_nan", params,
                                np.asarray(losses), num_iters=num_iters,
-                               converged=False, nan_abort=True)
+                               converged=False, nan_abort=True, mesh=mesh)
     except Exception as exc:  # noqa: BLE001 — telemetry-adjacent path
         logger.warning("NaN-escalation checkpoint save failed: %s", exc)
         return None
@@ -1045,7 +1091,7 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
                    torch.as_tensor(diag_host, device=dev).clone())
     lr_now = float(resume_state.get("lr", learning_rate))
     const = adam_constants(lr_now, loop.b1, loop.b2, dev)
-    probe = _StopProbe(every) if dev.type == "cuda" else None
+    probe = _stop_probe(loss_fn, every, dev)
     i_host, dispatched = i0, 0
     budget = int(resume_state.get("budget", max_iter))
     decisions: list = []
@@ -1192,7 +1238,8 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
                 # iteration best_it, so it records THAT prefix
                 ckpt_path = _save_escalation_checkpoint(
                     escalate_dir, escalate_tag, best_params,
-                    traj[:best_it], num_iters=best_it)
+                    traj[:best_it], num_iters=best_it,
+                    mesh=getattr(loss_fn, "mesh", None))
                 if ckpt_path:
                     decision["detail"] = (decision.get("detail", "")
                                           + f"; checkpoint saved to "
@@ -1251,9 +1298,9 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
                 extra_granted += grant
             elif action == "reseed":
                 reseeds += 1
-                new_params = _perturb_params(best_params,
-                                             policy.reseed_scale,
-                                             policy.seed, reseeds)
+                new_params = _perturb_params(
+                    best_params, policy.reseed_scale, policy.seed, reseeds,
+                    mesh=getattr(loss_fn, "mesh", None))
                 carry = dataclasses.replace(
                     carry, params=new_params,
                     state=make_opt_state(new_params, loop.moment_dtype))

@@ -18,6 +18,15 @@ one (``spec.binary_pi``, arXiv 2206.00093).  Site-type semantics follow the JAX
 module (and the reference): lambda and beta_stds are params without a
 prior, tau is a param when t_init is given, conditioned sites still add
 their log-prob.
+
+Sharded fits (``mesh``, a ``parallel.mesh.RankMesh``): the batch and the
+per-cell parameters are this rank's block (its cells slice and loci
+tile).  The reductions over loci (the u prior's read means and ploidies,
+the per-cell objective) sum over the rank's row, and :func:`log_joint`
+returns this rank's share of the total: the global priors on rank 0
+only, the per-cell priors on the first rank of each row, the bins of the
+rank's own tile, so the sum over ranks counts every term once.  The
+fused kernels run on the rank's block, with no collective inside.
 """
 
 from __future__ import annotations
@@ -174,12 +183,13 @@ class PertBatch:
 # ---------------------------------------------------------------------------
 
 def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
-                t_init=None) -> dict:
+                t_init=None, mesh=None) -> dict:
     """Initial unconstrained parameters: AutoDelta's init-at-prior-median
     for sample sites and the explicit inits of the param sites
     (reference: pert_model.py:542, 557, 561-562, 583); the pi parameter
     starts at the prior mean (categorical) or at its binary counterpart
-    (:func:`_init_binary_pi`)."""
+    (:func:`_init_binary_pi`).  With ``mesh`` the batch, ``t_init`` and
+    the result are this rank's block."""
     dev = batch.reads.device
     f32 = dict(dtype=torch.float32, device=dev)
     num_cells, num_loci = batch.reads.shape
@@ -213,8 +223,8 @@ def init_params(spec: PertModelSpec, batch: PertBatch, fixed: dict,
 
     # u at the prior median u_guess evaluated at the initial tau
     tau0 = to_unit_interval(params["tau_raw"])
-    ploidies0 = _cell_ploidies(spec, batch)
-    u_guess0 = _loci_mean(batch.reads, batch.effective_loci_mask()) \
+    ploidies0 = _cell_ploidies(spec, batch, mesh)
+    u_guess0 = _loci_mean(batch.reads, batch.effective_loci_mask(), mesh) \
         / ((1.0 + tau0) * ploidies0)
     params["u"] = u_guess0.to(torch.float32)
 
@@ -279,22 +289,30 @@ def binary_log_pi(spec: PertModelSpec, zbin_t: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits, dim=-1)
 
 
-def _loci_mean(x: torch.Tensor, lmask: torch.Tensor) -> torch.Tensor:
-    """Mean over the loci axis restricted to real (unmasked) loci."""
-    return torch.sum(x * lmask[None, :], dim=1) / torch.sum(lmask)
+def _loci_mean(x: torch.Tensor, lmask: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    """Mean over the loci axis restricted to real (unmasked) loci (with
+    ``mesh``: over every rank of the row, so over the whole genome)."""
+    num = torch.sum(x * lmask[None, :], dim=1)
+    den = torch.sum(lmask)
+    if mesh is not None and mesh.loci > 1:
+        both = mesh.sum_loci(torch.cat([num, den.reshape(1)]))
+        num, den = both[:-1], both[-1]
+    return num / den
 
 
-def _cell_ploidies(spec: PertModelSpec, batch: PertBatch) -> torch.Tensor:
+def _cell_ploidies(spec: PertModelSpec, batch: PertBatch,
+                   mesh=None) -> torch.Tensor:
     """Per-cell ploidy guess of the u prior (reference:
     pert_model.py:589-600): mean argmax state of the prior, else 2."""
     if not spec.step1:
         if batch.etas is not None:
             cn_mode = torch.argmax(batch.etas, dim=-1).to(torch.float32)
-            return _loci_mean(cn_mode, batch.effective_loci_mask())
+            return _loci_mean(cn_mode, batch.effective_loci_mask(), mesh)
         if batch.eta_idx is not None:
             cn_mode = torch.where(batch.eta_w > 0.0, batch.eta_idx,
                                   torch.zeros_like(batch.eta_idx))
-            return _loci_mean(cn_mode, batch.effective_loci_mask())
+            return _loci_mean(cn_mode, batch.effective_loci_mask(), mesh)
     return torch.full((batch.reads.shape[0],), 2.0, dtype=torch.float32,
                       device=batch.reads.device)
 
@@ -465,16 +483,18 @@ def _enum_bin_loglik(spec: PertModelSpec, reads, u, omega, log_pi, phi,
     return enum_loglik(reads, u[:, None] * omega, log_pi, phi, lamb)
 
 
-def prime_cache(spec: PertModelSpec, batch: PertBatch) -> dict:
+def prime_cache(spec: PertModelSpec, batch: PertBatch, mesh=None) -> dict:
     """Fill ``batch.cache`` with every fit-constant term :func:`log_joint`
     reads (the per-cell read means and ploidies, and for the fused path
     the Dirichlet normaliser and the state-major dense etas) and return
     it.  :func:`log_joint` reads them through here; the serving slab
     primes each lane's batch before it stacks the caches, so the batched
-    objective computes none of them inside its ``torch.func.vmap``."""
+    objective computes none of them inside its ``torch.func.vmap``.
+    With ``mesh`` the means over loci are the row's (a batch is one
+    rank's block and is read with one mesh)."""
     lmask = batch.effective_loci_mask()
-    batch.cached("reads_mean", lambda: _loci_mean(batch.reads, lmask))
-    batch.cached("ploidies", lambda: _cell_ploidies(spec, batch))
+    batch.cached("reads_mean", lambda: _loci_mean(batch.reads, lmask, mesh))
+    batch.cached("ploidies", lambda: _cell_ploidies(spec, batch, mesh))
     if spec.step1:
         return batch.cache
     if spec.sparse_etas:
@@ -519,19 +539,24 @@ def _chunking(spec: PertModelSpec, num_cells: int) -> tuple:
 
 
 def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
-              batch: PertBatch) -> torch.Tensor:
+              batch: PertBatch, mesh=None) -> torch.Tensor:
     """Total log-joint (the negative of the SVI loss), discretes summed
-    out: the step-1 observed path, or the fused dense / sparse path."""
+    out: the step-1 observed path, or the fused dense / sparse path.
+    With ``mesh``: this rank's share of the total (module docstring)."""
     c = _sites(spec, params, fixed)
     lamb, log_lamb, log1m_lamb = _nb_pieces(c)
     mask = batch.mask
     lmask = batch.effective_loci_mask()
     bin_mask = mask[:, None] * lmask[None, :]
-    cache = prime_cache(spec, batch)
+    cache = prime_cache(spec, batch, mesh)
 
-    lp = _global_log_prior(c)
-    lp = lp + torch.sum(_per_cell_log_prior(
-        spec, c, batch, cache["reads_mean"], cache["ploidies"]) * mask)
+    if mesh is None or mesh.owns_globals:
+        lp = _global_log_prior(c)
+    else:
+        lp = torch.zeros((), dtype=torch.float32, device=mask.device)
+    if mesh is None or mesh.owns_cells:
+        lp = lp + torch.sum(_per_cell_log_prior(
+            spec, c, batch, cache["reads_mean"], cache["ploidies"]) * mask)
 
     phi = _phi(c)
     omega = gc_rate(c["betas"], batch.gamma_feats)
@@ -613,27 +638,30 @@ def log_joint(spec: PertModelSpec, params: dict, fixed: dict,
 
 
 def pert_loss(spec: PertModelSpec, params: dict, fixed: dict,
-              batch: PertBatch) -> torch.Tensor:
+              batch: PertBatch, mesh=None) -> torch.Tensor:
     """SVI loss = -log_joint (point-mass posterior; reference:
-    pert_model.py:742-758)."""
-    return -log_joint(spec, params, fixed, batch)
+    pert_model.py:742-758); with ``mesh`` this rank's share."""
+    return -log_joint(spec, params, fixed, batch, mesh=mesh)
 
 
 def per_cell_objective(spec: PertModelSpec, params: dict, fixed: dict,
-                       batch: PertBatch) -> torch.Tensor:
+                       batch: PertBatch, mesh=None) -> torch.Tensor:
     """(cells,) per-cell terms of the log-joint: the tau/u/betas priors,
     the full Dirichlet pi term and the enumerated bin log-likelihood,
     each summed over the real loci.  The global priors (a, beta_means)
     are left out: two parameter sets that share the conditioned globals
     have the same ones, which is what the mirror rescue compares
     (infer/runner.py).  The enumerated term goes through the unfused
-    ``enum_loglik``; log_pi comes from either encoding."""
+    ``enum_loglik``; log_pi comes from either encoding.  With ``mesh``
+    the cells are this rank's and the sums run over the whole row."""
     c = _sites(spec, params, fixed)
     lamb, log_lamb, log1m_lamb = _nb_pieces(c)
     lmask = batch.effective_loci_mask()
-    reads_mean = _loci_mean(batch.reads, lmask)
-    ploidies = _cell_ploidies(spec, batch)
+    reads_mean = _loci_mean(batch.reads, lmask, mesh)
+    ploidies = _cell_ploidies(spec, batch, mesh)
     obj = _per_cell_log_prior(spec, c, batch, reads_mean, ploidies)
+    if mesh is not None and not mesh.owns_cells:
+        obj = torch.zeros_like(obj)
 
     log_pi = _log_pi(spec, params)
     lp_pi = _dirichlet_pi_term(spec.P, batch, log_pi,
@@ -651,7 +679,8 @@ def per_cell_objective(spec: PertModelSpec, params: dict, fixed: dict,
     else:
         ll = _enum_bin_loglik(spec, batch.reads, c["u"], omega, log_pi, phi,
                               lamb)
-    return obj + torch.sum(ll * lmask[None, :], dim=1)
+    obj = obj + torch.sum(ll * lmask[None, :], dim=1)
+    return obj if mesh is None else mesh.sum_loci(obj)
 
 
 # ---------------------------------------------------------------------------
@@ -788,34 +817,47 @@ def posterior_entropy(spec: PertModelSpec, params: dict, fixed: dict,
 
 def entropy_aggregates_from_planes(cn_ent, rep_ent, lmask,
                                    entropy_thresh: float,
-                                   want_max: bool = False) -> dict:
+                                   want_max: bool = False,
+                                   mesh=None) -> dict:
     """Per-cell reduction of the (cells, loci) entropy planes over the
     real loci: the one copy of the aggregate math that the rescue gate
-    (:func:`cell_entropy_aggregates`) and the QC table share."""
-    denom = torch.clamp(torch.sum(lmask), min=1.0)
+    (:func:`cell_entropy_aggregates`) and the QC table share (with
+    ``mesh``: this rank's cells, reduced over the whole row)."""
     w = lmask[None, :]
+    sums = torch.stack([torch.sum(cn_ent * w, dim=1),
+                        torch.sum((cn_ent > entropy_thresh) * w, dim=1),
+                        torch.sum(rep_ent * w, dim=1)])
+    count = torch.sum(lmask)
+    if mesh is not None and mesh.loci > 1:
+        both = mesh.sum_loci(torch.cat([sums.reshape(-1),
+                                        count.reshape(1)]))
+        sums, count = both[:-1].reshape(sums.shape), both[-1]
+    denom = torch.clamp(count, min=1.0)
     out = {
-        "mean_cn_entropy": torch.sum(cn_ent * w, dim=1) / denom,
-        "frac_low_conf": torch.sum((cn_ent > entropy_thresh) * w,
-                                   dim=1) / denom,
-        "mean_rep_entropy": torch.sum(rep_ent * w, dim=1) / denom,
+        "mean_cn_entropy": sums[0] / denom,
+        "frac_low_conf": sums[1] / denom,
+        "mean_rep_entropy": sums[2] / denom,
     }
     if want_max:
         out["max_cn_entropy"] = torch.max(
             torch.where(w > 0, cn_ent, torch.zeros_like(cn_ent)), dim=1).values
+        if mesh is not None:
+            mesh.all_reduce(out["max_cn_entropy"], ("loci",),
+                            op=torch.distributed.ReduceOp.MAX)
     return out
 
 
 def cell_entropy_aggregates(spec: PertModelSpec, params: dict, fixed: dict,
                             batch: PertBatch, entropy_thresh: float = 0.5,
-                            cell_chunk: Optional[int] = None):
+                            cell_chunk: Optional[int] = None, mesh=None):
     """(mean_cn_entropy, frac_low_conf, mean_rep_entropy), each (cells,),
     over the real loci, on device: the QC table's aggregates, standalone
     for the controller's rescue gate."""
     cn_ent, rep_ent = posterior_entropy(spec, params, fixed, batch,
                                         cell_chunk=cell_chunk)
     agg = entropy_aggregates_from_planes(
-        cn_ent, rep_ent, batch.effective_loci_mask(), entropy_thresh)
+        cn_ent, rep_ent, batch.effective_loci_mask(), entropy_thresh,
+        mesh=mesh)
     return (agg["mean_cn_entropy"], agg["frac_low_conf"],
             agg["mean_rep_entropy"])
 
@@ -881,11 +923,11 @@ def ppc_replicates(spec: PertModelSpec, params: dict, fixed: dict,
 
 def _ppc_slab(spec: PertModelSpec, params: dict, fixed: dict,
               batch: PertBatch, cn_map: torch.Tensor, rep_map: torch.Tensor,
-              replicates: torch.Tensor):
+              replicates: torch.Tensor, mesh=None):
     """Per-cell (observed deviance, z-score) of one slab: the deviance D
     = -2 sum_l log NB(y_l | .) over real loci of the observed reads,
     standardised against the replicates' deviances (JAX
-    ``_ppc_slab``)."""
+    ``_ppc_slab``); with ``mesh`` the deviances sum over the row."""
     delta, _, log_lamb, log1m_lamb = _ppc_model(spec, params, fixed, batch,
                                                 cn_map, rep_map)
     lmask = batch.effective_loci_mask()
@@ -896,6 +938,9 @@ def _ppc_slab(spec: PertModelSpec, params: dict, fixed: dict,
 
     obs = deviance(batch.reads)
     rep = deviance(replicates)
+    if mesh is not None and mesh.loci > 1:
+        both = mesh.sum_loci(torch.cat([obs[None], rep]))
+        obs, rep = both[0], both[1:]
     z = (obs - torch.mean(rep, dim=0)) \
         / torch.clamp(torch.std(rep, dim=0, correction=0), min=1e-6)
     return obs, z
@@ -907,14 +952,15 @@ def ppc_discrepancy(spec: PertModelSpec, params: dict, fixed: dict,
                     num_replicates: int = 8,
                     cell_chunk: Optional[int] = None,
                     maps: Optional[tuple] = None,
-                    replicates: Optional[torch.Tensor] = None):
+                    replicates: Optional[torch.Tensor] = None, mesh=None):
     """Per-cell posterior-predictive discrepancy, cell-slabbed (JAX
     ``ppc_discrepancy``): ``(obs_deviance, ppc_z)``, each (cells,), on
     device.  ``maps`` = (cn_map, rep_map) are the MAP states the
     replicates are drawn at (None decodes them here).  ``replicates``
     ((num_replicates, cells, loci) read counts) supplies the draws;
     without it slab ``k`` draws its own from a generator seeded by
-    ``(seed, k)``."""
+    ``(seed, k)`` (with ``mesh``: this rank's cells, the maps its block,
+    and each rank's draws salted by its rank)."""
     num_cells = batch.reads.shape[0]
     dev = batch.reads.device
     if maps is None:
@@ -931,12 +977,13 @@ def ppc_discrepancy(spec: PertModelSpec, params: dict, fixed: dict,
             else torch.as_tensor(idx, device=dev)
         cm, rm = cn_map[sel], rep_map[sel]
         if replicates is None:
+            salt = si if mesh is None else si * mesh.size + mesh.rank
             reps = ppc_replicates(spec, p, fixed, b, cm, rm, num_replicates,
-                                  seeded_generator(seed, si, dev))
+                                  seeded_generator(seed, salt, dev))
         else:
             reps = torch.as_tensor(replicates, dtype=torch.float32,
                                    device=dev)[:, sel]
-        outs.append(_ppc_slab(spec, p, fixed, b, cm, rm, reps))
+        outs.append(_ppc_slab(spec, p, fixed, b, cm, rm, reps, mesh))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]

@@ -17,9 +17,10 @@
   plumbed explicitly (the runner and the kernel loader's ``compile``
   events reach it that way).
 
-The port runs one process, so the log always writes (the JAX package's
-rank gate has nothing to gate), and ``run_start`` takes its topology from
-``torch.cuda``.  A span tracer riding the log (``obs/spans.
+A sharded run's log is written by rank 0 alone (JAX's process-0 gate:
+:meth:`RunLog.create` gives the other ranks a disabled log), and
+``run_start`` takes its topology from ``torch.cuda`` and the process
+group.  A span tracer riding the log (``obs/spans.
 attach_tracer``) adds the run's root span, ``trace_id`` on ``run_start``
 and the ``span`` envelope on every other event; a cost ledger riding it
 (``meter_ledger``) adds ``run_end``'s ``meter`` section; ``add_context``
@@ -154,8 +155,9 @@ def _config_digest(config) -> Optional[str]:
 
 def _device_topology(device=None) -> dict:
     """Device topology for ``run_start``: the run's CUDA device (the
-    card when ``device`` is None and one is present) or the CPU.  One
-    process, so ``process_index`` is 0."""
+    card when ``device`` is None and one is present) or the CPU, with
+    the rank and the number of ranks (0 of 1 without a process group;
+    ``num_devices`` counts every rank's)."""
     try:
         import torch
 
@@ -169,8 +171,14 @@ def _device_topology(device=None) -> dict:
         else:
             topo = {"platform": "cpu", "device_kind": "cpu",
                     "num_devices": 1}
-        topo.update(local_devices=topo["num_devices"], process_index=0,
-                    process_count=1)
+        from scdna_replication_tools_tpu_torch.parallel.distributed import (
+            process_rank_and_count,
+        )
+
+        rank, world = process_rank_and_count()
+        topo.update(local_devices=topo["num_devices"], process_index=rank,
+                    process_count=world,
+                    num_devices=topo["num_devices"] * world)
         return topo
     except Exception as exc:  # noqa: BLE001 — run_start then lacks the
         # topology fields; the log itself must not fail over a probe
@@ -224,6 +232,13 @@ class RunLog:
             # abort the run it observes
             logger.warning("telemetry disabled: %s", exc)
             path = None
+        from scdna_replication_tools_tpu_torch.parallel.distributed import (
+            process_rank_and_count,
+        )
+
+        if process_rank_and_count()[0] != 0:
+            # a sharded run's log is rank 0's, as JAX's is process 0's
+            return cls(None)
         return cls(path)
 
     # -- lifecycle --------------------------------------------------------

@@ -72,11 +72,13 @@ suite's per-request isolation site), ``{step}/chunk``, ``{step}/save``,
 ``{step}/end``, ``compile``, ``{prefix}/decode``, ``qc/ppc`` (see
 OBSERVABILITY.md, "Durable runs").
 
-The port's changes: one process, so :func:`_process_index` is 0 until
-the multi-GPU item (ROADMAP A12) and an ``@procK`` rule with K > 0 never
-fires; :func:`classify_exception` also reads PyTorch's own signal
-(``torch.cuda.OutOfMemoryError``, and the "CUDA out of memory" text of
-a ``RuntimeError``) as ``oom``; and :func:`run_with_deadline` takes the
+The port's changes: :func:`_process_index` is the rank of a sharded
+run's process group (0 without one); :func:`classify_exception` also
+reads PyTorch's own signals: ``torch.cuda.OutOfMemoryError`` and the
+"CUDA out of memory" text of a ``RuntimeError`` as ``oom``, and a failed
+collective (``torch.distributed.DistBackendError``, a peer's closed
+connection or the group's timeout) as ``hostloss``: a rank whose peer
+died aborts resumable instead of retrying on a broken group; and :func:`run_with_deadline` takes the
 CUDA device its worker thread must make current, because PyTorch's
 current device is per thread.
 """
@@ -100,10 +102,13 @@ ENV_VAR = "PERT_FAULTS"
 
 
 def _process_index() -> int:
-    """This process's rank for ``@procK``-scoped rules: 0, the one
-    process of a port run, until multi-GPU runs (ROADMAP A12) give it
-    peers."""
-    return 0
+    """This process's rank for ``@procK``-scoped rules: its rank in the
+    default process group of a sharded run, 0 without one."""
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_rank_and_count,
+    )
+
+    return process_rank_and_count()[0]
 
 
 class SimulatedPreemption(BaseException):
@@ -413,7 +418,11 @@ _TRANSIENT_MARKERS = ("UNAVAILABLE", "DEADLINE_EXCEEDED", "ABORTED",
 # cannot succeed; the elastic rung rebuilds a smaller one instead
 _HOSTLOSS_MARKERS = ("DATA_LOSS", "device lost", "Device lost",
                      "system has halted", "slice health",
-                     "worker has been restarted")
+                     "worker has been restarted",
+                     # a collective whose peer rank died (gloo, NCCL)
+                     "Connection closed by peer", "Timed out waiting",
+                     "ProcessGroupGloo", "ProcessGroupNCCL",
+                     "NCCL communicator was aborted")
 
 
 def classify_exception(exc: BaseException) -> str:
@@ -431,7 +440,8 @@ def classify_exception(exc: BaseException) -> str:
     if isinstance(exc, WatchdogTimeout):
         return "hang"
     text = f"{type(exc).__name__}: {exc}"
-    if isinstance(exc, SimulatedHostLoss) \
+    dist_error = getattr(torch.distributed, "DistBackendError", ())
+    if isinstance(exc, SimulatedHostLoss) or isinstance(exc, dist_error) \
             or any(m in text for m in _HOSTLOSS_MARKERS):
         return "hostloss"
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)) \

@@ -266,13 +266,24 @@ def test_integrity_outcomes_match_jax(tmp_path, case, writer):
 
 
 def test_sharded_generation_is_refused_not_misread(tmp_path):
-    """A step that a multi-process run committed as a sharded generation
-    raises NotImplementedError naming A12, even beside a single file."""
-    _save_dummy("port", tmp_path)
-    (tmp_path / "pert_step2.commit.json").write_text(json.dumps(
-        {"format": 1, "seq": 1, "files": []}))
-    with pytest.raises(NotImplementedError, match="A12"):
-        ckpt.load_step(str(tmp_path), "step2")
+    """A step that a multi-process JAX run committed as a sharded
+    generation is read, never misread (the port refused it before
+    ROADMAP A12): its two hosts' halves merge into the full tau, as JAX's
+    loader merges them; a single file saved after it wins over it, and
+    the commit pointer it supersedes is retired."""
+    from test_topology_resume import _write_generation
+
+    full = np.arange(24.0, dtype=np.float32)
+    _write_generation(tmp_path, full)
+    for load in (jckpt.load_step, ckpt.load_step):
+        params, _, extra = load(str(tmp_path), "step2")
+        np.testing.assert_array_equal(params["tau_raw"], full)
+        assert int(extra["meta.num_iters"]) == 10
+    _save_dummy("port", tmp_path, 5.0)
+    assert not (tmp_path / "pert_step2.commit.json").exists()
+    for load in (jckpt.load_step, ckpt.load_step):
+        params, _, _ = load(str(tmp_path), "step2")
+        assert float(params["tau_raw"][0]) == 5.0
 
 
 def test_quarantine_stale_matches_jax(tmp_path):

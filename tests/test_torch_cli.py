@@ -78,7 +78,8 @@ def test_unported_flags_raise_naming_the_roadmap(runs):
     d = runs["torch"]
     ins = [str(d / "pert_sim_s.tsv"), str(d / "pert_sim_g.tsv"),
            str(d / "x.tsv"), str(d / "y.tsv"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ported (A12): two cell shards need a process group of two ranks
+    with pytest.raises(ValueError, match="init_distributed"):
         tcli.infer_scrt_main(ins + ["--num-shards", "2"])
     with pytest.raises(NotImplementedError, match="A14"):
         tcli.infer_scrt_main(ins + ["--executable-cache", str(d / "ec")])

@@ -103,10 +103,26 @@ def test_port_recovers_simulated_truth(outputs):
     dict(loci_shards=2), dict(num_shards=None),
     dict(executable_cache_dir="auto"), dict(executable_cache_dir="ec"),
     dict(num_shards=2), dict(num_shards=0)])
-def test_unported_options_raise(sim_data, option):
+def test_unported_options_raise(sim_data, outputs, option):
     """A JAX option the port lacks raises NotImplementedError naming the
-    ROADMAP item; it is never silently replaced."""
+    ROADMAP item; it is never silently replaced.  The shard counts are
+    ported (ROADMAP A12): without a process group, num_shards None or 0
+    (every rank of the group) is the one-rank run and equals the plain
+    run's frames, and a grid of two ranks raises ValueError naming
+    init_distributed rather than run as one rank."""
     sim_s, sim_g = sim_data
+    if option.get("num_shards", 1) in (None, 0):
+        scrt = TorchScRT(sim_s.copy(), sim_g.copy(), device="cpu",
+                         **{**OPTS, **option})
+        assert scrt.mesh is None
+        got = scrt.infer(level="pert")
+        for frame in (0, 2):
+            pd.testing.assert_frame_equal(got[frame], outputs[1][frame])
+        return
+    if "executable_cache_dir" not in option:
+        with pytest.raises(ValueError, match="init_distributed"):
+            TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
 
@@ -169,7 +185,8 @@ def test_backend_specific_values_raise(sim_data, option):
 OBS_MODULES = ("obs.schema", "obs.metrics", "obs.heartbeat", "obs.runlog",
                "obs.spans", "obs.meter", "obs.summary", "utils.fileio",
                "utils.profiling", "serve.buckets", "serve.queue",
-               "serve.slab", "serve.worker", "serve.cli")
+               "serve.slab", "serve.worker", "serve.cli", "parallel",
+               "parallel.distributed", "parallel.mesh")
 
 
 def test_port_imports_without_jax():
