@@ -55,7 +55,31 @@ Phases, each printing its own lines:
    ``torch.cuda.set_sync_debug_mode("error")`` with a run-log session
    open and a checkpoint after every chunk (no operation inside a chunk
    waits on the card, nothing is emitted there, and the saves copy to
-   the host between chunks); phase 5 for steps 2 and 3;
+   the host between chunks), then the same fit graphed, every chunk
+   after the capturing one under the guard; phase 5 for steps 2 and 3;
+6b. ``[graphs]``, CUDA graphs of the fit iteration, on phase 6's frames:
+   ``scRT(cn_s, cn_g1, executable_cache_dir=D)`` at every other default
+   (D a temporary directory), held bit for bit to phase 6 (every step's
+   losses and decisions, the rescue's statistics and accepted cells,
+   both frames' model columns, the QC table; on a difference, the ops
+   PyTorch reports as nondeterministic), each fit's captures (at most
+   its forms), replays (its dispatched iterations) and warm-ups, its
+   ms/iteration beside phase 6's, the peak, the run log's compile
+   events of the graphs, the kernel libraries saved to D, nothing left
+   in the store after the run, the launches (replays and warm-ups);
+   phase 5 on graphed windows (the idle share); ``pert/fit_step``'s
+   device time against its trace's for eager and graphed iterations;
+   the same run with ``profile_dir=T`` (bit for bit phase 6 again, a
+   trace per step fit and the packaging's, run_end's snapshot holding
+   ``pert_xla_scope_seconds`` > 0 for the four named ranges, fit_step's
+   no larger than the step traces' kernel time; the summary goes to
+   ``chiprun_out/graphs_trace_summary.txt``); and, in processes spawned
+   beside the later phases (``[graphs child]``, joined at the end), the
+   same default run on D with ``compile_cache_dir=None`` (every kernel
+   library a disk_hit from D, the device memory back within 64 MiB
+   after the run) and, after one library record is truncated, a fresh
+   process loading every library through D (the record quarantined to
+   ``*.bad``, its library rebuilt, the other a disk_hit);
 7. durable runs: the default config three more times with
    ``checkpoint_dir`` in a temporary directory outside the checkout —
    uninterrupted, killed by ``faults='preempt@step2/chunk#3'`` and
@@ -118,9 +142,10 @@ Phases, each printing its own lines:
     100 G1 cells; seconds per part, peak memory and the card beside them
     (``[unlabelled ...]`` lines).  The levels, SPF and the CLI (host
     pandas, TSVs and changepoint sweeps) run in a spawned process beside
-    phase 11 and print when it is joined (``[unlabelled tail]``); the
-    same process then runs the [analysis] phase on the default cell's
-    output (phase 6): ``predict_cycle_phase`` (S, G1/2 and LQ counts and
+    phase 11 and print when it is joined (``[unlabelled tail]``); a
+    process spawned after the [graphs] phase runs the [analysis] phase
+    on the default cell's output (phase 6) beside phases 7-10 (joined
+    before phase 11): ``predict_cycle_phase`` (S, G1/2 and LQ counts and
     seconds; simulated G1 cells called G1/2 or LQ > 0.7; simulated S
     cells called S no fewer than on the simulated states less 0.02, and
     90 % of the labels as the simulated states give them, with the S
@@ -139,8 +164,11 @@ Phases, each printing its own lines:
     checkout; finished requests' checkpoints are removed as they finish,
     since a request writes ~12 GB of them) and drained by
     ``ServeWorker(max_batch=4,
-    exit_when_idle=True)`` on the card, then the first again by a serial
-    worker (``max_batch=1``): every ticket done, packed dispatches > 0
+    exit_when_idle=True)`` on the card (its compiled-program store under
+    the spool, JAX's ``'auto'``: the status document's block, every
+    request's solo chunks replayed from graphs), then the first again by
+    a serial worker (``max_batch=1``) in a spawned process beside the
+    batched drain: every ticket done, packed dispatches > 0
     with at least two lanes each, every request log schema-valid with
     its ``request_id`` and ``slab_width=4``, ``request_start`` and
     ``request_end`` in the worker log, packed and serial outputs
@@ -181,7 +209,9 @@ Phases, each printing its own lines:
     Printed per rank: its start-and-import seconds, ``infer`` wall, step
     ms/iteration, peak memory, the gradient all-reduce's ms alone, its
     launches (``[sharded ...]`` lines);
-13. the card's name and power limit, one JSON line of the kernels (each
+13. the lowest available host memory seen while the script ran
+    (``[host memory]``), the card's name and power limit, one JSON line
+    of the kernels (each
     with its launches summed over the paths' runs and by path),
     then the result line.
 
@@ -1812,10 +1842,19 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
     its run_start and run_end: no event is emitted inside a fit.  The
     fit checkpoints after every chunk (``checkpoint_every=1``, into a
     temporary directory): the saves copy the chunk boundary's tensors to
-    the host between the guarded chunks."""
+    the host between the guarded chunks.  Then the same fit graphed (a
+    compiled-program store in a temporary directory): its first chunk
+    captures the graphs (a capture synchronizes, once per program) and
+    runs unguarded, every later chunk replays them under the guard."""
+    for graphed in (False, True):
+        _sync_free_fit(dev, scrt, record, graphed)
+
+
+def _sync_free_fit(dev, scrt, record, graphed: bool) -> None:
     import tempfile
 
     import torch
+    from scdna_replication_tools_tpu_torch.infer import aotcache
     from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
     from scdna_replication_tools_tpu_torch.infer import svi
     from scdna_replication_tools_tpu_torch.obs import runlog
@@ -1828,9 +1867,14 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
     cfg = scrt.config
     every = cfg.fit_diag_every
     orig = svi._launch_chunk
-    guarded = []
+    guarded, free = [], []
 
     def launch(*a, **kw):
+        if graphed and not free:
+            # the capturing chunk
+            out = orig(*a, **kw)
+            free.append((a[3], a[4]))
+            return out
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = orig(*a, **kw)
@@ -1839,7 +1883,8 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
         guarded.append((a[3], a[4]))
         return out
     svi._launch_chunk = launch
-    log_path = REPO / "chiprun_out" / "sync_chunk.jsonl"
+    name = "sync_chunk_graphed" if graphed else "sync_chunk"
+    log_path = REPO / "chiprun_out" / f"{name}.jsonl"
     log = runlog.RunLog(str(log_path))
     err, fit, current = None, None, False
     saves = []
@@ -1850,8 +1895,10 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
             ckpt.save_step(ck, "step2", params, losses, opt_state=opt_state,
                            num_iters=num_iters, converged=False,
                            extra=ckpt.pack_controller_state(state))
+        scope = aotcache.run_scope(str(Path(ck) / "store"), None) \
+            if graphed else contextlib.nullcontext()
         try:
-            with log.session(config=cfg, device=dev):
+            with log.session(config=cfg, device=dev), scope:
                 current = runlog.current() is log
                 fit = svi.fit_map(_PertLossFn(step.spec), step.fit.params,
                                   (step.fixed, step.batch),
@@ -1869,17 +1916,437 @@ def check_sync_free_chunk(dev, scrt, record) -> None:
     logged = [json.loads(line)["event"]
               for line in log_path.read_text().splitlines()] \
         if log_path.exists() else []
-    ok = err is None and guarded[:2] == [(0, every), (every, 2 * every)] \
+    chunks = free + guarded
+    replayed = fit is not None and fit.timings.get("replays", 0) > 0
+    ok = err is None and chunks[:2] == [(0, every), (every, 2 * every)] \
         and current and logged == ["run_start", "run_end"] \
-        and saves[:1] == [every]
-    check(ok, f"[sync] step-2 chunks of up to {every} iterations "
-          f"({CELLS}x{LOCI}) under set_sync_debug_mode('error'), a run-log "
-          f"session open and current ({current}), a checkpoint after every "
-          f"chunk (saved at {saves}): "
-          f"{'no synchronizing operation' if err is None else err}; "
-          f"chunks {guarded}; the session's log holds {logged}")
-    record["sync_free_chunk"] = {"ok": ok, "error": err, "saves": saves,
-                                 "chunks": guarded, "log": logged}
+        and saves[:1] == [every] and (replayed or not graphed)
+    what = (f"graphed step-2 chunks after the capturing one {free}"
+            if graphed else f"step-2 chunks of up to {every} iterations")
+    check(ok, f"[sync] {what} ({CELLS}x{LOCI}) under "
+          f"set_sync_debug_mode('error'), a run-log session open and "
+          f"current ({current}), a checkpoint after every chunk (saved at "
+          f"{saves}): {'no synchronizing operation' if err is None else err}"
+          f"; guarded chunks {guarded}; the session's log holds {logged}")
+    record["sync_free_chunk" + ("_graphed" if graphed else "")] = {
+        "ok": ok, "error": err, "saves": saves, "chunks": chunks,
+        "guarded": guarded, "log": logged}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: CUDA graphs of the fit iteration, the store and the profiled run
+# ---------------------------------------------------------------------------
+
+# the four named ranges of the profiled run (utils/profiling.scope); a
+# gauge's key is the range's full path (pert/decode/pert/qc_entropy)
+GRAPH_SCOPES = ("pert/fit_step", "pert/decode", "pert/qc_entropy",
+                "pert/ppc")
+# a spawned process's device memory after its graphed run (its scRT
+# gone) against before it: the store's graphs and pools are freed
+GRAPHS_MEMORY_SLACK = 64 * 2**20
+# the library whose store record the [graphs] phase truncates
+GRAPHS_TRUNCATED = "adam"
+
+
+def _model_frame(df):
+    keys = ["cell_id", "chr", "start"]
+    return df[keys + sorted(c for c in df.columns
+                            if c.startswith("model_"))].copy()
+
+
+def graphs_reference(scrt) -> dict:
+    """What the graphed runs are held to, host copies of phase 6's run:
+    every step's losses and decisions, the rescue's statistics and
+    accepted cells, both frames' model columns, the QC table, each
+    step's ms/iteration."""
+    qc = scrt.cell_qc().copy()
+    return {"losses": [s.fit.losses.copy() for s in scrt.steps],
+            "decisions": [[(d["action"], d["iter"]) for d in s.fit.decisions]
+                          for s in scrt.steps],
+            "rescue": (dict(scrt.mirror_rescue_stats or {}),
+                       sorted(qc.loc[qc["rescue_accepted"], "cell_id"])),
+            "frames": [_model_frame(scrt.outputs[0]),
+                       _model_frame(scrt.outputs[2])],
+            "qc": qc,
+            "ms_per_iter": [s.fit.timings["ms_per_iter"]
+                            for s in scrt.steps]}
+
+
+def _first_difference(scrt, ref):
+    """None when the run's losses, decisions, rescue, model columns and
+    QC table equal ``ref`` bit for bit; else what differs first."""
+    got = graphs_reference(scrt)
+    for i in range(3):
+        if not np.array_equal(got["losses"][i], ref["losses"][i]):
+            a, b = got["losses"][i], ref["losses"][i]
+            n = min(len(a), len(b))
+            first = int(np.argmax(a[:n] != b[:n])) if n else 0
+            return (f"step{i + 1} losses (lengths {len(a)} / {len(b)}, "
+                    f"first at iteration {first})")
+        if got["decisions"][i] != ref["decisions"][i]:
+            return f"step{i + 1} decisions {got['decisions'][i]}"
+    if got["rescue"] != ref["rescue"]:
+        return f"the rescue {got['rescue'][0]}"
+    for name, a, b in zip(("S", "G1"), got["frames"], ref["frames"]):
+        if not a.equals(b):
+            cols = [c for c in a.columns if not a[c].equals(b[c])]
+            return f"the {name} frame's columns {cols}"
+    if not got["qc"].equals(ref["qc"]):
+        return "the QC table"
+    return None
+
+
+def _compile_events(path) -> list:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()
+            if '"compile"' in line]
+
+
+def _graphed_launches(scrt) -> dict:
+    """Launches each kernel of the graphed default path makes: each step
+    fit's (and the rescue sub-fit's) dispatched iterations, all
+    replays, plus its warm-up iterations, which run eagerly before each
+    capture; the rescue's scoring launches enum_fwd twice."""
+    fits = [s.fit for s in scrt.steps]
+    sub = scrt.mirror_rescue_fit.fit if scrt.mirror_rescue_fit else None
+
+    def n(fit):
+        return fit.timings["dispatched"] + fit.timings.get("warmups", 0) \
+            if fit is not None else 0
+    return {"fused_fwd_dense": n(fits[1]) + n(sub),
+            "fused_bwd_dense": n(fits[1]) + n(sub),
+            "fused_fwd_sparse": n(fits[2]), "fused_bwd_sparse": n(fits[2]),
+            "adam": sum(n(f) for f in fits) + n(sub),
+            "enum_fwd": 2 if sub is not None else 0}
+
+
+def graphs_phase(dev, record, frames, ref):
+    """The [graphs] phase on phase 6's frames (module docstring): the
+    default config with ``executable_cache_dir`` (graphed), held bit for
+    bit to phase 6; each step's graphed ms/iteration and idle share; the
+    same run profiled into ``profile_dir``; the spawned processes on the
+    same store (:class:`GraphsChild`, joined at the end of the script).
+    Returns (the graphed run's launches, the child)."""
+    import gc
+    import tempfile
+
+    import torch
+    from scdna_replication_tools_tpu_torch import scRT
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    from scdna_replication_tools_tpu_torch.utils import trace_summary
+
+    tag = "[graphs]"
+    out = REPO / "chiprun_out"
+    tmp = Path(tempfile.mkdtemp(prefix="pert_graphs_"))
+    store_dir = tmp / "store"
+    rec = record.setdefault("graphs", {})
+    cn_s, cn_g1 = frames
+    base = record["main_default"]
+
+    def run(log, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        scrt = scRT(cn_s.copy(), cn_g1.copy(), telemetry_path=str(log),
+                    executable_cache_dir=str(store_dir), **kw)
+        outs = scrt.infer("pert")
+        torch.cuda.synchronize()
+        scrt.outputs = outs
+        return scrt, time.perf_counter() - t0, dict(_cuda.LAUNCHES), \
+            torch.cuda.max_memory_allocated()
+
+    log1 = out / "graphs_run.jsonl"
+    scrt, wall, launches, peak = run(log1)
+    diff = _first_difference(scrt, ref)
+    check(diff is None, f"{tag} scRT(cn_s, cn_g1, executable_cache_dir=D) "
+          "bit-equal to phase 6's eager run: every step's losses and "
+          "decisions, the rescue, both frames' model columns, the QC table"
+          + (f"; first difference: {diff}" if diff else ""))
+    if diff:
+        print(f"  {tag} ops PyTorch reports as nondeterministic: "
+              f"{name_nondeterministic_ops(dev, scrt)}")
+    fits = [("step1", scrt.steps[0].fit), ("step2", scrt.steps[1].fit),
+            ("step3", scrt.steps[2].fit)]
+    if scrt.mirror_rescue_fit is not None:
+        fits.append(("rescue", scrt.mirror_rescue_fit.fit))
+    events = _compile_events(log1)
+    programs = [(e["step"], e["label"], e["cache"]) for e in events
+                if e.get("tag") in ("chunk", "fit")]
+    print(f"{tag} infer('pert') wall {wall:.2f} s (phase 6: "
+          f"{base['wall_s']:.2f} s); peak device memory {peak} B (phase 6: "
+          f"{base['peak_bytes']} B)")
+    steps_rec = {}
+    for i, (name, fit) in enumerate(fits):
+        t = fit.timings
+        forms = 2 if name != "rescue" else 1
+        # the captures' seconds (warm-ups included) and the fit's pace
+        # without them
+        capture_s = sum(e.get("compile_seconds", 0.0) for e in fit.programs)
+        steady = 1e3 * (t["fit"] - capture_s) / max(t["dispatched"], 1)
+        line = (f"  {name}: {fit.num_iters} iterations counted, "
+                f"{t['dispatched']} dispatched, {t['replays']} replays, "
+                f"{t['captures']} captures ({capture_s:.3f} s), "
+                f"{t['warmups']} warm-ups; {t['ms_per_iter']:.3f} "
+                f"ms/iteration, {steady:.3f} ms per dispatched iteration "
+                "without the captures")
+        if i < 3:
+            line += f" (phase 6 eager: {ref['ms_per_iter'][i]:.3f})"
+        print(line)
+        check(0 < t["captures"] <= forms and t["replays"] == t["dispatched"],
+              f"{tag} {name}: {t['captures']} captures (at most {forms}, "
+              f"the forms of its key), replays {t['replays']} = "
+              f"dispatched {t['dispatched']} (the warm-ups are scratch)")
+        steps_rec[name] = {k: t[k] for k in ("dispatched", "replays",
+                                             "captures", "warmups",
+                                             "ms_per_iter")}
+        steps_rec[name].update(capture_s=capture_s, steady_ms=steady)
+    order = ("step1", "step2", "rescue", "step3")   # as the log has them
+    want = [(name, f"{'chunk' if name != 'rescue' else 'fit'}:{form}",
+             "miss") for name in order if name in dict(fits)
+            for form in (("diag", "plain") if name != "rescue"
+                         else ("plain",))]
+    check(programs == want, f"{tag} the run log's compile events of the "
+          f"graph programs: a capture (miss) per form and fit: {programs}")
+    libs = [(e["label"], e["cache"]) for e in events
+            if e.get("tag") == "kernel_library"]
+    store = aotcache.ExecutableStore(str(store_dir))
+    entries = store.entries()
+    store.close()
+    check(len(entries) == len(_cuda.SOURCES) and all(
+        c == "hit" for _, c in libs), f"{tag} the kernel libraries (loaded "
+          f"before: {sorted(set(libs))}) saved to the store: "
+          f"{len(entries)} records")
+    check(aotcache.live_program_count() == 0,
+          f"{tag} no program is left after the run")
+    expect = _graphed_launches(scrt)
+    got = {k: launches[k] for k in expect}
+    check(got == expect, f"{tag} launches by replay and warm-up {got} = "
+          f"dispatched + warm-up iterations {expect}")
+    rec["run"] = {"wall_s": wall, "peak_bytes": peak, "steps": steps_rec,
+                  "launches": launches, "programs": programs,
+                  "first_difference": diff, "library_records": len(entries)}
+    profile_steps(dev, scrt, record, "graphed", graphed_dir=tmp / "windows")
+    busy = {k: v for k, v in record.get("profile", {}).items()
+            if k.startswith(("graphed", "default"))}
+    print(f"{tag} idle share, graphed against eager: " + ", ".join(
+        f"{k} {v.get('idle_share', float('nan')):.3f}" for k, v in
+        sorted(busy.items())))
+    attribution(dev, scrt, tmp, rec)
+    del scrt
+    child = GraphsChild(str(store_dir))
+
+    prof = tmp / "profile"
+    log2 = out / "graphs_profiled.jsonl"
+    scrt, wall2, _, _ = run(log2, profile_dir=str(prof))
+    diff2 = _first_difference(scrt, ref)
+    traces = sorted(Path(p).name.split(".")[0] for p in
+                    prof.glob("*.trace.json.gz"))
+    check(diff2 is None and traces == ["package", "step1", "step2", "step3"],
+          f"{tag} profiled run ({wall2:.2f} s) bit-equal to phase 6 "
+          f"({diff2 or 'no difference'}); traces {traces}: one per step fit "
+          "and the packaging's")
+    snap = [json.loads(line) for line in log2.read_text().splitlines()
+            if '"metrics_snapshot"' in line][-1]
+    gauges = {k.split('scope="', 1)[1].rstrip('"}'): v["value"]
+              for k, v in snap["metrics"].items()
+              if k.startswith("pert_xla_scope_seconds{")}
+    step_device = sum(trace_summary.device_seconds(str(p))
+                      for p in prof.glob("step*.trace.json.gz"))
+    print(f"{tag} pert_xla_scope_seconds in run_end's snapshot: "
+          + json.dumps(gauges) + f"; the step traces' device time "
+          f"{step_device:.6f} s")
+    for scope in GRAPH_SCOPES:
+        keys = [k for k in gauges if k.endswith(scope)]
+        check(snap["phase"] == "run_end" and keys
+              and all(gauges[k] > 0 for k in keys),
+              f"{tag} run_end's snapshot holds pert_xla_scope_seconds for "
+              f"{scope} ({keys}) > 0")
+    check(gauges.get("pert/fit_step", 0.0) <= step_device,
+          f"{tag} pert/fit_step {gauges.get('pert/fit_step')} s <= the "
+          f"step traces' kernel time {step_device:.6f} s")
+    (out / "graphs_trace_summary.txt").write_text(
+        trace_summary.summarise(str(prof), top=12))
+    rec["profiled"] = {"wall_s": wall2, "traces": traces, "gauges": gauges,
+                       "step_device_s": step_device,
+                       "first_difference": diff2}
+    del scrt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, child
+
+
+def attribution(dev, scrt, tmp, rec) -> None:
+    """``pert/fit_step``'s device time against its trace's kernel time,
+    for 25 eager and 25 graphed iterations of step 2 from the run's
+    fitted state: a range around a replay carries the replayed kernels."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+    from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+    from scdna_replication_tools_tpu_torch.utils import profiling
+    from scdna_replication_tools_tpu_torch.utils import trace_summary
+
+    step = scrt.steps[1]
+
+    def fit():
+        return fit_map(_PertLossFn(step.spec), step.fit.params,
+                       (step.fixed, step.batch), max_iter=25, min_iter=25,
+                       device=dev, moment_dtype=scrt.config
+                       .optimizer_state_dtype)
+    shares = {}
+    for mode in ("eager", "graphed"):
+        where = tmp / f"attr_{mode}"
+        scope = aotcache.run_scope(str(tmp / "attr_store"), None) \
+            if mode == "graphed" else contextlib.nullcontext()
+        with scope:
+            fit()                      # warm (the capture, when graphed)
+            with profiling.trace(str(where), label="step2"):
+                fit()
+        (path,) = where.glob("*.trace.json.gz")
+        device = trace_summary.device_seconds(str(path))
+        scoped = trace_summary.scope_totals(str(where)).get(
+            "pert/fit_step", 0.0)
+        shares[mode] = (scoped, device)
+        check(0.9 * device <= scoped <= device,
+              f"[graphs] {mode} step 2: pert/fit_step {scoped:.6f} s of the "
+              f"trace's {device:.6f} s device time (>= 0.9)")
+    rec["attribution"] = shares
+
+
+def _graphs_child(store_dir: str, mode: str) -> dict:
+    """A fresh process on the [graphs] store.  ``run``: the default
+    config with the store and ``compile_cache_dir=None`` (a build
+    directory of its own, so a library it does not read from the store
+    runs nvcc), its compile events, and its device memory before and
+    after the run; ``libraries``: each kernel library loaded through the
+    store."""
+    import gc
+    import io
+    import tempfile
+    import traceback
+
+    import torch
+
+    rec: dict = {}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            from scdna_replication_tools_tpu_torch.ops import _cuda
+            torch.cuda.init()
+            if mode == "run":
+                from scdna_replication_tools_tpu_torch import scRT
+                cn_s, cn_g1 = simulate_frames()
+                before = torch.cuda.memory_allocated(0)
+                log = Path(tempfile.mkdtemp(prefix="pert_child_")) / "r.jsonl"
+                scrt = scRT(cn_s, cn_g1, executable_cache_dir=store_dir,
+                            compile_cache_dir=None, telemetry_path=str(log))
+                scrt.infer("pert")
+                rec["compile"] = [(e.get("step"), e["label"], e["cache"])
+                                  for e in _compile_events(log)]
+                del scrt
+                gc.collect()
+                torch.cuda.synchronize()
+                rec["memory"] = (before, torch.cuda.memory_allocated(0))
+            else:
+                from scdna_replication_tools_tpu_torch.infer import aotcache
+                _cuda.configure_build_dir(None)
+                store = aotcache.ExecutableStore(store_dir)
+                rec["libraries"] = {name: _cuda.load_event(name, store)
+                                    for name in _cuda.SOURCES}
+                store.close()
+        except Exception:
+            rec["error"] = traceback.format_exc()
+    rec["wall_s"] = time.perf_counter() - t0
+    return {"log": out.getvalue(), "record": rec}
+
+
+class GraphsChild:
+    """The [graphs] phase's spawned processes, one after the other in a
+    thread beside the later phases: the default run on the store in a
+    fresh process, then one library record truncated and a second fresh
+    process loading every library through the store.  :meth:`finish`
+    waits and checks them."""
+
+    def __init__(self, store_dir: str):
+        import threading
+
+        self.store_dir = store_dir
+        self.results: dict = {}
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _spawn(self, mode: str) -> dict:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) \
+                as pool:
+            return pool.submit(_graphs_child, self.store_dir, mode).result()
+
+    def _run(self) -> None:
+        from scdna_replication_tools_tpu_torch.infer import aotcache
+        from scdna_replication_tools_tpu_torch.ops import _cuda
+
+        try:
+            self.results["run"] = self._spawn("run")
+            path = aotcache.ExecutableStore(self.store_dir).path(
+                _cuda.store_digest(GRAPHS_TRUNCATED)[0])
+            size = os.path.getsize(path)
+            with open(path, "r+b") as fh:
+                fh.truncate(size // 2)
+            self.results["truncated"] = (path, size)
+            self.results["libraries"] = self._spawn("libraries")
+        except Exception as exc:  # noqa: BLE001 — finish() reports it
+            self.results["error"] = repr(exc)
+
+    def finish(self, record) -> None:
+        self.thread.join()
+        tag = "[graphs child]"
+        res = self.results
+        print(f"{tag} joined after {time.perf_counter() - self.t0:.1f} s")
+        if "error" in res:
+            check(False, f"{tag} the spawned processes failed: "
+                  f"{res['error']}")
+            return
+        run, libs = res["run"]["record"], res["libraries"]["record"]
+        print(res["run"]["log"] + res["libraries"]["log"], end="")
+        for part in (run, libs):
+            if "error" in part:
+                check(False, f"{tag} a spawned process raised:\n"
+                      f"{part['error']}")
+                return
+        first = {}
+        for step, label, cache in run["compile"]:
+            if label.endswith(".cu"):
+                first.setdefault(label, cache)
+        before, after = run["memory"]
+        print(f"{tag} run on the store in a fresh process ({run['wall_s']:.1f}"
+              f" s): compile events {run['compile']}; device memory "
+              f"{before} B before, {after} B after")
+        check(sorted(first.values()) == ["disk_hit"] * len(first)
+              and len(first) == 2,
+              f"{tag} every kernel library a disk_hit from the store: "
+              f"{first}")
+        check(after - before <= GRAPHS_MEMORY_SLACK,
+              f"{tag} torch.cuda.memory_allocated back to its value before "
+              f"the run within 64 MiB ({after - before} B): the store's "
+              "graphs and pools went with the run")
+        path, size = res["truncated"]
+        caches = {n: e["cache"] for n, e in libs["libraries"].items()}
+        print(f"{tag} {GRAPHS_TRUNCATED}'s record truncated from {size} B; "
+              f"a fresh process's loads: {json.dumps(libs['libraries'])}")
+        check(caches[GRAPHS_TRUNCATED] == "miss"
+              and os.path.exists(path + ".bad") and os.path.exists(path)
+              and all(c == "disk_hit" for n, c in caches.items()
+                      if n != GRAPHS_TRUNCATED),
+              f"{tag} the truncated record went to *.bad and its library was "
+              f"rebuilt and saved again, the other a disk_hit: {caches}")
+        record.setdefault("graphs", {})["child"] = {
+            "run": run, "libraries": libs, "truncated": [path, size]}
 
 
 # ---------------------------------------------------------------------------
@@ -2201,16 +2668,20 @@ def _short(kernel: str) -> str:
 
 
 def profile_steps(dev, scrt, record, path: str,
-                  steps=("step1", "step2", "step3")):
+                  steps=("step1", "step2", "step3"), graphed_dir=None):
     """Device time by kernel over a window of iterations of each of
     ``steps``, from torch.profiler, against the same window's unprofiled
     wall: the idle share is the part of an iteration in which the card
     runs nothing (Python dispatch and the per-iteration loss read).  Each
-    window is a fresh fit from the step's fitted parameters."""
+    window is a fresh fit from the step's fitted parameters; with
+    ``graphed_dir`` the windows of a step replay CUDA graphs from one
+    store there (the first window, which warms the allocator, captures
+    them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from scdna_replication_tools_tpu_torch.infer import aotcache
     from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
     from scdna_replication_tools_tpu_torch.infer.svi import fit_map
 
@@ -2226,14 +2697,20 @@ def profile_steps(dev, scrt, record, path: str,
                            min_iter=PROFILE_ITERS, device=dev,
                            moment_dtype=mdt)
 
-        window()                              # warm the allocator
-        wall_ms = window().timings["ms_per_iter"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            window()
+        scope = contextlib.nullcontext() if graphed_dir is None else \
+            aotcache.run_scope(str(graphed_dir), None)
+        with scope:
+            window()                          # warm the allocator
+            wall_ms = window().timings["ms_per_iter"]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                window()
         by_name: dict = {}
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            # the named ranges' device spans (utils/profiling.scope)
+            # cover kernels that count on their own
+            if ev.device_type != DeviceType.CUDA \
+                    or ev.key.startswith("pert/"):
                 continue
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
@@ -2866,13 +3343,15 @@ def analysis(dev, frames, cn, load_s, card) -> dict:
     return rec
 
 
-def _host_tail(card: str, analysis_in, load_s: float) -> dict:
-    """Phase 10's host-bound tail and the [analysis] phase, the task of a
-    process of its own: the deterministic levels and SPF on the
-    unlabelled frames, the three CLI functions through TSVs, then phase
+def _host_tail(card: str, part: str, analysis_in=None,
+               load_s: float = 0.0) -> dict:
+    """Phase 10's host-bound tail (``part='levels'``: the deterministic
+    levels and SPF on the unlabelled frames, then the three CLI functions
+    through TSVs) or the [analysis] phase (``part='analysis'``: phase
     calling, the cell-cycle features and the pivots on the default
-    cell's output and frames.  Returns what it printed, the checks that
-    failed and its parts of the record."""
+    cell's output and frames), each the task of a process of its own.
+    Returns what it printed, the checks that failed and its parts of the
+    record."""
     import io
     import traceback
     import torch
@@ -2881,72 +3360,120 @@ def _host_tail(card: str, analysis_in, load_s: float) -> dict:
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        try:
-            frames = simulate_frames()
-            bare, _ = unlabelled_frames(frames)
-            levels_spf(torch.device("cuda", 0), bare, record, card)
-            cli_drive(frames, record["unlabelled"], card)
-        except Exception:
-            check(False, "[unlabelled] the host tail raised:\n"
-                  + traceback.format_exc())
-        record["unlabelled"]["tail_s"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        try:
-            record["analysis"] = analysis(torch.device("cuda", 0), frames,
-                                          analysis_in, load_s, card)
-        except Exception:
-            check(False, "[analysis] the phase raised:\n"
-                  + traceback.format_exc())
-        record["analysis"]["wall_s"] = time.perf_counter() - t1
+        if part == "levels":
+            try:
+                frames = simulate_frames()
+                bare, _ = unlabelled_frames(frames)
+                levels_spf(torch.device("cuda", 0), bare, record, card)
+                cli_drive(frames, record["unlabelled"], card)
+            except Exception:
+                check(False, "[unlabelled] the host tail raised:\n"
+                      + traceback.format_exc())
+            record["unlabelled"]["tail_s"] = time.perf_counter() - t0
+        else:
+            try:
+                record["analysis"] = analysis(
+                    torch.device("cuda", 0), simulate_frames(), analysis_in,
+                    load_s, card)
+            except Exception:
+                check(False, "[analysis] the phase raised:\n"
+                      + traceback.format_exc())
+            record["analysis"]["wall_s"] = time.perf_counter() - t0
     return {"log": out.getvalue(), "failures": list(FAILURES),
             "record": record}
 
 
 class HostTail:
-    """Phase 10's levels, SPF and CLI functions and the [analysis] phase
-    (host pandas, TSVs and changepoint sweeps; the card does little of
-    it) in one spawned process that runs beside phase 11, so that the
-    script stays inside its time limit: the levels, SPF and CLI took
-    250-300 s of a slow host's time in a row.  ``analysis_in`` is the
-    default cell's output (:func:`analysis_input`), ``load_s`` its load
-    phase's seconds.  :meth:`finish` waits for it, prints what it printed
-    and counts its checks; :meth:`close` stops it, also when a phase
-    fails on the way."""
+    """A host-bound part of the script in a spawned process of its own
+    (:func:`_host_tail`): ``'levels'``, phase 10's levels, SPF and CLI
+    functions (250-370 s of a slow host's time), runs beside phase 11;
+    ``'analysis'``, the [analysis] phase (120-210 s), starts after the
+    [graphs] phase and runs beside phases 7-10 (its card work, the
+    features' 2-GMM, falls in phase 7, which times no kernel), so that
+    the script stays inside its time limit.  :meth:`finish` waits,
+    prints what it printed and counts its checks; :meth:`close` stops it,
+    also when a phase fails on the way."""
 
-    def __init__(self, card: str, analysis_in, load_s: float):
+    def __init__(self, card: str, part: str, *args):
         import atexit
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
 
+        self.part = part
         self.t0 = time.perf_counter()
         self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
-        self.future = self.pool.submit(_host_tail, card, analysis_in,
-                                       load_s)
+        self.future = self.pool.submit(_host_tail, card, part, *args)
         atexit.register(self.close)
 
     def finish(self, record) -> None:
         try:
             tail = self.future.result()
         except Exception as exc:     # the process died
-            check(False, f"[unlabelled] the host tail's process failed: "
-                  f"{exc!r}")
+            check(False, f"[unlabelled] the {self.part} tail's process "
+                  f"failed: {exc!r}")
             return
         finally:
             self.close()
         wait = time.perf_counter() - self.t0
         print(tail["log"], end="")
+        FAILURES.extend(tail["failures"])
         rec = tail["record"]
-        print(f"[unlabelled tail] levels, SPF and CLI in a process beside "
-              f"phase 11: {rec['unlabelled']['tail_s']:.1f} s, then the "
-              f"[analysis] phase {rec['analysis']['wall_s']:.1f} s (joined "
-              f"after {wait:.1f} s)")
-        for what in tail["failures"]:
-            FAILURES.append(what)
-        record["unlabelled"].update(rec["unlabelled"])
-        record.setdefault("analysis", {}).update(rec["analysis"])
+        if self.part == "levels":
+            print(f"[unlabelled tail] levels, SPF and CLI in a process beside "
+                  f"phase 11: {rec['unlabelled']['tail_s']:.1f} s (joined "
+                  f"after {wait:.1f} s)")
+            record["unlabelled"].update(rec["unlabelled"])
+        else:
+            print(f"[analysis] in a process beside phases 7-10: "
+                  f"{rec['analysis']['wall_s']:.1f} s (joined after "
+                  f"{wait:.1f} s)")
+            record.setdefault("analysis", {}).update(rec["analysis"])
 
     def close(self) -> None:
         self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+class HostMemory:
+    """A thread sampling the machine's available memory (``MemAvailable``
+    of ``/proc/meminfo``) every second while the script runs: its lowest
+    reading and when, printed at the end (the card's machine has 96 GiB
+    for every process of the script and the serving spool in
+    ``/dev/shm``)."""
+
+    def __init__(self, t_start: float):
+        import threading
+
+        self.t_start = t_start
+        self.low = (float("inf"), 0.0)
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="host-memory")
+        self.thread.start()
+
+    @staticmethod
+    def available() -> float:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024.0
+        return float("nan")
+
+    def _run(self) -> None:
+        while not self.stop.wait(1.0):
+            try:
+                avail = self.available()
+            except OSError:
+                return
+            if avail < self.low[0]:
+                self.low = (avail, time.perf_counter() - self.t_start)
+
+    def report(self, record) -> None:
+        self.stop.set()
+        self.thread.join(timeout=5)
+        low, at = self.low
+        print(f"[host memory] lowest MemAvailable {low / 2**30:.2f} GiB at "
+              f"{at:.1f} s")
+        record["host_memory_low"] = {"bytes": low, "at_s": at}
 
 
 # ---------------------------------------------------------------------------
@@ -3530,7 +4057,10 @@ class SlabProbe:
             out = orig(calls, width, t)
         by_name: dict = {}
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            # the named ranges' device spans (utils/profiling.scope)
+            # cover kernels that count on their own
+            if ev.device_type != DeviceType.CUDA \
+                    or ev.key.startswith("pert/"):
                 continue
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
@@ -3651,8 +4181,10 @@ def _drain(queue, max_batch: int) -> tuple:
     from scdna_replication_tools_tpu_torch.serve import ServeWorker
     worker = ServeWorker(queue, max_batch=max_batch, exit_when_idle=True)
     check(worker.device.type == "cuda" and worker.executable_cache_dir
-          is None, f"[serve] ServeWorker(max_batch={max_batch}) runs on "
-          f"{worker.device}, no compiled-program store")
+          == str(queue.root / "exec_cache"),
+          f"[serve] ServeWorker(max_batch={max_batch}) runs on "
+          f"{worker.device} with the compiled-program store under its "
+          f"spool ({worker.executable_cache_dir}, JAX's 'auto')")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -3662,6 +4194,73 @@ def _drain(queue, max_batch: int) -> tuple:
     wall = time.perf_counter() - t0
     return (worker, stats, wall, dict(_cuda.LAUNCHES),
             torch.cuda.max_memory_allocated())
+
+
+def _store_block(queue, rids, tag: str) -> dict:
+    """The worker's status document's ``executable_cache`` block and the
+    graph programs of each request's run (its ``compile`` events)."""
+    import collections
+
+    doc = json.loads(queue.status_path.read_text())
+    block = doc.get("executable_cache") or {}
+    graphs = {}
+    for rid in rids:
+        path = queue.results_dir(rid) / "run.jsonl"
+        if path.exists():
+            graphs[rid] = dict(collections.Counter(
+                e["cache"] for e in _compile_events(path)
+                if e.get("tag") in ("chunk", "fit")))
+    print(f"  {tag} store: status.json executable_cache {json.dumps(block)}"
+          f"; graph programs per request (captured / found) "
+          f"{json.dumps(graphs)}")
+    check(block.get("dir") == str(queue.root / "exec_cache")
+          and block.get("done") is True and {"preloaded", "entries",
+                                             "programs", "program_bytes"}
+          <= set(block),
+          f"[serve] {tag}: the status document shows the store's block")
+    check(graphs and all(g.get("miss", 0) + g.get("hit", 0) > 0
+                         for g in graphs.values()),
+          f"[serve] {tag}: every request's solo chunks replayed graphs")
+    return {"status": block, "graphs": graphs}
+
+
+def _serial_drain(root: str) -> dict:
+    """The serial worker's drain of ``root`` (``max_batch=1``), the task
+    of a spawned process beside the batched drain: what it printed, the
+    checks that failed, its stats, wall and peak."""
+    import io
+
+    from scdna_replication_tools_tpu_torch.serve import SpoolQueue
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, stats, wall, _, peak = _drain(SpoolQueue(root), 1)
+    return {"log": out.getvalue(), "failures": list(FAILURES),
+            "stats": {k: stats[k] for k in ("processed", "by_status")},
+            "wall": wall, "peak": peak}
+
+
+class SerialDrain:
+    """The serial worker in a spawned process of its own, started with
+    the batched drain so that the two run at once (one after the other
+    they took 350 s and 150 s of a slow host's time); :meth:`result`
+    waits and counts its checks."""
+
+    def __init__(self, root):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+        self.future = self.pool.submit(_serial_drain, str(root))
+
+    def result(self) -> dict:
+        try:
+            res = self.future.result()
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+        print(res["log"], end="")
+        FAILURES.extend(res["failures"])
+        return res
 
 
 def _top_phases(events, n: int = 8) -> str:
@@ -3745,6 +4344,15 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"{len(SERVE_SEEDS)} processes into {root} while the earlier "
               f"phases ran ({time.perf_counter() - spool.t0:.1f} s since "
               f"they started; waited {time.perf_counter() - t0:.1f} s here)")
+        # the same requests' data through a serial worker (no rewrite), in
+        # a spawned process beside the batched drain
+        serial = SpoolQueue(root / "serial")
+        for rid in rids[:SERVE_SERIAL]:
+            src = queue.root / "data" / rid
+            serial.submit(str(src / "cn_s.tsv"), str(src / "cn_g1.tsv"),
+                          request_id=rid)
+        serial_janitor = Janitor(serial).__enter__()
+        serial_drain = SerialDrain(serial.root)
         timeline = MemoryTimeline(REPO / "chiprun_out" / "serve_memory.jsonl")
         with timeline, SlabProbe() as probe, Janitor(queue):
             worker, stats, wall, launches, peak = _drain(queue, SERVE_WIDTH)
@@ -3758,6 +4366,7 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"{coord.packed_lanes} lanes, rungs {rungs}; peak device "
               f"memory {peak} bytes")
         print(f"  launches {json.dumps(launches)}")
+        rec["batched_store"] = _store_block(queue, rids, "batched")
         ends = {}
         for line in Path(stats["worker_log"]).read_text().splitlines():
             ev = json.loads(line)
@@ -3856,18 +4465,18 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
         batched_launches = launches
         del worker, coord, probe
 
-        # the same requests' data through a serial worker (no rewrite)
-        serial = SpoolQueue(root / "serial")
-        for rid in rids[:SERVE_SERIAL]:
-            src = queue.root / "data" / rid
-            serial.submit(str(src / "cn_s.tsv"), str(src / "cn_g1.tsv"),
-                          request_id=rid)
-        with Janitor(serial):
-            worker, stats, wall, launches, peak = _drain(serial, 1)
-        print(f"[serve serial] ServeWorker(max_batch=1) drained "
+        try:
+            res = serial_drain.result()
+        finally:
+            serial_janitor.__exit__(None, None, None)
+        stats, wall, peak = res["stats"], res["wall"], res["peak"]
+        print(f"[serve serial] ServeWorker(max_batch=1), in a process beside "
+              f"the batched drain, drained "
               f"{stats['processed']} requests in {wall:.2f} s: "
               f"{json.dumps(stats['by_status'])}; peak device memory "
               f"{peak} bytes")
+        rec["serial_store"] = _store_block(serial, rids[:SERVE_SERIAL],
+                                           "serial")
         srates = {}
         for rid in rids[:SERVE_SERIAL]:
             ok = serial.status(rid).get("status") == "ok"
@@ -3904,7 +4513,6 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"[serve] {rids[0]} (the default cell's frames) packed tau r "
               f"{tau0:.4f} >= the default cell's {default_ref['tau_r']:.4f} "
               "- 0.01")
-        del worker
         return batched_launches
     finally:
         spool.close()
@@ -4098,6 +4706,7 @@ def main() -> int:
 
     # phase 11's requests are written by four processes meanwhile
     spool = ServeSpool()
+    host_memory = HostMemory(t_start)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4165,10 +4774,19 @@ def main() -> int:
     check_sync_free_chunk(dev, scrt, record)
     profile_steps(dev, scrt, record, "default", steps=("step2", "step3"))
     durable_ref = durable_reference(scrt)
+    graphs_ref = graphs_reference(scrt)
     analysis_in = analysis_input(scrt.outputs[0], scrt.outputs[2])
     del scrt
     torch.cuda.empty_cache()
     mark("default")
+
+    by_path["graphed"], graphs_child = graphs_phase(dev, record, frames,
+                                                    graphs_ref)
+    del graphs_ref
+    mark("graphs")
+    analysis_tail = HostTail(card, "analysis", analysis_in,
+                             record["main_default"]["phases_s"]["load"])
+    del analysis_in
 
     by_path["durable"] = durable_runs(dev, record, frames, durable_ref)
     del durable_ref
@@ -4194,9 +4812,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("unlabelled")
 
-    tail = HostTail(card, analysis_in,
-                    record["main_default"]["phases_s"]["load"])
-    del analysis_in
+    analysis_tail.finish(record)
+    mark("analysis")
+    tail = HostTail(card, "levels")
     sharded = ShardedPhase(frames, MUFU_PER_S)
     by_path["serve"] = serving(dev, record, record["main_default"], spool)
     mark("serve")
@@ -4206,6 +4824,9 @@ def main() -> int:
     mark("sharded")
     check_lanes(dev, results)
     mark("lanes")
+    graphs_child.finish(record)
+    mark("graphs child")
+    host_memory.report(record)
 
     # launches of each kernel summed over the paths' runs (each read
     # from zero just before its run, just after it), by path beside it

@@ -20,9 +20,15 @@ heartbeat) run as in the JAX package, at its defaults, so
 run under the repository's ``.pert_runs/``; the written path is
 ``scRT.run_log_path``) renders with ``tools/pert_report.py``; the run's
 metrics registry is ``scRT.metrics_registry`` (``metrics_textfile``
-adds its Prometheus textfile).  A caller who sets a JAX option the port
-lacks gets ``NotImplementedError`` naming its ROADMAP item; the port
-never runs something else in its place.
+adds its Prometheus textfile).  ``executable_cache_dir=D`` replays a CUDA
+graph per fit iteration on the card, captured once per program and kept
+in the run's compiled-program store (``infer/aotcache.py``), whose
+directory keeps the kernel libraries for the next process;
+``compile_cache_dir`` is where the libraries build; ``profile_dir=T``
+writes a ``torch.profiler`` trace per step fit (and one of the
+packaging) into T and the ``pert_xla_scope_seconds`` gauges of their
+named ranges into the run's registry.  The port never runs something
+else in place of an option it takes.
 """
 
 from __future__ import annotations
@@ -53,21 +59,32 @@ from scdna_replication_tools_tpu_torch.pipeline.clustering import (
 from scdna_replication_tools_tpu_torch.pipeline.consensus import (
     compute_consensus_clone_profiles,
 )
+from scdna_replication_tools_tpu_torch.utils import profiling
 from scdna_replication_tools_tpu_torch.utils.profiling import PhaseTimer
 
 
+def _feed_trace_scope_gauges(profile_dir, registry) -> None:
+    """One ``pert_xla_scope_seconds{scope}`` gauge per named range of the
+    run's traces (``utils/trace_summary.scope_totals``: device seconds by
+    full ``pert/*`` path), so run_end's metrics snapshot carries them
+    (JAX ``api._feed_trace_scope_gauges``).  Best-effort: a missing or
+    unreadable trace means absent gauges, never a failed run."""
+    try:
+        from scdna_replication_tools_tpu_torch.utils.trace_summary import (
+            scope_totals,
+        )
+
+        for scope, seconds in scope_totals(str(profile_dir)).items():
+            registry.gauge("pert_xla_scope_seconds",
+                           labels={"scope": scope}).set(round(seconds, 6))
+    except Exception as exc:  # noqa: BLE001 — metrics enrichment must
+        # not take down the run it decorates
+        profiling.logger.debug("metrics: trace-scope gauges unavailable "
+                               "(%s)", exc)
+
+
 def _unported(options: dict) -> None:
-    """Raise for the first JAX option left on that the port lacks."""
-    checks = [
-        ("executable_cache_dir", options["executable_cache_dir"] is not None,
-         "A14 (compiled-program cache)"),
-    ]
-    for name, on, item in checks:
-        if on:
-            raise NotImplementedError(
-                f"scRT option {name}={options[name]!r} is not ported to the "
-                f"PyTorch package yet (ROADMAP {item}); leave it at its "
-                "default or use scdna_replication_tools_tpu")
+    """Raise for a JAX option value the port has no path for."""
     if options["fused_adam"] != "auto":
         raise ValueError(f"fused_adam={options['fused_adam']!r}: the port "
                          "has one Adam path, 'auto' (the CUDA kernel on the "
@@ -79,10 +96,22 @@ class scRT:
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
     where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda``, ``elastic_mesh`` and ``compile_cache_dir``
-    only act inside features the port refuses, and are accepted and
-    unused (the config hash records the JAX defaults of
-    those it hashes: ``config.UNPORTED_FIELDS``).
+    ``backend``, ``cuda`` and ``elastic_mesh`` only act inside features
+    the port lacks, and are accepted and unused (the config hash records
+    the JAX default of the one it hashes: ``config.UNPORTED_FIELDS``).
+
+    The compiled-program store: ``executable_cache_dir=D`` on the card
+    captures each fit's iteration into CUDA graphs once per program and
+    replays them (bit-equal to the eager run), keeps them for the run
+    and frees them when it ends, and keeps the kernel libraries in D,
+    where the next process finds them (``compile`` events: ``miss`` for
+    a capture, ``hit`` for a graph the store held, ``disk_hit`` for a
+    library read from D, ``uncacheable`` for a fit on the CPU or a
+    sharded one, which run eagerly).  ``compile_cache_dir`` is the
+    libraries' build directory ('auto': the package's ``_build/``; None:
+    the process's own).  ``profile_dir=T`` (the port's addition to the
+    JAX keywords) writes a ``torch.profiler`` trace of each step fit,
+    and one of the packaging, into T.
 
     Sharded fits: ``num_shards=N, loci_shards=M`` on every rank of an
     initialised process group of N x M ranks
@@ -129,7 +158,7 @@ class scRT:
                  optimizer_state_dtype='float32', cn_hmm_self_prob=None,
                  rho_from_rt_prior=False, mirror_rescue=True,
                  compile_cache_dir='auto', executable_cache_dir=None,
-                 telemetry_path='auto',
+                 profile_dir=None, telemetry_path='auto',
                  metrics_textfile=None, heartbeat_dir='auto',
                  heartbeat_interval_seconds=15.0, fit_diag_every=25,
                  qc=True, qc_entropy_thresh=0.5, qc_frac_thresh=0.25,
@@ -137,9 +166,7 @@ class scRT:
                  controller=True, controller_max_extra_iters=None,
                  clustering_method='kmeans', clustering_kwargs=None,
                  device=None):
-        _unported(dict(
-            fused_adam=fused_adam,
-            executable_cache_dir=executable_cache_dir))
+        _unported(dict(fused_adam=fused_adam))
         if clustering_method not in ('kmeans', 'umap_hdbscan'):
             raise ValueError(
                 f"clustering_method must be 'kmeans' or 'umap_hdbscan', "
@@ -186,6 +213,8 @@ class scRT:
             trace_spans=trace_spans, trace_parent=trace_parent,
             cell_chunk=cell_chunk, cn_hmm_self_prob=cn_hmm_self_prob,
             num_shards=num_shards, loci_shards=loci_shards,
+            profile_dir=profile_dir, compile_cache_dir=compile_cache_dir,
+            executable_cache_dir=executable_cache_dir,
         )
         # a grid that the process group cannot hold, or one with no
         # group, raises here and never runs as one rank; the runner makes
@@ -318,36 +347,46 @@ class scRT:
             self.mirror_rescue_stats = inference.mirror_rescue_stats
             self.mirror_rescue_fit = inference.rescue_fit
 
-            with timer.phase("package"):
-                with torch.no_grad():
-                    lamb = float(_sites(step1.spec, step1.fit.params,
-                                        step1.fixed)["lamb"].reshape(-1)[0])
-                qc_collect = {} if self.config.qc else None
-                cn_s_out, supp_s_out = package_step_output(
-                    self.cn_s, inference._step2_data, step2, lamb,
-                    step1.fit.losses, step2.fit.losses, c,
-                    mirror_rescue_stats=inference.mirror_rescue_stats,
-                    qc_collect=qc_collect,
-                    qc_entropy_thresh=self.config.qc_entropy_thresh,
-                    phase_prefix="package_s",
-                    hmm_self_prob=self.config.cn_hmm_self_prob,
-                    mesh=self.mesh)
-            if qc_collect is not None and not qc_collect.get("degraded"):
-                # a 'degraded' marker means the packaging decode's OOM
-                # ladder dropped the entropy surfaces: the QC table has
-                # no inputs then (the drop is a degrade event)
-                self._cell_qc_df = inference.build_cell_qc(
-                    step2, inference._step2_data, qc_collect)
-            with timer.phase("package"):
-                if step3 is not None:
-                    cn_g1_out, supp_g1_out = package_step_output(
-                        self.cn_g1, inference._step3_data, step3, lamb,
-                        step1.fit.losses, step3.fit.losses, c,
-                        phase_prefix="package_g1",
+            # the packaging decode and the QC, traced as one block
+            with profiling.trace(self.config.profile_dir, label="package"):
+                with timer.phase("package"):
+                    with torch.no_grad():
+                        lamb = float(_sites(
+                            step1.spec, step1.fit.params,
+                            step1.fixed)["lamb"].reshape(-1)[0])
+                    qc_collect = {} if self.config.qc else None
+                    cn_s_out, supp_s_out = package_step_output(
+                        self.cn_s, inference._step2_data, step2, lamb,
+                        step1.fit.losses, step2.fit.losses, c,
+                        mirror_rescue_stats=inference.mirror_rescue_stats,
+                        qc_collect=qc_collect,
+                        qc_entropy_thresh=self.config.qc_entropy_thresh,
+                        phase_prefix="package_s",
                         hmm_self_prob=self.config.cn_hmm_self_prob,
                         mesh=self.mesh)
-                else:
-                    cn_g1_out, supp_g1_out = None, None
+                if qc_collect is not None and not qc_collect.get("degraded"):
+                    # a 'degraded' marker means the packaging decode's OOM
+                    # ladder dropped the entropy surfaces: the QC table has
+                    # no inputs then (the drop is a degrade event)
+                    self._cell_qc_df = inference.build_cell_qc(
+                        step2, inference._step2_data, qc_collect)
+                with timer.phase("package"):
+                    if step3 is not None:
+                        cn_g1_out, supp_g1_out = package_step_output(
+                            self.cn_g1, inference._step3_data, step3, lamb,
+                            step1.fit.losses, step3.fit.losses, c,
+                            phase_prefix="package_g1",
+                            hmm_self_prob=self.config.cn_hmm_self_prob,
+                            mesh=self.mesh)
+                    else:
+                        cn_g1_out, supp_g1_out = None, None
+            if self.config.profile_dir:
+                # the named ranges' device time as registry gauges, so
+                # run_end's snapshot carries them (the traces closed with
+                # their blocks)
+                with timer.phase("metrics/trace_scopes"):
+                    _feed_trace_scope_gauges(self.config.profile_dir,
+                                             registry)
         self.phase_report = timer.report()
         self.steps = (step1, step2, step3)
         # the textfile's final refresh (a telemetry-off run has no run_end

@@ -137,11 +137,21 @@ def infer_scrt_main(argv=None):
                         "--no-mirror-rescue restores the reference-faithful "
                         "no-rescue trajectory; PertConfig.mirror_rescue)")
     p.add_argument("--compile-cache", default="auto",
-                   help="accepted for the JAX package's command line; "
-                        "the port has no XLA compilation cache")
+                   help="where the kernel libraries build: 'auto' (the "
+                        "package's _build/), a path, or 'none' for a "
+                        "directory of this process "
+                        "(PertConfig.compile_cache_dir)")
     p.add_argument("--executable-cache", default=None,
-                   help="the compiled-program store, not ported "
-                        "(ROADMAP A14): a path raises")
+                   help="the compiled-program store: each fit iteration "
+                        "on the GPU replays a CUDA graph captured once "
+                        "per program, and the kernel libraries persist "
+                        "in this directory (PertConfig."
+                        "executable_cache_dir; default: none)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace per step fit (and "
+                        "one of the packaging) into this directory and "
+                        "the pert_xla_scope_seconds gauges into the run's "
+                        "metrics (PertConfig.profile_dir)")
     p.add_argument("--telemetry", default="auto",
                    help="structured JSONL run log: 'auto' (default, a "
                         "timestamped file under repo-local .pert_runs/), "
@@ -226,8 +236,10 @@ def infer_scrt_main(argv=None):
                 trace_spans=args.trace_spans,
                 trace_parent=args.trace_parent,
                 mirror_rescue=args.mirror_rescue,
-                compile_cache_dir=args.compile_cache,
+                compile_cache_dir=(None if str(args.compile_cache).lower()
+                                   == "none" else args.compile_cache),
                 executable_cache_dir=args.executable_cache,
+                profile_dir=args.profile_dir,
                 telemetry_path=args.telemetry,
                 metrics_textfile=args.metrics_textfile,
                 heartbeat_dir=args.heartbeat_dir,

@@ -3,11 +3,11 @@
 Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
 rescue, the adaptive controller, the model-health QC, the run log, span
-tracing, the durable runs, sharded fits and serving read.  The JAX
-config's other knobs (the compiled-program caches, the elastic mesh
-rung) belong to modules not yet ported; ``api.scRT`` refuses them by
-name instead of carrying dead fields here, and :data:`UNPORTED_FIELDS`
-holds each at the JAX default that refusal pins it to.
+tracing, the profiled run, the compiled-program store, the durable runs,
+sharded fits and serving read.  The JAX config's other knobs (the
+elastic mesh rung, the backend-specific Adam paths) belong to modules
+not ported; :data:`UNPORTED_FIELDS` holds each at the JAX default that
+the port runs at.
 """
 
 from __future__ import annotations
@@ -32,6 +32,18 @@ NON_HASH_FIELDS = (
     "heartbeat_interval_seconds",  # heartbeat cadence
 )
 
+# Fields in the config hash that never shape a captured program: where
+# host-side artifacts land.  The compiled-program store
+# (infer/aotcache.py) drops them, beside NON_HASH_FIELDS, from the
+# config digest in its keys, so a serving worker that moves
+# checkpoint_dir per request replays one request's graphs for the next
+# (the JAX package's tuple)
+AOT_EXECUTION_ONLY_FIELDS = (
+    "checkpoint_dir",       # where checkpoints land (per-request in serve)
+    "profile_dir",          # where profiler traces land
+    "compile_cache_dir",    # where the kernel libraries build
+)
+
 # The JAX PertConfig fields this package does not carry yet: name ->
 # (the JAX default, the ROADMAP item that ports it).  ``api.scRT``
 # refuses any other value of the refused ones, and the rest only act in
@@ -40,10 +52,7 @@ NON_HASH_FIELDS = (
 # own fields: one setting hashes the same in both packages, which is
 # what the checkpoint manifest's resume gate compares.
 UNPORTED_FIELDS = {
-    "profile_dir": (None, "A11b"),
     "elastic_mesh": (True, "A12"),
-    "compile_cache_dir": ("auto", "A14"),
-    "executable_cache_dir": (None, "A14"),
     # one Adam path (the CUDA kernel, its plain version on the CPU):
     # JAX's backend-specific values have no counterpart
     "fused_adam": ("auto", "none"),
@@ -243,6 +252,19 @@ class PertConfig:
     # ('<trace_id>:<span_id>')
     trace_spans: bool = False
     trace_parent: Optional[str] = None
+    # torch.profiler traces (utils/profiling.trace): one Chrome trace per
+    # step fit and one of the packaging decode and QC, written into this
+    # directory, and the pert_xla_scope_seconds gauges of their named
+    # ranges in the run's registry; None disables
+    profile_dir: Optional[str] = None
+    # where the kernel libraries build (ops/_cuda.configure_build_dir):
+    # 'auto' the package's _build/, a path, or None for a directory of
+    # the process's own
+    compile_cache_dir: Optional[str] = "auto"
+    # the compiled-program store (infer/aotcache.py): each fit iteration
+    # on the card replays a CUDA graph captured once per program, and the
+    # kernel libraries persist in this directory; None runs eagerly
+    executable_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.enum_impl not in ("auto", "binary"):

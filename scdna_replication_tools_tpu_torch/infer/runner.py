@@ -83,6 +83,7 @@ from scdna_replication_tools_tpu_torch.data.loader import (
     pad_loci,
 )
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import aotcache as aotcache_mod
 from scdna_replication_tools_tpu_torch.infer import checkpoint as ckpt
 from scdna_replication_tools_tpu_torch.infer import manifest as manifest_mod
 from scdna_replication_tools_tpu_torch.infer.svi import (
@@ -773,11 +774,14 @@ class PertInference:
         site fires once per step, as JAX's fires once per step's program
         in a cold process; on the CPU there is nothing to load and no
         phase is recorded."""
+        scope = aotcache_mod.current_scope()
+        store = scope.store if scope is not None else None
+
         def load():
             faults_mod.point("compile")
             if self.device.type != "cuda":
                 return []
-            return [_cuda.load_event(name) for name in _cuda.SOURCES]
+            return [_cuda.load_event(name, store) for name in _cuda.SOURCES]
 
         deadline = self.config.watchdog_compile_seconds
         label = f"compile:{step_name}"
@@ -876,8 +880,10 @@ class PertInference:
         # whole step fit on its first attempt
         faults_mod.point(f"{step_name}/fit")
         t0 = time.perf_counter()
+        # one profiler trace per step fit (JAX runner.py:1116)
         with self.meter.context(step=step_name,
-                                **self._meter_attrs(step_name, batch)):
+                                **self._meter_attrs(step_name, batch)), \
+                profiling.trace(cfg.profile_dir, label=step_name):
             fit = self._fit_map(spec, params0, fixed, batch, max_iter,
                                 min_iter, step_name, opt_state0,
                                 losses_prefix, controller, resume_ctrl)
@@ -962,6 +968,7 @@ class PertInference:
         every value comes from the returned FitResult.  ``prior_iters``
         (iterations restored from a checkpoint) count in ``iters`` but
         not in the rates, whose wall covers the resumed segment only."""
+        self._emit_program_events(step_name, fit)
         for decision in fit.decisions:
             self.run_log.emit("control_decision", step=step_name,
                               **decision)
@@ -1010,6 +1017,14 @@ class PertInference:
             tail = [_finite(v) for v in fit.losses[-20:]]
             self.run_log.emit("nan_abort", step=step_name,
                               iters=int(fit.num_iters), loss_tail=tail)
+
+    def _emit_program_events(self, step_name: str, fit: FitResult) -> None:
+        """The ``compile`` events of a fit's graph programs (a capture is
+        a miss, a program the store held a hit, a fit the store cannot
+        serve uncacheable), after the fit: nothing is emitted inside
+        one."""
+        for event in fit.programs:
+            self.run_log.emit("compile", step=step_name, **event)
 
     def run_step1(self) -> StepOutput:
         iters = self.config.resolved_iters()
@@ -1247,6 +1262,7 @@ class PertInference:
                       b2=cfg.adam_b2, device=self.device,
                       moment_dtype=cfg.optimizer_state_dtype)
         self.rescue_fit = RescueFit(cand.copy(), fit)
+        self._emit_program_events("rescue", fit)
 
         # both scored under the step-2 beta_stds (the sub-fit also moves
         # that global param; its drift is discarded)
@@ -1540,9 +1556,17 @@ class PertInference:
             metrics_mod.install(self.metrics)
         try:
             # re-entrant: under the facade's open log this is a
-            # pass-through and the facade's run_end closes the file
+            # pass-through and the facade's run_end closes the file.
+            # The compiled-program store is the run's (a serving
+            # worker's when it shares its directory): its graphs and
+            # pools are freed when the run ends, an exception included;
+            # the kernel libraries build in compile_cache_dir's directory
             with self.run_log.session(config=self.config, timer=self.phases,
-                                      device=self.device):
+                                      device=self.device), \
+                    aotcache_mod.run_scope(
+                        self.config.executable_cache_dir,
+                        aotcache_mod.program_config_digest(self.config)), \
+                    _cuda.build_dir_scope(self.config.compile_cache_dir):
                 step1 = _retire(self.run_step1(), pi=True)
                 with self.phases.phase("step2/prior"):
                     etas = self.build_etas()

@@ -40,6 +40,19 @@ betas 0.8/0.99 by default): the pi parameter through the fused kernel
 ``moment_dtype`` (float32 or bfloat16), every other leaf through the same
 math as plain ops with float32 moments.
 
+With a compiled-program store current on the fit's thread
+(``infer/aotcache.run_scope``: ``executable_cache_dir``), a fit on the
+card replays CUDA graphs instead: each chunk's iterations run the
+device-counter form of the iteration (:func:`_iteration_dev`, every
+index a device tensor, as the JAX body is driven by its loop carry),
+captured once per program (:class:`_ChunkProgram`: a diagnostic form
+and a plain one, JAX's ``lax.cond`` branches) and replayed once per
+iteration on static buffers that the chunk fills from its entry state
+and copies out of at its end.  A sharded fit (its all-reduce stages
+through the host) and a fit on the CPU run the host-integer form and
+say so (``uncacheable``).  Each iteration or replay is the profiler
+range ``pert/fit_step``.
+
 A sharded fit (a loss function with a ``mesh``: ``parallel.mesh.
 RankMesh``) runs this loop on every rank in lockstep: each iteration's
 loss is this rank's share, and before Adam the loss is summed over every
@@ -55,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -62,6 +76,7 @@ import torch
 
 from scdna_replication_tools_tpu_torch import layout
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import aotcache as _aotcache
 from scdna_replication_tools_tpu_torch.infer import checkpoint as _ckpt
 from scdna_replication_tools_tpu_torch.obs import controller as _controller
 from scdna_replication_tools_tpu_torch.obs import doctor as _doctor
@@ -75,8 +90,10 @@ from scdna_replication_tools_tpu_torch.ops.adam_kernel import (
     adam_update_plain,
     moment_torch_dtype,
 )
+from scdna_replication_tools_tpu_torch.ops import _cuda
 from scdna_replication_tools_tpu_torch.ops.dists import seeded_generator
 from scdna_replication_tools_tpu_torch.utils import faults as _faults
+from scdna_replication_tools_tpu_torch.utils import profiling as _profiling
 from scdna_replication_tools_tpu_torch.utils.profiling import logger
 
 # slots of the in-fit diagnostics ring (JAX svi.py:47)
@@ -129,6 +146,11 @@ class FitResult:
     decisions: list = dataclasses.field(default_factory=list)
     # the final iteration budget (max_iter plus any extension)
     budget: Optional[int] = None
+    # ``compile`` event payloads of the fit's programs (one per graph
+    # form it replayed: "miss" when this fit captured it, "hit" when it
+    # was in the store; one "uncacheable" for a fit the store cannot
+    # serve); empty without a store
+    programs: list = dataclasses.field(default_factory=list)
 
 
 def make_opt_state(params: dict, moment_dtype: str = "float32") -> AdamState:
@@ -302,35 +324,429 @@ def _stop_probe(loss_fn: Callable, n: int, dev) -> Optional[_StopProbe]:
     return _StopProbe(n)
 
 
-def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
-                  stop: int, loop: _Loop, const: torch.Tensor,
-                  probe: Optional[_StopProbe] = None):
-    """Launch iterations ``i0 .. stop-1`` from fresh stop flags, reading
-    nothing back: no operation here waits on the device.  With a
-    ``probe`` (CUDA) the launches end early once the card has reported
-    the fit stopped.  Returns the carry and the iterations launched."""
+def _iteration_dev(loss_fn: Callable, loss_args: tuple, s: _Carry,
+                   loop: _Loop, const: torch.Tensor, diag_row: bool) -> None:
+    """The iteration of :func:`_iteration` in place on ``s``, driven by
+    the device count ``s.i`` as the JAX body is by its loop carry: the
+    loss slot, the ring's slot and the ``min_iter`` test are device
+    tensors (index writes and a ``where``), so one captured graph serves
+    every iteration.  ``diag_row`` (the host knows ``it % diag_every``)
+    records the ring's row: the diagnostic form.  Every value equals the
+    host-integer form's, bit for bit; the pi parameter and its moments
+    step in their own planes, every other leaf and flag is copied back
+    into ``s``.  Not for a sharded fit."""
+    live = torch.logical_not(s.done)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in s.params.items()}
+    loss = loss_fn(leaves, *loss_args)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    grads = {k: (g if g is not None else torch.zeros_like(leaves[k]))
+             for k, g in zip(leaves, grads)}
+    with torch.no_grad():
+        loss = loss.detach().to(torch.float32)
+        i = s.i.to(torch.int64).reshape(1)
+        if diag_row:
+            row = torch.cat([loss.reshape(1), _norms(grads, s.params)])
+            slot = torch.remainder(
+                torch.div(i, loop.diag_every, rounding_mode="floor"),
+                DIAG_RING)
+            s.diag.index_copy_(0, slot, torch.where(
+                live, row, s.diag.index_select(0, slot)[0])[None])
+        params, state = _adam_apply(s.params, grads, s.state, const, live,
+                                    loop.b1, loop.b2, loop.moment_dtype,
+                                    in_place=True)
+        for dst, src in ((s.params, params), (s.state.mu, state.mu),
+                         (s.state.nu, state.nu)):
+            for k, v in src.items():
+                if v is not dst[k]:
+                    dst[k].copy_(v)
+        s.state.count.copy_(state.count)
+        losses = s.losses
+        losses.index_copy_(0, i, torch.where(
+            live, loss, losses.index_select(0, i)[0]).reshape(1))
+        is_nan = torch.isnan(loss)
+        n = losses.shape[0]
+        start = torch.clamp(i - loop.win, 0, n - loop.win)
+        window = losses.index_select(
+            0, start + torch.arange(loop.win, device=losses.device))
+        denom = torch.abs(losses[0] - loss)
+        conv = torch.logical_and(
+            (window.max() - window.min()) / denom < loop.rel_tol,
+            i[0] >= loop.min_iter)
+        stop = torch.logical_or(is_nan, conv)
+        converged = torch.logical_or(s.converged,
+                                     torch.logical_and(live, conv))
+        s.i.copy_(s.i + live.to(torch.int32))
+        s.done.copy_(torch.logical_or(s.done, torch.logical_and(live, stop)))
+        s.converged.copy_(converged)
+        s.is_nan.copy_(torch.logical_or(s.is_nan,
+                                        torch.logical_and(live, is_nan)))
+
+
+def _fresh_flags(c: _Carry, i0: int) -> _Carry:
+    """``c`` with the chunk's count at ``i0`` and cleared stop flags."""
     dev = c.losses.device
     flag = dict(dtype=torch.bool, device=dev)
-    c = dataclasses.replace(
+    return dataclasses.replace(
         c, i=torch.full((), i0, dtype=torch.int32, device=dev),
         done=torch.zeros((), **flag), converged=torch.zeros((), **flag),
         is_nan=torch.zeros((), **flag))
+
+
+def _form(loop: _Loop, it: int) -> str:
+    """The graph form of iteration ``it``: 'diag' where it records the
+    ring's row, else 'plain'."""
+    return "diag" if loop.diag_every and it % loop.diag_every == 0 \
+        else "plain"
+
+
+def _clone_tree(tree):
+    """A copy of ``tree`` (see :func:`_flatten`) with fresh tensors."""
+    leaves: list = []
+    skel = _flatten(tree, leaves)
+    return _unflatten(skel, iter([t.clone() for t in leaves]))
+
+
+# one capture at a time in the process: the launch counts of a capture
+# are gathered process-wide (ops/_cuda.recording_launches)
+_CAPTURE_LOCK = threading.Lock()
+# eager iterations of each form before its capture, on the capture's
+# stream and on the program's own buffers (reset by the chunk's entry
+# copy): the lazy initialisations (cuBLAS handles and workspaces, the
+# autograd engine's device thread) may not happen inside a capture
+GRAPH_WARMUPS = 1
+# device -> the one side stream of every warm-up and capture there
+# (PyTorch keeps a cuBLAS workspace per stream that has run a matmul, so
+# one stream for them all holds one)
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+class _ChunkProgram:
+    """The CUDA graphs of one chunk program (a program of the store,
+    ``infer/aotcache.py``): static buffers of the carry, the loss
+    arguments and ``const``, and one graph per form, each stepping the
+    buffers in place by one iteration (:func:`_iteration_dev`).  The
+    forms share the buffers and one memory pool.  A chunk copies its
+    entry state in (:meth:`bind`), replays, and copies the state out
+    (:meth:`snapshot`): what the chunk loop keeps (the best-loss
+    parameters, checkpoints, the emergency save) never aliases a buffer
+    that the next replay overwrites."""
+
+    def __init__(self, loss_fn: Callable, loop: _Loop, carry: _Carry,
+                 loss_args: tuple, const: torch.Tensor):
+        self.loss_fn, self.loop = loss_fn, loop
+        dev = carry.losses.device
+        self.device = dev
+        self.static = _fresh_flags(_Carry(
+            params=_clone_tree(carry.params),
+            state=_clone_tree(carry.state), losses=carry.losses.clone(),
+            diag=None if carry.diag is None else carry.diag.clone()), 0)
+        leaves: list = []
+        self._arg_skel = _flatten(tuple(loss_args), leaves)
+        self._arg_leaves = [t.clone() for t in leaves]
+        self.args = _unflatten(self._arg_skel, iter(self._arg_leaves))
+        self._bound: list = []
+        self.const = const.clone()
+        self.graphs: dict = {}
+        self.counts: dict = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.warmups = 0
+        # chunks replaying it now (the store releases only idle ones),
+        # and the device bytes of its buffers and pool
+        self.busy = 0
+        # one chunk at a time steps the buffers: a chunk of another fit
+        # of the same key (a served request's, on its own thread) waits
+        # for the lock on the host and for the last chunk's work (an
+        # event on its stream) on the card
+        self.lock = threading.Lock()
+        self.last = None
+        leaves = []
+        _flatten((self.static, self._arg_leaves, self.const), leaves)
+        self.nbytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    def capture(self, form: str) -> float:
+        """Warm up and capture ``form``; returns the seconds it took.  A
+        capture that fails raises, naming the form and what broke it."""
+        dev = self.device
+        t0 = time.perf_counter()
+
+        def body():
+            _iteration_dev(self.loss_fn, self.args, self.static, self.loop,
+                           self.const, form == "diag")
+        try:
+            with _CAPTURE_LOCK:
+                reserved = torch.cuda.memory_reserved(dev)
+                side = _capture_stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for _ in range(GRAPH_WARMUPS):
+                        body()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.warmups += GRAPH_WARMUPS
+                graph = torch.cuda.CUDAGraph()
+                with _cuda.recording_launches() as counts:
+                    with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        body()
+                # the pool's growth (other threads' allocations in the
+                # window count too: an estimate)
+                self.nbytes += max(
+                    torch.cuda.memory_reserved(dev) - reserved, 0)
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of the {form} iteration failed "
+                f"({type(exc).__name__}: {exc}); a fit that cannot be "
+                "captured runs without executable_cache_dir") from exc
+        leaves: list = []
+        if _flatten(tuple(self.args), leaves) != self._arg_skel:
+            raise RuntimeError(
+                f"CUDA graph capture of the {form} iteration: the loss "
+                "arguments grew a cached tensor during the warm-up (the "
+                "loss function's prime() must fill every cache entry)")
+        self.graphs[form], self.counts[form] = graph, dict(counts)
+        return time.perf_counter() - t0
+
+    def bind(self, c: _Carry, loss_args: tuple, const: torch.Tensor,
+             i0: int) -> None:
+        """Copy a chunk's entry state, its loss arguments (only when they
+        are not the ones bound last) and ``const`` into the buffers."""
+        s = self.static
+        for dst, src in ((s.params, c.params), (s.state.mu, c.state.mu),
+                         (s.state.nu, c.state.nu)):
+            for k, v in src.items():
+                dst[k].copy_(v)
+        s.state.count.copy_(c.state.count)
+        s.losses.copy_(c.losses)
+        if s.diag is not None:
+            s.diag.copy_(c.diag)
+        s.i.fill_(i0)
+        for flag in (s.done, s.converged, s.is_nan):
+            flag.zero_()
+        self.const.copy_(const)
+        leaves: list = []
+        if _flatten(tuple(loss_args), leaves) != self._arg_skel:
+            raise ValueError("the chunk's loss arguments do not have the "
+                             "program's structure")
+        if len(leaves) != len(self._bound) or any(
+                ref() is not t for ref, t in zip(self._bound, leaves)):
+            for dst, src in zip(self._arg_leaves, leaves):
+                dst.copy_(src)
+            self._bound = [weakref.ref(t) for t in leaves]
+
+    def after_last(self) -> None:
+        """Order this chunk's work on the current stream after the last
+        chunk's (which may have run on another thread's stream)."""
+        if self.last is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.last)
+
+    def mark_last(self) -> None:
+        self.last = torch.cuda.Event()
+        self.last.record(torch.cuda.current_stream(self.device))
+
+    def replay(self, form: str) -> None:
+        self.graphs[form].replay()
+        _cuda.add_launches(self.counts[form])
+
+    def snapshot(self) -> _Carry:
+        """The buffers' state as fresh tensors."""
+        return _clone_tree(self.static)
+
+    def release(self) -> None:
+        """Free the graphs, their pool and the buffers."""
+        for graph in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+        self.static = self.args = self.const = None
+        self._arg_leaves, self._bound = [], []
+
+
+class _FitPrograms:
+    """A fit's view of the run's store (``aotcache.current_scope()``,
+    taken once per fit): resolves each chunk's program by the JAX key's
+    components, captures a form at its first use, and keeps the fit's
+    ``compile`` events (:attr:`events`)."""
+
+    def __init__(self, scope, tag: str, loss_fn: Callable, loop: _Loop):
+        self.scope, self.tag, self.loss_fn, self.loop = \
+            scope, tag, loss_fn, loop
+        self.events: list = []
+        self._digest: Optional[str] = None
+        self._key_text: Optional[str] = None
+        self._seen: set = set()
+        self._prog_id: Optional[int] = None
+        self.captures = self.replays = self.warmups = 0
+
+    @staticmethod
+    def of(loss_fn: Callable, dev, tag: str, loop: _Loop):
+        """The fit's programs, or None: without a store, and (after a
+        one-time ``uncacheable`` event) for a fit on the CPU or a
+        sharded one, whose all-reduce stages through the host."""
+        scope = _aotcache.current_scope()
+        if scope is None:
+            return None
+        progs = _FitPrograms(scope, tag, loss_fn, loop)
+        if dev.type != "cuda" or getattr(loss_fn, "mesh", None) is not None:
+            progs.events.append({
+                "key_hash": "uncacheable", "label": f"{tag}:iteration",
+                "tag": tag, "cache": "uncacheable",
+                "reason": "sharded fit" if dev.type == "cuda" else
+                f"fit on {dev.type}"})
+            return _Uncacheable(progs)
+        return progs
+
+    def _key(self, c: _Carry, loss_args: tuple):
+        loop = self.loop
+        statics = (("min_iter", loop.min_iter), ("rel_tol", loop.rel_tol),
+                   ("win", loop.win), ("diag_every", loop.diag_every),
+                   ("b1", loop.b1), ("b2", loop.b2),
+                   ("moment_dtype", loop.moment_dtype))
+        sig = _abstract_sig((c.params, c.state, c.losses, c.diag,
+                             tuple(loss_args)))
+        return (self.tag, repr(self.loss_fn), statics, sig,
+                self.scope.config_digest)
+
+    def program(self, c: _Carry, loss_args: tuple, const: torch.Tensor,
+                forms) -> _ChunkProgram:
+        """The chunk's program in the store, made and the needed
+        ``forms`` captured on first use, marked in use (the caller hands
+        it back with ``store.done_with``)."""
+        if self._digest is None:
+            # the loss arguments' fit-constant caches, filled first, are
+            # tensors of the key's signature and the program's buffers
+            prime = getattr(self.loss_fn, "prime", None)
+            if prime is not None:
+                prime(*loss_args)
+            key = self._key(c, loss_args)
+            self._key_text = _aotcache.canonical_key_text(key)
+            self._digest = _aotcache.key_digest(
+                self._key_text,
+                _aotcache.environment_facts(c.losses.device),
+                self.scope.config_digest)
+        store = self.scope.store
+        prog = store.acquire(self._digest)
+        if prog is None:
+            prog = _ChunkProgram(self.loss_fn, self.loop, c, loss_args,
+                                 const)
+            store.put_program(self._digest, prog)
+        if id(prog) != self._prog_id:
+            # a program this fit has not used (a store that released
+            # the fit's earlier one captures anew)
+            self._prog_id, self._seen = id(prog), set()
+        try:
+            with prog.lock:
+                self._capture(prog, forms, c.losses.device)
+        except BaseException:
+            store.done_with(prog)
+            raise
+        store.trim()
+        return prog
+
+    def _capture(self, prog: _ChunkProgram, forms, dev) -> None:
+        for form in forms:
+            if form in self._seen:
+                continue
+            self._seen.add(form)
+            event = {"key_hash": _aotcache.key_digest(
+                self._key_text + "|" + form,
+                _aotcache.environment_facts(dev), self.scope.config_digest),
+                "label": f"{self.tag}:{form}", "tag": self.tag}
+            if form in prog.graphs:
+                event["cache"] = "hit"
+            else:
+                warm = prog.warmups
+                seconds = prog.capture(form)
+                self.captures += 1
+                self.warmups += prog.warmups - warm
+                event.update(cache="miss",
+                             compile_seconds=round(seconds, 4))
+            self.events.append(event)
+
+
+class _Uncacheable:
+    """The programs of a fit the store cannot serve: only its event."""
+
+    def __init__(self, progs: _FitPrograms):
+        self.events = progs.events
+        self.captures = self.replays = self.warmups = 0
+
+
+def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
+                  stop: int, loop: _Loop, const: torch.Tensor,
+                  probe: Optional[_StopProbe] = None, programs=None,
+                  form: str = "host"):
+    """Launch iterations ``i0 .. stop-1`` from fresh stop flags, reading
+    nothing back: no operation here waits on the device (a graph's
+    capture, once per program, aside).  With a ``probe`` (CUDA) the
+    launches end early once the card has reported the fit stopped.
+    With ``programs`` (a :class:`_FitPrograms`) each iteration replays
+    the chunk program's graph; ``form='device'`` runs the
+    device-counter iteration eagerly (the graphs' arithmetic, for
+    tests).  Returns the carry and the iterations launched."""
+    if isinstance(programs, _FitPrograms):
+        return _launch_chunk_graphed(loss_fn, loss_args, c, i0, stop, loop,
+                                     const, probe, programs)
+    c = _fresh_flags(c, i0)
     if probe is not None:
         probe.seen = 0
     mesh = getattr(loss_fn, "mesh", None)
+    if form == "device":
+        # the graphs' own buffers: the entry state stays as it was
+        c = _clone_tree(c)
     for k, it in enumerate(range(i0, stop)):
         if probe is not None and probe.stopped(k):
             return c, k
-        # the chunk's entry state stays as it was (the controlled loop
-        # keeps it for its best-loss checkpoint and its exact emergency
-        # save); the planes each later iteration steps are the chunk's
-        # own, so they step in place: one generation of the pi
-        # parameter and its moments fewer on the card
-        c = _iteration(loss_fn, loss_args, c, it, loop, const,
-                       in_place=k > 0, mesh=mesh)
+        with _profiling.scope("pert/fit_step"):
+            if form == "device":
+                _iteration_dev(loss_fn, loss_args, c, loop, const,
+                               _form(loop, it) == "diag")
+            else:
+                # the chunk's entry state stays as it was (the controlled
+                # loop keeps it for its best-loss checkpoint and its
+                # exact emergency save); the planes each later iteration
+                # steps are the chunk's own, so they step in place: one
+                # generation of the pi parameter and its moments fewer
+                # on the card
+                c = _iteration(loss_fn, loss_args, c, it, loop, const,
+                               in_place=k > 0, mesh=mesh)
         if probe is not None:
             probe.post(k, c.done)
     return c, stop - i0
+
+
+def _launch_chunk_graphed(loss_fn, loss_args, c: _Carry, i0: int, stop: int,
+                          loop: _Loop, const, probe, programs: _FitPrograms):
+    """:func:`_launch_chunk` by graph replays: the program (its forms
+    captured at their first use), the entry state copied in, one replay
+    per iteration, the state copied out."""
+    forms = sorted({_form(loop, it) for it in range(i0, stop)})
+    prog = programs.program(c, loss_args, const, forms)
+    try:
+        with prog.lock:
+            prog.after_last()
+            prog.bind(c, loss_args, const, i0)
+            if probe is not None:
+                probe.seen = 0
+            launched = stop - i0
+            for k, it in enumerate(range(i0, stop)):
+                if probe is not None and probe.stopped(k):
+                    launched = k
+                    break
+                with _profiling.scope("pert/fit_step"):
+                    prog.replay(_form(loop, it))
+                if probe is not None:
+                    probe.post(k, prog.static.done)
+            out = prog.snapshot()
+            prog.mark_last()
+        programs.replays += launched
+        return out, launched
+    finally:
+        programs.scope.store.done_with(prog)
 
 
 @dataclasses.dataclass
@@ -795,7 +1211,7 @@ def _perturb_params(params: dict, scale: float, seed: int, salt: int,
 
 def _result(params, state, losses_np, n, converged, nan_abort, wall,
             dispatched, diag_np, diag_every, thresholds, decisions,
-            budget, diag_i0: int = 0) -> FitResult:
+            budget, diag_i0: int = 0, programs=None) -> FitResult:
     losses = (losses_np[:n] if losses_np is not None
               else np.zeros(0, np.float32)).astype(np.float32)
     diagnostics = None
@@ -806,14 +1222,20 @@ def _result(params, state, losses_np, n, converged, nan_abort, wall,
             diag_every)
     health = _diagnose(losses, converged, nan_abort, diagnostics,
                        thresholds)
+    timings = {"fit": wall, "ms_per_iter": 1e3 * wall / max(n, 1),
+               "dispatched": dispatched}
+    if programs is not None:
+        # graph captures (each after its warm-up iterations on the
+        # program's own buffers) and replays
+        timings.update(captures=programs.captures,
+                       replays=programs.replays, warmups=programs.warmups)
     return FitResult(
         params={k: v.detach() for k, v in params.items()},
         losses=losses, num_iters=n, converged=converged,
-        nan_abort=nan_abort, opt_state=state,
-        timings={"fit": wall, "ms_per_iter": 1e3 * wall / max(n, 1),
-                 "dispatched": dispatched},
+        nan_abort=nan_abort, opt_state=state, timings=timings,
         diagnostics=diagnostics, verdict=health["verdict"], health=health,
-        decisions=decisions, budget=int(budget))
+        decisions=decisions, budget=int(budget),
+        programs=list(programs.events) if programs is not None else [])
 
 
 def _state_to(state: AdamState, dev) -> AdamState:
@@ -899,13 +1321,14 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
     const = adam_constants(learning_rate, b1, b2, dev)
     every = loop.diag_every or HOST_READ_EVERY
     probe = _stop_probe(loss_fn, every, dev)
+    programs = _FitPrograms.of(loss_fn, dev, "fit", loop)
     i_host, dispatched = i0, 0
     read = None
     t0 = time.perf_counter()
     while i_host < max_iter:
         stop = min(i_host + every, int(max_iter))
         carry, launched = _launch_chunk(loss_fn, loss_args, carry, i_host,
-                                        stop, loop, const, probe)
+                                        stop, loop, const, probe, programs)
         dispatched += launched
         read = _read_chunk(carry, stop)
         i_host = read.i
@@ -918,7 +1341,7 @@ def fit_map(loss_fn: Callable, params0: dict, loss_args: tuple = (),
                    bool(read and read.converged), bool(read and read.is_nan),
                    wall, dispatched, read.diag if read else None,
                    loop.diag_every, doctor_thresholds, [], max_iter,
-                   diag_i0=i0)
+                   diag_i0=i0, programs=programs)
 
 
 def _host_copy(tree):
@@ -1126,6 +1549,9 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
     tracer = getattr(run_log, "tracer", None)
     static_kwargs = dict(conv_window=loop.win, b1=loop.b1, b2=loop.b2,
                          diag_every=every, moment_dtype=loop.moment_dtype)
+    # the run's store, taken once per fit too: a chunk may run on the
+    # watchdog's thread or a slab coordinator's
+    programs = _FitPrograms.of(loss_fn, dev, "chunk", loop)
 
     def _note(entry_it, i_now, action, verdict=None):
         """One chunk outcome into the heartbeat (a no-op without one),
@@ -1188,7 +1614,8 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
             def _solo(args, const=const):
                 c = _Carry(args[0], args[1], args[2], args[3])
                 c, launched = _launch_chunk(loss_fn, loss_args, c, args[4],
-                                            args[5], loop, const, probe)
+                                            args[5], loop, const, probe,
+                                            programs)
                 # the read waits for the card INSIDE the deadline: a
                 # stalled chunk is the hang the watchdog exists for
                 return c, launched, _read_chunk(c, args[5])
@@ -1321,4 +1748,4 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
     return _result(carry.params, carry.state, losses_np, i_host,
                    converged_flag, nan_flag, wall, dispatched, diag_host,
                    every, doctor_thresholds, decisions, budget,
-                   diag_i0=diag_i0)
+                   diag_i0=diag_i0, programs=programs)

@@ -58,6 +58,7 @@ from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
     enum_loglik_fused_sparse_binary,
 )
 from scdna_replication_tools_tpu_torch.ops.gc import gc_rate
+from scdna_replication_tools_tpu_torch.utils.profiling import scope
 from scdna_replication_tools_tpu_torch.ops.transforms import (
     from_interval,
     from_positive,
@@ -281,10 +282,24 @@ def _init_binary_pi(spec: PertModelSpec, batch: PertBatch) -> torch.Tensor:
                        device=dev)
 
 
+_CODE_MATRICES: dict = {}
+
+
+def _code_matrix(P: int, device) -> torch.Tensor:
+    """The (P, Kb) binary code matrix on ``device``, copied there once:
+    a copy from host memory may not happen inside a CUDA graph's
+    capture."""
+    key = (P, str(device))
+    if key not in _CODE_MATRICES:
+        _CODE_MATRICES[key] = torch.as_tensor(binary_code_matrix(P),
+                                              device=device)
+    return _CODE_MATRICES[key]
+
+
 def binary_log_pi(spec: PertModelSpec, zbin_t: torch.Tensor) -> torch.Tensor:
     """(cells, loci, P) log-softmax over the valid states of the (Kb,
     cells, loci) binary planes: only codes 0..P-1 are expanded."""
-    B = torch.as_tensor(binary_code_matrix(spec.P), device=zbin_t.device)
+    B = _code_matrix(spec.P, zbin_t.device)
     logits = torch.einsum("kcl,pk->clp", zbin_t, B)
     return torch.log_softmax(logits, dim=-1)
 
@@ -792,13 +807,15 @@ def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
     for idx in _decode_slabs(spec, batch, cell_chunk):
         p, b = (params, batch) if idx is None \
             else slice_cells(params, batch, idx)
-        joint = model_joint_logits(spec, p, fixed, b)
-        flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
-        best = torch.argmax(flat, dim=-1)
-        out = ((best // 2).to(torch.int32), (best % 2).to(torch.int32),
-               p_rep_marginal(joint))
-        if want_entropy:
-            out = out + entropy_from_joint(joint)
+        with scope("pert/decode"):
+            joint = model_joint_logits(spec, p, fixed, b)
+            flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
+            best = torch.argmax(flat, dim=-1)
+            out = ((best // 2).to(torch.int32), (best % 2).to(torch.int32),
+                   p_rep_marginal(joint))
+            if want_entropy:
+                with scope("pert/qc_entropy"):
+                    out = out + entropy_from_joint(joint)
         outs.append(out)
         del joint, flat
     if len(outs) == 1:
@@ -879,10 +896,12 @@ def decode_discrete_hmm(spec: PertModelSpec, params: dict, fixed: dict,
     for idx in _decode_slabs(spec, batch, cell_chunk):
         p, b = (params, batch) if idx is None \
             else slice_cells(params, batch, idx)
-        joint = model_joint_logits(spec, p, fixed, b)
-        decoded = hmm_decode(joint, restart, self_prob)
-        if want_entropy:
-            decoded = decoded + entropy_from_joint(joint)
+        with scope("pert/decode"):
+            joint = model_joint_logits(spec, p, fixed, b)
+            decoded = hmm_decode(joint, restart, self_prob)
+            if want_entropy:
+                with scope("pert/qc_entropy"):
+                    decoded = decoded + entropy_from_joint(joint)
         outs.append(decoded)
         del joint
     if len(outs) == 1:
@@ -928,21 +947,22 @@ def _ppc_slab(spec: PertModelSpec, params: dict, fixed: dict,
     = -2 sum_l log NB(y_l | .) over real loci of the observed reads,
     standardised against the replicates' deviances (JAX
     ``_ppc_slab``); with ``mesh`` the deviances sum over the row."""
-    delta, _, log_lamb, log1m_lamb = _ppc_model(spec, params, fixed, batch,
-                                                cn_map, rep_map)
-    lmask = batch.effective_loci_mask()
+    with scope("pert/ppc"):
+        delta, _, log_lamb, log1m_lamb = _ppc_model(
+            spec, params, fixed, batch, cn_map, rep_map)
+        lmask = batch.effective_loci_mask()
 
-    def deviance(y):
-        return -2.0 * torch.sum(
-            nb_log_prob(y, delta, log_lamb, log1m_lamb) * lmask, dim=-1)
+        def deviance(y):
+            return -2.0 * torch.sum(
+                nb_log_prob(y, delta, log_lamb, log1m_lamb) * lmask, dim=-1)
 
-    obs = deviance(batch.reads)
-    rep = deviance(replicates)
-    if mesh is not None and mesh.loci > 1:
-        both = mesh.sum_loci(torch.cat([obs[None], rep]))
-        obs, rep = both[0], both[1:]
-    z = (obs - torch.mean(rep, dim=0)) \
-        / torch.clamp(torch.std(rep, dim=0, correction=0), min=1e-6)
+        obs = deviance(batch.reads)
+        rep = deviance(replicates)
+        if mesh is not None and mesh.loci > 1:
+            both = mesh.sum_loci(torch.cat([obs[None], rep]))
+            obs, rep = both[0], both[1:]
+        z = (obs - torch.mean(rep, dim=0)) \
+            / torch.clamp(torch.std(rep, dim=0, correction=0), min=1e-6)
     return obs, z
 
 

@@ -269,9 +269,12 @@ class MetricsRegistry:
     def _record_event(self, event: str, payload: dict) -> None:
         self.counter("pert_runlog_events_total").inc()
         if event == "compile":
-            # the port's compile is the nvcc build of a kernel source
-            # (ops/_cuda.py): a miss ran nvcc, a disk hit loaded a
-            # library built before, a hit found it loaded already
+            # the port's compiles: the nvcc build of a kernel source
+            # (ops/_cuda.py: a miss ran nvcc, a disk hit loaded a library
+            # built before or read it from the compiled-program store, a
+            # hit found it loaded already) and the capture of a fit's
+            # CUDA graph (infer/svi.py: a miss captured it, a hit found
+            # it in the store, uncacheable ran the fit eagerly)
             cache = payload.get("cache")
             if cache == "hit":
                 self.counter("pert_compile_cache_hits_total").inc()
@@ -280,11 +283,13 @@ class MetricsRegistry:
                 if payload.get("deserialize_seconds") is not None:
                     self.observe("pert_aot_deserialize_seconds",
                                  payload["deserialize_seconds"])
-            else:
+            elif cache == "miss":
                 self.counter("pert_compile_cache_misses_total").inc()
                 if payload.get("compile_seconds") is not None:
                     self.observe("pert_compile_seconds",
                                  payload["compile_seconds"])
+            else:
+                self.counter("pert_compile_cache_uncacheable_total").inc()
         elif event == "fit_end":
             step = str(payload.get("step"))
             seg = int(payload.get("iters") or 0) \

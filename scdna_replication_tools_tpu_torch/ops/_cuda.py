@@ -11,22 +11,34 @@ starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches per entry point (the unfused
 backward's per store path): each wrapper adds one where it launches its
-kernel and nowhere else, so a run can show that its main path went
-through the kernels.
+kernel (:func:`count_launch`) and nowhere else, so a run can show that
+its main path went through the kernels.  A call made while its stream
+is being captured into a CUDA graph launches nothing: its count goes to
+the capture (:func:`recording_launches`), and each replay of the graph
+adds the graph's counts (:func:`add_launches`).
 
 A library's build or load is the port's counterpart of the JAX
 package's program compile: :func:`load_event` loads a library and
 describes that as a ``compile`` event (``cache: "miss"`` with the nvcc
 seconds, ``"disk_hit"`` with the load seconds of a library built
-before, or ``"hit"`` when the process had it loaded already).
+before, or ``"hit"`` when the process had it loaded already).  The
+build directory is ``compile_cache_dir``'s (:func:`configure_build_dir`:
+``'auto'`` the package's ``_build/``, a path, or None for a directory
+of this process's own).  With a compiled-program store
+(``infer/aotcache.py``) a library not yet loaded is taken from the
+store's record first (``disk_hit``), and a library built or found here
+is saved there.
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
+import tempfile
 import subprocess
 import threading
 import time
@@ -134,6 +146,91 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
+# the counts of the capture in progress (one at a time: svi's captures
+# hold a lock), or None
+_CAPTURE_COUNTS: Optional[Dict[str, int]] = None
+
+
+def count_launch(key: str) -> None:
+    """One launch of ``key``'s kernel: into ``LAUNCHES``, or, when the
+    calling thread's stream is being captured into a CUDA graph (the
+    capturing thread, or the autograd thread running a captured
+    backward on that stream), into the capture's counts."""
+    counts = _CAPTURE_COUNTS
+    if counts is not None and torch.cuda.is_current_stream_capturing():
+        counts[key] = counts.get(key, 0) + 1
+    else:
+        LAUNCHES[key] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The counts of the wrappers called on a capturing stream inside the
+    block (a dict, filled when the block exits)."""
+    global _CAPTURE_COUNTS
+    counts: Dict[str, int] = {}
+    _CAPTURE_COUNTS = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURE_COUNTS = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph that recorded
+    ``counts``."""
+    for key, n in counts.items():
+        LAUNCHES[key] += n
+
+
+# compile_cache_dir's build directory (configure_build_dir): None is
+# BUILD_DIR ('auto'), read when a build starts
+_BUILD_DIR = {"dir": None, "setting": "auto"}
+_TMP_BUILD_DIR: Dict[str, Path] = {}
+
+
+def configure_build_dir(value="auto") -> Path:
+    """Point the builds of libraries not yet loaded at ``value``
+    (``compile_cache_dir``): 'auto' is the package's ``_build/``, None
+    or 'none' a temporary directory of this process (made once, removed
+    at exit), any other value that path.  Returns the directory."""
+    with _BUILD_LOCK:
+        setting = "none" if value is None or str(value).lower() == "none" \
+            else str(value)
+        if setting == "auto":
+            path = None
+        elif setting == "none":
+            if "dir" not in _TMP_BUILD_DIR:
+                _TMP_BUILD_DIR["dir"] = Path(
+                    tempfile.mkdtemp(prefix="pert_build_"))
+                atexit.register(shutil.rmtree, str(_TMP_BUILD_DIR["dir"]),
+                                True)
+            path = _TMP_BUILD_DIR["dir"]
+        else:
+            path = Path(setting).resolve()
+        _BUILD_DIR.update(dir=path, setting=setting)
+        return build_dir()
+
+
+@contextlib.contextmanager
+def build_dir_scope(value="auto"):
+    """:func:`configure_build_dir` for the block (a run's), then the
+    setting before it again."""
+    with _BUILD_LOCK:
+        before = dict(_BUILD_DIR)
+        configure_build_dir(value)
+    try:
+        yield build_dir()
+    finally:
+        with _BUILD_LOCK:
+            _BUILD_DIR.update(before)
+
+
+def build_dir() -> Path:
+    """The build directory in use (``BUILD_DIR`` under 'auto')."""
+    return _BUILD_DIR["dir"] or BUILD_DIR
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     candidates = [Path(home) / "bin" / "nvcc" if home else None,
@@ -161,7 +258,7 @@ def _target(name: str) -> Path:
     src = (CSRC_DIR / _source(name)).read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()) \
         .hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def _key_hash(lib: Path) -> str:
@@ -182,7 +279,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def _build(names) -> Dict[str, dict]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     try:
@@ -227,11 +324,13 @@ def _build(names) -> Dict[str, dict]:
     return {name: BUILD_INFO[name] for name in names}
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, store=None) -> ctypes.CDLL:
     """The loaded library ``name`` (a kernel library, or a host one of
     ``HOST_SOURCES``), built on first use (once, when several threads
-    ask for it together).  A failed build raises: there is no
-    fallback."""
+    ask for it together).  With ``store`` (an ``aotcache.
+    ExecutableStore``) a kernel library comes from the store's record
+    when it has one, and one built or found here is saved there.  A
+    failed build raises: there is no fallback."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -239,9 +338,15 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        if name not in BUILD_INFO:
+        cached = store is not None and name in SOURCES
+        if not (cached and _from_store(name, store)) \
+                and (name not in BUILD_INFO
+                     or Path(BUILD_INFO[name]["path"]).parent
+                     != build_dir()):
             _build([name])
         info = BUILD_INFO[name]
+        if cached and info["cache"] != "store":
+            _to_store(name, store)
         t0 = time.perf_counter()
         lib = ctypes.CDLL(info["path"])
         cuda = name in SOURCES
@@ -256,15 +361,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_event(name: str) -> dict:
-    """Load library ``name`` (built on first use) and return the payload
-    of its ``compile`` event: ``miss`` with the nvcc seconds or
-    ``disk_hit`` with the load seconds when this call loaded it, ``hit``
-    when it was loaded already."""
+def load_event(name: str, store=None) -> dict:
+    """Load library ``name`` (built on first use; see :func:`library`
+    for ``store``) and return the payload of its ``compile`` event:
+    ``miss`` with the nvcc seconds or ``disk_hit`` with the load seconds
+    (with the store's read) when this call loaded it, ``hit`` when it
+    was loaded already (then saved to ``store`` if the store lacks it)."""
     with _BUILD_LOCK:
         loaded = name in _LIBS
-        library(name)
+        if store is None:
+            library(name)
+        else:
+            library(name, store)
         info = BUILD_INFO[name]
+        if loaded and store is not None:
+            _to_store(name, store)
     event = {"key_hash": info["key_hash"], "label": SOURCES[name],
              "tag": "kernel_library"}
     if loaded:
@@ -272,9 +383,56 @@ def load_event(name: str) -> dict:
     elif info["cache"] == "miss":
         event.update(cache="miss", compile_seconds=round(info["seconds"], 4))
     else:
-        event.update(cache="disk_hit",
-                     deserialize_seconds=round(info["load_seconds"], 6))
+        event.update(cache="disk_hit", deserialize_seconds=round(
+            info.get("read_seconds", 0.0) + info["load_seconds"], 6))
     return event
+
+
+def store_digest(name: str) -> tuple:
+    """(digest, key text, environment facts) of kernel library
+    ``name``'s record in a compiled-program store: its source digest
+    and nvcc flags, checked against the nvcc, torch and CUDA versions,
+    the device kind and the compute capability."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+
+    src = hashlib.sha256((CSRC_DIR / _source(name)).read_bytes()).hexdigest()
+    key_text = f"kernel_library:{name}:{src}:{' '.join(_flags(name))}"
+    env = aotcache.environment_facts(with_nvcc=True)
+    return aotcache.key_digest(key_text, env), key_text, env
+
+
+def _from_store(name: str, store) -> bool:
+    """Take library ``name`` from ``store``'s record into the build
+    directory; False on a miss (no record, another environment, or a
+    record quarantined as unreadable)."""
+    digest, _, env = store_digest(name)
+    got = store.load(digest, env)
+    if got is None:
+        return False
+    payload, meta, read_s = got
+    out = _target(name)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}-{uuid.uuid4().hex}.tmp")
+    tmp.write_bytes(payload)
+    os.replace(tmp, out)
+    BUILD_INFO[name] = {"seconds": 0.0, "path": str(out),
+                        "log": meta.get("log", "from the store"),
+                        "key_hash": _key_hash(out), "cache": "store",
+                        "read_seconds": read_s, "digest": digest}
+    return True
+
+
+def _to_store(name: str, store) -> None:
+    """Save library ``name`` (built or found here) to ``store`` unless it
+    holds a record of it already."""
+    digest, key_text, env = store_digest(name)
+    if os.path.exists(store.path(digest)):
+        return
+    info = BUILD_INFO[name]
+    store.save(digest, key_text, Path(info["path"]).read_bytes(),
+               stats={"build_seconds": info["seconds"]},
+               meta={"library": name, "log": info.get("log", ""),
+                     "flags": list(_flags(name))}, env=env)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -130,7 +130,7 @@ def adam_update(param, grad, m, v, scal, b1: float, b2: float,
     _cuda.check(lib, rc, "adam_update")
     key = "adam_bf16" if mdt == torch.bfloat16 else "adam"
     # a launch with a lane axis (the serving slab's) counts apart
-    _cuda.LAUNCHES[key if lanes is None else key + "_lanes"] += 1
+    _cuda.count_launch(key if lanes is None else key + "_lanes")
     return p_out, m_out, v_out
 
 

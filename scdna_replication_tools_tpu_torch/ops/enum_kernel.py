@@ -496,7 +496,7 @@ def fused_fwd(reads, mu, pi_t, phi, scal, etas_t=None, eta_idx=None,
         P, int(etas_t is None), int(binary_P is not None), W or 1,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_fwd")
-    _cuda.LAUNCHES[_kernel_key("fwd", etas_t, binary_P, W)] += 1
+    _cuda.count_launch(_kernel_key("fwd", etas_t, binary_P, W))
     return out, lse
 
 
@@ -535,7 +535,7 @@ def fused_bwd(reads, mu, pi_t, phi, scal, lse, g, etas_t=None, eta_idx=None,
         int(etas_t is None), int(binary_P is not None), W or 1,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "fused_bwd")
-    _cuda.LAUNCHES[_kernel_key("bwd", etas_t, binary_P, W)] += 1
+    _cuda.count_launch(_kernel_key("bwd", etas_t, binary_P, W))
     return dmu, dphi, dpi
 
 
@@ -569,7 +569,7 @@ def enum_fwd(reads, mu, log_pi, phi, scal) -> torch.Tensor:
         _cuda.ptr(scal), _cuda.ptr(ll), reads.numel(), P,
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "enum_fwd")
-    _cuda.LAUNCHES["enum_fwd"] += 1
+    _cuda.count_launch("enum_fwd")
     return ll
 
 
@@ -595,8 +595,8 @@ def enum_bwd(reads, mu, log_pi, phi, scal, ll, g
         _cuda.stream_of(reads))
     _cuda.check(lib, rc, "enum_bwd")
     # a launch with a full block stages that block's dlog_pi span
-    _cuda.LAUNCHES["enum_bwd_staged" if reads.numel() >= THREADS
-                   else "enum_bwd_per_thread"] += 1
+    _cuda.count_launch("enum_bwd_staged" if reads.numel() >= THREADS
+                       else "enum_bwd_per_thread")
     return dmu, dphi, dlog_pi
 
 

@@ -1,6 +1,6 @@
 """pert-serve on PyTorch and CUDA: the CLI of the port's serving worker
-(port of ``serve/cli.py``; the worker takes ``--device`` and refuses a
-path for ``--executable-cache``, see ``serve/worker.py``).
+(port of ``serve/cli.py``; the worker also takes ``--device``, see
+``serve/worker.py``).
 
     # a worker on a spool directory (drains gracefully on SIGTERM or
     # SIGINT); --max-batch K > 1 turns on continuous batching: up to K
@@ -103,9 +103,9 @@ def main(argv=None) -> int:
                                "converged blocks retire and refill "
                                "from the spool at once")
     p_worker.add_argument("--executable-cache", default="auto",
-                          help="the compiled-program store, not ported "
-                               "(ROADMAP A14): 'auto' (default) and "
-                               "'none' run without one; a path raises")
+                          help="the compiled-program store: 'auto' "
+                               "(default) is <spool>/exec_cache, a path "
+                               "pins it, 'none' runs without one")
     p_worker.add_argument("--device", default=None,
                           help="where the fits run: the GPU by default "
                                "(raising when there is none), or 'cpu'")

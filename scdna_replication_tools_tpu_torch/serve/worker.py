@@ -3,12 +3,16 @@ file-queue spool.
 
 Port of ``serve/worker.py`` with JAX's keywords and defaults, plus
 ``device`` (None = the GPU, raising when there is none; ``'cpu'`` for
-tests), which every request's ``scRT`` receives.  Two differences, both
-of the compiled-program store (ROADMAP A14, not ported): the default
-``executable_cache_dir='auto'`` resolves to no store (``status.json``'s
-``executable_cache`` reads ``{"dir": null, ..., "done": true}``), and an
-explicit path raises ``NotImplementedError``; so the warm-up thread that
-pre-loads the store is absent.  With ``max_batch`` K > 1 each request
+tests), which every request's ``scRT`` receives.  The compiled-program
+store (``infer/aotcache.py``) follows JAX's rule: ``'auto'`` is
+``<spool>/exec_cache``, a path pins it, None/'none' runs without one.
+The worker activates the store for its life, so every request's run
+shares it: a request's solo fit chunks replay CUDA graphs captured once
+per program (a later same-shaped request with the same behavioural
+config replays the earlier one's), and the kernel libraries persist in
+the directory for the next worker, whose warm-up thread reads them
+ahead of traffic (``status.json``'s ``executable_cache`` block).  The
+slab's packed chunks stay eager.  With ``max_batch`` K > 1 each request
 thread hands its fit chunks to the slab coordinator, which advances
 concurrent same-shape chunks in one launch per iteration through the
 block-axis kernels (``infer/svi.dispatch_chunk_slab``).
@@ -99,8 +103,10 @@ import time
 from typing import Optional
 
 import pandas as pd
+import torch
 
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import aotcache
 from scdna_replication_tools_tpu_torch.obs import heartbeat as heartbeat_mod
 from scdna_replication_tools_tpu_torch.obs import meter as meter_mod
 from scdna_replication_tools_tpu_torch.obs import metrics as metrics_mod
@@ -148,16 +154,21 @@ _WORKER_LOG_COUNTER = itertools.count()
 RECENT_OUTCOMES = 256
 
 
-def _resolve_executable_cache(value) -> None:
-    """The compiled-program store is not ported (ROADMAP A14): the
-    default 'auto' resolves to no store, None/'none' is no store, and an
-    explicit path raises."""
-    if value is None or str(value).lower() in ("auto", "none"):
+# library records the warm-up thread reads ahead of traffic (JAX's cap)
+WARMUP_PRELOAD_MAX = 16
+# the share of the card's memory the worker's captured programs may hold
+# together before the least recently used idle ones are released
+PROGRAM_MEMORY_SHARE = 0.3
+
+
+def _resolve_executable_cache(queue, value) -> Optional[str]:
+    """JAX's rule (``serve/worker.py``): 'auto' is ``<spool>/exec_cache``,
+    None/'none' no store, any other value that path."""
+    if value == "auto":
+        return str(queue.root / "exec_cache")
+    if value is None or str(value).lower() == "none":
         return None
-    raise NotImplementedError(
-        f"executable_cache_dir={value!r}: the compiled-program store is "
-        "not ported to the PyTorch package yet (ROADMAP A14); leave it at "
-        "'auto' (no store in the port) or use scdna_replication_tools_tpu")
+    return str(value)
 
 
 @dataclasses.dataclass
@@ -195,7 +206,7 @@ class ServeWorker:
                  executable_cache_dir: Optional[str] = "auto",
                  device=None):
         self.executable_cache_dir = _resolve_executable_cache(
-            executable_cache_dir)
+            queue, executable_cache_dir)
         # where every request's fit runs (device.resolve_device: the
         # GPU unless 'cpu' is passed), resolved once so a worker without
         # a GPU fails at construction, not per request
@@ -281,9 +292,13 @@ class ServeWorker:
         # the stream back's result files, formatted by a pool of
         # processes that run() stops (serve/tsv.py: pandas' bytes)
         self._tsv = TsvWriter()
-        # the compiled-program store's surface: no store in the port
-        self._warmup_info: dict = {"dir": None, "preloaded": 0,
-                                   "entries": 0, "done": True}
+        # the compiled-program store's surface: its directory, the
+        # library records the warm-up read, and (in the status document)
+        # the programs it holds
+        self._warmup_info: dict = {
+            "dir": self.executable_cache_dir, "preloaded": 0,
+            "entries": 0, "done": self.executable_cache_dir is None}
+        self._store = None
         if telemetry_path is None:
             # pid + counter in the default name: multiple workers may
             # share one spool (the queue's rename-based claiming
@@ -373,6 +388,19 @@ class ServeWorker:
                                      daemon=True)
         self._heartbeat_stop.clear()
         heartbeat.start()
+        warmup = None
+        if self.executable_cache_dir is not None:
+            # the worker's store, shared by every request's run for the
+            # worker's life; its graphs are released when run() returns
+            budget = None
+            if self.device.type == "cuda":
+                budget = int(PROGRAM_MEMORY_SHARE * torch.cuda.
+                             get_device_properties(self.device).total_memory)
+            self._store = aotcache.activate(self.executable_cache_dir,
+                                            max_program_bytes=budget)
+            warmup = threading.Thread(target=self._warmup_executables,
+                                      name="pert-serve-warmup", daemon=True)
+            warmup.start()
         try:
             with self.worker_log.session(config=config,
                                          run_name="pert_serve"):
@@ -388,6 +416,13 @@ class ServeWorker:
             # for a worker that has exited
             self._heartbeat_stop.set()
             heartbeat.join(timeout=5)
+            if warmup is not None:
+                warmup.join(timeout=30)
+            if self._store is not None:
+                if aotcache.active_store() is self._store:
+                    aotcache.deactivate()
+                else:
+                    self._store.close()
             self._tsv.close()
             self._set_state("stopped")
         self.registry.write_textfile()
@@ -549,6 +584,38 @@ class ServeWorker:
         while not self._heartbeat_stop.wait(interval):
             self._write_status()
 
+    def _warmup_executables(self) -> None:
+        """One-shot background warm-up (JAX ``_warmup_executables``): read
+        the store's library records (the newest first, at most
+        ``WARMUP_PRELOAD_MAX``) so the first request loads its kernel
+        libraries without touching the disk.  A CUDA graph does not
+        outlive its process: programs are captured by the first request
+        of each shape."""
+        try:
+            store = self._store
+            entries = sorted(store.entries(), key=lambda e: e["mtime"],
+                             reverse=True)
+            preloaded = 0
+            for entry in entries[:WARMUP_PRELOAD_MAX]:
+                if self._heartbeat_stop.is_set() or self._draining:
+                    break
+                if store.preload(entry["digest"]):
+                    preloaded += 1
+            with self._state_lock:
+                self._warmup_info.update(
+                    preloaded=preloaded, entries=len(entries), done=True)
+            if preloaded:
+                logger.info(
+                    "pert-serve: executable warm-up pre-loaded %d/%d "
+                    "store entries from %s", preloaded, len(entries),
+                    self.executable_cache_dir)
+        except Exception as exc:  # noqa: BLE001 — warm-up is an
+            # optimisation; a failure must not take down the worker
+            logger.warning("pert-serve: executable warm-up failed: %s",
+                           exc)
+            with self._state_lock:
+                self._warmup_info.update(done=True, error=str(exc)[:200])
+
     def _inflight_doc(self, info: dict) -> dict:
         doc = dict(info)
         doc["age_seconds"] = round(
@@ -615,9 +682,15 @@ class ServeWorker:
             # this worker is keeping warm, and how much traffic each
             # has served — the eviction/right-sizing signal
             "buckets_served": dict(self._bucket_ledger),
-            # AOT executable store + warm-up progress: how many disk
-            # entries exist and how many the warm-up thread pre-loaded
-            "executable_cache": dict(self._warmup_info),
+            # the compiled-program store: its library records on disk,
+            # how many the warm-up read ahead, and the captured programs
+            # it holds in RAM with their device bytes
+            "executable_cache": dict(
+                self._warmup_info,
+                programs=self._store.program_count()
+                if self._store is not None else 0,
+                program_bytes=self._store.program_bytes()
+                if self._store is not None else 0),
             "recent": [dataclasses.asdict(o)
                        for o in list(self.outcomes)[-10:]],
             "worker_log": self.worker_log.path,

@@ -1,19 +1,25 @@
 """Phase timing and the package logger (port of ``utils/profiling.py``).
 
 Taken: :class:`PhaseTimer` with its ``on_add`` sink chain, ``logger``,
-:func:`stable_user`, :func:`probe_writable_dir` and
-:func:`log_step_summary`.  Left out: the JAX package's persistent XLA
-compilation cache (``resolve_compile_cache_dir`` /
-``enable_persistent_compile_cache``; the port caches its nvcc builds in
-``ops/_cuda.py``) and ``trace`` (``jax.profiler``; ROADMAP A11b).
+:func:`stable_user`, :func:`probe_writable_dir`, :func:`log_step_summary`
+and :func:`trace` (``PertConfig.profile_dir``: ``torch.profiler`` in the
+place of ``jax.profiler``, one Chrome trace per traced block), with
+:func:`scope`, the named range that stands for ``jax.named_scope``.
+Left out: the JAX package's persistent XLA compilation cache
+(``resolve_compile_cache_dir`` / ``enable_persistent_compile_cache``;
+the port's ``compile_cache_dir`` is its nvcc build directory,
+``ops/_cuda.configure_build_dir``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gzip
+import itertools
 import logging
 import os
 import pathlib
+import shutil
 import time
 
 logger = logging.getLogger("scdna_replication_tools_tpu_torch")
@@ -96,6 +102,70 @@ def probe_writable_dir(path) -> bool:
         return True
     except OSError:
         return False
+
+
+_NVTX: dict = {}
+
+
+def _nvtx_on() -> bool:
+    """Whether NVTX ranges can be pushed (a CUDA build with a device)."""
+    if "on" not in _NVTX:
+        import torch
+
+        _NVTX["on"] = bool(torch.cuda.is_available())
+    return _NVTX["on"]
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """A named range (``jax.named_scope``'s counterpart): a
+    ``torch.profiler.record_function`` range, which a :func:`trace`
+    records with the device work launched inside it, and an NVTX range
+    on a CUDA machine.  A range around a CUDA graph's replay covers the
+    replayed kernels (ranges inside a captured region do not recur)."""
+    import torch
+
+    nvtx = _nvtx_on()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+_TRACE_SEQ = itertools.count()
+
+
+@contextlib.contextmanager
+def trace(profile_dir=None, label: str = "trace"):
+    """``torch.profiler`` over the block, with the CPU and (on a CUDA
+    machine) the CUDA activities, exported as one gzipped Chrome trace
+    ``<label>.<pid>.<n>.trace.json.gz`` into ``profile_dir``; a no-op
+    when ``profile_dir`` is None.  ``utils/trace_summary.py`` reads the
+    traces."""
+    if profile_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = pathlib.Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    name = f"{label}.{os.getpid()}.{next(_TRACE_SEQ)}.trace.json"
+    plain = out / (name + ".tmp")
+    prof.export_chrome_trace(str(plain))
+    with open(plain, "rb") as src, gzip.open(out / (name + ".gz"),
+                                             "wb", 4) as dst:
+        shutil.copyfileobj(src, dst)
+    plain.unlink()
 
 
 def log_step_summary(step_name: str, fit, wall_time: float,

@@ -74,17 +74,34 @@ def test_port_cli_meets_the_recovery_bars(runs):
     assert set(clone["rt_state"].unique()) <= {0.0, 1.0}
 
 
-def test_unported_flags_raise_naming_the_roadmap(runs):
+def test_unported_flags_raise_naming_the_roadmap(runs, monkeypatch):
     d = runs["torch"]
     ins = [str(d / "pert_sim_s.tsv"), str(d / "pert_sim_g.tsv"),
            str(d / "x.tsv"), str(d / "y.tsv"), "--device", "cpu"]
     # ported (A12): two cell shards need a process group of two ranks
     with pytest.raises(ValueError, match="init_distributed"):
         tcli.infer_scrt_main(ins + ["--num-shards", "2"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        tcli.infer_scrt_main(ins + ["--executable-cache", str(d / "ec")])
     with pytest.raises(ValueError, match="enum_impl"):
         tcli.infer_scrt_main(ins + ["--enum-impl", "pallas"])
+    # ported (A14, A11b): the store, build and profile flags reach scRT
+    from scdna_replication_tools_tpu_torch import api
+
+    class Reached(Exception):
+        pass
+
+    seen = {}
+
+    def fake_scrt(*args, **kwargs):
+        seen.update(kwargs)
+        raise Reached
+    monkeypatch.setattr(api, "scRT", fake_scrt)
+    with pytest.raises(Reached):
+        tcli.infer_scrt_main(ins + ["--executable-cache", str(d / "ec"),
+                                    "--compile-cache", "none",
+                                    "--profile-dir", str(d / "prof")])
+    assert seen["executable_cache_dir"] == str(d / "ec")
+    assert seen["compile_cache_dir"] is None
+    assert seen["profile_dir"] == str(d / "prof")
 
 
 def test_cli_module_imports_no_jax():

@@ -666,6 +666,118 @@ def test_kill_and_resume_on_the_card_is_bit_exact(dev, tmp_path):
             if d["iter"] > 50]
 
 
+# -- CUDA graphs of the fit iteration (ROADMAP A14) --------------------------
+
+
+def _same_steps(a, b):
+    for x, y in zip(a, b):
+        if x is None:
+            assert y is None
+            continue
+        np.testing.assert_array_equal(x.fit.losses, y.fit.losses)
+        assert [(d["action"], d["iter"]) for d in x.fit.decisions] == \
+            [(d["action"], d["iter"]) for d in y.fit.decisions]
+        for k, v in x.fit.params.items():
+            assert torch.equal(y.fit.params[k], v), k
+
+
+def test_graphed_run_equals_the_eager_run(dev, tmp_path):
+    """Steps 1 and 2 under the controller with executable_cache_dir:
+    losses, decisions and parameters bit-identical to the eager run on
+    the card; each step captured its two forms once (``miss``) and
+    replayed every dispatched iteration; the store holds nothing after
+    the run."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+
+    eager = _run(dev)
+    graphed = _run(dev, executable_cache_dir=str(tmp_path / "store"))
+    _same_steps(eager, graphed)
+    for out in graphed[:2]:
+        fit = out.fit
+        assert [(e["label"], e["cache"]) for e in fit.programs] == \
+            [("chunk:diag", "miss"), ("chunk:plain", "miss")]
+        assert fit.timings["replays"] == fit.timings["dispatched"]
+        assert fit.timings["captures"] == 2
+    assert aotcache.live_program_count() == 0
+
+
+@pytest.mark.parametrize("diag_every", [0, 25])
+def test_graphed_chunks_equal_eager_chunks(dev, tmp_path, diag_every):
+    """A step-2 fit of 40 iterations from the eager run's fitted state,
+    its chunks replayed from graphs, equals the eager fit bit for bit
+    (with the ring and without); each replay counts the graph's kernel
+    launches, so the fused pair and Adam count once per replayed
+    iteration (the warm-up iterations launch eagerly and count too)."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+
+    _, step2, _ = _run(dev)
+    kw = dict(max_iter=40, min_iter=40, device=dev, diag_every=diag_every)
+    args = (step2.fixed, step2.batch)
+    eager = svi.fit_map(_PertLossFn(step2.spec), step2.fit.params, args,
+                        **kw)
+    _cuda.reset_launches()
+    with aotcache.run_scope(str(tmp_path / "store"), None) as scope:
+        graphed = svi.fit_map(_PertLossFn(step2.spec), step2.fit.params,
+                              args, **kw)
+        again = svi.fit_map(_PertLossFn(step2.spec), step2.fit.params,
+                            args, **kw)
+        assert scope.store.program_count() == 1
+    launches = dict(_cuda.LAUNCHES)
+    for fit in (graphed, again):
+        np.testing.assert_array_equal(fit.losses, eager.losses)
+        for k, v in eager.params.items():
+            assert torch.equal(fit.params[k], v), k
+    assert [e["cache"] for e in again.programs] == \
+        ["hit"] * len(graphed.programs)
+    dispatched = graphed.timings["dispatched"] + again.timings["dispatched"]
+    warm = graphed.timings["warmups"]
+    key = "sparse" if step2.spec.sparse_etas else "dense"
+    assert launches[f"fused_fwd_{key}"] == dispatched + warm
+    assert launches["adam"] == dispatched + warm
+
+
+def test_concurrent_graphed_fits_of_one_program_equal_eager(dev, tmp_path):
+    """Four threads fit four starts of one objective at once, sharing the
+    worker-style process-wide store: one program, its chunks taken one
+    at a time (the program's lock, and an event orders each chunk after
+    the last on the card), each fit bit-equal to its eager run."""
+    import threading
+
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+
+    def loss(p):
+        return ((p["x"] - 3.0) ** 2).sum() + (p["y"] ** 2 * p["x"][:8]
+                                             .sum()).sum()
+
+    gen = torch.Generator().manual_seed(3)
+    starts = [{"x": torch.randn(4096, generator=gen),
+               "y": torch.randn(512, generator=gen)} for _ in range(4)]
+    kw = dict(max_iter=60, min_iter=60, learning_rate=0.01, device=dev,
+              diag_every=5)
+    eager = [svi.fit_map(loss, p, **kw) for p in starts]
+    got = [None] * 4
+    root = str(tmp_path / "store")
+    store = aotcache.activate(root)
+    try:
+        def fit(k):
+            with aotcache.run_scope(root, None):
+                got[k] = svi.fit_map(loss, starts[k], **kw)
+        threads = [threading.Thread(target=fit, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert store.program_count() == 1
+    finally:
+        aotcache.deactivate()
+    for a, b in zip(eager, got):
+        np.testing.assert_array_equal(a.losses, b.losses)
+        for k in a.params:
+            assert torch.equal(a.params[k], b.params[k]), k
+
+
 # -- the block axis: W stacked fits in one launch (the serving slab) -------
 
 

@@ -103,15 +103,21 @@ def test_port_recovers_simulated_truth(outputs):
     dict(loci_shards=2), dict(num_shards=None),
     dict(executable_cache_dir="auto"), dict(executable_cache_dir="ec"),
     dict(num_shards=2), dict(num_shards=0)])
-def test_unported_options_raise(sim_data, outputs, option):
+def test_unported_options_raise(sim_data, outputs, option, tmp_path,
+                                monkeypatch):
     """A JAX option the port lacks raises NotImplementedError naming the
     ROADMAP item; it is never silently replaced.  The shard counts are
     ported (ROADMAP A12): without a process group, num_shards None or 0
     (every rank of the group) is the one-rank run and equals the plain
     run's frames, and a grid of two ranks raises ValueError naming
-    init_distributed rather than run as one rank."""
+    init_distributed rather than run as one rank.  The compiled-program
+    store is ported (ROADMAP A14): on the CPU its fits run eagerly
+    (``uncacheable``) and the frames equal the plain run's."""
     sim_s, sim_g = sim_data
-    if option.get("num_shards", 1) in (None, 0):
+    # a relative store directory lands in the working directory
+    monkeypatch.chdir(tmp_path)
+    if option.get("num_shards", 1) in (None, 0) \
+            or "executable_cache_dir" in option:
         scrt = TorchScRT(sim_s.copy(), sim_g.copy(), device="cpu",
                          **{**OPTS, **option})
         assert scrt.mesh is None
@@ -119,11 +125,7 @@ def test_unported_options_raise(sim_data, outputs, option):
         for frame in (0, 2):
             pd.testing.assert_frame_equal(got[frame], outputs[1][frame])
         return
-    if "executable_cache_dir" not in option:
-        with pytest.raises(ValueError, match="init_distributed"):
-            TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="init_distributed"):
         TorchScRT(sim_s, sim_g, device="cpu", **{**OPTS, **option})
 
 

@@ -149,8 +149,12 @@ def test_status_document_keys_equal_jax(served):
     assert set(docs[0]) == set(docs[1])
     assert set(docs[0]["slab"]) == set(docs[1]["slab"])
     assert docs[0]["state"] == docs[1]["state"] == "stopped"
-    assert docs[0]["executable_cache"] == {"dir": None, "preloaded": 0,
-                                           "entries": 0, "done": True}
+    # the store under the spool (JAX's 'auto'); fits on the CPU capture
+    # no program and build no kernel library
+    assert docs[0]["executable_cache"] == {
+        "dir": str(served["torch"]["queue"].root / "exec_cache"),
+        "preloaded": 0, "entries": 0, "done": True, "programs": 0,
+        "program_bytes": 0}
     assert docs[0]["buckets_served"] == docs[1]["buckets_served"]
 
 
@@ -214,12 +218,16 @@ def test_drain_on_shutdown_signal(served, tmp_path):
 
 def test_compiled_program_store_rule_and_gpu_default(tmp_path):
     q = SpoolQueue(tmp_path / "spool")
-    for value in ("auto", None, "none"):
+    # JAX's rule: 'auto' is the spool's exec_cache, None/'none' no store,
+    # a path that path
+    assert ServeWorker(q, device="cpu").executable_cache_dir == \
+        str(q.root / "exec_cache")
+    for value in (None, "none"):
         w = ServeWorker(q, executable_cache_dir=value, device="cpu")
         assert w.executable_cache_dir is None
-    with pytest.raises(NotImplementedError, match="A14"):
-        ServeWorker(q, executable_cache_dir=str(tmp_path / "store"),
-                    device="cpu")
+    assert ServeWorker(q, executable_cache_dir=str(tmp_path / "store"),
+                       device="cpu").executable_cache_dir == \
+        str(tmp_path / "store")
     with pytest.raises(ValueError, match="telemetry_path"):
         ServeWorker(q, default_options={"telemetry_path": "x"},
                     device="cpu")
