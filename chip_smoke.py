@@ -166,9 +166,34 @@ Phases, each printing its own lines:
     ``ServeWorker(max_batch=4,
     exit_when_idle=True)`` on the card (its compiled-program store under
     the spool, JAX's ``'auto'``: the status document's block, every
-    request's solo chunks replayed from graphs), then the first again by
-    a serial worker (``max_batch=1``) in a spawned process beside the
-    batched drain: every ticket done, packed dispatches > 0
+    request's solo chunks replayed from graphs, every packed dispatch
+    from the rung's ``slab{W}`` program, none eager and none degraded,
+    replays equal to the slab iterations launched, the slab programs'
+    captures by rung and form, one packed dispatch of two lanes run again
+    without the store and held to its replay bit for bit, the program
+    records' device bytes by tag against the worker's cap), and the first
+    step-3 chunks of two requests dispatched again after the drain as one
+    W = 2 slab, replayed from a ``slab2`` program and by the eager slab,
+    bit for bit (``[serve step3 slab]``: with graphed solo chunks a
+    flagship step 3 lasts under a second, so the four requests seldom
+    pack it); the first request's data through a serial worker
+    (``max_batch=1``, the first worker life, on a spool and store of its
+    own) in a spawned process beside phases 7-10 (:class:`EarlyServing`),
+    and, the moment it exits, a second worker life (a serial worker in
+    another spawned process on that spool and store: its warm-up ranks
+    the records by the first worker's ``buckets_served`` and captures the
+    solo programs again, each per-form key hash one of the first life's
+    ``compile`` events'; then the first request's data again: only
+    ``hit`` events, its output the serial run's bit for bit; ``[serve
+    second life]``, joined after the drain); beside phases 7-10 too, in a
+    spawned process, two copies of a 128 S + 64 G1 cell request through
+    ``ServeWorker(max_batch=2)`` with the clones' G1 prior and a long step
+    2 (``[serve pair]``: they share step 2, on the sparse kernels, so the
+    sparse block-axis kernels launch on the serving path, which the four
+    flagship requests' timing does not promise; both ok, decoding >= 99 %
+    of bins alike; its launches count with the batched drain's): every
+    ticket done, packed
+    dispatches > 0
     with at least two lanes each, every request log schema-valid with
     its ``request_id`` and ``slab_width=4``, ``request_start`` and
     ``request_end`` in the worker log, packed and serial outputs
@@ -176,8 +201,11 @@ Phases, each printing its own lines:
     the first request's tau correlation within 0.01 of the default
     cell's; per request its wall and queue wait, the slab's dispatches,
     lanes and width rungs, step 2's ms per slab iteration and
-    cell-iterations per second beside the serial run's, the idle share
-    of a profiled step-2 slab dispatch, and each drain's peak memory,
+    cell-iterations per second beside the serial run's (and beside the
+    eager slab's 50.612 ms and its kernels' 21.86 ms on an NVIDIA H100
+    80GB HBM3, 700.00 W, PERF.md), the idle
+    share of a profiled slab dispatch of steps 2 and 3, and each drain's
+    peak memory,
     with the batched drain's device-memory timeline by request and phase
     (``chiprun_out/serve_memory.jsonl``, its peak printed with every
     request's phase then).  Then the block-axis kernels at the slab's shape (W = 4 and 2 lanes
@@ -1313,14 +1341,15 @@ def _smooth(rng, n, scale):
 
 def simulate_frames(seed: int = SEED, num_reads: float = 1e6,
                     lamb: float = 0.75, a: float = 10.0,
-                    betas=(0.5, 0.0)):
+                    betas=(0.5, 0.0), num_cells=None):
     """Long-form S and G1 frames from the PERT generative process
     (scdna_replication_tools_tpu/models/simulator.py:55-146): per-cell
     GC betas around ``betas`` with logspace(1 -> 10^-K) stds,
     tau ~ U(0, 1), rep ~ Bernoulli(sigmoid(a (tau - rho))), Gamma-Poisson
     NB reads at total CN (1 + rep) * cn, normalised to ``num_reads``.
     Three clones with their own CN and RT profiles; every cell also
-    carries private CN changes, so the composite prior stays dense."""
+    carries private CN changes, so the composite prior stays dense.
+    ``num_cells``: (S, G1) cells; by default ``CELLS`` and ``G1_CELLS``."""
     import pandas as pd
 
     rng = np.random.default_rng(seed)
@@ -1391,7 +1420,8 @@ def simulate_frames(seed: int = SEED, num_reads: float = 1e6,
 
     # each clone's RT profile, for the simulator's rt columns (phase 10)
     CLONE_RT[seed] = {f"C{c}": rt for c, rt in enumerate(clone_rt)}
-    return cells(CELLS, "s"), cells(G1_CELLS, "g")
+    n_s, n_g = num_cells or (CELLS, G1_CELLS)
+    return cells(n_s, "s"), cells(n_g, "g")
 
 
 # seed -> {clone: RT profile} of the frames simulate_frames made
@@ -2113,7 +2143,9 @@ def graphs_phase(dev, record, frames, ref):
     libs = [(e["label"], e["cache"]) for e in events
             if e.get("tag") == "kernel_library"]
     store = aotcache.ExecutableStore(str(store_dir))
-    entries = store.entries()
+    # the library records (each captured program also leaves a record)
+    entries = [e for e in store.entries()
+               if e["meta"].get("kind") != "program"]
     store.close()
     check(len(entries) == len(_cuda.SOURCES) and all(
         c == "hit" for _, c in libs), f"{tag} the kernel libraries (loaded "
@@ -3444,7 +3476,10 @@ class HostMemory:
         import threading
 
         self.t_start = t_start
-        self.low = (float("inf"), 0.0)
+        # the last [timeline] mark: the lowest reading is printed with
+        # the phase it came after
+        self.after = "start"
+        self.low = (float("inf"), 0.0, self.after)
         self.stop = threading.Event()
         self.thread = threading.Thread(target=self._run, daemon=True,
                                        name="host-memory")
@@ -3465,15 +3500,17 @@ class HostMemory:
             except OSError:
                 return
             if avail < self.low[0]:
-                self.low = (avail, time.perf_counter() - self.t_start)
+                self.low = (avail, time.perf_counter() - self.t_start,
+                            self.after)
 
     def report(self, record) -> None:
         self.stop.set()
         self.thread.join(timeout=5)
-        low, at = self.low
+        low, at, after = self.low
         print(f"[host memory] lowest MemAvailable {low / 2**30:.2f} GiB at "
-              f"{at:.1f} s")
-        record["host_memory_low"] = {"bytes": low, "at_s": at}
+              f"{at:.1f} s (after the {after} mark)")
+        record["host_memory_low"] = {"bytes": low, "at_s": at,
+                                     "after": after}
 
 
 # ---------------------------------------------------------------------------
@@ -4005,18 +4042,41 @@ class MemoryTimeline:
                 "by_phase": by_phase}
 
 
+# the eager slab's step 2 at W = 4 and the three W = 4 kernels of its
+# iteration (rows 3b, 4b and 11b), ms on an NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md, the serving cell)
+SLAB_EAGER_MS = 50.612
+SLAB_KERNELS_MS = 5.797 + 11.917 + 4.150
+
+
 class SlabProbe:
     """Wraps ``svi.dispatch_chunk_slab`` while open: records each packed
-    dispatch (its rung, live lanes, step, slab iterations and wall) and
-    profiles the first packed step-2 dispatch with torch.profiler
+    dispatch (its rung, live lanes, step, slab iterations, wall, and with
+    the store its program, each form's hit or miss, captures and
+    replays); profiles one packed step-2 dispatch with torch.profiler
     (device busy time against the dispatch's wall: the idle share of a
     slab; the card also runs whatever the other lanes' threads launch
-    meanwhile)."""
+    meanwhile), the first of a rung dispatched before that captured
+    nothing (a profile of a dispatch that captured is dropped); and runs
+    the first packed dispatch of two lanes (step 2 or 3) again without
+    the store (the eager slab, on a thread of its own, from the same
+    entry states and loss arguments), its outputs held to the replayed
+    program's bit for bit.  It also keeps a copy of the first step-3
+    chunk call of two requests (flagship step 3 seldom packs: a graphed
+    step 3 is short), which :func:`check_step3_slab` dispatches as one
+    slab after the drain."""
 
     def __init__(self):
         self.dispatches: list = []
-        self.profile = None
+        # request thread -> a copy of its first step-3 ChunkCall
+        self.step3: dict = {}
+        # step -> the profile of one of its packed dispatches
+        self.profiles: dict = {}
+        self.eager = None
         self.lock = None
+        # (step, rung) of the dispatches so far: a profiled dispatch
+        # replays a program that an earlier one made
+        self.seen: set = set()
 
     def __enter__(self):
         import threading
@@ -4031,22 +4091,105 @@ class SlabProbe:
             step = "step1" if spec is not None and spec.step1 else \
                 "step3" if spec is not None and spec.sparse_etas else "step2"
             with self.lock:
-                want = step == "step2" and self.profile is None
+                rung = 2
+                while rung < len(calls):
+                    rung *= 2
+                want = step in ("step2", "step3") \
+                    and step not in self.profiles \
+                    and (step, rung) in self.seen
                 if want:
-                    self.profile = {}
+                    self.profiles[step] = {}
+                same = step in ("step2", "step3") and self.eager is None \
+                    and len(calls) == 2
+                if same:
+                    self.eager = {}
             if not want:
                 out = _orig(calls, width, t)
             else:
-                out = self._profiled(_orig, calls, width, t)
+                prof = self._profiled(_orig, calls, width, t)
+                out = prof.pop("out")
+                with self.lock:
+                    if t.get("captures"):
+                        del self.profiles[step]
+                    else:
+                        self.profiles[step] = prof
+            if same:
+                self._eager_again(_orig, calls, width, out, t)
             with self.lock:
+                self.seen.add((step, rung))
                 self.dispatches.append({
                     "step": step, "lanes": len(calls),
                     "rung": t.get("slab_width"),
                     "launched": t.get("launched"),
-                    "seconds": t.get("seconds")})
+                    "seconds": t.get("seconds"),
+                    "program": t.get("program"), "forms": t.get("forms"),
+                    "captures": t.get("captures"),
+                    "replays": t.get("replays")})
             return out
         svi.dispatch_chunk_slab = probe
+
+        from scdna_replication_tools_tpu_torch.serve import slab
+        self.slab_mod = slab
+        self.orig_dispatch = slab.SlabFitCoordinator.dispatch
+
+        def dispatch(coord, call, _orig=self.orig_dispatch):
+            self._keep_step3(call)
+            return _orig(coord, call)
+        slab.SlabFitCoordinator.dispatch = dispatch
         return self
+
+    def _keep_step3(self, call) -> None:
+        """A copy of ``call`` (its entry state cloned, no store view, no
+        meter) when it is the first step-3 chunk of its request and two
+        are not kept yet."""
+        import dataclasses
+        import threading
+        spec = getattr(call.loss_fn, "spec", None)
+        if spec is None or spec.step1 or not spec.sparse_etas:
+            return
+        name = threading.current_thread().name
+        with self.lock:
+            if name in self.step3 or len(self.step3) >= 2:
+                return
+            self.step3[name] = None
+        a = call.args
+        state = self.svi._clone_tree(tuple(a[:4]))
+        self.step3[name] = dataclasses.replace(
+            call, args=state + tuple(a[4:]), programs=None, meter=None)
+
+    def _eager_again(self, orig, calls, width, out, t):
+        """The same calls through the eager slab on a thread without a
+        store scope; compared with ``out`` bit for bit."""
+        import threading
+
+        import torch
+        box = {}
+
+        def run():
+            try:
+                box["out"] = orig(calls, width, {})
+            except BaseException as exc:  # noqa: BLE001 — reported
+                box["error"] = f"{type(exc).__name__}: {exc}"
+        from scdna_replication_tools_tpu_torch.ops import _cuda
+        before = {k: v for k, v in _cuda.LAUNCHES.items()
+                  if k.endswith("_lanes")}
+        th = threading.Thread(target=run, name="slab-eager-again")
+        th.start()
+        th.join()
+        torch.cuda.synchronize()
+        # a comparison's launches are not the serving path's (only a
+        # slab dispatch, here the leader's, launches the lane kernels)
+        extra = {k: _cuda.LAUNCHES[k] - v for k, v in before.items()}
+        same, worst = _same_dispatch(self.svi, out, box["out"]) \
+            if "out" in box else (True, 0)
+        self.eager = {"graphed": "program" in t, "same": same and "out" in box,
+                      "differing_elements": worst,
+                      "error": box.get("error"),
+                      "lanes": len(calls), "step": "step3"
+                      if calls[0].loss_fn.spec.sparse_etas else "step2",
+                      "i0": [int(c.args[4]) for c in calls],
+                      "launches": extra}
+        del box
 
     def _profiled(self, orig, calls, width, t):
         import torch
@@ -4070,18 +4213,102 @@ class SlabProbe:
         busy = sum(by_name.values())
         wall = 1e3 * t["seconds"]
         n = max(int(t["launched"]), 1)
-        self.profile = {
-            "lanes": len(calls), "iterations": n, "wall_ms": wall,
-            "busy_ms": busy, "idle_share": 1.0 - busy / wall if busy
-            else None, "kernels_ms_per_iter": {
+        torch.cuda.synchronize()
+        return {
+            "out": out, "lanes": len(calls), "iterations": n,
+            "wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "graphed": "program" in t, "captures": t.get("captures"),
+            "kernels_ms_per_iter": {
                 k: v / n for k, v in sorted(by_name.items(),
                                             key=lambda kv: -kv[1])[:10]}}
-        torch.cuda.synchronize()
-        return out
 
     def __exit__(self, *exc):
         self.svi.dispatch_chunk_slab = self.orig
+        self.slab_mod.SlabFitCoordinator.dispatch = self.orig_dispatch
         return False
+
+
+def _same_dispatch(svi, a, b) -> tuple:
+    """(bit-equal, differing elements) of two ``dispatch_chunk_slab``
+    results: every lane's parameters, Adam state, losses and ring, its
+    iteration count and flags, and the losses and ring it read back."""
+    import torch
+    same, worst = True, 0
+    for (ca, _, ra), (cb, _, rb) in zip(a, b):
+        leaves_a: list = []
+        leaves_b: list = []
+        svi._flatten((ca.params, ca.state, ca.losses, ca.diag), leaves_a)
+        svi._flatten((cb.params, cb.state, cb.losses, cb.diag), leaves_b)
+        for x, y in zip(leaves_a, leaves_b):
+            if not torch.equal(x, y):
+                same = False
+                worst = max(worst, int((x != y).sum()))
+        same = same and (ra.i, ra.converged, ra.is_nan) \
+            == (rb.i, rb.converged, rb.is_nan) \
+            and np.array_equal(ra.losses, rb.losses) \
+            and np.array_equal(ra.diag, rb.diag)
+    return same, worst
+
+
+def check_step3_slab(probe, root: Path, record: dict) -> None:
+    """The first step-3 chunks of two flagship requests (the probe's
+    copies of their entry states, at the bucket's 1024 x 8192 padding)
+    dispatched as one W = 2 slab: replayed from a ``slab2`` program of a
+    store of its own (each form captured), then by the eager slab; the
+    two held bit for bit.  Flagship step 3 seldom packs in the drain
+    (graphed, it lasts under a second), so this is where a graphed
+    step-3 slab meets the eager one at that shape; its launches are a
+    comparison's, not the serving path's."""
+    import shutil
+
+    import torch
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+    calls = [c for c in probe.step3.values() if c is not None]
+    probe.step3.clear()
+    tag = "[serve step3 slab]"
+    if len(calls) < 2:
+        check(False, f"{tag} two requests' step-3 chunks were kept "
+              f"({len(calls)})")
+        return
+    torch.cuda.empty_cache()
+    store = root / "step3_store"
+    t: dict = {}
+    graphed = eager = None
+    t0 = time.perf_counter()
+    try:
+        with aotcache.run_scope(str(store), None):
+            graphed = svi.dispatch_chunk_slab(calls, 2, t)
+        t_graphed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eager = svi.dispatch_chunk_slab(calls, 2, {})
+        t_eager = time.perf_counter() - t0
+        same, worst = _same_dispatch(svi, graphed, eager)
+        err = None
+    except Exception as exc:  # noqa: BLE001 — reported as a check
+        same, worst, err = False, None, f"{type(exc).__name__}: {exc}"
+        t_graphed = t_eager = None
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    pi = svi.pi_param_name(calls[0].args[0])
+    shape = tuple(calls[0].args[0][pi].shape) if pi else None
+    print(f"{tag} two requests' first step-3 chunks (i0 "
+          f"{[int(c.args[4]) for c in calls]}, stop "
+          f"{[int(c.args[5]) for c in calls]}, pi {shape}) as one W = 2 "
+          f"slab: graphed {t.get('forms')} ({t.get('captures')} captures, "
+          f"{t.get('replays')} replays) in {t_graphed} s, eager in "
+          f"{t_eager} s; bit-equal {same}, differing elements {worst}, "
+          f"error {err}")
+    check(same and "program" in t,
+          f"{tag} a replayed step-3 slab at the flagship bucket's shape "
+          "equals the eager slab on the same lanes bit for bit")
+    record.setdefault("serve", {})["step3_slab"] = {
+        "forms": t.get("forms"), "replays": t.get("replays"),
+        "graphed_s": t_graphed, "eager_s": t_eager, "same": same,
+        "differing_elements": worst, "error": err}
+    del calls
+    graphed = eager = None
+    torch.cuda.empty_cache()
 
 
 def _submit_seed(spool: str, seed: int) -> str:
@@ -4173,18 +4400,23 @@ def _recovery(out) -> dict:
                                    per_cell["true_t"])[0, 1])}
 
 
-def _drain(queue, max_batch: int) -> tuple:
-    """One worker over ``queue`` until it is empty, on the card; returns
-    (worker, stats, wall seconds, launches, peak bytes)."""
+def _drain(queue, max_batch: int, store_dir: str = "auto") -> tuple:
+    """One worker over ``queue`` until it is empty, on the card, its
+    compiled-program store in ``store_dir`` ('auto': under the spool);
+    returns (worker, stats, wall seconds, launches, peak bytes)."""
     import torch
     from scdna_replication_tools_tpu_torch.ops import _cuda
     from scdna_replication_tools_tpu_torch.serve import ServeWorker
-    worker = ServeWorker(queue, max_batch=max_batch, exit_when_idle=True)
-    check(worker.device.type == "cuda" and worker.executable_cache_dir
-          == str(queue.root / "exec_cache"),
+    worker = ServeWorker(queue, max_batch=max_batch, exit_when_idle=True,
+                         executable_cache_dir=store_dir)
+    want = str(queue.root / "exec_cache") if store_dir == "auto" \
+        else store_dir
+    check(worker.device.type == "cuda"
+          and worker.executable_cache_dir == want,
           f"[serve] ServeWorker(max_batch={max_batch}) runs on "
-          f"{worker.device} with the compiled-program store under its "
-          f"spool ({worker.executable_cache_dir}, JAX's 'auto')")
+          f"{worker.device} with the compiled-program store "
+          f"{worker.executable_cache_dir} ('auto', JAX's rule, or the "
+          "batched drain's)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -4196,24 +4428,35 @@ def _drain(queue, max_batch: int) -> tuple:
             torch.cuda.max_memory_allocated())
 
 
-def _store_block(queue, rids, tag: str) -> dict:
-    """The worker's status document's ``executable_cache`` block and the
-    graph programs of each request's run (its ``compile`` events)."""
+def _store_block(queue, rids, tag: str, store_dir=None, doc=None) -> dict:
+    """The worker's status document's (``doc``, else the spool's)
+    ``executable_cache`` block and the graph programs of each request's
+    run (its ``compile`` events of the solo chunks and, in a slab, of the
+    ``slab{W}`` programs)."""
     import collections
 
-    doc = json.loads(queue.status_path.read_text())
+    if doc is None:
+        doc = json.loads(queue.status_path.read_text())
     block = doc.get("executable_cache") or {}
-    graphs = {}
+    graphs, slabs = {}, {}
     for rid in rids:
         path = queue.results_dir(rid) / "run.jsonl"
         if path.exists():
+            events = _compile_events(path)
             graphs[rid] = dict(collections.Counter(
-                e["cache"] for e in _compile_events(path)
-                if e.get("tag") in ("chunk", "fit")))
-    print(f"  {tag} store: status.json executable_cache {json.dumps(block)}"
+                e["cache"] for e in events if e.get("tag") in ("chunk",
+                                                               "fit")))
+            slabs[rid] = dict(collections.Counter(
+                f"{e['label']} {e['cache']}" for e in events
+                if str(e.get("tag", "")).startswith("slab")))
+    shown = {k: v for k, v in block.items()
+             if k != "precaptured_key_hashes"}
+    print(f"  {tag} store: status.json executable_cache {json.dumps(shown)}"
           f"; graph programs per request (captured / found) "
-          f"{json.dumps(graphs)}")
-    check(block.get("dir") == str(queue.root / "exec_cache")
+          f"{json.dumps(graphs)}" + (f"; slab programs per request "
+                                     f"{json.dumps(slabs)}"
+                                     if any(slabs.values()) else ""))
+    check(block.get("dir") == (store_dir or str(queue.root / "exec_cache"))
           and block.get("done") is True and {"preloaded", "entries",
                                              "programs", "program_bytes"}
           <= set(block),
@@ -4221,37 +4464,121 @@ def _store_block(queue, rids, tag: str) -> dict:
     check(graphs and all(g.get("miss", 0) + g.get("hit", 0) > 0
                          for g in graphs.values()),
           f"[serve] {tag}: every request's solo chunks replayed graphs")
-    return {"status": block, "graphs": graphs}
+    return {"status": block, "graphs": graphs, "slabs": slabs}
 
 
-def _serial_drain(root: str) -> dict:
-    """The serial worker's drain of ``root`` (``max_batch=1``), the task
-    of a spawned process beside the batched drain: what it printed, the
+# the pair: two copies of one request of seed PAIR_SEED's frames,
+# through ServeWorker(max_batch=2): the clones' G1 prior (one-hot, so
+# step 2 takes the sparse kernels as step 3 does) and a long step 2
+# (min_iter 500, no convergence test, no rescue), so that the two lanes
+# share step 2 and the sparse block-axis kernels launch on the serving
+# path whatever the four flagship requests' timing (with graphed solo
+# chunks a flagship step 3 lasts well under a second: two requests
+# seldom share it; their step 2, on the dense kernels, they do).  It
+# runs beside phases 7-10, not beside the batched drain, whose late
+# packaging is the host's memory low (a pair beside it ran the machine
+# out of host memory)
+PAIR_SEED = 4
+PAIR_CELLS = (128, 64)             # S, G1 cells
+PAIR_OPTIONS = {"cn_prior_method": "g1_clones", "min_iter": 500,
+                "max_iter": 1000, "rel_tol": 0.0, "mirror_rescue": False}
+
+
+def _pair_drain(root: Path) -> dict:
+    """Two copies of one request (``PAIR_*``) drained by
+    ``ServeWorker(max_batch=2)`` on its own spool: both ok, their
+    outputs alike, packed dispatches on the sparse lane kernels; returns
+    its launches, stats, wall and peak."""
+    import pandas as pd
+
+    from scdna_replication_tools_tpu_torch.serve import SpoolQueue
+
+    cn_s, cn_g1 = simulate_frames(PAIR_SEED, num_cells=PAIR_CELLS)
+    queue = SpoolQueue(root)
+    for rid in ("pair_a", "pair_b"):
+        queue.submit_frames(cn_s, cn_g1, options=PAIR_OPTIONS,
+                            request_id=rid)
+    with Janitor(queue):
+        worker, stats, wall, launches, peak = _drain(queue, 2)
+    coord = worker.slab_coordinator
+    outs = [pd.read_csv(queue.results_dir(r) / "output.tsv", sep="\t",
+                        dtype={"chr": str}) for r in ("pair_a", "pair_b")
+            if queue.status(r).get("status") == "ok"]
+    print(f"[serve pair] ServeWorker(max_batch=2), two copies of a "
+          f"{PAIR_CELLS[0]} S + {PAIR_CELLS[1]} G1 cell request at "
+          f"{json.dumps(PAIR_OPTIONS)}: {json.dumps(stats['by_status'])} in "
+          f"{wall:.2f} s; packed {coord.packed_dispatches} of "
+          f"{coord.dispatches} dispatches (graphed {coord.packed_graphed}, "
+          f"degraded {coord.degraded}); lane "
+          "launches " + json.dumps({k: v for k, v in launches.items()
+                                    if k.endswith("_lanes")}))
+    # a copy's chunk runs alone while its twin is still in another step
+    # (a packed lane rounds as a solo fit does not), so the two are held
+    # as packed requests are to their serial run
+    same = float(((outs[0]["model_cn_state"] == outs[1]["model_cn_state"])
+                  & (outs[0]["model_rep_state"]
+                     == outs[1]["model_rep_state"])).mean()) \
+        if len(outs) == 2 else 0.0
+    check(stats["by_status"] == {"ok": 2} and same >= SERVE_AGREE,
+          f"[serve pair] both copies end ok, their outputs decoding "
+          f"{same:.4%} of bins alike >= {SERVE_AGREE:.0%}")
+    check(coord.packed_dispatches > 0 and coord.packed_graphed
+          == coord.packed_dispatches and coord.degraded == 0
+          and launches["fused_fwd_sparse_lanes"] > 0
+          and launches["fused_bwd_sparse_lanes"] > 0,
+          "[serve pair] it packed (the sparse lane kernels launched), "
+          "each packed dispatch replaying a slab program")
+    return {"launches": launches, "wall": wall, "peak": peak,
+            "stats": {k: stats[k] for k in ("processed", "by_status")}}
+
+
+def _serial_drain(root: str, store_dir: str) -> dict:
+    """The serial worker's drain of ``root`` (``max_batch=1``) with the
+    store in ``store_dir`` ('auto': under the spool), the task of a
+    spawned process beside the earlier phases: what it printed, the
     checks that failed, its stats, wall and peak."""
     import io
 
     from scdna_replication_tools_tpu_torch.serve import SpoolQueue
 
     out = io.StringIO()
+    queue = SpoolQueue(root)
     with contextlib.redirect_stdout(out):
-        _, stats, wall, _, peak = _drain(SpoolQueue(root), 1)
+        _, stats, wall, _, peak = _drain(queue, 1, store_dir)
+    # the worker's last status document (the next worker on the spool
+    # rewrites it)
     return {"log": out.getvalue(), "failures": list(FAILURES),
             "stats": {k: stats[k] for k in ("processed", "by_status")},
-            "wall": wall, "peak": peak}
+            "wall": wall, "peak": peak,
+            "status": json.loads(queue.status_path.read_text())}
+
+
+def _pair_task(root: str) -> dict:
+    """:func:`_pair_drain` in a spawned process: what it printed, the
+    checks that failed and its result."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = _pair_drain(Path(root))
+    return dict(res, log=out.getvalue(), failures=list(FAILURES))
 
 
 class SerialDrain:
-    """The serial worker in a spawned process of its own, started with
-    the batched drain so that the two run at once (one after the other
-    they took 350 s and 150 s of a slow host's time); :meth:`result`
-    waits and counts its checks."""
+    """A drain in a spawned process of its own, beside the earlier phases
+    (:class:`EarlyServing`): the serial worker (the first worker life),
+    or the pair (``task=_pair_task``); :meth:`result` waits, prints what
+    it printed and counts its checks."""
 
-    def __init__(self, root):
+    def __init__(self, *args, task=_serial_drain):
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
 
-        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
-        self.future = self.pool.submit(_serial_drain, str(root))
+        # the process ends with its task, so that its memory goes back
+        # to the host before the result is read
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                                        max_tasks_per_child=1)
+        self.future = self.pool.submit(task, *[str(a) for a in args])
 
     def result(self) -> dict:
         try:
@@ -4261,6 +4588,157 @@ class SerialDrain:
         print(res["log"], end="")
         FAILURES.extend(res["failures"])
         return res
+
+
+# the second worker life waits for this much free host memory before it
+# starts (the spool and its checkpoints lie in /dev/shm)
+SECOND_LIFE_HOST_GIB = 8.0
+SECOND_LIFE_WARMUP_S = 600.0
+
+
+def _second_life(root: str, rid: str, store_dir: str, data: str) -> dict:
+    """A second worker life on the first life's spool and store (the
+    serial worker's), the task of a spawned process started when that
+    worker has exited: a serial worker (``max_batch=1``, one request)
+    whose warm-up ranks the store's records by the first worker's
+    ``buckets_served`` ledger and captures the programs again; once the
+    status document says the warm-up is done, request ``rid``'s data (its
+    TSVs in ``data``, where the first life's ticket pointed) is submitted
+    again and drained.  Returns
+    the warm-up's block, its seconds, the new request's id, wall, state
+    and ``compile`` events, the ledger it read and the peak."""
+    import threading
+
+    import torch
+    from scdna_replication_tools_tpu_torch.serve import (
+        ServeWorker,
+        SpoolQueue,
+    )
+
+    queue = SpoolQueue(root)
+    t0 = time.perf_counter()
+    started = time.time() - 1.0
+    worker = ServeWorker(queue, max_batch=1, max_requests=1,
+                         executable_cache_dir=store_dir)
+    ledger = dict(worker._prior_buckets)
+    torch.cuda.reset_peak_memory_stats()
+    thread = threading.Thread(target=worker.run, name="second-life")
+    thread.start()
+    def block() -> dict:
+        """This worker's status document's store block ({} while the
+        file is still the first life's)."""
+        try:
+            doc = json.loads(queue.status_path.read_text())
+        except (OSError, ValueError):
+            return {}
+        if doc.get("pid") != os.getpid() \
+                or doc.get("started_unix", 0) < started:
+            return {}
+        return doc.get("executable_cache") or {}
+    deadline = time.monotonic() + SECOND_LIFE_WARMUP_S
+    while time.monotonic() < deadline and thread.is_alive() \
+            and not block().get("done"):
+        time.sleep(0.25)
+    warm_s = time.perf_counter() - t0
+    src = Path(data)
+    new = queue.submit(str(src / "cn_s.tsv"), str(src / "cn_g1.tsv"),
+                       request_id=f"{rid}_life2")
+    t1 = time.perf_counter()
+    thread.join(timeout=900)
+    wall = time.perf_counter() - t1
+    if thread.is_alive():
+        worker.request_drain()
+        thread.join(timeout=60)
+    path = queue.results_dir(new) / "run.jsonl"
+    return {"warmup": block(), "warmup_s": warm_s, "rid": new,
+            "wall": wall, "ledger": ledger,
+            "state": queue.status(new) or {},
+            "events": _compile_events(path) if path.exists() else [],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+class SecondLife:
+    """:func:`_second_life` in a spawned process, started when the first
+    life has exited (:class:`EarlyServing`) and joined after the batched
+    drain (:meth:`finish`)."""
+
+    def __init__(self, root, rid, store_dir, data):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        from scdna_replication_tools_tpu_torch.serve import SpoolQueue
+
+        self.janitor = Janitor(SpoolQueue(root)).__enter__()
+        waited = 0.0
+        while HostMemory.available() < SECOND_LIFE_HOST_GIB * 2**30 \
+                and waited < 120.0:
+            time.sleep(1.0)
+            waited += 1.0
+        self.free = HostMemory.available()
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+        self.future = self.pool.submit(_second_life, str(root), rid,
+                                       str(store_dir), str(data))
+        self.root, self.rid = Path(root), rid
+
+    def finish(self, record: dict, first: dict) -> None:
+        """Its checks: every pre-captured program's per-form key hash is
+        one of the first life's ``compile`` events' (``first['hashes']``),
+        the request ends ok, every ``compile`` event of it is a ``hit``,
+        and its output equals the first life's solo run of the same data
+        (the serial drain's) bit for bit."""
+        import collections
+
+        import pandas as pd
+        try:
+            res = self.future.result()
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.janitor.__exit__(None, None, None)
+        warm = res["warmup"]
+        keys = warm.get("precaptured_key_hashes") or []
+        cache = collections.Counter(f"{e.get('tag')}:{e.get('cache')}"
+                                    for e in res["events"])
+        print(f"[serve second life] a serial worker on the first life's "
+              f"spool and store ({self.free / 2**30:.1f} GiB of host memory "
+              f"free at its start), ledger {json.dumps(res['ledger'])}: warm-up "
+              f"done after {res['warmup_s']:.1f} s, {warm.get('precaptured')}"
+              f" programs captured again in {warm.get('precapture_seconds')}"
+              f" s ({len(keys)} forms), {warm.get('preloaded')} ready, "
+              f"{warm.get('entries')} records, error "
+              f"{warm.get('error')}; request {res['rid']} "
+              f"{res['state'].get('state')}/{res['state'].get('status')} in "
+              f"{res['wall']:.1f} s (the first life's solo run of its data: "
+              f"{first['serial_wall']} s, its batched run: "
+              f"{first['batched_wall']} s); compile events "
+              f"{json.dumps(dict(cache))}; peak {res['peak']} B")
+        check(warm.get("done") is True and warm.get("precaptured", 0) > 0
+              and not warm.get("error"),
+              "[serve second life] the warm-up captured the ranked programs "
+              "again before traffic, without an error")
+        check(bool(keys) and set(keys) <= first["hashes"],
+              "[serve second life] every pre-captured program's key hash is "
+              "a compile event's of the first life")
+        check(res["state"].get("status") == "ok",
+              f"[serve second life] {res['rid']} ends done/ok")
+        check(bool(res["events"]) and all(
+            e.get("cache") == "hit" for e in res["events"]),
+              f"[serve second life] every compile event of {res['rid']} is "
+              f"a hit ({json.dumps(dict(cache))})")
+        same = False
+        if res["state"].get("status") == "ok" and first.get("output") \
+                is not None:
+            d = self.root / "results" / res["rid"] / "output.tsv"
+            out = pd.read_csv(d, sep="\t", dtype={"chr": str},
+                              usecols=list(SERVED_COLUMNS))
+            same = bool(out.equals(first["output"]))
+        check(same, f"[serve second life] {res['rid']}'s output equals the "
+              "first life's solo run of the same data bit for bit")
+        record.setdefault("serve", {})["second_life"] = {
+            k: res[k] for k in ("warmup_s", "rid", "wall", "ledger", "peak")}
+        record["serve"]["second_life"].update(
+            warmup={k: v for k, v in warm.items()
+                    if k != "precaptured_key_hashes"},
+            compile=dict(cache), bit_equal=same)
 
 
 def _top_phases(events, n: int = 8) -> str:
@@ -4324,17 +4802,171 @@ class ServeSpool:
         shutil.rmtree(self.root, ignore_errors=True)
 
 
-def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
+def _request_wall(queue, rid):
+    """A request's wall in its worker's log (``request_end``), or None."""
+    for path in queue.root.glob("worker_*.jsonl"):
+        for line in path.read_text().splitlines():
+            try:
+                ev = json.loads(line)
+            except ValueError:     # a line another worker is writing
+                continue
+            if ev.get("event") == "request_end" \
+                    and ev.get("request_id") == rid:
+                return ev.get("wall_seconds")
+    return None
+
+
+def slab_programs(coord, probe) -> dict:
+    """The batched drain's slab programs: captures by rung and form,
+    replays against the slab iterations launched, and the coordinator's
+    counts of graphed, eager and degraded packed dispatches (with a
+    store every packed dispatch must replay a program: none eager, none
+    degraded); the eager re-run of one dispatch held to its replay."""
+    import collections
+
+    packed = [d for d in probe.dispatches if d["lanes"] >= 2]
+    caps = collections.Counter()
+    hits = collections.Counter()
+    for d in packed:
+        for form, c in (d["forms"] or {}).items():
+            (caps if c == "miss" else hits)[f"slab{d['rung']}:{form}"] += 1
+    replays = sum(d["replays"] or 0 for d in packed)
+    launched = sum(d["launched"] or 0 for d in packed)
+    programs = sorted({d["program"] for d in packed if d["program"]})
+    print(f"  slab programs: {len(programs)} ({', '.join(programs)}); "
+          f"captures by rung and form {json.dumps(dict(caps))}, replays of "
+          f"captured forms {json.dumps(dict(hits))}; {replays} replays for "
+          f"{launched} slab iterations launched; packed dispatches "
+          f"graphed {coord.packed_graphed}, eager "
+          f"{coord.packed_dispatches - coord.packed_graphed}, "
+          f"degraded {coord.degraded} ({coord.degrade_error})")
+    check(packed and all(d["program"] for d in packed)
+          and coord.degraded == 0
+          and coord.packed_graphed == coord.packed_dispatches,
+          "[serve] with the store every packed dispatch replayed a slab "
+          "program: none ran eagerly, none degraded lane by lane")
+    check(replays == launched, f"[serve] slab replays {replays} equal the "
+          f"slab iterations launched {launched}")
+    eager = probe.eager or {}
+    print(f"  eager slab again on one dispatch's lanes ({eager.get('step')}"
+          f", i0 {eager.get('i0')}): bit-equal {eager.get('same')}, "
+          f"differing elements {eager.get('differing_elements')}, error "
+          f"{eager.get('error')}")
+    check(bool(eager.get("graphed")) and eager.get("same") is True,
+          "[serve] a replayed slab of two lanes equals the eager slab on "
+          "the same lanes bit for bit")
+    return {"programs": programs, "captures": dict(caps),
+            "hits": dict(hits), "replays": replays, "launched": launched,
+            "graphed": coord.packed_graphed,
+            "eager": coord.packed_dispatches - coord.packed_graphed,
+            "degraded": coord.degraded, "eager_again": eager}
+
+
+def program_records(store_dir, block: dict) -> dict:
+    """The program records the drain left in its store (tag, forms and
+    device bytes each: buffers and pool), summed by tag against the
+    worker's cap on the programs it holds at once, and (``block``, the
+    status document's store block) the programs the cap released and
+    the most the store held at once."""
+    import torch
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+    from scdna_replication_tools_tpu_torch.serve import worker
+
+    recs = [e["meta"] for e in aotcache.ExecutableStore(
+        str(store_dir)).entries() if e["meta"].get("kind") == "program"]
+    by_tag: dict = {}
+    for m in recs:
+        by_tag[m["tag"]] = by_tag.get(m["tag"], 0) + int(m.get("nbytes", 0))
+    cap = int(worker.PROGRAM_MEMORY_SHARE * torch.cuda.get_device_properties(
+        0).total_memory)
+    total = sum(by_tag.values())
+    released = block.get("programs_released", 0)
+    print(f"  program records: {len(recs)}, device bytes by tag "
+          f"{json.dumps(by_tag)}, {total} B in all against the worker's "
+          f"cap of {cap} B: {released} idle programs released, at most "
+          f"{block.get('peak_program_bytes')} B held at once")
+    check(total <= cap or released > 0,
+          "[serve] the programs past the worker's cap were released")
+    return {"records": recs, "bytes_by_tag": by_tag, "cap": cap,
+            "released": released}
+
+
+class EarlyServing:
+    """The serving phase's processes that run beside phases 7-10, started
+    once the [graphs] phase is done: the pair (:func:`_pair_task`) and,
+    as soon as the first request's data is written, the first worker
+    life (a serial worker, ``max_batch=1``, on seed 0's data in a spool
+    and store of its own); the moment that worker exits, a thread starts
+    the second worker life (:class:`SecondLife`) on its spool and store.
+    The batched drain later runs with neither beside it: the late
+    packaging of its four requests is the host's memory low (11-12 GiB
+    of the machine's 96 GiB free in runs on an H100 80GB HBM3 host), and
+    with a drain beside it the whole script took over 1100 s on a slow
+    host."""
+
+    def __init__(self, spool: ServeSpool):
+        import threading
+
+        from scdna_replication_tools_tpu_torch.serve import SpoolQueue
+        self.spool = spool
+        self.pair = SerialDrain(spool.root / "pair", task=_pair_task)
+        self.serial = SpoolQueue(spool.root / "serial")
+        self.janitor = Janitor(self.serial).__enter__()
+        self.first = None
+        self.second = None
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="serve-lives")
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            rids = [f.result() for f in self.spool.futures[:SERVE_SERIAL]]
+            for rid in rids:
+                src = self.spool.root / "batched" / "data" / rid
+                self.serial.submit(str(src / "cn_s.tsv"),
+                                   str(src / "cn_g1.tsv"), request_id=rid)
+            self.first = SerialDrain(self.serial.root, "auto")
+            self.first.future.exception()
+            self.second = SecondLife(
+                self.serial.root, rids[0],
+                str(self.serial.root / "exec_cache"),
+                self.spool.root / "batched" / "data" / rids[0])
+        except BaseException as exc:  # noqa: BLE001 — raised by join()
+            self.error = exc
+
+    def join(self) -> None:
+        """Wait until the second life has started (the first has ended)."""
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+    def close(self) -> None:
+        self.janitor.__exit__(None, None, None)
+        for job in (self.pair, self.first):
+            if job is not None:
+                job.pool.shutdown(wait=True, cancel_futures=True)
+        if self.second is not None:
+            self.second.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def serving(dev, record, default_ref, spool: ServeSpool,
+            early: EarlyServing) -> tuple:
     """The serving path: four flagship requests (seeds 0-3, every option
-    at its JAX default) through ``ServeWorker(max_batch=4)``, then the
-    first through a serial worker; the checks of the serving phase
+    at its JAX default) through ``ServeWorker(max_batch=4)``, the first
+    of them through a serial worker and the pair (both started beside
+    the earlier phases, ``early``); the checks of the serving phase
     (module docstring, phase 11).  Returns the launches of the batched
-    drain."""
+    drain and the pair, the second worker life (:class:`SecondLife`,
+    started; the spool stays until it is joined) and what it is held
+    to."""
+    import torch
     from scdna_replication_tools_tpu_torch.obs.schema import validate_run
     from scdna_replication_tools_tpu_torch.serve import SpoolQueue
 
     root = spool.root
     rec = record.setdefault("serve", {})
+    second = None
     try:
         queue = SpoolQueue(root / "batched")
         t0 = time.perf_counter()
@@ -4344,18 +4976,22 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"{len(SERVE_SEEDS)} processes into {root} while the earlier "
               f"phases ran ({time.perf_counter() - spool.t0:.1f} s since "
               f"they started; waited {time.perf_counter() - t0:.1f} s here)")
-        # the same requests' data through a serial worker (no rewrite), in
-        # a spawned process beside the batched drain
-        serial = SpoolQueue(root / "serial")
-        for rid in rids[:SERVE_SERIAL]:
-            src = queue.root / "data" / rid
-            serial.submit(str(src / "cn_s.tsv"), str(src / "cn_g1.tsv"),
-                          request_id=rid)
-        serial_janitor = Janitor(serial).__enter__()
-        serial_drain = SerialDrain(serial.root)
+        serial = early.serial
         timeline = MemoryTimeline(REPO / "chiprun_out" / "serve_memory.jsonl")
         with timeline, SlabProbe() as probe, Janitor(queue):
             worker, stats, wall, launches, peak = _drain(queue, SERVE_WIDTH)
+        for k, v in ((probe.eager or {}).get("launches") or {}).items():
+            launches[k] -= v
+        # the first worker life ended beside the earlier phases, and the
+        # second started then
+        early.join()
+        second = early.second
+        sres = early.first.result()
+        # the serving path's launches: the batched drain's and the pair's
+        pair = early.pair.result()
+        launches = {k: v + pair["launches"].get(k, 0)
+                    for k, v in launches.items()}
+        rec["pair"] = {k: pair[k] for k in ("wall", "peak", "stats")}
         rec["batched_memory"] = timeline.report("batched")
         coord = worker.slab_coordinator
         rungs = sorted({d["rung"] for d in probe.dispatches})
@@ -4365,8 +5001,13 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"{coord.dispatches}, packed {coord.packed_dispatches} with "
               f"{coord.packed_lanes} lanes, rungs {rungs}; peak device "
               f"memory {peak} bytes")
-        print(f"  launches {json.dumps(launches)}")
+        print(f"  launches (the batched drain's and the pair's) "
+              f"{json.dumps(launches)}")
         rec["batched_store"] = _store_block(queue, rids, "batched")
+        rec["slab_programs"] = slab_programs(coord, probe)
+        check_step3_slab(probe, root, record)
+        rec["program_records"] = program_records(
+            queue.root / "exec_cache", rec["batched_store"]["status"])
         ends = {}
         for line in Path(stats["worker_log"]).read_text().splitlines():
             ev = json.loads(line)
@@ -4425,8 +5066,16 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
         lane_it2 = sum(d["launched"] * d["lanes"] for d in slab2)
         slab_ms = 1e3 * s2 / max(it2, 1)
         slab_cells = CELLS * lane_it2 / max(s2, 1e-9)
+        warm2 = [d for d in slab2 if not d["captures"]]
+        warm_ms = 1e3 * sum(d["seconds"] for d in warm2) / max(
+            sum(d["launched"] for d in warm2), 1) if warm2 else None
+        print(f"  step 2 packed without a capture: {len(warm2)} slab "
+              f"dispatches, {warm_ms if warm_ms is None else round(warm_ms, 3)}"
+              " ms per slab iteration")
         print(f"  step 2 packed: {len(slab2)} slab dispatches, {it2} slab "
-              f"iterations, {slab_ms:.3f} ms per slab iteration, "
+              f"iterations, {slab_ms:.3f} ms per slab iteration (the eager "
+              f"slab's at W = 4: {SLAB_EAGER_MS} ms; its W = 4 kernels "
+              f"{SLAB_KERNELS_MS:.2f} ms), "
               f"{slab_cells:.1f} cell-iterations/s over the slab's live "
               "lanes; per request (fit wall, waits included): "
               + ", ".join(f"{r} {v[0]:.3f} ms/iteration {v[1]:.1f} "
@@ -4434,10 +5083,10 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               + " (in-fit checkpoint saves left out)")
         print("  checkpoint bytes written per request: " + ", ".join(
             f"{r} {ends[r]['ckpt_bytes']}" for r in packed))
-        if probe.profile:
-            pr = probe.profile
-            print(f"[profile] serve slab step2, {pr['lanes']} lanes, "
-                  f"{pr['iterations']} iterations: wall "
+        for step, pr in sorted(probe.profiles.items()):
+            print(f"[profile] serve slab {step}, {pr['lanes']} lanes, "
+                  f"{pr['iterations']} iterations, "
+                  f"{'graphed' if pr['graphed'] else 'eager'}: wall "
                   f"{pr['wall_ms'] / pr['iterations']:.3f} ms/iteration, "
                   f"device busy {pr['busy_ms'] / pr['iterations']:.3f} "
                   f"ms/iteration (idle share {pr['idle_share']:.3f})")
@@ -4449,9 +5098,11 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
             "dispatches": coord.dispatches,
             "packed_dispatches": coord.packed_dispatches,
             "packed_lanes": coord.packed_lanes, "rungs": rungs,
-            "slab_dispatches": probe.dispatches, "profile": probe.profile,
+            "slab_dispatches": probe.dispatches,
+            "profiles": probe.profiles,
             "peak_bytes": peak, "launches": launches,
             "step2_slab_ms_per_iter": slab_ms,
+            "step2_slab_ms_per_iter_no_capture": warm_ms,
             "step2_slab_cells_per_s": slab_cells,
             "requests": {r: {"recovery": packed[r][1],
                              "step2_ms_per_iter": rates[r][0],
@@ -4465,18 +5116,14 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
         batched_launches = launches
         del worker, coord, probe
 
-        try:
-            res = serial_drain.result()
-        finally:
-            serial_janitor.__exit__(None, None, None)
-        stats, wall, peak = res["stats"], res["wall"], res["peak"]
+        stats, wall, peak = sres["stats"], sres["wall"], sres["peak"]
         print(f"[serve serial] ServeWorker(max_batch=1), in a process beside "
-              f"the batched drain, drained "
+              f"the earlier phases (its own store), drained "
               f"{stats['processed']} requests in {wall:.2f} s: "
               f"{json.dumps(stats['by_status'])}; peak device memory "
               f"{peak} bytes")
         rec["serial_store"] = _store_block(serial, rids[:SERVE_SERIAL],
-                                           "serial")
+                                           "serial", doc=sres["status"])
         srates = {}
         for rid in rids[:SERVE_SERIAL]:
             ok = serial.status(rid).get("status") == "ok"
@@ -4513,9 +5160,25 @@ def serving(dev, record, default_ref, spool: ServeSpool) -> dict:
               f"[serve] {rids[0]} (the default cell's frames) packed tau r "
               f"{tau0:.4f} >= the default cell's {default_ref['tau_r']:.4f} "
               "- 0.01")
-        return batched_launches
-    finally:
+        # the first life as the second one reads it: every compile event's
+        # key hash of the serial worker's requests (the store it read),
+        # and the solo run of the first request's data
+        hashes = set()
+        for rid in rids[:SERVE_SERIAL]:
+            path = serial.results_dir(rid) / "run.jsonl"
+            if path.exists():
+                hashes |= {e["key_hash"] for e in _compile_events(path)}
+        solo = serial.status(rids[0]).get("status") == "ok"
+        first = {"hashes": hashes,
+                 "output": _served(serial, rids[0])[0] if solo else None,
+                 "serial_wall": _request_wall(serial, rids[0]),
+                 "batched_wall": ends.get(rids[0], {}).get(
+                     "request_end", {}).get("wall_seconds")}
+        return batched_launches, second, first
+    except BaseException:
+        early.close()
         spool.close()
+        raise
 
 
 def check_lanes(dev, results) -> None:
@@ -4702,6 +5365,7 @@ def main() -> int:
     def mark(phase: str) -> None:
         at = time.perf_counter() - t_start
         record["timeline"][phase] = at
+        host_memory.after = phase
         print(f"[timeline] {phase} done at {at:.1f} s")
 
     # phase 11's requests are written by four processes meanwhile
@@ -4784,6 +5448,9 @@ def main() -> int:
                                                     graphs_ref)
     del graphs_ref
     mark("graphs")
+    # phase 11's pair and its first and second worker lives run beside
+    # phases 7-10
+    early = EarlyServing(spool)
     analysis_tail = HostTail(card, "analysis", analysis_in,
                              record["main_default"]["phases_s"]["load"])
     del analysis_in
@@ -4816,12 +5483,20 @@ def main() -> int:
     mark("analysis")
     tail = HostTail(card, "levels")
     sharded = ShardedPhase(frames, MUFU_PER_S)
-    by_path["serve"] = serving(dev, record, record["main_default"], spool)
+    by_path["serve"], second_life, first_life = serving(
+        dev, record, record["main_default"], spool, early)
     mark("serve")
     tail.finish(record)
     mark("unlabelled tail")
     sharded.finish(record, results, by_path)
     mark("sharded")
+    # the second worker life started beside the earlier phases; its
+    # spool goes when it is joined
+    second_life.finish(record, first_life)
+    early.close()
+    spool.close()
+    del first_life
+    mark("second life")
     check_lanes(dev, results)
     mark("lanes")
     graphs_child.finish(record)

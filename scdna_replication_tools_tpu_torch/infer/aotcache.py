@@ -4,12 +4,18 @@ The JAX store keeps each fit chunk's compiled XLA executable, in RAM
 and serialized on disk.  The port's counterparts of those programs live
 in two layers:
 
-* **RAM: the captured CUDA graphs.**  A fit chunk of the port replays
-  one ``torch.cuda.CUDAGraph`` per iteration (``infer/svi.py``); the
-  graph, its static buffers and its memory pool are a program of this
-  store, keyed by the JAX key's components (:data:`KEY_COMPONENTS`).  A
-  CUDA graph cannot leave its process, so this layer does not persist:
-  every process captures its own, once per program.
+* **RAM: the captured CUDA graphs.**  A fit chunk of the port, and a
+  serving slab's packed chunk, replays one ``torch.cuda.CUDAGraph`` per
+  iteration (``infer/svi.py``); the graphs, their static buffers and
+  their memory pool are a program of this store, keyed by the JAX key's
+  components (:data:`KEY_COMPONENTS`).  A CUDA graph cannot leave its
+  process: every process captures its own, once per program.
+* **Disk: program records.**  What captures a program again: each
+  program's record (``meta['kind'] == 'program'``; its key text, forms,
+  statics, the shapes and dtypes of its state and loss arguments, its
+  config digest and its loss function's constructor, never a tensor),
+  which a serving worker's warm-up rebuilds and captures ahead of
+  traffic (``svi.precapture``).
 * **Disk: the kernel libraries the graphs launch.**  Each library that
   ``ops/_cuda.py`` builds is saved under the store's directory as one
   atomic record (the ``.so`` bytes and the facts it was built for: the
@@ -59,12 +65,12 @@ SCHEMA = "pert-torch-lib/v1"
 # backend; "form" tells a chunk's diagnostic iteration from its plain
 # one, JAX's lax.cond branches, which one XLA program holds)
 KEY_COMPONENTS = (
-    "program-tag",           # "fit" / "chunk" (svi's chunk loops)
+    "program-tag",           # "fit" / "chunk" / "slab{W}" (svi)
     "loss-structure",        # repr of the hashable loss callable
     "optimizer-statics",     # min_iter, rel_tol, window, ring, betas, dtype
     "abstract-signature",    # skeleton + shape/dtype/device of each tensor
     "config-digest",         # PertConfig hash, see the module docstring
-    "form",                  # "diag" / "plain"
+    "form",                  # "diag" / "plain"; a slab's "conv", "diag+conv"
     "torch-version",
     "cuda-version",
     "device-kind",           # torch.cuda.get_device_name
@@ -174,6 +180,11 @@ def signature_shapes(key, cap: int = 12) -> list:
 
 _LIVE_STORES: "weakref.WeakSet" = weakref.WeakSet()
 
+# one CUDA graph capture at a time in the process (``infer/svi.py``
+# takes it for each warm-up and capture); a store releases graphs only
+# under it, never beside a capture
+CAPTURE_LOCK = threading.Lock()
+
 
 class ExecutableStore:
     """One directory of library records and, in RAM, the captured
@@ -203,6 +214,10 @@ class ExecutableStore:
         # digest -> a captured program (``release()`` frees it), most
         # recently used last
         self._programs: "collections.OrderedDict" = collections.OrderedDict()
+        # programs released past the caps, and the most device bytes the
+        # programs held together
+        self.released = 0
+        self.peak_program_bytes = 0
         self.closed = False
         _LIVE_STORES.add(self)
 
@@ -221,36 +236,63 @@ class ExecutableStore:
                 prog.busy += 1
             return prog
 
+    def adopt(self, digest: str, make, need: int = 0):
+        """The program of ``digest`` marked in use, made by ``make()`` and
+        kept when the store has none (one maker wins when several threads
+        ask at once: a request's chunk and the warm-up's pre-capture);
+        before a new program of ``need`` bytes is made, idle ones are
+        released until it fits under the caps (:meth:`trim`).  Pair with
+        :meth:`done_with`."""
+        with self._lock:
+            prog = self._programs.get(digest)
+            if prog is not None:
+                self._programs.move_to_end(digest)
+                prog.busy += 1
+                return prog
+        self.trim(need)
+        with self._lock:
+            prog = self._programs.get(digest)
+            if prog is None:
+                if self.closed:
+                    raise RuntimeError(
+                        f"executable store {self.root} is closed")
+                prog = make()
+                prog.busy = 0
+                self._programs[digest] = prog
+            self._programs.move_to_end(digest)
+            prog.busy += 1
+            return prog
+
     def done_with(self, prog) -> None:
         with self._lock:
             prog.busy -= 1
 
-    def put_program(self, digest: str, prog) -> None:
-        """Keep ``prog``, in use by its maker (``busy`` 1)."""
-        with self._lock:
-            if self.closed:
-                raise RuntimeError(f"executable store {self.root} is closed")
-            prog.busy = 1
-            self._programs[digest] = prog
-            self._programs.move_to_end(digest)
-
-    def trim(self) -> None:
+    def trim(self, need: int = 0) -> None:
         """Release the least recently used programs not in use while the
-        store holds more than ``max_programs`` or ``max_program_bytes``."""
+        store holds more than ``max_programs`` or ``max_program_bytes``;
+        ``need`` > 0 counts a program of that many bytes about to be
+        made.  The caps count this store's own programs only, so what
+        stays does not depend on what else runs on the card."""
         victims = []
         with self._lock:
             def over():
                 nbytes = sum(p.nbytes for p in self._programs.values())
-                return len(self._programs) > self.max_programs or (
-                    self.max_program_bytes is not None
-                    and nbytes > self.max_program_bytes)
+                return len(self._programs) + (need > 0) > self.max_programs \
+                    or (self.max_program_bytes is not None
+                        and nbytes + need > self.max_program_bytes)
+            self.peak_program_bytes = max(
+                self.peak_program_bytes,
+                sum(p.nbytes for p in self._programs.values()))
             for digest in list(self._programs):
                 if not over():
                     break
                 if self._programs[digest].busy == 0:
                     victims.append(self._programs.pop(digest))
-        for prog in victims:
-            prog.release()
+            self.released += len(victims)
+        if victims:
+            with CAPTURE_LOCK:
+                for prog in victims:
+                    prog.release()
 
     def program_count(self) -> int:
         with self._lock:
@@ -269,8 +311,9 @@ class ExecutableStore:
             self._programs.clear()
             self._preloaded.clear()
             self.closed = True
-        for prog in progs:
-            prog.release()
+        with CAPTURE_LOCK:
+            for prog in progs:
+                prog.release()
         if progs:
             _clear_cublas_workspaces()
 
@@ -471,10 +514,12 @@ def deactivate() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Scope:
-    """What a fit resolves its programs in: the store and the run's
-    config digest."""
+    """What a fit resolves its programs in: the store, the run's config
+    digest and the (cells, loci) its data is padded to (a serving
+    bucket's, named in the programs' records; None outside a bucket)."""
     store: ExecutableStore
     config_digest: Optional[str]
+    bucket: Optional[tuple] = None
 
 
 _TLS = threading.local()
@@ -486,7 +531,8 @@ def current_scope() -> Optional[Scope]:
 
 
 @contextlib.contextmanager
-def run_scope(root: Optional[str], config_digest: Optional[str] = None):
+def run_scope(root: Optional[str], config_digest: Optional[str] = None,
+              bucket: Optional[tuple] = None):
     """The store of one run, current on this thread inside the block:
     the process-wide store when it is on ``root`` (a serving worker's),
     else a store of the run's own, closed when the block exits (an
@@ -500,7 +546,7 @@ def run_scope(root: Optional[str], config_digest: Optional[str] = None):
     owned = shared is None or shared.root != root or shared.closed
     store = ExecutableStore(root) if owned else shared
     prev = current_scope()
-    _TLS.scope = Scope(store, config_digest)
+    _TLS.scope = Scope(store, config_digest, bucket)
     try:
         yield _TLS.scope
     finally:

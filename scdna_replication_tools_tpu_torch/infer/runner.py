@@ -227,6 +227,16 @@ class _PertLossFn:
         stacks it (``infer/svi.dispatch_chunk_slab``)."""
         prime_cache(self.spec, batch, self.mesh)
 
+    def record(self) -> dict:
+        """The constructor's arguments, for a program record
+        (``infer/svi.py``): the spec's fields.  Only a one-rank loss
+        function's programs are kept in a store."""
+        return {"spec": dataclasses.asdict(self.spec)}
+
+    @classmethod
+    def from_record(cls, kwargs: dict) -> "_PertLossFn":
+        return cls(PertModelSpec(**kwargs["spec"]))
+
 
 class PertInference:
     """Orchestrates the three fits on dense inputs, on ``device`` (the
@@ -257,11 +267,6 @@ class PertInference:
                 "cell_chunk is a one-rank memory knob; a sharded fit "
                 "divides the cells over its ranks instead (JAX "
                 "runner._pad's rule)")
-        if self.mesh is not None and self.mesh.loci > 1 \
-                and config.cn_hmm_self_prob is not None:
-            raise ValueError(
-                "cn_hmm_self_prob (the Viterbi decode along the genome) "
-                "needs whole rows of loci: use loci_shards=1")
         # the run log open on this thread and the installed metrics
         # registry (the facade's), else disabled no-ops; run() puts this
         # runner's own in their place when no facade opened them
@@ -1018,6 +1023,11 @@ class PertInference:
             self.run_log.emit("nan_abort", step=step_name,
                               iters=int(fit.num_iters), loss_tail=tail)
 
+    def _bucket(self) -> Optional[tuple]:
+        """The (cells, loci) a serving bucket pads this run to, or None."""
+        c, l = self.config.pad_cells_to, self.config.pad_loci_to
+        return (int(c), int(l)) if c and l else None
+
     def _emit_program_events(self, step_name: str, fit: FitResult) -> None:
         """The ``compile`` events of a fit's graph programs (a capture is
         a miss, a program the store held a hit, a fit the store cannot
@@ -1565,7 +1575,8 @@ class PertInference:
                                       device=self.device), \
                     aotcache_mod.run_scope(
                         self.config.executable_cache_dir,
-                        aotcache_mod.program_config_digest(self.config)), \
+                        aotcache_mod.program_config_digest(self.config),
+                        self._bucket()), \
                     _cuda.build_dir_scope(self.config.compile_cache_dir):
                 step1 = _retire(self.run_step1(), pi=True)
                 with self.phases.phase("step2/prior"):
@@ -1598,11 +1609,14 @@ class PertInference:
 
 def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
                              phase_prefix: str, data=None,
-                             hmm_self_prob: Optional[float] = None):
+                             hmm_self_prob: Optional[float] = None,
+                             mesh=None):
     """The packaging decode under the OOM degradation ladder (JAX
     ``_decode_with_degradation``).  ``hmm_self_prob`` selects the
     Viterbi CN decode, its chain restarting at each chromosome start of
-    ``data.loci``.
+    ``data.loci`` (the whole genome's); on a ``mesh`` that shards the
+    loci each rank runs the chain over whole rows of its cells
+    (``decode_discrete_hmm``'s ``mesh``).
 
     Returns ``(decoded, ent_planes, want_entropy)``.  On an ``oom`` the
     ladder walks: halve the decode slab (three times — each halving
@@ -1625,7 +1639,8 @@ def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
             restart = np.r_[1.0, (chroms[1:] != chroms[:-1])
                             .astype(np.float32)]
             out = decode_discrete_hmm(spec, params, fixed, batch, restart,
-                                      hmm_self_prob, want_entropy=entropy)
+                                      hmm_self_prob, want_entropy=entropy,
+                                      mesh=mesh)
         else:
             out = decode_discrete(spec, params, fixed, batch,
                                   want_entropy=entropy, cell_chunk=chunk)
@@ -1725,7 +1740,7 @@ def package_step_output(
     decode_t0 = time.perf_counter()
     decoded, ent_planes, want_entropy = _decode_with_degradation(
         spec, params, fixed, batch, qc_collect is not None, phase_prefix,
-        data=data, hmm_self_prob=hmm_self_prob)
+        data=data, hmm_self_prob=hmm_self_prob, mesh=mesh)
     if qc_collect is not None and not want_entropy:
         qc_collect["degraded"] = True
         qc_collect = None

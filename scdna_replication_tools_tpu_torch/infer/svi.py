@@ -51,7 +51,11 @@ iteration on static buffers that the chunk fills from its entry state
 and copies out of at its end.  A sharded fit (its all-reduce stages
 through the host) and a fit on the CPU run the host-integer form and
 say so (``uncacheable``).  Each iteration or replay is the profiler
-range ``pert/fit_step``.
+range ``pert/fit_step``.  A serving slab's packed dispatch replays its
+rung's ``slab{W}`` program the same way (:func:`_slab_iteration_dev`,
+:class:`_SlabProgram`), and every program leaves a record in the
+store's directory that a serving worker's warm-up captures again
+(:func:`precapture`).
 
 A sharded fit (a loss function with a ``mesh``: ``parallel.mesh.
 RankMesh``) runs this loop on every rank in lockstep: each iteration's
@@ -400,6 +404,13 @@ def _form(loop: _Loop, it: int) -> str:
         else "plain"
 
 
+def _tree_bytes(tree) -> int:
+    """The bytes of ``tree``'s tensors (see :func:`_flatten`)."""
+    leaves: list = []
+    _flatten(tree, leaves)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
 def _clone_tree(tree):
     """A copy of ``tree`` (see :func:`_flatten`) with fresh tensors."""
     leaves: list = []
@@ -407,9 +418,6 @@ def _clone_tree(tree):
     return _unflatten(skel, iter([t.clone() for t in leaves]))
 
 
-# one capture at a time in the process: the launch counts of a capture
-# are gathered process-wide (ops/_cuda.recording_launches)
-_CAPTURE_LOCK = threading.Lock()
 # eager iterations of each form before its capture, on the capture's
 # stream and on the program's own buffers (reset by the chunk's entry
 # copy): the lazy initialisations (cuBLAS handles and workspaces, the
@@ -427,22 +435,125 @@ def _capture_stream(dev) -> "torch.cuda.Stream":
     return _CAPTURE_STREAMS[dev]
 
 
-class _ChunkProgram:
+class _GraphProgram:
+    """What the store's graph programs share (a solo chunk's,
+    :class:`_ChunkProgram`, and a slab's, :class:`_SlabProgram`): one
+    CUDA graph per form, each stepping the program's static buffers in
+    place by one iteration (:meth:`_step`), the forms sharing the
+    buffers and one memory pool; a lock and the last dispatch's event,
+    so dispatches of one program from several threads take turns on the
+    buffers; ``busy`` (the store releases only idle programs) and
+    ``nbytes`` (its buffers and pool on the card)."""
+
+    def _setup(self, device) -> None:
+        self.device = device
+        self.graphs: dict = {}
+        self.counts: dict = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.warmups = 0
+        # dispatches replaying it now (the store releases only idle ones)
+        self.busy = 0
+        # one dispatch at a time steps the buffers: a dispatch of another
+        # fit of the same key (a served request's, on its own thread)
+        # waits for the lock on the host and for the last dispatch's work
+        # (an event on its stream) on the card
+        self.lock = threading.Lock()
+        self.last = None
+
+    def _step(self, form: str) -> None:
+        raise NotImplementedError
+
+    def _rewind(self) -> None:
+        """Put the buffers' device-held index at the start: a capture may
+        follow a dispatch that left it at the end of the loss history or
+        the lane table, and its warm-up iterations index from it (every
+        dispatch binds its own state before it replays)."""
+        raise NotImplementedError
+
+    def capture(self, form: str) -> float:
+        """Warm up and capture ``form``; returns the seconds it took.  A
+        capture that fails raises, naming the form and what broke it."""
+        dev = self.device
+        t0 = time.perf_counter()
+        try:
+            self._rewind()
+            # one capture at a time in the process: the launch counts of
+            # a capture are gathered process-wide (ops/_cuda.
+            # recording_launches), and the store releases graphs only
+            # between captures.  The allocator's free cached blocks go
+            # back to the device first: a capture allocates from its own
+            # pool, which cannot take them
+            with _aotcache.CAPTURE_LOCK:
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                side = _capture_stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for _ in range(GRAPH_WARMUPS):
+                        self._step(form)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.warmups += GRAPH_WARMUPS
+                graph = torch.cuda.CUDAGraph()
+                with _cuda.recording_launches() as counts:
+                    with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        self._step(form)
+                # the pool's growth (other threads' allocations in the
+                # window count too: an estimate)
+                self.nbytes += max(
+                    torch.cuda.memory_reserved(dev) - reserved, 0)
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of the {self.what} {form} iteration "
+                f"failed ({type(exc).__name__}: {exc}); a fit that cannot "
+                "be captured runs without executable_cache_dir") from exc
+        leaves: list = []
+        if _flatten(self._args_tree(), leaves) != self._arg_skel:
+            raise RuntimeError(
+                f"CUDA graph capture of the {self.what} {form} iteration: "
+                "the loss arguments grew a cached tensor during the warm-up "
+                "(the loss function's prime() must fill every cache entry)")
+        self.graphs[form], self.counts[form] = graph, dict(counts)
+        return time.perf_counter() - t0
+
+    def after_last(self) -> None:
+        """Order this dispatch's work on the current stream after the last
+        dispatch's (which may have run on another thread's stream)."""
+        if self.last is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.last)
+
+    def mark_last(self) -> None:
+        self.last = torch.cuda.Event()
+        self.last.record(torch.cuda.current_stream(self.device))
+
+    def replay(self, form: str) -> None:
+        self.graphs[form].replay()
+        _cuda.add_launches(self.counts[form])
+
+    def release(self) -> None:
+        """Free the graphs, their pool and the buffers."""
+        for graph in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+        self._drop_buffers()
+
+
+class _ChunkProgram(_GraphProgram):
     """The CUDA graphs of one chunk program (a program of the store,
     ``infer/aotcache.py``): static buffers of the carry, the loss
     arguments and ``const``, and one graph per form, each stepping the
-    buffers in place by one iteration (:func:`_iteration_dev`).  The
-    forms share the buffers and one memory pool.  A chunk copies its
-    entry state in (:meth:`bind`), replays, and copies the state out
-    (:meth:`snapshot`): what the chunk loop keeps (the best-loss
-    parameters, checkpoints, the emergency save) never aliases a buffer
-    that the next replay overwrites."""
+    buffers in place by one iteration (:func:`_iteration_dev`).  A chunk
+    copies its entry state in (:meth:`bind`), replays, and copies the
+    state out (:meth:`snapshot`): what the chunk loop keeps (the
+    best-loss parameters, checkpoints, the emergency save) never aliases
+    a buffer that the next replay overwrites."""
+
+    what = "chunk"
 
     def __init__(self, loss_fn: Callable, loop: _Loop, carry: _Carry,
                  loss_args: tuple, const: torch.Tensor):
         self.loss_fn, self.loop = loss_fn, loop
-        dev = carry.losses.device
-        self.device = dev
+        self._setup(carry.losses.device)
         self.static = _fresh_flags(_Carry(
             params=_clone_tree(carry.params),
             state=_clone_tree(carry.state), losses=carry.losses.clone(),
@@ -453,64 +564,19 @@ class _ChunkProgram:
         self.args = _unflatten(self._arg_skel, iter(self._arg_leaves))
         self._bound: list = []
         self.const = const.clone()
-        self.graphs: dict = {}
-        self.counts: dict = {}
-        self.pool = torch.cuda.graph_pool_handle()
-        self.warmups = 0
-        # chunks replaying it now (the store releases only idle ones),
-        # and the device bytes of its buffers and pool
-        self.busy = 0
-        # one chunk at a time steps the buffers: a chunk of another fit
-        # of the same key (a served request's, on its own thread) waits
-        # for the lock on the host and for the last chunk's work (an
-        # event on its stream) on the card
-        self.lock = threading.Lock()
-        self.last = None
         leaves = []
         _flatten((self.static, self._arg_leaves, self.const), leaves)
         self.nbytes = sum(t.numel() * t.element_size() for t in leaves)
 
-    def capture(self, form: str) -> float:
-        """Warm up and capture ``form``; returns the seconds it took.  A
-        capture that fails raises, naming the form and what broke it."""
-        dev = self.device
-        t0 = time.perf_counter()
+    def _args_tree(self):
+        return tuple(self.args)
 
-        def body():
-            _iteration_dev(self.loss_fn, self.args, self.static, self.loop,
-                           self.const, form == "diag")
-        try:
-            with _CAPTURE_LOCK:
-                reserved = torch.cuda.memory_reserved(dev)
-                side = _capture_stream(dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    for _ in range(GRAPH_WARMUPS):
-                        body()
-                torch.cuda.current_stream(dev).wait_stream(side)
-                self.warmups += GRAPH_WARMUPS
-                graph = torch.cuda.CUDAGraph()
-                with _cuda.recording_launches() as counts:
-                    with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                          capture_error_mode="thread_local"):
-                        body()
-                # the pool's growth (other threads' allocations in the
-                # window count too: an estimate)
-                self.nbytes += max(
-                    torch.cuda.memory_reserved(dev) - reserved, 0)
-        except Exception as exc:
-            raise RuntimeError(
-                f"CUDA graph capture of the {form} iteration failed "
-                f"({type(exc).__name__}: {exc}); a fit that cannot be "
-                "captured runs without executable_cache_dir") from exc
-        leaves: list = []
-        if _flatten(tuple(self.args), leaves) != self._arg_skel:
-            raise RuntimeError(
-                f"CUDA graph capture of the {form} iteration: the loss "
-                "arguments grew a cached tensor during the warm-up (the "
-                "loss function's prime() must fill every cache entry)")
-        self.graphs[form], self.counts[form] = graph, dict(counts)
-        return time.perf_counter() - t0
+    def _step(self, form: str) -> None:
+        _iteration_dev(self.loss_fn, self.args, self.static, self.loop,
+                       self.const, form == "diag")
+
+    def _rewind(self) -> None:
+        self.static.i.zero_()
 
     def bind(self, c: _Carry, loss_args: tuple, const: torch.Tensor,
              i0: int) -> None:
@@ -539,38 +605,45 @@ class _ChunkProgram:
                 dst.copy_(src)
             self._bound = [weakref.ref(t) for t in leaves]
 
-    def after_last(self) -> None:
-        """Order this chunk's work on the current stream after the last
-        chunk's (which may have run on another thread's stream)."""
-        if self.last is not None:
-            torch.cuda.current_stream(self.device).wait_event(self.last)
-
-    def mark_last(self) -> None:
-        self.last = torch.cuda.Event()
-        self.last.record(torch.cuda.current_stream(self.device))
-
-    def replay(self, form: str) -> None:
-        self.graphs[form].replay()
-        _cuda.add_launches(self.counts[form])
-
     def snapshot(self) -> _Carry:
         """The buffers' state as fresh tensors."""
         return _clone_tree(self.static)
 
-    def release(self) -> None:
-        """Free the graphs, their pool and the buffers."""
-        for graph in self.graphs.values():
-            graph.reset()
-        self.graphs.clear()
+    def _drop_buffers(self) -> None:
         self.static = self.args = self.const = None
         self._arg_leaves, self._bound = [], []
+
+
+def _chunk_key(tag: str, loss_fn: Callable, loop: _Loop, c: _Carry,
+               loss_args: tuple, config_digest: Optional[str]) -> tuple:
+    """A solo chunk program's key: JAX's components (the tag, the loss
+    function's repr, the statics, the abstract signature) and the run's
+    config digest."""
+    statics = (("min_iter", loop.min_iter), ("rel_tol", loop.rel_tol),
+               ("win", loop.win), ("diag_every", loop.diag_every),
+               ("b1", loop.b1), ("b2", loop.b2),
+               ("moment_dtype", loop.moment_dtype))
+    sig = _abstract_sig((c.params, c.state, c.losses, c.diag,
+                         tuple(loss_args)))
+    return (tag, repr(loss_fn), statics, sig, config_digest)
+
+
+def _form_event(key_text: str, form: str, dev, scope, label: str,
+                tag: str) -> dict:
+    """A ``compile`` event's head for ``form`` of the program whose key
+    text is ``key_text``: its per-form key hash, label and tag."""
+    return {"key_hash": _aotcache.key_digest(
+        key_text + "|" + form, _aotcache.environment_facts(dev),
+        scope.config_digest), "label": label, "tag": tag}
 
 
 class _FitPrograms:
     """A fit's view of the run's store (``aotcache.current_scope()``,
     taken once per fit): resolves each chunk's program by the JAX key's
-    components, captures a form at its first use, and keeps the fit's
-    ``compile`` events (:attr:`events`)."""
+    components, captures a form at its first use, writes the program's
+    record (:func:`_save_record`) and keeps the fit's ``compile`` events
+    (:attr:`events`: its solo chunks' and, in a serving slab, those of
+    the slab programs its packed chunks replayed)."""
 
     def __init__(self, scope, tag: str, loss_fn: Callable, loop: _Loop):
         self.scope, self.tag, self.loss_fn, self.loop = \
@@ -578,8 +651,11 @@ class _FitPrograms:
         self.events: list = []
         self._digest: Optional[str] = None
         self._key_text: Optional[str] = None
+        self._recipe: Optional[dict] = None
         self._seen: set = set()
         self._prog_id: Optional[int] = None
+        # (slab program digest, form) pairs this fit has an event of
+        self._slab_seen: set = set()
         self.captures = self.replays = self.warmups = 0
 
     @staticmethod
@@ -600,47 +676,40 @@ class _FitPrograms:
             return _Uncacheable(progs)
         return progs
 
-    def _key(self, c: _Carry, loss_args: tuple):
-        loop = self.loop
-        statics = (("min_iter", loop.min_iter), ("rel_tol", loop.rel_tol),
-                   ("win", loop.win), ("diag_every", loop.diag_every),
-                   ("b1", loop.b1), ("b2", loop.b2),
-                   ("moment_dtype", loop.moment_dtype))
-        sig = _abstract_sig((c.params, c.state, c.losses, c.diag,
-                             tuple(loss_args)))
-        return (self.tag, repr(self.loss_fn), statics, sig,
-                self.scope.config_digest)
-
     def program(self, c: _Carry, loss_args: tuple, const: torch.Tensor,
                 forms) -> _ChunkProgram:
         """The chunk's program in the store, made and the needed
         ``forms`` captured on first use, marked in use (the caller hands
         it back with ``store.done_with``)."""
+        dev = c.losses.device
         if self._digest is None:
             # the loss arguments' fit-constant caches, filled first, are
             # tensors of the key's signature and the program's buffers
             prime = getattr(self.loss_fn, "prime", None)
             if prime is not None:
                 prime(*loss_args)
-            key = self._key(c, loss_args)
+            key = _chunk_key(self.tag, self.loss_fn, self.loop, c,
+                             loss_args, self.scope.config_digest)
             self._key_text = _aotcache.canonical_key_text(key)
             self._digest = _aotcache.key_digest(
-                self._key_text,
-                _aotcache.environment_facts(c.losses.device),
+                self._key_text, _aotcache.environment_facts(dev),
                 self.scope.config_digest)
+            self._recipe = _recipe(
+                "chunk", self.tag, self._key_text, key, self.scope,
+                self.loss_fn, (c.params, c.state, c.losses, c.diag,
+                               tuple(loss_args)),
+                loop=dataclasses.asdict(self.loop))
         store = self.scope.store
-        prog = store.acquire(self._digest)
-        if prog is None:
-            prog = _ChunkProgram(self.loss_fn, self.loop, c, loss_args,
-                                 const)
-            store.put_program(self._digest, prog)
+        prog = store.adopt(self._digest, lambda: _ChunkProgram(
+            self.loss_fn, self.loop, c, loss_args, const),
+            need=_tree_bytes((c, tuple(loss_args))))
         if id(prog) != self._prog_id:
             # a program this fit has not used (a store that released
             # the fit's earlier one captures anew)
             self._prog_id, self._seen = id(prog), set()
         try:
             with prog.lock:
-                self._capture(prog, forms, c.losses.device)
+                self._capture(prog, forms, dev)
         except BaseException:
             store.done_with(prog)
             raise
@@ -648,14 +717,13 @@ class _FitPrograms:
         return prog
 
     def _capture(self, prog: _ChunkProgram, forms, dev) -> None:
+        captured = False
         for form in forms:
             if form in self._seen:
                 continue
             self._seen.add(form)
-            event = {"key_hash": _aotcache.key_digest(
-                self._key_text + "|" + form,
-                _aotcache.environment_facts(dev), self.scope.config_digest),
-                "label": f"{self.tag}:{form}", "tag": self.tag}
+            event = _form_event(self._key_text, form, dev, self.scope,
+                                f"{self.tag}:{form}", self.tag)
             if form in prog.graphs:
                 event["cache"] = "hit"
             else:
@@ -663,9 +731,12 @@ class _FitPrograms:
                 seconds = prog.capture(form)
                 self.captures += 1
                 self.warmups += prog.warmups - warm
+                captured = True
                 event.update(cache="miss",
                              compile_seconds=round(seconds, 4))
             self.events.append(event)
+        if captured:
+            _save_record(self.scope, self._digest, self._recipe, prog)
 
 
 class _Uncacheable:
@@ -674,6 +745,173 @@ class _Uncacheable:
     def __init__(self, progs: _FitPrograms):
         self.events = progs.events
         self.captures = self.replays = self.warmups = 0
+
+
+# ---------------------------------------------------------------------------
+# program records: what captures a program again in another process
+# ---------------------------------------------------------------------------
+#
+# A CUDA graph cannot leave its process.  What persists, one atomic
+# record per program under the store's directory (beside the kernel
+# libraries' records, under the same LRU cap), is what captures it
+# again: the key text, the tag and the forms, the statics, the skeleton
+# and each leaf's shape, dtype and strides of the state and the loss
+# arguments (the key's signature; the JAX record's ``meta["shapes"]``),
+# the config digest, the kernel libraries it launches and the loss
+# function's constructor (its repr is in the key: a record names a
+# constructor and its arguments, never tensors).  A serving worker's
+# warm-up rebuilds each program on placeholder buffers (zeros: every
+# replay's ``bind`` copies the real state and loss arguments in first,
+# and the key covers every value the graph does not read from them) and
+# captures its forms (:func:`precapture`).
+
+_RECORD_PACKAGE = "scdna_replication_tools_tpu_torch."
+
+
+def _loss_record(loss_fn: Callable) -> Optional[dict]:
+    """The loss function's constructor and arguments (its ``record()``),
+    or None for one that cannot be rebuilt (no record is written)."""
+    record = getattr(loss_fn, "record", None)
+    if record is None:
+        return None
+    t = type(loss_fn)
+    return {"ctor": f"{t.__module__}:{t.__qualname__}", "kwargs": record()}
+
+
+def _loss_from_record(rec: dict) -> Callable:
+    """The loss function a :func:`_loss_record` names (a class of this
+    package, through its ``from_record``)."""
+    import importlib
+
+    module, qualname = rec["ctor"].split(":")
+    if not module.startswith(_RECORD_PACKAGE):
+        raise ValueError(f"a program record names {rec['ctor']!r}, outside "
+                         "the package")
+    return getattr(importlib.import_module(module), qualname).from_record(
+        rec["kwargs"])
+
+
+def _record_shapes(key, scope) -> list:
+    """The record's ``shapes`` (JAX ``signature_shapes``), with the run's
+    bucket padding when it has one, so that a program whose tensors are
+    cut from the bucket's (the rescue's sub-fit) ranks with its bucket."""
+    shapes = _aotcache.signature_shapes(key)
+    bucket = getattr(scope, "bucket", None)
+    if bucket is not None and list(bucket) not in shapes:
+        shapes.append(list(bucket))
+    return shapes
+
+
+def _recipe(kind: str, tag: str, key_text: str, key, scope,
+            loss_fn: Callable, tree, **extra) -> dict:
+    """A program's record (see the section comment), forms and libraries
+    left to :func:`_save_record`."""
+    leaves: list = []
+    skel = _flatten(tree, leaves)
+    return {"kind": kind, "tag": tag, "key_text": key_text,
+            "config_digest": scope.config_digest,
+            "loss": _loss_record(loss_fn), "skeleton": skel,
+            "leaves": [(tuple(t.shape), t.dtype, tuple(t.stride()))
+                       for t in leaves],
+            "shapes": _record_shapes(key, scope), **extra}
+
+
+def _save_record(scope, digest: str, recipe: Optional[dict], prog) -> None:
+    """Write (or rewrite, with the forms captured so far) the record of
+    ``prog``; best-effort, as the store's saves are."""
+    if recipe is None or recipe["loss"] is None:
+        return
+    import pickle
+
+    rec = dict(recipe, forms=sorted(prog.graphs),
+               libraries=sorted(n for n in _cuda.SOURCES
+                                if n in _cuda._LIBS))
+    meta = {"kind": "program", "tag": rec["tag"], "key_hash": digest,
+            "forms": rec["forms"], "shapes": rec["shapes"],
+            "nbytes": int(prog.nbytes)}
+    try:
+        payload = pickle.dumps(rec)
+    except Exception as exc:  # noqa: BLE001 — a record is an
+        # optimisation: a program whose skeleton does not pickle is
+        # captured again by its first request in the next process
+        logger.debug("program record of %s not written: %s", digest, exc)
+        return
+    scope.store.save(digest, rec["key_text"], payload, meta=meta,
+                     env=_aotcache.environment_facts(prog.device))
+
+
+def precapture(store, digest: str, device) -> dict:
+    """Capture the program of record ``digest`` into ``store`` on
+    ``device`` (a serving worker's warm-up): the record read (a record
+    that does not read back is quarantined and raises), its kernel
+    libraries loaded through the store, the program rebuilt on
+    placeholder buffers, its key rebuilt and held to the record's digest,
+    and its recorded forms captured under the program's lock.  Returns
+    ``{"digest", "forms", "key_hashes", "captures"}``; ``key_hashes`` are
+    the per-form hashes of the ``compile`` events a request replaying it
+    logs."""
+    import pickle
+
+    dev = torch.device(device)
+    env = _aotcache.environment_facts(dev)
+    got = store.load(digest, env)
+    if got is None:
+        raise LookupError(f"no readable program record {digest} for "
+                          f"{env['device_kind']}")
+    try:
+        rec = pickle.loads(got[0])
+        if rec.get("kind") not in ("chunk", "slab"):
+            raise ValueError(f"not a program record: {rec.get('kind')!r}")
+        loss_fn = _loss_from_record(rec["loss"])
+        tree = _unflatten(rec["skeleton"], iter([
+            torch.empty_strided(shape, stride, dtype=dtype,
+                                device=dev).zero_()
+            for shape, dtype, stride in rec["leaves"]]))
+        cfg = rec["config_digest"]
+        if rec["kind"] == "chunk":
+            params, state, losses, diag, loss_args = tree
+            carry = _Carry(params, state, losses, diag)
+            loop = _Loop(**rec["loop"])
+            key = _chunk_key(rec["tag"], loss_fn, loop, carry, loss_args,
+                             cfg)
+
+            def make():
+                return _ChunkProgram(loss_fn, loop, carry, loss_args,
+                                     adam_constants(0.0, loop.b1, loop.b2,
+                                                    dev))
+        else:
+            width, k_max, sk = rec["width"], rec["k_max"], \
+                rec["static_kwargs"]
+            key = _slab_key(loss_fn, sk, k_max, tree, width, cfg)
+
+            def make():
+                return _SlabProgram(loss_fn, [tree] * width, k_max, sk)
+        text = _aotcache.canonical_key_text(key)
+        if text != rec["key_text"] \
+                or _aotcache.key_digest(text, env, cfg) != digest:
+            raise ValueError("the record does not rebuild its key")
+    except Exception as exc:
+        store._quarantine(store.path(digest), exc)
+        raise
+    for name in rec["libraries"]:
+        _cuda.library(name, store)
+    prog = store.adopt(digest, make, need=_tree_bytes(tree)
+                       * (rec.get("width") or 1))
+    captures = 0
+    try:
+        with prog.lock:
+            for form in rec["forms"]:
+                if form not in prog.graphs:
+                    prog.capture(form)
+                    captures += 1
+    finally:
+        store.done_with(prog)
+    store.trim()
+    scope = _aotcache.Scope(store, cfg)
+    return {"digest": digest, "forms": list(rec["forms"]),
+            "key_hashes": [_form_event(text, form, dev, scope, "", "")[
+                "key_hash"] for form in rec["forms"]],
+            "captures": captures}
 
 
 def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,
@@ -910,6 +1148,143 @@ def _lane_table(i0s, stops, min_iters, win, buf_len, diag_every, dev):
     return tab, torch.as_tensor(tab, device=dev)
 
 
+@dataclasses.dataclass
+class _SlabState:
+    """The stacked device state of a slab between iterations (W lanes on
+    the leading axis) and its lane inputs: the per-lane counts and stop
+    flags, the device-held slab iteration ``k``, ``alldone`` (every lane
+    stopped or past its chunk after the last iteration: what the stop
+    probe reads), the lane table (6, K_max + 1, W) (:func:`_lane_table`,
+    zero columns past the chunk), the per-lane ``rel_tol`` and Adam
+    constants."""
+    params: dict
+    state: AdamState
+    losses: torch.Tensor
+    diag: Optional[torch.Tensor]
+    i: torch.Tensor
+    done: torch.Tensor
+    converged: torch.Tensor
+    is_nan: torch.Tensor
+    k: torch.Tensor
+    alldone: torch.Tensor
+    tab: torch.Tensor
+    tol: torch.Tensor
+    const: torch.Tensor
+
+
+def _slab_state(params, state, losses, diag, i0, stop, rel_tol, lr, b1, b2,
+                tab: torch.Tensor) -> _SlabState:
+    """A :class:`_SlabState` over the stacked ``params``/``state``/
+    ``losses``/``diag`` (its own: the iterations write them in place) at
+    slab iteration 0, from the per-lane host lists."""
+    dev = losses.device
+    return _SlabState(
+        params=params, state=state, losses=losses, diag=diag,
+        i=torch.as_tensor(np.asarray(i0, np.int32), device=dev),
+        done=torch.as_tensor(np.asarray([s <= i for i, s in zip(i0, stop)]),
+                             device=dev),
+        converged=torch.zeros((len(i0),), dtype=torch.bool, device=dev),
+        is_nan=torch.zeros((len(i0),), dtype=torch.bool, device=dev),
+        k=torch.zeros((1,), dtype=torch.int64, device=dev),
+        alldone=torch.zeros((), dtype=torch.bool, device=dev),
+        tab=tab,
+        tol=torch.as_tensor(np.asarray(rel_tol, np.float32), device=dev),
+        const=torch.as_tensor(np.asarray([[x, b1, b2] for x in lr],
+                                         np.float32), device=dev))
+
+
+def _slab_loss(loss_fn: Callable, keys: list, arg_skel):
+    """The lanes' objectives in one ``torch.func.vmap`` of the solo one:
+    (stacked parameter leaves in ``keys`` order, stacked loss-argument
+    leaves) -> (W,) losses."""
+    def lane_loss(p_leaves, a_leaves):
+        args = _unflatten(arg_skel, iter(a_leaves))
+        return loss_fn(dict(zip(keys, p_leaves)), *args)
+    return torch.func.vmap(lane_loss)
+
+
+SLAB_FORMS = {(False, False): "plain", (True, False): "diag",
+              (False, True): "conv", (True, True): "diag+conv"}
+
+
+def _slab_forms(tab_host: np.ndarray, ring: bool) -> list:
+    """Each slab iteration's form: whether some lane records the ring's
+    row (``ring``: the slab carries a ring) and whether some lane runs
+    the convergence test (the eager slab's two host branches)."""
+    return [SLAB_FORMS[(ring and bool(tab_host[2, k].any()),
+                        bool(tab_host[4, k].any()))]
+            for k in range(tab_host.shape[1])]
+
+
+def _slab_iteration_dev(batched_loss, keys: list, arg_leaves: list,
+                        s: _SlabState, form: str, win: int, b1: float,
+                        b2: float, moment_dtype: str) -> None:
+    """Slab iteration ``s.k`` of :func:`_run_fit_chunk_slab` in place on
+    ``s``, its lane facts read from the static table at the device-held
+    ``s.k`` (so one captured graph serves every iteration); ``form``
+    (:data:`SLAB_FORMS`) says whether the ring's row and the convergence
+    test run, each lane's own mask still applied on the device.  Every
+    value equals the eager slab's, bit for bit; the pi parameter and its
+    moments step in their own planes, every other leaf and flag is
+    copied back into ``s``; ``s.k`` moves on and ``s.alldone`` is the
+    stop probe's flag."""
+    ring, conv = form.startswith("diag"), form.endswith("conv")
+    W = s.losses.shape[0]
+    dev = s.losses.device
+    ar = torch.arange(W, device=dev)
+    row = s.tab.index_select(1, s.k)[:, 0]
+    live = torch.logical_and(row[1].bool(), torch.logical_not(s.done))
+    leaves = [s.params[key].detach().requires_grad_(True) for key in keys]
+    loss = batched_loss(leaves, arg_leaves)
+    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    with torch.no_grad():
+        grads = {key: (g if g is not None else torch.zeros_like(x))
+                 for key, x, g in zip(keys, leaves, grads)}
+        loss = loss.detach().to(torch.float32)
+        if ring:
+            rrow = torch.stack([loss, _lane_norm(grads, W),
+                                _lane_norm(s.params, W)], dim=1)
+            slot = row[3]
+            rec = torch.logical_and(live, row[2].bool())
+            s.diag[ar, slot] = torch.where(rec[:, None], rrow,
+                                           s.diag[ar, slot])
+        st = s.state
+        scal = adam_scalars(s.const, st.count + 1, live)
+        pi = pi_param_name(s.params)
+        for key in keys:
+            args = (s.params[key], grads[key], st.mu[key], st.nu[key], scal,
+                    b1, b2)
+            out = adam_update(*args, moment_dtype, in_place=True) \
+                if key == pi else adam_update_plain(*args)
+            for dst, v in zip((s.params, st.mu, st.nu), out):
+                if v is not dst[key]:
+                    dst[key].copy_(v)
+        st.count.copy_(st.count + live.to(torch.int32))
+        slot = row[0]
+        s.losses[ar, slot] = torch.where(live, loss, s.losses[ar, slot])
+        nan = torch.isnan(loss)
+        stop_now = nan
+        if conv:
+            window = s.losses[ar[:, None], row[5][:, None]
+                              + torch.arange(win, device=dev)]
+            stat = window.max(dim=1).values - window.min(dim=1).values
+            c = torch.logical_and(
+                stat / torch.abs(s.losses[:, 0] - loss) < s.tol,
+                row[4].bool())
+            stop_now = torch.logical_or(nan, c)
+            s.converged.copy_(torch.logical_or(
+                s.converged, torch.logical_and(live, c)))
+        s.i.copy_(s.i + live.to(torch.int32))
+        s.done.copy_(torch.logical_or(s.done,
+                                      torch.logical_and(live, stop_now)))
+        s.is_nan.copy_(torch.logical_or(s.is_nan,
+                                        torch.logical_and(live, nan)))
+        s.k.add_(1)
+        rest = s.tab.index_select(1, s.k)[1, 0].bool()
+        s.alldone.copy_(torch.all(torch.logical_or(
+            s.done, torch.logical_not(rest))))
+
+
 def _run_fit_chunk_slab(loss_fn: Callable, params0: dict,
                         opt_state0: AdamState, losses0: torch.Tensor,
                         diag0: Optional[torch.Tensor], i0, stop, min_iter,
@@ -940,13 +1315,8 @@ def _run_fit_chunk_slab(loss_fn: Callable, params0: dict,
     pi = pi_param_name(params0)
     keys = list(params0)
     arg_leaves: list = []
-    arg_skel = _flatten(tuple(loss_args), arg_leaves)
-
-    def lane_loss(p_leaves, a_leaves):
-        args = _unflatten(arg_skel, iter(a_leaves))
-        return loss_fn(dict(zip(keys, p_leaves)), *args)
-
-    batched_loss = torch.func.vmap(lane_loss)
+    batched_loss = _slab_loss(loss_fn, keys,
+                              _flatten(tuple(loss_args), arg_leaves))
     flag = dict(dtype=torch.bool, device=dev)
     # the stacked state is this function's to replace: the first Adam
     # step frees the entry copies
@@ -1018,6 +1388,223 @@ def _run_fit_chunk_slab(loss_fn: Callable, params0: dict,
             launched)
 
 
+class _SlabProgram(_GraphProgram):
+    """The CUDA graphs of one slab program (JAX's ``slab{W}``): static
+    buffers of the stacked state, the stacked loss arguments, the lane
+    table and the per-lane constants (:class:`_SlabState`), and one graph
+    per form (:data:`SLAB_FORMS`) of the device-counter slab iteration
+    (:func:`_slab_iteration_dev`), captured at the form's first use.  A
+    dispatch copies its lanes' entry states and loss arguments (only
+    those not bound last in that lane) and its lane table in
+    (:meth:`bind`), replays one graph per slab iteration and copies the
+    stacked state out (:meth:`snapshot`): the lanes' ``slab_block`` views
+    never alias a buffer that the next replay overwrites."""
+
+    what = "slab"
+
+    def __init__(self, loss_fn: Callable, lanes: list, k_max: int,
+                 static_kwargs: dict):
+        """``lanes``: W tuples ``(params, opt_state, losses, diag,
+        loss_args)`` of one lane each (the buffers are stacked copies)."""
+        self.loss_fn, self.sk = loss_fn, dict(static_kwargs)
+        self.width, self.k_max = len(lanes), int(k_max)
+        self._setup(lanes[0][2].device)
+        self.keys = list(lanes[0][0])
+        diag = None if lanes[0][3] is None \
+            else slab_pack([lane[3] for lane in lanes])
+        self._arg_leaves: list = []
+        self._arg_skel = _flatten(slab_pack([tuple(lane[4])
+                                             for lane in lanes]),
+                                  self._arg_leaves)
+        self._batched = _slab_loss(loss_fn, self.keys, self._arg_skel)
+        W = self.width
+        self.static = _slab_state(
+            slab_pack([lane[0] for lane in lanes]),
+            slab_pack([lane[1] for lane in lanes]),
+            slab_pack([lane[2] for lane in lanes]), diag, [0] * W, [0] * W,
+            [0.0] * W, [0.0] * W, 0.0, 0.0, torch.zeros(
+                (6, self.k_max + 1, W), dtype=torch.int64,
+                device=self.device))
+        self._bound: list = [[] for _ in range(W)]
+        leaves: list = []
+        _flatten((self.static, self._arg_leaves), leaves)
+        self.nbytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    def _args_tree(self):
+        return _unflatten(self._arg_skel, iter(self._arg_leaves))
+
+    def _step(self, form: str) -> None:
+        sk = self.sk
+        _slab_iteration_dev(self._batched, self.keys, self._arg_leaves,
+                            self.static, form, sk["conv_window"], sk["b1"],
+                            sk["b2"], sk.get("moment_dtype", "float32"))
+
+    def _rewind(self) -> None:
+        self.static.k.zero_()
+
+    def bind(self, lanes: list, tab: np.ndarray, i0, stop, rel_tol,
+             lr) -> None:
+        """Copy the lanes' entry states, their loss arguments (a lane's
+        only when they are not the ones bound last in that lane), the
+        lane table ((6, K, W), zero-padded to the program's columns) and
+        the per-lane counts, flags and constants into the buffers."""
+        s = self.static
+        for b, lane in enumerate(lanes):
+            params, state, losses, diag, loss_args = lane
+            for dst, src in ((s.params, params), (s.state.mu, state.mu),
+                             (s.state.nu, state.nu)):
+                for k, v in src.items():
+                    dst[k][b].copy_(v)
+            s.state.count[b].copy_(state.count)
+            s.losses[b].copy_(losses)
+            if s.diag is not None:
+                s.diag[b].copy_(diag)
+            leaves: list = []
+            if _flatten(tuple(loss_args), leaves) != self._arg_skel:
+                raise ValueError("a lane's loss arguments do not have the "
+                                 "slab program's structure")
+            bound = self._bound[b]
+            if len(leaves) != len(bound) or any(
+                    ref() is not t for ref, t in zip(bound, leaves)):
+                for dst, src in zip(self._arg_leaves, leaves):
+                    dst[b].copy_(src)
+                self._bound[b] = [weakref.ref(t) for t in leaves]
+        full = np.zeros((6, self.k_max + 1, self.width), np.int64)
+        full[:, :tab.shape[1]] = tab
+        sk = self.sk
+        fresh = _slab_state(s.params, s.state, s.losses, s.diag, i0, stop,
+                            rel_tol, lr, sk["b1"], sk["b2"],
+                            torch.from_numpy(full))
+        for name in ("i", "done", "converged", "is_nan", "k", "tab", "tol",
+                     "const"):
+            getattr(s, name).copy_(getattr(fresh, name))
+
+    def snapshot(self) -> tuple:
+        """The buffers' stacked state as fresh tensors: ``(i, params,
+        opt_state, losses, diag, converged, is_nan)``."""
+        s = self.static
+        return _clone_tree((s.i, s.params, s.state, s.losses, s.diag,
+                            s.converged, s.is_nan))
+
+    def _drop_buffers(self) -> None:
+        self.static = self._batched = None
+        self._arg_leaves, self._bound = [], []
+
+
+def _slab_key(loss_fn: Callable, static_kwargs: dict, k_max: int, lane,
+              width: int, config_digest: Optional[str]) -> tuple:
+    """A slab program's key: JAX's tag ``slab{W}``, the loss function's
+    repr, the statics (with the table's ``k_max``), the stacked
+    signature (one lane's, each shape behind a leading W) and the run's
+    config digest."""
+    statics = tuple(sorted(dict(static_kwargs).items())) \
+        + (("k_max", int(k_max)),)
+    skel, leaves = _abstract_sig(tuple(lane))
+    sig = (skel, tuple(((width,) + shape, dtype, dev)
+                       for shape, dtype, dev in leaves))
+    return (f"slab{width}", repr(loss_fn), statics, sig, config_digest)
+
+
+def _slab_k_max(static_kwargs: dict, K: int) -> int:
+    """The slab table's columns: the controlled loop's chunk length (its
+    ``diag_every``; ``HOST_READ_EVERY`` without a ring), or a longer
+    chunk's."""
+    return max(int(static_kwargs.get("diag_every") or HOST_READ_EVERY), K)
+
+
+def _slab_scope(loss_fn: Callable, dev):
+    """The store scope a packed dispatch replays its program in: the
+    leader thread's run scope on the card for a one-rank fit, else None
+    (the eager slab)."""
+    scope = _aotcache.current_scope()
+    if scope is None or dev.type != "cuda" \
+            or getattr(loss_fn, "mesh", None) is not None:
+        return None
+    return scope
+
+
+def _dispatch_slab_graphed(scope, calls, lanes: list, W: int, sk: dict,
+                           timings: dict):
+    """:func:`_run_fit_chunk_slab` by graph replays of the slab program
+    in ``scope``'s store (made, and each form captured, at first use;
+    each lane's fit gets the ``compile`` events of the forms it had not
+    seen); returns what the eager slab returns."""
+    lead = calls[0]
+    loss_fn = lead.loss_fn
+    dev = lanes[0][2].device
+    W_, buf_len = len(lanes), lanes[0][2].shape[0]
+    i0 = [int(a[4]) for a in lanes]
+    stop = [int(a[5]) for a in lanes]
+    tab, _ = _lane_table(i0, stop, [int(a[6]) for a in lanes],
+                         sk["conv_window"], buf_len, sk["diag_every"],
+                         torch.device("cpu"))
+    K = tab.shape[1]
+    k_max = _slab_k_max(sk, K)
+    forms = _slab_forms(tab, lanes[0][3] is not None)
+    lane0 = tuple(lanes[0][:4]) + (tuple(lanes[0][9]),)
+    key = _slab_key(loss_fn, sk, k_max, lane0, W, scope.config_digest)
+    key_text = _aotcache.canonical_key_text(key)
+    digest = _aotcache.key_digest(key_text, _aotcache.environment_facts(dev),
+                                  scope.config_digest)
+    store = scope.store
+    per_lane = [tuple(a[:4]) + (tuple(a[9]),) for a in lanes]
+    prog = store.adopt(digest, lambda: _SlabProgram(loss_fn, per_lane,
+                                                    k_max, sk),
+                       need=W * _tree_bytes(lane0))
+    tag = f"slab{W}"
+    cache, seconds = {}, {}
+    try:
+        with prog.lock:
+            captured = False
+            for form in sorted(set(forms)):
+                if form in prog.graphs:
+                    cache[form] = "hit"
+                    continue
+                seconds[form] = prog.capture(form)
+                cache[form] = "miss"
+                captured = True
+            if captured:
+                _save_record(scope, digest, _recipe(
+                    "slab", tag, key_text, key, scope, loss_fn, lane0,
+                    width=W, k_max=k_max, static_kwargs=dict(sk)), prog)
+            prog.after_last()
+            prog.bind(per_lane, tab, i0, stop, [a[7] for a in lanes],
+                      [a[8] for a in lanes])
+            probe = _StopProbe(K) if dev.type == "cuda" and K else None
+            launched = K
+            for k in range(K):
+                if probe is not None and probe.stopped(k):
+                    launched = k
+                    break
+                prog.replay(forms[k])
+                if probe is not None:
+                    probe.post(k, prog.static.alldone)
+            out = prog.snapshot()
+            prog.mark_last()
+    finally:
+        store.done_with(prog)
+    store.trim()
+    for call in calls:
+        progs = getattr(call, "programs", None)
+        if not isinstance(progs, _FitPrograms):
+            continue
+        progs.replays += min(launched, int(call.args[5]) - int(call.args[4]))
+        for form in sorted(set(forms)):
+            if (digest, form) in progs._slab_seen:
+                continue
+            progs._slab_seen.add((digest, form))
+            event = _form_event(key_text, form, dev, scope, f"{tag}:{form}",
+                                tag)
+            event["cache"] = cache[form]
+            if form in seconds:
+                event["compile_seconds"] = round(seconds[form], 4)
+            progs.events.append(event)
+    timings.update(program=digest, forms=dict(cache),
+                   captures=len(seconds), replays=launched)
+    i_dev, params, state, losses, diag, conv, nan = out
+    return i_dev, params, state, losses, diag, conv, nan, launched
+
+
 def _lane_norm(tree: dict, W: int) -> torch.Tensor:
     """(W,) :func:`_global_norm` of each lane of a stacked tree."""
     return torch.sqrt(sum(torch.sum((tree[k] * tree[k]).reshape(W, -1),
@@ -1059,13 +1646,16 @@ class ChunkCall:
     own, and the coordinator runs it alone).  ``meter`` is ``(ledger,
     context snapshot)`` taken on the lane's own thread, so the slab's
     leader books each lane's share into that lane's ledger (None:
-    unmetered)."""
+    unmetered).  ``programs`` is the lane's fit's store view (its
+    ``_FitPrograms``, or None): a packed dispatch that replays a slab
+    program gives it that program's ``compile`` events and replays."""
 
     loss_fn: Callable
     args: tuple
     static_kwargs: dict
     solo: Callable
     meter: Optional[tuple] = None
+    programs: Optional[object] = None
 
     def signature(self):
         if not getattr(self.loss_fn, "packable", True):
@@ -1090,7 +1680,15 @@ def dispatch_chunk_slab(calls, width: int, timings: Optional[dict] = None):
     parked copies of the lead lane (``stop == i0``, results dropped).
     The calls must share one ``ChunkCall.signature()``.  Each call's
     loss arguments are primed first (``loss_fn.prime``, when the loss
-    function has one), so their caches stack with the rest."""
+    function has one), so their caches stack with the rest.
+
+    With a store current on the calling (leader) thread, on the card and
+    for a one-rank fit (:func:`_slab_scope`), the dispatch replays the
+    slab program of its key (:func:`_dispatch_slab_graphed`; a failed
+    capture raises, naming the form); otherwise it runs the eager slab.
+    ``timings`` gets the width, the slab iterations launched and the
+    seconds, and for a replayed program its digest, each form's
+    ``hit``/``miss``, the captures and the replays."""
     W = 2
     while W < len(calls):
         W *= 2
@@ -1103,16 +1701,24 @@ def dispatch_chunk_slab(calls, width: int, timings: Optional[dict] = None):
     lanes += [lead.args[:5] + (lead.args[4],) + lead.args[6:]] \
         * (W - len(calls))
     sk = dict(lead.static_kwargs)
-    diag = None if lanes[0][3] is None \
-        else slab_pack([a[3] for a in lanes])
     t0 = time.perf_counter()
-    (i_dev, params, state, losses, diag, conv, nan,
-     launched) = _run_fit_chunk_slab(
-        lead.loss_fn, slab_pack([a[0] for a in lanes]),
-        slab_pack([a[1] for a in lanes]), slab_pack([a[2] for a in lanes]),
-        diag, [a[4] for a in lanes], [a[5] for a in lanes],
-        [a[6] for a in lanes], [a[7] for a in lanes], [a[8] for a in lanes],
-        slab_pack([tuple(a[9]) for a in lanes]), **sk)
+    timings = {} if timings is None else timings
+    scope = _slab_scope(lead.loss_fn, lanes[0][2].device)
+    if scope is not None:
+        (i_dev, params, state, losses, diag, conv, nan,
+         launched) = _dispatch_slab_graphed(scope, calls, lanes, W, sk,
+                                            timings)
+    else:
+        diag = None if lanes[0][3] is None \
+            else slab_pack([a[3] for a in lanes])
+        (i_dev, params, state, losses, diag, conv, nan,
+         launched) = _run_fit_chunk_slab(
+            lead.loss_fn, slab_pack([a[0] for a in lanes]),
+            slab_pack([a[1] for a in lanes]),
+            slab_pack([a[2] for a in lanes]), diag, [a[4] for a in lanes],
+            [a[5] for a in lanes], [a[6] for a in lanes],
+            [a[7] for a in lanes], [a[8] for a in lanes],
+            slab_pack([tuple(a[9]) for a in lanes]), **sk)
     stop_max = max(a[5] for a in lanes[:len(calls)])
     parts = [torch.stack([i_dev.to(torch.float32), conv.to(torch.float32),
                           nan.to(torch.float32)], dim=1),
@@ -1120,10 +1726,9 @@ def dispatch_chunk_slab(calls, width: int, timings: Optional[dict] = None):
     if diag is not None:
         parts.append(diag.reshape(W, -1))
     host = torch.cat(parts, dim=1).cpu().numpy()
-    if timings is not None:
-        timings["slab_width"] = W
-        timings["launched"] = launched
-        timings["seconds"] = time.perf_counter() - t0
+    timings["slab_width"] = W
+    timings["launched"] = launched
+    timings["seconds"] = time.perf_counter() - t0
     out = []
     for b, call in enumerate(calls):
         stop_b = call.args[5]
@@ -1629,7 +2234,7 @@ def _fit_map_controlled(loss_fn: Callable, params: dict,
                     loss_fn=loss_fn, args=args, static_kwargs=static_kwargs,
                     solo=_solo,
                     meter=(ledger, ledger.ctx_snapshot())
-                    if ledger is not None else None))
+                    if ledger is not None else None, programs=programs))
 
             chunk_t0 = time.time()
             carry, launched, read = _faults.run_with_deadline(

@@ -64,17 +64,28 @@ def viterbi_paths(emissions: torch.Tensor, restart,
     return path.to(torch.int32)
 
 
-def hmm_decode(joint_logits: torch.Tensor, restart, self_prob: float):
+def hmm_decode(joint_logits: torch.Tensor, restart, self_prob: float,
+               mesh=None):
     """Genome-smoothed (cn, rep, p_rep) from (cells, loci, P, 2) logits:
     CN from Viterbi over the rep-marginalised emissions, rep the argmax
     over the rep axis at the decoded CN, p_rep the full marginal
-    P(rep = 1 | reads) of the independent decode."""
+    P(rep = 1 | reads) of the independent decode.  With a ``mesh`` that
+    shards the loci, ``joint_logits`` is this rank's loci tile and
+    ``restart`` covers every locus: the emissions (P floats a bin) are
+    gathered along the rank's loci row, the chain runs over whole rows,
+    and the rank keeps its own tile of the paths (JAX's one-process mesh
+    decodes whole rows too)."""
     from scdna_replication_tools_tpu_torch.models.pert import p_rep_marginal
 
     P = joint_logits.shape[-2]
     emissions = torch.logsumexp(joint_logits, dim=-1)        # (c, l, P)
     log_trans = transition_log_probs(P, self_prob, joint_logits.device)
-    cn_map = viterbi_paths(emissions, restart, log_trans)
+    if mesh is not None and mesh.loci > 1:
+        rows = mesh.gather_loci(emissions)
+        cn_map = viterbi_paths(rows, restart, log_trans)[
+            :, mesh.loci_slice(rows.shape[1])].contiguous()
+    else:
+        cn_map = viterbi_paths(emissions, restart, log_trans)
     at_cn = torch.gather(
         joint_logits, -2,
         cn_map.to(torch.int64)[..., None, None].expand(

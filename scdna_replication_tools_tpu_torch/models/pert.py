@@ -883,12 +883,16 @@ def cell_entropy_aggregates(spec: PertModelSpec, params: dict, fixed: dict,
 def decode_discrete_hmm(spec: PertModelSpec, params: dict, fixed: dict,
                         batch: PertBatch, restart, self_prob: float,
                         cell_chunk: Optional[int] = None,
-                        want_entropy: bool = False):
+                        want_entropy: bool = False, mesh=None):
     """Genome-smoothed MAP decode: Viterbi over the CN chain
     (``models.hmm``), in the cell slabs of :func:`decode_discrete` (the
     chain couples loci, not cells).  ``restart`` (loci,) is 1 where a
-    chromosome starts.  ``want_entropy=True`` appends the entropy maps
-    from the same per-slab joint tensor the Viterbi consumes."""
+    chromosome starts, over the whole genome.  ``want_entropy=True``
+    appends the entropy maps from the same per-slab joint tensor the
+    Viterbi consumes.  ``mesh`` (a ``RankMesh`` that shards the loci):
+    the batch is this rank's block, and the Viterbi runs on whole rows,
+    its emissions gathered along the rank's loci row (``hmm_decode``);
+    every output is this rank's block."""
     from scdna_replication_tools_tpu_torch.models.hmm import hmm_decode
 
     num_cells = batch.reads.shape[0]
@@ -898,7 +902,7 @@ def decode_discrete_hmm(spec: PertModelSpec, params: dict, fixed: dict,
             else slice_cells(params, batch, idx)
         with scope("pert/decode"):
             joint = model_joint_logits(spec, p, fixed, b)
-            decoded = hmm_decode(joint, restart, self_prob)
+            decoded = hmm_decode(joint, restart, self_prob, mesh=mesh)
             if want_entropy:
                 with scope("pert/qc_entropy"):
                     decoded = decoded + entropy_from_joint(joint)

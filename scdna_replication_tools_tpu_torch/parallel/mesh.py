@@ -20,9 +20,10 @@ share a loci tile: sums over cells run there).
   collective inside, as under JAX's ``shard_map``.
 
 Device tensors are reduced in place (``all_reduce``: the gloo and NCCL
-backends both take CUDA tensors); gathers of decoded outputs go through
-host tensors on a gloo group (:meth:`RankMesh.gather`), so one code path
-serves both backends.  The layout rules (which axis of which tensor is
+backends both take CUDA tensors); gathers go through host tensors on
+gloo groups, so one code path serves both backends: the decoded
+outputs' over every rank (:meth:`RankMesh.gather`) and the Viterbi
+decode's emissions along a loci row (:meth:`RankMesh.gather_loci`).  The layout rules (which axis of which tensor is
 sharded) are ``layout.py``'s, the same table the checkpoint stamp uses.
 """
 
@@ -45,7 +46,7 @@ class RankMesh:
     ``torch.distributed`` requires all ranks to create together."""
 
     def __init__(self, cells: int, loci: int, rank: int, row_groups: list,
-                 col_groups: list, host_group=None):
+                 col_groups: list, host_group=None, host_rows=None):
         self.cells = int(cells)
         self.loci = int(loci)
         self.rank = int(rank)
@@ -53,6 +54,9 @@ class RankMesh:
         self._row_groups = row_groups
         self._col_groups = col_groups
         self.host_group = host_group
+        # the rows' gloo twins beside an NCCL world (None: the rows are
+        # gloo groups themselves)
+        self._host_rows = host_rows
 
     # -- the grid ---------------------------------------------------------
 
@@ -232,6 +236,24 @@ class RankMesh:
                             .reshape(1), axes)
         return torch.sqrt(d / n).reshape(()).to(leaf.dtype)
 
+    def gather_loci(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole rows of which ``t`` (cells block, loci tile, ...) is
+        this rank's tile, on ``t``'s device: the tiles of this rank's
+        loci row gathered through host tensors (one ``all_gather`` on the
+        row's gloo group) and joined along axis 1 in grid order.  Only
+        the row's ranks exchange: a rank holds its cells block's rows,
+        never the full grid."""
+        if self.loci == 1:
+            return t
+        group, n = self._group(frozenset((LOCI_AXIS,)))
+        if self._host_rows is not None:
+            group = self._host_rows[self.cell_index] if self.cells > 1 \
+                else self.host_group
+        local = t.detach().cpu().contiguous()
+        tiles = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(tiles, local, group=group)
+        return torch.cat(tiles, dim=1).to(t.device)
+
     # -- host gathers -----------------------------------------------------
 
     def gather(self, x, dims: Sequence[str]) -> np.ndarray:
@@ -328,11 +350,16 @@ def make_mesh(num_shards: Optional[int] = None,
     cols = [dist.new_group([i * loci_shards + j for i in range(cells)],
                            timeout=timeout) if both else None
             for j in range(loci_shards)]
-    host = None
+    host, host_rows = None, None
     if dist.get_backend() != "gloo":
-        # host tensors ride a gloo group beside an NCCL world
+        # host tensors ride gloo groups beside an NCCL world: the world's
+        # and each row's
         host = dist.new_group(backend="gloo", timeout=timeout)
-    return RankMesh(cells, loci_shards, rank, rows, cols, host)
+        host_rows = [dist.new_group(
+            [i * loci_shards + j for j in range(loci_shards)],
+            backend="gloo", timeout=timeout) if both else None
+            for i in range(cells)]
+    return RankMesh(cells, loci_shards, rank, rows, cols, host, host_rows)
 
 
 def loci_axis(mesh: Optional[RankMesh]) -> Optional[str]:

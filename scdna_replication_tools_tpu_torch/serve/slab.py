@@ -179,12 +179,16 @@ class SlabFitCoordinator:
     * groups of >= 2 go through ``svi.dispatch_chunk_slab`` — ONE
       vectorized dispatch at the power-of-two width rung covering the
       group (vacancies within a rung padded as parked lanes), so the
-      whole slab advances on one bounded ladder of compiled programs;
+      whole slab advances on one bounded ladder of compiled programs
+      (with the worker's store, the rung's ``slab{W}`` CUDA graphs;
+      ``packed_graphed`` counts those);
     * singletons use the call's own ``solo`` program — bit-identical
       with serial mode (the documented occupancy-1 guarantee);
     * a slab dispatch that fails as a unit is retried lane-by-lane solo,
       so one lane's poison (or an unpackable signature slipping through)
-      degrades THAT lane only — per-request fault isolation holds.
+      degrades THAT lane only — per-request fault isolation holds
+      (``degraded`` counts them, ``degrade_error`` keeps the last
+      error).
 
     Retirement and refill fall out of the bracket: a converged request's
     driver exits the fit (``fit_end`` drops it from the barrier count)
@@ -203,6 +207,13 @@ class SlabFitCoordinator:
         self.dispatches = 0        # leader executions
         self.packed_dispatches = 0  # slab-program dispatches (>= 2 lanes)
         self.packed_lanes = 0      # lanes advanced by slab dispatches
+        # of the packed dispatches, those that replayed a slab program of
+        # the store (``infer/svi.dispatch_chunk_slab``; the rest ran the
+        # eager slab); slab dispatches that failed as a unit and went
+        # lane by lane, with the last one's error
+        self.packed_graphed = 0
+        self.degraded = 0
+        self.degrade_error: Optional[str] = None
         # the WORKER-session cost ledger (obs/meter.py), attached by the
         # serve worker: parked-lane device time — a rung dispatched
         # wider than its live lane count — is the slab's own waste, not
@@ -313,19 +324,23 @@ class SlabFitCoordinator:
                         e.result = out
                     self.packed_dispatches += 1
                     self.packed_lanes += len(group)
+                    if "program" in slab_timings:
+                        self.packed_graphed += 1
                     # metering runs on the LEAD lane's thread, off the
                     # leader's path: peers arriving meanwhile must find
                     # the rendezvous open, not a leader still booking
                     group[0].book = self._slab_book_thunk(
                         group, outs, t0, slab_timings)
                     continue
-                except BaseException:  # noqa: BLE001 — not
+                except BaseException as exc:  # noqa: BLE001 — not
                     # a swallow: the slab failed as a UNIT (a refused
-                    # operand, a pack mismatch), so every
-                    # lane retries solo below and a real per-lane
+                    # operand, a pack mismatch, a failed capture), so
+                    # every lane retries solo below and a real per-lane
                     # error surfaces there, attributed to its own
-                    # request instead of the whole slab
-                    pass
+                    # request instead of the whole slab; counted, so a
+                    # run that must not degrade can say so
+                    self.degraded += 1
+                    self.degrade_error = f"{type(exc).__name__}: {exc}"[:500]
             for e in group:
                 try:
                     t0 = time.perf_counter()

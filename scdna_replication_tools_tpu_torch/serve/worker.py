@@ -7,15 +7,18 @@ tests), which every request's ``scRT`` receives.  The compiled-program
 store (``infer/aotcache.py``) follows JAX's rule: ``'auto'`` is
 ``<spool>/exec_cache``, a path pins it, None/'none' runs without one.
 The worker activates the store for its life, so every request's run
-shares it: a request's solo fit chunks replay CUDA graphs captured once
-per program (a later same-shaped request with the same behavioural
-config replays the earlier one's), and the kernel libraries persist in
-the directory for the next worker, whose warm-up thread reads them
-ahead of traffic (``status.json``'s ``executable_cache`` block).  The
-slab's packed chunks stay eager.  With ``max_batch`` K > 1 each request
-thread hands its fit chunks to the slab coordinator, which advances
-concurrent same-shape chunks in one launch per iteration through the
-block-axis kernels (``infer/svi.dispatch_chunk_slab``).
+shares it: a request's solo fit chunks and the slab's packed chunks
+replay CUDA graphs captured once per program (a later same-shaped
+request with the same behavioural config replays the earlier one's).
+The kernel libraries and a record of each program persist in the
+directory for the next worker, whose warm-up thread ranks them by this
+worker's ``buckets_served`` ledger, reads the libraries and captures the
+programs again ahead of traffic (``status.json``'s ``executable_cache``
+block).  With ``max_batch`` K > 1 each request thread hands its fit
+chunks to the slab coordinator, which advances concurrent same-shape
+chunks in one launch per iteration through the block-axis kernels
+(``infer/svi.dispatch_chunk_slab``), replaying the rung's ``slab{W}``
+program.
 
 The JAX module's description follows; where it speaks of programs and
 compiles, the port's counterparts are its kernel libraries (built once,
@@ -95,6 +98,7 @@ import contextlib
 import dataclasses
 import gc
 import itertools
+import json
 import os
 import re
 import signal
@@ -154,11 +158,38 @@ _WORKER_LOG_COUNTER = itertools.count()
 RECENT_OUTCOMES = 256
 
 
-# library records the warm-up thread reads ahead of traffic (JAX's cap)
+# records the warm-up thread reads (a kernel library's) or captures (a
+# program's) ahead of traffic (JAX's cap)
 WARMUP_PRELOAD_MAX = 16
 # the share of the card's memory the worker's captured programs may hold
 # together before the least recently used idle ones are released
 PROGRAM_MEMORY_SHARE = 0.3
+
+
+def rank_warmup_entries(entries: list, ledger: dict) -> list:
+    """The store's records in the warm-up's order (JAX
+    ``_warmup_executables``'s ``_traffic`` rank): a record belongs to
+    bucket ``c<cells>xl<loci>`` when the last two dims of one of its
+    recorded shapes (``meta['shapes']``) are that bucket's padding, and
+    its traffic is the sum of ``ledger[bucket]`` (the previous worker's
+    ``buckets_served``) over its buckets; sorted by (traffic, mtime),
+    descending, and with a ledger only the records whose traffic is
+    above 0 (a record without shapes, a kernel library's, has none)."""
+    def _traffic(entry) -> int:
+        shapes = entry["meta"].get("shapes") or []
+        tails = {tuple(s[-2:]) for s in shapes if len(s) >= 2}
+        count = 0
+        for name, served in ledger.items():
+            m = re.match(r"c(\d+)xl(\d+)$", name)
+            if m and (int(m.group(1)), int(m.group(2))) in tails:
+                count += int(served)
+        return count
+
+    ranked = sorted(entries, key=lambda e: (_traffic(e), e["mtime"]),
+                    reverse=True)
+    if ledger:
+        ranked = [e for e in ranked if _traffic(e) > 0]
+    return ranked
 
 
 def _resolve_executable_cache(queue, value) -> Optional[str]:
@@ -299,6 +330,9 @@ class ServeWorker:
             "dir": self.executable_cache_dir, "preloaded": 0,
             "entries": 0, "done": self.executable_cache_dir is None}
         self._store = None
+        # the previous worker's buckets_served, read before this worker's
+        # heartbeat rewrites status.json: the warm-up's ranking
+        self._prior_buckets = self._read_prior_bucket_ledger()
         if telemetry_path is None:
             # pid + counter in the default name: multiple workers may
             # share one spool (the queue's rename-based claiming
@@ -584,37 +618,94 @@ class ServeWorker:
         while not self._heartbeat_stop.wait(interval):
             self._write_status()
 
-    def _warmup_executables(self) -> None:
-        """One-shot background warm-up (JAX ``_warmup_executables``): read
-        the store's library records (the newest first, at most
-        ``WARMUP_PRELOAD_MAX``) so the first request loads its kernel
-        libraries without touching the disk.  A CUDA graph does not
-        outlive its process: programs are captured by the first request
-        of each shape."""
+    def _read_prior_bucket_ledger(self) -> dict:
+        """The previous worker's ``buckets_served`` ledger out of
+        status.json (JAX ``_read_prior_bucket_ledger``): the residency
+        signal that ranks the warm-up's records.  Read at construction,
+        before this worker's own heartbeat rewrites the file."""
         try:
-            store = self._store
-            entries = sorted(store.entries(), key=lambda e: e["mtime"],
-                             reverse=True)
-            preloaded = 0
-            for entry in entries[:WARMUP_PRELOAD_MAX]:
+            with open(self.queue.status_path, encoding="utf-8") as fh:
+                doc = json.load(fh)
+            if doc.get("kind") == "pert_serve_status":
+                return dict(doc.get("buckets_served") or {})
+        except (OSError, ValueError):
+            pass
+        return {}
+
+    def _warmup_executables(self) -> None:
+        """One-shot background warm-up (JAX ``_warmup_executables``): rank
+        the store's records by the previous worker's per-bucket traffic
+        (:func:`rank_warmup_entries`) and take the first
+        ``WARMUP_PRELOAD_MAX``: a kernel library's record is read into
+        RAM, so the first request loads the library without touching the
+        disk; a program's record is captured again
+        (``svi.precapture``: its libraries loaded, its graphs captured on
+        placeholder buffers, the program put into the store under the
+        digest a request of its rung computes), so the first request of
+        a warmed rung replays without capturing.  The programs are
+        captured in reverse rank, so that the store's caps release the
+        lowest-ranked first; a slab wider than this worker packs is left
+        out.
+        A failure is logged and recorded (``error``): the request then
+        captures on first use.  ``preloaded`` counts the programs ready
+        in RAM and the library records read."""
+        t0 = time.perf_counter()
+        store = self._store
+        info = {"preloaded": 0, "precaptured": 0,
+                "precaptured_key_hashes": []}
+        try:
+            entries = store.entries()
+            ranked = rank_warmup_entries(entries, self._prior_buckets)
+            info["entries"] = len(entries)
+            chosen = ranked[:WARMUP_PRELOAD_MAX]
+            programs = [e for e in chosen
+                        if e["meta"].get("kind") == "program"]
+            # the programs in reverse rank: past the store's caps its LRU
+            # release then takes the lowest-ranked ones first
+            for entry in [e for e in chosen if e not in programs] \
+                    + programs[::-1]:
                 if self._heartbeat_stop.is_set() or self._draining:
                     break
-                if store.preload(entry["digest"]):
-                    preloaded += 1
-            with self._state_lock:
-                self._warmup_info.update(
-                    preloaded=preloaded, entries=len(entries), done=True)
-            if preloaded:
+                meta = entry["meta"]
+                if meta.get("kind") != "program":
+                    if store.preload(entry["digest"]):
+                        info["preloaded"] += 1
+                    continue
+                # a slab wider than this worker's widest rung (the power
+                # of two at or above max_batch; a serial worker packs
+                # nothing) is never dispatched here
+                width = re.match(r"slab(\d+)$", str(meta.get("tag", "")))
+                if width and (self.max_batch < 2 or int(width.group(1))
+                              >= 2 * self.max_batch):
+                    continue
+                try:
+                    got = svi_mod.precapture(store, entry["digest"],
+                                             self.device)
+                except Exception as exc:  # noqa: BLE001 — recorded:
+                    # the program's first request captures it instead
+                    logger.warning("pert-serve: pre-capture of %s "
+                                   "failed: %s", entry["digest"], exc)
+                    info.setdefault("error", f"{type(exc).__name__}: "
+                                    f"{str(exc)[:200]}")
+                    continue
+                info["preloaded"] += 1
+                info["precaptured"] += 1
+                info["precaptured_key_hashes"] += got["key_hashes"]
+            if info["preloaded"]:
                 logger.info(
-                    "pert-serve: executable warm-up pre-loaded %d/%d "
-                    "store entries from %s", preloaded, len(entries),
-                    self.executable_cache_dir)
+                    "pert-serve: executable warm-up: %d programs "
+                    "captured, %d records read ahead of %d in %s",
+                    info["precaptured"],
+                    info["preloaded"] - info["precaptured"],
+                    len(entries), self.executable_cache_dir)
         except Exception as exc:  # noqa: BLE001 — warm-up is an
             # optimisation; a failure must not take down the worker
             logger.warning("pert-serve: executable warm-up failed: %s",
                            exc)
-            with self._state_lock:
-                self._warmup_info.update(done=True, error=str(exc)[:200])
+            info["error"] = str(exc)[:200]
+        info["precapture_seconds"] = round(time.perf_counter() - t0, 4)
+        with self._state_lock:
+            self._warmup_info.update(info, done=True)
 
     def _inflight_doc(self, info: dict) -> dict:
         doc = dict(info)
@@ -660,6 +751,8 @@ class ServeWorker:
             slab["packed_dispatches"] = \
                 self.slab_coordinator.packed_dispatches
             slab["packed_lanes"] = self.slab_coordinator.packed_lanes
+            slab["packed_graphed"] = self.slab_coordinator.packed_graphed
+            slab["degraded_dispatches"] = self.slab_coordinator.degraded
         return {
             "kind": "pert_serve_status",
             "pid": os.getpid(),
@@ -690,6 +783,10 @@ class ServeWorker:
                 programs=self._store.program_count()
                 if self._store is not None else 0,
                 program_bytes=self._store.program_bytes()
+                if self._store is not None else 0,
+                programs_released=self._store.released
+                if self._store is not None else 0,
+                peak_program_bytes=self._store.peak_program_bytes
                 if self._store is not None else 0),
             "recent": [dataclasses.asdict(o)
                        for o in list(self.outcomes)[-10:]],

@@ -778,6 +778,206 @@ def test_concurrent_graphed_fits_of_one_program_equal_eager(dev, tmp_path):
             assert torch.equal(a.params[k], b.params[k]), k
 
 
+# -- CUDA graphs of the serving slab, program records (ROADMAP A14) --------
+
+
+def _slab_calls(step2, seeds, windows, min_iter=10):
+    """ChunkCalls of the step-2 objective from ``step2``'s fitted state,
+    one lane per seed (its parameters moved by seeded noise, its own
+    (i0, stop) window, its own learning rate), each with a fit's store
+    view when a run scope is current."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+
+    loss_fn = _PertLossFn(step2.spec)
+    args = (step2.fixed, step2.batch)
+    loop = svi._Loop(min_iter=min_iter, rel_tol=1e-5, win=9, diag_every=25,
+                     b1=0.8, b2=0.99, moment_dtype="float32")
+    scope = aotcache.current_scope()
+    calls = []
+    for seed, (i0, stop) in zip(seeds, windows):
+        gen = torch.Generator(device=step2.batch.reads.device)
+        gen.manual_seed(seed)
+        params = {k: v + 0.05 * torch.randn(v.shape, generator=gen,
+                                            device=v.device)
+                  for k, v in step2.fit.params.items()}
+        losses = torch.zeros(60, device=params["tau_raw"].device)
+        a = (params, svi.make_opt_state(params), losses,
+             torch.zeros((svi.DIAG_RING, 3), device=losses.device), i0,
+             stop, loop.min_iter, loop.rel_tol, 0.05 + 0.01 * seed % 3,
+             args)
+        calls.append(svi.ChunkCall(
+            loss_fn=loss_fn, args=a,
+            static_kwargs=dict(conv_window=9, b1=0.8, b2=0.99,
+                               diag_every=25, moment_dtype="float32"),
+            solo=None, programs=None if scope is None
+            else svi._FitPrograms(scope, "chunk", loss_fn, loop)))
+    return calls
+
+
+def _slab_tensors(outs):
+    from scdna_replication_tools_tpu_torch.infer import svi
+
+    leaves: list = []
+    for carry, _, read in outs:
+        svi._flatten((carry.params, carry.state, carry.losses, carry.diag),
+                     leaves)
+    return leaves
+
+
+def _same_slab(a, b):
+    for x, y in zip(_slab_tensors(a), _slab_tensors(b)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    # the iterations launched may differ (the stop probe peeks at a card
+    # that runs ahead of the host); those after a lane's stop are masked
+    for (_, _, r), (_, _, q) in zip(a, b):
+        assert (r.i, r.converged, r.is_nan) == (q.i, q.converged, q.is_nan)
+        np.testing.assert_array_equal(r.losses, q.losses)
+        np.testing.assert_array_equal(r.diag, q.diag)
+
+
+SLAB_WINDOWS = [(0, 25), (5, 25), (0, 12), (3, 3)]
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_graphed_slab_equals_the_eager_slab(dev, tmp_path, W):
+    """Packed dispatches of W step-2 lanes (staggered windows; at W = 4 a
+    parked lane) replayed from the store's ``slab{W}`` program equal the
+    eager slab bit for bit, twice (the second dispatch ``hit``s every
+    form); each replay counts its graph's launches: the block-axis fused
+    pair and Adam once per slab iteration, the warm-ups eagerly."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+
+    _, step2, _ = _run(dev)
+    seeds, windows = list(range(W)), SLAB_WINDOWS[:W]
+    eager = svi.dispatch_chunk_slab(_slab_calls(step2, seeds, windows), W)
+    _cuda.reset_launches()
+    with aotcache.run_scope(str(tmp_path / "store"), None) as scope:
+        t1, t2 = {}, {}
+        first = svi.dispatch_chunk_slab(_slab_calls(step2, seeds, windows),
+                                        W, t1)
+        second = svi.dispatch_chunk_slab(_slab_calls(step2, seeds, windows),
+                                         W, t2)
+        assert scope.store.program_count() == 1
+    launches = dict(_cuda.LAUNCHES)
+    _same_slab(eager, first)
+    _same_slab(eager, second)
+    assert set(t1["forms"].values()) == {"miss"}
+    assert set(t2["forms"].values()) == {"hit"}
+    assert t1["replays"] == t1["launched"] and t2["replays"] \
+        == t2["launched"]
+    key = "sparse" if step2.spec.sparse_etas else "dense"
+    n = t1["launched"] + t2["launched"] \
+        + svi.GRAPH_WARMUPS * t1["captures"]
+    assert launches[f"fused_fwd_{key}_lanes"] == n
+    assert launches["adam_lanes"] == n
+
+
+def test_graphed_slab_form_captured_after_a_full_chunk(dev, tmp_path):
+    """A first dispatch of 25 iterations below min_iter (no convergence
+    test) replays the program's every column; the next dispatch, past
+    min_iter, captures the convergence-test forms then (their warm-ups
+    from the table's first column) and equals its eager dispatch."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+
+    _, step2, _ = _run(dev)
+    late = [(25, 50), (25, 50)]
+    eager = svi.dispatch_chunk_slab(_slab_calls(step2, [0, 1], late, 30), 2)
+    with aotcache.run_scope(str(tmp_path / "store"), None):
+        t1, t2 = {}, {}
+        svi.dispatch_chunk_slab(
+            _slab_calls(step2, [0, 1], [(0, 25), (0, 25)], 30), 2, t1)
+        got = svi.dispatch_chunk_slab(_slab_calls(step2, [0, 1], late, 30),
+                                      2, t2)
+    assert t1["program"] == t2["program"] and "conv" not in t1["forms"]
+    assert t2["forms"]["conv"] == "miss"
+    _same_slab(eager, got)
+
+
+def test_concurrent_slab_dispatches_of_one_program_equal_eager(dev,
+                                                               tmp_path):
+    """Two threads dispatch slabs of one program at once (two leaders of
+    a worker's slab coordinator): the program's lock and its last
+    dispatch's event order them, and each equals its eager dispatch."""
+    import threading
+
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+
+    _, step2, _ = _run(dev)
+    sets = [[0, 1], [2, 3]]
+    eager = [svi.dispatch_chunk_slab(
+        _slab_calls(step2, seeds, SLAB_WINDOWS[:2]), 2) for seeds in sets]
+    root = str(tmp_path / "store")
+    store = aotcache.activate(root)
+    got = [None, None]
+    try:
+        def run(k):
+            with aotcache.run_scope(root, None):
+                for _ in range(3):
+                    got[k] = svi.dispatch_chunk_slab(
+                        _slab_calls(step2, sets[k], SLAB_WINDOWS[:2]), 2)
+        threads = [threading.Thread(target=run, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert store.program_count() == 1
+    finally:
+        aotcache.deactivate()
+    for a, b in zip(eager, got):
+        _same_slab(a, b)
+
+
+def test_precaptured_programs_replay_bit_equal(dev, tmp_path):
+    """A solo fit and a packed dispatch under a store write their
+    programs' records; a fresh store on the directory captures both again
+    from the records alone (``svi.precapture``, on placeholder buffers),
+    and a fit and a dispatch on real lanes then ``hit`` every form and
+    equal their eager runs bit for bit."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+    from scdna_replication_tools_tpu_torch.infer.runner import _PertLossFn
+
+    _, step2, _ = _run(dev)
+    kw = dict(max_iter=40, min_iter=40, device=dev, diag_every=25)
+    args = (step2.fixed, step2.batch)
+    root = str(tmp_path / "store")
+    eager_fit = svi.fit_map(_PertLossFn(step2.spec), step2.fit.params, args,
+                            **kw)
+    eager_slab = svi.dispatch_chunk_slab(
+        _slab_calls(step2, [0, 1, 2], SLAB_WINDOWS[:3]), 4)
+    with aotcache.run_scope(root, "cfg"):
+        svi.fit_map(_PertLossFn(step2.spec), step2.fit.params, args, **kw)
+        svi.dispatch_chunk_slab(
+            _slab_calls(step2, [0, 1, 2], SLAB_WINDOWS[:3]), 4)
+    assert aotcache.live_program_count() == 0
+    store = aotcache.activate(root)
+    try:
+        records = [e for e in store.entries()
+                   if e["meta"].get("kind") == "program"]
+        assert sorted(e["meta"]["tag"] for e in records) == ["fit", "slab4"]
+        done = [svi.precapture(store, e["digest"], dev) for e in records]
+        assert store.program_count() == 2
+        assert all(d["captures"] == len(d["forms"]) for d in done)
+        with aotcache.run_scope(root, "cfg"):
+            fit = svi.fit_map(_PertLossFn(step2.spec), step2.fit.params,
+                              args, **kw)
+            t = {}
+            calls = _slab_calls(step2, [0, 1, 2], SLAB_WINDOWS[:3])
+            slab = svi.dispatch_chunk_slab(calls, 4, t)
+    finally:
+        aotcache.deactivate()
+    assert {e["cache"] for e in fit.programs} == {"hit"}
+    assert set(t["forms"].values()) == {"hit"}
+    hashes = {h for d in done for h in d["key_hashes"]}
+    assert {e["key_hash"] for e in fit.programs} <= hashes
+    assert {e["key_hash"] for e in calls[0].programs.events} <= hashes
+    np.testing.assert_array_equal(fit.losses, eager_fit.losses)
+    for k, v in eager_fit.params.items():
+        assert torch.equal(fit.params[k], v), k
+    _same_slab(eager_slab, slab)
+
+
 # -- the block axis: W stacked fits in one launch (the serving slab) -------
 
 

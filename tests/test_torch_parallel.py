@@ -472,6 +472,96 @@ def test_work_after_step2_on_ranks_matches_jax(tmp_path, carried, grid):
     assert float(rel.max()) < 1e-5, float(rel.max())
 
 
+HMM_SELF_PROB = 0.99
+
+
+def test_viterbi_decode_on_a_loci_sharded_grid_matches_jax(
+        tmp_path, step2_jax, carried):
+    """``cn_hmm_self_prob`` on a 2 x 2 grid (cells and loci sharded):
+    the runner takes the option, each rank decodes whole rows of its
+    cells (the emissions gathered along its loci row) and the packaged S
+    frame equals JAX's one-process 2 x 2 mesh decode of the same
+    carried-over step-2 state (the CN and replication states bin for
+    bin, the CN entropies within 1e-6) and the port's one-rank decode
+    (the states bin for bin, the entropies within 1e-6).  The chain
+    restarts at each chromosome start, so a loci tile's chain would
+    differ from the whole row's: the gather is what this holds."""
+    import dataclasses
+
+    from scdna_replication_tools_tpu.config import ColumnConfig as JCols
+    from scdna_replication_tools_tpu.infer import runner as jrunner
+
+    jinf, step, _, _ = step2_jax
+    pay = carried["payload"]
+    jm = jmesh.make_mesh(2, loci_shards=2)
+    jstep = dataclasses.replace(
+        step, batch=jmesh.shard_batch(jm, step.batch),
+        fixed=jmesh.replicate_fixed(jm, step.fixed),
+        fit=dataclasses.replace(step.fit, params=jmesh.shard_params(
+            jm, step.fit.params)))
+    jframe, _ = jrunner.package_step_output(
+        pay["cn_long"], jinf._step2_data, jstep, pay["lamb"], pay["losses"],
+        pay["losses"], JCols(), hmm_self_prob=HMM_SELF_PROB, qc_collect={})
+    payload = {**pay, "hmm": HMM_SELF_PROB}
+    one = torch_ranks.hmm_decode_step2(
+        0, 1, {**payload, "cells": 1, "loci": 1}, tmp_path)["frame"]
+    results, codes = torch_ranks.launch(
+        4, torch_ranks.hmm_decode_step2, {**payload, "cells": 2, "loci": 2},
+        tmp_path)
+    assert codes == [0] * 4, results
+    grid = results[0]["frame"]
+    for ref, label in ((jframe, "JAX 2x2 mesh"), (one, "port one rank")):
+        assert list(grid.columns) == list(ref.columns), label
+        for col in ("cell_id", "chr", "start", "model_cn_state",
+                    "model_rep_state"):
+            np.testing.assert_array_equal(grid[col].to_numpy(),
+                                          ref[col].to_numpy(),
+                                          err_msg=f"{label}: {col}")
+        np.testing.assert_allclose(
+            grid["model_cn_entropy"].to_numpy(float),
+            ref["model_cn_entropy"].to_numpy(float), rtol=0, atol=1e-6,
+            err_msg=label)
+
+
+def test_viterbi_rows_on_a_loci_sharded_grid(tmp_path):
+    """``hmm_decode`` with a mesh on 2 x 2 gloo ranks, on seeded joint
+    logits (10 cells, 300 loci, two chromosomes of 100 and 200): every
+    rank's tile of the paths equals the one-rank decode bit for bit (so
+    the chain ran over whole rows: decoding each loci tile alone gives
+    other paths on these logits) and JAX's as
+    ``test_torch_hmm.test_hmm_decode_from_the_same_joint_logits`` holds
+    it; the replication states and p_rep bit for bit the one-rank's."""
+    import jax.numpy as jnp
+
+    from scdna_replication_tools_tpu.models import hmm as jhmm
+    from scdna_replication_tools_tpu_torch.models import hmm as thmm
+
+    from test_torch_hmm import ALIKE
+
+    rng = np.random.default_rng(2)
+    joint = rng.normal(0, 4, (10, 300, 13, 2)).astype(np.float32)
+    # the second chromosome starts inside the first loci tile
+    restart = np.r_[1.0, np.zeros(99), 1.0, np.zeros(199)] \
+        .astype(np.float32)
+    one = [t.numpy() for t in thmm.hmm_decode(torch.from_numpy(joint),
+                                              restart, HMM_SELF_PROB)]
+    tiles = [thmm.hmm_decode(torch.from_numpy(joint[:, sl]), restart[sl],
+                             HMM_SELF_PROB)[0].numpy()
+             for sl in (slice(0, 150), slice(150, 300))]
+    assert (np.concatenate(tiles, axis=1) != one[0]).any()
+    results, codes = torch_ranks.launch(
+        4, torch_ranks.hmm_rows, {"joint": joint, "restart": restart,
+                                  "self_prob": HMM_SELF_PROB}, tmp_path)
+    assert codes == [0] * 4, results
+    for r in results:
+        for got, want in zip(r, one):
+            np.testing.assert_array_equal(got, want)
+    ref = [np.asarray(a) for a in jhmm.hmm_decode(
+        jnp.asarray(joint), jnp.asarray(restart), HMM_SELF_PROB)]
+    assert (results[0][0] == ref[0]).mean() >= ALIKE
+    assert (results[0][1] == ref[1]).mean() >= ALIKE
+
+
 def test_fingerprints_and_consensus_across_ranks(tmp_path):
     """Two ranks: all_host_fingerprints gathers every rank's digest on
     every rank; combined_fingerprint equals JAX's on that map (deduped

@@ -349,8 +349,8 @@ def test_store_releases_idle_programs_past_its_caps(eager_programs,
         def release(self):
             self.released = True
     a, b = Prog(), Prog()
-    store.put_program("a", a)
-    store.put_program("b", b)
+    assert store.adopt("a", lambda: a) is a
+    assert store.adopt("b", lambda: b) is b
     store.trim()
     assert not a.released and not b.released     # both in use
     store.done_with(a)

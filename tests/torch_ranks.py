@@ -266,53 +266,68 @@ def loss_grads(rank, world, payload, tmp):
                       for k, g in grads.items()}}
 
 
-def carried_step2(rank, world, payload, tmp):
-    """The runner's work after step 2 on a carried-over step-2 state, on a
-    grid of ``payload['cells']`` x ``payload['loci']`` ranks:
-    ``PertInference`` of ``payload['config']`` on the S and G1 data
-    (``payload['s']``, ``payload['g1']``), the full step (``spec_kw``,
-    ``batch``, ``fixed``, ``params``, ``losses``, NumPy arrays of the
-    port's layouts) placed on this rank's block through the runner's own
-    seam (``_place_params``, the mesh's tile), then
-    ``package_step_output`` with the QC collection, ``build_cell_qc`` and
-    ``_mirror_rescue``; returns (rank 0) the frames and the QC table, and
-    (every rank) the rescue's statistics and cells and the rescued
-    step's gathered tau and per-cell objective under the rescue's
-    conditioning."""
-    import dataclasses
-
+def _carried_step(payload, **config):
+    """(``PertInference`` of ``payload['config']`` and ``config`` on the S
+    and G1 data, the carried step-2 state as a ``StepOutput`` placed on
+    this rank's block through the runner's own seam: ``_place_params``
+    and the mesh's tile)."""
     import torch
 
     from scdna_replication_tools_tpu_torch import layout
-    from scdna_replication_tools_tpu_torch.config import (
-        ColumnConfig,
-        PertConfig,
-    )
+    from scdna_replication_tools_tpu_torch.config import PertConfig
     from scdna_replication_tools_tpu_torch.infer.runner import (
         PertInference,
         StepOutput,
-        package_step_output,
     )
     from scdna_replication_tools_tpu_torch.infer.svi import FitResult
     from scdna_replication_tools_tpu_torch.models import pert as tpert
-    from scdna_replication_tools_tpu_torch.ops.transforms import (
-        to_unit_interval,
-    )
 
     inf = PertInference(payload["s"], payload["g1"], PertConfig(
         num_shards=payload["cells"], loci_shards=payload["loci"],
-        **payload["config"]), device="cpu")
+        **payload["config"], **config), device="cpu")
     mesh = inf.mesh
     spec = tpert.PertModelSpec(**payload["spec_kw"])
     batch = tpert.PertBatch(**{
-        k: torch.as_tensor(mesh.tile(v, layout.batch_dims(k))).contiguous()
-        for k, v in payload["batch"].items()})
+        k: torch.as_tensor(v if mesh is None
+                           else mesh.tile(v, layout.batch_dims(k)))
+        .contiguous() for k, v in payload["batch"].items()})
     fixed = {k: torch.as_tensor(v) for k, v in payload["fixed"].items()}
     losses = payload["losses"]
     step = StepOutput(FitResult(
         params=inf._place_params(payload["params"]), losses=losses,
         num_iters=len(losses), converged=False, nan_abort=False),
         spec, fixed, batch, 0.0)
+    return inf, step
+
+
+def carried_step2(rank, world, payload, tmp):
+    """The runner's work after step 2 on a carried-over step-2 state, on a
+    grid of ``payload['cells']`` x ``payload['loci']`` ranks:
+    ``PertInference`` of ``payload['config']`` on the S and G1 data
+    (``payload['s']``, ``payload['g1']``), the full step (``spec_kw``,
+    ``batch``, ``fixed``, ``params``, ``losses``, NumPy arrays of the
+    port's layouts) placed on this rank's block (:func:`_carried_step`),
+    then ``package_step_output`` with the QC collection, ``build_cell_qc``
+    and ``_mirror_rescue``; returns (rank 0) the frames and the QC table,
+    and (every rank) the rescue's statistics and cells and the rescued
+    step's gathered tau and per-cell objective under the rescue's
+    conditioning."""
+    import dataclasses
+
+    import torch
+
+    from scdna_replication_tools_tpu_torch.config import ColumnConfig
+    from scdna_replication_tools_tpu_torch.infer.runner import (
+        package_step_output,
+    )
+    from scdna_replication_tools_tpu_torch.models import pert as tpert
+    from scdna_replication_tools_tpu_torch.ops.transforms import (
+        to_unit_interval,
+    )
+
+    inf, step = _carried_step(payload)
+    mesh, spec, fixed, batch = inf.mesh, step.spec, step.fixed, step.batch
+    losses = payload["losses"]
     qc: dict = {}
     frame, supp = package_step_output(
         payload["cn_long"], payload["s"], step, payload["lamb"], losses,
@@ -332,6 +347,44 @@ def carried_step2(rank, world, payload, tmp):
             "cells": {k: v.tolist() for k, v in inf._rescue_cells.items()},
             "tau": mesh.gather(to_unit_interval(p["tau_raw"]), ("cells",)),
             "objective": mesh.gather(obj, ("cells",))}
+
+
+def hmm_decode_step2(rank, world, payload, tmp):
+    """The packaging decode of a carried-over step-2 state with the
+    Viterbi CN chain (``cn_hmm_self_prob=payload['hmm']``), on a grid of
+    ``payload['cells']`` x ``payload['loci']`` ranks (one: no process
+    group, the plain run): the runner built with the option, the step on
+    this rank's block (:func:`_carried_step`), ``package_step_output``
+    with the QC collection; returns (rank 0) the S frame."""
+    from scdna_replication_tools_tpu_torch.config import ColumnConfig
+    from scdna_replication_tools_tpu_torch.infer.runner import (
+        package_step_output,
+    )
+
+    inf, step = _carried_step(payload, cn_hmm_self_prob=payload["hmm"])
+    losses = payload["losses"]
+    frame, _ = package_step_output(
+        payload["cn_long"], payload["s"], step, payload["lamb"], losses,
+        losses, ColumnConfig(), qc_collect={},
+        hmm_self_prob=inf.config.cn_hmm_self_prob, mesh=inf.mesh)
+    return {"frame": frame if rank == 0 else None}
+
+
+def hmm_rows(rank, world, payload, tmp):
+    """``models.hmm.hmm_decode`` with the mesh of a 2 x 2 grid on this
+    rank's block of ``payload['joint']`` (cells, loci, P, 2), the
+    restart flags of every locus; returns the three outputs gathered."""
+    import torch
+
+    from scdna_replication_tools_tpu_torch.models.hmm import hmm_decode
+    from scdna_replication_tools_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2)
+    joint = torch.as_tensor(mesh.tile(payload["joint"],
+                                      ("cells", "loci", "P", "2")))
+    out = hmm_decode(joint.contiguous(), payload["restart"],
+                     payload["self_prob"], mesh=mesh)
+    return [mesh.gather(t, ("cells", "loci")) for t in out]
 
 
 def run_inference(rank, world, payload, tmp):
