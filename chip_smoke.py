@@ -65,8 +65,11 @@ Phases, each printing its own lines:
    PyTorch reports as nondeterministic), each fit's captures (at most
    its forms), replays (its dispatched iterations) and warm-ups, its
    ms/iteration beside phase 6's, the peak, the run log's compile
-   events of the graphs, the kernel libraries saved to D, nothing left
-   in the store after the run, the launches (replays and warm-ups);
+   events of the graphs (the decode and PPC slab programs': a miss per
+   program key, then hits, with the steps they belong to), each decode
+   and PPC program's device bytes, the kernel libraries saved to D,
+   nothing left in the store after the run, the launches (replays and
+   warm-ups);
    phase 5 on graphed windows (the idle share); ``pert/fit_step``'s
    device time against its trace's for eager and graphed iterations;
    the same run with ``profile_dir=T`` (bit for bit phase 6 again, a
@@ -76,8 +79,9 @@ Phases, each printing its own lines:
    ``chiprun_out/graphs_trace_summary.txt``); and, in processes spawned
    beside the later phases (``[graphs child]``, joined at the end), the
    same default run on D with ``compile_cache_dir=None`` (every kernel
-   library a disk_hit from D, the device memory back within 64 MiB
-   after the run) and, after one library record is truncated, a fresh
+   library a disk_hit from D, the decode and PPC programs captured again,
+   a miss per key then hits, the device memory back within 64 MiB after
+   the run) and, after one library record is truncated, a fresh
    process loading every library through D (the record quarantined to
    ``*.bad``, its library rebuilt, the other a disk_hit);
 7. durable runs: the default config three more times with
@@ -166,7 +170,8 @@ Phases, each printing its own lines:
     ``ServeWorker(max_batch=4,
     exit_when_idle=True)`` on the card (its compiled-program store under
     the spool, JAX's ``'auto'``: the status document's block, every
-    request's solo chunks replayed from graphs, every packed dispatch
+    request's solo chunks, packaging decode and PPC replayed from
+    graphs, every packed dispatch
     from the rung's ``slab{W}`` program, none eager and none degraded,
     replays equal to the slab iterations launched, the slab programs'
     captures by rung and form, one packed dispatch of two lanes run again
@@ -178,14 +183,18 @@ Phases, each printing its own lines:
     flagship step 3 lasts under a second, so the four requests seldom
     pack it); the first request's data through a serial worker
     (``max_batch=1``, the first worker life, on a spool and store of its
-    own) in a spawned process beside phases 7-10 (:class:`EarlyServing`),
-    and, the moment it exits, a second worker life (a serial worker in
+    own) in a spawned process beside phases 7-10, started after
+    ``[graphs]`` (:class:`EarlyServing`), and, the moment it exits, a
+    second worker
+    life (a serial worker in
     another spawned process on that spool and store: its warm-up ranks
     the records by the first worker's ``buckets_served`` and captures the
-    solo programs again, each per-form key hash one of the first life's
-    ``compile`` events'; then the first request's data again: only
-    ``hit`` events, its output the serial run's bit for bit; ``[serve
-    second life]``, joined after the drain); beside phases 7-10 too, in a
+    solo programs again, the decode and PPC programs among them, each
+    per-form key hash one of the first life's ``compile`` events'; then
+    the first request's data again: only ``hit`` events, the decode and
+    PPC programs' too, its output the serial run's bit for bit; ``[serve
+    second life]``; the batched drain starts once it has ended and its
+    checks run after the drain); beside them too, in a
     spawned process, two copies of a 128 S + 64 G1 cell request through
     ``ServeWorker(max_batch=2)`` with the clones' G1 prior and a long step
     2 (``[serve pair]``: they share step 2, on the sparse kernels, so the
@@ -2031,6 +2040,40 @@ def _compile_events(path) -> list:
             if '"compile"' in line]
 
 
+# the decode and PPC slab programs' compile-event tags, and the steps a
+# default run's events carry (the rescue gate's and the PPC's: step 2;
+# the packaging decodes')
+PASS_TAGS = ("decode_slab", "ppc")
+PASS_STEPS = ("step2", "package_s", "package_g1")
+
+
+def pass_events(events) -> list:
+    """``(step, tag, cache, key_hash)`` of the decode and PPC programs'
+    ``compile`` events, in the log's order."""
+    return [(e.get("step"), e["tag"], e["cache"], e["key_hash"])
+            for e in events if e.get("tag") in PASS_TAGS]
+
+
+def check_pass_events(tag: str, passes: list, want_miss: bool) -> None:
+    """A default run's decode and PPC events: both tags, the packaging's
+    steps, and per program key its first event a ``miss`` (a ``hit``
+    with ``want_miss`` False: the programs were captured before) and
+    every later one a ``hit``."""
+    first, ok = set(), True
+    for step, ptag, cache, key in passes:
+        want = ("miss" if want_miss else "hit") if key not in first \
+            else "hit"
+        first.add(key)
+        ok = ok and cache == want and step in PASS_STEPS
+    seq = ", ".join(f"{step} {ptag} {cache}" for step, ptag, cache, _
+                    in passes)
+    check(ok and {p[1] for p in passes} == set(PASS_TAGS),
+          f"{tag} the decode and PPC programs' compile events, "
+          f"{len(first)} program keys: "
+          + ("a miss per key, then hits" if want_miss else "all hits")
+          + f" ({seq})")
+
+
 def _graphed_launches(scrt) -> dict:
     """Launches each kernel of the graphed default path makes: each step
     fit's (and the rescue sub-fit's) dispatched iterations, all
@@ -2140,13 +2183,32 @@ def graphs_phase(dev, record, frames, ref):
                          else ("plain",))]
     check(programs == want, f"{tag} the run log's compile events of the "
           f"graph programs: a capture (miss) per form and fit: {programs}")
+    passes = pass_events(events)
+    check_pass_events(tag, passes, want_miss=True)
     libs = [(e["label"], e["cache"]) for e in events
             if e.get("tag") == "kernel_library"]
     store = aotcache.ExecutableStore(str(store_dir))
     # the library records (each captured program also leaves a record)
-    entries = [e for e in store.entries()
-               if e["meta"].get("kind") != "program"]
+    every = store.entries()
+    entries = [e for e in every if e["meta"].get("kind") != "program"]
     store.close()
+    # each decode and PPC program's buffers, and the one graph pool they
+    # share (the growth of reserved memory while their graphs were
+    # captured), held to the store's estimate for the largest pass
+    metas = [e["meta"] for e in every if e["meta"].get("tag") in PASS_TAGS]
+    pass_bytes = sorted(
+        (m["tag"], next(s for s in m["shapes"]
+                        if len(s) == 2 and s[1] == LOCI),
+         int(m["nbytes"])) for m in metas)
+    pool = max((int(m["pool_bytes"]) for m in metas), default=0)
+    estimate = max((int(m["pool_estimate"]) for m in metas), default=0)
+    print(f"{tag} decode and PPC programs (tag, slab, buffers): "
+          + "; ".join(f"{t} {shape} {b} B" for t, shape, b in pass_bytes)
+          + f"; their shared pool {pool} B; "
+          f"{sum(b for *_, b in pass_bytes) + pool} B in all")
+    check(0 < pool <= estimate, f"{tag} the decode and PPC programs' pool "
+          f"{pool} B within the store's estimate for the largest pass, "
+          f"{estimate} B")
     check(len(entries) == len(_cuda.SOURCES) and all(
         c == "hit" for _, c in libs), f"{tag} the kernel libraries (loaded "
           f"before: {sorted(set(libs))}) saved to the store: "
@@ -2159,7 +2221,9 @@ def graphs_phase(dev, record, frames, ref):
           f"dispatched + warm-up iterations {expect}")
     rec["run"] = {"wall_s": wall, "peak_bytes": peak, "steps": steps_rec,
                   "launches": launches, "programs": programs,
-                  "first_difference": diff, "library_records": len(entries)}
+                  "first_difference": diff, "library_records": len(entries),
+                  "passes": passes, "pass_bytes": pass_bytes,
+                  "pass_pool": pool, "pass_pool_estimate": estimate}
     profile_steps(dev, scrt, record, "graphed", graphed_dir=tmp / "windows")
     busy = {k: v for k, v in record.get("profile", {}).items()
             if k.startswith(("graphed", "default"))}
@@ -2276,8 +2340,10 @@ def _graphs_child(store_dir: str, mode: str) -> dict:
                 scrt = scRT(cn_s, cn_g1, executable_cache_dir=store_dir,
                             compile_cache_dir=None, telemetry_path=str(log))
                 scrt.infer("pert")
+                events = _compile_events(log)
                 rec["compile"] = [(e.get("step"), e["label"], e["cache"])
-                                  for e in _compile_events(log)]
+                                  for e in events]
+                rec["passes"] = pass_events(events)
                 del scrt
                 gc.collect()
                 torch.cuda.synchronize()
@@ -2363,6 +2429,10 @@ class GraphsChild:
               and len(first) == 2,
               f"{tag} every kernel library a disk_hit from the store: "
               f"{first}")
+        # a CUDA graph cannot leave its process: the fresh run captures
+        # its decode and PPC programs again
+        check_pass_events(tag, [tuple(p) for p in run["passes"]],
+                          want_miss=True)
         check(after - before <= GRAPHS_MEMORY_SLACK,
               f"{tag} torch.cuda.memory_allocated back to its value before "
               f"the run within 64 MiB ({after - before} B): the store's "
@@ -3934,8 +4004,9 @@ class MemoryTimeline:
     ``PhaseTimer`` phases, each step's fit, each packed dispatch) and
     every 0.25 s, each with every request's phase at that moment.  The
     samples go to ``path`` as JSON lines; :meth:`report` prints the peak
-    with the phases then, and per phase the most allocated while some
-    request was in it."""
+    with the phases then, per phase the most allocated while some
+    request was in it, and the least memory free on the card (every
+    process's use; read every 0.25 s)."""
 
     def __init__(self, path: Path):
         self.path = path
@@ -3975,6 +4046,7 @@ class MemoryTimeline:
     def __enter__(self):
         import threading
 
+        import torch
         from scdna_replication_tools_tpu_torch.infer import runner, svi
         from scdna_replication_tools_tpu_torch.utils import profiling
         self.t0 = time.perf_counter()
@@ -4004,10 +4076,16 @@ class MemoryTimeline:
         svi.dispatch_chunk_slab = timed_slab
         self.mods = (profiling, runner, svi)
 
+        self.low_free = None
+
         def tick():
             while not self.stop.wait(0.25):
+                free = torch.cuda.mem_get_info()[0]
                 with self.lock:
                     self._sample()
+                    if self.low_free is None or free < self.low_free[1]:
+                        self.low_free = (self.samples[-1][0], free,
+                                         torch.cuda.memory_reserved())
         self.thread = threading.Thread(target=tick, daemon=True)
         self.thread.start()
         return self
@@ -4038,8 +4116,15 @@ class MemoryTimeline:
         print("  most allocated while some request was in: " + ", ".join(
             f"{k} {v / 2**30:.2f} GiB" for k, v in sorted(
                 by_phase.items(), key=lambda kv: -kv[1])[:12]))
+        low = {}
+        if self.low_free is not None:
+            low = dict(zip(("t", "free", "reserved"), self.low_free))
+            print(f"  least free on the card {low['free']} B at "
+                  f"{low['t']:.1f} s (this process reserved "
+                  f"{low['reserved']} B then; the rest is other processes' "
+                  "and the contexts')")
         return {"peak": peak, "peak_t": t, "peak_phases": at,
-                "by_phase": by_phase}
+                "by_phase": by_phase, "low_free": low}
 
 
 # the eager slab's step 2 at W = 4 and the three W = 4 kernels of its
@@ -4106,7 +4191,14 @@ class SlabProbe:
             if not want:
                 out = _orig(calls, width, t)
             else:
-                prof = self._profiled(_orig, calls, width, t)
+                try:
+                    prof = self._profiled(_orig, calls, width, t)
+                except BaseException:
+                    # no profile of a dispatch that failed: another of
+                    # the step's may be profiled
+                    with self.lock:
+                        del self.profiles[step]
+                    raise
                 out = prof.pop("out")
                 with self.lock:
                     if t.get("captures"):
@@ -4170,13 +4262,17 @@ class SlabProbe:
                 box["out"] = orig(calls, width, {})
             except BaseException as exc:  # noqa: BLE001 — reported
                 box["error"] = f"{type(exc).__name__}: {exc}"
+        from scdna_replication_tools_tpu_torch.infer import aotcache
         from scdna_replication_tools_tpu_torch.ops import _cuda
         before = {k: v for k, v in _cuda.LAUNCHES.items()
                   if k.endswith("_lanes")}
         th = threading.Thread(target=run, name="slab-eager-again")
         th.start()
         th.join()
-        torch.cuda.synchronize()
+        # a device-wide synchronisation must not meet another request
+        # thread's CUDA graph capture: it takes the captures' lock
+        with aotcache.CAPTURE_LOCK:
+            torch.cuda.synchronize()
         # a comparison's launches are not the serving path's (only a
         # slab dispatch, here the leader's, launches the lane kernels)
         extra = {k: _cuda.LAUNCHES[k] - v for k, v in before.items()}
@@ -4195,9 +4291,21 @@ class SlabProbe:
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        from scdna_replication_tools_tpu_torch.infer import aotcache
+        # the profiler's start and stop synchronise the device, which a
+        # CUDA graph capture on another request's thread may not meet
+        # (both would fail): they take the captures' lock, the dispatch
+        # between them not
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with aotcache.CAPTURE_LOCK:
+            prof.__enter__()
+        try:
             out = orig(calls, width, t)
+        finally:
+            with aotcache.CAPTURE_LOCK:
+                prof.__exit__(None, None, None)
         by_name: dict = {}
         for ev in prof.key_averages():
             # the named ranges' device spans (utils/profiling.scope)
@@ -4213,7 +4321,8 @@ class SlabProbe:
         busy = sum(by_name.values())
         wall = 1e3 * t["seconds"]
         n = max(int(t["launched"]), 1)
-        torch.cuda.synchronize()
+        with aotcache.CAPTURE_LOCK:
+            torch.cuda.synchronize()
         return {
             "out": out, "lanes": len(calls), "iterations": n,
             "wall_ms": wall, "busy_ms": busy,
@@ -4438,7 +4547,7 @@ def _store_block(queue, rids, tag: str, store_dir=None, doc=None) -> dict:
     if doc is None:
         doc = json.loads(queue.status_path.read_text())
     block = doc.get("executable_cache") or {}
-    graphs, slabs = {}, {}
+    graphs, slabs, passes = {}, {}, {}
     for rid in rids:
         path = queue.results_dir(rid) / "run.jsonl"
         if path.exists():
@@ -4449,13 +4558,17 @@ def _store_block(queue, rids, tag: str, store_dir=None, doc=None) -> dict:
             slabs[rid] = dict(collections.Counter(
                 f"{e['label']} {e['cache']}" for e in events
                 if str(e.get("tag", "")).startswith("slab")))
+            passes[rid] = dict(collections.Counter(
+                f"{e['tag']} {e['cache']}" for e in events
+                if e.get("tag") in PASS_TAGS))
     shown = {k: v for k, v in block.items()
              if k != "precaptured_key_hashes"}
     print(f"  {tag} store: status.json executable_cache {json.dumps(shown)}"
           f"; graph programs per request (captured / found) "
           f"{json.dumps(graphs)}" + (f"; slab programs per request "
                                      f"{json.dumps(slabs)}"
-                                     if any(slabs.values()) else ""))
+                                     if any(slabs.values()) else "")
+          + f"; decode and PPC programs per request {json.dumps(passes)}")
     check(block.get("dir") == (store_dir or str(queue.root / "exec_cache"))
           and block.get("done") is True and {"preloaded", "entries",
                                              "programs", "program_bytes"}
@@ -4464,7 +4577,12 @@ def _store_block(queue, rids, tag: str, store_dir=None, doc=None) -> dict:
     check(graphs and all(g.get("miss", 0) + g.get("hit", 0) > 0
                          for g in graphs.values()),
           f"[serve] {tag}: every request's solo chunks replayed graphs")
-    return {"status": block, "graphs": graphs, "slabs": slabs}
+    check(passes and all(set(c.split()[0] for c in p) == set(PASS_TAGS)
+                         for p in passes.values()),
+          f"[serve] {tag}: every request's decode and PPC replayed "
+          "programs")
+    return {"status": block, "graphs": graphs, "slabs": slabs,
+            "passes": passes}
 
 
 # the pair: two copies of one request of seed PAIR_SEED's frames,
@@ -4675,7 +4793,10 @@ class SecondLife:
             time.sleep(1.0)
             waited += 1.0
         self.free = HostMemory.available()
-        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+        # the process ends with its task, so that its device memory goes
+        # back before the batched drain starts (:class:`EarlyServing`)
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                                        max_tasks_per_child=1)
         self.future = self.pool.submit(_second_life, str(root), rid,
                                        str(store_dir), str(data))
         self.root, self.rid = Path(root), rid
@@ -4724,6 +4845,8 @@ class SecondLife:
             e.get("cache") == "hit" for e in res["events"]),
               f"[serve second life] every compile event of {res['rid']} is "
               f"a hit ({json.dumps(dict(cache))})")
+        check_pass_events("[serve second life]",
+                          pass_events(res["events"]), want_miss=False)
         same = False
         if res["state"].get("status") == "ok" and first.get("output") \
                 is not None:
@@ -4864,7 +4987,8 @@ def slab_programs(coord, probe) -> dict:
 
 def program_records(store_dir, block: dict) -> dict:
     """The program records the drain left in its store (tag, forms and
-    device bytes each: buffers and pool), summed by tag against the
+    device bytes each: buffers and pool, the decode and PPC programs'
+    shared pool once, as ``pass pool``), summed by tag against the
     worker's cap on the programs it holds at once, and (``block``, the
     status document's store block) the programs the cap released and
     the most the store held at once."""
@@ -4877,6 +5001,9 @@ def program_records(store_dir, block: dict) -> dict:
     by_tag: dict = {}
     for m in recs:
         by_tag[m["tag"]] = by_tag.get(m["tag"], 0) + int(m.get("nbytes", 0))
+        if "pool_bytes" in m:
+            by_tag["pass pool"] = max(by_tag.get("pass pool", 0),
+                                      int(m["pool_bytes"]))
     cap = int(worker.PROGRAM_MEMORY_SHARE * torch.cuda.get_device_properties(
         0).total_memory)
     total = sum(by_tag.values())
@@ -4892,17 +5019,22 @@ def program_records(store_dir, block: dict) -> dict:
 
 
 class EarlyServing:
-    """The serving phase's processes that run beside phases 7-10, started
-    once the [graphs] phase is done: the pair (:func:`_pair_task`) and,
-    as soon as the first request's data is written, the first worker
-    life (a serial worker, ``max_batch=1``, on seed 0's data in a spool
-    and store of its own); the moment that worker exits, a thread starts
-    the second worker life (:class:`SecondLife`) on its spool and store.
-    The batched drain later runs with neither beside it: the late
+    """The serving phase's processes that run beside phases 7-10,
+    started once the [graphs] phase is done (its timings are held to
+    phase 6's, which ran alone): the pair
+    (:func:`_pair_task`) and, as soon as the first request's data is
+    written, the first worker life (a serial worker, ``max_batch=1``, on
+    seed 0's data in a spool and store of its own); the moment that
+    worker exits, a thread starts the second worker life
+    (:class:`SecondLife`) on its spool and store.  The batched drain
+    later runs with neither beside it (:meth:`wait_second`): the late
     packaging of its four requests is the host's memory low (11-12 GiB
-    of the machine's 96 GiB free in runs on an H100 80GB HBM3 host), and
+    of the machine's 96 GiB free in runs on an H100 80GB HBM3 host), a
+    second life beside its first packed dispatches ran the card out of
+    memory (its decode and PPC programs held beside the drain's), and
     with a drain beside it the whole script took over 1100 s on a slow
-    host."""
+    host.  Started after phase 6, beside [graphs], the lives ended before
+    the drain, but shared the card with [graphs]' timed run."""
 
     def __init__(self, spool: ServeSpool):
         import threading
@@ -4941,6 +5073,18 @@ class EarlyServing:
         if self.error is not None:
             raise self.error
 
+    def wait_second(self) -> float:
+        """Wait until the second life's process has ended and given its
+        device memory back (its result is read by ``SecondLife.finish``);
+        returns the seconds waited."""
+        import concurrent.futures
+
+        t0 = time.perf_counter()
+        self.join()
+        concurrent.futures.wait([self.second.future])
+        self.second.pool.shutdown(wait=True)
+        return time.perf_counter() - t0
+
     def close(self) -> None:
         self.janitor.__exit__(None, None, None)
         for job in (self.pair, self.first):
@@ -4977,14 +5121,15 @@ def serving(dev, record, default_ref, spool: ServeSpool,
               f"phases ran ({time.perf_counter() - spool.t0:.1f} s since "
               f"they started; waited {time.perf_counter() - t0:.1f} s here)")
         serial = early.serial
+        waited = early.wait_second()
+        print(f"[serve] the second worker life ended {waited:.1f} s after "
+              "the earlier phases: the batched drain runs alone")
         timeline = MemoryTimeline(REPO / "chiprun_out" / "serve_memory.jsonl")
         with timeline, SlabProbe() as probe, Janitor(queue):
             worker, stats, wall, launches, peak = _drain(queue, SERVE_WIDTH)
         for k, v in ((probe.eager or {}).get("launches") or {}).items():
             launches[k] -= v
-        # the first worker life ended beside the earlier phases, and the
-        # second started then
-        early.join()
+        # both worker lives ended beside the earlier phases
         second = early.second
         sres = early.first.result()
         # the serving path's launches: the batched drain's and the pair's
@@ -5449,7 +5594,7 @@ def main() -> int:
     del graphs_ref
     mark("graphs")
     # phase 11's pair and its first and second worker lives run beside
-    # phases 7-10
+    # phases 7-10 (the [graphs] run's timings are phase 6's like for like)
     early = EarlyServing(spool)
     analysis_tail = HostTail(card, "analysis", analysis_in,
                              record["main_default"]["phases_s"]["load"])

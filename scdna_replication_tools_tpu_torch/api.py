@@ -21,9 +21,11 @@ run under the repository's ``.pert_runs/``; the written path is
 ``scRT.run_log_path``) renders with ``tools/pert_report.py``; the run's
 metrics registry is ``scRT.metrics_registry`` (``metrics_textfile``
 adds its Prometheus textfile).  ``executable_cache_dir=D`` replays a CUDA
-graph per fit iteration on the card, captured once per program and kept
-in the run's compiled-program store (``infer/aotcache.py``), whose
-directory keeps the kernel libraries for the next process;
+graph per fit iteration on the card, and the graphs of each decode and
+PPC slab pass after the fits, captured once per program and kept in the
+run's compiled-program store (``infer/aotcache.py``), whose directory
+keeps the kernel libraries and the program records for the next
+process;
 ``compile_cache_dir`` is where the libraries build; ``profile_dir=T``
 writes a ``torch.profiler`` trace per step fit (and one of the
 packaging) into T and the ``pert_xla_scope_seconds`` gauges of their
@@ -43,6 +45,7 @@ from scdna_replication_tools_tpu_torch.data.loader import (
     check_frame_columns,
 )
 from scdna_replication_tools_tpu_torch.device import resolve_device
+from scdna_replication_tools_tpu_torch.infer import aotcache
 from scdna_replication_tools_tpu_torch.infer.runner import (
     PertInference,
     package_step_output,
@@ -343,43 +346,51 @@ class scRT:
                 self.mesh = inference.mesh
             # the runner accumulates its phases into the same ledger
             inference.phases = timer
-            step1, step2, step3 = inference.run()
-            self.mirror_rescue_stats = inference.mirror_rescue_stats
-            self.mirror_rescue_fit = inference.rescue_fit
+            # the run's program store holds the fits' programs and, after
+            # them, the decode and PPC programs of the packaging and QC
+            with aotcache.run_scope(
+                    self.config.executable_cache_dir,
+                    aotcache.program_config_digest(self.config),
+                    inference._bucket()):
+                step1, step2, step3 = inference.run()
+                self.mirror_rescue_stats = inference.mirror_rescue_stats
+                self.mirror_rescue_fit = inference.rescue_fit
 
-            # the packaging decode and the QC, traced as one block
-            with profiling.trace(self.config.profile_dir, label="package"):
-                with timer.phase("package"):
-                    with torch.no_grad():
-                        lamb = float(_sites(
-                            step1.spec, step1.fit.params,
-                            step1.fixed)["lamb"].reshape(-1)[0])
-                    qc_collect = {} if self.config.qc else None
-                    cn_s_out, supp_s_out = package_step_output(
-                        self.cn_s, inference._step2_data, step2, lamb,
-                        step1.fit.losses, step2.fit.losses, c,
-                        mirror_rescue_stats=inference.mirror_rescue_stats,
-                        qc_collect=qc_collect,
-                        qc_entropy_thresh=self.config.qc_entropy_thresh,
-                        phase_prefix="package_s",
-                        hmm_self_prob=self.config.cn_hmm_self_prob,
-                        mesh=self.mesh)
-                if qc_collect is not None and not qc_collect.get("degraded"):
-                    # a 'degraded' marker means the packaging decode's OOM
-                    # ladder dropped the entropy surfaces: the QC table has
-                    # no inputs then (the drop is a degrade event)
-                    self._cell_qc_df = inference.build_cell_qc(
-                        step2, inference._step2_data, qc_collect)
-                with timer.phase("package"):
-                    if step3 is not None:
-                        cn_g1_out, supp_g1_out = package_step_output(
-                            self.cn_g1, inference._step3_data, step3, lamb,
-                            step1.fit.losses, step3.fit.losses, c,
-                            phase_prefix="package_g1",
+                # the packaging decode and the QC, traced as one block
+                with profiling.trace(self.config.profile_dir, label="package"):
+                    with timer.phase("package"):
+                        with torch.no_grad():
+                            lamb = float(_sites(
+                                step1.spec, step1.fit.params,
+                                step1.fixed)["lamb"].reshape(-1)[0])
+                        qc_collect = {} if self.config.qc else None
+                        cn_s_out, supp_s_out = package_step_output(
+                            self.cn_s, inference._step2_data, step2, lamb,
+                            step1.fit.losses, step2.fit.losses, c,
+                            mirror_rescue_stats=inference.mirror_rescue_stats,
+                            qc_collect=qc_collect,
+                            qc_entropy_thresh=self.config.qc_entropy_thresh,
+                            phase_prefix="package_s",
                             hmm_self_prob=self.config.cn_hmm_self_prob,
                             mesh=self.mesh)
-                    else:
-                        cn_g1_out, supp_g1_out = None, None
+                    if qc_collect is not None \
+                            and not qc_collect.get("degraded"):
+                        # a 'degraded' marker means the packaging
+                        # decode's OOM ladder dropped the entropy
+                        # surfaces: the QC table has no inputs then (the
+                        # drop is a degrade event)
+                        self._cell_qc_df = inference.build_cell_qc(
+                            step2, inference._step2_data, qc_collect)
+                    with timer.phase("package"):
+                        if step3 is not None:
+                            cn_g1_out, supp_g1_out = package_step_output(
+                                self.cn_g1, inference._step3_data, step3, lamb,
+                                step1.fit.losses, step3.fit.losses, c,
+                                phase_prefix="package_g1",
+                                hmm_self_prob=self.config.cn_hmm_self_prob,
+                                mesh=self.mesh)
+                        else:
+                            cn_g1_out, supp_g1_out = None, None
             if self.config.profile_dir:
                 # the named ranges' device time as registry gauges, so
                 # run_end's snapshot carries them (the traces closed with

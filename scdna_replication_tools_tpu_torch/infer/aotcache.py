@@ -6,16 +6,19 @@ in two layers:
 
 * **RAM: the captured CUDA graphs.**  A fit chunk of the port, and a
   serving slab's packed chunk, replays one ``torch.cuda.CUDAGraph`` per
-  iteration (``infer/svi.py``); the graphs, their static buffers and
-  their memory pool are a program of this store, keyed by the JAX key's
+  iteration (``infer/svi.py``), and a decode or PPC slab pass its
+  program's graphs once; the graphs, their static buffers and their
+  memory pool are a program of this store, keyed by the JAX key's
   components (:data:`KEY_COMPONENTS`).  A CUDA graph cannot leave its
   process: every process captures its own, once per program.
 * **Disk: program records.**  What captures a program again: each
   program's record (``meta['kind'] == 'program'``; its key text, forms,
   statics, the shapes and dtypes of its state and loss arguments, its
-  config digest and its loss function's constructor, never a tensor),
-  which a serving worker's warm-up rebuilds and captures ahead of
-  traffic (``svi.precapture``).
+  config digest and its loss function's constructor or, for a decode
+  or PPC program, its spec, never a tensor; ``meta['shapes']`` ends in
+  the (cells, loci) of its data and its bucket), which a serving
+  worker's warm-up rebuilds and captures ahead of traffic
+  (``svi.precapture``).
 * **Disk: the kernel libraries the graphs launch.**  Each library that
   ``ops/_cuda.py`` builds is saved under the store's directory as one
   atomic record (the ``.so`` bytes and the facts it was built for: the
@@ -65,12 +68,15 @@ SCHEMA = "pert-torch-lib/v1"
 # backend; "form" tells a chunk's diagnostic iteration from its plain
 # one, JAX's lax.cond branches, which one XLA program holds)
 KEY_COMPONENTS = (
-    "program-tag",           # "fit" / "chunk" / "slab{W}" (svi)
-    "loss-structure",        # repr of the hashable loss callable
-    "optimizer-statics",     # min_iter, rel_tol, window, ring, betas, dtype
+    "program-tag",           # "fit" / "chunk" / "slab{W}" / "decode_slab"
+                             # / "ppc" (svi)
+    "loss-structure",        # repr of the loss callable (a pass's spec)
+    "optimizer-statics",     # min_iter, rel_tol, window, ring, betas,
+                             # dtype; a pass's want_entropy/num_replicates
     "abstract-signature",    # skeleton + shape/dtype/device of each tensor
     "config-digest",         # PertConfig hash, see the module docstring
     "form",                  # "diag" / "plain"; a slab's "conv", "diag+conv"
+                             # (a pass program's event carries its digest)
     "torch-version",
     "cuda-version",
     "device-kind",           # torch.cuda.get_device_name
@@ -186,6 +192,12 @@ _LIVE_STORES: "weakref.WeakSet" = weakref.WeakSet()
 CAPTURE_LOCK = threading.Lock()
 
 
+def _share_of(prog):
+    """What holds ``prog``'s graph pool (``infer/svi._Share``: its bytes
+    ``nbytes``, shared by a store's decode and PPC programs), or None."""
+    return getattr(prog, "share", None)
+
+
 class ExecutableStore:
     """One directory of library records and, in RAM, the captured
     programs.
@@ -201,10 +213,10 @@ class ExecutableStore:
         self.root = os.path.abspath(root)
         self.max_entries = max_entries
         self.max_programs = max_programs
-        # device bytes the programs may hold together (their buffers and
-        # pools, ``prog.nbytes``); None: no cap.  Past either cap the
-        # least recently used programs that no chunk is replaying are
-        # released
+        # device bytes the programs may hold together (their buffers,
+        # ``prog.nbytes``, and their graph pools, ``prog.share.nbytes``,
+        # each pool once); None: no cap.  Past either cap the least
+        # recently used programs that no chunk is replaying are released
         self.max_program_bytes = max_program_bytes
         os.makedirs(self.root, exist_ok=True)
         self._lock = threading.RLock()
@@ -214,6 +226,8 @@ class ExecutableStore:
         # digest -> a captured program (``release()`` frees it), most
         # recently used last
         self._programs: "collections.OrderedDict" = collections.OrderedDict()
+        # name -> what several programs share (``shared``)
+        self._shared: dict = {}
         # programs released past the caps, and the most device bytes the
         # programs held together
         self.released = 0
@@ -267,32 +281,63 @@ class ExecutableStore:
         with self._lock:
             prog.busy -= 1
 
+    def shared(self, name, make):
+        """The object several of this store's programs share under
+        ``name`` (the decode and PPC programs' graph pool on a device),
+        made by ``make()`` at its first use and dropped at :meth:`close`."""
+        with self._lock:
+            if name not in self._shared:
+                self._shared[name] = make()
+            return self._shared[name]
+
+    def forget(self, digest: str, prog) -> None:
+        """Drop ``prog`` (a program whose capture failed) from the store:
+        the next request of its digest makes a new one, and its buffers
+        go with the last reference its callers hold."""
+        with self._lock:
+            if self._programs.get(digest) is prog:
+                del self._programs[digest]
+
     def trim(self, need: int = 0) -> None:
         """Release the least recently used programs not in use while the
         store holds more than ``max_programs`` or ``max_program_bytes``;
         ``need`` > 0 counts a program of that many bytes about to be
         made.  The caps count this store's own programs only, so what
-        stays does not depend on what else runs on the card."""
+        stays does not depend on what else runs on the card: the one
+        policy by which programs are released."""
         victims = []
         with self._lock:
             def over():
-                nbytes = sum(p.nbytes for p in self._programs.values())
                 return len(self._programs) + (need > 0) > self.max_programs \
                     or (self.max_program_bytes is not None
-                        and nbytes + need > self.max_program_bytes)
-            self.peak_program_bytes = max(
-                self.peak_program_bytes,
-                sum(p.nbytes for p in self._programs.values()))
+                        and self._held() + need > self.max_program_bytes)
+            self.peak_program_bytes = max(self.peak_program_bytes,
+                                          self._held())
             for digest in list(self._programs):
                 if not over():
                     break
                 if self._programs[digest].busy == 0:
                     victims.append(self._programs.pop(digest))
             self.released += len(victims)
+            # a pool whose last program goes is freed with it: the next
+            # capture into it counts from nothing
+            live = {id(s) for s in map(_share_of, self._programs.values())}
+            for share in map(_share_of, victims):
+                if share is not None and id(share) not in live:
+                    share.nbytes = 0
         if victims:
             with CAPTURE_LOCK:
                 for prog in victims:
                     prog.release()
+
+    def _held(self) -> int:
+        """The device bytes of the programs: each one's buffers and each
+        graph pool they use once, however many programs share it."""
+        pools = {id(s): s.nbytes for s in map(_share_of,
+                                              self._programs.values())
+                 if s is not None}
+        return sum(p.nbytes for p in self._programs.values()) \
+            + sum(pools.values())
 
     def program_count(self) -> int:
         with self._lock:
@@ -300,7 +345,7 @@ class ExecutableStore:
 
     def program_bytes(self) -> int:
         with self._lock:
-            return sum(p.nbytes for p in self._programs.values())
+            return self._held()
 
     def close(self) -> None:
         """Release every program (its graph, static buffers and pool) and
@@ -310,6 +355,7 @@ class ExecutableStore:
             progs = list(self._programs.values())
             self._programs.clear()
             self._preloaded.clear()
+            self._shared.clear()
             self.closed = True
         with CAPTURE_LOCK:
             for prog in progs:
@@ -537,11 +583,18 @@ def run_scope(root: Optional[str], config_digest: Optional[str] = None,
     the process-wide store when it is on ``root`` (a serving worker's),
     else a store of the run's own, closed when the block exits (an
     exception included), which frees its graphs, buffers and pools.
-    ``root`` None/'none': no store."""
+    Inside an enclosing scope on ``root`` (the facade's, around the
+    fits and the decode and PPC after them) the block runs in that
+    scope.  ``root`` None/'none': no store."""
     if not root or str(root).lower() == "none":
         yield None
         return
     root = os.path.abspath(str(root))
+    outer = current_scope()
+    if outer is not None and outer.store.root == root \
+            and not outer.store.closed:
+        yield outer
+        return
     shared = _ACTIVE
     owned = shared is None or shared.root != root or shared.closed
     store = ExecutableStore(root) if owned else shared

@@ -33,7 +33,11 @@ returned (nothing is emitted, and the card is not read for the log,
 inside a fit chunk).  On the GPU each step's ``compile`` phase loads the
 kernel libraries before its fit and reports each as a ``compile``
 event (``miss``/``disk_hit`` when that step built or loaded it, else
-``hit``).  The runner writes into the log open on this thread
+``hit``).  With a compiled-program store the fits' graph programs and
+the decode and PPC slab programs (the rescue gate's entropy pass, the
+packaging decode at each rung of its ladder, the PPC) log theirs too,
+with the step they belong to.  The runner writes into the log open on
+this thread
 (``obs.runlog.active()``: the facade's session); a runner driven
 directly opens its own from ``telemetry_path`` in :meth:`run`.
 
@@ -91,6 +95,7 @@ from scdna_replication_tools_tpu_torch.infer.svi import (
     FitResult,
     fit_map,
     pi_param_name,
+    program_step,
 )
 from scdna_replication_tools_tpu_torch.models import priors
 from scdna_replication_tools_tpu_torch.models.pert import (
@@ -1146,7 +1151,7 @@ class PertInference:
                 trigger["qc"] = "off"
             elif not run:
                 with self.phases.phase("step2/rescue_gate"), \
-                        torch.no_grad():
+                        torch.no_grad(), program_step("step2"):
                     _, frac_low, mean_rep = (
                         self._gather(t, ("cells",))
                         for t in cell_entropy_aggregates(
@@ -1405,13 +1410,14 @@ class PertInference:
                 faults_mod.point("qc/ppc")
                 ppc_t0 = time.perf_counter()
                 bins = ("cells", "loci")
-                ppc_dev, ppc_z = (self._gather(t, ("cells",))[:n]
-                                  for t in ppc_discrepancy(
-                    out.spec, out.fit.params, out.fixed, out.batch,
-                    seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
-                    maps=(self._tile(qc_stats["cn_map"], bins),
-                          self._tile(qc_stats["rep_map"], bins)),
-                    mesh=self.mesh))
+                with program_step("step2"):
+                    ppc_dev, ppc_z = (self._gather(t, ("cells",))[:n]
+                                      for t in ppc_discrepancy(
+                        out.spec, out.fit.params, out.fixed, out.batch,
+                        seed=cfg.seed, num_replicates=cfg.qc_ppc_replicates,
+                        maps=(self._tile(qc_stats["cn_map"], bins),
+                              self._tile(qc_stats["rep_map"], bins)),
+                        mesh=self.mesh))
                 self.meter.book_exec(
                     kind="ppc", seconds=time.perf_counter() - ppc_t0,
                     ctx={"step": "step2",
@@ -1642,8 +1648,12 @@ def _decode_with_degradation(spec, params, fixed, batch, want_entropy: bool,
                                       hmm_self_prob, want_entropy=entropy,
                                       mesh=mesh)
         else:
-            out = decode_discrete(spec, params, fixed, batch,
-                                  want_entropy=entropy, cell_chunk=chunk)
+            # each slab length (a rung of the ladder) is a program of its
+            # own key in the run's store
+            with program_step(phase_prefix):
+                out = decode_discrete(spec, params, fixed, batch,
+                                      want_entropy=entropy, cell_chunk=chunk,
+                                      mesh=mesh)
         if entropy:
             return out[:3], out[3:]
         return out, None

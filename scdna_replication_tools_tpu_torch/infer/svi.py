@@ -55,7 +55,10 @@ range ``pert/fit_step``.  A serving slab's packed dispatch replays its
 rung's ``slab{W}`` program the same way (:func:`_slab_iteration_dev`,
 :class:`_SlabProgram`), and every program leaves a record in the
 store's directory that a serving worker's warm-up captures again
-(:func:`precapture`).
+(:func:`precapture`).  The decode and PPC slab passes after a fit (the
+packaging decode, the rescue gate's entropy pass, the posterior-
+predictive check) replay programs of the store too
+(:func:`resolve_slab_program`, :class:`_PassProgram`).
 
 A sharded fit (a loss function with a ``mesh``: ``parallel.mesh.
 RankMesh``) runs this loop on every rank in lockstep: each iteration's
@@ -69,6 +72,7 @@ at the group's timeout at the latest.  The serving slab stays one rank.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -82,6 +86,7 @@ from scdna_replication_tools_tpu_torch import layout
 from scdna_replication_tools_tpu_torch.device import resolve_device
 from scdna_replication_tools_tpu_torch.infer import aotcache as _aotcache
 from scdna_replication_tools_tpu_torch.infer import checkpoint as _ckpt
+from scdna_replication_tools_tpu_torch.models import pert as _pert
 from scdna_replication_tools_tpu_torch.obs import controller as _controller
 from scdna_replication_tools_tpu_torch.obs import doctor as _doctor
 from scdna_replication_tools_tpu_torch.obs import heartbeat as _heartbeat
@@ -435,30 +440,45 @@ def _capture_stream(dev) -> "torch.cuda.Stream":
     return _CAPTURE_STREAMS[dev]
 
 
+class _Share:
+    """A graph memory pool, the lock that dispatches take in turn and the
+    last dispatch's event: one program's own, or what a store's decode
+    and PPC programs share (:func:`_pass_share`)."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.last = None
+        # the pool's device bytes (the growth of reserved memory at each
+        # capture into it), which the store counts once however many
+        # programs share the pool
+        self.nbytes = 0
+
+
 class _GraphProgram:
     """What the store's graph programs share (a solo chunk's,
-    :class:`_ChunkProgram`, and a slab's, :class:`_SlabProgram`): one
-    CUDA graph per form, each stepping the program's static buffers in
-    place by one iteration (:meth:`_step`), the forms sharing the
-    buffers and one memory pool; a lock and the last dispatch's event,
-    so dispatches of one program from several threads take turns on the
-    buffers; ``busy`` (the store releases only idle programs) and
-    ``nbytes`` (its buffers and pool on the card)."""
+    :class:`_ChunkProgram`, a slab's, :class:`_SlabProgram`, and a decode
+    or PPC slab pass's, :class:`_PassProgram`): one CUDA graph per form,
+    each stepping the program's static buffers (:meth:`_step`), the forms
+    sharing the buffers and one memory pool; a lock and the last
+    dispatch's event, so dispatches of one program from several threads
+    take turns on the buffers; ``busy`` (the store releases only idle
+    programs) and ``nbytes`` (its buffers on the card; its graphs' pool
+    is ``share.nbytes``)."""
 
-    def _setup(self, device) -> None:
+    def _setup(self, device, share: Optional[_Share] = None) -> None:
         self.device = device
         self.graphs: dict = {}
         self.counts: dict = {}
-        self.pool = torch.cuda.graph_pool_handle()
-        self.warmups = 0
-        # dispatches replaying it now (the store releases only idle ones)
-        self.busy = 0
         # one dispatch at a time steps the buffers: a dispatch of another
         # fit of the same key (a served request's, on its own thread)
         # waits for the lock on the host and for the last dispatch's work
         # (an event on its stream) on the card
-        self.lock = threading.Lock()
-        self.last = None
+        self.share = share if share is not None else _Share()
+        self.pool, self.lock = self.share.pool, self.share.lock
+        self.warmups = 0
+        # dispatches replaying it now (the store releases only idle ones)
+        self.busy = 0
 
     def _step(self, form: str) -> None:
         raise NotImplementedError
@@ -469,6 +489,14 @@ class _GraphProgram:
         the lane table, and its warm-up iterations index from it (every
         dispatch binds its own state before it replays)."""
         raise NotImplementedError
+
+    def _name(self, form: str) -> str:
+        """What a failed capture of ``form`` names."""
+        return f"{self.what} {form} iteration"
+
+    def _prepare(self, graph) -> None:
+        """Register with ``graph``, before its capture, what its replays
+        must read anew (a generator's state)."""
 
     def capture(self, form: str) -> float:
         """Warm up and capture ``form``; returns the seconds it took.  A
@@ -485,7 +513,6 @@ class _GraphProgram:
             # pool, which cannot take them
             with _aotcache.CAPTURE_LOCK:
                 torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(dev)
                 side = _capture_stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
@@ -493,38 +520,45 @@ class _GraphProgram:
                         self._step(form)
                 torch.cuda.current_stream(dev).wait_stream(side)
                 self.warmups += GRAPH_WARMUPS
+                # the warm-ups' blocks go back too: the growth of reserved
+                # memory below is then the pool's alone
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
                 graph = torch.cuda.CUDAGraph()
+                self._prepare(graph)
                 with _cuda.recording_launches() as counts:
                     with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                           capture_error_mode="thread_local"):
                         self._step(form)
                 # the pool's growth (other threads' allocations in the
                 # window count too: an estimate)
-                self.nbytes += max(
+                self.share.nbytes += max(
                     torch.cuda.memory_reserved(dev) - reserved, 0)
         except Exception as exc:
             raise RuntimeError(
-                f"CUDA graph capture of the {self.what} {form} iteration "
-                f"failed ({type(exc).__name__}: {exc}); a fit that cannot "
-                "be captured runs without executable_cache_dir") from exc
+                f"CUDA graph capture of the {self._name(form)} failed "
+                f"({type(exc).__name__}: {exc}); a run whose programs "
+                "cannot be captured runs without executable_cache_dir") \
+                from exc
         leaves: list = []
         if _flatten(self._args_tree(), leaves) != self._arg_skel:
             raise RuntimeError(
-                f"CUDA graph capture of the {self.what} {form} iteration: "
-                "the loss arguments grew a cached tensor during the warm-up "
-                "(the loss function's prime() must fill every cache entry)")
+                f"CUDA graph capture of the {self._name(form)}: the "
+                "arguments grew a cached tensor during the warm-up (the "
+                "loss function's prime() must fill every cache entry)")
         self.graphs[form], self.counts[form] = graph, dict(counts)
         return time.perf_counter() - t0
 
     def after_last(self) -> None:
         """Order this dispatch's work on the current stream after the last
         dispatch's (which may have run on another thread's stream)."""
-        if self.last is not None:
-            torch.cuda.current_stream(self.device).wait_event(self.last)
+        if self.share.last is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self.share.last)
 
     def mark_last(self) -> None:
-        self.last = torch.cuda.Event()
-        self.last.record(torch.cuda.current_stream(self.device))
+        self.share.last = torch.cuda.Event()
+        self.share.last.record(torch.cuda.current_stream(self.device))
 
     def replay(self, form: str) -> None:
         self.graphs[form].replay()
@@ -748,6 +782,270 @@ class _Uncacheable:
 
 
 # ---------------------------------------------------------------------------
+# the decode and PPC slab passes (JAX ``resolve_jit_program``)
+# ---------------------------------------------------------------------------
+#
+# JAX compiles each decode slab and each posterior-predictive (PPC) slab
+# as a program of its store (tags ``decode_slab`` and ``ppc``, label
+# ``PertModelSpec``).  Here a pass on the card replays the CUDA graphs of
+# a :class:`_PassProgram`: the decode one graph (form ``decode``: the
+# joint logits, the MAP planes and p_rep) and, with the entropy maps, a
+# second (``entropy``) that reads the first's joint tensor, each replayed
+# in the profiler range its eager stage runs in; the PPC one (``ppc``),
+# its replicate draws on a generator of the program's own, registered
+# with the graph and reseeded before each replay, so that a replay draws
+# what the eager pass draws on a fresh generator of the same seed.
+#
+# A pass's temporaries (the (cells, loci, P, 2) joint tensor and the
+# terms it is built from) are live only during its replay, so a store's
+# pass programs on one device share one graph pool and one lock
+# (:func:`_pass_share`): their replays take turns and each copies its
+# outputs out before the lock is released, and the pool holds the
+# largest pass's temporaries, not the sum of every program's.  A program
+# captured later may take blocks an earlier one uses as temporaries;
+# nothing reads a program's graph outputs after another replay.
+
+PASS_TAGS = ("decode_slab", "ppc")
+# the profiler range of each form's replay (entropy's nested in decode's,
+# as the eager pass nests them)
+_PASS_SCOPES = {"decode": "pert/decode", "entropy": "pert/qc_entropy",
+                "ppc": "pert/ppc"}
+_PASS_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def program_step(step: str):
+    """Inside the block, the decode and PPC programs' ``compile`` events
+    on this thread carry ``step`` (the step whose output they decode or
+    check)."""
+    prev = getattr(_PASS_TLS, "step", None)
+    _PASS_TLS.step = step
+    try:
+        yield
+    finally:
+        _PASS_TLS.step = prev
+
+
+def _emit_pass_event(event: dict) -> None:
+    step = getattr(_PASS_TLS, "step", None)
+    _runlog.current().emit("compile", **event,
+                           **({} if step is None else {"step": step}))
+
+
+def _pass_forms(tag: str, static_kwargs: dict) -> tuple:
+    """A pass program's forms, in capture and replay order."""
+    if tag == "ppc":
+        return ("ppc",)
+    return ("decode", "entropy") if static_kwargs.get("want_entropy") \
+        else ("decode",)
+
+
+def _pass_key(tag: str, spec, static_kwargs: dict, operands: tuple,
+              config_digest: Optional[str]) -> tuple:
+    """A pass program's key: JAX's components (the tag, the spec, the
+    static kwargs, the operands' abstract signature) and the run's
+    config digest."""
+    return (tag, repr(spec), tuple(sorted(static_kwargs.items())),
+            _abstract_sig(tuple(operands)), config_digest)
+
+
+class _PassProgram(_GraphProgram):
+    """The CUDA graphs of one decode or PPC slab pass: static buffers of
+    the pass's operands (the slab's parameters, ``fixed``, the batch
+    fields the pass reads and, for the PPC, the MAP planes and any given
+    replicates), one graph per form (:func:`_pass_forms`) in the pool
+    its store's pass programs share (``share``), and, for draws made in
+    the pass (``seeded``), the program's generator.  A call copies its
+    operands in and reseeds the generator (:meth:`bind`), replays the
+    forms and copies the outputs out (:meth:`run`), all under the shared
+    lock: nothing a caller keeps aliases a buffer."""
+
+    what = "pass"
+
+    def __init__(self, tag: str, spec, operands: tuple, static_kwargs: dict,
+                 seeded: bool, share: _Share):
+        self.tag, self.spec, self.sk = tag, spec, dict(static_kwargs)
+        self.forms = _pass_forms(tag, self.sk)
+        leaves: list = []
+        self._arg_skel = _flatten(tuple(operands), leaves)
+        self._setup(leaves[0].device, share)
+        self._arg_leaves = [t.clone() for t in leaves]
+        self.args = _unflatten(self._arg_skel, iter(self._arg_leaves))
+        self.gen = torch.Generator(device=self.device) if seeded \
+            else None
+        self.joint = self.out = self.ent = None
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in self._arg_leaves)
+
+    def _name(self, form: str) -> str:
+        return f"{self.tag} slab pass (form {form})"
+
+    def _args_tree(self):
+        return self.args
+
+    def _prepare(self, graph) -> None:
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+
+    def _step(self, form: str) -> None:
+        if form == "decode":
+            joint, self.out = _pert._decode_joint(self.spec, *self.args)
+            # only the entropy graph reads the joint tensor after this
+            # graph: a plain decode's goes back to the pool
+            self.joint = joint if "entropy" in self.forms else None
+        elif form == "entropy":
+            self.ent = _pert.entropy_from_joint(self.joint)
+        else:
+            self.out = _pert._ppc_slab(
+                self.spec, *self.args,
+                num_replicates=self.sk["num_replicates"], generator=self.gen)
+
+    def _rewind(self) -> None:
+        pass
+
+    def bind(self, operands: tuple, seed: Optional[int]) -> None:
+        """Copy a slab's operands into the buffers and reseed the
+        generator to ``seed``."""
+        leaves: list = []
+        if _flatten(tuple(operands), leaves) != self._arg_skel:
+            raise ValueError("the slab's operands do not have the pass "
+                             "program's structure")
+        for dst, src in zip(self._arg_leaves, leaves):
+            dst.copy_(src)
+        if self.gen is not None:
+            self.gen.manual_seed(seed)
+
+    def run(self) -> tuple:
+        """Replay the forms, each in its profiler range; the outputs as
+        fresh tensors."""
+        with _profiling.scope(_PASS_SCOPES[self.forms[0]]):
+            self.replay(self.forms[0])
+            if "entropy" in self.forms:
+                with _profiling.scope(_PASS_SCOPES["entropy"]):
+                    self.replay("entropy")
+        out = self.out + (self.ent if "entropy" in self.forms else ())
+        return tuple(t.clone() for t in out)
+
+    def _drop_buffers(self) -> None:
+        self.args = self.joint = self.out = self.ent = self.gen = None
+        self._arg_leaves = []
+
+
+class _PassPrograms:
+    """One decode or PPC call's view of the run's store (JAX
+    ``resolve_jit_program`` for ``models/pert._resolve_slab_program``):
+    each slab's program resolved by its key, its forms captured at first
+    use (``miss``) or found (``hit``), one ``compile`` event per slab as
+    JAX logs one per resolution, and the program's record written at a
+    capture."""
+
+    def __init__(self, scope, tag: str, spec, static_kwargs: dict):
+        self.scope, self.tag, self.spec = scope, tag, spec
+        self.sk = dict(static_kwargs)
+
+    def run(self, operands: tuple, seed: Optional[int] = None) -> tuple:
+        """The pass on ``operands`` (``(params, fixed, batch, ...)``) by
+        replays of its program; ``seed`` (the PPC's draws) reseeds the
+        program's generator.  A capture that fails raises, naming the
+        pass, and its program leaves the store."""
+        dev = operands[2].reads.device
+        scope, store = self.scope, self.scope.store
+        key = _pass_key(self.tag, self.spec, self.sk, operands,
+                        scope.config_digest)
+        text = _aotcache.canonical_key_text(key)
+        digest = _aotcache.key_digest(text, _aotcache.environment_facts(dev),
+                                      scope.config_digest)
+        seeded = seed is not None
+        share = _pass_share(store, dev)
+        prog = store.adopt(digest, lambda: _PassProgram(
+            self.tag, self.spec, operands, self.sk, seeded, share),
+            need=_pass_need(self.tag, self.spec, self.sk, operands, share))
+        event = {"key_hash": digest, "label": type(self.spec).__name__,
+                 "tag": self.tag}
+        try:
+            with prog.lock:
+                todo = [f for f in prog.forms if f not in prog.graphs]
+                if todo:
+                    try:
+                        seconds = sum(prog.capture(f) for f in todo)
+                    except Exception:
+                        store.forget(digest, prog)
+                        raise
+                    event.update(cache="miss",
+                                 compile_seconds=round(seconds, 4))
+                    slab = tuple(operands[2].reads.shape)
+                    _save_record(scope, digest, _recipe(
+                        self.tag, self.tag, text, key, scope, self.spec,
+                        tuple(operands), slab=slab, static_kwargs=self.sk,
+                        seeded=seeded, pool_estimate=pass_pool_estimate(
+                            self.tag, self.spec, self.sk, *slab)), prog)
+                else:
+                    event["cache"] = "hit"
+                prog.after_last()
+                prog.bind(operands, seed)
+                out = prog.run()
+                prog.mark_last()
+        finally:
+            store.done_with(prog)
+        store.trim()
+        _emit_pass_event(event)
+        return out
+
+
+# a pass's graph pool against its largest tensor: a decode's in its
+# (cells, loci, P, 2) float32 joint tensors, a PPC's in its
+# (replicates, cells, loci) float32 replicate stacks (chip_smoke.py's
+# [graphs] holds the pool of its passes to this estimate)
+PASS_POOL_JOINTS = 8
+PASS_POOL_STACKS = 5
+
+
+def pass_pool_estimate(tag: str, spec, static_kwargs: dict, cells: int,
+                       loci: int) -> int:
+    """The device bytes of the graph pool a pass of a (cells, loci) slab
+    needs for its temporaries and outputs (see the constants above)."""
+    if tag == "ppc":
+        return PASS_POOL_STACKS * int(static_kwargs["num_replicates"]) \
+            * cells * loci * 4
+    return PASS_POOL_JOINTS * cells * loci * spec.P * 2 * 4
+
+
+def _pass_need(tag: str, spec, static_kwargs: dict, operands: tuple,
+               share: _Share) -> int:
+    """What a new pass program adds to the store's device bytes: its
+    buffers and the growth of the shared pool its capture may ask for
+    (the estimate past what the pool holds)."""
+    cells, loci = operands[2].reads.shape
+    pool = pass_pool_estimate(tag, spec, static_kwargs, cells, loci)
+    return _tree_bytes(tuple(operands)) + max(pool - share.nbytes, 0)
+
+
+def _pass_share(store, dev) -> _Share:
+    """The graph pool, lock and last event of ``store``'s pass programs on
+    ``dev`` (see the section comment)."""
+    return store.shared(("pass", str(dev)), _Share)
+
+
+def resolve_slab_program(tag: str, spec, dev, mesh, static_kwargs: dict):
+    """The store view (:class:`_PassPrograms`) of one decode
+    (``tag='decode_slab'``) or PPC (``'ppc'``) call, or None, when its
+    passes run eagerly: without a store, and (after one ``uncacheable``
+    event, as a fit logs) on the CPU or on a sharded run."""
+    scope = _aotcache.current_scope()
+    if scope is None:
+        return None
+    dev = torch.device(dev)
+    if dev.type != "cuda" or mesh is not None:
+        _emit_pass_event({
+            "key_hash": "uncacheable", "label": type(spec).__name__,
+            "tag": tag, "cache": "uncacheable",
+            "reason": "sharded pass" if dev.type == "cuda"
+            else f"pass on {dev.type}"})
+        return None
+    return _PassPrograms(scope, tag, spec, static_kwargs)
+
+
+# ---------------------------------------------------------------------------
 # program records: what captures a program again in another process
 # ---------------------------------------------------------------------------
 #
@@ -758,12 +1056,13 @@ class _Uncacheable:
 # and each leaf's shape, dtype and strides of the state and the loss
 # arguments (the key's signature; the JAX record's ``meta["shapes"]``),
 # the config digest, the kernel libraries it launches and the loss
-# function's constructor (its repr is in the key: a record names a
-# constructor and its arguments, never tensors).  A serving worker's
-# warm-up rebuilds each program on placeholder buffers (zeros: every
-# replay's ``bind`` copies the real state and loss arguments in first,
-# and the key covers every value the graph does not read from them) and
-# captures its forms (:func:`precapture`).
+# function's constructor (a decode or PPC program's spec; its repr is in
+# the key: a record names a constructor and its arguments, never
+# tensors).  A serving worker's warm-up rebuilds each program on
+# placeholder buffers (:func:`_placeholder`: every replay's ``bind``
+# copies the real state and loss arguments in first, and the key covers
+# every value the graph does not read from them) and captures its forms
+# (:func:`precapture`).
 
 _RECORD_PACKAGE = "scdna_replication_tools_tpu_torch."
 
@@ -791,21 +1090,23 @@ def _loss_from_record(rec: dict) -> Callable:
         rec["kwargs"])
 
 
-def _record_shapes(key, scope) -> list:
-    """The record's ``shapes`` (JAX ``signature_shapes``), with the run's
-    bucket padding when it has one, so that a program whose tensors are
-    cut from the bucket's (the rescue's sub-fit) ranks with its bucket."""
+def _record_shapes(key, scope, slab=None) -> list:
+    """The record's ``shapes`` (JAX ``signature_shapes``), with a pass
+    program's slab (cells, loci) and the run's bucket padding when it
+    has one, so that a program whose tensors are cut from the bucket's
+    (the rescue's sub-fit, a decode slab) ranks with its bucket."""
     shapes = _aotcache.signature_shapes(key)
-    bucket = getattr(scope, "bucket", None)
-    if bucket is not None and list(bucket) not in shapes:
-        shapes.append(list(bucket))
+    for extra in (slab, getattr(scope, "bucket", None)):
+        if extra is not None and list(extra) not in shapes:
+            shapes.append(list(extra))
     return shapes
 
 
 def _recipe(kind: str, tag: str, key_text: str, key, scope,
-            loss_fn: Callable, tree, **extra) -> dict:
+            loss_fn: Callable, tree, slab=None, **extra) -> dict:
     """A program's record (see the section comment), forms and libraries
-    left to :func:`_save_record`."""
+    left to :func:`_save_record`; ``loss_fn`` is the program's head (a
+    pass program's: its spec)."""
     leaves: list = []
     skel = _flatten(tree, leaves)
     return {"kind": kind, "tag": tag, "key_text": key_text,
@@ -813,7 +1114,7 @@ def _recipe(kind: str, tag: str, key_text: str, key, scope,
             "loss": _loss_record(loss_fn), "skeleton": skel,
             "leaves": [(tuple(t.shape), t.dtype, tuple(t.stride()))
                        for t in leaves],
-            "shapes": _record_shapes(key, scope), **extra}
+            "shapes": _record_shapes(key, scope, slab), **extra}
 
 
 def _save_record(scope, digest: str, recipe: Optional[dict], prog) -> None:
@@ -826,9 +1127,17 @@ def _save_record(scope, digest: str, recipe: Optional[dict], prog) -> None:
     rec = dict(recipe, forms=sorted(prog.graphs),
                libraries=sorted(n for n in _cuda.SOURCES
                                 if n in _cuda._LIBS))
+    # the program's device bytes: its buffers and its graphs' pool, or,
+    # for a pass program, its buffers, the pool the store's pass programs
+    # share as it is now (``pool_bytes``) and the estimate of the pool
+    # its pass needs (:func:`pass_pool_estimate`)
+    pool = int(prog.share.nbytes)
+    shared = isinstance(prog, _PassProgram)
     meta = {"kind": "program", "tag": rec["tag"], "key_hash": digest,
             "forms": rec["forms"], "shapes": rec["shapes"],
-            "nbytes": int(prog.nbytes)}
+            "nbytes": int(prog.nbytes) + (0 if shared else pool),
+            **({"pool_bytes": pool, "pool_estimate": rec["pool_estimate"]}
+               if shared else {})}
     try:
         payload = pickle.dumps(rec)
     except Exception as exc:  # noqa: BLE001 — a record is an
@@ -848,8 +1157,8 @@ def precapture(store, digest: str, device) -> dict:
     placeholder buffers, its key rebuilt and held to the record's digest,
     and its recorded forms captured under the program's lock.  Returns
     ``{"digest", "forms", "key_hashes", "captures"}``; ``key_hashes`` are
-    the per-form hashes of the ``compile`` events a request replaying it
-    logs."""
+    the hashes of the ``compile`` events a request replaying it logs (a
+    fit program's one per form, a decode or PPC program's its digest)."""
     import pickle
 
     dev = torch.device(device)
@@ -860,20 +1169,32 @@ def precapture(store, digest: str, device) -> dict:
                           f"{env['device_kind']}")
     try:
         rec = pickle.loads(got[0])
-        if rec.get("kind") not in ("chunk", "slab"):
-            raise ValueError(f"not a program record: {rec.get('kind')!r}")
+        kind = rec.get("kind")
+        if kind not in ("chunk", "slab") + PASS_TAGS:
+            raise ValueError(f"not a program record: {kind!r}")
         loss_fn = _loss_from_record(rec["loss"])
         tree = _unflatten(rec["skeleton"], iter([
-            torch.empty_strided(shape, stride, dtype=dtype,
-                                device=dev).zero_()
+            _placeholder(shape, stride, dtype, dev, kind in PASS_TAGS)
             for shape, dtype, stride in rec["leaves"]]))
         cfg = rec["config_digest"]
-        if rec["kind"] == "chunk":
+        if kind in PASS_TAGS:
+            sk = rec["static_kwargs"]
+            key = _pass_key(kind, loss_fn, sk, tree, cfg)
+
+            share = _pass_share(store, dev)
+            need = _pass_need(kind, loss_fn, sk, tree, share)
+
+            def make():
+                return _PassProgram(kind, loss_fn, tree, sk, rec["seeded"],
+                                    share)
+        elif kind == "chunk":
             params, state, losses, diag, loss_args = tree
             carry = _Carry(params, state, losses, diag)
             loop = _Loop(**rec["loop"])
             key = _chunk_key(rec["tag"], loss_fn, loop, carry, loss_args,
                              cfg)
+
+            need = _tree_bytes(tree)
 
             def make():
                 return _ChunkProgram(loss_fn, loop, carry, loss_args,
@@ -883,6 +1204,7 @@ def precapture(store, digest: str, device) -> dict:
             width, k_max, sk = rec["width"], rec["k_max"], \
                 rec["static_kwargs"]
             key = _slab_key(loss_fn, sk, k_max, tree, width, cfg)
+            need = width * _tree_bytes(tree)
 
             def make():
                 return _SlabProgram(loss_fn, [tree] * width, k_max, sk)
@@ -895,12 +1217,13 @@ def precapture(store, digest: str, device) -> dict:
         raise
     for name in rec["libraries"]:
         _cuda.library(name, store)
-    prog = store.adopt(digest, make, need=_tree_bytes(tree)
-                       * (rec.get("width") or 1))
+    prog = store.adopt(digest, make, need=need)
     captures = 0
     try:
         with prog.lock:
-            for form in rec["forms"]:
+            # a pass program's forms in its capture order (the entropy
+            # graph reads the decode graph's joint tensor)
+            for form in getattr(prog, "forms", rec["forms"]):
                 if form not in prog.graphs:
                     prog.capture(form)
                     captures += 1
@@ -908,10 +1231,24 @@ def precapture(store, digest: str, device) -> dict:
         store.done_with(prog)
     store.trim()
     scope = _aotcache.Scope(store, cfg)
+    # a pass program's event carries its digest, a fit program's one per
+    # form
+    hashes = [digest] if kind in PASS_TAGS else [
+        _form_event(text, form, dev, scope, "", "")["key_hash"]
+        for form in rec["forms"]]
     return {"digest": digest, "forms": list(rec["forms"]),
-            "key_hashes": [_form_event(text, form, dev, scope, "", "")[
-                "key_hash"] for form in rec["forms"]],
-            "captures": captures}
+            "key_hashes": hashes, "captures": captures}
+
+
+def _placeholder(shape, stride, dtype, dev, pass_program: bool):
+    """A record's buffer before a request binds its values: zeros, or
+    for a pass program 0.5 (integers 1), on which the PPC's warm-up draws
+    from finite rates (zeros give lamb = 0 where it is fixed, and a NaN
+    rate is refused by the card's Poisson sampler)."""
+    t = torch.empty_strided(shape, stride, dtype=dtype, device=dev)
+    if not pass_program:
+        return t.zero_()
+    return t.fill_(0.5 if dtype.is_floating_point else 1)
 
 
 def _launch_chunk(loss_fn: Callable, loss_args: tuple, c: _Carry, i0: int,

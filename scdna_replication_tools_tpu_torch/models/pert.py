@@ -27,6 +27,13 @@ returns this rank's share of the total: the global priors on rank 0
 only, the per-cell priors on the first rank of each row, the bins of the
 rank's own tile, so the sum over ranks counts every term once.  The
 fused kernels run on the rank's block, with no collective inside.
+
+The decode and the posterior-predictive check run one pass per slab of
+cells (:func:`_decode_slab`, :func:`_ppc_slab`).  With a compiled-program
+store current on the thread (``infer/aotcache.run_scope``) a pass on the
+card replays its slab's CUDA graphs instead (JAX's ``decode_slab`` and
+``ppc`` programs, ``infer/svi.resolve_slab_program``), bit-equal to the
+eager pass; on the CPU and on a sharded run the passes stay eager.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from scdna_replication_tools_tpu_torch.ops.dists import (
     nb_log_prob,
     nb_sample,
     normal_log_prob,
+    seed_of,
     seeded_generator,
 )
 from scdna_replication_tools_tpu_torch.ops.enum_kernel import (
@@ -99,6 +107,15 @@ class PertModelSpec:
     sparse_etas: bool = False
     binary_pi: bool = False
     cell_chunk: Optional[int] = None
+
+    def record(self) -> dict:
+        """The fields, for the record of a decode or PPC program, whose
+        key holds the spec (``infer/svi.py``)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_record(cls, kwargs: dict) -> "PertModelSpec":
+        return cls(**kwargs)
 
 
 class PertBatch:
@@ -429,7 +446,11 @@ def _joint_logits(P, reads, u, omega, log_pi, phi, lamb, log_lamb,
         (1.0 + torch.arange(2, **f32))[None, :]
     theta = (u[:, None] * omega)[..., None, None] * chi
     delta = torch.clamp(theta * (1.0 - lamb) / lamb, min=1.0)
+    # each (cells, loci, P, 2) term goes once the next is built: the
+    # decode's peak memory, and a decode program's graph pool
+    del theta
     nb = nb_log_prob(reads[..., None, None], delta, log_lamb, log1m_lamb)
+    del delta
     bern = torch.stack([torch.log1p(-phi), torch.log(phi)], dim=-1)
     return log_pi[..., :, None] + bern[..., None, :] + nb
 
@@ -713,13 +734,16 @@ _DECODE_SLAB_BYTES = 1 << 30
 
 def model_joint_logits(spec: PertModelSpec, params: dict, fixed: dict,
                        batch: PertBatch) -> torch.Tensor:
-    """(cells, loci, P, 2) joint logits of the fitted model."""
-    c = constrained(spec, params, fixed)
+    """(cells, loci, P, 2) joint logits of the fitted model (the
+    constrained sites of :func:`constrained` less pi, which the joint
+    does not read: a decode's peak memory is its slab's live set)."""
+    c = _sites(spec, params, fixed)
     lamb, log_lamb, log1m_lamb = _nb_pieces(c)
     phi = _phi(c)
     omega = gc_rate(c["betas"], batch.gamma_feats)
-    return _joint_logits(spec.P, batch.reads, c["u"], omega, c["log_pi"],
-                         phi, lamb, log_lamb, log1m_lamb)
+    return _joint_logits(spec.P, batch.reads, c["u"], omega,
+                         _log_pi(spec, params), phi, lamb, log_lamb,
+                         log1m_lamb)
 
 
 def slice_cells(params: dict, batch: PertBatch, idx) -> tuple:
@@ -790,34 +814,77 @@ def entropy_from_joint(joint: torch.Tensor):
     return torch.clamp(cn_ent, 0.0, 1.0), torch.clamp(rep_ent, 0.0, 1.0)
 
 
+def _pass_batch(batch: PertBatch) -> PertBatch:
+    """The batch fields a decode or PPC pass reads (the reads, the GC
+    features and the loci mask, made explicit) and the per-cell ones
+    every batch has, so that a slab program's buffers and key hold
+    nothing else (``infer/svi.py``)."""
+    return PertBatch(reads=batch.reads, libs=batch.libs,
+                     gamma_feats=batch.gamma_feats, mask=batch.mask,
+                     loci_mask=batch.effective_loci_mask())
+
+
+def _resolve_slab_program(tag: str, spec: PertModelSpec, dev, mesh,
+                         static_kwargs: dict):
+    """The run's store view for the slab passes of one decode or PPC
+    call (JAX ``_resolve_slab_program``), or None: the passes run
+    eagerly.  Lazy import: models/ stays importable without the infer
+    layer."""
+    from scdna_replication_tools_tpu_torch.infer.svi import (
+        resolve_slab_program as resolve,
+    )
+
+    return resolve(tag, spec, dev, mesh, static_kwargs)
+
+
+def _decode_joint(spec: PertModelSpec, params: dict, fixed: dict,
+                  batch: PertBatch):
+    """The decode's first stage: ``(joint, (cn_map, rep_map, p_rep))``,
+    the slab's joint logits and its MAP planes and marginal."""
+    joint = model_joint_logits(spec, params, fixed, batch)
+    flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
+    best = torch.argmax(flat, dim=-1)
+    return joint, ((best // 2).to(torch.int32), (best % 2).to(torch.int32),
+                   p_rep_marginal(joint))
+
+
+def _decode_slab(spec: PertModelSpec, params: dict, fixed: dict,
+                 batch: PertBatch, want_entropy: bool = False):
+    """One decode pass (JAX ``_decode_slab``): joint logits -> (cn, rep,
+    p_rep) [+ (cn_entropy, rep_entropy) when ``want_entropy``, from the
+    same joint tensor]."""
+    with scope("pert/decode"):
+        joint, out = _decode_joint(spec, params, fixed, batch)
+        if want_entropy:
+            with scope("pert/qc_entropy"):
+                out = out + entropy_from_joint(joint)
+    return out
+
+
 @torch.no_grad()
 def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
                     batch: PertBatch, cell_chunk: Optional[int] = None,
-                    want_entropy: bool = False):
+                    want_entropy: bool = False, mesh=None):
     """MAP cn/rep per bin + marginal replication probability: the
     temperature-0 ``infer_discrete`` of the reference, an independent
-    argmax over each bin's (P, 2) joint logits, in cell slabs.
+    argmax over each bin's (P, 2) joint logits, in cell slabs, each one
+    :func:`_decode_slab` pass or a replay of its program
+    (:func:`_resolve_slab_program`; ``mesh`` marks a sharded run, whose
+    passes stay eager).
 
     Returns (cn_map, rep_map, p_rep), each (cells, loci), on device;
     ``want_entropy=True`` appends the (cn_entropy, rep_entropy) maps of
     :func:`entropy_from_joint`, from the same joint tensor.
     """
     num_cells = batch.reads.shape[0]
+    programs = _resolve_slab_program("decode_slab", spec, batch.reads.device,
+                                    mesh, {"want_entropy": want_entropy})
+    pb = _pass_batch(batch)
     outs = []
     for idx in _decode_slabs(spec, batch, cell_chunk):
-        p, b = (params, batch) if idx is None \
-            else slice_cells(params, batch, idx)
-        with scope("pert/decode"):
-            joint = model_joint_logits(spec, p, fixed, b)
-            flat = joint.reshape(joint.shape[:-2] + (spec.P * 2,))
-            best = torch.argmax(flat, dim=-1)
-            out = ((best // 2).to(torch.int32), (best % 2).to(torch.int32),
-                   p_rep_marginal(joint))
-            if want_entropy:
-                with scope("pert/qc_entropy"):
-                    out = out + entropy_from_joint(joint)
-        outs.append(out)
-        del joint, flat
+        p, b = (params, pb) if idx is None else slice_cells(params, pb, idx)
+        outs.append(_decode_slab(spec, p, fixed, b, want_entropy)
+                    if programs is None else programs.run((p, fixed, b)))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
@@ -825,10 +892,11 @@ def decode_discrete(spec: PertModelSpec, params: dict, fixed: dict,
 
 
 def posterior_entropy(spec: PertModelSpec, params: dict, fixed: dict,
-                      batch: PertBatch, cell_chunk: Optional[int] = None):
+                      batch: PertBatch, cell_chunk: Optional[int] = None,
+                      mesh=None):
     """(cn_entropy, rep_entropy) posterior-confidence maps alone."""
     out = decode_discrete(spec, params, fixed, batch, cell_chunk=cell_chunk,
-                          want_entropy=True)
+                          want_entropy=True, mesh=mesh)
     return out[3], out[4]
 
 
@@ -871,7 +939,7 @@ def cell_entropy_aggregates(spec: PertModelSpec, params: dict, fixed: dict,
     over the real loci, on device: the QC table's aggregates, standalone
     for the controller's rescue gate."""
     cn_ent, rep_ent = posterior_entropy(spec, params, fixed, batch,
-                                        cell_chunk=cell_chunk)
+                                        cell_chunk=cell_chunk, mesh=mesh)
     agg = entropy_aggregates_from_planes(
         cn_ent, rep_ent, batch.effective_loci_mask(), entropy_thresh,
         mesh=mesh)
@@ -932,28 +1000,23 @@ def _ppc_model(spec: PertModelSpec, params: dict, fixed: dict,
     return delta, lamb, log_lamb, log1m_lamb
 
 
-def ppc_replicates(spec: PertModelSpec, params: dict, fixed: dict,
-                   batch: PertBatch, cn_map: torch.Tensor,
-                   rep_map: torch.Tensor, num_replicates: int,
-                   generator: torch.Generator) -> torch.Tensor:
-    """(num_replicates, cells, loci) replicate read counts from the
-    fitted NB model at the MAP states: Gamma then Poisson
-    (``ops.dists.nb_sample``), on ``generator``."""
-    delta, lamb, _, _ = _ppc_model(spec, params, fixed, batch, cn_map,
-                                   rep_map)
-    return nb_sample(delta, lamb, int(num_replicates), generator)
-
-
 def _ppc_slab(spec: PertModelSpec, params: dict, fixed: dict,
               batch: PertBatch, cn_map: torch.Tensor, rep_map: torch.Tensor,
-              replicates: torch.Tensor, mesh=None):
-    """Per-cell (observed deviance, z-score) of one slab: the deviance D
-    = -2 sum_l log NB(y_l | .) over real loci of the observed reads,
-    standardised against the replicates' deviances (JAX
-    ``_ppc_slab``); with ``mesh`` the deviances sum over the row."""
+              replicates: Optional[torch.Tensor] = None, *,
+              num_replicates: int, generator=None, mesh=None):
+    """One PPC pass (JAX ``_ppc_slab``): per-cell (observed deviance,
+    z-score), the deviance D = -2 sum_l log NB(y_l | .) over real loci of
+    the observed reads, standardised against the replicates' deviances.
+    The ``num_replicates`` replicates are drawn here at the MAP states on
+    ``generator`` (Gamma then Poisson, ``ops.dists.nb_sample``), unless
+    ``replicates`` supplies them; with ``mesh`` the deviances sum over the
+    row."""
     with scope("pert/ppc"):
-        delta, _, log_lamb, log1m_lamb = _ppc_model(
+        delta, lamb, log_lamb, log1m_lamb = _ppc_model(
             spec, params, fixed, batch, cn_map, rep_map)
+        if replicates is None:
+            replicates = nb_sample(delta, lamb, int(num_replicates),
+                                   generator)
         lmask = batch.effective_loci_mask()
 
         def deviance(y):
@@ -979,37 +1042,47 @@ def ppc_discrepancy(spec: PertModelSpec, params: dict, fixed: dict,
                     replicates: Optional[torch.Tensor] = None, mesh=None):
     """Per-cell posterior-predictive discrepancy, cell-slabbed (JAX
     ``ppc_discrepancy``): ``(obs_deviance, ppc_z)``, each (cells,), on
-    device.  ``maps`` = (cn_map, rep_map) are the MAP states the
-    replicates are drawn at (None decodes them here).  ``replicates``
-    ((num_replicates, cells, loci) read counts) supplies the draws;
-    without it slab ``k`` draws its own from a generator seeded by
-    ``(seed, k)`` (with ``mesh``: this rank's cells, the maps its block,
-    and each rank's draws salted by its rank)."""
+    device, each slab one :func:`_ppc_slab` pass or a replay of its
+    program (:func:`_resolve_slab_program`).  ``maps`` = (cn_map,
+    rep_map) are the MAP states the replicates are drawn at (None
+    decodes them here).  ``replicates`` ((num_replicates, cells, loci)
+    read counts) supplies the draws; without it slab ``k`` draws its own
+    from a generator seeded by ``(seed, k)`` (with ``mesh``: this rank's
+    cells, the maps its block, and each rank's draws salted by its
+    rank)."""
     num_cells = batch.reads.shape[0]
     dev = batch.reads.device
     if maps is None:
         cn_map, rep_map, _ = decode_discrete(spec, params, fixed, batch,
-                                             cell_chunk=cell_chunk)
+                                             cell_chunk=cell_chunk,
+                                             mesh=mesh)
     else:
         cn_map, rep_map = (torch.tensor(np.asarray(m), device=dev)
                            for m in maps)
+    if replicates is not None:
+        replicates = torch.as_tensor(replicates, dtype=torch.float32,
+                                     device=dev)
+    programs = _resolve_slab_program("ppc", spec, dev, mesh,
+                                    {"num_replicates": int(num_replicates)})
+    pb = _pass_batch(batch)
     outs = []
     for si, idx in enumerate(_decode_slabs(spec, batch, cell_chunk)):
-        p, b = (params, batch) if idx is None \
-            else slice_cells(params, batch, idx)
+        p, b = (params, pb) if idx is None else slice_cells(params, pb, idx)
         sel = slice(None) if idx is None \
             else torch.as_tensor(idx, device=dev)
-        cm, rm = cn_map[sel], rep_map[sel]
-        if replicates is None:
-            salt = si if mesh is None else si * mesh.size + mesh.rank
-            reps = ppc_replicates(spec, p, fixed, b, cm, rm, num_replicates,
-                                  seeded_generator(seed, salt, dev))
+        operands = (p, fixed, b, cn_map[sel], rep_map[sel])
+        salt = si if mesh is None else si * mesh.size + mesh.rank
+        if replicates is not None:
+            operands += (replicates[:, sel],)
+        if programs is not None:
+            outs.append(programs.run(operands, None if replicates is not None
+                                     else seed_of(seed, salt)))
         else:
-            reps = torch.as_tensor(replicates, dtype=torch.float32,
-                                   device=dev)[:, sel]
-        outs.append(_ppc_slab(spec, p, fixed, b, cm, rm, reps, mesh))
+            outs.append(_ppc_slab(
+                spec, *operands, num_replicates=num_replicates, mesh=mesh,
+                generator=None if replicates is not None
+                else seeded_generator(seed, salt, dev)))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat([o[i] for o in outs], dim=0)[:num_cells]
                  for i in range(2))
-

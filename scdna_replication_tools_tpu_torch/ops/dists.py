@@ -84,10 +84,15 @@ def nb_sample(total_count: torch.Tensor, lamb: torch.Tensor, num: int,
     return torch.poisson(rate, generator=generator).to(torch.float32)
 
 
+def seed_of(seed: int, salt: int) -> int:
+    """The generator seed of the pair ``(seed, salt)``."""
+    return (int(seed) * 1_000_003 + int(salt)) % (1 << 63)
+
+
 def seeded_generator(seed: int, salt: int, device) -> torch.Generator:
     """A generator on ``device`` seeded by the pair ``(seed, salt)``:
     the port's counterpart of ``fold_in(PRNGKey(seed), salt)`` (its own
     stream; JAX's draws are not reproduced)."""
     gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed((int(seed) * 1_000_003 + int(salt)) % (1 << 63))
+    gen.manual_seed(seed_of(seed, salt))
     return gen

@@ -7,9 +7,10 @@ tests), which every request's ``scRT`` receives.  The compiled-program
 store (``infer/aotcache.py``) follows JAX's rule: ``'auto'`` is
 ``<spool>/exec_cache``, a path pins it, None/'none' runs without one.
 The worker activates the store for its life, so every request's run
-shares it: a request's solo fit chunks and the slab's packed chunks
-replay CUDA graphs captured once per program (a later same-shaped
-request with the same behavioural config replays the earlier one's).
+shares it: a request's solo fit chunks, the slab's packed chunks and
+the request's decode and PPC slab passes replay CUDA graphs captured
+once per program (a later same-shaped request with the same behavioural
+config replays the earlier one's).
 The kernel libraries and a record of each program persist in the
 directory for the next worker, whose warm-up thread ranks them by this
 worker's ``buckets_served`` ledger, reads the libraries and captures the
@@ -162,7 +163,12 @@ RECENT_OUTCOMES = 256
 # program's) ahead of traffic (JAX's cap)
 WARMUP_PRELOAD_MAX = 16
 # the share of the card's memory the worker's captured programs may hold
-# together before the least recently used idle ones are released
+# together (their buffers, and each graph pool once) before the least
+# recently used idle ones are released: on an 80 GB card, 25.5 GB, which
+# holds one flagship request's programs (the fits', its decode's and its
+# PPC's) and leaves the rest to four requests' own state, a capture's
+# warm-up and the other processes on the card (chip_smoke.py's serving
+# phase prints the least memory free on the card during its drain)
 PROGRAM_MEMORY_SHARE = 0.3
 
 
@@ -638,11 +644,12 @@ class ServeWorker:
         (:func:`rank_warmup_entries`) and take the first
         ``WARMUP_PRELOAD_MAX``: a kernel library's record is read into
         RAM, so the first request loads the library without touching the
-        disk; a program's record is captured again
-        (``svi.precapture``: its libraries loaded, its graphs captured on
-        placeholder buffers, the program put into the store under the
-        digest a request of its rung computes), so the first request of
-        a warmed rung replays without capturing.  The programs are
+        disk; a program's record (a fit chunk's, a slab's, a decode or
+        PPC slab pass's) is captured again (``svi.precapture``: its
+        libraries loaded, its graphs captured on placeholder buffers, the
+        program put into the store under the digest a request of its rung
+        computes), so the first request of a warmed rung replays its
+        fits, its packaging decode and its QC without capturing.  The programs are
         captured in reverse rank, so that the store's caps release the
         lowest-ranked first; a slab wider than this worker packs is left
         out.

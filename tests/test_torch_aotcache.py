@@ -228,9 +228,10 @@ def test_the_store_is_gone_after_a_run_and_a_failed_run(synthetic_frames,
 
 def test_scrt_with_a_store_on_the_cpu_is_the_plain_run(synthetic_frames,
                                                        tmp_path):
-    """On the CPU every fit runs eagerly under a store: one
-    ``uncacheable`` compile event per step fit, and the frames of the
-    run without a store, bit for bit."""
+    """On the CPU every fit and every decode and PPC pass runs eagerly
+    under a store: one ``uncacheable`` compile event per step fit and per
+    pass (the packaging decodes and the PPC, with the steps they belong
+    to), and the frames of the run without a store, bit for bit."""
     from test_torch_resilience import port_frames
 
     from scdna_replication_tools_tpu_torch import scRT
@@ -251,10 +252,13 @@ def test_scrt_with_a_store_on_the_cpu_is_the_plain_run(synthetic_frames,
     compiled = [(e["step"], e["cache"]) for e in events
                 if e["event"] == "compile"]
     assert compiled == [("step1", "uncacheable"), ("step2", "uncacheable"),
-                        ("step3", "uncacheable")]
+                        ("step3", "uncacheable"),
+                        ("package_s", "uncacheable"),
+                        ("step2", "uncacheable"),
+                        ("package_g1", "uncacheable")]
     end = [e for e in events if e["event"] == "metrics_snapshot"][-1]
     assert end["metrics"]["pert_compile_cache_uncacheable_total"][
-        "value"] == 3
+        "value"] == 6
 
 
 @pytest.mark.parametrize("values", [

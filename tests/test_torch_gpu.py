@@ -978,6 +978,150 @@ def test_precaptured_programs_replay_bit_equal(dev, tmp_path):
     _same_slab(eager_slab, slab)
 
 
+# -- CUDA graphs of the decode and PPC slab passes (ROADMAP A14) ----------
+
+
+def _passes(step2, chunk=None, seed=5):
+    """Step 2's packaging decode with the entropy maps, the plain decode
+    and the PPC at the decoded states, each as the runner calls it."""
+    from scdna_replication_tools_tpu_torch.models import pert as tpert
+
+    spec, params, fixed, batch = step2.spec, step2.fit.params, \
+        step2.fixed, step2.batch
+    ent = tpert.decode_discrete(spec, params, fixed, batch,
+                                cell_chunk=chunk, want_entropy=True)
+    plain = tpert.decode_discrete(spec, params, fixed, batch,
+                                  cell_chunk=chunk)
+    maps = (ent[0].cpu().numpy(), ent[1].cpu().numpy())
+    ppc = tpert.ppc_discrepancy(spec, params, fixed, batch, seed=seed,
+                                cell_chunk=chunk, maps=maps)
+    return ent + plain + ppc
+
+
+def _same_tensors(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)) \
+            if x.dtype.is_floating_point else torch.equal(x, y)
+
+
+def _pass_events(log):
+    import pathlib
+
+    return [(e["tag"], e["cache"]) for e in
+            (json.loads(line) for line in
+             pathlib.Path(log).read_text().splitlines())
+            if e["event"] == "compile"]
+
+
+@pytest.mark.parametrize("chunk", [None, 10], ids=["one_slab", "rung"])
+def test_graphed_decode_and_ppc_equal_the_eager_passes(dev, tmp_path, chunk):
+    """Step 2's decode (with the entropy maps and without) and its PPC
+    (its draws in the graph, on the program's generator reseeded to each
+    slab's (seed, salt)) replayed from CUDA graphs equal the eager passes
+    bit for bit, on one slab and on three slabs of 10 of the 24 cells;
+    a program's first slab is a ``miss``, every later slab a ``hit``,
+    and a second round hits all."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+    from scdna_replication_tools_tpu_torch.obs.runlog import RunLog
+
+    _, step2, _ = _run(dev)
+    eager = _passes(step2, chunk)
+    log = RunLog(str(tmp_path / "events.jsonl"))
+    with log.session(), \
+            aotcache.run_scope(str(tmp_path / "store"), "cfg") as scope:
+        graphed = _passes(step2, chunk)
+        again = _passes(step2, chunk)
+        other = _passes(step2, chunk, seed=6)
+        assert scope.store.program_count() == 3
+    _same_tensors(eager, graphed)
+    _same_tensors(eager, again)
+    assert not torch.equal(other[-1], graphed[-1])
+    slabs = 1 if chunk is None else 3
+    events = _pass_events(log.path)
+    first = events[:3 * slabs]
+    assert first == [("decode_slab", "miss")] + [("decode_slab", "hit")] * (
+        slabs - 1) + [("decode_slab", "miss")] + [("decode_slab", "hit")] * (
+        slabs - 1) + [("ppc", "miss")] + [("ppc", "hit")] * (slabs - 1)
+    assert {c for _, c in events[3 * slabs:]} == {"hit"}
+    assert aotcache.live_program_count() == 0
+
+
+def test_concurrent_decode_replays_of_one_program_equal_eager(dev, tmp_path):
+    """Two threads replay one decode program (the worker-style
+    process-wide store) on two parameter sets, four times each: the
+    program's lock and the last replay's event keep each thread's
+    outputs its eager pass's."""
+    import threading
+
+    from scdna_replication_tools_tpu_torch.infer import aotcache
+    from scdna_replication_tools_tpu_torch.models import pert as tpert
+
+    _, step2, _ = _run(dev)
+    spec, fixed, batch = step2.spec, step2.fixed, step2.batch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    starts = [{k: v + 0.05 * k_ * torch.randn(v.shape, generator=gen,
+                                              device=dev)
+               for k, v in step2.fit.params.items()} for k_ in (1, 2)]
+    eager = [tpert.decode_discrete(spec, p, fixed, batch, want_entropy=True)
+             for p in starts]
+    got = [[] for _ in starts]
+    root = str(tmp_path / "store")
+    store = aotcache.activate(root)
+    try:
+        def decode(k):
+            with aotcache.run_scope(root, None):
+                for _ in range(4):
+                    got[k].append(tpert.decode_discrete(
+                        spec, starts[k], fixed, batch, want_entropy=True))
+        threads = [threading.Thread(target=decode, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert store.program_count() == 1
+    finally:
+        aotcache.deactivate()
+    for want, outs in zip(eager, got):
+        assert len(outs) == 4
+        for out in outs:
+            _same_tensors(want, out)
+
+
+def test_precaptured_pass_programs_replay_bit_equal(dev, tmp_path):
+    """The decode and PPC programs' records rebuild them in a fresh store
+    (``svi.precapture``, on placeholder buffers, the PPC's warm-up
+    drawing from their finite rates); the passes then ``hit`` and equal
+    the eager passes bit for bit."""
+    from scdna_replication_tools_tpu_torch.infer import aotcache, svi
+    from scdna_replication_tools_tpu_torch.obs.runlog import RunLog
+
+    _, step2, _ = _run(dev)
+    eager = _passes(step2)
+    root = str(tmp_path / "store")
+    with aotcache.run_scope(root, "cfg"):
+        _passes(step2)
+    store = aotcache.activate(root)
+    try:
+        records = [e for e in store.entries()
+                   if e["meta"].get("kind") == "program"]
+        assert sorted(e["meta"]["tag"] for e in records) == [
+            "decode_slab", "decode_slab", "ppc"]
+        done = [svi.precapture(store, e["digest"], dev) for e in records]
+        assert store.program_count() == 3
+        log = RunLog(str(tmp_path / "events.jsonl"))
+        with log.session(), aotcache.run_scope(root, "cfg"):
+            got = _passes(step2)
+    finally:
+        aotcache.deactivate()
+    assert {c for _, c in _pass_events(log.path)} == {"hit"}
+    assert all(d["captures"] == len(d["forms"]) for d in done)
+    _same_tensors(eager, got)
+
+
 # -- the block axis: W stacked fits in one launch (the serving slab) -------
 
 

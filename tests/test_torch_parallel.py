@@ -204,6 +204,7 @@ def test_after_fit_pieces_on_ranks_match_one_rank_and_jax(tmp_path, grid,
     ``PCO_TOL``)."""
     from scdna_replication_tools_tpu_torch import weights
     from scdna_replication_tools_tpu_torch.models import pert as tpert
+    from scdna_replication_tools_tpu_torch.ops.dists import nb_sample
     from scdna_replication_tools_tpu.models import pert as jpert
 
     from test_torch_rescue import PCO_TOL, _case
@@ -217,9 +218,9 @@ def test_after_fit_pieces_on_ranks_match_one_rank_and_jax(tmp_path, grid,
     with torch.no_grad():
         planes = tpert.decode_discrete(tspec, tp, tf, tbatch,
                                        want_entropy=True)
-        reps = tpert.ppc_replicates(tspec, tp, tf, tbatch, planes[0],
-                                    planes[1], R,
-                                    torch.Generator().manual_seed(3))
+        delta, lamb, _, _ = tpert._ppc_model(tspec, tp, tf, tbatch,
+                                             planes[0], planes[1])
+        reps = nb_sample(delta, lamb, R, torch.Generator().manual_seed(3))
         want = {
             "init": tpert.init_params(tspec, tbatch, tf,
                                       t_init=inp["t_init"]),

@@ -41,7 +41,11 @@ from scdna_replication_tools_tpu_torch.serve.queue import SpoolQueue
 
 from test_torch_model import one_torch_thread  # noqa: F401
 from test_torch_slab import MAX_ITER, SK, _block, _toy_loss
-from test_torch_svi_graphable import _EagerProgram, _problem
+from test_torch_svi_graphable import (
+    _EagerProgram,
+    _problem,
+    use_eager_passes,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -222,8 +226,8 @@ class _EagerSlabProgram(svi._SlabProgram):
 
 @pytest.fixture
 def eager_programs(monkeypatch):
-    """Solo fits and packed dispatches on the CPU resolve stand-in
-    programs in the current store."""
+    """Solo fits, packed dispatches and the decode and PPC passes on the
+    CPU resolve stand-in programs in the current store."""
     def of(loss_fn, dev, tag, loop):
         scope = aotcache.current_scope()
         return None if scope is None \
@@ -233,7 +237,7 @@ def eager_programs(monkeypatch):
     monkeypatch.setattr(svi, "_SlabProgram", _EagerSlabProgram)
     monkeypatch.setattr(svi, "_slab_scope",
                         lambda loss_fn, dev: aotcache.current_scope())
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    use_eager_passes(monkeypatch)
 
 
 def _calls(kind, seeds, windows, rel_tol=1e-9, min_iter=4):

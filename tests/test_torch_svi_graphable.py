@@ -206,6 +206,45 @@ class _EagerProgram(svi._ChunkProgram):
         self.static = self.args = self.const = None
 
 
+class EagerPassProgram(svi._PassProgram):
+    """A pass program whose "graph" of a form runs the form's stage
+    eagerly on the program's buffers (the CPU has no CUDA graph); its
+    capture runs the warm-up a real capture runs first."""
+
+    def capture(self, form):
+        self._rewind()
+        for _ in range(svi.GRAPH_WARMUPS):
+            self._step(form)
+        self.graphs[form] = form
+        self.counts[form] = {}
+        return 0.0
+
+    def replay(self, form):
+        self._step(form)
+
+    def after_last(self):
+        pass
+
+    def mark_last(self):
+        pass
+
+    def release(self):
+        self.graphs.clear()
+        self._drop_buffers()
+
+
+def use_eager_passes(monkeypatch):
+    """Decode and PPC calls on the CPU resolve stand-in programs in the
+    current store."""
+    def resolve(tag, spec, dev, mesh, static_kwargs):
+        scope = aotcache.current_scope()
+        return None if scope is None \
+            else svi._PassPrograms(scope, tag, spec, static_kwargs)
+    monkeypatch.setattr(svi, "resolve_slab_program", resolve)
+    monkeypatch.setattr(svi, "_PassProgram", EagerPassProgram)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+
+
 @pytest.fixture
 def eager_programs(monkeypatch):
     """Fits on the CPU resolve stand-in programs in the current store."""
