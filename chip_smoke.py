@@ -49,8 +49,8 @@ Phases, each printing its own lines:
    the QC flag counts of the run, a ``compile`` event per kernel library
    loaded, ``run_end`` with status ok, and the registry's peak device
    memory equal to ``torch.cuda.max_memory_allocated`` (the log is
-   copied to ``chiprun_out/default_run.jsonl``, to render on a machine
-   with the JAX package: ``python tools/pert_report.py``); the chunks of
+   copied to ``chiprun_out/default_run.jsonl``, which the [readers]
+   phase renders with the port's ``tools/pert_report``); the chunks of
    a short controlled step-2 fit under
    ``torch.cuda.set_sync_debug_mode("error")`` with a run-log session
    open and a checkpoint after every chunk (no operation inside a chunk
@@ -222,6 +222,28 @@ Phases, each printing its own lines:
     operands, the plain versions within ``TOL`` (and under a flat
     prior), Adam's lane axis with a parked lane bit for bit, each timed
     with its bound;
+11b. ``[readers]``, the port's run-log readers on this run's own logs,
+    in four threads started when the drain ends and joined after the
+    lanes (:class:`ReadersPhase`): every command is ``python -m
+    scdna_replication_tools_tpu_torch.tools.<tool> ...`` in a subprocess
+    behind an import hook that refuses ``jax`` and the JAX package
+    (``BLOCK_JAX``), and each must exit 0: ``pert_report`` renders phase
+    6's log to ``chiprun_out/default_run_report.md`` with no placeholder
+    section and a filled "Compiled programs" section, and ``--compare``
+    holds it against [graphs]'s graphed log with a metrics-compare
+    section; ``pert_trace export --perfetto --profile-dir T`` on the
+    profiled graphed run gives a trace that ``validate`` passes, its
+    ``pert_xla_scope_seconds`` counter track the four named ranges above
+    0 and equal to that run's run_end gauges; ``pert_trace waterfall
+    --spool`` covers every request of the batched drain with every
+    component of its vocabulary; ``pert_meter report`` and
+    ``attribution --check`` on the drain's spool conserve (every
+    ledger's gap within 1 %); ``pert_fleet index`` over ``chiprun_out/``
+    lists phase 6's and [graphs]'s runs, ``regress --write-baseline``
+    records phase 6's log and ``regress --baseline`` judges the graphed
+    log against it, every metric's verdict printed and the exit code the
+    one its verdicts imply (eager and graphed are different runs, so no
+    pass is required); each tool's ``--help``; the phase's seconds;
 12. sharded fits, in a thread beside phase 11 (``ShardedPhase``): ranks
     spawned with ``torch.multiprocessing`` (start method ``spawn``), each
     joining a gloo group through a ``file://`` store in a temporary
@@ -2267,7 +2289,7 @@ def graphs_phase(dev, record, frames, ref):
         trace_summary.summarise(str(prof), top=12))
     rec["profiled"] = {"wall_s": wall2, "traces": traces, "gauges": gauges,
                        "step_device_s": step_device,
-                       "first_difference": diff2}
+                       "first_difference": diff2, "profile_dir": str(prof)}
     del scrt
     gc.collect()
     torch.cuda.empty_cache()
@@ -5489,6 +5511,241 @@ def _time_lanes(results, args, prior, g, sparse, W) -> None:
               f"operations, {mufu} SFU instructions")
 
 
+# ---------------------------------------------------------------------------
+# the [readers] phase: the port's run-log readers on this run's own logs
+# ---------------------------------------------------------------------------
+
+# an import hook that refuses ``jax`` and the JAX package
+JAX_HOOK = """
+import importlib.abc, sys
+class _RefuseJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib',
+                                  'scdna_replication_tools_tpu'):
+            raise ImportError(f'{name}: blocked, the port imports no JAX')
+        return None
+sys.meta_path.insert(0, _RefuseJax())
+"""
+# ``python -c BLOCK_JAX MODULE ARGS...`` runs ``python -m MODULE ARGS...``
+# behind the hook (from the repository's root)
+BLOCK_JAX = JAX_HOOK + """
+import runpy
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)
+"""
+READER_TOOLS = ("pert_report", "pert_trace", "pert_meter", "pert_fleet")
+# the sections pert_report leaves as a placeholder when the log lacks
+# their events (tests/test_torch_runlog.py checks the first six on a CPU
+# log, which has no compile event)
+REPORT_PLACEHOLDERS = ("_no phase events_", "_no fit_end events_",
+                       "_no model-health events", "_no control_decision",
+                       "_no rescue events", "_no metrics_snapshot",
+                       "_no compile events_")
+CONSERVATION_TOL = 0.01   # pert_meter's, billed = effective + waste
+
+
+def _reader(tool: str, *args) -> dict:
+    """``python -m <the port>.tools.<tool> ARGS`` behind :data:`BLOCK_JAX`:
+    its exit code, output and seconds."""
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run([sys.executable, "-c", BLOCK_JAX,
+                              f"{PKG}.tools.{tool}", *map(str, args)],
+                             capture_output=True, text=True, cwd=str(REPO),
+                             timeout=300)
+        rc, out, err = run.returncode, run.stdout, run.stderr
+    except subprocess.TimeoutExpired as exc:
+        rc, out, err = None, "", f"timed out after {exc.timeout} s"
+    return {"argv": [tool, *map(str, args)], "rc": rc, "out": out,
+            "err": err, "s": time.perf_counter() - t0}
+
+
+class ReadersPhase:
+    """The [readers] phase (module docstring): the port's ``pert_report``,
+    ``pert_trace``, ``pert_meter`` and ``pert_fleet`` run as a user runs
+    them, each command a ``python -m`` subprocess behind the hook that
+    refuses JAX, on this run's own full-width logs.  Four threads run
+    the four tools' chains beside the last phases (they wait on their
+    subprocesses, so they hold no lock the card's work needs);
+    :meth:`finish` joins them and checks every result."""
+
+    def __init__(self, default_log: Path, graphs_log: Path,
+                 profiled_log: Path, profile_dir: Path, spool: Path,
+                 out: Path = REPO / "chiprun_out"):
+        import threading
+
+        self.paths = {"default": default_log, "graphs": graphs_log,
+                      "profiled": profiled_log, "profile_dir": profile_dir,
+                      "spool": spool, "report": out / "default_run_report.md",
+                      "compare": out / "default_vs_graphs.md",
+                      "trace": out / "graphs_profiled_trace.json",
+                      "index": out / "fleet_index.json",
+                      "baseline": out / "fleet_baseline_default.json",
+                      "regress": out / "fleet_regress_graphs.md"}
+        p = self.paths
+        # four chains of at most four commands, each tool's --help at
+        # the end of one (the readers import no torch, so most commands
+        # take well under a second)
+        self.chains = {
+            "report": [("pert_report", p["default"], "--out", p["report"]),
+                       ("pert_report", "--compare", p["default"],
+                        p["graphs"], "--out", p["compare"]),
+                       ("pert_report", "--help"), ("pert_fleet", "--help")],
+            "trace": [("pert_trace", "export", "--perfetto", "--profile-dir",
+                       p["profile_dir"], "--out", p["trace"],
+                       p["profiled"]),
+                      ("pert_trace", "validate", p["trace"]),
+                      ("pert_trace", "waterfall", "--spool", p["spool"]),
+                      ("pert_trace", "--help")],
+            "meter": [("pert_meter", "report", p["spool"], "--check"),
+                      ("pert_meter", "attribution", p["spool"], "--check",
+                       "--json"),
+                      ("pert_meter", "--help")],
+            "fleet": [("pert_fleet", "index", "--roots", out, "--out",
+                       p["index"]),
+                      ("pert_fleet", "query", "--index", p["index"],
+                       "--format", "json"),
+                      ("pert_fleet", "regress", "--run", p["default"],
+                       "--write-baseline", p["baseline"]),
+                      ("pert_fleet", "regress", "--run", p["graphs"],
+                       "--baseline", p["baseline"], "--out", p["regress"])],
+        }
+        self.results: dict = {}
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._chain, args=(k,),
+                                         daemon=True) for k in self.chains]
+        for t in self.threads:
+            t.start()
+
+    def _chain(self, key: str) -> None:
+        self.results[key] = [_reader(*cmd) for cmd in self.chains[key]]
+
+    def finish(self, record, serve_rids) -> None:
+        from scdna_replication_tools_tpu_torch.tools import pert_fleet
+        from scdna_replication_tools_tpu_torch.tools import pert_trace
+
+        for t in self.threads:
+            t.join()
+        tag = "[readers]"
+        wall = time.perf_counter() - self.t0
+        res, p = self.results, self.paths
+        runs = [r for chain in res.values() for r in chain]
+        print(f"{tag} {len(runs)} commands in {wall:.1f} s beside the last "
+              "phases (" + ", ".join(f"{r['argv'][0]} {r['argv'][1]} "
+                                     f"{r['s']:.1f} s" for r in runs) + ")")
+        for r in runs:
+            check(r["rc"] == 0 or r["argv"][:2] == ["pert_fleet", "regress"]
+                  and "--baseline" in r["argv"],
+                  f"{tag} python -m {PKG}.tools.{' '.join(r['argv'])} exits "
+                  f"0 with jax and the JAX package blocked (rc {r['rc']}; "
+                  f"{r['err'].strip()[-600:]})")
+        rec = record.setdefault("readers", {
+            "wall_s": wall, "commands": [{k: r[k] for k in ("argv", "rc", "s")}
+                                         for r in runs]})
+
+        # report and compare
+        text = p["report"].read_text() if p["report"].exists() else ""
+        left = [s for s in REPORT_PLACEHOLDERS if s in text]
+        check(bool(text) and not left and "## Compiled programs" in text,
+              f"{tag} pert_report renders phase 6's log to "
+              f"{p['report'].name} ({len(text)} characters) with every "
+              f"section filled, ## Compiled programs among them "
+              f"(placeholders left: {left})")
+        diff = p["compare"].read_text() if p["compare"].exists() else ""
+        check("## Metrics (B - A)" in diff
+              and "_no metrics in either run_" not in diff,
+              f"{tag} pert_report --compare phase 6's log and [graphs]'s: "
+              f"a metrics-compare section ({len(diff)} characters)")
+
+        # the Perfetto trace with the profiled run's ranges
+        try:
+            doc = json.loads(p["trace"].read_text())
+        except (OSError, ValueError):
+            doc = {}
+        tracks = [e for e in doc.get("traceEvents", [])
+                  if e.get("ph") == "C"
+                  and e.get("name") == "pert_xla_scope_seconds"]
+        track = tracks[0]["args"] if len(tracks) == 1 else {}
+        slices = sum(1 for e in doc.get("traceEvents", [])
+                     if e.get("ph") == "X")
+        print(f"{tag} pert_trace export --profile-dir: {slices} slices, "
+              f"pert_xla_scope_seconds {json.dumps(track)}")
+        check(pert_trace.validate_trace(doc) == [] and slices > 0,
+              f"{tag} the exported trace is valid ({slices} slices)")
+        for scope in GRAPH_SCOPES:
+            keys = [k for k in track if k.endswith(scope)]
+            check(keys and all(track[k] > 0 for k in keys),
+                  f"{tag} the counter track holds {scope} ({keys}) > 0")
+        gauges = record.get("graphs", {}).get("profiled", {}).get("gauges")
+        check(track == gauges, f"{tag} the counter track equals run_end's "
+              f"pert_xla_scope_seconds gauges of the profiled run")
+
+        # the serving drain's waterfall and cost
+        waterfall = self._json(res["trace"][2]).get("requests") or {}
+        for rid, row in sorted(waterfall.items()):
+            print(f"  waterfall {rid}: " + ", ".join(
+                f"{k} {row.get(k)}" for k in
+                (*pert_trace.WATERFALL_COMPONENTS, "total_seconds",
+                 "fit_attributed", "slab_avg_occupancy")))
+        check(sorted(waterfall) == sorted(serve_rids) and all(
+            set(pert_trace.WATERFALL_COMPONENTS) <= set(row)
+            and row["fit"] > 0 for row in waterfall.values()),
+              f"{tag} pert_trace waterfall --spool: every request of the "
+              f"drain ({sorted(waterfall)}), every component of "
+              f"{pert_trace.WATERFALL_COMPONENTS}, fit > 0")
+        attr = self._json(res["meter"][1])
+        meter = attr.get("meter") or {}
+        gap = attr.get("conservation_gap_max")
+        print(f"{tag} pert_meter attribution: {attr.get('requests')} "
+              f"requests, billed {meter.get('billed_device_seconds')} "
+              f"device-s, effective {meter.get('effective_device_seconds')}"
+              f", waste {json.dumps(meter.get('waste_seconds'))}, goodput "
+              f"{meter.get('goodput_cell_iters_per_device_second')}; the "
+              f"largest conservation gap {gap}")
+        check(attr.get("conservation_ok") is True and gap is not None
+              and gap <= CONSERVATION_TOL
+              and meter.get("billed_device_seconds", 0) > 0,
+              f"{tag} every ledger of the drain conserves (gap {gap} <= "
+              f"{CONSERVATION_TOL})")
+        rec.update(waterfall=waterfall, meter=meter, gap=gap, track=track)
+
+        # the fleet
+        query = self._json(res["fleet"][1], default=[])
+        files = sorted(r.get("file") for r in query)
+        print(f"{tag} pert_fleet index over chiprun_out/: {len(files)} "
+              f"runs {files}")
+        check({p["default"].name, p["graphs"].name} <= set(files),
+              f"{tag} pert_fleet query lists phase 6's and [graphs]'s runs")
+        try:
+            baseline = json.loads(p["baseline"].read_text())
+            result = pert_fleet.compare_to_baseline(
+                baseline, pert_fleet.run_record(p["graphs"]))
+        except (OSError, ValueError) as exc:
+            result = {"rows": [], "regressions": [], "error": repr(exc)}
+        rc = res["fleet"][3]["rc"]
+        for row in result["rows"]:
+            print(f"  regress {row['metric']}: baseline {row['baseline']}, "
+                  f"graphed {row['run']}, {row['verdict']}")
+        want = 1 if result["regressions"] else 0
+        print(f"{tag} pert_fleet regress [graphs]'s run against phase 6's "
+              f"baseline: exit {rc}, {len(result['regressions'])} gated "
+              "regression(s) (eager and graphed are different runs: no "
+              "pass is required)")
+        check(result["rows"] and rc == want,
+              f"{tag} regress exits {rc}, the code its verdicts imply "
+              f"({want})")
+        rec.update(fleet_files=files, regress_rc=rc,
+                   regress={r["metric"]: r["verdict"]
+                            for r in result["rows"]})
+
+    @staticmethod
+    def _json(run, default=None):
+        try:
+            return json.loads(run["out"])
+        except ValueError:
+            return {} if default is None else default
+
+
 def main() -> int:
     try:
         import torch
@@ -5631,6 +5888,13 @@ def main() -> int:
     by_path["serve"], second_life, first_life = serving(
         dev, record, record["main_default"], spool, early)
     mark("serve")
+    # the readers on this run's logs and the drain's spool, beside the
+    # last phases; the spool goes when they are joined
+    readers = ReadersPhase(
+        out_dir / "default_run.jsonl", out_dir / "graphs_run.jsonl",
+        out_dir / "graphs_profiled.jsonl",
+        Path(record["graphs"]["profiled"]["profile_dir"]),
+        spool.root / "batched")
     tail.finish(record)
     mark("unlabelled tail")
     sharded.finish(record, results, by_path)
@@ -5639,11 +5903,14 @@ def main() -> int:
     # spool goes when it is joined
     second_life.finish(record, first_life)
     early.close()
-    spool.close()
     del first_life
     mark("second life")
     check_lanes(dev, results)
     mark("lanes")
+    readers.finish(record, [f.result() for f in spool.futures
+                            if f.done() and f.exception() is None])
+    spool.close()
+    mark("readers")
     graphs_child.finish(record)
     mark("graphs child")
     host_memory.report(record)

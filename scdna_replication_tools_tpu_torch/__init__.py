@@ -19,9 +19,25 @@ Entry points (:class:`scRT`, :class:`SPF`, :class:`PertInference`,
 device given and no GPU present they raise.
 """
 
-from scdna_replication_tools_tpu_torch.api import SPF, scRT
-from scdna_replication_tools_tpu_torch.device import resolve_device
-from scdna_replication_tools_tpu_torch.infer.runner import PertInference
-from scdna_replication_tools_tpu_torch.infer.svi import fit_map
+import importlib
+
+# name -> the module that defines it, imported at first use (PEP 562), so
+# that the host-only tools (``tools/pert_report`` and the other readers)
+# load without torch
+_EXPORTS = {"scRT": "api", "SPF": "api", "PertInference": "infer.runner",
+            "fit_map": "infer.svi", "resolve_device": "device"}
 
 __all__ = ["scRT", "SPF", "PertInference", "fit_map", "resolve_device"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                    name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -18,7 +18,7 @@ controller-gated mirror rescue, the run log and the durable runs
 heartbeat) run as in the JAX package, at its defaults, so
 ``scRT(cn_s, cn_g1)`` with no option given runs.  The run log (``telemetry_path``, 'auto' = one schema-v9 JSONL per
 run under the repository's ``.pert_runs/``; the written path is
-``scRT.run_log_path``) renders with ``tools/pert_report.py``; the run's
+``scRT.run_log_path``) renders with ``tools/pert_report``; the run's
 metrics registry is ``scRT.metrics_registry`` (``metrics_textfile``
 adds its Prometheus textfile).  ``executable_cache_dir=D`` replays a CUDA
 graph per fit iteration on the card, and the graphs of each decode and

@@ -113,6 +113,7 @@ def infer_scrt_main(argv=None):
     p.add_argument("--request-id", default=None,
                    help="opaque per-request identity stamped into the "
                         "run log's run_start (serving traffic: "
+                        "scdna_replication_tools_tpu_torch.tools."
                         "pert_fleet query/trend --request groups on "
                         "it); excluded from the config hash "
                         "(PertConfig.request_id)")
@@ -121,8 +122,10 @@ def infer_scrt_main(argv=None):
                    help="causal span tracing (default OFF): phases, fit "
                         "chunks and the run itself become schema-v8 "
                         "span_end events in the run log, exportable as "
-                        "a Perfetto timeline with tools/pert_trace.py "
-                        "(PertConfig.trace_spans); tracing-off logs "
+                        "a Perfetto timeline with "
+                        "scdna_replication_tools_tpu_torch.tools."
+                        "pert_trace (PertConfig.trace_spans); "
+                        "tracing-off logs "
                         "carry no span bytes")
     p.add_argument("--trace-parent", default=None,
                    help="cross-process trace handoff "
@@ -157,19 +160,22 @@ def infer_scrt_main(argv=None):
                         "timestamped file under repo-local .pert_runs/), "
                         "a file/directory path, or 'none' to disable "
                         "(PertConfig.telemetry_path); render with "
-                        "tools/pert_report.py")
+                        "python -m scdna_replication_tools_tpu_torch."
+                        "tools.pert_report")
     p.add_argument("--metrics-textfile", default=None,
                    help="Prometheus text-exposition export of the run's "
                         "typed metrics registry, rewritten atomically at "
                         "every phase boundary for scrape/node-exporter "
                         "setups (PertConfig.metrics_textfile); the "
                         "metrics_snapshot events in the run log and the "
-                        "fleet index (python -m tools.pert_fleet) work "
-                        "without it")
+                        "fleet index (python -m "
+                        "scdna_replication_tools_tpu_torch.tools."
+                        "pert_fleet) work without it")
     p.add_argument("--heartbeat-dir", default="auto",
                    help="live run-health heartbeats: every process "
                         "atomically writes health/host_<rank>.json for "
-                        "tools/pert_watch.py; 'auto' (default) uses "
+                        "scdna_replication_tools_tpu_torch.tools."
+                        "pert_watch; 'auto' (default) uses "
                         "<checkpoint-dir>/health when checkpointing is "
                         "on, a path targets a directory, 'none' "
                         "disables (PertConfig.heartbeat_dir)")
@@ -265,8 +271,9 @@ def infer_scrt_main(argv=None):
                 "(QC runs only with --qc on the pert level); nothing "
                 "written", args.qc_output)
     if scrt.run_log_path:
-        logger.info("run telemetry written to %s (render with "
-                    "tools/pert_report.py)", scrt.run_log_path)
+        logger.info("run telemetry written to %s (render with python "
+                    "-m scdna_replication_tools_tpu_torch.tools."
+                    "pert_report)", scrt.run_log_path)
 
 
 def infer_spf_main(argv=None):

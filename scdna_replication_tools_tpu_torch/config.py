@@ -182,7 +182,7 @@ class PertConfig:
     # structured run log (obs/runlog.py): 'auto' writes one JSONL per
     # run under the repository's .pert_runs/ (the newest 50 kept); a
     # path names the file (or a directory, which gets a timestamped
-    # file); None/'none'/'off' disables.  tools/pert_report.py renders it
+    # file); None/'none'/'off' disables.  tools/pert_report renders it
     telemetry_path: Optional[str] = "auto"
     # Prometheus text exposition of the run's metrics registry
     # (obs/metrics.py), rewritten atomically at every phase-boundary

@@ -58,7 +58,7 @@ Surfaces: the ``meter`` section of ``run_end`` (schema v9), the
 manifest gauges ``pert_device_seconds_total`` /
 ``pert_waste_seconds_total{category}`` /
 ``pert_goodput_cell_iters_per_device_second``, the heartbeat's live
-``goodput``/``waste_frac`` fields, and ``tools/pert_meter.py``.
+``goodput``/``waste_frac`` fields, and ``tools/pert_meter``.
 """
 
 from __future__ import annotations

@@ -24,11 +24,13 @@ Taken from the JAX module: the registry, its event mapping for the
 events the port emits (``compile``, ``fit_end``, ``control_decision``,
 ``rescue``, ``nan_abort`` and the durable runs' ``fault_injected``,
 ``retry``, ``degrade``, ``resume`` and ``checkpoint``), the snapshot and
-exposition exports, and the seams.  Device memory is read from ``torch.cuda.memory_stats``
-(current and peak allocated bytes) under the catalogue's HBM names.
-Left for the items that own them: the mesh-shrink counter (A12), the
-event mappings of the serving events (A13) and the regression verdict of
-the fleet tools.
+exposition exports, the seams and :func:`regress_verdict`, the
+regression judgement of the port's ``tools/pert_fleet`` and
+``tools/pert_report``.  Device memory is read from
+``torch.cuda.memory_stats`` (current and peak allocated bytes) under the
+catalogue's HBM names.  Left for the items that own them: the
+mesh-shrink counter (A12) and the event mappings of the serving events
+(A13).
 """
 
 from __future__ import annotations
@@ -73,6 +75,56 @@ def metric_base_name(series_key: str) -> str:
     if name.endswith("_count") and name[:-6] in manifest_metrics():
         return name[:-6]
     return name
+
+
+# a direction='higher' metric that cannot go negative can drop at most
+# 100%: its bad movement saturates at 1.0, so a (scaled) threshold >= 1
+# could never fire.  Effective 'higher' thresholds are capped below it.
+_HIGHER_THRESHOLD_CAP = 0.95
+
+
+def regress_verdict(spec: Optional[dict], base, run,
+                    tolerance_scale: float = 1.0):
+    """The one per-metric regression judgement, shared by
+    ``tools/pert_fleet`` (the regression gate) and
+    ``tools/pert_report --compare`` (the run-pair diff).
+
+    Returns ``(rel_delta, effective_threshold, verdict)`` with verdict
+    one of:
+
+    * ``REGRESSED``: moved in the bad direction past the (scaled,
+      direction-capped) threshold; what gates fail on;
+    * ``improved`` / ``ok``: moved the good way past it / within it;
+    * ``incomparable``: the baseline is 0 and the run moved the bad way:
+      the relative delta is infinite, so gating is undefined (callers
+      warn);
+    * ``untracked``: the catalogue arms no regress gate for the metric.
+
+    ``rel_delta`` is ``(run - base) / |base|`` (±inf from a zero base);
+    the direction comes from the catalogue entry: ``lower`` = lower is
+    better (an increase is bad), ``higher`` = higher is better (a
+    decrease is bad, its threshold capped at ``_HIGHER_THRESHOLD_CAP``).
+    """
+    if base != 0:
+        rel = (run - base) / abs(base)
+    else:
+        rel = float("inf") if run > 0 else (
+            float("-inf") if run < 0 else 0.0)
+    reg = (spec or {}).get("regress")
+    if not reg:
+        return rel, None, "untracked"
+    direction = reg.get("direction", "lower")
+    threshold = float(reg.get("threshold", 0.0)) * float(tolerance_scale)
+    if direction == "higher":
+        threshold = min(threshold, _HIGHER_THRESHOLD_CAP)
+    bad = rel if direction == "lower" else -rel
+    if base == 0 and bad > 0:
+        return rel, threshold, "incomparable"
+    if bad > threshold:
+        return rel, threshold, "REGRESSED"
+    if bad < -threshold:
+        return rel, threshold, "improved"
+    return rel, threshold, "ok"
 
 
 def _labels_key(labels: Optional[dict]) -> Tuple[Tuple[str, str], ...]:

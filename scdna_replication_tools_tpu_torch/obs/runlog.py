@@ -7,7 +7,7 @@
   prefix;
 * the event vocabulary and per-event required fields are pinned by the
   port's copy of ``runlog_schema.json`` (see :mod:`obs.schema`), so
-  ``tools/pert_report.py`` renders a port log as it renders a JAX one;
+  ``tools/pert_report`` renders a port log as it renders a JAX one;
 * ``run_end`` is GUARANTEED by :meth:`RunLog.session`: on an exception
   it records ``status='error'`` with the exception's type and message
   before re-raising;

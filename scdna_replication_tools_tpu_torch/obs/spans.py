@@ -37,7 +37,7 @@ the EXISTING instrumentation seams rather than sprinkled:
   ``fit/chunk`` span per dispatched chunk, carrying the controller's
   verdict for the pass;
 * cross-process: every span stamps ``process_index``, and tickets
-  carry the trace id across the serve spool, so ``tools/pert_trace.py``
+  carry the trace id across the serve spool, so ``tools/pert_trace``
   can merge per-process RunLogs into one Perfetto timeline.
 
 Literal span names are pinned by the checked-in

@@ -2,10 +2,9 @@
 
 Port of ``obs/summary.py``, copied whole.
 
-Shared by ``tools/pert_report.py`` (markdown rendering + ``--compare``)
-and the bench tools (``tools/full_pipeline_bench.py`` folds
-``peak_hbm_bytes`` and the compile-cache hit/miss counts into its JSON
-artifact).  Pure stdlib — tools must be runnable without jax.
+Shared by the package's ``tools/pert_report`` (markdown rendering +
+``--compare``) and ``tools/pert_fleet`` (the index and the regression
+gate).  Pure stdlib: the tools read a run log without a GPU.
 """
 
 from __future__ import annotations
@@ -123,8 +122,8 @@ def flat_metrics(summary: dict) -> dict:
     """The queryable per-run metric vector: event-derived metrics
     overlaid with the final metrics_snapshot (registry values win where
     both exist — they are the same quantity, measured at the source).
-    The shared extraction of ``tools/pert_fleet.py`` and
-    ``tools/pert_report.py --compare``.
+    The shared extraction of ``tools/pert_fleet`` and
+    ``tools/pert_report --compare``.
     """
     metrics_info = summary.get("metrics") or {}
     return {**derived_metrics(summary),
@@ -209,7 +208,7 @@ def summarize_events(events: List[dict]) -> dict:
 
     # causal spans (schema v8): per-name rollup of every span_end — the
     # "where the time went" table — plus the raw span list for timeline
-    # consumers (tools/pert_trace.py exports from the events directly;
+    # consumers (tools/pert_trace exports from the events directly;
     # the summary keeps the rollup so reports need no second parse).
     # Both empty on pre-v8 / tracing-off logs.
     span_events = _of(events, "span_end")

@@ -116,7 +116,9 @@ def main(argv=None) -> int:
                                "fit/stream-back spans in the worker "
                                "log + the request log, stitched by the "
                                "ticket's trace id — export a Perfetto "
-                               "timeline with tools/pert_trace.py; "
+                               "timeline with "
+                               "scdna_replication_tools_tpu_torch."
+                               "tools.pert_trace; "
                                "--no-trace-spans mutes it")
 
     p_submit = sub.add_parser(
@@ -149,7 +151,9 @@ def main(argv=None) -> int:
                                "the request: device-time attribution in "
                                "the worker's status.json "
                                "(processed.by_tenant) and the "
-                               "pert_meter attribution rollup.  The "
+                               "pert_meter attribution rollup "
+                               "(scdna_replication_tools_tpu_torch."
+                               "tools.pert_meter).  The "
                                "worker sanitizes it ([A-Za-z0-9._-], "
                                "max 64 chars) before trusting it")
 

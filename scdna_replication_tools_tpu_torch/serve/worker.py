@@ -66,7 +66,7 @@ Two live surfaces ride on top (schema v8, OBSERVABILITY.md
   commit → claim), ``admission``, ``stream_back``, and, via the
   ``trace_parent`` handoff, the per-request run's entire span tree —
   exportable as one stitched Perfetto timeline with
-  ``tools/pert_trace.py``;
+  ``tools/pert_trace``;
 * **status.json** in the spool root: an atomically heartbeat-written
   snapshot of the in-flight request + its open span stack, queue
   depth, the bucket-residency ledger and recent outcomes — what
@@ -926,7 +926,7 @@ class ServeWorker:
                 if req_span is not None:
                     if self.max_batch > 1:
                         # the waterfall's attribution inputs ride the
-                        # request span (tools/pert_trace.py divides the
+                        # request span (tools/pert_trace divides the
                         # shared fit seconds by this occupancy)
                         tracer.end(
                             req_span,

@@ -15,14 +15,14 @@ Checks (exit 1 on any failure): the killed run raised
 ``resume`` trail; the resumed run's per-cell ``model_tau`` equals the
 golden run's bit for bit.  The JAX tool's ``--multiprocess`` scenario
 (sharded checkpoints resumed on a smaller grid) has its port counterpart
-in ``tests/test_torch_sharded_chaos.py``; the JAX tool's ``--report``
-renders the log with ``tools/pert_report.py``, which needs the JAX
-package and stays there.
+in ``tests/test_torch_sharded_chaos.py``.  ``--report PATH`` renders the
+resumed run's log with the port's ``tools/pert_report`` into PATH and
+adds the check that it has a ``## Resilience`` section.
 
 Usage::
 
     python -m scdna_replication_tools_tpu_torch.tools.chaos_smoke \\
-        --device cpu --out chaos_smoke.json
+        --device cpu --out chaos_smoke.json [--report resumed.md]
 """
 
 from __future__ import annotations
@@ -113,6 +113,9 @@ def main(argv=None) -> int:
                     help="checkpoint and run-log directory (default: a "
                          "fresh temporary one)")
     ap.add_argument("--out", default=None, help="JSON verdict path")
+    ap.add_argument("--report", default=None,
+                    help="write the resumed run's rendered markdown "
+                         "report here (the 'Resilience' section)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -166,6 +169,14 @@ def main(argv=None) -> int:
         "tau_bit_exact_vs_golden": bool(
             same and np.array_equal(tau_golden, tau_resumed)),
     }
+    if args.report:
+        from scdna_replication_tools_tpu_torch.tools.pert_report import (
+            render_report,
+        )
+
+        report = render_report(work / "resumed.jsonl")
+        pathlib.Path(args.report).write_text(report + "\n")
+        checks["report_has_resilience_section"] = "## Resilience" in report
     verdict = {
         "metric": "chaos_smoke_kill_and_resume",
         "kill_at": args.kill_at,

@@ -63,7 +63,14 @@ from test_torch_resilience import (  # noqa: F401
 )
 
 
-_CACHE_DIR_AT_IMPORT = jax.config.jax_compilation_cache_dir
+# jax_compilation_cache_dir before this module's first test (a module
+# that ran earlier in the same xdist worker may have set it)
+_CACHE_DIR_AT_START = []
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cache_dir_at_start():
+    _CACHE_DIR_AT_START.append(jax.config.jax_compilation_cache_dir)
 
 
 @pytest.fixture(autouse=True)
@@ -475,4 +482,4 @@ def test_jax_runs_leave_the_compile_cache_alone():
     cache (its default 'auto' does so for the whole process, and the
     later tests of the same worker would read programs other workers
     wrote there)."""
-    assert jax.config.jax_compilation_cache_dir == _CACHE_DIR_AT_IMPORT
+    assert jax.config.jax_compilation_cache_dir == _CACHE_DIR_AT_START[0]
