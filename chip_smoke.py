@@ -221,7 +221,8 @@ Phases, each printing its own lines:
     of 1024 x 8192): every lane bit for bit a solo launch on its
     operands, the plain versions within ``TOL`` (and under a flat
     prior), Adam's lane axis with a parked lane bit for bit, each timed
-    with its bound;
+    with its bound (Adam's beside one ``torch._fused_adam_`` over the W
+    lane tensors, a step tensor per lane and one learning rate);
 11b. ``[readers]``, the port's run-log readers on this run's own logs,
     in four threads started when the drain ends and joined after the
     lanes (:class:`ReadersPhase`): every command is ``python -m
@@ -251,8 +252,37 @@ Phases, each printing its own lines:
     timeout) and all sharing cuda:0, on the phase-4 frames: first
     ``scRT(cn_s, cn_g1, num_shards=2)`` with every other option at its
     default (heartbeats and the run log in the temporary directory),
-    then ``num_shards=2, loci_shards=2`` on the categorical path at its
-    depth cut (``MAX_ITER``).  Checks: every rank exits 0 within 420 s
+    then ``[elastic 2x1]``, the same run durable (``checkpoint_dir`` in
+    the temporary directory, ``checkpoint_every=ELASTIC_EVERY``) with
+    rank 1 killed in step 2 (``ELASTIC_KILL``), then ``num_shards=2,
+    loci_shards=2`` on the categorical path at its depth cut
+    (``MAX_ITER``).  [elastic 2x1]'s checks: rank 1 exits non-zero and
+    rank 0 exits 0 within 420 s, rank 0's run log (valid under the
+    port's schema) holds one ``degrade mesh_shrink`` (hostloss, cells 2
+    -> 1) and step 2's resharded resume, rank 0 ends on one rank with
+    the recovery bars, rep and CN within 0.005 of phase 6's and tau r no
+    more than 0.01 below, ``aggregate_health`` shows rank 1 lost
+    (presumed lost, its heartbeat every ``ELASTIC_HEARTBEAT_S``) and
+    rank 0 done, the ``mesh-shrunk`` rule fires, and the dense and
+    sparse fused pairs and Adam launch on one rank after the shrink
+    (the run's launches, both ranks', count in the kernels line);
+    printed: the seconds from the kill to the re-formed group and to
+    step 2's fit on one rank, rank 0's ``infer`` wall against [sharded
+    2x1]'s, the checkpoint bytes saved and left, the peak.  Last, once
+    phase 11's drain is over (``AFTER_DRAIN``: beside it, four ranks
+    reloading full generations passed the machine's 96 GiB),
+    ``[elastic 2x2]``: the default run on a 2 x 2 grid, durable, with
+    rank 3's process ended outright in step 2 (``ELASTIC_EXIT``: ``os._exit``, nothing
+    marks it lost, so the survivors' rendezvous waits out its settle
+    window); checks: the survivors exit 0 and rank 3 non-zero, the three
+    return the same frames, ranks 0 and 1 end on 1 x 2 and rank 2 stands
+    by, one ``degrade mesh_shrink`` (2 x 2 -> 1 x 2) and step 2's
+    resharded resume in a valid log, the recovery bars, rep and CN within
+    0.005 of phase 6's and tau r no more than 0.01 below, the fused pairs
+    and Adam on both ranks of 1 x 2 after the shrink; printed: each
+    survivor's seconds from the kill to the rung, the re-formed group and
+    the fit on 1 x 2, the ``infer`` wall against [sharded 2x1]'s, the
+    checkpoint bytes, the peak.  The other runs' checks: every rank exits 0 within 420 s
     and returns the same four frames; every rank launched the dense and
     sparse fused pairs and Adam (its counts summed into the path's); the
     recovery bars; the 2 x 1 run within 0.005 of phase 6's rep and CN
@@ -3613,9 +3643,34 @@ class HostMemory:
 # config (every option at its default; heartbeats on, so that every rank
 # publishes one) and the categorical path of phase 4 on a 2 x 2 grid at
 # its depth cut (MAX_ITER)
+# [elastic 2x1]: the 2 x 1 default run again, durable, with rank 1 killed
+# in step 2 (its process preempted: ELASTIC_KILL) after the generation of
+# step 2's fourth chunk was committed; rank 0 walks the elastic rung and
+# ends the run on one rank
+ELASTIC_EVERY = 4           # checkpoint_every (chunks of 25 iterations)
+ELASTIC_KILL = "preempt@step2/chunk#6@proc1"
+# the heartbeat's cadence in the elastic run (s): the killed rank's goes
+# stale (presumed_lost past 30 of them) before the survivor ends
+ELASTIC_HEARTBEAT_S = 0.5
+# [elastic 2x2]: the default run on a 2 x 2 grid, durable, with rank 3's
+# process ended outright (os._exit: no handler runs, nothing marks it lost, so the
+# survivors' rendezvous waits out RENDEZVOUS_SETTLE_SECONDS) at step 2's
+# sixth chunk; ranks 0 and 1 end on a 1 x 2 grid, rank 2 stands by
+ELASTIC_EXIT = ("step2/chunk", 6, 3)
+# the rank each elastic run loses
+ELASTIC_LOST = {"elastic 2x1": 1, "elastic 2x2": ELASTIC_EXIT[2]}
+# runs that start only once phase 11's drain is over (ShardedPhase.
+# drained): four ranks reloading full generations beside the drain pass
+# the machine's 96 GiB of host memory
+AFTER_DRAIN = {"elastic 2x2"}
 SHARDED = {
     "2x1": ((2, 1), dict()),
+    "elastic 2x1": ((2, 1), dict(checkpoint_every=ELASTIC_EVERY,
+                                 faults=ELASTIC_KILL,
+                                 heartbeat_interval_seconds=(
+                                     ELASTIC_HEARTBEAT_S))),
     "2x2": ((2, 2), dict(OFF, mirror_rescue=False)),
+    "elastic 2x2": ((2, 2), dict(checkpoint_every=ELASTIC_EVERY)),
 }
 # bars of the sharded runs against the one-rank runs of the same script
 SHARDED_ACC = 0.005        # rep and CN accuracy, 2 x 1 against default
@@ -3723,9 +3778,18 @@ def _sharded_rank(rank, world, store, frames_path, run, tmp, spawned_at,
         cn_s, cn_g1 = pickle.loads(Path(frames_path).read_bytes())
         (cells, loci), options = SHARDED[run]
         options = dict(options, num_shards=cells, loci_shards=loci)
+        elastic = run.startswith("elastic")
         if run == "2x1":
             options["heartbeat_dir"] = str(tmp / "health")
             options["telemetry_path"] = str(tmp / "logs")
+        if elastic:
+            tag = run.replace(" ", "_")
+            options["heartbeat_dir"] = str(tmp / f"{tag}_health")
+            options["telemetry_path"] = str(tmp / f"{tag}_logs")
+            options["checkpoint_dir"] = str(tmp / f"{tag}_ck")
+            _instrument_elastic(rec)
+            if run == "elastic 2x2" and rank == ELASTIC_EXIT[2]:
+                _exit_at(*ELASTIC_EXIT[:2], tmp / f"{tag}.kill")
         scrt = scRT(cn_s, cn_g1, **options)
         dev = scrt.device
         torch.cuda.synchronize()
@@ -3742,6 +3806,11 @@ def _sharded_rank(rank, world, store, frames_path, run, tmp, spawned_at,
         rec["run_log_path"] = scrt.run_log_path
         rec["digest"] = [int(pd.util.hash_pandas_object(o).sum())
                          for o in (out_s, supp_s, out_g1, supp_g1)]
+        rec.update(recovery(out_s, supp_s))
+        rec["standby"] = scrt.steps[1] is None
+        if rec["standby"]:
+            # a survivor beyond the smaller grid: the frames only
+            return
         rec["steps"] = [{
             "iters": st.fit.num_iters, "dispatched":
             st.fit.timings["dispatched"], "ms_per_iter":
@@ -3755,15 +3824,27 @@ def _sharded_rank(rank, world, store, frames_path, run, tmp, spawned_at,
         rec["rescue"] = scrt.mirror_rescue_stats
         rec["step2_globals"] = _fitted_globals(scrt.steps[1], scrt.mesh)
         rec["rows"] = [len(out_s), len(out_g1)]
-        rec.update(recovery(out_s, supp_s))
+        if elastic:
+            # the survivors end on the smaller grid (2 x 1: one rank, at
+            # phase 6's shapes, where phases 4 and 6 hold the kernels)
+            rec["mesh_after"] = dict(scrt.mesh.shape) if scrt.mesh else {}
+            return
         rec["allreduce_ms"] = _time_allreduce(scrt)
         if rank == 0:
             results = {name: {"max_abs_err": 0.0} for name in TPU_KERNEL}
             check_main_path_shapes(dev, scrt, results, f"sharded {run}")
             rec["kernels"] = {k: v for k, v in results.items() if "main" in v}
-    except BaseException:
+    except BaseException as exc:
         import traceback
 
+        if run.startswith("elastic") and rank == 1 \
+                and type(exc).__name__ == "SimulatedPreemption":
+            # the kill the elastic run injects: this rank is the lost one
+            from scdna_replication_tools_tpu_torch.ops import _cuda
+
+            rec["killed"] = f"{type(exc).__name__}: {exc}"
+            rec["launches"] = dict(_cuda.LAUNCHES)
+            raise
         traceback.print_exc(file=log)
         check(False, f"[sharded {run}] rank {rank} failed: "
               + traceback.format_exc().strip().splitlines()[-1])
@@ -3771,6 +3852,71 @@ def _sharded_rank(rank, world, store, frames_path, run, tmp, spawned_at,
         rec["failures"] = list(FAILURES)
         log.flush()
         (tmp / f"{run}.rank{rank}.pkl").write_bytes(pickle.dumps(rec))
+        # the group (one the elastic rung re-formed included) ends before
+        # the process does: left to the interpreter's exit, a re-formed
+        # gloo group's threads aborted a survivor (SIGABRT) on the CPU
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _exit_at(site: str, hit: int, stamp: Path) -> None:
+    """End this process outright (``os._exit``: no handler runs, nothing
+    marks the rank lost) at the ``hit``-th pass of the fault site
+    ``site``, after writing the time to ``stamp``."""
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    point, hits = faults.point, [0]
+
+    def exiting(name):
+        if name == site:
+            hits[0] += 1
+            if hits[0] == hit:
+                stamp.write_text(repr(time.time()))
+                os._exit(3)
+        return point(name)
+    faults.point = exiting
+
+
+def _instrument_elastic(rec: dict) -> None:
+    """Timestamps of the elastic run in this spawned rank, by wrapping
+    three functions (no behaviour changes): the injected kill
+    (``fault_unix``), the rung (``rung_unix``, ``reformed_unix``, with the
+    launches counted before it) and the first fit entered after it
+    (``refit_unix``: step 2's resumed fit on one rank, whose first chunk
+    follows at once)."""
+    from scdna_replication_tools_tpu_torch.infer import runner
+    from scdna_replication_tools_tpu_torch.ops import _cuda
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    point = faults.point
+    rung = runner.PertInference._elastic_rung
+    fit = runner.PertInference._fit_map
+
+    def timed_point(site):
+        try:
+            return point(site)
+        except BaseException:
+            rec.setdefault("fault_unix", time.time())
+            raise
+
+    def timed_rung(self, *args, **kwargs):
+        rec["rung_unix"] = time.time()
+        rec["launches_before"] = dict(_cuda.LAUNCHES)
+        try:
+            return rung(self, *args, **kwargs)
+        finally:
+            rec["reformed_unix"] = time.time()
+
+    def timed_fit(self, *args, **kwargs):
+        if "rung_unix" in rec:
+            rec.setdefault("refit_unix", time.time())
+        return fit(self, *args, **kwargs)
+
+    faults.point = timed_point
+    runner.PertInference._elastic_rung = timed_rung
+    runner.PertInference._fit_map = timed_fit
 
 
 def _time_allreduce(scrt, reps: int = 20) -> float:
@@ -3813,6 +3959,7 @@ class ShardedPhase:
         self.procs: list = []
         self.runs: dict = {}
         self.t0 = time.perf_counter()
+        self.drained = threading.Event()
         self.thread = threading.Thread(target=self._run_all, daemon=True)
         self.thread.start()
 
@@ -3823,6 +3970,8 @@ class ShardedPhase:
         for run, ((cells, loci), _) in SHARDED.items():
             world = cells * loci
             store = self.tmp / f"{run}.store"
+            if run in AFTER_DRAIN:
+                self.drained.wait()
             t0 = time.perf_counter()
             procs = [ctx.Process(target=_sharded_rank, args=(
                 rank, world, str(store), str(self.tmp / "frames.pkl"), run,
@@ -3845,6 +3994,7 @@ class ShardedPhase:
     def finish(self, record, results, by_path) -> None:
         import pickle
 
+        self.drained.set()
         self.thread.join()
         try:
             self._finish(record, results, by_path)
@@ -3874,6 +4024,21 @@ class ShardedPhase:
                              if pk.exists() else {"failures": []})
             for r in ranks:
                 FAILURES.extend(r.get("failures", []))
+            if run.startswith("elastic"):
+                lost, codes = ELASTIC_LOST[run], info["exitcodes"]
+                check(all(c == 0 for k, c in enumerate(codes) if k != lost)
+                      and codes[lost] not in (0, None)
+                      and not info["killed"],
+                      f"[{run}] the survivors exited 0 and the killed rank "
+                      f"{lost} non-zero (exit codes {codes}, "
+                      f"{info['killed']} killed at the {SHARDED_RUN_S:.0f} "
+                      f"s limit) in {info['wall_s']:.1f} s")
+                if "steps" in ranks[0]:
+                    report = self._report_elastic if run == "elastic 2x1" \
+                        else self._report_elastic_2x2
+                    report(run, ranks, record, by_path)
+                rec[run] = {"wall_s": info["wall_s"], "ranks": ranks}
+                continue
             check(info["exitcodes"] == [0] * world and not info["killed"],
                   f"[sharded {run}] {world} ranks exited 0 (exit codes "
                   f"{info['exitcodes']}, {info['killed']} killed at the "
@@ -3992,6 +4157,230 @@ class ShardedPhase:
                   f"{tag}: step 2's fitted rho within {SHARDED_RHO} (worst "
                   f"{drho:.3e}) and a {mine['a']:.6g} within {SHARDED_A} "
                   f"(rel {da:.3e}) of the categorical run's {theirs['a']:.6g}")
+
+    def _report_elastic(self, run, ranks, record, by_path) -> None:
+        """[elastic 2x1]: the run log's rung, the resharded resume, the
+        recovery bars against phase 6, the killed rank's heartbeat and the
+        ``mesh-shrunk`` rule, the launches after the shrink, and the
+        seconds from the kill to the survivor's fit on one rank."""
+        from scdna_replication_tools_tpu_torch.obs import alerts
+        from scdna_replication_tools_tpu_torch.obs.heartbeat import (
+            aggregate_health,
+        )
+        from scdna_replication_tools_tpu_torch.obs.schema import validate_run
+
+        tag = f"[{run}]"
+        r0, r1 = ranks
+        steps = r0["steps"]
+        print(f"{tag} scRT(num_shards=2, checkpoint_dir=D, checkpoint_every="
+              f"{ELASTIC_EVERY}, faults={ELASTIC_KILL!r}), every other "
+              "option at its default, on ranks sharing the card")
+        log = Path(r0["run_log_path"] or "")
+        events = [json.loads(line) for line in log.read_text()
+                  .splitlines()] if log.is_file() else []
+        shrinks = [e for e in events if e["event"] == "degrade"
+                   and e.get("action") == "mesh_shrink"]
+        resumes = [e for e in events if e["event"] == "resume"
+                   and e.get("resharded")]
+        check(len(shrinks) == 1 and shrinks[0]["error_class"] == "hostloss"
+              and shrinks[0]["from_topology"]["mesh_axes"] == {"cells": 2}
+              and shrinks[0]["to_topology"]["mesh_axes"] == {"cells": 1},
+              f"{tag} one degrade mesh_shrink (hostloss, cells 2 -> 1): "
+              + json.dumps([{k: e.get(k) for k in (
+                  "step", "error_class", "from_topology", "to_topology")}
+                  for e in shrinks]))
+        check(any(e["step"] == "step2" and e["action"] == "resumed"
+                  for e in resumes),
+              f"{tag} step 2 resumed resharded: "
+              + json.dumps([(e["step"], e["action"], e["from_iter"])
+                            for e in resumes]))
+        errors = validate_run(log) if events else ["no log"]
+        check(not errors, f"{tag} the run log validates: {errors[:3]}")
+        check(r0.get("mesh_after") == {} and "killed" in r1,
+              f"{tag} rank 1 killed ({r1.get('killed')}), rank 0 ended on "
+              f"one rank ({r0.get('mesh_after')})")
+        check(r0["rep_acc"] > 0.80 and r0["cn_acc"] > 0.90
+              and r0["tau_r"] > 0.8 and 0.5 < r0["lambda"] < 0.95,
+              f"{tag}: rep {r0['rep_acc']:.4f} > 0.80, CN "
+              f"{r0['cn_acc']:.4f} > 0.90, tau r {r0['tau_r']:.4f} > 0.8, "
+              f"lambda {r0['lambda']:.4f} in (0.5, 0.95)")
+        ref = record["main_default"]
+        for key in ("rep_acc", "cn_acc"):
+            check(abs(r0[key] - ref[key]) <= SHARDED_ACC,
+                  f"{tag}: {key} {r0[key]:.4f} within {SHARDED_ACC} of the "
+                  f"one-rank default run's {ref[key]:.4f}")
+        check(r0["tau_r"] >= ref["tau_r"] - SHARDED_TAU,
+              f"{tag}: tau r {r0['tau_r']:.4f} >= default "
+              f"{ref['tau_r']:.4f} - {SHARDED_TAU}")
+        agg = aggregate_health(str(self.tmp / "elastic_2x1_health"))
+        hosts = {h["rank"]: h for h in agg["hosts"]}
+        lost = hosts.get(1)
+        fired = [v["name"] for v in alerts.evaluate(alerts.load_rules(), agg)
+                 if v["fired"]]
+        print(f"  aggregate_health: states {json.dumps(agg['states'])}, "
+              f"missing {agg['missing_ranks']}, freshness "
+              + json.dumps({k: h["freshness"] for k, h in hosts.items()})
+              + f"; rules fired {fired}")
+        check((lost is None or lost["freshness"] == "presumed_lost")
+              and hosts.get(0, {}).get("doc", {}).get("state") == "done",
+              f"{tag} aggregate_health shows rank 1 lost (missing or "
+              "presumed_lost) and rank 0 done")
+        check("mesh-shrunk" in fired, f"{tag} the mesh-shrunk rule fires")
+        before = r0.get("launches_before", {})
+        after = {k: v - before.get(k, 0) for k, v in r0["launches"].items()}
+        check(all(after[k] > 0 for k in CATEGORICAL),
+              f"{tag} the dense and sparse fused pairs and Adam launched on "
+              f"one rank after the shrink: {json.dumps(after)}")
+        by_path[run] = {k: r0["launches"][k] + r1.get("launches", {}).get(
+            k, 0) for k in r0["launches"]}
+        nan = float("nan")
+        kill = r1.get("fault_unix", nan)
+        for key in ("rung_unix", "reformed_unix", "refit_unix"):
+            r0.setdefault(key, nan)
+        check(all(np.isfinite([kill, r0["reformed_unix"],
+                               r0["refit_unix"]])),
+              f"{tag} the kill, the re-formed group and the fit on one "
+              "rank were each seen")
+        ck = self.tmp / "elastic_2x1_ck"
+        disk = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+        saved = sum(e.get("bytes") or 0 for e in events
+                    if e["event"] == "checkpoint" and e["action"] == "save")
+        sharded = (record.get("sharded", {}).get("2x1") or {}).get("ranks")
+        ref_wall = sharded[0]["wall_s"] if sharded else float("nan")
+        print(f"  kill at rank 1's step2/chunk#6; rank 0: the group "
+              f"re-formed {r0['reformed_unix'] - kill:.2f} s after it (the "
+              f"rung entered at {r0['rung_unix'] - kill:.2f} s), step 2's fit "
+              f"re-entered on one rank at {r0['refit_unix'] - kill:.2f} s; "
+              f"infer('pert') {r0['wall_s']:.2f} s against [sharded 2x1]'s "
+              f"{ref_wall:.2f} s; step 1/2/3 "
+              + " / ".join(f"{s['ms_per_iter']:.3f}" for s in steps)
+              + " ms/iteration ("
+              + " / ".join(f"{s['iters']} of {s['dispatched']}"
+                           if s["dispatched"] else f"{s['iters']} restored"
+                           for s in steps)
+              + f" counted of dispatched on one rank); checkpoints: rank 0 "
+              f"saved {saved} bytes, D holds {disk} bytes at the end; peak "
+              f"{r0['peak_bytes']} bytes; launches after the shrink "
+              + json.dumps(after))
+        print(f"  rescue {json.dumps(r0['rescue'])}; one-rank default: rep "
+              f"{ref['rep_acc']:.4f}, CN {ref['cn_acc']:.4f}, tau r "
+              f"{ref['tau_r']:.4f}; elastic: rep {r0['rep_acc']:.4f}, CN "
+              f"{r0['cn_acc']:.4f}, tau r {r0['tau_r']:.4f}, lambda "
+              f"{r0['lambda']:.4f}")
+        r0["kill_to_reformed_s"] = r0["reformed_unix"] - kill
+        r0["kill_to_refit_s"] = r0["refit_unix"] - kill
+        r0["checkpoint_saved_bytes"] = saved
+        r0["checkpoint_dir_bytes"] = disk
+
+    def _report_elastic_2x2(self, run, ranks, record, by_path) -> None:
+        """[elastic 2x2]: rank 3 ended outright; the three survivors'
+        frames, the 1 x 2 grid and the standby rank, the run log's rung,
+        the recovery bars against phase 6, the launches after the
+        shrink, and the seconds from the kill to the survivors' fit on
+        the smaller grid (the rendezvous's settle window inside)."""
+        from scdna_replication_tools_tpu_torch.obs.schema import validate_run
+        from scdna_replication_tools_tpu_torch.parallel.distributed import (
+            RENDEZVOUS_SETTLE_SECONDS,
+        )
+
+        tag = f"[{run}]"
+        lost = ELASTIC_LOST[run]
+        alive = [r for k, r in enumerate(ranks) if k != lost]
+        r0 = alive[0]
+        print(f"{tag} scRT(num_shards=2, loci_shards=2, checkpoint_dir=D, "
+              f"checkpoint_every={ELASTIC_EVERY}), every other option at "
+              f"its default, rank {lost} ended outright (os._exit) at the pass "
+              f"{ELASTIC_EXIT[1]} of {ELASTIC_EXIT[0]}")
+        check(all(r.get("digest") == r0["digest"] for r in alive),
+              f"{tag} the {len(alive)} survivors return the same four "
+              "output frames")
+        check([r.get("mesh_after") for r in alive[:2]]
+              == [{"cells": 1, "loci": 2}] * 2
+              and [r.get("standby") for r in alive] == [False, False, True],
+              f"{tag} ranks 0 and 1 end on a 1 x 2 grid "
+              f"({[r.get('mesh_after') for r in alive[:2]]}) and rank 2 "
+              f"stands by ({[r.get('standby') for r in alive]})")
+        log = Path(r0["run_log_path"] or "")
+        events = [json.loads(line) for line in log.read_text()
+                  .splitlines()] if log.is_file() else []
+        shrinks = [e for e in events if e["event"] == "degrade"
+                   and e.get("action") == "mesh_shrink"]
+        check(len(shrinks) == 1 and shrinks[0]["error_class"] == "hostloss"
+              and shrinks[0]["from_topology"]["mesh_axes"]
+              == {"cells": 2, "loci": 2}
+              and shrinks[0]["to_topology"]["mesh_axes"]
+              == {"cells": 1, "loci": 2},
+              f"{tag} one degrade mesh_shrink (hostloss, 2 x 2 -> 1 x 2): "
+              + json.dumps([{k: e.get(k) for k in (
+                  "step", "error_class", "from_topology", "to_topology")}
+                  for e in shrinks]))
+        check(any(e["event"] == "resume" and e.get("resharded")
+                  and e["step"] == "step2" and e["action"] == "resumed"
+                  for e in events),
+              f"{tag} step 2 resumed resharded")
+        errors = validate_run(log) if events else ["no log"]
+        check(not errors, f"{tag} the run log validates: {errors[:3]}")
+        check(r0["rep_acc"] > 0.80 and r0["cn_acc"] > 0.90
+              and r0["tau_r"] > 0.8 and 0.5 < r0["lambda"] < 0.95,
+              f"{tag}: rep {r0['rep_acc']:.4f} > 0.80, CN "
+              f"{r0['cn_acc']:.4f} > 0.90, tau r {r0['tau_r']:.4f} > 0.8, "
+              f"lambda {r0['lambda']:.4f} in (0.5, 0.95)")
+        ref = record["main_default"]
+        for key in ("rep_acc", "cn_acc"):
+            check(abs(r0[key] - ref[key]) <= SHARDED_ACC,
+                  f"{tag}: {key} {r0[key]:.4f} within {SHARDED_ACC} of the "
+                  f"one-rank default run's {ref[key]:.4f}")
+        check(r0["tau_r"] >= ref["tau_r"] - SHARDED_TAU,
+              f"{tag}: tau r {r0['tau_r']:.4f} >= default "
+              f"{ref['tau_r']:.4f} - {SHARDED_TAU}")
+        after = [{k: v - r.get("launches_before", {}).get(k, 0)
+                  for k, v in r["launches"].items()} for r in alive[:2]]
+        check(all(a[k] > 0 for a in after for k in CATEGORICAL),
+              f"{tag} the dense and sparse fused pairs and Adam launched on "
+              "both ranks of the 1 x 2 grid after the shrink: "
+              + json.dumps(after))
+        by_path[run] = {k: sum(r.get("launches", {}).get(k, 0)
+                               for r in alive) for k in r0["launches"]}
+        nan = float("nan")
+        stamp = self.tmp / f"{run.replace(' ', '_')}.kill"
+        kill = float(stamp.read_text()) if stamp.is_file() else nan
+        for r in alive:
+            for key in ("rung_unix", "reformed_unix", "refit_unix"):
+                r.setdefault(key, nan)
+        check(bool(np.isfinite([kill, r0["reformed_unix"],
+                                r0["refit_unix"]]).all()),
+              f"{tag} the kill, the re-formed group and the fit on the "
+              "1 x 2 grid were each seen")
+        ck = self.tmp / "elastic_2x2_ck"
+        disk = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+        saved = sum(e.get("bytes") or 0 for e in events
+                    if e["event"] == "checkpoint" and e["action"] == "save")
+        sharded = (record.get("sharded", {}).get("2x1") or {}).get("ranks")
+        ref_wall = sharded[0]["wall_s"] if sharded else nan
+        print(f"  kill at rank {lost}'s {ELASTIC_EXIT[0]}#{ELASTIC_EXIT[1]}; "
+              "the rung entered / the group re-formed / the fit re-entered "
+              "on the smaller grid, seconds after it: "
+              + "; ".join(f"rank {k} {r['rung_unix'] - kill:.2f} / "
+                          f"{r['reformed_unix'] - kill:.2f} / "
+                          f"{r['refit_unix'] - kill:.2f}"
+                          for k, r in enumerate(alive))
+              + f" (settle window {RENDEZVOUS_SETTLE_SECONDS:.1f} s); "
+              f"infer('pert') rank 0 {r0['wall_s']:.2f} s against [sharded "
+              f"2x1]'s {ref_wall:.2f} s; step 1/2/3 "
+              + " / ".join(f"{st['ms_per_iter']:.3f}" for st in r0["steps"])
+              + f" ms/iteration; checkpoints: rank 0 logged {saved} bytes "
+              f"saved, D holds {disk} bytes at the end; peak "
+              f"{max(r.get('peak_bytes', 0) for r in alive)} bytes; "
+              "launches after the shrink " + json.dumps(after))
+        print(f"  rescue {json.dumps(r0.get('rescue'))}; one-rank default: "
+              f"rep {ref['rep_acc']:.4f}, CN {ref['cn_acc']:.4f}, tau r "
+              f"{ref['tau_r']:.4f}; elastic: rep "
+              f"{r0['rep_acc']:.4f}, CN {r0['cn_acc']:.4f}, tau r "
+              f"{r0['tau_r']:.4f}, lambda {r0['lambda']:.4f}")
+        r0["kill_to_reformed_s"] = r0["reformed_unix"] - kill
+        r0["kill_to_refit_s"] = r0["refit_unix"] - kill
+        r0["checkpoint_saved_bytes"] = saved
+        r0["checkpoint_dir_bytes"] = disk
 
     def close(self) -> None:
         import shutil
@@ -5424,15 +5813,33 @@ def check_lanes(dev, results) -> None:
                  p, g, m, v, scal_a, 0.8, 0.99)),
              "plain_ms": time_ms(lambda: ak.adam_update_plain(
                  p, g, m, v, scal_a, 0.8, 0.99), reps=5, warmup=1),
-             "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
-             "library_ms": None}
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+        # the library's counterpart (used nowhere in the port): one
+        # torch._fused_adam_ over the W lanes' tensors, a step tensor per
+        # lane and one learning rate (it takes no rate per lane), on
+        # copies of the same operands
+        lp, lm, lv = p.clone(), m.clone(), v.clone()
+        steps = [torch.tensor(float(count[b]), device=dev)
+                 for b in range(W)]
+
+        def lib():
+            torch._fused_adam_(
+                [lp[b] for b in range(W)], [g[b] for b in range(W)],
+                [lm[b] for b in range(W)], [lv[b] for b in range(W)], [],
+                steps, lr=0.05, beta1=0.8, beta2=0.99, weight_decay=0.0,
+                eps=1e-8, amsgrad=False, maximize=False)
+        t.update(library_ms=time_ms(lib), library_ms_single=time_single_ms(
+            lib), library="torch._fused_adam_ over the lane tensors")
+        del lp, lm, lv
         entry.setdefault("by_width", {})[W] = t
         if W == SERVE_WIDTH:
             entry.update(t)
         print(f"  adam_lanes {tuple(shape)}: kernel {t['ms']:.4f} ms, "
               f"single-call {t['ms_single']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
-              "library call takes a learning rate and step per lane")
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"torch._fused_adam_ over the {W} lane tensors (a step per "
+              f"lane, one learning rate) {t['library_ms']:.4f} ms, single "
+              f"{t['library_ms_single']:.4f} ms")
         del p, g, m, v
         torch.cuda.empty_cache()
 
@@ -5887,6 +6294,7 @@ def main() -> int:
     sharded = ShardedPhase(frames, MUFU_PER_S)
     by_path["serve"], second_life, first_life = serving(
         dev, record, record["main_default"], spool, early)
+    sharded.drained.set()
     mark("serve")
     # the readers on this run's logs and the drain's spool, beside the
     # last phases; the spool goes when they are joined
@@ -5941,8 +6349,8 @@ def main() -> int:
                     results[name].get("main", {}).items()},
         **({"launch_paths": results[name]["launch_paths"]}
            if "launch_paths" in results[name] else {}),
-        **({"by_width": {w: {k: t[k] for k in ("ms", "plain_ms",
-                                               "bound_ms", "bound_by")}
+        **({"by_width": {w: {k: t.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                          for w, t in results[name]["by_width"].items()}}
            if "by_width" in results[name] else {}),
     } for name in TPU_KERNEL]

@@ -99,9 +99,8 @@ class scRT:
 
     Keyword surface and defaults of the JAX ``scRT``; ``device`` selects
     where the fit runs (None = the GPU, raising when there is none).
-    ``backend``, ``cuda`` and ``elastic_mesh`` only act inside features
-    the port lacks, and are accepted and unused (the config hash records
-    the JAX default of the one it hashes: ``config.UNPORTED_FIELDS``).
+    ``backend`` and ``cuda`` only act inside features the port lacks,
+    and are accepted and unused.
 
     The compiled-program store: ``executable_cache_dir=D`` on the card
     captures each fit's iteration into CUDA graphs once per program and
@@ -123,6 +122,14 @@ class scRT:
     returns the same output frames.  ``num_shards`` None or 0 takes every
     rank of the group (one rank, the plain run, without a group); a
     grid of more than one rank without a group raises ``ValueError``.
+    With ``checkpoint_dir`` and ``elastic_mesh`` (JAX's default, True)
+    a lost rank or a repeated OOM walks JAX's elastic rung: the
+    surviving ranks re-form a group at half the cells extent and resume
+    the last committed generation there in the same ``infer`` call
+    (``degrade mesh_shrink`` events in the run log); a survivor beyond
+    the smaller grid returns the frames its new rank 0 sends, and
+    ``scRT.mesh`` is the grid the run ended on.  ``elastic_mesh=False``
+    aborts resumable on every surviving rank instead.
 
     Durable runs as in the JAX package: ``checkpoint_dir`` checkpoints
     every step (and every ``checkpoint_every`` chunks inside a
@@ -210,6 +217,7 @@ class scRT:
             checkpoint_every=checkpoint_every, faults=faults,
             watchdog_compile_seconds=watchdog_compile_seconds,
             watchdog_chunk_seconds=watchdog_chunk_seconds,
+            elastic_mesh=elastic_mesh,
             heartbeat_dir=heartbeat_dir,
             heartbeat_interval_seconds=heartbeat_interval_seconds,
             request_id=request_id, slab_width=slab_width,
@@ -343,7 +351,6 @@ class scRT:
                     clone_idx_s=_clone_idx(self.cn_s, s_data.cell_ids),
                     clone_idx_g1=_clone_idx(self.cn_g1, g1_data.cell_ids),
                     num_clones=len(clone_ids), device=self.device)
-                self.mesh = inference.mesh
             # the runner accumulates its phases into the same ledger
             inference.phases = timer
             # the run's program store holds the fits' programs and, after
@@ -352,45 +359,14 @@ class scRT:
                     self.config.executable_cache_dir,
                     aotcache.program_config_digest(self.config),
                     inference._bucket()):
-                step1, step2, step3 = inference.run()
-                self.mirror_rescue_stats = inference.mirror_rescue_stats
-                self.mirror_rescue_fit = inference.rescue_fit
-
-                # the packaging decode and the QC, traced as one block
-                with profiling.trace(self.config.profile_dir, label="package"):
-                    with timer.phase("package"):
-                        with torch.no_grad():
-                            lamb = float(_sites(
-                                step1.spec, step1.fit.params,
-                                step1.fixed)["lamb"].reshape(-1)[0])
-                        qc_collect = {} if self.config.qc else None
-                        cn_s_out, supp_s_out = package_step_output(
-                            self.cn_s, inference._step2_data, step2, lamb,
-                            step1.fit.losses, step2.fit.losses, c,
-                            mirror_rescue_stats=inference.mirror_rescue_stats,
-                            qc_collect=qc_collect,
-                            qc_entropy_thresh=self.config.qc_entropy_thresh,
-                            phase_prefix="package_s",
-                            hmm_self_prob=self.config.cn_hmm_self_prob,
-                            mesh=self.mesh)
-                    if qc_collect is not None \
-                            and not qc_collect.get("degraded"):
-                        # a 'degraded' marker means the packaging
-                        # decode's OOM ladder dropped the entropy
-                        # surfaces: the QC table has no inputs then (the
-                        # drop is a degrade event)
-                        self._cell_qc_df = inference.build_cell_qc(
-                            step2, inference._step2_data, qc_collect)
-                    with timer.phase("package"):
-                        if step3 is not None:
-                            cn_g1_out, supp_g1_out = package_step_output(
-                                self.cn_g1, inference._step3_data, step3, lamb,
-                                step1.fit.losses, step3.fit.losses, c,
-                                phase_prefix="package_g1",
-                                hmm_self_prob=self.config.cn_hmm_self_prob,
-                                mesh=self.mesh)
-                        else:
-                            cn_g1_out, supp_g1_out = None, None
+                try:
+                    outs = self._run_and_package(inference, timer, c)
+                except BaseException as exc:
+                    inference.release_standby(error=exc)
+                    raise
+                inference.release_standby(
+                    dict(outs=outs, cell_qc=self._cell_qc_df,
+                         rescue=self.mirror_rescue_stats))
             if self.config.profile_dir:
                 # the named ranges' device time as registry gauges, so
                 # run_end's snapshot carries them (the traces closed with
@@ -399,12 +375,69 @@ class scRT:
                     _feed_trace_scope_gauges(self.config.profile_dir,
                                              registry)
         self.phase_report = timer.report()
-        self.steps = (step1, step2, step3)
+        # the elastic rung's new rank 0 writes the log its lost rank 0
+        # began (RunLog.adopt)
+        self.run_log_path = run_log.path
         # the textfile's final refresh (a telemetry-off run has no run_end
         # snapshot); the registry then leaves the seam and stays readable
         # as scRT.metrics_registry
         registry.write_textfile()
         metrics_mod.uninstall(registry)
+        return outs
+
+    def _run_and_package(self, inference, timer, c):
+        """``inference.run()`` and the packaging of its steps into the
+        four frames and the QC table; on a standby rank of the elastic
+        rung, the frames the new rank 0 sends instead."""
+        step1, step2, step3 = inference.run()
+        self.mesh = inference.mesh
+        self.steps = (step1, step2, step3)
+        self.mirror_rescue_stats = inference.mirror_rescue_stats
+        self.mirror_rescue_fit = inference.rescue_fit
+        if inference.standby is not None:
+            got = inference.standby.receive()
+            if "error" in got:
+                raise RuntimeError("the elastic rung's smaller grid failed: "
+                                   + got["error"])
+            got = got["result"]
+            self._cell_qc_df = got["cell_qc"]
+            self.mirror_rescue_stats = got["rescue"]
+            return got["outs"]
+        # the packaging decode and the QC, traced as one block
+        with profiling.trace(self.config.profile_dir, label="package"):
+            with timer.phase("package"):
+                with torch.no_grad():
+                    lamb = float(_sites(
+                        step1.spec, step1.fit.params,
+                        step1.fixed)["lamb"].reshape(-1)[0])
+                qc_collect = {} if self.config.qc else None
+                cn_s_out, supp_s_out = package_step_output(
+                    self.cn_s, inference._step2_data, step2, lamb,
+                    step1.fit.losses, step2.fit.losses, c,
+                    mirror_rescue_stats=inference.mirror_rescue_stats,
+                    qc_collect=qc_collect,
+                    qc_entropy_thresh=self.config.qc_entropy_thresh,
+                    phase_prefix="package_s",
+                    hmm_self_prob=self.config.cn_hmm_self_prob,
+                    mesh=self.mesh)
+            if qc_collect is not None \
+                    and not qc_collect.get("degraded"):
+                # a 'degraded' marker means the packaging
+                # decode's OOM ladder dropped the entropy
+                # surfaces: the QC table has no inputs then (the
+                # drop is a degrade event)
+                self._cell_qc_df = inference.build_cell_qc(
+                    step2, inference._step2_data, qc_collect)
+            with timer.phase("package"):
+                if step3 is not None:
+                    cn_g1_out, supp_g1_out = package_step_output(
+                        self.cn_g1, inference._step3_data, step3, lamb,
+                        step1.fit.losses, step3.fit.losses, c,
+                        phase_prefix="package_g1",
+                        hmm_self_prob=self.config.cn_hmm_self_prob,
+                        mesh=self.mesh)
+                else:
+                    cn_g1_out, supp_g1_out = None, None
         return cn_s_out, supp_s_out, cn_g1_out, supp_g1_out
 
     def cell_qc(self):

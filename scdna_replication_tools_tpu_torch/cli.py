@@ -95,11 +95,14 @@ def infer_scrt_main(argv=None):
     from argparse import BooleanOptionalAction
     p.add_argument("--elastic-mesh", action=BooleanOptionalAction,
                    default=True,
-                   help="the recovery ladder's mesh-shrink rung of "
-                        "sharded fits; accepted and unused: sharded fits "
-                        "run (--num-shards), but a rank that loses a peer "
-                        "aborts resumable instead of shrinking the grid "
-                        "(the rung is ROADMAP A12's rest)")
+                   help="elastic mesh-shrink rung of the recovery "
+                        "ladder: on a lost rank or a repeated OOM in a "
+                        "sharded fit with --checkpoint-dir, the surviving "
+                        "ranks re-form a group at half the cells extent "
+                        "and continue from the last committed generation "
+                        "instead of aborting (PertConfig.elastic_mesh; "
+                        "each shrink is audited as a 'degrade "
+                        "mesh_shrink' event)")
     p.add_argument("--pad-cells-to", type=int, default=None,
                    help="pad the cells axes (S and G1) up to at least "
                         "this many entries with masked pad cells — the "

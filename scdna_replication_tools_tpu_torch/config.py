@@ -4,10 +4,10 @@ Port of ``scdna_replication_tools_tpu/config.py``: :class:`ColumnConfig`
 whole, and the :class:`PertConfig` fields the three-step fit, the mirror
 rescue, the adaptive controller, the model-health QC, the run log, span
 tracing, the profiled run, the compiled-program store, the durable runs,
-sharded fits and serving read.  The JAX config's other knobs (the
-elastic mesh rung, the backend-specific Adam paths) belong to modules
-not ported; :data:`UNPORTED_FIELDS` holds each at the JAX default that
-the port runs at.
+sharded fits with their elastic rung and serving read.  The JAX
+config's other knob (the backend-specific Adam paths) has no port:
+:data:`UNPORTED_FIELDS` holds it at the JAX default that the port runs
+at.
 """
 
 from __future__ import annotations
@@ -52,7 +52,6 @@ AOT_EXECUTION_ONLY_FIELDS = (
 # own fields: one setting hashes the same in both packages, which is
 # what the checkpoint manifest's resume gate compares.
 UNPORTED_FIELDS = {
-    "elastic_mesh": (True, "A12"),
     # one Adam path (the CUDA kernel, its plain version on the CPU):
     # JAX's backend-specific values have no counterpart
     "fused_adam": ("auto", "none"),
@@ -236,6 +235,13 @@ class PertConfig:
     # raises WatchdogTimeout, which aborts with a resumable checkpoint
     watchdog_compile_seconds: Optional[float] = None
     watchdog_chunk_seconds: Optional[float] = None
+    # the elastic rung of a sharded durable fit (infer/runner.py, JAX's
+    # field and default): a lost rank or a repeated OOM (the first OOM
+    # re-enters once on the same grid) re-forms the group over the
+    # surviving ranks at half the cells extent and resumes the last
+    # committed generation there, each rung a `degrade mesh_shrink`
+    # event; False aborts resumable on the first such failure
+    elastic_mesh: bool = True
     # live run-health heartbeat (obs/heartbeat.py): 'auto' writes
     # health/host_0.json inside checkpoint_dir when one is set and
     # nothing otherwise; a path names the directory; None/'off' disables

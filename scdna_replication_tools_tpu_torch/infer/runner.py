@@ -61,18 +61,34 @@ QC and the mirror rescue run per rank and gather the per-cell and
 per-bin results on the host, so every rank returns the same frames.
 Checkpoints are sharded generations (``infer/checkpoint.py``), and a
 checkpoint loads as full host arrays sliced for this run's grid,
-whatever grid wrote it.  A failure on any rank ends every rank's run:
+whatever grid wrote it.  A failure on any rank ends every rank's fit:
 the chunk read makes the verdicts common, and a collective whose peer
-died raises (``hostloss``: abort resumable).  JAX's elastic rung (a
-smaller grid after a host loss) is not ported.
+died raises (``hostloss``).
+
+JAX's elastic rung (``elastic_mesh``, on by default) runs on a sharded
+durable fit (``checkpoint_dir``): a lost rank, or an OOM that recurs
+after one re-entry on the same grid, makes every surviving rank leave
+the broken group and meet the others under the checkpoint directory
+(``parallel.distributed.Rendezvous``); the survivors re-form the group
+(``reform_group``) at half the cells extent (``parallel.mesh.
+shrink_grid``, JAX ``shrink_mesh``'s rule over the survivors), audit
+each rung as a ``degrade mesh_shrink`` event, and run every step again
+on the new grid in the same ``run``: the completed steps are restored
+from their checkpoints and the failed one resumes its last committed
+generation, both resharded.  A survivor beyond the smaller grid holds no
+block and receives the frames of its new rank 0 (``self.standby``).
+Where old rank 0 was lost, the new rank 0 takes over the commit, the
+manifest and the run log (``RunLog.adopt``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
+import traceback
 from typing import Optional, Tuple
 
 import numpy as np
@@ -131,8 +147,10 @@ from scdna_replication_tools_tpu_torch.ops.transforms import (
 from scdna_replication_tools_tpu_torch import layout
 from scdna_replication_tools_tpu_torch.parallel import distributed as dist_mod
 from scdna_replication_tools_tpu_torch.parallel.mesh import (
+    grid_topology,
     make_mesh,
     mesh_topology,
+    shrink_ladder,
 )
 from scdna_replication_tools_tpu_torch.utils import faults as faults_mod
 from scdna_replication_tools_tpu_torch.utils import profiling
@@ -165,6 +183,16 @@ def _finite(value):
     """float(value), or None when non-finite (strict JSON)."""
     v = float(value)
     return v if np.isfinite(v) else None
+
+
+class _Reformed(Exception):
+    """Raised by the elastic rung once the surviving ranks re-formed the
+    group: :meth:`PertInference.run` runs the steps again on the new
+    grid (``standby``: this rank holds no block of it)."""
+
+    def __init__(self, standby: bool):
+        super().__init__("the process group was re-formed")
+        self.standby = standby
 
 
 @dataclasses.dataclass
@@ -349,6 +377,24 @@ class PertInference:
             self.run_log.add_context(mesh={
                 "axes": mesh_topology(self.mesh),
                 "num_devices": int(self.mesh.size)})
+        # the elastic rung: the launch grid (whose multiples the padding
+        # keeps), the survivors' rendezvous under the checkpoint
+        # directory with its generation, the OOMs so far of each step
+        # (JAX counts them per _fit call), the channel this rank waits on when it stands by beyond a smaller
+        # grid, and the channels of each rung on which it sends them the
+        # frames
+        self._launch_grid = (self.mesh.cells, self.mesh.loci) \
+            if self.mesh is not None else (1, 1)
+        self._rendezvous = None
+        self._generation = 0
+        self._ooms: dict = {}
+        self.standby = None
+        self._standby_peers: list = []
+        if self.mesh is not None and config.elastic_mesh \
+                and config.checkpoint_dir:
+            self._rendezvous = dist_mod.Rendezvous(
+                os.path.join(config.checkpoint_dir, "elastic"),
+                dist_mod.common_token(self.mesh.host_group))
 
     def _open_manifest(self) -> None:
         """Load the checkpoint directory's manifest, judge its identity
@@ -423,9 +469,14 @@ class PertInference:
         ``cell_chunk``), the loci to one of the loci shards, and both to
         the shape-bucket targets (``pad_cells_to`` / ``pad_loci_to``)
         (JAX ``_pad``)."""
-        mult = (self.config.cell_chunk or 1) * (
-            self.mesh.cells if self.mesh is not None else 1)
-        loci_mult = self.mesh.loci if self.mesh is not None else 1
+        # after the elastic rung, multiples of the launch grid's extents
+        # too, so that a halved grid keeps the padded shapes its
+        # checkpoints hold
+        cells, loci = (self.mesh.cells, self.mesh.loci) \
+            if self.mesh is not None else (1, 1)
+        mult = (self.config.cell_chunk or 1) * math.lcm(
+            cells, self._launch_grid[0])
+        loci_mult = math.lcm(loci, self._launch_grid[1])
         if mult > 1 or self.config.pad_cells_to:
             data = pad_cells(data, mult, minimum=self.config.pad_cells_to)
         if loci_mult > 1 or self.config.pad_loci_to:
@@ -604,15 +655,20 @@ class PertInference:
         * **oom** / **hang** abort with the resumable artifact that same
           save left behind, audited by a ``degrade`` event — the next
           ``resume='auto'`` run continues mid-budget;
+        * **hostloss** (in a sharded run, a collective whose peer rank
+          died) and REPEATED OOM in a sharded durable fit walk the
+          **elastic rung** (:meth:`_elastic_rung`; the first OOM gets one
+          audited re-entry on the same grid): the survivors re-form a
+          smaller group and :meth:`run` runs the steps again on it from
+          the last committed generations; a rank that raised the loss
+          itself, or is being preempted, is the lost one and leaves
+          (:meth:`_leave_lost`).  With ``elastic_mesh=False``, one rank,
+          or no ``checkpoint_dir`` they abort resumable like an OOM, on
+          every surviving rank;
         * **preemption** (BaseException) propagates untouched after the
           graceful save: the process is going away;
         * **deterministic** errors propagate immediately — retrying a
           real bug only hides it.
-
-        JAX's elastic rung (rebuild a smaller mesh on a host loss or a
-        repeated OOM and re-enter) is not ported (ROADMAP A12's rest): a
-        ``hostloss`` (in a sharded run, a collective whose peer rank
-        died) aborts like an OOM here, on every surviving rank.
         """
         cfg = self.config
 
@@ -622,26 +678,240 @@ class PertInference:
                                       max_iter, min_iter, step_name)
             except Exception as exc:
                 kind = faults_mod.classify_exception(exc)
-                if kind in ("oom", "hang", "hostloss"):
+                if kind in ("oom", "hang", "hostloss") \
+                        and not self._shrink_eligible(kind):
                     self.run_log.emit(
                         "degrade", step=step_name,
                         action=("watchdog_abort" if kind == "hang"
                                 else "abort_resumable"),
                         error_class=kind,
                         error=f"{type(exc).__name__}: {str(exc)[:300]}",
-                        detail=("fit aborted on a non-retryable "
-                                f"{kind}; the in-flight checkpoint "
-                                "(when checkpointing is enabled) makes "
-                                "the next resume='auto' run continue "
-                                "mid-budget"))
+                        detail=self._abort_detail(kind))
                 raise
 
         # each retry re-enters _fit_once, whose _load_resumable picks up
         # the in-flight checkpoint — retries RESUME, not restart
-        return faults_mod.retry_call(
-            attempt, label=f"{step_name}/fit",
-            max_attempts=int(cfg.retry_max_attempts),
-            base_delay=float(cfg.retry_backoff_seconds))
+        try:
+            return faults_mod.retry_call(
+                attempt, label=f"{step_name}/fit",
+                max_attempts=int(cfg.retry_max_attempts),
+                base_delay=float(cfg.retry_backoff_seconds))
+        except BaseException as exc:
+            kind = faults_mod.classify_exception(exc)
+            if isinstance(exc, Exception) and kind != "preemption" \
+                    and not isinstance(exc, faults_mod.SimulatedHostLoss) \
+                    and self._shrink_eligible(kind):
+                self._elastic_rung(step_name, kind, exc)
+            if self._rendezvous is not None and self.mesh is not None:
+                # any other way out of a sharded elastic fit loses this
+                # rank: the survivors must not wait for it
+                self._leave_lost(step_name, exc, kind)
+            raise
+
+    def _abort_detail(self, kind: str) -> str:
+        """The ``degrade`` detail of a fit that aborts resumable on a
+        non-retryable ``kind``."""
+        detail = (f"fit aborted on a non-retryable {kind}; the in-flight "
+                  "checkpoint (when checkpointing is enabled) makes the "
+                  "next resume='auto' run continue mid-budget")
+        if kind in ("oom", "hostloss") and self.mesh is not None \
+                and self.config.elastic_mesh \
+                and not self.config.checkpoint_dir:
+            detail += ("; the elastic rung needs checkpoint_dir: the lost "
+                       "rank's block lives only in the committed "
+                       "generations there, and the survivors meet there")
+        return detail
+
+    def _shrink_eligible(self, kind: str) -> bool:
+        """Would the elastic rung take this failure class (JAX
+        ``_shrink_eligible``)?  It needs ``elastic_mesh``, a sharded
+        grid, a ``checkpoint_dir`` (the survivors' rendezvous, and the
+        committed generations that hold a lost rank's block), a
+        hostloss or OOM, and a grid that shrinks over the survivors
+        (every rank for an OOM, one fewer for a hostloss).  JAX's
+        one-process condition has no counterpart: every sharded port run
+        is one process per rank, and the rung re-forms their group."""
+        cfg = self.config
+        if not cfg.elastic_mesh or self.mesh is None \
+                or not cfg.checkpoint_dir:
+            return False
+        if kind not in ("hostloss", "oom"):
+            return False
+        return bool(shrink_ladder(self.mesh.cells, self.mesh.loci,
+                                  self.mesh.size - (kind == "hostloss")))
+
+    def _leave_lost(self, step_name: str, exc: BaseException,
+                    kind: str) -> None:
+        """This rank is the lost one (it raised the loss itself, is being
+        preempted, or failed in a way the rung does not take): audit it,
+        close the run log when this rank writes it (``run_end``, so that
+        a run nobody continues stays valid; a survivor that continues
+        the file cuts it, :meth:`RunLog.adopt`), then mark the rank lost
+        at the survivors' next rendezvous and leave the group, so that
+        they need not wait for it."""
+        rank = dist_mod.process_rank_and_count()[0]
+        if isinstance(exc, faults_mod.SimulatedHostLoss):
+            self.run_log.emit(
+                "degrade", step=step_name, action="abort_resumable",
+                error_class=kind,
+                error=f"{type(exc).__name__}: {str(exc)[:300]}",
+                detail=("this rank raised the loss itself and leaves the "
+                        "run; the surviving ranks re-form a smaller group "
+                        "(elastic rung) and resume the last committed "
+                        "generation"))
+        self.run_log.hand_over(exc)
+        try:
+            self._rendezvous.mark_lost(self._generation + 1, rank,
+                                       f"{type(exc).__name__}: {exc}")
+        except Exception as err:  # noqa: BLE001 - the survivors then
+            # wait out the settle window instead
+            logger.warning("could not mark rank %d lost: %s", rank, err)
+        self._drop_group(exc)
+
+    def _declare_alive(self) -> None:
+        """On the way out of a failed sharded fit, before the emergency
+        save: tell the survivors' next rendezvous that this rank lives
+        and will arrive (or mark itself lost), so that it is waited for
+        however long its save takes (:meth:`Rendezvous.meet`)."""
+        if self._rendezvous is None or self.mesh is None:
+            return
+        rank = dist_mod.process_rank_and_count()[0]
+        try:
+            self._rendezvous.declare_alive(self._generation + 1, rank)
+        except Exception as err:  # noqa: BLE001 - the meeting then
+            # waits for this rank only the settle window
+            logger.warning("could not declare rank %d alive: %s", rank, err)
+
+    def _drop_group(self, exc: BaseException) -> None:
+        """Leave the broken group with no reference to it left (the grid,
+        the failed fit's frames), so that its sockets close and a peer
+        still inside a collective with this rank fails at once."""
+        self.mesh = None
+        traceback.clear_frames(exc.__traceback__)
+        dist_mod.abandon_group()
+
+    def _elastic_rung(self, step_name: str, kind: str,
+                      exc: Exception) -> None:
+        """The elastic rung (JAX ``_try_mesh_shrink`` and ``_fit``'s outer
+        loop, over re-formed process groups): leave the broken group,
+        meet the survivors, take the common verdict (a lost rank: a
+        hostloss; else any rank's OOM), re-form the group on the same
+        grid for a first OOM (a ``retry`` event labelled
+        ``{step}/fit-oom``) or at the grid of :func:`shrink_ladder`
+        (a ``degrade mesh_shrink`` event per rung, the log's ``mesh``
+        context and a warning), and raise :class:`_Reformed`.  A failed
+        re-formation aborts resumable and raises."""
+        old = (self.mesh.cells, self.mesh.loci)
+        before = mesh_topology(self.mesh)
+        rank, world = dist_mod.process_rank_and_count()
+        backend = torch.distributed.get_backend()
+        self._generation += 1
+        gen = self._generation
+        error = f"{type(exc).__name__}: {str(exc)[:300]}"
+        try:
+            self._drop_group(exc)
+            roster = self._rendezvous.meet(
+                gen, rank, world, kind,
+                timeout=dist_mod.collective_timeout().total_seconds())
+            survivors = sorted(roster)
+            verdict = "oom" if len(survivors) == world \
+                and "oom" in roster.values() else "hostloss"
+            ooms = self._ooms[step_name] = \
+                self._ooms.get(step_name, 0) + (verdict == "oom")
+            rungs = [] if verdict == "oom" and ooms == 1 \
+                else shrink_ladder(*old, len(survivors))
+            grid = rungs[-1] if rungs else old
+            if verdict == "hostloss" and not rungs:
+                raise exc
+            new_rank, channel = dist_mod.reform_group(
+                self._rendezvous, gen, survivors, rank, grid[0] * grid[1],
+                backend)
+        except BaseException as err:
+            if isinstance(err, dist_mod.RendezvousClosed):
+                # the survivors went on without this rank; where it wrote
+                # the run log, their new rank 0 continues the file
+                self.run_log.relinquish()
+                raise
+            self.run_log.emit(
+                "degrade", step=step_name, action="abort_resumable",
+                error_class=kind, error=error,
+                detail=(f"the elastic rung failed ({type(err).__name__}: "
+                        f"{str(err)[:200]}); the last committed generation "
+                        "makes the next resume='auto' run continue"))
+            raise
+        if new_rank == 0:
+            self._take_over_rank0()
+        if not rungs:
+            self.run_log.emit(
+                "retry", label=f"{step_name}/fit-oom", attempt=1,
+                max_attempts=2, delay_seconds=0.0, error_class="oom",
+                error=error)
+            logger.warning("sharded fit OOM at %s: one re-entry on the same "
+                           "grid from the last committed generation before "
+                           "the elastic rung engages", step_name)
+        for cells, loci in rungs:
+            after = grid_topology(cells, loci)
+            self.run_log.emit(
+                "degrade", step=step_name, action="mesh_shrink",
+                error_class=verdict, error=error,
+                from_topology={"mesh_axes": before},
+                to_topology={"mesh_axes": after},
+                detail=(f"elastic rung: {verdict} in a sharded fit — "
+                        f"{world - len(survivors)} of {world} ranks lost, "
+                        f"grid shrunk {before} -> {after}; the steps "
+                        "re-enter through the resume path and re-place "
+                        "the last committed generation on the smaller "
+                        "grid"))
+            logger.warning("elastic mesh shrink (%s at %s): %s -> %s — "
+                           "re-entering the fit from the last checkpoint",
+                           verdict, step_name, before, after)
+            before = after
+        if rungs:
+            self.run_log.add_context(mesh={
+                "axes": before, "num_devices": int(grid[0] * grid[1])})
+        standby = channel is not None and channel.waiting
+        if standby:
+            self.standby = channel
+        elif channel is not None:
+            self._standby_peers.append(channel)
+        self.mesh = None if standby else make_mesh(*grid)
+        if standby:
+            # the manifest is the grid's rank 0's to write
+            self._manifest = None
+        if self._heartbeat is not None:
+            self._heartbeat.note(elastic={
+                "generation": gen, "rank": new_rank,
+                "mesh_axes": grid_topology(*grid), "standby": standby})
+        raise _Reformed(standby)
+
+    def _take_over_rank0(self) -> None:
+        """The new rank 0 after the rung continues the run log that the
+        lost rank 0 wrote (its path from the manifest rank 0 kept); the
+        manifest and the checkpoint commit follow the new group's rank
+        by themselves."""
+        log = self.run_log
+        if log.enabled or not log.follower:
+            return
+        runs = manifest_mod.RunManifest.load(
+            self.config.checkpoint_dir).doc.get("runs") or [{}]
+        path = runs[-1].get("run_log")
+        if path and log.adopt(path) and self._manifest is not None:
+            mine = self._manifest.doc.get("runs") or []
+            if mine:
+                mine[-1]["run_log"] = path
+
+    def release_standby(self, result=None, error=None) -> None:
+        """The grid's rank 0 at the end of the run: send the survivors
+        that each rung left beyond its grid the result (or the error)
+        they wait for.  A standby rank that is gone costs a warning."""
+        payload = {"error": f"{type(error).__name__}: {error}"} \
+            if error is not None else {"result": result}
+        peers, self._standby_peers = self._standby_peers, []
+        for channel in peers:
+            try:
+                channel.send(payload)
+            except Exception as exc:  # noqa: BLE001 - the run is done
+                logger.warning("could not release standby ranks: %s", exc)
 
     def _load_resumable(self, step_name, max_iter, spec, fixed, batch):
         """Resume-mode + manifest-aware checkpoint restore for one step
@@ -830,6 +1100,8 @@ class PertInference:
         def checkpoint_cb(*, params, opt_state, losses, num_iters,
                           state=None, exact=True, coordinated=True):
             extra = ckpt.pack_controller_state(state) if state else None
+            if not coordinated:
+                self._declare_alive()
             path = self._save(step_name, params, losses, False,
                               opt_state=opt_state, num_iters=int(num_iters),
                               converged=False, nan_abort=False, extra=extra,
@@ -1584,12 +1856,7 @@ class PertInference:
                         aotcache_mod.program_config_digest(self.config),
                         self._bucket()), \
                     _cuda.build_dir_scope(self.config.compile_cache_dir):
-                step1 = _retire(self.run_step1(), pi=True)
-                with self.phases.phase("step2/prior"):
-                    etas = self.build_etas()
-                step2 = _retire(self.run_step2(step1, etas), pi=False)
-                step3 = _retire(self.run_step3(step1, step2), pi=False) \
-                    if self.config.run_step3 else None
+                step1, step2, step3 = self._run_steps()
             self.metrics.write_textfile()
             if self._manifest is not None:
                 # the durable cost record, for a run without a log
@@ -1607,6 +1874,27 @@ class PertInference:
         if self._heartbeat is not None:
             self._heartbeat.close("done")
         return step1, step2, step3
+
+
+    def _run_steps(self):
+        """Steps 1-3, again on the new grid after each rung of the
+        elastic ladder (the steps done restored from their checkpoints,
+        the failed one resumed); ``(None, None, None)`` on a standby
+        rank, which waits for the frames instead."""
+        etas = None
+        while True:
+            try:
+                step1 = _retire(self.run_step1(), pi=True)
+                if etas is None:
+                    with self.phases.phase("step2/prior"):
+                        etas = self.build_etas()
+                step2 = _retire(self.run_step2(step1, etas), pi=False)
+                step3 = _retire(self.run_step3(step1, step2), pi=False) \
+                    if self.config.run_step3 else None
+                return step1, step2, step3
+            except _Reformed as reformed:
+                if reformed.standby:
+                    return None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -382,6 +382,8 @@ class MetricsRegistry:
             self.counter("pert_degrades_total",
                          labels={"action": str(payload.get("action"))}
                          ).inc()
+            if payload.get("action") == "mesh_shrink":
+                self.counter("pert_mesh_shrinks_total").inc()
         elif event == "resume":
             if payload.get("resharded"):
                 self.counter("pert_resume_reshard_total").inc()

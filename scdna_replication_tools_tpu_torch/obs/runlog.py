@@ -18,7 +18,9 @@
   events reach it that way).
 
 A sharded run's log is written by rank 0 alone (JAX's process-0 gate:
-:meth:`RunLog.create` gives the other ranks a disabled log), and
+:meth:`RunLog.create` gives the other ranks a disabled follower, which
+takes the file over when the elastic rung makes its rank the new rank
+0: :meth:`RunLog.adopt`), and
 ``run_start`` takes its topology from ``torch.cuda`` and the process
 group.  A span tracer riding the log (``obs/spans.
 attach_tracer``) adds the run's root span, ``trace_id`` on ``run_start``
@@ -218,8 +220,14 @@ class RunLog:
         # the root 'run' span the session opens when a tracer rides the
         # log, closed just before run_end
         self._root_span = None
+        # the timer of the open session, whose phases run_end reports
+        self._session_timer = None
         # serialises the seq counter and the file write
         self._emit_lock = threading.Lock()
+        # a sharded run's log on a rank other than 0 (create): disabled,
+        # but its session registers it, so that the rung's new rank 0
+        # can continue the lost writer's file in it (adopt)
+        self.follower = False
 
     @classmethod
     def create(cls, telemetry_path, run_name: str = "pert") -> "RunLog":
@@ -237,8 +245,12 @@ class RunLog:
         )
 
         if process_rank_and_count()[0] != 0:
-            # a sharded run's log is rank 0's, as JAX's is process 0's
-            return cls(None)
+            # a sharded run's log is rank 0's, as JAX's is process 0's;
+            # the others follow it, silent unless the elastic rung makes
+            # one of them rank 0 (adopt)
+            log = cls(None)
+            log.follower = True
+            return log
         return cls(path)
 
     # -- lifecycle --------------------------------------------------------
@@ -336,12 +348,18 @@ class RunLog:
         phases, and guarantee ``run_end``, even on exception.
 
         Re-entrant: an already-open log yields without a second
-        ``run_start``/``run_end`` pair (the outermost owner closes)."""
+        ``run_start``/``run_end`` pair (the outermost owner closes).  A
+        follower's session writes nothing, unless the log adopts a lost
+        writer's file inside it: then it closes it with ``run_end``."""
+        if self.follower and not self.enabled and self not in _stack():
+            yield from self._follow()
+            return
         if not self.enabled or self._open:
             yield self
             return
         t0 = time.perf_counter()
         self.open_run(config=config, run_name=run_name, device=device)
+        self._session_timer = timer
         _stack().append(self)
         prev_sink = None
         if timer is not None:
@@ -370,11 +388,81 @@ class RunLog:
                            phases=timer.report() if timer is not None
                            else None)
         finally:
+            self._session_timer = None
             if timer is not None:
                 timer.on_add = prev_sink
             stack = _stack()
             if stack and stack[-1] is self:
                 stack.pop()
+
+    def _follow(self):
+        """The session of a follower (see :meth:`session`)."""
+        _stack().append(self)
+        try:
+            yield self
+        except BaseException as exc:
+            self.close_run(status="error", error=exc)
+            raise
+        else:
+            self.close_run(status="ok")
+        finally:
+            stack = _stack()
+            if stack and stack[-1] is self:
+                stack.pop()
+
+    def adopt(self, path) -> bool:
+        """Continue the log at ``path``, whose writer (rank 0 of a
+        sharded run) was lost, as the elastic rung's new rank 0: cut a
+        torn last line the writer left mid-write, or the ``run_end`` it
+        closed the file with (:meth:`hand_over`), then append with
+        ``seq`` and ``t`` going on from its last event.  The session this
+        log is open in closes it.  Returns False (and stays silent) when
+        there is no file or no complete event to continue."""
+        try:
+            with open(path, "r+b") as fh:
+                data = fh.read()
+                keep = data.rfind(b"\n") + 1
+                lines = data[:keep].splitlines()
+                if lines and json.loads(lines[-1]).get("event") \
+                        == "run_end":
+                    keep -= len(lines.pop()) + 1
+                fh.truncate(keep)
+            first, last = json.loads(lines[0]), json.loads(lines[-1])
+        except (OSError, ValueError, IndexError) as exc:
+            logger.warning("run log %s not continued: %s", path, exc)
+            return False
+        with self._emit_lock:
+            self.path = str(path)
+            self._seq = int(last["seq"]) + 1
+            started = float(first.get("started_unix") or time.time())
+            self._t0 = time.perf_counter() - max(time.time() - started, 0.0)
+            self._fh = open(self.path, "a")
+            self.enabled = self._open = True
+        return True
+
+    def hand_over(self, error) -> None:
+        """Close the run as the writer a sharded run is losing: the
+        ``run_end`` (``status='error'``, the open session's phases) that
+        the session would write, written now, before the survivors may
+        continue the file.  A run nobody continues (every rank preempted)
+        stays valid; the elastic rung's new rank 0 cuts this ``run_end``
+        and continues (:meth:`adopt`)."""
+        timer = self._session_timer
+        self.close_run(status="error", error=error,
+                       phases=timer.report() if timer is not None else None)
+
+    def relinquish(self) -> None:
+        """Stop writing without ``run_end``: the survivors of a sharded
+        run went on without this rank, and their new rank 0 continues
+        the file (:meth:`adopt`)."""
+        with self._emit_lock:
+            if self._fh is not None:
+                try:
+                    self._fh.close()
+                except OSError:
+                    pass
+                self._fh = None
+            self.enabled = self._open = False
 
     # -- emission ---------------------------------------------------------
 

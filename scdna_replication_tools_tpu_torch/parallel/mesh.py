@@ -25,6 +25,12 @@ gloo groups, so one code path serves both backends: the decoded
 outputs' over every rank (:meth:`RankMesh.gather`) and the Viterbi
 decode's emissions along a loci row (:meth:`RankMesh.gather_loci`).  The layout rules (which axis of which tensor is
 sharded) are ``layout.py``'s, the same table the checkpoint stamp uses.
+
+The elastic rung (``infer/runner.py``) shrinks a grid by
+:func:`shrink_grid`, JAX ``shrink_mesh``'s rule over the ranks that
+survived a loss instead of the devices the runtime reports, and the
+runner makes the smaller grid on the re-formed group
+(``parallel.distributed.reform_group``).
 """
 
 from __future__ import annotations
@@ -67,10 +73,7 @@ class RankMesh:
     @property
     def shape(self) -> dict:
         """Axis name -> extent, JAX ``Mesh.shape``'s mapping."""
-        out = {CELLS_AXIS: self.cells}
-        if self.loci > 1:
-            out[LOCI_AXIS] = self.loci
-        return out
+        return grid_topology(self.cells, self.loci)
 
     @property
     def owns_globals(self) -> bool:
@@ -372,4 +375,49 @@ def mesh_topology(mesh: Optional[RankMesh]) -> dict:
     no mesh), JAX ``mesh_topology``'s dict for the same grid."""
     if mesh is None:
         return {}
-    return {str(k): int(v) for k, v in mesh.shape.items()}
+    return grid_topology(mesh.cells, mesh.loci)
+
+
+def grid_topology(cells: int, loci: int) -> dict:
+    """:func:`mesh_topology` of a ``cells x loci`` grid, one rank
+    included (``{'cells': 1}``, the axes of JAX's one-device mesh, where
+    the port runs without a mesh)."""
+    out = {CELLS_AXIS: int(cells)}
+    if loci > 1:
+        out[LOCI_AXIS] = int(loci)
+    return out
+
+
+def shrink_grid(cells: int, loci: int,
+                survivors: int) -> Optional[tuple]:
+    """One rung of the elastic ladder (JAX ``parallel/mesh.shrink_mesh``'s
+    rule): ``(cells, loci)`` of the grid at half the cells extent, the
+    loci extent kept while ``new_cells x loci`` ranks fit the
+    ``survivors`` (JAX counts ``jax.devices()``; here the ranks left
+    after a loss), else collapsed to 1; None when the grid is already
+    minimal (1 x 1) and the ladder is exhausted."""
+    cells, loci = int(cells), int(loci)
+    if cells <= 1 and loci <= 1:
+        return None
+    new_cells = max(1, cells // 2)
+    new_loci = loci
+    if new_cells * new_loci > max(1, int(survivors)) or cells <= 1:
+        new_loci = 1
+    if (new_cells, new_loci) == (cells, loci):
+        return None
+    return new_cells, new_loci
+
+
+def shrink_ladder(cells: int, loci: int, survivors: int) -> list:
+    """The rungs :func:`shrink_grid` walks from a ``cells x loci`` grid
+    until its ranks fit the ``survivors``: one rung in the common case,
+    more when a halving still needs more ranks than are left; ``[]``
+    when the first rung is already exhausted."""
+    rungs = []
+    grid = (int(cells), int(loci))
+    while not rungs or grid[0] * grid[1] > max(1, int(survivors)):
+        grid = shrink_grid(grid[0], grid[1], survivors)
+        if grid is None:
+            return []
+        rungs.append(grid)
+    return rungs

@@ -76,9 +76,10 @@ The port's changes: :func:`_process_index` is the rank of a sharded
 run's process group (0 without one); :func:`classify_exception` also
 reads PyTorch's own signals: ``torch.cuda.OutOfMemoryError`` and the
 "CUDA out of memory" text of a ``RuntimeError`` as ``oom``, and a failed
-collective (``torch.distributed.DistBackendError``, a peer's closed
-connection or the group's timeout) as ``hostloss``: a rank whose peer
-died aborts resumable instead of retrying on a broken group; and :func:`run_with_deadline` takes the
+collective (``torch.distributed.DistBackendError``, a peer's closed or
+reset connection in gloo's transport, or the group's timeout) as
+``hostloss``: a rank whose peer died walks the elastic rung or aborts
+resumable instead of retrying on a broken group; and :func:`run_with_deadline` takes the
 CUDA device its worker thread must make current, because PyTorch's
 current device is per thread.
 """
@@ -419,8 +420,10 @@ _TRANSIENT_MARKERS = ("UNAVAILABLE", "DEADLINE_EXCEEDED", "ABORTED",
 _HOSTLOSS_MARKERS = ("DATA_LOSS", "device lost", "Device lost",
                      "system has halted", "slice health",
                      "worker has been restarted",
-                     # a collective whose peer rank died (gloo, NCCL)
+                     # a collective whose peer rank died (gloo, NCCL;
+                     # gloo's transport reports a reset or closed socket)
                      "Connection closed by peer", "Timed out waiting",
+                     "gloo/transport",
                      "ProcessGroupGloo", "ProcessGroupNCCL",
                      "NCCL communicator was aborted")
 

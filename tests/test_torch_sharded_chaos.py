@@ -5,9 +5,10 @@ Two gloo ranks fit the synthetic frames with the durable config of
 tests/test_torch_resilience.py and a checkpoint after every chunk;
 ``preempt@step2/chunk#2@proc1`` kills rank 1 at the top of step 2's
 second chunk, just after the generation of step 2's first chunk was
-committed.  Rank 0's next collective fails and it aborts too (within the
-collective timeout, never hanging); both leave uncommitted emergency
-shards.  The committed generation survives; one rank resumes it with
+committed.  With the elastic rung off (``elastic_mesh=False``;
+tests/test_torch_elastic.py runs it on), rank 0's next collective fails
+and it aborts too (within the collective timeout, never hanging); both
+leave uncommitted emergency shards.  The committed generation survives; one rank resumes it with
 ``resume='auto'`` and lands within 5e-2 of the uninterrupted two-rank
 trajectory, and two ranks resume it bit for bit.
 """
@@ -55,7 +56,8 @@ def chaos(synthetic_frames, tmp_path_factory):
     t0 = time.monotonic()
     killed, codes = _two_ranks(synthetic_frames, root / "killed",
                                checkpoint_dir=str(killed_dir),
-                               faults="preempt@step2/chunk#2@proc1")
+                               faults="preempt@step2/chunk#2@proc1",
+                               elastic_mesh=False)
     return {"golden": golden, "killed": killed, "codes": codes,
             "kill_seconds": time.monotonic() - t0, "dir": killed_dir,
             "root": root}

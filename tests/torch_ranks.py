@@ -80,7 +80,9 @@ def _entry(rank, world, store, target, payload, tmp, collective_timeout):
     Path(tmp, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     import torch.distributed as dist
 
-    dist.destroy_process_group()
+    # a rank the elastic rung left on a one-rank grid holds no group
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +454,79 @@ def run_scrt(rank, world, payload, tmp):
             "normaliser": [None if st is None else normaliser_sum(st)
                            for st in scrt.steps]}
 
+
+
+def run_elastic(rank, world, payload, tmp):
+    """``scRT(...).infer('pert')`` of the port on ``payload['frames']``
+    with ``payload['options']`` (a sharded durable run whose elastic rung
+    may shrink it; ``payload['exit_at']`` = (site, hit, rank) kills that
+    rank outright there); returns the frames' digest, the grid and rank the
+    run ended on, whether this rank stood by, the run log's path, each
+    step's losses, normaliser share and cells on this rank, the gathered
+    tau, the shrink
+    counter of the run's registry, and (rank 0) the frames."""
+    import pandas as pd
+
+    from scdna_replication_tools_tpu_torch import scRT
+    from scdna_replication_tools_tpu_torch.models.pert import _sites
+    from scdna_replication_tools_tpu_torch.parallel.distributed import (
+        process_rank_and_count,
+    )
+    from scdna_replication_tools_tpu_torch.parallel.mesh import (
+        mesh_topology,
+    )
+
+    cn_s, cn_g1 = payload["frames"]
+    if payload.get("exit_at"):
+        _exit_at(rank, *payload["exit_at"])
+    scrt = scRT(cn_s.copy(), cn_g1.copy(), device="cpu",
+                **payload["options"])
+    t0 = time.monotonic()
+    outs = scrt.infer("pert")
+    registry = scrt.metrics_registry
+    shrinks = registry.snapshot(stable_only=False).get(
+        "pert_mesh_shrinks_total", {}).get("value", 0)
+    steps = scrt.steps
+    out = {"digest": [None if o is None else
+                      int(pd.util.hash_pandas_object(o, index=True).sum())
+                      for o in outs],
+           "wall": time.monotonic() - t0,
+           "mesh": mesh_topology(scrt.mesh),
+           "rank_after": process_rank_and_count(),
+           "standby": steps[1] is None,
+           "run_log_path": scrt.run_log_path,
+           "shrinks": shrinks,
+           "outputs": outs if rank == 0 else None}
+    if steps[1] is not None:
+        out["losses"] = [None if st is None else st.fit.losses
+                         for st in steps]
+        out["cells"] = [None if st is None else int(st.batch.reads.shape[0])
+                        for st in steps]
+        out["normaliser"] = [None if st is None else normaliser_sum(st)
+                             for st in steps]
+        tau = _sites(steps[1].spec, steps[1].fit.params,
+                     steps[1].fixed)["tau"]
+        out["tau"] = (scrt.mesh.gather(tau, ("cells",))
+                      if scrt.mesh is not None
+                      else tau.detach().cpu().numpy())
+    return out
+
+
+def _exit_at(rank, site, hit, victim):
+    """Kill this process outright (``os._exit``: no handler runs, nothing
+    marks the rank lost) at the ``hit``-th pass of the fault site
+    ``site`` on rank ``victim``."""
+    from scdna_replication_tools_tpu_torch.utils import faults
+
+    point, hits = faults.point, [0]
+
+    def exiting(name):
+        if name == site and rank == victim:
+            hits[0] += 1
+            if hits[0] == hit:
+                os._exit(3)
+        return point(name)
+    faults.point = exiting
 
 
 def identity(rank, world, payload, tmp):
